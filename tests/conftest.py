@@ -44,6 +44,8 @@ def pytest_configure(config):
         "markers",
         "timeout(seconds): fail the test if it runs longer (conftest watchdog)",
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips with a reason where there is none")
 
 
 @pytest.hookimpl(wrapper=True)
