@@ -15,7 +15,13 @@ Phases, one line each:
    .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, with the
    fused-kernel launch count read around it; then the kernel against the
    plain version on that very segment, on a 5000-node x 2000-pod one and
-   on a 10 000-node x 1000-pod one, and the kernel's times.
+   on a 10 000-node x 1000-pod one, and the kernel's times;
+5. the serving path: (a) ``workload.run_churn`` at full width, 20 000
+   ``mixed`` pods arriving in 10 waves on 5000 nodes and served by the
+   port's ``Scheduler.run_batch_loop`` on ``BatchBackend(device="cuda")``
+   with events on, the launch count read around it; (b) a 1000-node x
+   400-pod churn run on the card replayed wave by wave through the port's
+   per-pod oracle (``workload.oracle_replay_waves``).
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -153,6 +159,54 @@ def bound(s, st) -> tuple[float, str, dict]:
     return (t_bytes, "bytes", detail) if t_bytes >= t_ops else (t_ops, "operations", detail)
 
 
+def churn_phase() -> int:
+    """Phase 5: the serving path at full width, then per-wave oracle parity
+    of a smaller churn run.  Returns the fused-kernel launches of 5a."""
+    from kubernetes_tpu_torch.ops import fused_scan
+    from kubernetes_tpu_torch.workload import oracle_replay_waves, run_churn
+
+    n_nodes, n_pods, waves = 5000, 20000, 10
+    fused_scan.launches = 0
+    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=0, device="cuda")
+    launches = fused_scan.launches
+    st = r["backend"]
+    e2e = r["e2e_scheduling_ms"]
+    print(f"phase 5a churn {n_nodes}x{n_pods} mixed in {waves} waves: bound {r['bound']} "
+          f"unbound {r['unbound']} drained {r['drained']} wall_s {r['wall_s']:.3f} "
+          f"pods_per_s {r['pods_per_sec']:.1f} e2e_p50_ms {e2e['p50']} e2e_p99_ms {e2e['p99']} "
+          f"launches {launches} segments {st['segments']} kernel_pods {st['kernel_pods']} "
+          f"oracle_pods {st['oracle_pods']} kernel_ms {st['kernel_ms']:.3f} "
+          f"scheduled_events {r['scheduled_events']}", flush=True)
+    for w, ph in enumerate(r["phase_timers"]):
+        print(f"phase 5a wave {w}: bound {ph['bound']} " + " ".join(
+            f"{k} {ph[k]:.4f}" for k in ("pump_s", "apply_s", "decode_s", "tensorize_s",
+                                        "dispatch_s", "device_wait_s", "commit_s", "prep_s",
+                                        "kernel_ms")),
+              flush=True)
+    idle = 1.0 - st["kernel_ms"] / 1e3 / r["wall_s"]
+    print(f"phase 5a device idle share over the wall (1 - kernel_ms / wall): {idle:.4f}",
+          flush=True)
+    if launches < waves:
+        raise AssertionError(f"churn launched the fused kernel {launches} times in {waves} waves")
+    if st["oracle_pods"] != 0 or st["kernel_pods"] != r["drained"]:
+        raise AssertionError("the churn path did not run every drained pod through the scan")
+    if r["bound"] + r["unbound"] != n_pods or r["scheduled_events"] != r["bound"]:
+        raise AssertionError(f"churn accounting: bound {r['bound']} unbound {r['unbound']} "
+                             f"events {r['scheduled_events']} of {n_pods} pods")
+
+    n_nodes, n_pods, waves, seed = 1000, 400, 4, 5
+    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=seed, device="cuda")
+    o = oracle_replay_waves(r["drain_batches"], r["assignments"], n_nodes, n_pods,
+                            "mixed", seed)
+    print(f"phase 5b churn {n_nodes}x{n_pods} in {waves} waves vs per-wave oracle replay: "
+          f"{o['mode']}, checked {o['checked']}, mismatches {o['mismatches']}, rr "
+          f"{r['round_robin']} vs {o['round_robin']}", flush=True)
+    if (o["mode"] != "exact per-wave replay" or o["checked"] != n_pods
+            or o["mismatches"] != 0 or o["round_robin"] != r["round_robin"]):
+        raise AssertionError(f"churn bindings != per-wave oracle replay: {o}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -250,10 +304,13 @@ def main() -> int:
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops)", flush=True)
 
+    churn_launches = churn_phase()
+
     entry = {
         "name": "fused_scan", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/fused_scan.cu",
-        "replaces": REPLACES, "launches": launches,
+        "replaces": REPLACES, "launches": launches + churn_launches,
+        "launches_by_path": {"batch": launches, "churn": churn_launches},
         "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,

@@ -191,13 +191,17 @@ class BatchBackend:
 
     # -- device dispatch -----------------------------------------------------
     def _dispatch(self, static, init):
-        """Carry one tensorized segment to the device and start its scan;
-        returns a zero-argument finisher giving (chosen, final rr)."""
+        """Carry one tensorized segment to the device and start its scan.
+        Returns (finisher, device_busy): the zero-argument finisher gives
+        (chosen, final rr); ``device_busy`` polls, without synchronizing,
+        whether the launched scan is still running (None on the CPU, where
+        the scan has already run)."""
         scan_static, scan_state = from_reference(vars(static), vars(init), self.device)
         if self.device.type != "cuda":
             chosen, rr = scan_ref.scan(scan_static, scan_state)
-            return lambda: (chosen.numpy(), rr)
+            return (lambda: (chosen.numpy(), rr)), None
         bufs = fused_scan.pack(scan_static, scan_state)
+        fused_scan.load()  # a first call builds: keep that out of kernel_ms
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -208,7 +212,7 @@ class BatchBackend:
             out = fused_scan.finalize(scan_static, bufs)
             self.stats["kernel_ms"] += start.elapsed_time(end)
             return out
-        return finish
+        return finish, (lambda: not end.query())
 
     # -- the batch entry point ---------------------------------------------
     def schedule_batch(
@@ -217,6 +221,7 @@ class BatchBackend:
         node_info_map: dict[str, NodeInfo],
         pctx: PriorityContext,
         on_segment=None,
+        on_idle=None,
     ) -> list[Optional[str]]:
         """Schedule ``pods`` in order against ``node_info_map``; returns the
         chosen node name per pod (None = unschedulable).  The map is not
@@ -225,7 +230,14 @@ class BatchBackend:
         ``on_segment`` (optional) is called with ``[(pod, node_name|None,
         req_vec|None, nz_vec|None), ...]`` per completed segment, after the
         next segment's scan has been launched, so the caller's commit work
-        overlaps device time.  Entry order across calls equals pod order."""
+        overlaps device time.  Entry order across calls equals pod order.
+
+        ``on_idle`` (optional) is called once as ``on_idle(device_busy=fn)``
+        after the batch's final kernel segment was launched and every
+        earlier segment handed to ``on_segment``: the point where the host
+        would otherwise block in the finisher while the card still scans.
+        ``fn`` polls the launch's end event without synchronizing (None on
+        the CPU).  The callback must not mutate ``node_info_map``."""
         weights = self._config_supported()
         work_map = dict(node_info_map)
         cloned: set[str] = set()
@@ -281,9 +293,10 @@ class BatchBackend:
             self.stats["oracle_pods"] += 1
 
         def dispatch_kernel_segment(segment: list[tuple[int, api.Pod]]):
-            """Tensorize + launch; returns a finisher that waits, applies
-            and returns the segment's commit entries, or None when the
-            tensorizer rejects the segment (budget)."""
+            """Tensorize + launch; returns (finisher, device_busy) where the
+            finisher waits, applies and returns the segment's commit
+            entries, or (None, None) when the tensorizer rejects the
+            segment (budget)."""
             seg_pods = [p for _, p in segment]
             t0 = time.perf_counter()
             static = self.tensorizer.build_static(
@@ -301,13 +314,13 @@ class BatchBackend:
             )
             if static is None:
                 self.stats["tensorize_s"] += time.perf_counter() - t0
-                return None
+                return None, None
             init = self.tensorizer.initial_state(
                 static, work_map, work_pctx, seg_pods,
                 round_robin=self.algorithm._round_robin, host_state=host_state)
             t1 = time.perf_counter()
             self.stats["tensorize_s"] += t1 - t0
-            wait = self._dispatch(static, init)
+            wait, device_busy = self._dispatch(static, init)
             self.stats["dispatch_s"] += time.perf_counter() - t1
 
             def finish() -> list:
@@ -325,12 +338,12 @@ class BatchBackend:
                 self.stats["kernel_pods"] += len(segment)
                 self.stats["segments"] += 1
                 return entries
-            return finish
+            return finish, device_busy
 
         def run_kernel_segment(segment: list[tuple[int, api.Pod]]) -> None:
             """Sync path with a binary split on a budget reject: each half
             re-tensorizes against the updated state, so parity holds."""
-            finish = dispatch_kernel_segment(segment)
+            finish, _ = dispatch_kernel_segment(segment)
             if finish is not None:
                 finish()
             elif len(segment) == 1:
@@ -356,13 +369,14 @@ class BatchBackend:
             pending = []
 
         try:
-            for kind, segment in self._segments(pods, mounted_disks=mounted_disks):
+            segments = self._segments(pods, mounted_disks=mounted_disks)
+            for si, (kind, segment) in enumerate(segments):
                 if kind == "oracle":
                     for i, pod in segment:
                         run_oracle(pod, i)
                     pending.extend((pod, assignments[i], None, None) for i, pod in segment)
                     continue
-                finish = dispatch_kernel_segment(segment)
+                finish, device_busy = dispatch_kernel_segment(segment)
                 if finish is None:
                     flush_pending()
                     run_kernel_segment(segment)
@@ -371,11 +385,18 @@ class BatchBackend:
                 # the device is scanning this segment: hand earlier entries
                 # to the caller in its shadow
                 flush_pending()
+                if on_idle is not None and si == len(segments) - 1:
+                    # the final segment is in flight and nothing is left to
+                    # commit: the card's shadow goes to the caller's prep
+                    on_idle(device_busy=device_busy)
                 pending = finish()
             flush_pending()
         except BaseException:
             # an aborted batch leaves speculative placements in the host
-            # state: drop it so the next batch rebuilds from its snapshot
-            self._host_state = None
+            # state that no cache generation accounts for: close it and
+            # drop it so the next batch rebuilds from its snapshot
+            if self._host_state is not None:
+                self._host_state.close()
+                self._host_state = None
             raise
         return assignments

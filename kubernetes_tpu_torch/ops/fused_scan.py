@@ -65,7 +65,9 @@ class ScanParams(ctypes.Structure):
                 + [("wt", ctypes.c_int32 * len(WEIGHT_KEYS))])
 
 
-def _lib():
+def load():
+    """The kernel's library, built from ``csrc/fused_scan.cu`` on the first
+    call in a process."""
     lib = _build.load("fused_scan")
     lib.fused_scan_launch.argtypes = [ctypes.POINTER(ScanParams), ctypes.c_void_p]
     lib.fused_scan_launch.restype = ctypes.c_int
@@ -175,7 +177,7 @@ def launch(static: ScanStatic, state: ScanState, bufs: dict) -> None:
         wt=(ctypes.c_int32 * len(WEIGHT_KEYS))(*(static.weights[k] for k in WEIGHT_KEYS)),
     )
     stream = torch.cuda.current_stream(static.device).cuda_stream
-    err = _lib().fused_scan_launch(ctypes.byref(params), ctypes.c_void_p(stream))
+    err = load().fused_scan_launch(ctypes.byref(params), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused scan launch failed (error {err})")
     launches += 1

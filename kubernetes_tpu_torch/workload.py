@@ -132,3 +132,196 @@ def make_pods(n_pods: int, rng: random.Random, workload: str):
                 make_pod(f"pod-{i:06d}", **plain_templates[i % len(plain_templates)])
             )
     return pods
+
+
+def _churn_cluster(n_nodes: int, total_pods: int, workload: str, seed: int):
+    """A store seeded with the nodes (and, for ``mixed``, the services) of
+    the churn preset, plus the pods to arrive, in the order and from the
+    seed the reference harness (``bench.py`` ``_run_churn_timed``) uses."""
+    from .client import Clientset
+    from .store import Store
+
+    rng = random.Random(seed)
+    cs = Clientset(Store(event_log_window=max(200_000, 2 * (n_nodes + total_pods))))
+    for node in make_nodes(n_nodes, rng, workload):
+        cs.nodes.create(node)
+    if workload == "mixed":
+        for svc in make_services():
+            cs.services.create(svc)
+    return cs, make_pods(total_pods, rng, workload)
+
+
+def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
+              workload: str = "mixed", seed: int = 0, device=None) -> dict:
+    """Steady-state arrival load through the port's ``Scheduler`` (the
+    reference harness's churn preset, ``bench.py`` ``_run_churn_timed``):
+    an arrival thread creates one wave of pods in one ``create_many`` txn
+    the moment the previous wave left the queue, and the scheduler serves
+    each wave with one ``run_batch_loop`` call on ``BatchBackend``, events
+    on and the event sink running.
+
+    ``device`` is the backend's: None means the card and raises without
+    one; ``"cpu"`` runs the plain scan.  Returns bound/unbound counts from
+    the final store state, wall seconds and pods/s, e2e p50/p99 in ms,
+    per-wave phase seconds (pump, tensorize, dispatch, device_wait,
+    commit, prep, and the informers' decode and apply seconds) with the
+    wave's kernel ms, the backend's stats, the
+    recorded drain batches, the final binding map and the round-robin
+    counter (the inputs of ``oracle_replay_waves``)."""
+    import threading
+    import time
+
+    from .ops.backend import BatchBackend
+    from .scheduler import GenericScheduler, Scheduler
+
+    algo = GenericScheduler()
+    # the scheduler and the backend share one algorithm: the backend writes
+    # the round-robin counter after every segment
+    backend = BatchBackend(algorithm=algo, device=device)
+    cs, all_pods = _churn_cluster(n_nodes, total_pods, workload, seed)
+    sched = Scheduler(cs, algorithm=algo, backend=backend, emit_events=True)
+    sched.start()
+    sched.broadcaster.start()
+
+    per_wave = total_pods // waves
+    pump_acc = [0.0]
+    orig_pump = sched.pump
+
+    def timed_pump():
+        t = time.perf_counter()
+        n = orig_pump()
+        pump_acc[0] += time.perf_counter() - t
+        return n
+
+    sched.pump = timed_pump
+
+    def informer_seconds():
+        """Cumulative (decode, apply) seconds over the scheduler's informers:
+        the part of pump_s spent applying watch events."""
+        infs = sched.informers.informers()
+        return (sum(i.stats["decode_s"] for i in infs),
+                sum(i.stats["apply_s"] for i in infs))
+
+    # wave-drain detection feeds the arrival thread: wave w+1 is created
+    # the moment wave w left the queue, so creation overlaps scheduling
+    drained = [0]
+    drain_batches: list[list[str]] = []
+    wave_drained = [threading.Event() for _ in range(waves)]
+    orig_drain = sched.queue.drain
+
+    def recording_drain(max_n=None):
+        out = orig_drain(max_n)
+        if out:
+            drain_batches.append([p.meta.key for p in out])
+        drained[0] += len(out)
+        for w in range(waves):
+            if drained[0] >= (w + 1) * per_wave:
+                wave_drained[w].set()
+        return out
+
+    sched.queue.drain = recording_drain
+    stop_arrivals = threading.Event()
+
+    def arrivals():
+        for w in range(waves):
+            cs.pods.create_many_nowait(all_pods[w * per_wave:(w + 1) * per_wave])
+            while not wave_drained[w].wait(timeout=0.1):
+                if stop_arrivals.is_set():
+                    return
+
+    arr = threading.Thread(target=arrivals, daemon=True, name="churn-arrivals")
+    bound = 0
+    phase_timers: list[dict] = []
+    t0 = time.perf_counter()
+    arr.start()
+    try:
+        for _ in range(waves):
+            pump_before = pump_acc[0]
+            inf_before = informer_seconds()
+            b = sched.run_batch_loop(min_batch=per_wave, max_wait=30.0,
+                                     max_waves=1, poll_interval=0.002)
+            bound += b
+            ph = {k: sched.last_batch_phases.get(k, 0.0)
+                  for k in ("tensorize_s", "dispatch_s", "device_wait_s",
+                            "commit_s", "prep_s", "kernel_ms")}
+            ph["pump_s"] = pump_acc[0] - pump_before
+            inf_after = informer_seconds()
+            ph["decode_s"] = inf_after[0] - inf_before[0]
+            ph["apply_s"] = inf_after[1] - inf_before[1]
+            ph["bound"] = b
+            phase_timers.append(ph)
+        elapsed = time.perf_counter() - t0
+    finally:
+        stop_arrivals.set()
+        arr.join(timeout=10)
+        sched.broadcaster.stop(drain=True)
+    pods_final, _ = cs.pods.list()
+    assignments = {p.meta.key: p.spec.node_name or None for p in pods_final}
+    m = sched.metrics
+
+    def _pq(h, q):
+        v = h.quantile(q)
+        return v / 1e3 if v != float("inf") else None
+
+    events, _ = cs.events.list()
+    return {
+        "nodes": n_nodes,
+        "pods": total_pods,
+        "waves": waves,
+        "device": str(backend.device),
+        "bound": bound,
+        "unbound": sum(1 for node in assignments.values() if node is None),
+        "drained": drained[0],
+        "wall_s": elapsed,
+        "pods_per_sec": bound / elapsed if elapsed > 0 else 0.0,
+        "e2e_scheduling_ms": {"p50": _pq(m.e2e_scheduling_latency, 0.5),
+                              "p99": _pq(m.e2e_scheduling_latency, 0.99)},
+        "phase_timers": phase_timers,
+        "backend": dict(backend.stats),
+        "scheduled_events": sum(e.count for e in events if e.reason == "Scheduled"),
+        "drain_batches": drain_batches,
+        "assignments": assignments,
+        "round_robin": algo._round_robin,
+    }
+
+
+def oracle_replay_waves(drain_batches: list, final_assignments: dict,
+                        n_nodes: int, total_pods: int, workload: str,
+                        seed: int) -> dict:
+    """Per-wave oracle parity for a churn run: replay the recorded drain
+    batches, in drain order, through the per-pod CPU oracle
+    (``Scheduler(backend=None).run_pending``) on an identically seeded
+    cluster, and compare each wave's bindings with the run's final map.
+    Exact by prefix closure (pod i's placement depends only on the initial
+    cluster and the pods placed before it) as long as no key was drained
+    twice; a requeue re-decides under other queue state, so the replay
+    then reports itself skipped."""
+    from .scheduler import GenericScheduler, Scheduler
+
+    flat = [k for b in drain_batches for k in b]
+    if len(set(flat)) != len(flat):
+        return {"mode": "skipped (requeues present)",
+                "checked": 0, "mismatches": -1, "round_robin": None}
+    cs, pods = _churn_cluster(n_nodes, total_pods, workload, seed)
+    pods_by_key = {p.meta.key: p for p in pods}
+    sched = Scheduler(cs, algorithm=GenericScheduler(), backend=None, emit_events=False)
+    sched.start()
+    checked = mismatches = 0
+    sample = []
+    for batch in drain_batches:
+        for key in batch:
+            cs.pods.create(pods_by_key[key])
+        sched.pump()
+        sched.run_pending()
+        sched.pump()
+        pods_now, _ = cs.pods.list()
+        got = {p.meta.key: p.spec.node_name or None for p in pods_now}
+        for key in batch:
+            checked += 1
+            if got.get(key) != final_assignments.get(key):
+                mismatches += 1
+                if len(sample) < 5:
+                    sample.append((key, got.get(key), final_assignments.get(key)))
+    return {"mode": "exact per-wave replay", "checked": checked,
+            "mismatches": mismatches, "sample": sample,
+            "round_robin": sched.algorithm._round_robin}

@@ -43,11 +43,26 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def _module_names():
+    for path in _sources():
+        rel = os.path.relpath(path, ROOT)
+        if rel == "chip_smoke.py":
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        yield mod[: -len(".__init__")] if mod.endswith(".__init__") else mod
+
+
 def test_import_leaves_jax_and_reference_unloaded():
+    """Every module of the port (store, client, utils and the scheduler
+    included) imports without pulling JAX or the reference package in."""
+    mods = sorted(_module_names())
+    assert {"kubernetes_tpu_torch.store.store", "kubernetes_tpu_torch.client.informer",
+            "kubernetes_tpu_torch.client.record", "kubernetes_tpu_torch.utils.metrics",
+            "kubernetes_tpu_torch.scheduler.scheduler"} <= set(mods)
     code = (
-        "import sys\n"
-        "import kubernetes_tpu_torch.ops.backend\n"
-        "import kubernetes_tpu_torch.workload\n"
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'kubernetes_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
