@@ -21,7 +21,16 @@ Phases, one line each:
    port's ``Scheduler.run_batch_loop`` on ``BatchBackend(device="cuda")``
    with events on, the launch count read around it; (b) a 1000-node x
    400-pod churn run on the card replayed wave by wave through the port's
-   per-pod oracle (``workload.oracle_replay_waves``).
+   per-pod oracle (``workload.oracle_replay_waves``);
+6. the daemon stack: (a) ``python -m kubernetes_tpu_torch.apiserver`` and
+   ``python -m kubernetes_tpu_torch.scheduler --leader-elect`` (its
+   default ``--backend batch --device cuda``) as processes, driven over
+   HTTP by ``workload.run_wire_churn`` at full width, 20 000 ``mixed`` pods
+   in 10 waves on 5000 nodes; the fused kernel's launches are counted in
+   the daemon, which starts at 0 and reports them when SIGTERM stops it;
+   (b) a fresh pair of daemons on 1000 nodes whose 400 pods exist before
+   the scheduler starts, its bindings and round-robin counter read back
+   and held against the port's sequential oracle.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -33,16 +42,23 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import random
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor-core
 # 32-bit rate that the scan's integer ALU work runs at
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 REPLACES = "kubernetes_tpu/ops/pallas_kernel.py:178"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+E2E_METRIC = "scheduler_e2e_scheduling_latency_microseconds"
 
 
 def card_line() -> str:
@@ -207,6 +223,202 @@ def churn_phase() -> int:
     return launches
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url: str) -> bytes:
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read()
+
+
+def wait_until(ready, proc: subprocess.Popen, what: str, deadline_s: float) -> None:
+    """Poll ``ready()`` until it holds; fail if ``proc`` exits first or the
+    deadline passes."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"{what}: the process exited with {proc.returncode}")
+        try:
+            if ready():
+                return
+        except OSError:
+            pass  # not listening yet
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what}: not ready after {deadline_s} s")
+        time.sleep(0.1)
+
+
+class Daemons:
+    """An apiserver and a leader-elected scheduler daemon as processes,
+    their output in ``workdir``.  ``stop_scheduler`` sends SIGTERM and
+    returns the daemon's stats line; ``close`` ends whatever still runs."""
+
+    def __init__(self, workdir: str, tag: str):
+        self.workdir, self.tag = workdir, tag
+        self.api_port, self.health_port = free_port(), free_port()
+        self.url = f"http://127.0.0.1:{self.api_port}"
+        self.env = {**os.environ, "PYTHONPATH": ROOT}
+        self.scheduler = None
+        self.apiserver = self._spawn("apiserver", [
+            "kubernetes_tpu_torch.apiserver", "--port", str(self.api_port),
+            "--disable-admission"])
+        try:
+            wait_until(lambda: b"ok" in http_get(self.url + "/healthz"), self.apiserver,
+                       "apiserver /healthz", 60)
+        except BaseException:
+            self.close()
+            raise
+
+    def _spawn(self, name: str, args: list) -> subprocess.Popen:
+        base = os.path.join(self.workdir, f"{self.tag}-{name}")
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=self.env,
+                                stdout=open(base + ".out", "w"),
+                                stderr=open(base + ".err", "w"))
+
+    def start_scheduler(self) -> None:
+        self.scheduler = self._spawn("scheduler", [
+            "kubernetes_tpu_torch.scheduler", "--apiserver", self.url, "--leader-elect",
+            "--healthz-port", str(self.health_port)])
+        health = f"http://127.0.0.1:{self.health_port}"
+        wait_until(lambda: b"ok" in http_get(health + "/healthz"), self.scheduler,
+                   "scheduler /healthz", 120)
+        # /metrics shows the scheduler's registry once it leads and serves
+        wait_until(lambda: E2E_METRIC.encode() in http_get(health + "/metrics"),
+                   self.scheduler, "scheduler serving", 300)
+
+    def e2e_quantiles_ms(self) -> tuple[float, float]:
+        """p50 and p99 of the daemon's e2e SLI histogram from its /metrics
+        (the upper bound of the bucket each quantile falls in)."""
+        text = http_get(f"http://127.0.0.1:{self.health_port}/metrics").decode()
+        buckets = []
+        for line in text.splitlines():
+            if line.startswith(E2E_METRIC + "_bucket"):
+                le = line.split('le="', 1)[1].split('"', 1)[0]
+                buckets.append((float(le), float(line.rsplit(" ", 1)[1])))
+        total = buckets[-1][1]
+        if total <= 0:
+            raise AssertionError("the daemon recorded no e2e latency")
+        return tuple(next(le for le, acc in buckets if acc >= q * total) / 1e3
+                     for q in (0.5, 0.99))
+
+    def stop_scheduler(self) -> dict:
+        self.scheduler.send_signal(signal.SIGTERM)
+        rc = self.scheduler.wait(timeout=120)
+        if rc != 0:
+            raise RuntimeError(f"the scheduler daemon exited {rc} on SIGTERM")
+        out = open(os.path.join(self.workdir, f"{self.tag}-scheduler.out")).read()
+        lines = [ln for ln in out.splitlines() if ln.startswith('{"scheduler_stats"')]
+        if len(lines) != 1:
+            raise AssertionError(f"expected one stats line from the daemon, got {len(lines)}")
+        return json.loads(lines[0])["scheduler_stats"]
+
+    def close(self) -> None:
+        for proc in (self.scheduler, self.apiserver):
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+
+    def stderr_tail(self) -> str:
+        path = os.path.join(self.workdir, f"{self.tag}-scheduler.err")
+        return open(path).read()[-4000:] if os.path.exists(path) else ""
+
+
+def daemon_phase() -> int:
+    """Phase 6: the daemon stack at full width, then parity of a smaller
+    daemon run with the sequential oracle.  Returns the fused-kernel
+    launches of 6a, as the daemon counted them."""
+    from kubernetes_tpu_torch.client import Clientset, RemoteStore
+    from kubernetes_tpu_torch.workload import create_cluster, oracle_replay_waves, run_wire_churn
+
+    t_6a = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        n_nodes, n_pods, waves = 5000, 20000, 10
+        d = Daemons(workdir, "6a")
+        try:
+            d.start_scheduler()
+            r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=0)
+            p50, p99 = d.e2e_quantiles_ms()
+            st = d.stop_scheduler()
+            events, _ = RemoteStore(d.url, timeout=120.0).list("Event")
+            scheduled = sum(e.get("count", 1) for e in events if e.get("reason") == "Scheduled")
+        except BaseException:
+            print(f"phase 6a scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+        c2b = r["create_to_bind_ms"]
+        print(f"phase 6a daemons {n_nodes}x{n_pods} mixed in {waves} waves over HTTP: bound "
+              f"{r['bound']} unbound {r['unbound']} wall_s {r['wall_s']:.3f} pods_per_s "
+              f"{r['pods_per_sec']:.1f} create_to_bind_p50_ms {c2b['p50']:.1f} "
+              f"create_to_bind_p99_ms {c2b['p99']:.1f} daemon_e2e_p50_ms {p50:.1f} "
+              f"daemon_e2e_p99_ms {p99:.1f} launches {st['launches']} segments "
+              f"{st['segments']} kernel_pods {st['kernel_pods']} oracle_pods "
+              f"{st['oracle_pods']} drained {st['drained']} drains {st['waves']} kernel_ms "
+              f"{st['kernel_ms']:.3f} scheduled_events {scheduled}", flush=True)
+        print("phase 6a wave seconds: " + " ".join(f"{s:.3f}" for s in r["wave_s"]), flush=True)
+        idle = 1.0 - st["kernel_ms"] / 1e3 / r["wall_s"]
+        print(f"phase 6a device idle share over the wall (1 - kernel_ms / wall): {idle:.4f}; "
+              f"batch path {st['batch_s']:.3f} s of the wall (tensorize {st['tensorize_s']:.3f}, "
+              f"dispatch {st['dispatch_s']:.3f}, device wait {st['device_wait_s']:.3f}), the "
+              f"rest wire, ingest and waiting: {1.0 - st['batch_s'] / r['wall_s']:.4f}; the "
+              f"daemon's informers decoded {st['ingest_bytes']} wire bytes, typed decode "
+              f"{st['ingest_decode_s']:.3f} s, apply {st['ingest_apply_s']:.3f} s",
+              flush=True)
+        if r["bound"] + r["unbound"] != n_pods or st["launches"] < waves:
+            raise AssertionError(f"daemon run: bound {r['bound']} unbound {r['unbound']} "
+                                 f"launches {st['launches']}")
+        if st["oracle_pods"] != 0 or st["kernel_pods"] != st["drained"]:
+            raise AssertionError("the daemon did not run every drained pod through the kernel")
+        if scheduled != r["bound"]:
+            raise AssertionError(f"{scheduled} Scheduled events for {r['bound']} bound pods")
+        launches = st["launches"]
+
+        t_6b = time.perf_counter()
+        n_nodes, n_pods, seed = 1000, 400, 5
+        d = Daemons(workdir, "6b")
+        try:
+            cs = Clientset(RemoteStore(d.url, timeout=120.0))
+            pods = create_cluster(cs, n_nodes, n_pods, "mixed", seed)
+            if any(x is None for x in cs.pods.create_many(pods)):
+                raise AssertionError("a pod create failed")
+            d.start_scheduler()
+            deadline = time.monotonic() + 120
+            while True:
+                items, _ = cs.store.list("Pod")
+                got = {f"default/{i['metadata']['name']}": i["spec"].get("nodeName") or None
+                       for i in items}
+                if all(got.values()) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            st = d.stop_scheduler()
+        except BaseException:
+            print(f"phase 6b scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+        # the daemon's informers listed every pod before its first drain, so
+        # it drained them in LIST order (by name): replay that order
+        o = oracle_replay_waves([sorted(got)], got, n_nodes, n_pods, "mixed", seed)
+        print(f"phase 6b daemons {n_nodes}x{n_pods} pre-created vs the sequential oracle: "
+              f"{o['mode']}, checked {o['checked']}, mismatches {o['mismatches']}, bound "
+              f"{sum(1 for n in got.values() if n)}, drains {st['waves']}, rr "
+              f"{st['round_robin']} vs {o['round_robin']}", flush=True)
+        if (st["waves"] != 1 or st["drained"] != n_pods or o["checked"] != n_pods
+                or o["mismatches"] != 0 or o["round_robin"] != st["round_robin"]):
+            raise AssertionError(f"daemon bindings != sequential oracle: {o}, stats {st}")
+    t_end = time.perf_counter()
+    print(f"phase 6 took {t_end - t_6a:.1f} s: 6a {t_6b - t_6a:.1f} s (daemon start-up and "
+          f"cluster creation included), 6b {t_end - t_6b:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -305,12 +517,14 @@ def main() -> int:
           f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops)", flush=True)
 
     churn_launches = churn_phase()
+    daemon_launches = daemon_phase()
 
     entry = {
         "name": "fused_scan", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/fused_scan.cu",
-        "replaces": REPLACES, "launches": launches + churn_launches,
-        "launches_by_path": {"batch": launches, "churn": churn_launches},
+        "replaces": REPLACES, "launches": launches + churn_launches + daemon_launches,
+        "launches_by_path": {"batch": launches, "churn": churn_launches,
+                             "daemon": daemon_launches},
         "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,

@@ -105,6 +105,50 @@ class LabelSelector:
         return cls(match_labels=dict(labels))
 
 
+def parse_selector_string(spec: str) -> LabelSelector:
+    """Parse the wire ``labelSelector=`` string grammar
+    (``apimachinery labels.Parse``): ``k=v``, ``k==v``, ``k!=v``, ``k``
+    (exists), ``!k`` (not exists), ``k in (a,b)``, ``k notin (a,b)``,
+    comma separated.  Raises ValueError on garbage."""
+    import re
+
+    reqs: list[Requirement] = []
+    # split on commas outside parentheses
+    for part in re.split(r",(?![^(]*\))", spec):
+        part = part.strip()
+        if not part:
+            continue
+        m = re.fullmatch(r"(\S+)\s+(in|notin)\s+\(([^)]*)\)", part)
+        if m:
+            values = [v.strip() for v in m.group(3).split(",") if v.strip()]
+            if not values:
+                raise ValueError(f"empty value set in {part!r}")
+            reqs.append(Requirement(m.group(1), IN if m.group(2) == "in" else NOT_IN, values))
+            continue
+        if "!=" in part:
+            k, v = part.split("!=", 1)
+            if not k.strip():
+                raise ValueError(f"empty key in {part!r}")
+            reqs.append(Requirement(k.strip(), NOT_IN, [v.strip()]))
+            continue
+        if "=" in part:
+            k, v = part.split("==", 1) if "==" in part else part.split("=", 1)
+            if not k.strip():
+                raise ValueError(f"empty key in {part!r}")
+            reqs.append(Requirement(k.strip(), IN, [v.strip()]))
+            continue
+        if part.startswith("!"):
+            reqs.append(Requirement(part[1:].strip(), DOES_NOT_EXIST))
+            continue
+        if re.fullmatch(r"[A-Za-z0-9._/-]+", part):
+            reqs.append(Requirement(part, EXISTS))
+            continue
+        raise ValueError(f"cannot parse selector clause {part!r}")
+    if not reqs:
+        raise ValueError("empty selector")
+    return LabelSelector(match_expressions=reqs)
+
+
 @dataclass
 class NodeSelectorTerm:
     """One term of a NodeSelector: ANDed matchExpressions over node labels."""

@@ -1191,6 +1191,26 @@ def register_kind(cls, cluster_scoped: bool = False, plural: Optional[str] = Non
     return cls
 
 
+def kind_for_plural(plural: str) -> Optional[str]:
+    """Resource path segment -> kind (the inverse of ``KIND_PLURALS``),
+    read from the live registry per call so a kind registered later
+    resolves at once."""
+    for kind, p in list(KIND_PLURALS.items()):
+        if p == plural:
+            return kind
+    return None
+
+
+def convert_to_internal(doc: dict) -> dict:
+    """Decode a wire document into the stored form: the port registers no
+    versioned decoders, so every document passes through with
+    ``apiVersion`` stripped and the store holds one schema.  Returns a
+    shallow copy; ``doc`` is left as it was."""
+    out = dict(doc)
+    out.pop("apiVersion", None)
+    return out
+
+
 for _cls in (Pod, Service, ReplicaSet, Event, PersistentVolumeClaim):
     register_kind(_cls)
 for _cls in (Node, PersistentVolume):

@@ -21,7 +21,14 @@ import threading
 import time
 from typing import Callable, Optional
 
-from ..store.store import ADDED, DELETED, MODIFIED, ExpiredRevisionError, WatchEvent
+from ..store.store import (
+    ADDED,
+    DELETED,
+    MODIFIED,
+    WATCH_GAP,
+    ExpiredRevisionError,
+    WatchEvent,
+)
 from ..utils.metrics import DEFAULT_CLIENT_METRICS
 from .clientset import TypedClient
 
@@ -249,6 +256,11 @@ class SharedInformer:
                 self.stats["apply_s"] += dt
 
     def _apply_event(self, ev: WatchEvent) -> None:
+        if ev.type == WATCH_GAP:
+            # the transport lost continuity (410 on resume) and ended its
+            # stream: no payload to apply; rebuild from a fresh LIST
+            self._try_relist()
+            return
         if ev.revision <= self.last_revision:
             # a straggler from a watch a relist already superseded
             return

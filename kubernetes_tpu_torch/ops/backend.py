@@ -68,15 +68,15 @@ _PRIORITY_WEIGHT_KEY = {
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; it raises when there is none.  The CPU is
+    """``None`` means the card.  A CUDA device, named or by default, raises
+    at once when there is no card, not at the first launch.  The CPU is
     used only when the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the batch backend runs on the GPU unless "
-                "the caller passes device='cpu'")
-        return torch.device("cuda")
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the batch backend runs on the GPU unless "
+            "the caller passes device='cpu'")
+    return dev
 
 
 def _segment_vecs(static):

@@ -4,6 +4,7 @@ from .store import (
     ADDED,
     DELETED,
     MODIFIED,
+    WATCH_GAP,
     AlreadyExistsError,
     ConflictError,
     ExpiredRevisionError,

@@ -54,6 +54,10 @@ def object_key(namespace: str, name: str) -> str:
 ADDED = "ADDED"
 MODIFIED = "MODIFIED"
 DELETED = "DELETED"
+# Not a state transition: a watch transport's admission that continuity
+# was lost (410 Gone on resume, the event-log window slid past its
+# bookmark).  An informer that receives it relists; it carries no object.
+WATCH_GAP = "GAP"
 
 
 class ConflictError(Exception):

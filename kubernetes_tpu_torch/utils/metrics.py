@@ -184,12 +184,44 @@ class Registry:
 
 
 class ClientMetrics:
-    """Informer observability: relists (gap escalation or resync), handler
-    callbacks that raised, and event payloads that failed to decode."""
+    """Client observability: the wire client's retries and watch-stream
+    failures (one instance per ``RemoteStore``; its watches share it) and
+    the informers' relists (gap escalation or resync), handler callbacks
+    that raised, and event payloads that failed to decode."""
 
     def __init__(self, registry: Optional[Registry] = None):
         r = registry or Registry()
         self.registry = r
+        self.remote_retries = r.register(Counter(
+            "client_remote_retries_total",
+            "request attempts re-issued after a retryable failure"))
+        self.remote_fatal = r.register(Counter(
+            "client_remote_fatal_total",
+            "requests abandoned on a non-retryable classification"))
+        self.remote_retry_exhausted = r.register(Counter(
+            "client_remote_retry_exhausted_total",
+            "requests abandoned after the retry budget ran out"))
+        self.remote_drain_errors = r.register(Counter(
+            "client_remote_drain_errors_total",
+            "response-body drains that raised before a retry"))
+        self.retry_after_honored = r.register(Counter(
+            "client_retry_after_honored_total",
+            "retry sleeps that honored a server Retry-After header"))
+        self.watch_reconnects = r.register(Counter(
+            "client_watch_reconnects_total",
+            "watch streams re-established after an error"))
+        self.watch_gaps = r.register(Counter(
+            "client_watch_gaps_total",
+            "watch resumes refused with 410 Gone (the informer relists)"))
+        self.watch_errors = r.register(Counter(
+            "client_watch_errors_total",
+            "classified watch-stream errors (transport and HTTP)"))
+        self.watch_close_errors = r.register(Counter(
+            "client_watch_close_errors_total",
+            "watch stream closes that raised (torn down anyway)"))
+        self.ingest_bytes = r.register(Counter(
+            "scheduler_ingest_decode_bytes_total",
+            "wire bytes of watch payloads delivered to informers"))
         self.informer_relists = r.register(Counter(
             "client_informer_relists_total",
             "full LIST + watch restarts (gap escalation or resync)"))
@@ -204,6 +236,21 @@ class ClientMetrics:
 
 # informers without an explicit metrics object aggregate here
 DEFAULT_CLIENT_METRICS = ClientMetrics()
+
+
+class APIServerMetrics:
+    """The apiserver's request count and latency (microseconds), and the
+    error responses that could not be written because the client hung up."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.request_count = r.register(Counter("apiserver_request_count", "total requests"))
+        self.request_latency = r.register(
+            Histogram("apiserver_request_latencies_microseconds"))
+        self.error_write_failures = r.register(Counter(
+            "apiserver_error_write_failures_total",
+            "error responses that could not be written (client hung up)"))
 
 
 class SchedulerMetrics:

@@ -24,6 +24,7 @@ from .api import (
     Volume,
     WeightedPodAffinityTerm,
 )
+from .store.store import object_key
 from .testutil import make_node, make_pod
 
 ZONE = "failure-domain.beta.kubernetes.io/zone"
@@ -134,21 +135,31 @@ def make_pods(n_pods: int, rng: random.Random, workload: str):
     return pods
 
 
+def create_cluster(cs, n_nodes: int, total_pods: int, workload: str, seed: int):
+    """Create the churn preset's nodes (and, for ``mixed``, its services)
+    through the clientset ``cs`` (in-process or over the wire), each kind
+    in one ``create_many``, in the order and from the seed the reference
+    harness (``bench.py`` ``_run_churn_timed``) uses.  Returns the pods to
+    arrive, not yet created."""
+    rng = random.Random(seed)
+    kinds = [(cs.nodes, make_nodes(n_nodes, rng, workload))]
+    if workload == "mixed":
+        kinds.append((cs.services, make_services()))
+    for client, objs in kinds:
+        failed = sum(d is None for d in client.create_many(objs))
+        if failed:
+            raise RuntimeError(f"{failed} of {len(objs)} {client.kind} creates failed")
+    return make_pods(total_pods, rng, workload)
+
+
 def _churn_cluster(n_nodes: int, total_pods: int, workload: str, seed: int):
-    """A store seeded with the nodes (and, for ``mixed``, the services) of
-    the churn preset, plus the pods to arrive, in the order and from the
-    seed the reference harness (``bench.py`` ``_run_churn_timed``) uses."""
+    """An in-process store seeded by ``create_cluster``, plus the pods to
+    arrive."""
     from .client import Clientset
     from .store import Store
 
-    rng = random.Random(seed)
     cs = Clientset(Store(event_log_window=max(200_000, 2 * (n_nodes + total_pods))))
-    for node in make_nodes(n_nodes, rng, workload):
-        cs.nodes.create(node)
-    if workload == "mixed":
-        for svc in make_services():
-            cs.services.create(svc)
-    return cs, make_pods(total_pods, rng, workload)
+    return cs, create_cluster(cs, n_nodes, total_pods, workload, seed)
 
 
 def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
@@ -282,6 +293,98 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
         "drain_batches": drain_batches,
         "assignments": assignments,
         "round_robin": algo._round_robin,
+    }
+
+
+def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
+                   waves: int = 10, workload: str = "mixed", seed: int = 0,
+                   wave_deadline_s: float = 60.0) -> dict:
+    """The client side of a daemon run: the churn preset driven over the
+    wire against the apiserver at ``url``, served by whatever scheduler
+    watches it (``python -m kubernetes_tpu_torch.scheduler``).
+
+    Creates the seeded nodes and services, then each wave of pods in one
+    ``create_many``; the next wave is created when every pod of the last
+    one is bound or carries a ``FailedScheduling`` event, as this client's
+    own threaded informers see it over the wire, within
+    ``wave_deadline_s`` a wave (else ``TimeoutError``).  Returns the
+    bound and unbound counts of the final LIST, the wall seconds of the
+    waves and pods/s, the client-observed create→bind p50 and p99 in ms,
+    each wave's seconds and the final binding map."""
+    import threading
+    import time
+
+    from .client import Clientset, Handler, InformerFactory, RemoteStore
+
+    cs = Clientset(RemoteStore(url, timeout=120.0))
+    pods = create_cluster(cs, n_nodes, total_pods, workload, seed)
+    cv = threading.Condition()
+    created_at: dict[str, float] = {}
+    bound_at: dict[str, float] = {}
+    pending: set[str] = set()  # the current wave's keys still waiting
+
+    def settle(key: str) -> None:
+        pending.discard(key)
+        if not pending:
+            cv.notify_all()
+
+    def on_pod(pod) -> None:
+        if pod.spec.node_name:
+            with cv:
+                if pod.meta.key not in bound_at:
+                    bound_at[pod.meta.key] = time.perf_counter()
+                    settle(pod.meta.key)
+
+    def on_event(ev) -> None:
+        if ev.reason == "FailedScheduling":
+            with cv:
+                settle(ev.involved_key)
+
+    factory = InformerFactory(cs)
+    factory.informer("Pod").add_handler(Handler(on_add=on_pod,
+                                                on_update=lambda old, new: on_pod(new)))
+    factory.informer("Event").add_handler(Handler(on_add=on_event,
+                                                  on_update=lambda old, new: on_event(new)))
+    factory.start_all()
+    per_wave = total_pods // waves
+    wave_s: list[float] = []
+    try:
+        t0 = time.perf_counter()
+        for w in range(waves):
+            batch = pods[w * per_wave:(w + 1) * per_wave]
+            t_wave = time.perf_counter()
+            with cv:
+                for p in batch:
+                    created_at[p.meta.key] = t_wave
+                    pending.add(p.meta.key)
+            cs.pods.create_many_nowait(batch)
+            with cv:
+                while pending:
+                    left = t_wave + wave_deadline_s - time.perf_counter()
+                    if left <= 0:
+                        raise TimeoutError(
+                            f"wave {w}: {len(pending)} pods neither bound nor marked "
+                            f"FailedScheduling after {wave_deadline_s} s")
+                    cv.wait(timeout=left)
+            wave_s.append(time.perf_counter() - t_wave)
+        wall = time.perf_counter() - t0
+    finally:
+        factory.stop_all()
+    items, _ = cs.store.list("Pod")
+    assignments = {object_key(d["metadata"].get("namespace", ""), d["metadata"]["name"]):
+                   (d.get("spec") or {}).get("nodeName") or None for d in items}
+    lat_ms = sorted((bound_at[k] - created_at[k]) * 1e3 for k in bound_at if k in created_at)
+
+    def pct(q: float):
+        return lat_ms[min(len(lat_ms) - 1, int(q * len(lat_ms)))] if lat_ms else None
+
+    bound = sum(1 for n in assignments.values() if n)
+    return {
+        "nodes": n_nodes, "pods": total_pods, "waves": waves,
+        "bound": bound, "unbound": len(assignments) - bound,
+        "wall_s": wall, "pods_per_sec": bound / wall if wall > 0 else 0.0,
+        "create_to_bind_ms": {"p50": pct(0.5), "p99": pct(0.99)},
+        "wave_s": wave_s, "assignments": assignments,
     }
 
 

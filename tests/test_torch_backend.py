@@ -96,3 +96,13 @@ def test_backend_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_backend.resolve_device(None)
     assert BatchBackend(device="cpu").device.type == "cpu"
+
+
+def test_backend_named_cuda_device_needs_a_card(monkeypatch):
+    """A CUDA device named outright raises when the backend is built, as
+    the default does: a host without a card must not get a backend that
+    fails only at its first launch."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ("cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BatchBackend(device=device)

@@ -1,9 +1,11 @@
 """The port stands alone: no module of ``kubernetes_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package, and importing
-the backend leaves both out of ``sys.modules``."""
+``chip_smoke.py`` imports JAX or anything of the JAX package or names one
+of its modules (as a process to start, say), and importing every module
+of the port leaves both out of ``sys.modules``."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -37,10 +39,12 @@ def test_no_jax_or_reference_import(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             if _forbidden(node.module):
                 bad.append(node.module)
-        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
-            bad += [a.value for a in node.args
-                    if isinstance(a, ast.Constant) and isinstance(a.value, str) and _forbidden(a.value)]
-    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and re.fullmatch(r"(jax|jaxlib|kubernetes_tpu)(\.\w+)*", node.value)):
+            # a module name as a string: import_module("..."), or
+            # "python -m kubernetes_tpu.scheduler" as a process to start
+            bad.append(node.value)
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports or starts {bad}"
 
 
 def _module_names():
@@ -53,12 +57,18 @@ def _module_names():
 
 
 def test_import_leaves_jax_and_reference_unloaded():
-    """Every module of the port (store, client, utils and the scheduler
-    included) imports without pulling JAX or the reference package in."""
+    """Every module of the port (store, client, utils, the scheduler, the
+    apiserver and the daemon entry points included) imports without
+    pulling JAX or the reference package in."""
     mods = sorted(_module_names())
     assert {"kubernetes_tpu_torch.store.store", "kubernetes_tpu_torch.client.informer",
             "kubernetes_tpu_torch.client.record", "kubernetes_tpu_torch.utils.metrics",
-            "kubernetes_tpu_torch.scheduler.scheduler"} <= set(mods)
+            "kubernetes_tpu_torch.scheduler.scheduler", "kubernetes_tpu_torch.apiserver.server",
+            "kubernetes_tpu_torch.apiserver.__main__", "kubernetes_tpu_torch.daemon",
+            "kubernetes_tpu_torch.client.remote", "kubernetes_tpu_torch.client.leaderelection",
+            "kubernetes_tpu_torch.utils.features", "kubernetes_tpu_torch.utils.health",
+            "kubernetes_tpu_torch.scheduler.__main__",
+            "kubernetes_tpu_torch.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
