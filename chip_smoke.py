@@ -14,8 +14,10 @@ Phases, one line each:
 4. the main path at full width: one ``BatchBackend(device="cuda")
    .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, with the
    fused-kernel launch count read around it; then the kernel against the
-   plain version on that very segment, on a 5000-node x 2000-pod one and
-   on a 10 000-node x 1000-pod one, and the kernel's times;
+   plain version on that very segment, on a 5000-node x 2000-pod one, on a
+   10 000-node x 1000-pod one and on a 20 000-node x 500-pod one (whose
+   plan leaves planes in global memory), the kernel's plan (cluster and
+   block size, the planes in shared memory), and its times;
 5. the serving path: (a) ``workload.run_churn`` at full width, 20 000
    ``mixed`` pods arriving in 10 waves on 5000 nodes and served by the
    port's ``Scheduler.run_batch_loop`` on ``BatchBackend(device="cuda")``
@@ -146,6 +148,22 @@ def time_kernel(s, st, reps: int = 3) -> float:
     return total / reps
 
 
+def plan_line(what: str, s, st) -> str:
+    """The fused kernel's plan for a segment, as the card accepts it."""
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    pl = fused_scan.plan(s)
+    q = fused_scan.query(s, st, fused_scan.pack(s, st, pl), pl)
+    if q["static_smem"] > fused_scan.STATIC_RESERVE:
+        raise AssertionError(f"the kernel's static shared memory ({q['static_smem']} B) exceeds "
+                             f"the planner's reserve ({fused_scan.STATIC_RESERVE} B)")
+    return (f"phase 4 plan, {what} ({s.n_pad} nodes): cluster {pl.cs} blocks x {pl.threads} "
+            f"threads, {pl.cols} columns a block, {pl.cpt} a thread; dynamic shared memory "
+            f"{pl.smem_bytes} B + static {q['static_smem']} B a block; max active clusters "
+            f"{q['max_active_clusters']}; in shared memory: {' '.join(pl.shared) or '-'}; in "
+            f"global memory: {' '.join(pl.global_) or '-'}")
+
+
 def bound(s, st) -> tuple[float, str, dict]:
     """Least time the card could take for this scan: the larger of (a) the
     packed inputs read once and the outputs written once over HBM
@@ -161,10 +179,11 @@ def bound(s, st) -> tuple[float, str, dict]:
     bufs = fused_scan.pack(s, st)
     out_bytes = bufs["chosen"].numel() * 4 + 4
     in_bytes = sum(t.numel() * t.element_size() for k, t in bufs.items()
-                   if k not in ("chosen", "rr_out"))
+                   if k not in ("chosen", "rr_out", "res"))  # res: the kernel's scratch
     n, r = s.node_alloc.shape
     gids = s.group_of_pod.long()
-    terms = bufs["term_count"].long()[gids].sum().item() if s.use_terms else 0
+    term_count = bufs["sig"][:, r + 3].long()  # active terms of each signature
+    terms = term_count[gids].sum().item() if s.use_terms else 0
     slots = s.pod_vol_valid.sum().item() if s.use_vols else 0
     per_pod = 3 * r + 4 + 60 + (2 * s.g_ports.shape[1] if s.use_ports else 0) \
         + (4 * s.vol_limits.shape[0] if s.use_vols else 0)
@@ -173,6 +192,30 @@ def bound(s, st) -> tuple[float, str, dict]:
     t_ops = ops / ALU_OPS_PER_S * 1e3
     detail = {"bytes": in_bytes + out_bytes, "ops": ops}
     return (t_bytes, "bytes", detail) if t_bytes >= t_ops else (t_ops, "operations", detail)
+
+
+def other_segments() -> list:
+    """Phase 4's other segments, kernel against the plain version; returns
+    their max_abs_err.  5000 and 10 000 nodes keep every plane in 16
+    blocks' shared memory; 20 000 nodes leave spread and the node rows in
+    global memory.  Their clusters are freed on return, so the later
+    phases' garbage collections do not walk them."""
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    errs = []
+    for n_nodes, n_pods, seed in ((5000, 2000, 3), (10000, 1000, 4), (20000, 500, 6)):
+        m, pods, pctx = cluster(n_nodes, n_pods, "mixed", seed=seed)
+        _, s, st = segment(m, pods, pctx, "cuda")
+        r = compare(s, st)
+        errs.append(r["max_abs_err"])
+        print(f"phase 4 mixed {n_nodes}x{n_pods}: kernel == scan_ref, bound {r['bound']}/"
+              f"{r['pods']}, rr {r['rr']}", flush=True)
+        if n_nodes == 20000:
+            print(plan_line(f"mixed {n_nodes}x{n_pods}", s, st), flush=True)
+            if not fused_scan.plan(s).global_:
+                raise AssertionError("the 20 000-node segment was meant to leave planes "
+                                     "in global memory")
+    return errs
 
 
 def churn_phase() -> int:
@@ -498,16 +541,8 @@ def main() -> int:
         raise AssertionError("BatchBackend bindings != scan_ref on the main-path segment")
     print(f"phase 4 main segment: kernel == scan_ref == BatchBackend, rr {r_main['rr']}",
           flush=True)
-    # 5000 nodes take a cluster of 5 blocks; 10 000 take 8 blocks of two
-    # column rounds each
-    errs = [r_main["max_abs_err"]]
-    for n_nodes, n_pods, seed in ((5000, 2000, 3), (10000, 1000, 4)):
-        m2, pods2, pctx2 = cluster(n_nodes, n_pods, "mixed", seed=seed)
-        _, s2, st2 = segment(m2, pods2, pctx2, "cuda")
-        r2 = compare(s2, st2)
-        errs.append(r2["max_abs_err"])
-        print(f"phase 4 mixed {n_nodes}x{n_pods}: kernel == scan_ref, bound {r2['bound']}/"
-              f"{r2['pods']}, rr {r2['rr']}", flush=True)
+    print(plan_line("main segment", s_main, st_main), flush=True)
+    errs = [r_main["max_abs_err"], *other_segments()]
 
     ms = time_kernel(s_main, st_main)
     plain_ms = r_main["plain_ms"]
@@ -526,7 +561,8 @@ def main() -> int:
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "daemon": daemon_launches},
         "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``ops/_build/`` (named by a
-hash of the source, so an edited source rebuilds) and loaded with
+hash of the source and the local headers it includes, so an edited source
+or header rebuilds) and loaded with
 ``ctypes``.  Nothing is built at import time: the first call that launches
 a kernel builds it.  A build failure raises; there is no fallback.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,11 +39,37 @@ def nvcc_path() -> str:
                        "at first use and need the CUDA toolkit")
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str, csrc: str = CSRC) -> list[str]:
+    """``csrc/<name>.cu`` and every file under ``csrc`` that it includes
+    with ``#include "..."``, directly or through another such file, in the
+    order first reached."""
+    seen: list[str] = []
+    todo = [os.path.join(csrc, f"{name}.cu")]
+    while todo:
+        path = os.path.normpath(todo.pop(0))
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(dep):
+                todo.append(dep)
+    return seen
+
+
+def library_path(name: str, csrc: str = CSRC) -> str:
+    """The library's path, named by a hash of the source, every local
+    header it includes and the flags: an edited header rebuilds too."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name, csrc):
+        with open(path, "rb") as f:
+            h.update(os.path.relpath(path, csrc).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str, verbose: bool = False) -> str:

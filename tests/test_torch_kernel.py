@@ -24,25 +24,45 @@ def test_pack_layout_on_cpu_tensors():
     from (packing is plain torch code and runs anywhere)."""
     static, init = cases.tensorize(cases.PORT, "mixed")
     s, st = from_reference(vars(static), vars(init), "cpu")
-    b = fused_scan.pack(s, st)
+    pl = fused_scan.plan(s)
+    b = fused_scan.pack(s, st, pl)
     assert all(t.is_contiguous() for t in b.values())
-    assert torch.equal(b["alloc"], s.node_alloc.t().int())
-    assert torch.equal(b["spread_inc_t"][3], s.spread_inc[:, 3])
-    pv = b["pod_vol"]
+    n, r = s.node_alloc.shape
+    assert b["alloc"].shape[1] == pl.ns >= n
+    assert torch.equal(b["alloc"][:, :n], s.node_alloc.t().int())
+    assert not b["exists"][n:].any()  # padded columns are never feasible
+    assert torch.equal(b["spread_inc_t"][3, :s.spread_inc.shape[0]], s.spread_inc[:, 3])
+    w = s.pod_vol_ids.shape[1]
+    pv, pad = b["pod_vol"][:, :w], b["pod_vol"][:, w:]
+    assert b["pod_vol"].shape[1] == pl.w4 and not pad.any()
     assert torch.equal(pv >> 6, s.pod_vol_ids)
     assert torch.equal((pv >> 3) & 7, s.pod_vol_kind)
     assert torch.equal((pv & 1).bool(), s.pod_vol_valid)
     assert torch.equal(((pv >> 1) & 1).bool(), s.pod_vol_count_only)
     assert torch.equal(((pv >> 2) & 1).bool(), s.pod_vol_ro_ok)
-    assert torch.equal((b["volf"] & 1).bool(), st.vol_any)
-    assert torch.equal(((b["volf"] >> 1) & 1).bool(), st.vol_ns)
-    t = s.term_matches_sig.shape[0]
+    assert torch.equal((b["volf"][:, :n] & 1).bool(), st.vol_any)
+    assert torch.equal(((b["volf"][:, :n] >> 1) & 1).bool(), st.vol_ns)
+    # one signature row: request, nonzero, spread flag, active terms
+    # (TERM_FIELDS fields each, active first in term order), host ports
+    sig, t, nf = b["sig"], s.term_matches_sig.shape[0], fused_scan.TERM_FIELDS
+    assert sig.shape[1] == pl.sw
+    assert torch.equal(sig[:, :r], s.g_request)
+    assert torch.equal(sig[:, r:r + 2], s.g_nonzero)
+    assert torch.equal(sig[:, r + 2].bool(), s.g_has_spread)
+    ports = sig[:, r + 4 + nf * t: r + 4 + nf * t + s.g_ports.shape[1]]
+    assert torch.equal(ports.bool(), s.g_ports)
     for g in range(s.static_ok.shape[0]):
         active = {k for k in range(t)
                   if s.term_matches_sig[k, g] or s.own_all[g, k] or s.own_w[g, k]}
-        n = int(b["term_count"][g])
-        assert n == len(active)
-        assert b["term_list"][g, :n].tolist() == sorted(active)
+        cnt = int(sig[g, r + 3])
+        assert cnt == len(active)
+        entries = sig[g, r + 4: r + 4 + nf * t].reshape(t, nf)
+        assert entries[:cnt, 0].tolist() == sorted(active)
+        for tt, m, ra, raa, own_all, own_w, symw, symraa, selfm in entries[:cnt].tolist():
+            assert m == int(s.term_matches_sig[tt, g]) and ra == int(s.own_ra[g, tt])
+            assert raa == int(s.own_raa[g, tt]) and own_all == int(s.own_all[g, tt])
+            assert own_w == int(s.own_w[g, tt]) and symw == m * int(s.sym_w[tt])
+            assert symraa == int(m and s.is_raa[tt]) and selfm == int(s.self_match[tt])
     # working state planes are copies: the kernel may update them in place
     assert b["cnt"].data_ptr() != st.pod_count.data_ptr()
     assert b["dm"].data_ptr() != st.dm.data_ptr()
@@ -76,3 +96,18 @@ def test_fused_kernel_matches_scan_ref_on_card(case):
     got, rr_got = fused_scan.schedule(s, st)
     assert rr_got == rr_want
     np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(cases.CASES))
+def test_plan_fits_the_card(case):
+    """The planner reserved enough shared memory for the kernel's static
+    arrays, and the card can place at least one cluster of the plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the plan is checked by the CUDA runtime")
+    static, init = cases.tensorize(cases.PORT, case)
+    s, st = from_reference(vars(static), vars(init), "cuda")
+    pl = fused_scan.plan(s)
+    q = fused_scan.query(s, st, fused_scan.pack(s, st, pl), pl)
+    assert q["static_smem"] <= fused_scan.STATIC_RESERVE
+    assert q["max_active_clusters"] >= 1
