@@ -6,11 +6,17 @@
 Phases, one line each:
 
 1. the card: name and power limit as nvidia-smi reports them;
-2. build the fused-scan CUDA kernel from ``kubernetes_tpu_torch/ops/csrc``;
+2. build the fused-scan CUDA kernel from ``kubernetes_tpu_torch/ops/csrc``,
+   and name which host helpers (``native.py``: the label matcher and the
+   store's deep copy) serve, ``native`` or ``python``;
 3. the kernel against its plain PyTorch version (``ops/scan_ref.py``) on
-   the card, on 1000-node x 2000-pod ``mixed`` and ``plain`` segments, and
-   the port's sequential oracle against ``BatchBackend`` on a 300-pod
-   prefix;
+   the card, on 1000-node x 2000-pod ``mixed`` and ``plain`` segments; on
+   the same ``mixed`` cluster with its zone label over 16 zones (the
+   kernel's shared-memory zone path, timed beside the 3-zone segment) and
+   with 600 distinct host ports (``BatchBackend`` cuts the batch under the
+   kernel's port vocabulary; every segment is held against the plain
+   scan); and the port's sequential oracle against ``BatchBackend`` on a
+   300-pod prefix;
 4. the main path at full width: one ``BatchBackend(device="cuda")
    .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, with the
    fused-kernel launch count read around it; then the kernel against the
@@ -21,15 +27,23 @@ Phases, one line each:
 5. the serving path: (a) ``workload.run_churn`` at full width, 20 000
    ``mixed`` pods arriving in 10 waves on 5000 nodes and served by the
    port's ``Scheduler.run_batch_loop`` on ``BatchBackend(device="cuda")``
-   with events on, the launch count read around it; (b) a 1000-node x
-   400-pod churn run on the card replayed wave by wave through the port's
-   per-pod oracle (``workload.oracle_replay_waves``);
+   with events on, on the default ingest path (lazy decode, watch frames,
+   columnar LIST, the frame confirm), the launch count read around it;
+   (b) a 1000-node x 400-pod churn run on the card replayed wave by wave
+   through the port's per-pod oracle (``workload.oracle_replay_waves``);
+   (c) 5a and 5b again on the eager ingest path (typed decode of every
+   event, per-event delivery): the same-call A/B of ingest, 5c's parity
+   held like 5b's.  Every wave prints its frames, frame events, lazy
+   promotions, confirm fallbacks and decode seconds;
 6. the daemon stack: (a) ``python -m kubernetes_tpu_torch.apiserver`` and
    ``python -m kubernetes_tpu_torch.scheduler --leader-elect`` (its
    default ``--backend batch --device cuda``) as processes, driven over
    HTTP by ``workload.run_wire_churn`` at full width, 20 000 ``mixed`` pods
    in 10 waves on 5000 nodes; the fused kernel's launches are counted in
-   the daemon, which starts at 0 and reports them when SIGTERM stops it;
+   the daemon, which starts at 0 and reports them when SIGTERM stops it,
+   and each wave's ingest counters are read from the daemon's /metrics
+   (over the wire also the watch readers' parse seconds; the waves plus
+   what came after the last drain add up to the daemon's totals);
    (b) a fresh pair of daemons on 1000 nodes whose 400 pods exist before
    the scheduler starts, its bindings and round-robin counter read back
    and held against the port's sequential oracle.
@@ -70,14 +84,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cluster(n_nodes: int, n_pods: int, workload: str, seed: int):
+def cluster(n_nodes: int, n_pods: int, workload: str, seed: int, zones: int = 0,
+            host_ports: int = 0):
+    """A seeded cluster; ``zones`` relabels the nodes' zone over that many
+    zones, ``host_ports`` gives every third pod its own host port."""
+    from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
     from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
-    from kubernetes_tpu_torch.workload import make_nodes, make_pods, make_services
+    from kubernetes_tpu_torch.workload import ZONE, make_nodes, make_pods, make_services
 
     rng = random.Random(seed)
     nodes = make_nodes(n_nodes, rng, workload)
     pods = make_pods(n_pods, rng, workload)
+    for i, n in enumerate(nodes if zones else ()):
+        n.meta.labels[ZONE] = f"zone-{i % zones}"
+    for k in range(host_ports):
+        pod = api.Pod.from_dict(pods[3 * k].to_dict())
+        pod.spec.containers[0].ports = [api.ContainerPort(container_port=20000 + k,
+                                                          host_port=20000 + k)]
+        pods[3 * k] = pod
     m = {n.meta.name: NodeInfo(n) for n in nodes}
     return m, pods, PriorityContext(m, services=make_services())
 
@@ -194,6 +219,64 @@ def bound(s, st) -> tuple[float, str, dict]:
     return (t_bytes, "bytes", detail) if t_bytes >= t_ops else (t_ops, "operations", detail)
 
 
+def checked_batch(m, pods, pctx) -> tuple:
+    """``BatchBackend(device="cuda")`` over the batch, each segment's kernel
+    held against the plain scan on that segment's inputs before the
+    backend launches it.  Returns (bindings, [(plan, compare result,
+    ScanStatic) per segment], backend)."""
+    from kubernetes_tpu_torch.models.carry import from_reference
+    from kubernetes_tpu_torch.ops import fused_scan
+    from kubernetes_tpu_torch.ops.backend import BatchBackend
+
+    seen = []
+
+    class Checked(BatchBackend):
+        def _dispatch(self, static, init):
+            s, st = from_reference(vars(static), vars(init), self.device)
+            seen.append((fused_scan.plan(s), compare(s, st), s, st))
+            return super()._dispatch(static, init)
+
+    backend = Checked(device="cuda")
+    got = backend.schedule_batch(pods, m, pctx)
+    return got, seen, backend
+
+
+def repaired_shapes() -> list:
+    """Phase 3's shapes the kernel used to refuse: 16 zones, and 600
+    distinct host ports.  Returns their max_abs_err."""
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    errs = []
+    m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, zones=16)
+    got, seen, backend = checked_batch(m, pods, pctx)
+    (pl, r, s, st), = seen
+    if s.num_zones != 16 or backend.stats["kernel_pods"] != len(pods):
+        raise AssertionError(f"16-zone batch: {s.num_zones} zones, {len(seen)} segments")
+    zone_ms = time_kernel(s, st)
+    _, s3, st3 = segment(*cluster(1000, 2000, "mixed", seed=1), "cuda")
+    reg_ms = time_kernel(s3, st3)
+    errs.append(r["max_abs_err"])
+    print(f"phase 3 mixed 1000x2000 over 16 zones: kernel == scan_ref, bound {r['bound']}/"
+          f"{r['pods']}, rr {r['rr']}, max_abs_err {r['max_abs_err']}; shared-memory zone path "
+          f"(msg_a {pl.msg_a} words, zone arrays at {pl.zone_off}) {zone_ms:.3f} ms against "
+          f"{reg_ms:.3f} ms for the same cluster's 3-zone segment (register path)", flush=True)
+
+    m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, host_ports=600)
+    got, seen, backend = checked_batch(m, pods, pctx)
+    widths = [s.g_ports.shape[1] for _, _, s, _ in seen]
+    errs += [r["max_abs_err"] for _, r, _, _ in seen]
+    if (max(widths) > fused_scan.MAX_PORTS or backend.stats["kernel_pods"] != len(pods)
+            or len(seen) < 3):
+        raise AssertionError(f"600-port batch: port widths {widths}, {len(seen)} segments, "
+                             f"kernel_pods {backend.stats['kernel_pods']}")
+    print(f"phase 3 mixed 1000x2000 with 600 distinct host ports: {len(seen)} segments cut "
+          f"under the kernel's {fused_scan.MAX_PORTS}-port vocabulary (port widths "
+          f"{widths}), every segment kernel == scan_ref, bound "
+          f"{sum(g is not None for g in got)}/{len(pods)}, max_abs_err {max(errs[1:])}",
+          flush=True)
+    return errs
+
+
 def other_segments() -> list:
     """Phase 4's other segments, kernel against the plain version; returns
     their max_abs_err.  5000 and 10 000 nodes keep every plane in 16
@@ -218,52 +301,77 @@ def other_segments() -> list:
     return errs
 
 
-def churn_phase() -> int:
+INGEST_KEYS = ("frames", "frame_events", "promotions", "confirm_fallbacks", "decode_s")
+# over the wire the watch readers also parse each line before the decode
+WIRE_KEYS = INGEST_KEYS + ("parse_s",)
+SECONDS_KEYS = ("decode_s", "parse_s")
+
+
+def ingest_line(ph: dict, keys: tuple = INGEST_KEYS) -> str:
+    return " ".join(f"{k} {ph[k]:.4f}" if k in SECONDS_KEYS else f"{k} {int(ph[k])}"
+                    for k in keys)
+
+
+def churn_phase(lazy_ingest: bool = True) -> tuple:
     """Phase 5: the serving path at full width, then per-wave oracle parity
-    of a smaller churn run.  Returns the fused-kernel launches of 5a."""
+    of a smaller churn run; ``lazy_ingest=False`` runs both on the eager
+    ingest path (phase 5c).  Returns (the fused-kernel launches of the
+    full-width run, its pods/s)."""
     from kubernetes_tpu_torch.ops import fused_scan
     from kubernetes_tpu_torch.workload import oracle_replay_waves, run_churn
 
+    a, b = ("5a", "5b") if lazy_ingest else ("5c", "5c parity")
+    path = "lazy, framed ingest" if lazy_ingest else "eager ingest"
     n_nodes, n_pods, waves = 5000, 20000, 10
     fused_scan.launches = 0
-    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=0, device="cuda")
+    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=0, device="cuda",
+                  lazy_ingest=lazy_ingest)
     launches = fused_scan.launches
     st = r["backend"]
     e2e = r["e2e_scheduling_ms"]
-    print(f"phase 5a churn {n_nodes}x{n_pods} mixed in {waves} waves: bound {r['bound']} "
+    print(f"phase {a} churn {n_nodes}x{n_pods} mixed in {waves} waves, {path}: bound {r['bound']} "
           f"unbound {r['unbound']} drained {r['drained']} wall_s {r['wall_s']:.3f} "
           f"pods_per_s {r['pods_per_sec']:.1f} e2e_p50_ms {e2e['p50']} e2e_p99_ms {e2e['p99']} "
           f"launches {launches} segments {st['segments']} kernel_pods {st['kernel_pods']} "
           f"oracle_pods {st['oracle_pods']} kernel_ms {st['kernel_ms']:.3f} "
           f"scheduled_events {r['scheduled_events']}", flush=True)
     for w, ph in enumerate(r["phase_timers"]):
-        print(f"phase 5a wave {w}: bound {ph['bound']} " + " ".join(
-            f"{k} {ph[k]:.4f}" for k in ("pump_s", "apply_s", "decode_s", "tensorize_s",
-                                        "dispatch_s", "device_wait_s", "commit_s", "prep_s",
-                                        "kernel_ms")),
-              flush=True)
+        print(f"phase {a} wave {w}: bound {ph['bound']} " + " ".join(
+            f"{k} {ph[k]:.4f}" for k in ("pump_s", "apply_s", "tensorize_s", "dispatch_s",
+                                        "device_wait_s", "commit_s", "prep_s", "kernel_ms"))
+              + " " + ingest_line(ph), flush=True)
     idle = 1.0 - st["kernel_ms"] / 1e3 / r["wall_s"]
-    print(f"phase 5a device idle share over the wall (1 - kernel_ms / wall): {idle:.4f}",
+    print(f"phase {a} device idle share over the wall (1 - kernel_ms / wall): {idle:.4f}",
           flush=True)
+    totals = {k: sum(ph[k] for ph in r["phase_timers"]) for k in INGEST_KEYS}
+    if lazy_ingest and (totals["frames"] <= 0 or totals["promotions"] <= 0):
+        raise AssertionError(f"the default ingest path ran no frames or promotions: {totals}")
+    if not lazy_ingest and (totals["frames"] or totals["promotions"]):
+        raise AssertionError(f"the eager ingest path ran frames or lazy views: {totals}")
     if launches < waves:
         raise AssertionError(f"churn launched the fused kernel {launches} times in {waves} waves")
     if st["oracle_pods"] != 0 or st["kernel_pods"] != r["drained"]:
         raise AssertionError("the churn path did not run every drained pod through the scan")
-    if r["bound"] + r["unbound"] != n_pods or r["scheduled_events"] != r["bound"]:
+    if r["bound"] + r["unbound"] != r["pods"] or r["scheduled_events"] != r["bound"]:
         raise AssertionError(f"churn accounting: bound {r['bound']} unbound {r['unbound']} "
                              f"events {r['scheduled_events']} of {n_pods} pods")
 
+    pods_per_s = r["pods_per_sec"]
+
     n_nodes, n_pods, waves, seed = 1000, 400, 4, 5
-    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=seed, device="cuda")
+    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=seed, device="cuda",
+                  lazy_ingest=lazy_ingest)
+    for w, ph in enumerate(r["phase_timers"]):
+        print(f"phase {b} wave {w}: bound {ph['bound']} " + ingest_line(ph), flush=True)
     o = oracle_replay_waves(r["drain_batches"], r["assignments"], n_nodes, n_pods,
                             "mixed", seed)
-    print(f"phase 5b churn {n_nodes}x{n_pods} in {waves} waves vs per-wave oracle replay: "
-          f"{o['mode']}, checked {o['checked']}, mismatches {o['mismatches']}, rr "
+    print(f"phase {b} churn {n_nodes}x{n_pods} in {waves} waves, {path}, vs per-wave oracle "
+          f"replay: {o['mode']}, checked {o['checked']}, mismatches {o['mismatches']}, rr "
           f"{r['round_robin']} vs {o['round_robin']}", flush=True)
-    if (o["mode"] != "exact per-wave replay" or o["checked"] != n_pods
+    if (o["mode"] != "exact per-wave replay" or o["checked"] != r["pods"]
             or o["mismatches"] != 0 or o["round_robin"] != r["round_robin"]):
         raise AssertionError(f"churn bindings != per-wave oracle replay: {o}")
-    return launches
+    return launches, pods_per_s
 
 
 def free_port() -> int:
@@ -347,6 +455,21 @@ class Daemons:
         return tuple(next(le for le, acc in buckets if acc >= q * total) / 1e3
                      for q in (0.5, 0.99))
 
+    # the daemon's ingest counters on its /metrics, by WIRE_KEYS; the two
+    # seconds are the sums of its per-drain observations
+    INGEST_METRICS = ("scheduler_watch_frames_total", "scheduler_watch_frame_events_total",
+                      "scheduler_ingest_promotions_total", "scheduler_confirm_fallbacks_total",
+                      "scheduler_ingest_decode_seconds_sum", "scheduler_ingest_parse_seconds_sum")
+
+    def ingest_counters(self) -> dict:
+        text = http_get(f"http://127.0.0.1:{self.health_port}/metrics").decode()
+        values = {}
+        for line in text.splitlines():
+            name, _, value = line.partition(" ")
+            if name in self.INGEST_METRICS:
+                values[name] = float(value)
+        return {k: values.get(m, 0.0) for k, m in zip(WIRE_KEYS, self.INGEST_METRICS)}
+
     def stop_scheduler(self) -> dict:
         self.scheduler.send_signal(signal.SIGTERM)
         rc = self.scheduler.wait(timeout=120)
@@ -386,7 +509,9 @@ def daemon_phase() -> int:
         d = Daemons(workdir, "6a")
         try:
             d.start_scheduler()
-            r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=0)
+            counters = [d.ingest_counters()]
+            r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=0,
+                               on_wave=lambda w: counters.append(d.ingest_counters()))
             p50, p99 = d.e2e_quantiles_ms()
             st = d.stop_scheduler()
             events, _ = RemoteStore(d.url, timeout=120.0).list("Event")
@@ -406,13 +531,38 @@ def daemon_phase() -> int:
               f"{st['oracle_pods']} drained {st['drained']} drains {st['waves']} kernel_ms "
               f"{st['kernel_ms']:.3f} scheduled_events {scheduled}", flush=True)
         print("phase 6a wave seconds: " + " ".join(f"{s:.3f}" for s in r["wave_s"]), flush=True)
+        for w in range(waves):
+            delta = {k: counters[w + 1][k] - counters[w][k] for k in WIRE_KEYS}
+            print(f"phase 6a wave {w} (the daemon's /metrics): " + ingest_line(delta, WIRE_KEYS),
+                  flush=True)
+        # the daemon observes its ingest seconds at the end of each drain:
+        # what its informers and watch readers did after the last drain
+        # (the last wave's bind confirms) is in its totals only
+        total = {"decode_s": st["ingest_decode_s"], "parse_s": st["ingest_parse_s"]}
+        tail = {k: total[k] - counters[-1][k] for k in SECONDS_KEYS}
+        waves_sum = {k: counters[-1][k] - counters[0][k] for k in SECONDS_KEYS}
+        print("phase 6a ingest seconds, before the first wave + the waves + after the last "
+              "wave = the daemon's total: " + " ".join(
+                  f"{k} {counters[0][k]:.4f} + {waves_sum[k]:.4f} + {tail[k]:.4f} = "
+                  f"{total[k]:.4f}" for k in SECONDS_KEYS), flush=True)
+        if any(tail[k] < -1e-9 for k in SECONDS_KEYS):
+            raise AssertionError(f"the daemon observed more ingest seconds than its informers "
+                                 f"and watch readers counted: waves {waves_sum} total {total}")
+        print(f"phase 6a the daemon's host helpers: {st['helpers']}; lazy ingest "
+              f"{st['ingest_lazy']}, frames {st['ingest_frames']}, frame events "
+              f"{st['ingest_frame_events']}, promotions {st['ingest_promotions']}, confirm "
+              f"fallbacks {st['confirm_fallbacks']}", flush=True)
+        if not st["ingest_lazy"] or st["ingest_frames"] <= 0 or st["ingest_promotions"] <= 0:
+            raise AssertionError("the daemon did not run the lazy, framed ingest path")
         idle = 1.0 - st["kernel_ms"] / 1e3 / r["wall_s"]
         print(f"phase 6a device idle share over the wall (1 - kernel_ms / wall): {idle:.4f}; "
               f"batch path {st['batch_s']:.3f} s of the wall (tensorize {st['tensorize_s']:.3f}, "
               f"dispatch {st['dispatch_s']:.3f}, device wait {st['device_wait_s']:.3f}), the "
               f"rest wire, ingest and waiting: {1.0 - st['batch_s'] / r['wall_s']:.4f}; the "
-              f"daemon's informers decoded {st['ingest_bytes']} wire bytes, typed decode "
-              f"{st['ingest_decode_s']:.3f} s, apply {st['ingest_apply_s']:.3f} s",
+              f"daemon's watch readers parsed {st['ingest_bytes']} wire bytes in "
+              f"{st['ingest_parse_s']:.3f} s, its informers decoded them "
+              f"({'lazy wrap' if st['ingest_lazy'] else 'typed'}) in "
+              f"{st['ingest_decode_s']:.3f} s and applied them in {st['ingest_apply_s']:.3f} s",
               flush=True)
         if r["bound"] + r["unbound"] != n_pods or st["launches"] < waves:
             raise AssertionError(f"daemon run: bound {r['bound']} unbound {r['unbound']} "
@@ -452,7 +602,10 @@ def daemon_phase() -> int:
         print(f"phase 6b daemons {n_nodes}x{n_pods} pre-created vs the sequential oracle: "
               f"{o['mode']}, checked {o['checked']}, mismatches {o['mismatches']}, bound "
               f"{sum(1 for n in got.values() if n)}, drains {st['waves']}, rr "
-              f"{st['round_robin']} vs {o['round_robin']}", flush=True)
+              f"{st['round_robin']} vs {o['round_robin']}; ingest: frames "
+              f"{st['ingest_frames']} frame_events {st['ingest_frame_events']} promotions "
+              f"{st['ingest_promotions']} confirm_fallbacks {st['confirm_fallbacks']} decode_s "
+              f"{st['ingest_decode_s']:.4f} parse_s {st['ingest_parse_s']:.4f}", flush=True)
         if (st["waves"] != 1 or st["drained"] != n_pods or o["checked"] != n_pods
                 or o["mismatches"] != 0 or o["round_robin"] != st["round_robin"]):
             raise AssertionError(f"daemon bindings != sequential oracle: {o}, stats {st}")
@@ -468,6 +621,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    from kubernetes_tpu_torch import native
     from kubernetes_tpu_torch.ops import _build, fused_scan
     from kubernetes_tpu_torch.ops.backend import BatchBackend
     from kubernetes_tpu_torch.scheduler.generic_scheduler import FitError, GenericScheduler
@@ -481,6 +635,10 @@ def main() -> int:
     _build.build("fused_scan", verbose=True)  # prints ptxas registers and spills
     _build.load("fused_scan")
     print(f"phase 2 build: fused_scan {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    helpers = native.helpers()
+    print(f"phase 2 host helpers: matcher {helpers['matcher']}, fastcopy {helpers['fastcopy']} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
     # -- phase 3: kernel vs plain on the card; oracle vs backend ----------
     for workload in ("mixed", "plain"):
@@ -489,6 +647,7 @@ def main() -> int:
         r = compare(s, st)
         print(f"phase 3 {workload} 1000x2000: kernel == scan_ref, bound {r['bound']}/"
               f"{r['pods']}, rr {r['rr']}, max_abs_err {r['max_abs_err']}", flush=True)
+    shape_errs = repaired_shapes()
     m, pods, pctx = cluster(1000, 300, "mixed", seed=2)
     oracle = GenericScheduler()
     work = {n: i.clone() for n, i in m.items()}
@@ -542,7 +701,7 @@ def main() -> int:
     print(f"phase 4 main segment: kernel == scan_ref == BatchBackend, rr {r_main['rr']}",
           flush=True)
     print(plan_line("main segment", s_main, st_main), flush=True)
-    errs = [r_main["max_abs_err"], *other_segments()]
+    errs = [r_main["max_abs_err"], *other_segments(), *shape_errs]
 
     ms = time_kernel(s_main, st_main)
     plain_ms = r_main["plain_ms"]
@@ -551,7 +710,11 @@ def main() -> int:
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops)", flush=True)
 
-    churn_launches = churn_phase()
+    churn_launches, lazy_pps = churn_phase()
+    eager_launches, eager_pps = churn_phase(lazy_ingest=False)
+    print(f"phase 5c ingest A/B in this call, 5000x20000 mixed churn: lazy, framed "
+          f"{lazy_pps:.1f} pods/s (5a) against eager {eager_pps:.1f} pods/s (5c), "
+          f"ratio {lazy_pps / eager_pps:.3f}", flush=True)
     daemon_launches = daemon_phase()
 
     entry = {
@@ -559,7 +722,7 @@ def main() -> int:
         "source": "kubernetes_tpu_torch/ops/csrc/fused_scan.cu",
         "replaces": REPLACES, "launches": launches + churn_launches + daemon_launches,
         "launches_by_path": {"batch": launches, "churn": churn_launches,
-                             "daemon": daemon_launches},
+                             "daemon": daemon_launches, "churn_eager": eager_launches},
         "max_abs_err": max(errs),
         "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

@@ -1,0 +1,497 @@
+"""Decode-on-access views over raw wire dicts: the ingest path's core.
+
+The informer's costliest step on the eager path is ``cls.from_dict(obj)``:
+a full typed decode of every watch and LIST payload, paid whether or not
+any consumer reads past ``meta.key``.  This module replaces it with lazy
+views:
+
+- :class:`LazyPod` / :class:`LazyNode`: sectioned wrappers for the two hot
+  kinds.  ``meta`` / ``spec`` / ``status`` decode independently on first
+  touch, and inside a pod spec the four costly list fields (containers,
+  affinity, tolerations, volumes) defer further, so a bind confirmation
+  whose consumers read only ``spec.node_name`` never builds a Container;
+- a generic full-promotion wrapper for every other registered kind: no
+  work at wrap time, one cached ``from_dict`` on the first field read.
+
+Promotion is cached and carries full ``from_dict`` semantics: once a
+section is decoded its typed objects are authoritative.  The raw readers
+below therefore consult the raw dict only while the relevant section is
+still undecoded; afterwards they answer through the typed objects.
+
+The raw readers (``pod_brief``, ``raw_host_ports``, ``raw_has_affinity``,
+``raw_controller_ref``, ``labels_ns_of``, ``resource_version_of``, and the
+signature and content keys in ``models/snapshot``) give the scheduler's
+per-pod loops a column view straight over the wire payload.
+
+``ENABLED`` turns the path off: with False every consumer decodes eagerly
+(``from_dict``) and no lazy object is ever built, so every raw reader
+answers through the typed objects.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional
+
+from .meta import ObjectMeta, OwnerReference
+from . import types as api
+
+# False: eager per-event from_dict everywhere (the eager ingest path)
+ENABLED = True
+
+# decode counters (read by the scheduler's per-wave phases and the churn
+# harness).  Plain ints bumped on the reader's thread: they are telemetry,
+# and a lost increment under thread interleaving is acceptable where a
+# lock round a promotion is not.  A promotion itself is not racy: see
+# _section.__get__ and _lz_promote.
+STATS = {"promotions": 0, "sections": 0}
+
+
+# ---------------------------------------------------------------------------
+# sectioned wrappers: Pod / Node
+# ---------------------------------------------------------------------------
+
+
+class _section:
+    """Decode-on-first-touch section.  A NON-data descriptor (no
+    ``__set__``): the decoded value is installed under the attribute's
+    own name in the instance dict, which shadows the descriptor — every
+    later read is a C-speed instance-attribute lookup, exactly what an
+    eagerly decoded object pays.  (The property version of this cost a
+    Python call per access, ~6x an attribute read, on the scheduler's
+    hottest per-pod reads.)  Plain assignment (mutation after promotion)
+    also just lands in the instance dict and wins."""
+
+    __slots__ = ("decode", "name")
+
+    def __init__(self, decode):
+        self.decode = decode
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self
+        # setdefault (atomic on a dict): of two threads that decode one
+        # section at once, the first install wins and both get it
+        value = obj.__dict__.setdefault(self.name, self.decode(obj))
+        STATS["sections"] += 1
+        return value
+
+
+class _LazyBase:
+    """Shared plumbing: raw storage + field-equality against the base
+    dataclass (the generated dataclass ``__eq__`` refuses cross-class
+    comparison, and a lazy view must compare equal to its eager twin)."""
+
+    _eq_fields: tuple = ()
+
+    def __init__(self, raw: dict):
+        self.__dict__["_lzraw"] = raw
+
+    @property
+    def raw(self) -> dict:
+        """The wire payload this view decodes from.  Shared-immutable:
+        consumers MUST NOT mutate it (informer contract)."""
+        return self.__dict__["_lzraw"]
+
+    def __eq__(self, other):
+        base = self._eq_base
+        if not isinstance(other, base):
+            return NotImplemented
+        return all(getattr(self, f) == getattr(other, f)
+                   for f in self._eq_fields)
+
+    __hash__ = None  # matches the eq=True dataclasses being wrapped
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        """``type(lazy_obj).from_dict(wire)`` builds an eager base object:
+        the inherited classmethod would call ``cls(**fields)`` into the
+        lazy ``__init__(raw)``."""
+        return cls._eq_base.from_dict(d)
+
+
+class LazyObjectMeta(_LazyBase, ObjectMeta):
+    """ObjectMeta view: identity scalars (name/namespace/uid/revision —
+    what ``meta.key`` and the revision fences read) decode eagerly; the
+    dict/list fields (labels, annotations, owner refs, finalizers) — the
+    bulk of ``ObjectMeta.from_dict`` — defer to first touch."""
+
+    _eq_base = ObjectMeta
+    _eq_fields = tuple(ObjectMeta.__dataclass_fields__)
+
+    def __init__(self, raw: "dict | None"):
+        d = raw or {}
+        _LazyBase.__init__(self, d)
+        self.name = d.get("name", "")
+        self.namespace = d.get("namespace", "default")
+        self.uid = d.get("uid", "")
+        self.resource_version = int(d.get("resourceVersion", 0))
+        self.creation_revision = int(d.get("creationRevision", 0))
+        self.deletion_revision = d.get("deletionRevision")
+        self.generation = int(d.get("generation", 0))
+
+    labels = _section(lambda self: dict(self.raw.get("labels") or {}))
+    annotations = _section(lambda self: dict(self.raw.get("annotations") or {}))
+    owner_references = _section(lambda self: [
+        OwnerReference.from_dict(r)
+        for r in self.raw.get("ownerReferences") or []])
+    finalizers = _section(lambda self: list(self.raw.get("finalizers") or []))
+
+
+class LazyPodSpec(_LazyBase, api.PodSpec):
+    """PodSpec view: scalars decode eagerly at construction (plain dict
+    gets), the four expensive list fields defer — they are where
+    ``from_dict`` burns its time (Quantity parses per container,
+    selector/affinity object builds)."""
+
+    _eq_base = api.PodSpec
+    _eq_fields = tuple(api.PodSpec.__dataclass_fields__)
+
+    def __init__(self, raw: Optional[dict]):
+        d = raw or {}
+        _LazyBase.__init__(self, d)
+        self.node_name = d.get("nodeName", "")
+        self.node_selector = dict(d.get("nodeSelector") or {})
+        self.priority = int(d.get("priority", 0))
+        self.priority_class_name = d.get("priorityClassName", "")
+        self.scheduler_name = d.get("schedulerName", "default-scheduler")
+        self.restart_policy = d.get("restartPolicy", "Always")
+        self.service_account_name = d.get("serviceAccountName", "")
+        self.termination_grace_period_seconds = int(
+            d.get("terminationGracePeriodSeconds", 30))
+        ads = d.get("activeDeadlineSeconds")
+        self.active_deadline_seconds = None if ads is None else int(ads)
+        self.host_pid = bool(d.get("hostPID", False))
+        self.host_ipc = bool(d.get("hostIPC", False))
+        self.host_network = bool(d.get("hostNetwork", False))
+
+    containers = _section(lambda self: [
+        api.Container.from_dict(c) for c in self.raw.get("containers") or []])
+    affinity = _section(lambda self: api.Affinity.from_dict(
+        self.raw.get("affinity")))
+    tolerations = _section(lambda self: [
+        api.Toleration.from_dict(t) for t in self.raw.get("tolerations") or []])
+    volumes = _section(lambda self: [
+        api.Volume.from_dict(v) for v in self.raw.get("volumes") or []])
+
+
+# the spec fields whose decode dominates from_dict — undecoded_spec's gate
+_LAZY_SPEC_FIELDS = ("containers", "affinity", "tolerations", "volumes")
+
+
+class LazyPod(_LazyBase, api.Pod):
+    _eq_base = api.Pod
+    _eq_fields = ("meta", "spec", "status")
+
+    meta = _section(lambda self: LazyObjectMeta(self.raw.get("metadata")))
+    spec = _section(lambda self: LazyPodSpec(self.raw.get("spec")))
+    status = _section(lambda self: api.PodStatus.from_dict(
+        self.raw.get("status")))
+
+    def host_ports(self) -> list[tuple[str, int]]:
+        spec = self.__dict__.get("spec")
+        if spec is None or "containers" not in spec.__dict__:
+            raw = spec.raw if spec is not None else (self.raw.get("spec") or {})
+            return raw_host_ports(raw)
+        return api.Pod.host_ports(self)
+
+
+class LazyNode(_LazyBase, api.Node):
+    _eq_base = api.Node
+    _eq_fields = ("meta", "spec", "status")
+
+    meta = _section(lambda self: LazyObjectMeta(self.raw.get("metadata")))
+    spec = _section(lambda self: api.NodeSpec.from_dict(
+        self.raw.get("spec")))
+    status = _section(lambda self: api.NodeStatus.from_dict(
+        self.raw.get("status")))
+
+
+# ---------------------------------------------------------------------------
+# the generic wrapper: any registered kind
+# ---------------------------------------------------------------------------
+
+_GENERIC_CACHE: dict[type, type] = {}
+
+
+class _PromoteOnRead:
+    """Shadows one dataclass field of a generic lazy wrapper: dataclass
+    fields with PLAIN defaults exist as class attributes, so without the
+    shadow a pre-promotion read would silently return the class default
+    instead of promoting (``__getattr__`` only fires on a complete
+    miss).  Non-data: the promoted instance attribute wins afterwards."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name):
+        self.name = name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self
+        obj._lz_promote()
+        try:
+            return obj.__dict__[self.name]
+        except KeyError:
+            raise AttributeError(self.name) from None
+
+
+def _make_generic(cls: type) -> type:
+    """Subclass ``cls`` so any field read before promotion triggers one
+    cached ``from_dict`` (dataclass fields via :class:`_PromoteOnRead`,
+    everything else via ``__getattr__``).  Underscored names never
+    promote — they are internal memo probes (``getattr(pod, "_sig_key",
+    None)`` must stay O(1) and side-effect free)."""
+
+    def __init__(self, raw: dict):
+        object.__setattr__(self, "_lzraw", raw)
+
+    def _lz_promote(self):
+        d = self.__dict__
+        if not d.get("_lz_done"):
+            full = cls.from_dict(d["_lzraw"])
+            for k, v in full.__dict__.items():
+                d.setdefault(k, v)  # explicit writes win over the decode
+            d["_lz_done"] = True
+            STATS["promotions"] += 1
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        self._lz_promote()
+        return object.__getattribute__(self, name)
+
+    def __eq__(self, other):
+        if not isinstance(other, cls):
+            return NotImplemented
+        self._lz_promote()
+        fields = getattr(cls, "__dataclass_fields__", None)
+        names = tuple(fields) if fields else tuple(self.__dict__.keys() - {
+            "_lzraw", "_lz_done"})
+        return all(getattr(self, f) == getattr(other, f, None) for f in names)
+
+    ns = {
+        "__init__": __init__,
+        "_lz_promote": _lz_promote,
+        "__getattr__": __getattr__,
+        "__eq__": __eq__,
+        "__hash__": None,
+        # type(lazy_obj).from_dict(...) must build via the eager base
+        # (the inherited classmethod would call cls(**fields) into the
+        # lazy __init__)
+        "from_dict": classmethod(lambda _cls, d: cls.from_dict(d)),
+        "raw": property(lambda self: self.__dict__["_lzraw"]),
+    }
+    for name in getattr(cls, "__dataclass_fields__", ()):
+        # after the ns dict: a dataclass field named like one of the
+        # helpers (a kind with its own `raw` field) wins over the
+        # wire-dict accessor
+        ns[name] = _PromoteOnRead(name)
+    return type(f"Lazy{cls.__name__}", (cls,), ns)
+
+
+def lazy_class(cls: type) -> type:
+    if cls is api.Pod:
+        return LazyPod
+    if cls is api.Node:
+        return LazyNode
+    sub = _GENERIC_CACHE.get(cls)
+    if sub is None:
+        sub = _GENERIC_CACHE[cls] = _make_generic(cls)
+    return sub
+
+
+def wrap(cls: type, raw: dict):
+    """One lazy view over ``raw`` behaving like ``cls.from_dict(raw)``.
+
+    A structurally broken payload must fail HERE, not later: eager
+    ``from_dict`` raises at decode time and the informer degrades to
+    'stale until relist'; a lazy view that accepted garbage would poison
+    the shared cache and blow up in some handler or wave instead.  The
+    check is shape-level only (top sections must be dicts) — field-level
+    garbage still surfaces at promotion, which is isolated per handler."""
+    if not isinstance(raw, dict):
+        raise TypeError(f"wire payload for {cls.__name__} is "
+                        f"{type(raw).__name__}, not dict")
+    for section in ("metadata", "spec", "status"):
+        v = raw.get(section)
+        if v is not None and not isinstance(v, dict):
+            raise TypeError(f"wire payload section {section!r} is "
+                            f"{type(v).__name__}, not dict")
+    return lazy_class(cls)(raw)
+
+
+# ---------------------------------------------------------------------------
+# promote-and-drop-raw compaction
+# ---------------------------------------------------------------------------
+
+
+def _promote_all_sections(obj, names: tuple) -> None:
+    for name in names:
+        getattr(obj, name)  # _section installs into the instance dict
+
+
+def promote_and_drop_raw(obj) -> bool:
+    """Force-promote every lazy section of ``obj`` and release its pinned
+    wire dict.
+
+    A cached lazy view keeps its whole raw payload alive for its
+    lifetime — including every wire field the typed form doesn't model,
+    which on real payloads is most of the bytes.  This sweep converges a
+    lazy object to exactly what an eager ``from_dict`` would hold: all
+    sections promoted (observable value unchanged — promotion ≡
+    from_dict, pinned by test_lazy), raw references nulled so the wire
+    dicts can be collected.  After the drop every raw fast-path helper
+    (``undecoded_spec``/``undecoded_meta``/``pod_brief``) answers through
+    the typed objects — they all gate on the raw still being present.
+
+    Returns True when a raw payload was actually dropped (False for
+    eager objects and already-compacted views)."""
+    d = getattr(obj, "__dict__", None)
+    if d is None or d.get("_lzraw") is None:
+        return False
+    if isinstance(obj, (LazyPod, LazyNode)):
+        _promote_all_sections(obj, ("meta", "spec", "status"))
+        meta = d["meta"]
+        if isinstance(meta, LazyObjectMeta):
+            _promote_all_sections(meta, ("labels", "annotations",
+                                         "owner_references", "finalizers"))
+            meta.__dict__["_lzraw"] = None
+        spec = d["spec"]
+        if isinstance(spec, LazyPodSpec):
+            _promote_all_sections(spec, _LAZY_SPEC_FIELDS)
+            spec.__dict__["_lzraw"] = None
+        d["_lzraw"] = None
+        return True
+    promote = getattr(obj, "_lz_promote", None)
+    if promote is None:
+        return False  # not a lazy view at all
+    promote()
+    d["_lzraw"] = None
+    return True
+
+
+def _approx_bytes(o) -> int:
+    """Cheap recursive size estimate for a JSON-shaped wire payload —
+    the compaction sweep's freed-bytes accounting.  Same O(payload) cost
+    class as the promotion walk that accompanies it."""
+    if isinstance(o, dict):
+        return sys.getsizeof(o) + sum(
+            _approx_bytes(k) + _approx_bytes(v) for k, v in o.items())
+    if isinstance(o, list):
+        return sys.getsizeof(o) + sum(_approx_bytes(v) for v in o)
+    return sys.getsizeof(o)
+
+
+def raw_payload_size(obj) -> int:
+    """Approximate bytes of the wire payload ``obj`` currently pins
+    (0 for eager objects and already-compacted views).  The sectioned
+    lazy wrappers' nested views alias subtrees of the same top-level
+    raw dict, so the top-level payload is the whole pin."""
+    d = getattr(obj, "__dict__", None)
+    raw = d.get("_lzraw") if d is not None else None
+    return _approx_bytes(raw) if raw is not None else 0
+
+
+# ---------------------------------------------------------------------------
+# raw fast-path readers (the column view)
+# ---------------------------------------------------------------------------
+
+
+def undecoded_spec(pod) -> Optional[dict]:
+    """The raw spec dict when ``pod`` is a lazy pod whose expensive spec
+    fields are still undecoded — the gate every raw fast path shares.
+    Returns None for eager pods and for promoted (possibly mutated)
+    sections, where the typed objects are authoritative."""
+    if type(pod) is not LazyPod:
+        return None
+    spec = pod.__dict__.get("spec")
+    if spec is None:
+        return pod.__dict__["_lzraw"].get("spec") or {}
+    sd = spec.__dict__
+    for f in _LAZY_SPEC_FIELDS:
+        if f in sd:
+            return None
+    return sd["_lzraw"]
+
+
+def undecoded_meta(obj) -> Optional[dict]:
+    """The raw metadata dict while ``obj.meta`` is undecoded — covers
+    both the sectioned wrappers and the generic full-promotion wrappers
+    (promotion/explicit writes land ``meta`` in the instance dict)."""
+    d = getattr(obj, "__dict__", None)
+    if not d:
+        return None
+    raw = d.get("_lzraw")
+    if raw is None or "meta" in d or d.get("_lz_done"):
+        return None
+    return raw.get("metadata") or {}
+
+
+def resource_version_of(obj) -> int:
+    m = undecoded_meta(obj)
+    if m is not None:
+        return int(m.get("resourceVersion", 0))
+    return getattr(obj.meta, "resource_version", 0)
+
+
+def labels_ns_of(obj) -> tuple[dict, str]:
+    """(labels, namespace) without building an ObjectMeta when possible —
+    the HostBatchState ingest reader (O(cluster) on rebuild)."""
+    m = undecoded_meta(obj)
+    if m is not None:
+        return (m.get("labels") or {}, m.get("namespace", "default"))
+    meta = obj.meta
+    if type(meta) is LazyObjectMeta and "labels" not in meta.__dict__:
+        return (meta.raw.get("labels") or {}, meta.namespace)
+    return (meta.labels, meta.namespace)
+
+
+def pod_brief(pod) -> tuple[str, str, str]:
+    """(node_name, scheduler_name, phase) at the cheapest depth available
+    — the scheduler's informer handlers route EVERY pod event on exactly
+    these three fields, and building a spec/status view per event was
+    measurable at wave scale."""
+    if type(pod) is LazyPod:
+        d = pod.__dict__
+        spec = d.get("spec")
+        if spec is None:
+            rs = d["_lzraw"].get("spec") or {}
+            node_name = rs.get("nodeName", "")
+            sched_name = rs.get("schedulerName", "default-scheduler")
+        else:
+            node_name = spec.node_name
+            sched_name = spec.scheduler_name
+        if "status" in d:
+            phase = d["status"].phase
+        else:
+            phase = (d["_lzraw"].get("status") or {}).get("phase", api.PENDING)
+        return node_name, sched_name, phase
+    return pod.spec.node_name, pod.spec.scheduler_name, pod.status.phase
+
+
+def raw_host_ports(spec: dict) -> list[tuple[str, int]]:
+    out = []
+    for c in spec.get("containers") or []:
+        for p in c.get("ports") or []:
+            hp = p.get("hostPort", 0)
+            if hp > 0:
+                out.append((p.get("protocol", "TCP"), hp))
+    return out
+
+
+def raw_has_affinity(spec: dict) -> bool:
+    a = spec.get("affinity")
+    return bool(a) and bool(
+        a.get("podAffinityRequired") or a.get("podAffinityPreferred")
+        or a.get("podAntiAffinityRequired") or a.get("podAntiAffinityPreferred"))
+
+
+def raw_controller_ref(meta: dict) -> Optional[tuple[str, str]]:
+    for ref in meta.get("ownerReferences") or []:
+        if ref.get("controller"):
+            return (ref.get("kind", ""), ref.get("uid", ""))
+    return None

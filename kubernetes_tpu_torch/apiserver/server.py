@@ -13,11 +13,15 @@ lines and ``resourceVersion`` semantics.
 Wire form: JSON.  A watch is a chunked stream of JSON lines, one event a
 line (``type``, ``kind``, ``key``, ``revision``, ``object``), resumable
 with ``resourceVersion`` and ended by the server after ``timeoutSeconds``.
+With ``frames=1`` a ``create_many``/``bind_many`` txn is one line, a
+``WatchFrame`` (``store/frames.py``); with ``columnar=1`` a Pod or Node
+LIST is one packed column batch (``store/columns.py``).  Both are the
+reference package's wire forms.
 
 Routes:
   GET    /healthz  /metrics  /version  /api  /api/v1
-  GET    /api/v1/{resource}[?namespace=&labelSelector=&fieldSelector=]
-  GET    /api/v1/{resource}?watch=true[&resourceVersion=N&timeoutSeconds=S]
+  GET    /api/v1/{resource}[?namespace=&labelSelector=&fieldSelector=&columnar=1]
+  GET    /api/v1/{resource}?watch=true[&resourceVersion=N&timeoutSeconds=S&frames=1]
   POST   /api/v1/{resource}
   GET    /api/v1/namespaces/{ns}/{resource}[?watch=true]
   POST   /api/v1/namespaces/{ns}/{resource}
@@ -53,8 +57,8 @@ from ..store.store import (
     ExpiredRevisionError,
     NotFoundError,
     Store,
-    WatchEvent,
 )
+from ..store.frames import FRAME, event_wire_bytes
 from ..utils.health import handle_debug_path
 from ..utils.metrics import APIServerMetrics
 
@@ -72,19 +76,6 @@ _FIELD_GETTERS: dict[str, Callable[[dict], str]] = {
     "metadata.namespace": lambda i: (i.get("metadata") or {}).get("namespace"),
     "status.phase": lambda i: (i.get("status") or {}).get("phase") or "",
 }
-
-
-def event_wire_bytes(ev: WatchEvent) -> bytes:
-    """One watch line (JSON + newline) for ``ev``, encoded once and shared
-    by every stream: the line is cached on the event, which every
-    watcher's queue shares read-only.  Concurrent first encoders write the
-    same bytes."""
-    got = ev.__dict__.get("_wire")
-    if got is None:
-        got = json.dumps({"type": ev.type, "kind": ev.kind, "key": ev.key,
-                          "revision": ev.revision, "object": ev.object}).encode() + b"\n"
-        object.__setattr__(ev, "_wire", got)
-    return got
 
 
 def compile_selectors(q: dict) -> tuple[Optional[Callable[[dict], bool]], Optional[str]]:
@@ -337,6 +328,12 @@ def _make_handler(server: APIServer):
                 return self._error(400, "BadRequest", err)
             if q.get("watch", ["false"])[0] == "true":
                 return self._serve_watch(kind, namespace, pred, q)
+            if q.get("columnar", ["0"])[0] in ("1", "true") and pred is None:
+                # the packed column batch (store/columns.py), for the kinds
+                # that have one; selector LISTs take the item path
+                batch = store.list_columns(kind, namespace)
+                if batch is not None:
+                    return self._send(200, batch.to_wire())
             items, rev = store.list(kind, namespace)
             if pred is not None:
                 items = [i for i in items if pred(i)]
@@ -351,8 +348,11 @@ def _make_handler(server: APIServer):
                 ns_pred = pred
                 pred = (lambda i: (i.get("metadata") or {}).get("namespace") == namespace
                         and (ns_pred is None or ns_pred(i)))
+            # ?frames=1: one line a correlated batch txn (a WatchFrame,
+            # filtered at the column level under a selector)
+            want_frames = q.get("frames", ["0"])[0] in ("1", "true")
             # an expired revision raises here, before any byte is sent: 410
-            watch = store.watch(kind, from_revision=from_rev)
+            watch = store.watch(kind, from_revision=from_rev, frames=want_frames)
             try:
                 self.send_response(200)
                 self.send_header("Content-Type", "application/json")
@@ -372,8 +372,15 @@ def _make_handler(server: APIServer):
                         if nxt is None:
                             break
                         batch.append(nxt)
-                    lines = [event_wire_bytes(e) for e in batch
-                             if pred is None or pred(e.object)]
+                    lines = []
+                    for e in batch:
+                        if e.type == FRAME:
+                            frame = e if pred is None else e.select(
+                                [i for i, o in enumerate(e.objects) if o is not None and pred(o)])
+                            if frame is not None:
+                                lines.append(frame.wire_bytes())
+                        elif pred is None or pred(e.object):
+                            lines.append(event_wire_bytes(e))
                     if lines:
                         self._write_chunk(b"".join(lines))
                 self.wfile.write(b"0\r\n\r\n")

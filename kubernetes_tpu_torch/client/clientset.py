@@ -11,7 +11,9 @@ update/delete/watch per kind, plus the verbs the scheduler commits with:
 - ``PodClient.bind_many`` — one store transaction for a whole wave.
 
 Everything passes through the wire form (``to_dict``/``from_dict``), so
-callers never share an object with the store.
+callers never share an object with the store.  Store responses decode to
+lazy views (``api/lazy.py``) while ``lazy.ENABLED`` holds, eagerly
+otherwise; ``list_lazy``/``list_columns`` are the informer's LIST paths.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import copy
 from typing import Callable, Optional, Type
 
+from ..api import lazy as lazy_mod
 from ..api import types as api
 from ..store.store import Store, Watch
 
@@ -49,6 +52,10 @@ class TypedClient:
         return d
 
     def _decode(self, d: dict):
+        """A store response as a lazy view (a caller that never reads it
+        pays nothing), or the eager typed decode with lazy decode off."""
+        if lazy_mod.ENABLED:
+            return lazy_mod.lazy_class(self._cls)(d)
         return self._cls.from_dict(d)
 
     def create(self, obj):
@@ -84,6 +91,21 @@ class TypedClient:
         dicts, rev = self._store.list(self.kind, namespace)
         return [self._cls.from_dict(d) for d in dicts], rev
 
+    def list_lazy(self, namespace: Optional[str] = None):
+        """LIST into decode-on-access views: the same objects, with
+        ``from_dict`` deferred until a field is read."""
+        if namespace is not None:
+            namespace = self._ns(namespace)
+        dicts, rev = self._store.list(self.kind, namespace)
+        cls = lazy_mod.lazy_class(self._cls)
+        return [cls(d) for d in dicts], rev
+
+    def list_columns(self):
+        """A packed column batch (``store/columns.py``) for the kinds that
+        have one (Pod, Node), else None: callers fall back to
+        :meth:`list_lazy`/:meth:`list`."""
+        return self._store.list_columns(self.kind)
+
     def update(self, obj):
         return self._decode(self._store.update(self.kind, self._to_wire(obj)))
 
@@ -113,7 +135,11 @@ class TypedClient:
     def delete(self, name: str, namespace: Optional[str] = None):
         return self._cls.from_dict(self._store.delete(self.kind, self._ns(namespace), name))
 
-    def watch(self, from_revision: Optional[int] = None) -> Watch:
+    def watch(self, from_revision: Optional[int] = None, frames: bool = False) -> Watch:
+        """``frames=True``: one ``WatchFrame`` a correlated store txn
+        instead of its events (for frame-aware consumers: the informer)."""
+        if frames:
+            return self._store.watch(self.kind, from_revision, frames=True)
         return self._store.watch(self.kind, from_revision)
 
 

@@ -12,6 +12,13 @@ Two drive modes:
   its own thread (deterministic tests and single-threaded loops).
 
 Objects handed to handlers are shared and must not be mutated.
+
+Ingest: while ``api.lazy.ENABLED`` holds, the informer LISTs through the
+store's column batch (``list_columns``) or lazy views (``list_lazy``) and
+wraps every watch payload in a lazy view instead of decoding it; it
+watches with ``frames=True``, so a ``create_many``/``bind_many`` txn
+arrives as one ``WatchFrame`` applied under one lock hold and handed to
+batch-aware handlers (``Handler.on_batch``) in one call.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..api import lazy as lazy_mod
+from ..store.frames import FRAME, WatchFrame
 from ..store.store import (
     ADDED,
     DELETED,
@@ -45,10 +54,16 @@ class Handler:
         on_add: Optional[Callable] = None,
         on_update: Optional[Callable] = None,
         on_delete: Optional[Callable] = None,
+        on_batch: Optional[Callable] = None,
     ):
         self.on_add = on_add or (lambda obj: None)
         self.on_update = on_update or (lambda old, new: None)
         self.on_delete = on_delete or (lambda obj: None)
+        # a batch-aware handler receives a whole watch frame in one call:
+        # ``on_batch(frame, deltas)``, deltas = [(type, old, new, i)] (i
+        # indexes the frame's columns; fenced events are absent).  Without
+        # it a handler gets the per-event callbacks for a framed event.
+        self.on_batch = on_batch
 
 
 class SharedInformer:
@@ -64,10 +79,14 @@ class SharedInformer:
         self._stopped = threading.Event()
         self.last_revision = 0
         self.metrics = DEFAULT_CLIENT_METRICS
-        # decode_s (typed decode) and apply_s (decode + cache + handlers)
-        # are cumulative: the churn harness deltas them per wave
+        # cumulative, deltaed per wave by the churn harness: decode_s
+        # (wrap or typed decode) and apply_s (decode + cache + handlers);
+        # frames applied, the events they carried, frames lost whole
+        # (-> gap), and objects compacted (promote-and-drop-raw)
         self.stats = {"relists": 0, "handler_errors": 0, "relist_failures": 0,
-                      "decode_errors": 0, "decode_s": 0.0, "apply_s": 0.0}
+                      "decode_errors": 0, "decode_s": 0.0,
+                      "apply_s": 0.0, "frames": 0, "frame_events": 0,
+                      "batch_errors": 0, "compactions": 0}
         # serializes relist(): two callers must not build two watches
         self._relist_mu = threading.Lock()
         # set when a delta was lost (undecodable payload) or a relist
@@ -101,24 +120,45 @@ class SharedInformer:
         return self._synced.is_set()
 
     # -- lifecycle ---------------------------------------------------------
+    def _list(self):
+        """LIST through the cheapest path: the store's column batch (raw
+        views and identity columns), else lazy views, else the eager typed
+        decode (lazy decode off).  Returns (objects, revision, keys or
+        None): a column batch's keys spare seeding the meta decode."""
+        if lazy_mod.ENABLED:
+            batch = self._client.list_columns()
+            if batch is not None:
+                return batch.objects(), batch.revision, batch.keys
+            objs, rev = self._client.list_lazy()
+            return objs, rev, None
+        objs, rev = self._client.list()
+        return objs, rev, None
+
+    def _watch_from(self, rev: int):
+        """The watch from ``rev``, framed (the informer is frame-aware)."""
+        return self._client.watch(from_revision=rev, frames=True)
+
     def _list_and_watch(self):
         """LIST, then WATCH from the list revision; a window that slid past
         that revision in between (``ExpiredRevisionError``) lists again.
-        Returns (objects, revision, watch)."""
+        Returns (cache dict, revision, watch)."""
         attempts = 0
         while True:
-            objs, rev = self._client.list()
+            objs, rev, keys = self._list()
             try:
-                return objs, rev, self._client.watch(from_revision=rev)
+                watch = self._watch_from(rev)
             except ExpiredRevisionError:
                 attempts += 1
                 if attempts >= _MAX_LIST_WATCH_ATTEMPTS:
                     raise
+                continue
+            cache = dict(zip(keys, objs)) if keys is not None else {o.meta.key: o for o in objs}
+            return cache, rev, watch
 
     def _seed(self) -> None:
-        objs, rev, watch = self._list_and_watch()
+        cache, rev, watch = self._list_and_watch()
         with self._mu:
-            self._cache = {o.meta.key: o for o in objs}
+            self._cache = cache
             self.last_revision = rev
             self._watch = watch
             handlers = list(self._handlers)
@@ -161,7 +201,7 @@ class SharedInformer:
                 # the watch loop is the informer's heartbeat: one bad
                 # delta must not end it
                 logger.exception("informer %s: failed to apply %s %s",
-                                 self.kind, ev.type, ev.key)
+                                 self.kind, ev.type, getattr(ev, "key", ""))
 
     def pump(self) -> int:
         """Apply every pending event on this thread.  A no-op when the
@@ -178,7 +218,8 @@ class SharedInformer:
             if ev is None:
                 break
             self._apply(ev)
-            n += 1
+            # a frame counts for the events it carried
+            n += len(ev) if ev.type == FRAME else 1
         return n
 
     # -- relist (reflector 410 fallback + resync) --------------------------
@@ -192,8 +233,7 @@ class SharedInformer:
         so a failure here leaves the informer as it was; ``_try_relist``
         marks the gap for the next turn."""
         with self._relist_mu:
-            objs, rev, new_watch = self._list_and_watch()
-            new_cache = {o.meta.key: o for o in objs}
+            new_cache, rev, new_watch = self._list_and_watch()
             with self._mu:
                 old_watch = self._watch
                 old_cache = self._cache
@@ -213,7 +253,8 @@ class SharedInformer:
             if old is None:
                 for h in handlers:
                     self._deliver(h.on_add, obj)
-            elif old.meta.resource_version != obj.meta.resource_version:
+            elif lazy_mod.resource_version_of(old) != lazy_mod.resource_version_of(obj):
+                # raw-aware: a resync diff decodes no object's meta
                 for h in handlers:
                     self._deliver(h.on_update, old, obj)
         for key, old in old_cache.items():
@@ -246,7 +287,10 @@ class SharedInformer:
             logger.exception("informer %s: handler error (isolated)", self.kind)
 
     # -- delta application -------------------------------------------------
-    def _apply(self, ev: WatchEvent) -> None:
+    def _apply(self, ev) -> None:
+        if ev.type == FRAME:
+            # a column-packed batch: one lock hold for the whole frame
+            return self._apply_batch(ev)
         t_apply = time.perf_counter()
         try:
             self._apply_event(ev)
@@ -266,7 +310,12 @@ class SharedInformer:
             return
         t_decode = time.perf_counter()
         try:
-            obj = self._client._cls.from_dict(ev.object)
+            if lazy_mod.ENABLED:
+                # the payload becomes the object's wire backing; typed
+                # fields materialize on first touch
+                obj = lazy_mod.wrap(self._client._cls, ev.object)
+            else:
+                obj = self._client._cls.from_dict(ev.object)
         except Exception:
             # the delta is lost, not the watch loop: relist next turn
             with self._mu:
@@ -293,6 +342,108 @@ class SharedInformer:
                 self._deliver(h.on_update, old, obj)
             elif ev.type == DELETED:
                 self._deliver(h.on_delete, old if old is not None else obj)
+
+    # -- batch (frame) application -----------------------------------------
+    def _decode_frame(self, frame: WatchFrame, fence: int) -> tuple:
+        """Decode a frame's payloads outside the cache lock.  Returns
+        (decoded, decode_errors, decode_s), decoded = [(i, type, key,
+        revision, obj)].  An undecodable payload loses that delta (gap
+        marked), never the frame."""
+        decoded = []
+        decode_errors = 0
+        t_decode = time.perf_counter()
+        cls = self._client._cls
+        for i in range(len(frame)):
+            etype, key, rev = frame.types[i], frame.keys[i], frame.revisions[i]
+            if rev <= fence:
+                continue  # stragglers inside a superseded frame
+            try:
+                raw = frame.objects[i]
+                obj = lazy_mod.wrap(cls, raw) if lazy_mod.ENABLED else cls.from_dict(raw)
+            except Exception:
+                decode_errors += 1
+                logger.exception("informer %s: failed to decode %s %s in a frame — "
+                                 "relist scheduled", self.kind, etype, key)
+                continue
+            decoded.append((i, etype, key, rev, obj))
+        return decoded, decode_errors, time.perf_counter() - t_decode
+
+    def _apply_batch(self, frame: WatchFrame) -> None:
+        """Apply one frame: decode outside the lock, land the whole batch
+        in the cache under one lock hold, and hand it to each handler in
+        one isolated ``on_batch`` call (or the per-event callbacks).  A
+        frame that fails before any event applied is lost as a unit and
+        marks a gap, which the relist path heals."""
+        t_apply = time.perf_counter()
+        try:
+            decoded, decode_errors, decode_s = self._decode_frame(frame, self.last_revision)
+        except Exception:
+            with self._mu:
+                self.stats["batch_errors"] += 1
+                self._gap_pending = True
+            self.metrics.informer_frame_errors.inc()
+            logger.exception("informer %s: failed to apply a %d-event frame — relist "
+                             "scheduled", self.kind, len(frame))
+            return
+        if decode_errors:
+            self.metrics.informer_decode_errors.inc(decode_errors)
+        applied: list = []
+        with self._mu:
+            self.stats["frames"] += 1
+            self.stats["decode_errors"] += decode_errors
+            if decode_errors:
+                self._gap_pending = True
+            self.stats["decode_s"] += decode_s
+            for i, etype, key, rev, obj in decoded:
+                if rev <= self.last_revision:
+                    continue  # a concurrent relist superseded this event
+                old = self._cache.get(key)
+                if etype == DELETED:
+                    self._cache.pop(key, None)
+                else:
+                    self._cache[key] = obj
+                self.last_revision = max(self.last_revision, rev)
+                applied.append((etype, old, obj, i))
+            self.stats["frame_events"] += len(applied)
+            handlers = list(self._handlers)
+        for h in handlers:
+            if h.on_batch is not None:
+                self._deliver(h.on_batch, frame, applied)
+                continue
+            for etype, old, obj, _i in applied:
+                if etype == ADDED:
+                    self._deliver(h.on_add, obj)
+                elif etype == MODIFIED:
+                    self._deliver(h.on_update, old, obj)
+                elif etype == DELETED:
+                    self._deliver(h.on_delete, old if old is not None else obj)
+        dt = time.perf_counter() - t_apply
+        with self._mu:
+            self.stats["apply_s"] += dt
+
+    # -- cache compaction (promote-and-drop-raw) ---------------------------
+    def compact_cache(self) -> int:
+        """Promote every lazy view of the cache to its typed form and
+        release its pinned wire dict.  Promotion is what any reader would
+        have triggered, so concurrent readers are safe and the objects'
+        values are unchanged.  Returns the number of objects whose payload
+        was dropped; the approximate bytes released go to
+        ``client_informer_compaction_freed_bytes``."""
+        with self._mu:
+            objs = list(self._cache.values())
+        n = 0
+        freed = 0
+        for obj in objs:
+            size = lazy_mod.raw_payload_size(obj)
+            if lazy_mod.promote_and_drop_raw(obj):
+                n += 1
+                freed += size
+        with self._mu:
+            self.stats["compactions"] += n
+        if n:
+            self.metrics.informer_compactions.inc(n)
+        self.metrics.informer_compaction_freed_bytes.set(freed)
+        return n
 
 
 class InformerFactory:

@@ -23,8 +23,14 @@ relist):
 - ``RemoteWatch.stop()`` shuts the stream's socket down, which unblocks
   the reader thread at once.
 
+``watch(frames=True)`` asks for ``?frames=1``: a ``create_many``/
+``bind_many`` txn arrives as one ``WatchFrame`` line, fenced by its last
+revision; a frame line whose columns are broken loses its events as a
+unit, so the watch emits ``WATCH_GAP`` and ends, as on a 410.
+``list_columns`` is the ``?columnar=1`` LIST.
+
 Every failure path bumps a counter of ``utils.metrics.ClientMetrics``.
-There is no TLS, binary wire form, PATCH or columnar list here yet."""
+There is no TLS, binary wire form or PATCH here yet."""
 
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from typing import Callable, Optional
 from urllib.parse import quote, urlsplit
 
 from ..api.types import KIND_PLURALS
+from ..store.columns import COLUMN_BATCH_KINDS
+from ..store.frames import FRAME, FrameDecodeError, WatchFrame
 from ..store.store import (
     WATCH_GAP,
     AlreadyExistsError,
@@ -146,6 +154,10 @@ class RemoteWatch:
     - **410 Gone** on resume: the server's event-log window slid past the
       bookmark and no reconnect can recover the lost deltas.  Emit
       ``WATCH_GAP`` and end; the informer relists and builds a new watch.
+    - **a broken frame** (a ``frames=1`` line that parsed as JSON but whose
+      columns do not hold together): its events are lost as a unit and
+      the bookmark cannot be trusted past it.  The same as a 410:
+      ``WATCH_GAP`` and end, never a partial apply.
     - **stopped**: clean shutdown.
     - anything else (reset, timeout, truncated line, 5xx on reconnect):
       transient.  Count it, back off exponentially (honoring a 429/503
@@ -155,8 +167,9 @@ class RemoteWatch:
 
     def __init__(self, resource: str, from_revision: Optional[int],
                  opener: Callable[[str], _Stream], metrics: ClientMetrics,
-                 sleep: Callable[[float], None] = time.sleep):
+                 sleep: Callable[[float], None] = time.sleep, frames: bool = False):
         self._resource = resource
+        self._frames = frames
         self._opener = opener
         self.metrics = metrics
         self._sleep = sleep
@@ -173,6 +186,8 @@ class RemoteWatch:
 
     def _path(self) -> str:
         path = f"/api/v1/{self._resource}?watch=true&timeoutSeconds={WATCH_TIMEOUT_S}"
+        if self._frames:
+            path += "&frames=1"
         if self._last_rev is not None:
             path += f"&resourceVersion={self._last_rev}"
         return path
@@ -194,8 +209,29 @@ class RemoteWatch:
                     if not line:
                         continue
                     self.metrics.ingest_bytes.inc(len(line))
+                    t_parse = time.perf_counter()
                     d = json.loads(line)
+                    if d.get("type") == FRAME:
+                        try:
+                            frame = WatchFrame.from_wire(d)
+                            self.metrics.watch_parse_seconds.inc(time.perf_counter() - t_parse)
+                        except (FrameDecodeError, TypeError, ValueError) as e:
+                            logger.warning("watch %s: undecodable frame (%s): emitting a gap "
+                                           "for a relist", self._resource, e)
+                            self.metrics.watch_errors.inc()
+                            self.metrics.watch_gaps.inc()
+                            self._queue.put(WatchEvent(WATCH_GAP, "", "", self._last_rev or 0, {}))
+                            return
+                        # the frame's fence: a replayed frame at or below
+                        # the bookmark was seen already
+                        if self._last_rev is not None and frame.revision <= self._last_rev:
+                            continue
+                        self._last_rev = frame.revision
+                        backoff = BACKOFF_MIN_S
+                        self._queue.put(frame)
+                        continue
                     ev = WatchEvent(d["type"], d["kind"], d["key"], d["revision"], d["object"])
+                    self.metrics.watch_parse_seconds.inc(time.perf_counter() - t_parse)
                     self._last_rev = ev.revision
                     backoff = BACKOFF_MIN_S  # a healthy stream resets it
                     self._queue.put(ev)
@@ -428,6 +464,22 @@ class RemoteStore:
         out = self._call("GET", path)
         return out["items"], int(out["resourceVersion"])
 
+    def list_columns(self, kind: str = "Pod", namespace: Optional[str] = None):
+        """Columnar LIST (``?columnar=1``): the server ships the batch's raw
+        views in one response and the columns are rebuilt here.  None for
+        a kind without a columnar form, or a server that answered with
+        plain items."""
+        batch_cls = COLUMN_BATCH_KINDS.get(kind)
+        if batch_cls is None:
+            return None
+        path = f"/api/v1/{self._resource(kind)}?columnar=1"
+        if namespace is not None:
+            path += f"&namespace={quote(namespace)}"
+        out = self._call("GET", path)
+        if out.get("kind") != f"{kind}ColumnBatch":
+            return None
+        return batch_cls.from_wire(out)
+
     def update(self, kind: str, obj: dict, expect_rev: Optional[int] = None,
                _trusted: bool = False) -> dict:
         meta = obj.get("metadata") or {}
@@ -456,9 +508,9 @@ class RemoteStore:
             {"podNamespace": ns, "podName": name, "nodeName": node} for ns, name, node in items]})
         return out["errors"]
 
-    def watch(self, kind: Optional[str] = None,
-              from_revision: Optional[int] = None) -> RemoteWatch:
+    def watch(self, kind: Optional[str] = None, from_revision: Optional[int] = None,
+              frames: bool = False) -> RemoteWatch:
         if kind is None:
             raise RemoteError("a remote watch needs a kind")
         return RemoteWatch(self._resource(kind), from_revision, self._open_stream,
-                           self.metrics, sleep=self._sleep)
+                           self.metrics, sleep=self._sleep, frames=frames)

@@ -24,9 +24,10 @@ from typing import Optional
 
 import numpy as np
 
+from ..api import lazy as lazy_mod
 from ..api import types as api
 from ..scheduler.nodeinfo import NodeInfo
-from .matcher import MatchEngine
+from ..native import MatchEngine
 from ..scheduler.predicates import (
     VOLUME_COUNT_LIMITS,
     _READONLY_SHARED_KINDS,
@@ -60,38 +61,107 @@ def _freeze(x):
     return x
 
 
+def _raw_sig_spec_parts(spec: dict, ns: str, labels_t: tuple, ref) -> tuple:
+    """Assemble the signature key from a RAW spec dict plus resolved meta
+    components — field-for-field the same key `pod_signature_key` builds
+    from a decoded pod (store payloads are ``to_dict`` images, so the
+    frozen subtrees come out identical)."""
+    aff = spec.get("affinity")
+    return (
+        ns,
+        labels_t,
+        tuple(sorted((spec.get("nodeSelector") or {}).items())),
+        spec.get("nodeName", ""),
+        _freeze(aff) if aff else None,
+        tuple(_freeze(t) for t in spec.get("tolerations") or ()),
+        tuple(_freeze(v) for v in spec.get("volumes") or ()
+              if not v.get("diskID")),
+        ref,
+        tuple(
+            (
+                c.get("image", ""),
+                tuple(sorted(
+                    (k, str(v)) for k, v in
+                    (((c.get("resources") or {}).get("requests")) or {}).items())),
+                tuple(sorted(
+                    (p.get("protocol", "TCP"), p.get("hostPort", 0))
+                    for p in c.get("ports") or () if p.get("hostPort", 0) > 0)),
+            )
+            for c in spec.get("containers") or ()
+        ),
+    )
+
+
+def raw_pod_signature_key(d: dict) -> tuple:
+    """``pod_signature_key`` straight from a wire dict: the column-batch
+    emit path groups without constructing a typed object."""
+    meta = d.get("metadata") or {}
+    spec = d.get("spec") or {}
+    return _raw_sig_spec_parts(
+        spec,
+        meta.get("namespace", "default"),
+        tuple(sorted((meta.get("labels") or {}).items())),
+        lazy_mod.raw_controller_ref(meta),
+    )
+
+
 def pod_signature_key(pod: api.Pod) -> tuple:
     """Canonical scheduling-equivalence key: exact over everything the
     predicates and priorities read.  An opaque hashable nested tuple.
 
     Memoized on the pod object: the backend's segmenter and build_static
     both key every pod of every segment.  Safe because batch pods are
-    immutable while in flight (a spec change produces a new object)."""
+    immutable while in flight (a spec change produces a new object).
+
+    A lazy pod whose spec is still undecoded keys straight off its wire
+    dict (``_raw_sig_spec_parts``): the same tuple for store round-tripped
+    payloads, so grouping is unchanged and no Container or Affinity object
+    is built.  A payload that kept a client's unnormalized JSON (defaulted
+    keys omitted) may key differently from its eager twin, which only
+    splits equivalence groups more finely, never merges distinct pods."""
     cached = getattr(pod, "_sig_key", None)
     if cached is not None:
         return cached
-    ref = pod.meta.controller_ref()
-    key = (
-        pod.meta.namespace,
-        tuple(sorted(pod.meta.labels.items())),
-        tuple(sorted(pod.spec.node_selector.items())),
-        pod.spec.node_name,
-        _freeze(pod.spec.affinity.to_dict()) if pod.spec.affinity else None,
-        tuple(_freeze(t.to_dict()) for t in pod.spec.tolerations),
-        # direct-disk volumes are deliberately EXCLUDED: their identity
-        # lives on the per-pod volume-slot axis (pod_vol_ids), so distinct
-        # disk ids do not mint new signatures
-        tuple(_freeze(v.to_dict()) for v in pod.spec.volumes if not v.disk_id),
-        (ref.kind, ref.uid) if ref else None,
-        tuple(
-            (
-                c.image,
-                tuple(sorted((k, str(v)) for k, v in c.resources.requests.items())),
-                tuple(sorted((p.protocol, p.host_port) for p in c.ports if p.host_port > 0)),
-            )
-            for c in pod.spec.containers
-        ),
-    )
+    spec_raw = lazy_mod.undecoded_spec(pod)
+    if spec_raw is not None:
+        meta_raw = lazy_mod.undecoded_meta(pod)
+        if meta_raw is not None:
+            key = _raw_sig_spec_parts(
+                spec_raw,
+                meta_raw.get("namespace", "default"),
+                tuple(sorted((meta_raw.get("labels") or {}).items())),
+                lazy_mod.raw_controller_ref(meta_raw))
+        else:
+            # meta already decoded (the queue read .key): read it typed
+            ref = pod.meta.controller_ref()
+            key = _raw_sig_spec_parts(
+                spec_raw,
+                pod.meta.namespace,
+                tuple(sorted(pod.meta.labels.items())),
+                (ref.kind, ref.uid) if ref else None)
+    else:
+        ref = pod.meta.controller_ref()
+        key = (
+            pod.meta.namespace,
+            tuple(sorted(pod.meta.labels.items())),
+            tuple(sorted(pod.spec.node_selector.items())),
+            pod.spec.node_name,
+            _freeze(pod.spec.affinity.to_dict()) if pod.spec.affinity else None,
+            tuple(_freeze(t.to_dict()) for t in pod.spec.tolerations),
+            # direct-disk volumes are deliberately EXCLUDED: their identity
+            # lives on the per-pod volume-slot axis (pod_vol_ids), so
+            # distinct disk ids do not mint new signatures
+            tuple(_freeze(v.to_dict()) for v in pod.spec.volumes if not v.disk_id),
+            (ref.kind, ref.uid) if ref else None,
+            tuple(
+                (
+                    c.image,
+                    tuple(sorted((k, str(v)) for k, v in c.resources.requests.items())),
+                    tuple(sorted((p.protocol, p.host_port) for p in c.ports if p.host_port > 0)),
+                )
+                for c in pod.spec.containers
+            ),
+        )
     try:
         object.__setattr__(pod, "_sig_key", key)
     except AttributeError:
@@ -103,7 +173,24 @@ def count_affinity_terms(pod: api.Pod) -> int:
     """Number of (anti)affinity term rows this pod contributes to the [T, G]
     tables (empty-topology-key terms never become rows).  Shared by the
     build_static budget probe and the backend's segmenter so both always
-    agree on what fits."""
+    agree on what fits.  The raw branch mirrors the ``from_dict``
+    topology-key default (absent key -> hostname -> counts)."""
+    spec_raw = lazy_mod.undecoded_spec(pod)
+    if spec_raw is not None:
+        a = spec_raw.get("affinity")
+        if not a:
+            return 0
+        n = 0
+        for fld in ("podAffinityRequired", "podAntiAffinityRequired"):
+            for t in a.get(fld) or ():
+                if t.get("topologyKey", api.HOSTNAME_LABEL):
+                    n += 1
+        for fld in ("podAffinityPreferred", "podAntiAffinityPreferred"):
+            for wt in a.get(fld) or ():
+                if (wt.get("podAffinityTerm") or {}).get(
+                        "topologyKey", api.HOSTNAME_LABEL):
+                    n += 1
+        return n
     a = pod.spec.affinity
     if a is None:
         return 0
@@ -116,7 +203,14 @@ def count_affinity_terms(pod: api.Pod) -> int:
 
 
 def _disk_refs(pod: api.Pod) -> list:
-    """(disk_kind, disk_id, read_only) per direct-disk volume reference."""
+    """(disk_kind, disk_id, read_only) per direct-disk volume reference,
+    raw first: the per-pod loops never decode a spec just to learn it has
+    no volumes."""
+    spec_raw = lazy_mod.undecoded_spec(pod)
+    if spec_raw is not None:
+        return [(v.get("diskKind", ""), v.get("diskID", ""),
+                 bool(v.get("readOnly", False)))
+                for v in spec_raw.get("volumes") or () if v.get("diskID")]
     if not pod.spec.volumes:
         return []
     return [(v.disk_kind, v.disk_id, v.read_only)
@@ -238,16 +332,29 @@ def _node_static_cols(rep, infos, js, is_best_effort, ref, images,
 def _pod_content_key(pod: api.Pod) -> tuple:
     """Content identity of a pod as the host state sees it (labels +
     namespace + disk refs), memoized on the pod object under the same
-    immutability contract as ``pod_signature_key``."""
+    immutability contract as ``pod_signature_key``; lazy pods read the
+    wire dict (the same tuples, by the round-trip argument)."""
     cached = getattr(pod, "_hbs_key", None)
     if cached is not None:
         return cached
-    disks = None
-    if pod.spec.volumes:
-        disks = tuple(sorted(
-            (v.disk_kind, v.disk_id, v.read_only)
-            for v in pod.spec.volumes if v.disk_id))
-    key = (pod.meta.namespace, tuple(sorted(pod.meta.labels.items())), disks)
+    spec_raw = lazy_mod.undecoded_spec(pod)
+    if spec_raw is not None:
+        disks = None
+        vols = spec_raw.get("volumes")
+        if vols:
+            disks = tuple(sorted(
+                (v.get("diskKind", ""), v.get("diskID", ""),
+                 bool(v.get("readOnly", False)))
+                for v in vols if v.get("diskID")))
+        labels, ns = lazy_mod.labels_ns_of(pod)
+        key = (ns, tuple(sorted(labels.items())), disks)
+    else:
+        disks = None
+        if pod.spec.volumes:
+            disks = tuple(sorted(
+                (v.disk_kind, v.disk_id, v.read_only)
+                for v in pod.spec.volumes if v.disk_id))
+        key = (pod.meta.namespace, tuple(sorted(pod.meta.labels.items())), disks)
     try:
         object.__setattr__(pod, "_hbs_key", key)
     except AttributeError:
@@ -400,8 +507,8 @@ class HostBatchState:
         content = _pod_content_key(pod)
         lid = self._lid_memo.get(content[:2])
         if lid is None:
-            lid = self.eng.add_labelmap(
-                {**pod.meta.labels, _NS_KEY: pod.meta.namespace})
+            labels, ns = lazy_mod.labels_ns_of(pod)
+            lid = self.eng.add_labelmap({**labels, _NS_KEY: ns})
             self._lid_memo[content[:2]] = lid
         self._content_rc[content[:2]] = self._content_rc.get(content[:2], 0) + 1
         idx = len(self.pod_lids)

@@ -5,9 +5,9 @@ drained FIFO batch: it reproduces the sequential-greedy decisions of the
 CPU oracle (``scheduler/generic_scheduler.py``) binding for binding.
 
 One ordered pass cuts the batch into segments that respect the tensor
-budgets (signatures, affinity terms, conflict-capable disks, pods per
-segment); pods with more distinct disks than a volume slot row holds run as
-singleton oracle segments.  Each kernel segment is tensorized against the
+budgets (signatures, affinity terms, conflict-capable disks, host ports,
+pods per segment); pods with more distinct disks than a volume slot row
+holds run as singleton oracle segments.  Each kernel segment is tensorized against the
 state its predecessors left, carried to the device (``models/carry.py``),
 scanned, and its chosen nodes committed into a copy-on-write work map.
 
@@ -126,42 +126,60 @@ class BatchBackend:
         the state its predecessors left.  Pods with more distinct disks than
         ``vols_per_pod`` become singleton oracle segments.  The volume
         budget counts conflict-capable disks only (shared within the
-        segment or already mounted)."""
+        segment or already mounted).  The host-port budget keeps the
+        segment's port vocabulary, bucketed as the tensorizer buckets it,
+        within the fused kernel's ``MAX_PORTS`` (on the CPU too, so both
+        devices cut alike).  On the card a signature with more ports than
+        that raises here, before anything is tensorized: a wider segment
+        would also widen the tensorizer's sticky port bucket for every
+        later one.  The CPU's plain scan takes it as a segment of its
+        own."""
         tz = self.tensorizer
+        max_ports = fused_scan.MAX_PORTS // tz.port_multiple * tz.port_multiple
         mounted = mounted_disks if mounted_disks is not None else set()
         out: list[tuple[str, list[tuple[int, api.Pod]]]] = []
         cur: list[tuple[int, api.Pod]] = []
         sigs: set = set()
         vols_once: set = set()
         vols_conflict: set = set()
+        ports: set = set()
         n_terms = 0
 
         def flush() -> None:
-            nonlocal cur, sigs, vols_once, vols_conflict, n_terms
+            nonlocal cur, sigs, vols_once, vols_conflict, ports, n_terms
             if cur:
                 out.append(("kernel", cur))
-            cur, sigs, vols_once, vols_conflict, n_terms = [], set(), set(), set(), 0
+            cur, sigs, vols_once, vols_conflict, ports, n_terms = [], set(), set(), set(), set(), 0
 
         for i, pod in enumerate(pods):
             pv = pod_disk_vols(pod)
+            key = pod_signature_key(pod)
+            # a signature's host ports are part of its key: count them once
+            hp = set(pod.host_ports()) if key not in sigs else set()
+            if len(hp) > max_ports and self.device.type == "cuda":
+                raise ValueError(
+                    f"fused scan supports at most {max_ports} host ports a segment, pod "
+                    f"{pod.meta.namespace}/{pod.meta.name} has {len(hp)}")
             if len(pv) > tz.vols_per_pod:
                 flush()
                 out.append(("oracle", [(i, pod)]))
                 continue
             pv_conflict = {d for d in pv if d in mounted or d in vols_once}
-            key = pod_signature_key(pod)
             t_new = count_affinity_terms(pod) if key not in sigs else 0
             if cur and (
                 len(cur) >= self.max_segment_pods
                 or (key not in sigs and len(sigs) >= tz.max_groups)
                 or n_terms + t_new > tz.max_terms
                 or len(vols_conflict | pv_conflict) > tz.max_vols
+                or len(ports | hp) > max_ports
             ):
                 flush()
                 t_new = count_affinity_terms(pod)
+                hp = set(pod.host_ports())
                 pv_conflict = {d for d in pv if d in mounted}
             sigs.add(key)
             n_terms += t_new
+            ports |= hp
             vols_conflict |= pv_conflict
             vols_once |= pv
             cur.append((i, pod))

@@ -68,7 +68,17 @@
 //     a warp reads 32 consecutive words of a row (no bank conflicts). Where
 //     every plane fits in shared memory (SH), a separate instantiation lets
 //     the compiler use shared-memory loads.
-//  5. Less arithmetic a pod. The resource scores (least-requested,
+//  5. Zones. Up to REG_ZONES zones, each thread keeps its columns' zone
+//     sums in registers and the warps fold them on the redux.sync unit (the
+//     main path). A segment with more zones (a zone key that spans regions)
+//     runs the BZ instantiation: threads add their columns' spread counts
+//     into a per-zone accumulator in shared memory (64-bit shared atomics),
+//     the last warp sends it in exchange (a), and the block folds the
+//     blocks' messages into per-zone totals in shared memory. Exchange (a)'s
+//     message is 10 + 2 words a zone in both. The planner
+//     (fused_scan.py) owns the zone cap and the layout; dispatch checks
+//     only that msg_a and the zone arrays fit what it was given.
+//  6. Less arithmetic a pod. The resource scores (least-requested,
 //     most-requested, balanced) of a column change only when a pod lands on
 //     it, so they are kept per (signature, column) in the `res` plane and a
 //     column's are recomputed at its commit. The other floor divisions take
@@ -87,7 +97,7 @@ constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MAX_CLUSTER = 16;
 constexpr int MAX_CPT = 16;
-constexpr int MAX_ZONES = 8;
+constexpr int REG_ZONES = 8;  // zones whose sums a thread keeps in registers
 constexpr int MAX_TERMS = 128;
 constexpr int MAX_PORTS = 256;
 constexpr int MAX_SLOTS = 8;
@@ -96,7 +106,7 @@ constexpr int MAX_R = 8;
 constexpr int TERM_FIELDS = 9;  // t, m_g, own_ra, own_raa, own_all, own_w, sym_w*m_g, m_g&&is_raa, self_match
 constexpr int POD_ROWS = 5;     // static_ok, aff_raw, taint_raw, score_raw, interpod_raw
 constexpr int NBUF = 3;         // pod input buffers: pod i+2 is fetched while pod i runs
-constexpr int MAX_MSG_A = 28;   // words of a block's statistics message: 10 + 2 a zone, padded to 4
+constexpr int MAX_MSG_A = 28;   // words of a register-path statistics message: 10 + 2 a zone, padded to 4
 constexpr unsigned FULL = 0xffffffffu;
 constexpr long long MAX_PRIORITY = 10;
 constexpr long long FP_ONE = 1024;
@@ -158,6 +168,7 @@ struct ScanParams {
     int32_t p_real, num_zones, rr0;
     int32_t use_terms, use_vols, use_ports, smem_bytes;
     int32_t gnz_off, inbox_a_off, inbox_b_off, msg_a, msg_b;  // the planner's fixed layout
+    int32_t zone_off;  // past REG_ZONES: the zone accumulator and totals, 2 x num_zones int64
     int32_t wt[7];    // least, most, balanced, spread, node_affinity, taint, interpod
     int32_t off[18];  // NPLANES placement offsets
 };
@@ -438,7 +449,7 @@ __device__ unsigned long long g_phases[NPHASES];
 #define PHASE(k) do { } while (0)
 #endif
 
-template <int CPT, bool SH>
+template <int CPT, bool SH, bool BZ>
 __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanParams p) {
     cg::cluster_group cluster = cg::this_cluster();
 #ifdef FUSED_SCAN_PHASES
@@ -488,6 +499,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     int32_t* s_pod = pod_rows_shared ? reinterpret_cast<int32_t*>(smem + p.off[P_POD]) : nullptr;
     int32_t* s_inc = inc_shared ? reinterpret_cast<int32_t*>(smem + p.off[P_INC]) : nullptr;
     const int32_t* g_rows[POD_ROWS] = {p.static_ok, p.aff_raw, p.taint_raw, p.score_raw, p.interpod_raw};
+    // BZ: this block's zone sums of the pod [NZ], then the cluster's [NZ]
+    long long* s_zacc = BZ ? reinterpret_cast<long long*>(smem + p.zone_off) : nullptr;
+    long long* s_ztot = BZ ? s_zacc + NZ : nullptr;
 
     const View<int32_t> req = view<SH>(p.req, p.off[P_REQ], smem, base, L, NS);
     const View<int32_t> nz = view<SH>(p.nz, p.off[P_NZ], smem, base, L, NS);
@@ -522,6 +536,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     for (int t = tid; t < T; t += BT) s_total[t] = p.total[t];
     if (tid < K) s_vlim[tid] = p.vol_limits[tid];
     if (tid < 4) s_done[tid] = 0;
+    if constexpr (BZ)
+        for (int z = tid; z < NZ; z += BT) s_zacc[z] = 0;
     for (int h = tid; h < G; h += BT) {
         int32_t* gnz = const_cast<int32_t*>(s_gnz);
         gnz[2 * h] = p.sig[(size_t)h * SW + R];
@@ -611,9 +627,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
         bool feas[CPT];
         long long ip[CPT];
         int nf = 0, nzc = 0, smax = 0, amax = 0, tmax = 0;
-        long long zsum[MAX_ZONES];
+        long long zsum[REG_ZONES];
 #pragma unroll
-        for (int z = 0; z < MAX_ZONES; ++z) zsum[z] = 0;
+        for (int z = 0; z < REG_ZONES; ++z) zsum[z] = 0;
         long long ipmax = I64_MIN, ipmin = I64_MAX;
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
@@ -666,9 +682,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                     nf += 1;
                     if (z >= 0) {
                         nzc += 1;
+                        if constexpr (BZ) {
+                            if (z < NZ)
+                                atomicAdd(reinterpret_cast<unsigned long long*>(&s_zacc[z]),
+                                          static_cast<unsigned long long>(static_cast<long long>(sc)));
+                        } else {
 #pragma unroll
-                        for (int zz = 0; zz < MAX_ZONES; ++zz)
-                            if (zz == z) zsum[zz] += sc;
+                            for (int zz = 0; zz < REG_ZONES; ++zz)
+                                if (zz == z) zsum[zz] += sc;
+                        }
                     }
                     smax = sc > smax ? sc : smax;
                     amax = aff > amax ? aff : amax;
@@ -693,9 +715,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                 ipmax = warp_max64(ipmax);
                 ipmin = warp_min64(ipmin);
             }
+            if constexpr (!BZ) {
 #pragma unroll
-            for (int zz = 0; zz < MAX_ZONES; ++zz)
-                if (zz < NZ) zsum[zz] = warp_sum64(zsum[zz]);
+                for (int zz = 0; zz < REG_ZONES; ++zz)
+                    if (zz < NZ) zsum[zz] = warp_sum64(zsum[zz]);
+            } else {
+                __syncwarp();  // the warp's zone atomics before its lane 0 counts it done
+            }
             if (lane == 0) {
                 uint32_t(*pa)[MAX_WARPS] = s_part[par];
                 pa[0][warp] = nf;
@@ -707,12 +733,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                 pa[7][warp] = static_cast<uint32_t>(ipmax >> 32);
                 pa[8][warp] = static_cast<uint32_t>(ipmin);
                 pa[9][warp] = static_cast<uint32_t>(ipmin >> 32);
+                if constexpr (!BZ) {
 #pragma unroll
-                for (int zz = 0; zz < MAX_ZONES; ++zz)
-                    if (zz < NZ) {
-                        pa[10 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz]);
-                        pa[11 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz] >> 32);
-                    }
+                    for (int zz = 0; zz < REG_ZONES; ++zz)
+                        if (zz < NZ) {
+                            pa[10 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz]);
+                            pa[11 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz] >> 32);
+                        }
+                }
             }
             if (last_warp(&s_done[par], NW)) {
                 // the block's message: folded over its warps' parts (lane w
@@ -735,20 +763,44 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                     m[8] = static_cast<uint32_t>(lo);
                     m[9] = static_cast<uint32_t>(lo >> 32);
                 }
+                if constexpr (!BZ) {
 #pragma unroll
-                for (int zz = 0; zz < MAX_ZONES; ++zz)
-                    if (zz < NZ) {
-                        const long long v = warp_sum64(has ? join64(pa[11 + 2 * zz][lane], pa[10 + 2 * zz][lane]) : 0);
-                        m[10 + 2 * zz] = static_cast<uint32_t>(v);
-                        m[11 + 2 * zz] = static_cast<uint32_t>(v >> 32);
-                    }
+                    for (int zz = 0; zz < REG_ZONES; ++zz)
+                        if (zz < NZ) {
+                            const long long v = warp_sum64(has ? join64(pa[11 + 2 * zz][lane], pa[10 + 2 * zz][lane]) : 0);
+                            m[10 + 2 * zz] = static_cast<uint32_t>(v);
+                            m[11 + 2 * zz] = static_cast<uint32_t>(v >> 32);
+                        }
+                }
                 if (lane == 0) s_done[par] = 0;  // for pod i+2
-                if (lane < CS) {
+                if constexpr (!BZ) {
+                    if (lane < CS) {
 #pragma unroll
-                    for (int q = 0; q < MAX_MSG_A; q += 4)
-                        if (q < MA)
-                            send4(&s_ina[(par * (MA / 4) + q / 4) * CS + rank], &s_xa[par], lane,
-                                  m[q], m[q + 1], m[q + 2], m[q + 3]);
+                        for (int q = 0; q < MAX_MSG_A; q += 4)
+                            if (q < MA)
+                                send4(&s_ina[(par * (MA / 4) + q / 4) * CS + rank], &s_xa[par], lane,
+                                      m[q], m[q + 1], m[q + 2], m[q + 3]);
+                    }
+                } else {
+                    // words 10 + 2z, 11 + 2z: zone z's sum from the accumulator;
+                    // chunk k >= 3 holds zones 2k - 5 and 2k - 4
+                    if (lane < CS) {
+                        uint4* to = &s_ina[par * (MA / 4) * CS + rank];
+                        const long long z0 = s_zacc[0];
+                        send4(to, &s_xa[par], lane, m[0], m[1], m[2], m[3]);
+                        send4(to + CS, &s_xa[par], lane, m[4], m[5], m[6], m[7]);
+                        send4(to + 2 * CS, &s_xa[par], lane, m[8], m[9], static_cast<uint32_t>(z0),
+                              static_cast<uint32_t>(z0 >> 32));
+                        for (int k = 3; k < MA / 4; ++k) {
+                            const int za = 2 * k - 5, zb = 2 * k - 4;
+                            const long long va = za < NZ ? s_zacc[za] : 0, vb = zb < NZ ? s_zacc[zb] : 0;
+                            send4(to + k * CS, &s_xa[par], lane, static_cast<uint32_t>(va),
+                                  static_cast<uint32_t>(va >> 32), static_cast<uint32_t>(vb),
+                                  static_cast<uint32_t>(vb >> 32));
+                        }
+                    }
+                    __syncwarp();
+                    for (int z = lane; z < NZ; z += 32) s_zacc[z] = 0;  // for pod i+1
                 }
             }
         }
@@ -766,9 +818,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
         // every warp folds the blocks' messages itself (lane q: block q's),
         // so no block-wide barrier follows
         const bool from = lane < CS;
-        uint32_t xa[MAX_MSG_A];
+        // BZ: words 0-11 here, the zone words are folded in shared memory below
+        constexpr int XA = BZ ? 12 : MAX_MSG_A;
+        uint32_t xa[XA];
 #pragma unroll
-        for (int q = 0; q < MAX_MSG_A; q += 4) {
+        for (int q = 0; q < XA; q += 4) {
             uint4 v = make_uint4(0, 0, 0, 0);
             if (q < MA && from) v = s_ina[(par * (MA / 4) + q / 4) * CS + lane];
             xa[q] = v.x;
@@ -789,12 +843,31 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
             ip_min = ip_min < 0 ? ip_min : 0;
         }
         long long max_z = 0;
+        if constexpr (!BZ) {
 #pragma unroll
-        for (int zz = 0; zz < MAX_ZONES; ++zz)
-            if (zz < NZ) {
-                zsum[zz] = warp_sum64(join64(xa[11 + 2 * zz], xa[10 + 2 * zz]));
-                max_z = zsum[zz] > max_z ? zsum[zz] : max_z;
+            for (int zz = 0; zz < REG_ZONES; ++zz)
+                if (zz < NZ) {
+                    zsum[zz] = warp_sum64(join64(xa[11 + 2 * zz], xa[10 + 2 * zz]));
+                    max_z = zsum[zz] > max_z ? zsum[zz] : max_z;
+                }
+        } else {
+            // the cluster's zone totals, one zone a thread, then every
+            // warp's maximum over them
+            const uint32_t* ina = reinterpret_cast<const uint32_t*>(s_ina);
+            for (int z = tid; z < NZ; z += BT) {
+                const int w = 10 + 2 * z;  // even: both halves in one chunk
+                long long sum = 0;
+                for (int q = 0; q < CS; ++q) {
+                    const uint32_t* c = ina + ((par * (MA / 4) + (w >> 2)) * CS + q) * 4 + (w & 3);
+                    sum += join64(static_cast<int>(c[1]), c[0]);
+                }
+                s_ztot[z] = sum;
             }
+            __syncthreads();
+            long long mz = 0;
+            for (int z = lane; z < NZ; z += 32) mz = s_ztot[z] > mz ? s_ztot[z] : mz;
+            max_z = warp_max64(mz);
+        }
         const long long rng = ip_max - ip_min;
         PHASE(4);  // (a) fold
 
@@ -823,9 +896,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                     long long total_fp = node_fp;
                     if (have_zones && z >= 0) {
                         long long zcnt = 0;
+                        if constexpr (BZ) {
+                            if (z < NZ) zcnt = s_ztot[z];
+                        } else {
 #pragma unroll
-                        for (int zz = 0; zz < MAX_ZONES; ++zz)
-                            if (zz == z) zcnt = zsum[zz];
+                            for (int zz = 0; zz < REG_ZONES; ++zz)
+                                if (zz == z) zcnt = zsum[zz];
+                        }
                         const long long zone_fp = max_z > 0 ? fdiv((max_z - zcnt) * FP, max_z, r_maxz) : FP;
                         total_fp = floordiv(node_fp + 2 * zone_fp, 3);
                     }
@@ -1029,9 +1106,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     cluster_wait();
 }
 
-template <int CPT, bool SH>
+template <int CPT, bool SH, bool BZ>
 int launch(const ScanParams& params, cudaStream_t stream, int* max_clusters, int* static_smem) {
-    auto kernel = fused_scan_kernel<CPT, SH>;
+    auto kernel = fused_scan_kernel<CPT, SH, BZ>;
     cudaFuncAttributes fa = {};
     cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1070,25 +1147,37 @@ int launch(const ScanParams& params, cudaStream_t stream, int* max_clusters, int
 
 int dispatch(const ScanParams* p, cudaStream_t s, int* max_clusters, int* static_smem) {
     const int nw = p->threads / 32;
+    const bool bz = p->num_zones > REG_ZONES;
     if (p->r > MAX_R || p->t > MAX_TERMS || p->pv > MAX_PORTS || p->w > MAX_SLOTS || p->k > MAX_KINDS ||
-        p->num_zones > MAX_ZONES || p->cs < 1 || p->cs > MAX_CLUSTER || p->threads < 32 ||
+        p->num_zones < 0 || p->cs < 1 || p->cs > MAX_CLUSTER || p->threads < 32 ||
         p->threads > MAX_THREADS || p->threads % 32 || p->cols % 16 || p->ns != p->cs * p->cols ||
         p->cols > p->threads * p->cpt || nw * p->cpt > MAX_CPT * MAX_WARPS || p->sw % 4 ||
         p->g4 % 4 || p->w4 % 4 || p->w4 < p->w || p->g4 < p->g || p->msg_a % 4 ||
-        p->msg_a < 10 + 2 * p->num_zones || p->msg_a > MAX_MSG_A || p->msg_b % 4 ||
-        p->msg_b < 3 + p->cpt * nw)
+        p->msg_a < 10 + 2 * p->num_zones || (!bz && p->msg_a > MAX_MSG_A) || p->msg_b % 4 ||
+        p->msg_b < 3 + p->cpt * nw ||
+        (bz && (p->zone_off % 16 || p->zone_off + 16 * p->num_zones > p->smem_bytes)))
         return -1;
+    if (bz) {  // more zones than registers hold: the shared-memory zone path
+        switch (p->cpt) {
+            case 1: return launch<1, false, true>(*p, s, max_clusters, static_smem);
+            case 2: return launch<2, false, true>(*p, s, max_clusters, static_smem);
+            case 4: return launch<4, false, true>(*p, s, max_clusters, static_smem);
+            case 8: return launch<8, false, true>(*p, s, max_clusters, static_smem);
+            case 16: return launch<16, false, true>(*p, s, max_clusters, static_smem);
+            default: return -2;
+        }
+    }
     bool all_shared = true;
     for (int k = 0; k < NPLANES; ++k) all_shared = all_shared && p->off[k] >= 0;
     // segments whose planes all fit in shared memory are small: 1 or 2 columns a thread
-    if (all_shared && p->cpt == 1) return launch<1, true>(*p, s, max_clusters, static_smem);
-    if (all_shared && p->cpt == 2) return launch<2, true>(*p, s, max_clusters, static_smem);
+    if (all_shared && p->cpt == 1) return launch<1, true, false>(*p, s, max_clusters, static_smem);
+    if (all_shared && p->cpt == 2) return launch<2, true, false>(*p, s, max_clusters, static_smem);
     switch (p->cpt) {
-        case 1: return launch<1, false>(*p, s, max_clusters, static_smem);
-        case 2: return launch<2, false>(*p, s, max_clusters, static_smem);
-        case 4: return launch<4, false>(*p, s, max_clusters, static_smem);
-        case 8: return launch<8, false>(*p, s, max_clusters, static_smem);
-        case 16: return launch<16, false>(*p, s, max_clusters, static_smem);
+        case 1: return launch<1, false, false>(*p, s, max_clusters, static_smem);
+        case 2: return launch<2, false, false>(*p, s, max_clusters, static_smem);
+        case 4: return launch<4, false, false>(*p, s, max_clusters, static_smem);
+        case 8: return launch<8, false, false>(*p, s, max_clusters, static_smem);
+        case 16: return launch<16, false, false>(*p, s, max_clusters, static_smem);
         default: return -2;
     }
 }

@@ -44,7 +44,8 @@ from . import _build
 MAX_THREADS = 512
 MAX_CLUSTER = 16
 MAX_CPT = 16
-MAX_ZONES = 8
+REG_ZONES = 8       # zones whose sums the kernel keeps in registers (the main path)
+ZONE_SMEM = 65536   # bytes the zone statistics may take at MAX_CLUSTER
 MAX_TERMS = 128
 MAX_PORTS = 256
 MAX_SLOTS = 8
@@ -60,6 +61,23 @@ SMEM_LIMIT = 232448
 STATIC_RESERVE = 8192
 COLS_TARGET = 320   # columns a block aims at before the cluster grows
 DEFAULT_CPT = 1     # columns a thread, measured on the card (PERF.md)
+
+
+
+def _msg_a_words(zones: int) -> int:
+    return -(-(10 + 2 * zones) // 4) * 4
+
+
+def zone_bytes(zones: int, cs: int = MAX_CLUSTER) -> int:
+    """Shared memory of the zone statistics in a cluster of ``cs``: both
+    inboxes of exchange (a) (10 + 2 words a zone from every block) and,
+    past ``REG_ZONES``, the per-zone accumulator and totals (int64 each)."""
+    return 2 * cs * _msg_a_words(zones) * 4 + (16 * zones if zones > REG_ZONES else 0)
+
+
+# the most zones whose statistics fit ZONE_SMEM at the largest cluster; the
+# kernel has no cap of its own and takes the layout this module plans
+MAX_ZONES = max(z for z in range(1, 4096) if zone_bytes(z) <= ZONE_SMEM)
 
 # placement order; the kernel's `enum Plane` lists the same names
 PLANES = ("pod_rows", "spread_inc", "req", "nz", "cnt", "ports", "dm", "downer",
@@ -80,7 +98,7 @@ _INT_FIELDS = ("n", "ns", "cols", "cs", "threads", "cpt",
                "g", "g4", "t", "pv", "v", "r", "w", "w4", "k", "sw",
                "p_real", "num_zones", "rr0",
                "use_terms", "use_vols", "use_ports", "smem_bytes",
-               "gnz_off", "inbox_a_off", "inbox_b_off", "msg_a", "msg_b")
+               "gnz_off", "inbox_a_off", "inbox_b_off", "msg_a", "msg_b", "zone_off")
 
 
 class ScanParams(ctypes.Structure):
@@ -113,7 +131,8 @@ class Plan:
     gnz_off: int     # byte offsets in shared memory of the signatures' nonzero
     inbox_a_off: int  # requests and of the two exchanges' inboxes
     inbox_b_off: int
-    fixed_bytes: int  # buffers, nonzero requests and inboxes, before the planes
+    zone_off: int     # past REG_ZONES: zone accumulator and totals (else 0)
+    fixed_bytes: int  # buffers, nonzero requests, inboxes and zone arrays, before the planes
     smem_bytes: int  # dynamic shared memory a block
     offsets: dict    # plane -> byte offset in shared memory, None = global memory
     plane_bytes: dict
@@ -159,12 +178,14 @@ def plan_for(n: int, r: int, g: int, t: int, pv: int, v: int, w: int, k: int, zo
     plane_bytes.update({p: rows[p] * cols * esz.get(p, 4) for p in rows})
     budget = SMEM_LIMIT - STATIC_RESERVE
     warps = threads // 32
-    msg_a = _round_up(10 + 2 * zones, 4)
+    msg_a = _msg_a_words(zones)
     msg_b = _round_up(3 + cpt * warps, 4)
     gnz_off = NBUF * (sw + w4) * 4
     inbox_a_off = gnz_off + 2 * g4 * 4
     inbox_b_off = inbox_a_off + 2 * cs * msg_a * 4
-    fixed = inbox_b_off + 2 * cs * msg_b * 4
+    zone_off = inbox_b_off + 2 * cs * msg_b * 4
+    fixed = zone_off + (16 * zones if zones > REG_ZONES else 0)
+    zone_off = zone_off if zones > REG_ZONES else 0
     off = fixed
     offsets, placing = {}, True
     for p in PLANES:
@@ -173,7 +194,7 @@ def plan_for(n: int, r: int, g: int, t: int, pv: int, v: int, w: int, k: int, zo
         off += plane_bytes[p] if placing else 0
     return Plan(cs=cs, cols=cols, ns=cs * cols, threads=threads, cpt=cpt, sw=sw, g4=g4,
                 w4=w4, msg_a=msg_a, msg_b=msg_b, gnz_off=gnz_off, inbox_a_off=inbox_a_off,
-                inbox_b_off=inbox_b_off, fixed_bytes=fixed, smem_bytes=off, offsets=offsets,
+                inbox_b_off=inbox_b_off, zone_off=zone_off, fixed_bytes=fixed, smem_bytes=off, offsets=offsets,
                 plane_bytes=plane_bytes)
 
 
@@ -311,7 +332,7 @@ def params(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan) -> ScanPa
         rr0=state.round_robin, use_terms=int(static.use_terms),
         use_vols=int(static.use_vols), use_ports=int(static.use_ports),
         smem_bytes=pl.smem_bytes, gnz_off=pl.gnz_off, inbox_a_off=pl.inbox_a_off,
-        inbox_b_off=pl.inbox_b_off, msg_a=pl.msg_a, msg_b=pl.msg_b,
+        inbox_b_off=pl.inbox_b_off, msg_a=pl.msg_a, msg_b=pl.msg_b, zone_off=pl.zone_off,
         wt=(ctypes.c_int32 * len(WEIGHT_KEYS))(*(static.weights[k] for k in WEIGHT_KEYS)),
         off=(ctypes.c_int32 * len(PLANES))(
             *(-1 if pl.offsets[p] is None else pl.offsets[p] for p in PLANES)),

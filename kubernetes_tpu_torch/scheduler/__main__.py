@@ -90,6 +90,8 @@ def main(argv=None) -> int:
         logging.info("healthz and metrics on :%d", health.local_port)
 
     def run(payload_stop: threading.Event) -> None:
+        from .. import native
+        from ..api import lazy
         from .generic_scheduler import GenericScheduler
         from .scheduler import Scheduler
 
@@ -140,11 +142,22 @@ def main(argv=None) -> int:
                  # wall seconds inside the batch path (tensorize, scan,
                  # commits), the scheduler's share of a daemon run
                  "batch_s": m.batch_device_latency.sum / 1e6,
-                 # the informers' watch ingest: typed decode, and decode +
-                 # cache + handlers, on their own threads
+                 # the informers' watch ingest, on their own threads: decode
+                 # (lazy wrap, or typed decode with lazy decode off), and
+                 # decode + cache + handlers; frames, the events they
+                 # carried, lazy promotions, the frame confirm's fallbacks
+                 "ingest_lazy": lazy.ENABLED,
                  "ingest_decode_s": sum(i.stats["decode_s"] for i in infs),
+                 # the watch readers' line parse (JSON, frame columns),
+                 # before the informers decode
+                 "ingest_parse_s": cs.store.metrics.watch_parse_seconds.value,
                  "ingest_apply_s": sum(i.stats["apply_s"] for i in infs),
                  "ingest_bytes": int(cs.store.metrics.ingest_bytes.value),
+                 "ingest_frames": sum(i.stats["frames"] for i in infs),
+                 "ingest_frame_events": sum(i.stats["frame_events"] for i in infs),
+                 "ingest_promotions": lazy.STATS["promotions"] + lazy.STATS["sections"],
+                 "confirm_fallbacks": int(m.confirm_fallbacks.value),
+                 "helpers": native.helpers(),
                  "round_robin": algo._round_robin, "launches": 0}
         if backend is not None:
             from ..ops import fused_scan

@@ -23,6 +23,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..api import lazy as lazy_mod
 from ..api import types as api
 from .units import (
     ResourceVec,
@@ -47,6 +48,9 @@ def _zone_key_of(node) -> str:
 
 
 def pod_has_affinity(pod: api.Pod) -> bool:
+    spec_raw = lazy_mod.undecoded_spec(pod)
+    if spec_raw is not None:
+        return lazy_mod.raw_has_affinity(spec_raw)
     a = pod.spec.affinity
     return a is not None and bool(
         a.pod_affinity_required
@@ -57,6 +61,14 @@ def pod_has_affinity(pod: api.Pod) -> bool:
 
 
 def _containers_equal(a: api.Pod, b: api.Pod) -> bool:
+    """Container-list equality without a decode while both sides still
+    hold their wire payloads (the assume -> watch-confirm path: the
+    confirmed object differs from the assumed one only by nodeName and
+    resourceVersion, so the raw subtrees compare equal by value)."""
+    ra = lazy_mod.undecoded_spec(a)
+    rb = lazy_mod.undecoded_spec(b)
+    if ra is not None and rb is not None:
+        return (ra.get("containers") or []) == (rb.get("containers") or [])
     return a.spec.containers == b.spec.containers
 
 
@@ -254,6 +266,39 @@ class SchedulerCache:
             self._nodes[node_name].remove_pod(pod)
             del self._pod_states[key]
             self._assume_deadlines.pop(key, None)
+
+    def confirm_many(self, entries: list) -> list:
+        """Columnar wave confirm: one lock hold for a whole bind-confirm
+        frame.  ``entries`` are ``(key, node_name, prev_rev,
+        new_pod)`` straight off the frame's identity/node/prev-revision
+        columns.  An entry is confirmed — assumed object swapped for the
+        API truth WITHOUT re-aggregation — when the cache holds a
+        matching assumption AND the frame's ``prev_rev`` equals the
+        assumed object's resourceVersion: by CAS semantics the bind txn
+        then mutated exactly nodeName/resourceVersion, so the per-pod
+        containers/affinity equality check collapses to one integer
+        compare per column entry.  Anything the columnar fence rejects
+        (no assumption, different node, an intervening write) is returned
+        UNTOUCHED for the caller's per-pod fallback path."""
+        leftover: list = []
+        with self._mu:
+            for entry in entries:
+                # (key, node_name, prev_rev, new, *caller_context) — extra
+                # fields ride through untouched for the fallback router
+                key, node_name, prev_rev, new = entry[:4]
+                st = self._pod_states.get(key)
+                if st is None or st[2] != "assumed" or st[1] != node_name:
+                    leftover.append(entry)
+                    continue
+                assumed = st[0]
+                if (prev_rev < 0
+                        or lazy_mod.resource_version_of(assumed) != prev_rev
+                        or not self._nodes[node_name].replace_pod(assumed, new)):
+                    leftover.append(entry)
+                    continue
+                self._pod_states[key] = (new, node_name, "bound")
+                self._assume_deadlines.pop(key, None)
+        return leftover
 
     def add_pod(self, pod: api.Pod) -> None:
         """Watch-confirmed bound pod.  Confirms a matching assumption, or

@@ -102,6 +102,13 @@ class SchedulingQueue:
         with self._mu:
             self._pods.pop(pod_key, None)
 
+    def remove_many(self, pod_keys: list) -> None:
+        """Batch remove under one lock hold (the scheduler's columnar bind
+        confirm clears a whole wave's keys at once)."""
+        with self._mu:
+            for key in pod_keys:
+                self._pods.pop(key, None)
+
     def pop(self, timeout: Optional[float] = None) -> Optional[api.Pod]:
         """Blocking FIFO pop (``getNextPod``)."""
         deadline = None if timeout is None else self._clock() + timeout

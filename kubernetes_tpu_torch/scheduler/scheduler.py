@@ -17,6 +17,12 @@ segment's results (assume, one ``bind_many`` txn, events) while the card
 scans the next segment; ``run_batch_loop`` serves arrivals wave by wave
 under a min-batch/max-wait policy.  Preemption is not part of this
 package yet.
+
+Ingest: the pod handlers route on ``lazy.pod_brief`` (node name, scheduler
+name and phase read straight off a lazy pod's wire dict), and a
+``bind_many`` watch frame confirms the whole wave's assumptions in one
+cache lock hold (``SchedulerCache.confirm_many``); what its revision fence
+rejects takes the per-pod path.
 """
 
 from __future__ import annotations
@@ -28,11 +34,12 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..api import lazy
 from ..api import types as api
 from ..client.clientset import BindConflictError, Clientset
 from ..client.informer import Handler, InformerFactory
 from ..client.record import EventBroadcaster
-from ..store.store import NotFoundError
+from ..store.store import ADDED, MODIFIED, NotFoundError
 from ..utils.metrics import SchedulerMetrics
 from ..utils.trace import Trace
 from .generic_scheduler import FitError, GenericScheduler
@@ -54,8 +61,8 @@ _PHASE_KEYS = ("tensorize_s", "dispatch_s", "device_wait_s", "kernel_ms")
 
 
 def _is_scheduler_pod(pod: api.Pod, name: str) -> bool:
-    return (pod.spec.scheduler_name == name
-            and pod.status.phase in (api.PENDING, api.RUNNING))
+    _, sched_name, phase = lazy.pod_brief(pod)
+    return sched_name == name and phase in (api.PENDING, api.RUNNING)
 
 
 class Scheduler:
@@ -96,6 +103,10 @@ class Scheduler:
 
         self.informers = InformerFactory(clientset)
         self._wire_informers()
+        # the ingest counters at the end of the last wave: a wave's ingest
+        # is what the informers did since (arrivals, the bind confirm of
+        # the previous wave, this wave's prep pump), on whatever thread
+        self._ingest_mark = self._ingest_stats() + (0.0,)
 
     # -- informer wiring (factory.go:140-520) ------------------------------
     def _wire_informers(self) -> None:
@@ -103,6 +114,7 @@ class Scheduler:
             on_add=self._on_pod_add,
             on_update=self._on_pod_update,
             on_delete=self._on_pod_delete,
+            on_batch=self._on_pod_frame,
         ))
         self.informers.informer("Node").add_handler(Handler(
             on_add=lambda n: self.cache.add_node(n),
@@ -114,14 +126,17 @@ class Scheduler:
             self.informers.informer(kind)
 
     def _on_pod_add(self, pod: api.Pod) -> None:
-        if pod.spec.node_name:
+        # pod_brief reads the routing fields off a lazy pod's wire dict:
+        # routing builds no spec or status view
+        node_name, sched_name, phase = lazy.pod_brief(pod)
+        if node_name:
             self.cache.add_pod(pod)
-        elif _is_scheduler_pod(pod, self.scheduler_name):
+        elif sched_name == self.scheduler_name and phase in (api.PENDING, api.RUNNING):
             self.queue.add(pod)
 
     def _on_pod_update(self, old: api.Pod, new: api.Pod) -> None:
-        if new.spec.node_name:
-            if old is not None and old.spec.node_name:
+        if lazy.pod_brief(new)[0]:
+            if old is not None and lazy.pod_brief(old)[0]:
                 self.cache.update_pod(old, new)
             else:
                 self.queue.remove(new.meta.key)
@@ -134,10 +149,49 @@ class Scheduler:
             self.queue.remove(new.meta.key)
 
     def _on_pod_delete(self, pod: api.Pod) -> None:
-        if pod.spec.node_name:
+        if lazy.pod_brief(pod)[0]:
             self.cache.remove_pod(pod)
         else:
             self.queue.remove(pod.meta.key)
+
+    def _on_pod_frame(self, frame, deltas) -> None:
+        """Batch-aware pod routing (``Handler.on_batch``): a watch frame
+        carries a whole store txn.  A bind-confirm frame (``bind_many``:
+        MODIFIED entries with a node and a prev-revision column) confirms
+        the wave against the frame's identity, node and prev-revision
+        columns in one cache lock hold (``SchedulerCache.confirm_many``).
+        What the revision fence rejects, and every other delta, takes the
+        per-pod routing, so the outcome equals per-event delivery."""
+        self.metrics.watch_frames.inc()
+        self.metrics.watch_frame_events.inc(len(deltas))
+        rest = deltas
+        prev = frame.prev_revisions
+        if prev is not None:
+            node_names = frame.node_names
+            keys = frame.keys
+            confirmable: list = []
+            rest = []
+            for d in deltas:
+                etype, old, new, i = d
+                if etype == MODIFIED and node_names[i]:
+                    confirmable.append((keys[i], node_names[i], prev[i], new, old))
+                else:
+                    rest.append(d)
+            if confirmable:
+                # one queue lock and one cache lock for the whole wave
+                self.queue.remove_many([c[0] for c in confirmable])
+                for _key, _node, _prev, new, old in self.cache.confirm_many(confirmable):
+                    # no assumption, another node, or an intervening
+                    # write: the per-pod compare decides
+                    self.metrics.confirm_fallbacks.inc()
+                    self._on_pod_update(old, new)
+        for etype, old, new, _i in rest:
+            if etype == ADDED:
+                self._on_pod_add(new)
+            elif etype == MODIFIED:
+                self._on_pod_update(old, new)
+            else:
+                self._on_pod_delete(old if old is not None else new)
 
     def start(self, manual: bool = True) -> None:
         """Seed the informers.  manual=True: the caller pumps and events
@@ -386,6 +440,25 @@ class Scheduler:
                              if idle_timeout is not None else None)
         return bound_total
 
+    def _ingest_stats(self) -> tuple:
+        """Cumulative ingest counters over this scheduler's informers:
+        (decode s, lazy promotions, apply s, frames, frame events, parse
+        s).  Parse is the wire client's watch-line parse, which runs on
+        the watch readers before an informer decodes (0 in process).
+        Their per-wave deltas land in ``last_batch_phases``."""
+        decode_s = apply_s = 0.0
+        frames = frame_events = 0
+        for inf in self.informers.informers():
+            st = inf.stats
+            decode_s += st["decode_s"]
+            apply_s += st["apply_s"]
+            frames += st["frames"]
+            frame_events += st["frame_events"]
+        promos = lazy.STATS["promotions"] + lazy.STATS["sections"]
+        parse = getattr(getattr(self.clientset.store, "metrics", None), "watch_parse_seconds", None)
+        parse_s = parse.value if parse is not None else 0.0
+        return decode_s, promos, apply_s, frames, frame_events, parse_s
+
     # -- the batch path ----------------------------------------------------
     def schedule_pending_batch(self, max_batch: Optional[int] = None) -> tuple[int, int]:
         """Drain the queue, schedule the batch on the backend, and assume +
@@ -482,6 +555,22 @@ class Scheduler:
             self.last_batch_phases["prep_s"] = self._last_prep_s
             self.metrics.pipeline_device_wait.observe(
                 self.last_batch_phases["device_wait_s"] * 1e6)
+            # the ingest of the wave: informer decode and application
+            # (cache apply, handler fan-out, the frame confirm), lazy
+            # promotions, frames and the confirm's fallbacks since the
+            # last wave ended
+            post = self._ingest_stats() + (self.metrics.confirm_fallbacks.value,)
+            decode_s, promos, apply_s, frames, frame_events, parse_s, fallbacks = (
+                b - a for a, b in zip(self._ingest_mark, post))
+            self._ingest_mark = post
+            self.last_batch_phases.update(
+                decode_s=decode_s, promotions=promos, apply_s=apply_s, frames=frames,
+                frame_events=frame_events, parse_s=parse_s, confirm_fallbacks=int(fallbacks))
+            self.metrics.ingest_decode_seconds.observe(decode_s)
+            self.metrics.ingest_parse_seconds.observe(parse_s)
+            if promos > 0:
+                self.metrics.ingest_promotions.inc(promos)
+            self.metrics.pump_apply_seconds.observe(apply_s)
         finally:
             if gc_was_enabled:
                 gc.enable()

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..api import lazy as lazy_mod
 from ..api import types as api
 from ..api.quantity import Quantity
 
@@ -119,8 +120,56 @@ class ResourceVec:
         return isinstance(other, ResourceVec) and self.units == other.units
 
 
+# per-container request parse memo for the raw (wire-dict) path: keyed by
+# the container's sorted request items, so a template-stamped fleet parses
+# each distinct container shape once.  Content-keyed, never pinned a pod.
+_raw_container_memo: dict = {}
+
+
+def _raw_container_units(requests: dict) -> tuple[tuple, tuple]:
+    """(request units, nonzero units) for one container's raw requests
+    dict, in canonical slot order; nonzero applies the per-container
+    cpu/mem defaults exactly like ``pod_nonzero_request_vec``."""
+    key = tuple(sorted(requests.items()))
+    got = _raw_container_memo.get(key)
+    if got is None:
+        if len(_raw_container_memo) > 65536:
+            _raw_container_memo.clear()
+        units = [0] * NUM_RESOURCES
+        for name, q in requests.items():
+            slot = RESOURCE_SLOTS.get(name)
+            if slot is not None:
+                units[slot] += quantity_to_slot_units(slot, Quantity(q))
+        nz = list(units)
+        if nz[CPU_MILLI] == 0:
+            nz[CPU_MILLI] = DEFAULT_MILLI_CPU_REQUEST
+        if nz[MEM_MIB] == 0:
+            nz[MEM_MIB] = DEFAULT_MEM_MIB_REQUEST
+        got = _raw_container_memo[key] = (tuple(units), tuple(nz))
+    return got
+
+
+def raw_request_units(spec: dict) -> tuple[list[int], list[int]]:
+    """Summed (request, nonzero-request) unit vectors straight from a raw
+    pod-spec dict: the column-batch / lazy-pod parse that must equal
+    ``pod_request_vec``/``pod_nonzero_request_vec`` of the decoded pod."""
+    req = [0] * NUM_RESOURCES
+    nz = [0] * NUM_RESOURCES
+    for c in spec.get("containers") or []:
+        u, un = _raw_container_units(
+            (c.get("resources") or {}).get("requests") or {})
+        for i in range(NUM_RESOURCES):
+            req[i] += u[i]
+            nz[i] += un[i]
+    return req, nz
+
+
 def pod_request_vec(pod: api.Pod) -> ResourceVec:
-    """Summed container requests in canonical units (predicate side)."""
+    """Summed container requests in canonical units (predicate side).  A
+    lazy pod whose spec is still undecoded parses from its wire dict."""
+    spec_raw = lazy_mod.undecoded_spec(pod)
+    if spec_raw is not None:
+        return ResourceVec(raw_request_units(spec_raw)[0])
     v = ResourceVec()
     for c in pod.spec.containers:
         v.add(ResourceVec.from_resource_list(c.resources.requests))
@@ -130,6 +179,9 @@ def pod_request_vec(pod: api.Pod) -> ResourceVec:
 def pod_nonzero_request_vec(pod: api.Pod) -> ResourceVec:
     """Summed container requests with per-container cpu/mem defaults for
     empty requests (priority side)."""
+    spec_raw = lazy_mod.undecoded_spec(pod)
+    if spec_raw is not None:
+        return ResourceVec(raw_request_units(spec_raw)[1])
     v = ResourceVec()
     for c in pod.spec.containers:
         cv = ResourceVec.from_resource_list(c.resources.requests)

@@ -1,0 +1,199 @@
+"""Packed column batches for the store -> informer -> tensorizer LIST path.
+
+``Store.list`` deep-copies every object and callers then ``from_dict``
+each one.  ``Store.list_columns`` instead emits one batch:
+
+- **raw views**: per object, the top two levels (object and metadata/spec)
+  are fresh dicts; every deeper subtree is shared with the store.  Safe
+  because the store only ever mutates in place at those two levels
+  (``bind_many`` sets ``spec.nodeName`` / ``metadata.resourceVersion``);
+  every other write path installs a fresh deep copy.  Consumers inherit
+  the informer contract: raw payloads are read-only.
+- **identity columns**: keys, names, namespaces, node names as flat
+  lists, what informer seeding reads;
+- **signature ids**: ``sig_ids``/``sig_keys``, the scheduling-equivalence
+  grouping (``models.snapshot.pod_signature_key``) computed once at emit
+  from the raw dicts; ``pods()`` pre-seeds each lazy pod's ``_sig_key``
+  memo so the backend's segmenter and ``build_static`` never recompute it;
+- **derived columns on demand**: resource-request units
+  (``req_units``/``nonzero_units``) are a cached property.
+
+The wire form (``?columnar=1``) is the JAX package's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class PodColumnBatch:
+    """One LIST result as parallel columns + shared-subtree raw views."""
+
+    kind = "Pod"
+
+    def __init__(self, raw: list[dict], revision: int):
+        from ..models.snapshot import raw_pod_signature_key
+
+        self.raw = raw
+        self.revision = revision
+        n = len(raw)
+        self.keys: list[str] = [""] * n
+        self.names: list[str] = [""] * n
+        self.namespaces: list[str] = [""] * n
+        self.node_names: list[str] = [""] * n
+        self.sig_ids = np.zeros(n, dtype=np.int32)
+        self.sig_keys: list[tuple] = []
+        sig_index: dict[tuple, int] = {}
+        for i, d in enumerate(raw):
+            meta = d.get("metadata") or {}
+            ns = meta.get("namespace", "default")
+            name = meta.get("name", "")
+            self.names[i] = name
+            self.namespaces[i] = ns
+            self.keys[i] = f"{ns}/{name}" if ns else name
+            self.node_names[i] = (d.get("spec") or {}).get("nodeName", "")
+            key = raw_pod_signature_key(d)
+            gid = sig_index.get(key)
+            if gid is None:
+                gid = sig_index[key] = len(self.sig_keys)
+                self.sig_keys.append(key)
+            self.sig_ids[i] = gid
+
+    def __len__(self) -> int:
+        return len(self.raw)
+
+    # -- derived columns (computed on first touch, cached) ------------------
+    @property
+    def _request_cols(self):
+        got = self.__dict__.get("_req_cols")
+        if got is None:
+            from ..scheduler.units import NUM_RESOURCES, raw_request_units
+
+            n = len(self.raw)
+            req = np.zeros((n, NUM_RESOURCES), dtype=np.int32)
+            nz = np.zeros((n, 2), dtype=np.int32)
+            for i, d in enumerate(self.raw):
+                r, un = raw_request_units(d.get("spec") or {})
+                req[i] = r
+                nz[i, 0] = un[0]
+                nz[i, 1] = un[1]
+            got = self.__dict__["_req_cols"] = (req, nz)
+        return got
+
+    @property
+    def req_units(self) -> np.ndarray:
+        return self._request_cols[0]
+
+    @property
+    def nonzero_units(self) -> np.ndarray:
+        return self._request_cols[1]
+
+    def pods(self) -> list:
+        """Lazy pod views over the raw columns, signature memos
+        pre-seeded (the wire batch IS the tensorizer's grouping input)."""
+        from ..api.lazy import LazyPod
+
+        out = []
+        sig_keys = self.sig_keys
+        for i, d in enumerate(self.raw):
+            pod = LazyPod(d)
+            object.__setattr__(pod, "_sig_key", sig_keys[int(self.sig_ids[i])])
+            out.append(pod)
+        return out
+
+    # the kind-agnostic accessor informer seeding uses
+    objects = pods
+
+    # -- wire form (the apiserver's ?columnar=1 LIST payload) ---------------
+    def to_wire(self) -> dict:
+        # ships ONLY the raw views: every column is recomputed client-side
+        # from them (cheaper than paying identity arrays on the wire that
+        # from_wire would rebuild anyway)
+        return {
+            "kind": "PodColumnBatch",
+            "resourceVersion": self.revision,
+            "raw": self.raw,
+        }
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "PodColumnBatch":
+        return cls(d.get("raw") or [], int(d.get("resourceVersion", 0)))
+
+
+class NodeColumnBatch:
+    """One Node LIST as identity columns + shared-subtree raw views.
+
+    Nodes are cluster-scoped (bare-name keys) and the store never mutates
+    a stored Node in place (status heartbeats go through
+    guaranteed_update, which installs a fresh deep copy), so the same
+    top-two-levels-fresh view contract holds.  The identity columns —
+    keys/names plus the zone label the spread priorities read — let
+    informer seeding and the tensorizer's node-axis ordering run without
+    decoding a single typed object; ``objects()`` yields ``LazyNode``
+    views whose sections decode on first touch."""
+
+    kind = "Node"
+
+    def __init__(self, raw: list[dict], revision: int):
+        self.raw = raw
+        self.revision = revision
+        n = len(raw)
+        self.keys: list[str] = [""] * n
+        self.names: list[str] = [""] * n
+        self.zones: list[str] = [""] * n
+        for i, d in enumerate(raw):
+            meta = d.get("metadata") or {}
+            name = meta.get("name", "")
+            self.names[i] = name
+            ns = meta.get("namespace", "")
+            self.keys[i] = f"{ns}/{name}" if ns else name
+            labels = meta.get("labels") or {}
+            self.zones[i] = labels.get(
+                "failure-domain.beta.kubernetes.io/zone", "")
+
+    def __len__(self) -> int:
+        return len(self.raw)
+
+    def objects(self) -> list:
+        from ..api.lazy import LazyNode
+
+        return [LazyNode(d) for d in self.raw]
+
+    def to_wire(self) -> dict:
+        return {
+            "kind": "NodeColumnBatch",
+            "resourceVersion": self.revision,
+            "raw": self.raw,
+        }
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "NodeColumnBatch":
+        return cls(d.get("raw") or [], int(d.get("resourceVersion", 0)))
+
+
+# kind -> batch class (the store's emitter registry; extend per kind)
+COLUMN_BATCH_KINDS = {"Pod": PodColumnBatch, "Node": NodeColumnBatch}
+
+
+def shallow_object_view(data: dict) -> dict:
+    """The zero-copy emit unit: top two levels fresh, subtrees shared
+    (see module docstring for why this is safe against store writes).
+    MUST be called while the store lock is held — the two copied levels
+    are exactly the ones ``bind_many`` mutates in place."""
+    top = dict(data)
+    if "metadata" in top:
+        top["metadata"] = dict(top["metadata"])
+    if "spec" in top:
+        top["spec"] = dict(top["spec"])
+    return top
+
+
+def batch_from_views(views: list[dict], revision: int,
+                     kind: str = "Pod"):
+    """Sort to ``Store.list`` order (namespace, name) — queue/drain order,
+    and therefore binding parity, must be identical on both LIST paths —
+    then pack the columns (safe outside the store lock: only shared
+    subtrees are read, and those are never mutated in place)."""
+    views.sort(key=lambda d: (d["metadata"].get("namespace", ""),
+                              d["metadata"].get("name", "")))
+    return COLUMN_BATCH_KINDS[kind](views, revision)

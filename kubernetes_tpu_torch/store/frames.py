@@ -1,0 +1,221 @@
+"""Column-packed watch frames: N correlated events as one delivery unit.
+
+A :class:`WatchFrame` packs one correlated store batch (everything a
+``create_many``/``bind_many`` txn committed under one store lock hold) into
+parallel columns:
+
+- **op and identity columns**: ``types`` (ADDED/MODIFIED/DELETED),
+  ``keys``, ``revisions`` as flat lists (one ``kind`` a frame: a store
+  batch is single-kind by construction);
+- **prev_revisions**: the revision each object held before this
+  transition (-1 = unknown).  This is the columnar confirm fence: a
+  scheduler that assumed a pod at revision r and sees a bind entry with
+  ``prev_revision == r`` knows, by CAS semantics, that nothing else
+  changed in between, so the containers/affinity equality check becomes
+  one integer compare an entry;
+- **shared payloads**: ``objects`` are the same event copies the
+  per-event path would have carried, shared-immutable (consumers never
+  mutate wire payloads).
+
+Frames are opt-in per watcher (``Store.watch(..., frames=True)``); the
+apiserver serves them only to ``?frames=1`` clients (per-event JSON lines
+otherwise), and ``events()`` expands a frame back into the exact per-event
+sequence.  The wire form is the JAX package's, byte for byte.
+
+``ENABLED`` turns framing off: with False every watcher gets per-event
+delivery.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+# False: per-event delivery everywhere (frame-aware consumers then only
+# ever see plain WatchEvents)
+ENABLED = True
+
+# WatchFrame.type value: a transport framing marker, not a state
+# transition (like WATCH_GAP).  Consumers that dispatch on event type
+# must expand the frame (``events()``) or apply it as a batch.
+FRAME = "FRAME"
+
+
+class FrameDecodeError(Exception):
+    """A frame's columns are structurally broken (length mismatch,
+    non-monotone revisions, malformed payloads).  A consumer cannot know
+    WHICH events it lost — the only honest recovery is a gap + relist,
+    never a silent partial apply."""
+
+
+class WatchFrame:
+    """One correlated batch of watch events, column-packed.
+
+    Shared-immutable like :class:`~.store.WatchEvent`: one frame object
+    is handed to the log consumers and every watcher; nobody mutates it.
+    """
+
+    __slots__ = ("kind", "types", "keys", "revisions", "prev_revisions",
+                 "objects", "txn", "_node_names", "_wire_b")
+
+    # duck-typed dispatch marker (``ev.type == FRAME``) for consumers
+    # that pull mixed WatchEvent/WatchFrame items off one watch queue
+    type = FRAME
+
+    def __init__(self, kind: str, types: list, keys: list, revisions: list,
+                 objects: list, prev_revisions: Optional[list] = None,
+                 txn: Optional[str] = None):
+        self.kind = kind
+        self.types = types
+        self.keys = keys
+        self.revisions = revisions
+        # -1 = unknown (creates, deletes, plain updates); >= 0 only where
+        # the emitting txn knew the pre-transition revision (bind_many)
+        self.prev_revisions = prev_revisions
+        self.objects = objects
+        # correlation id minted by the emitting store txn; carried on
+        # the wire for clients that trace it
+        self.txn = txn
+        self._node_names: Optional[list] = None
+        self._wire_b: Optional[bytes] = None
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    @property
+    def revision(self) -> int:
+        """The frame's resourceVersion fence: a consumer that applied
+        this frame has seen everything up to its LAST event."""
+        return self.revisions[-1] if self.revisions else 0
+
+    @property
+    def node_names(self) -> list:
+        """Per-event ``spec.nodeName`` column, computed on first touch —
+        what the scheduler's columnar bind confirm compares against its
+        assumed placements (one raw dict get per entry, no decode)."""
+        got = self._node_names
+        if got is None:
+            got = self._node_names = [
+                (o.get("spec") or {}).get("nodeName", "") if o else ""
+                for o in self.objects]
+        return got
+
+    def select(self, indices: list) -> Optional["WatchFrame"]:
+        """Column-level sub-frame: keep only the entries at ``indices``
+        (ascending, as produced by a selector filter walk), sharing the
+        payload dicts with this frame (shared-immutable, like every
+        other consumer).  Revision order — and therefore the per-frame
+        resourceVersion fence — is preserved by construction.  Returns
+        None for an empty selection: an all-filtered frame must not
+        reach the wire (``from_wire`` rejects empty frames; the client's
+        fence advances on its next matching delivery instead)."""
+        if not indices:
+            return None
+        if len(indices) == len(self.keys):
+            return self  # every entry matched: share the packed frame
+        prev = self.prev_revisions
+        return WatchFrame(
+            self.kind,
+            [self.types[i] for i in indices],
+            [self.keys[i] for i in indices],
+            [self.revisions[i] for i in indices],
+            [self.objects[i] for i in indices],
+            prev_revisions=None if prev is None else [prev[i] for i in indices],
+            txn=self.txn,
+        )
+
+    def wire_bytes(self) -> bytes:
+        """The frame's encoded watch line (wire form + newline), computed
+        once and shared across every streaming client.  Benign race: two
+        handler threads may both encode the same frame; the bytes are
+        identical and the last assignment wins."""
+        import json
+
+        got = self._wire_b
+        if got is None:
+            got = self._wire_b = json.dumps(self.to_wire()).encode() + b"\n"
+        return got
+
+    def events(self) -> Iterator:
+        """Expand back into the exact per-event sequence (order, content,
+        revisions) — the compatibility path for per-event consumers."""
+        from .store import WatchEvent
+
+        for i in range(len(self.keys)):
+            yield WatchEvent(self.types[i], self.kind, self.keys[i],
+                             self.revisions[i], self.objects[i])
+
+    # -- wire form (the apiserver's ?frames=1 watch line) -------------------
+    def to_wire(self) -> dict:
+        out = {
+            "type": FRAME,
+            "kind": self.kind,
+            "types": self.types,
+            "keys": self.keys,
+            "revisions": self.revisions,
+            "objects": self.objects,
+        }
+        if self.prev_revisions is not None:
+            out["prevRevisions"] = self.prev_revisions
+        if self.txn is not None:
+            out["txn"] = self.txn
+        return out
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "WatchFrame":
+        """Decode + validate.  A structurally broken frame must fail HERE
+        with :class:`FrameDecodeError` — the consumer turns it into a
+        watch gap (relist), never a partial apply."""
+        try:
+            kind = d["kind"]
+            types = d["types"]
+            keys = d["keys"]
+            revisions = [int(r) for r in d["revisions"]]
+            objects = d["objects"]
+            prev = d.get("prevRevisions")
+            if prev is not None:
+                prev = [int(r) for r in prev]
+        except (KeyError, TypeError, ValueError) as e:
+            raise FrameDecodeError(f"malformed frame: {e!r}") from None
+        n = len(keys)
+        if not (len(types) == len(revisions) == len(objects) == n) or (
+                prev is not None and len(prev) != n):
+            raise FrameDecodeError(
+                f"frame column lengths diverge: keys={n} types={len(types)} "
+                f"revisions={len(revisions)} objects={len(objects)}")
+        if n == 0:
+            raise FrameDecodeError("empty frame")
+        if any(revisions[i] >= revisions[i + 1] for i in range(n - 1)):
+            # one store txn commits strictly increasing revisions; a frame
+            # violating that was corrupted in flight
+            raise FrameDecodeError("frame revisions not strictly increasing")
+        if any(o is not None and not isinstance(o, dict) for o in objects):
+            raise FrameDecodeError("frame payloads must be dicts")
+        txn = d.get("txn")
+        if txn is not None and not isinstance(txn, str):
+            raise FrameDecodeError("frame txn id must be a string")
+        return cls(kind, list(types), list(keys), revisions, list(objects),
+                   prev_revisions=prev, txn=txn)
+
+
+def event_wire_bytes(ev) -> bytes:
+    """Encoded watch line for one plain :class:`~.store.WatchEvent`
+    (wire form + newline), computed once an event and shared across every
+    streaming client.  The cache rides the event object itself
+    (``object.__setattr__`` through the frozen dataclass): events are
+    shared-immutable across all watcher queues, so the first client to
+    encode pays and the rest reuse.  Benign race: concurrent encoders
+    produce identical bytes."""
+    import json
+
+    got = getattr(ev, "_wire_b", None)
+    if got is not None:
+        return got
+    line = json.dumps({
+        "type": ev.type,
+        "kind": ev.kind,
+        "key": ev.key,
+        "revision": ev.revision,
+        "object": ev.object,
+    }).encode() + b"\n"
+    object.__setattr__(ev, "_wire_b", line)
+    return line

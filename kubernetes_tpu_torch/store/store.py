@@ -16,14 +16,18 @@ component:
   watcher relists.
 
 The store holds **serialized dicts**, never live objects, and copies on
-every get/list/event, so informer objects are immutable by construction.
-Durability, replication, columnar lists, watch frames and the coalescing
-window of the reference package are not part of this store.
+every get/list/event (natively where ``native.get_fastcopy`` built), so
+informer objects are immutable by construction.  ``list_columns`` emits a
+columnar LIST (``store/columns.py``) and ``watch(frames=True)`` delivers a
+``create_many``/``bind_many`` txn as one ``WatchFrame`` (``store/frames.py``).
+Durability, replication and the coalescing window of the reference package
+are not part of this store.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 from dataclasses import dataclass
@@ -43,6 +47,26 @@ def _py_fast_deepcopy(obj):
     if t is list:
         return [_py_fast_deepcopy(v) for v in obj]
     return obj  # str/int/float/bool/None are immutable
+
+
+def _fast_deepcopy(obj):
+    """The first call resolves the copier (the native C walk of
+    ``csrc/fastcopy.c`` where it builds, else the Python walk) and rebinds
+    this name, so importing the store never compiles and later calls pay
+    no dispatch."""
+    global _fast_deepcopy
+    from ..native import get_fastcopy
+
+    _fast_deepcopy = get_fastcopy() or _py_fast_deepcopy
+    return _fast_deepcopy(obj)
+
+
+# correlation ids of batch txns: "<op>-<n>", carried by their watch frames
+_TXN = itertools.count(1)
+
+
+def next_txn(op: str) -> str:
+    return f"{op}-{next(_TXN)}"
 
 
 def object_key(namespace: str, name: str) -> str:
@@ -130,8 +154,10 @@ class Store:
         self._objects: dict[str, dict[str, _Item]] = {}
         # the watch-cache window; a deque so trimming the oldest is O(1)
         self._log: collections.deque[WatchEvent] = collections.deque(maxlen=event_log_window)
-        # (kind filter or None, queue)
-        self._watchers: list[tuple[Optional[str], "queue.Queue[Optional[WatchEvent]]"]] = []
+        # (kind filter or None, queue, wants frames): a frame-aware watcher
+        # (watch(frames=True)) gets one WatchFrame a batch txn, everyone
+        # else the per-event expansion
+        self._watchers: list[tuple[Optional[str], "queue.Queue[Optional[WatchEvent]]", bool]] = []
 
     # -- revision ----------------------------------------------------------
     @property
@@ -150,7 +176,7 @@ class Store:
         if key in bucket:
             raise AlreadyExistsError(f"{kind} {key} already exists")
         rev = self._next_rev()
-        data = obj if trusted else _py_fast_deepcopy(obj)
+        data = obj if trusted else _fast_deepcopy(obj)
         m = data["metadata"]
         m.setdefault("namespace", "default")
         if not m.get("uid"):
@@ -158,7 +184,7 @@ class Store:
         m["resourceVersion"] = rev
         m["creationRevision"] = rev
         bucket[key] = _Item(data=data, revision=rev)
-        return WatchEvent(ADDED, kind, key, rev, _py_fast_deepcopy(data))
+        return WatchEvent(ADDED, kind, key, rev, _fast_deepcopy(data))
 
     def create(self, kind: str, obj: dict, _trusted: bool = False) -> dict:
         """``_trusted`` marks ``obj`` as privately owned (the typed client's
@@ -176,16 +202,20 @@ class Store:
         order).  An item that fails (already exists, malformed) yields None
         in its slot and the rest of the batch still commits."""
         results: list[Optional[dict]] = []
+        txn = next_txn("create_many")
         with self._mu:
             bucket = self._objects.setdefault(kind, {})
+            events: list[WatchEvent] = []
             for obj in objs:
                 try:
                     ev = self._insert_locked(bucket, kind, obj, _trusted)
                 except Exception:  # noqa: BLE001 - one bad item, not the batch
                     results.append(None)
                     continue
-                self._emit(ev)
+                events.append(ev)
                 results.append(ev.object)
+            # the txn fans out as one frame to each frame-aware watcher
+            self._emit_many(events, txn=txn)
         return results
 
     def update(
@@ -207,7 +237,7 @@ class Store:
                     f"{kind} {key}: expected rev {expect_rev}, have {item.revision}"
                 )
             rev = self._next_rev()
-            data = obj if _trusted else _py_fast_deepcopy(obj)
+            data = obj if _trusted else _fast_deepcopy(obj)
             m = data["metadata"]
             m["uid"] = item.data["metadata"]["uid"]
             m["resourceVersion"] = rev
@@ -220,11 +250,11 @@ class Store:
                     # the last finalizer went: finish the delete
                     # (registry/generic/registry/store.go:977)
                     del bucket[key]
-                    final = _py_fast_deepcopy(data)
+                    final = _fast_deepcopy(data)
                     self._emit(WatchEvent(DELETED, kind, key, rev, final))
                     return final
             bucket[key] = _Item(data=data, revision=rev)
-            ev_copy = _py_fast_deepcopy(data)
+            ev_copy = _fast_deepcopy(data)
             self._emit(WatchEvent(MODIFIED, kind, key, rev, ev_copy))
             return ev_copy
 
@@ -237,10 +267,15 @@ class Store:
         ("not found" / "conflict: ...").  Per-pod MODIFIED events are still
         emitted; their objects share the stored containers/status
         structures and own fresh spec/metadata dicts, the only parts this
-        path ever mutates in place."""
+        path ever mutates in place.  Frame-aware watchers get the txn as
+        one frame whose ``prev_revisions`` column holds each pod's revision
+        before the bind (the scheduler's confirm fence)."""
         results: list[Optional[str]] = []
+        txn = next_txn("bind_many")
         with self._mu:
             bucket = self._objects.setdefault("Pod", {})
+            events: list[WatchEvent] = []
+            prev_revs: list[int] = []
             for namespace, name, node_name in items:
                 key = object_key(namespace, name)
                 item = bucket.get(key)
@@ -252,6 +287,7 @@ class Store:
                 if cur and cur != node_name:
                     results.append(f"conflict: already bound to {cur}")
                     continue
+                prev_revs.append(item.revision)
                 rev = self._next_rev()
                 spec["nodeName"] = node_name
                 item.data["metadata"]["resourceVersion"] = rev
@@ -261,8 +297,9 @@ class Store:
                     "spec": dict(spec),
                     "metadata": dict(item.data["metadata"]),
                 }
-                self._emit(WatchEvent(MODIFIED, "Pod", key, rev, ev_obj))
+                events.append(WatchEvent(MODIFIED, "Pod", key, rev, ev_obj))
                 results.append(None)
+            self._emit_many(events, prev_revisions=prev_revs, txn=txn)
         return results
 
     def guaranteed_update(
@@ -297,11 +334,11 @@ class Store:
                 item.data["metadata"]["deletionRevision"] = rev
                 item.data["metadata"]["resourceVersion"] = rev
                 item.revision = rev
-                marked = _py_fast_deepcopy(item.data)
+                marked = _fast_deepcopy(item.data)
                 self._emit(WatchEvent(MODIFIED, kind, key, rev, marked))
                 return marked
             del bucket[key]
-            final = _py_fast_deepcopy(item.data)
+            final = _fast_deepcopy(item.data)
             final["metadata"]["deletionRevision"] = rev
             self._emit(WatchEvent(DELETED, kind, key, rev, final))
             return final
@@ -312,7 +349,7 @@ class Store:
             item = self._objects.get(kind, {}).get(object_key(namespace, name))
             if item is None:
                 raise NotFoundError(f"{kind} {namespace}/{name}")
-            return _py_fast_deepcopy(item.data)
+            return _fast_deepcopy(item.data)
 
     def list(self, kind: str, namespace: Optional[str] = None) -> tuple[list[dict], int]:
         """Returns (objects sorted by namespace/name, list revision): the
@@ -323,15 +360,43 @@ class Store:
             for item in self._objects.get(kind, {}).values():
                 ns = item.data["metadata"].get("namespace", "")
                 if namespace is None or ns == namespace:
-                    out.append(_py_fast_deepcopy(item.data))
+                    out.append(_fast_deepcopy(item.data))
             out.sort(key=lambda d: (d["metadata"]["namespace"], d["metadata"]["name"]))
             return out, self._rev
 
+    def list_columns(self, kind: str = "Pod", namespace: Optional[str] = None):
+        """Columnar LIST (Pod and Node): one packed batch of raw views plus
+        identity (and for pods signature) columns, see ``store/columns.py``.
+        The views share deep subtrees with the stored dicts: only the two
+        levels the store mutates in place are copied, under the lock, so
+        the batch is a consistent snapshot at its revision.  Payloads are
+        read-only.  None for kinds without a columnar form (callers fall
+        back to :meth:`list`)."""
+        from .columns import COLUMN_BATCH_KINDS, batch_from_views, shallow_object_view
+
+        if kind not in COLUMN_BATCH_KINDS:
+            return None
+        with self._mu:
+            rev = self._rev
+            views = []
+            for item in self._objects.get(kind, {}).values():
+                if namespace is not None:
+                    ns = item.data.get("metadata", {}).get("namespace", "")
+                    if ns != namespace:
+                        continue
+                views.append(shallow_object_view(item.data))
+        return batch_from_views(views, rev, kind=kind)
+
     # -- watch -------------------------------------------------------------
-    def watch(self, kind: Optional[str] = None, from_revision: Optional[int] = None) -> Watch:
+    def watch(self, kind: Optional[str] = None, from_revision: Optional[int] = None,
+              frames: bool = False) -> Watch:
         """Watch events for ``kind`` (None = all kinds) strictly after
         ``from_revision`` (None = now).  Raises ``ExpiredRevisionError`` if
-        the revision has fallen out of the event-log window."""
+        the revision has fallen out of the event-log window.
+
+        ``frames=True``: a correlated batch txn (``create_many``/
+        ``bind_many``) arrives as one :class:`~.frames.WatchFrame` instead
+        of N events (the log replay stays per-event)."""
         with self._mu:
             q: "queue.Queue[Optional[WatchEvent]]" = queue.Queue()
             if from_revision is not None and from_revision < self._rev:
@@ -343,18 +408,47 @@ class Store:
                 for ev in self._log:
                     if ev.revision > from_revision and (kind is None or ev.kind == kind):
                         q.put(ev)
-            self._watchers.append((kind, q))
+            self._watchers.append((kind, q, frames))
             return Watch(self, q)
 
     def _remove_watch(self, q) -> None:
         with self._mu:
-            self._watchers = [(k, w) for (k, w) in self._watchers if w is not q]
+            self._watchers = [(k, w, f) for (k, w, f) in self._watchers if w is not q]
 
     def _emit(self, ev: WatchEvent) -> None:
         # WatchEvent.object is shared read-only: one private copy is made
         # at emit time and handed to the log and every watcher (the
         # informer parses it into fresh typed objects)
         self._log.append(ev)  # deque maxlen trims the window
-        for kind, q in self._watchers:
+        for kind, q, _frames in self._watchers:
             if kind is None or kind == ev.kind:
                 q.put(ev)
+
+    def _emit_many(self, events: list[WatchEvent],
+                   prev_revisions: Optional[list[int]] = None,
+                   txn: Optional[str] = None) -> None:
+        """Fan one correlated batch out: the log stays per-event, every
+        frame-aware watcher receives one column-packed frame (one queue
+        put, one informer lock hold, one handler fan-out for the txn), and
+        per-event watchers see the same event sequence as before."""
+        if not events:
+            return
+        from . import frames as frames_mod
+
+        self._log.extend(events)
+        want_frame = len(events) > 1 and frames_mod.ENABLED
+        kind = events[0].kind  # batch txns are single-kind
+        frame = None
+        for wkind, q, wants_frames in self._watchers:
+            if wkind is not None and wkind != kind:
+                continue
+            if wants_frames and want_frame:
+                if frame is None:  # built once, shared-immutable
+                    frame = frames_mod.WatchFrame(
+                        kind, [ev.type for ev in events], [ev.key for ev in events],
+                        [ev.revision for ev in events], [ev.object for ev in events],
+                        prev_revisions=prev_revisions, txn=txn)
+                q.put(frame)
+            else:
+                for ev in events:
+                    q.put(ev)

@@ -222,6 +222,10 @@ class ClientMetrics:
         self.ingest_bytes = r.register(Counter(
             "scheduler_ingest_decode_bytes_total",
             "wire bytes of watch payloads delivered to informers"))
+        self.watch_parse_seconds = r.register(Counter(
+            "client_watch_parse_seconds_total",
+            "seconds the watch readers spent parsing stream lines (JSON, "
+            "then a frame's columns) before an informer saw them"))
         self.informer_relists = r.register(Counter(
             "client_informer_relists_total",
             "full LIST + watch restarts (gap escalation or resync)"))
@@ -232,6 +236,16 @@ class ClientMetrics:
             "client_informer_decode_errors_total",
             "event payloads that failed to decode (delta lost, gap marked "
             "for relist)"))
+        self.informer_frame_errors = r.register(Counter(
+            "client_informer_frame_errors_total",
+            "column-packed watch frames lost whole before application "
+            "(broken columns): gap marked for relist"))
+        self.informer_compactions = r.register(Counter(
+            "client_informer_compactions_total",
+            "lazy cache objects promoted and stripped of their wire payload"))
+        self.informer_compaction_freed_bytes = r.register(Gauge(
+            "client_informer_compaction_freed_bytes",
+            "approximate wire-payload bytes released by the last compaction"))
 
 
 # informers without an explicit metrics object aggregate here
@@ -299,6 +313,46 @@ class SchedulerMetrics:
             "scheduler_pipeline_device_wait_microseconds",
             "device time left after the overlapped prep returned — the "
             "unfilled overlap headroom of the wave",
+        ))
+        # ingest: per-wave informer decode and application time, lazy
+        # promotions, watch frames and the columnar confirm's fallbacks
+        self.ingest_decode_seconds = r.register(Histogram(
+            "scheduler_ingest_decode_seconds",
+            "informer event-decode time per scheduling wave (seconds; "
+            "near zero on the lazy path)",
+            buckets=[1e-5 * (2 ** (i / 2)) for i in range(44)],
+        ))
+        self.ingest_parse_seconds = r.register(Histogram(
+            "scheduler_ingest_parse_seconds",
+            "watch-line parse time per scheduling wave on the wire client "
+            "(JSON and frame columns, before the informer's decode; "
+            "seconds, zero in process)",
+            buckets=[1e-5 * (2 ** (i / 2)) for i in range(44)],
+        ))
+        self.ingest_promotions = r.register(Counter(
+            "scheduler_ingest_promotions_total",
+            "lazy-object sections and objects promoted to typed form by "
+            "consumers (decode work that was needed)",
+        ))
+        self.pump_apply_seconds = r.register(Histogram(
+            "scheduler_pump_apply_seconds",
+            "informer event/frame application time per scheduling wave "
+            "(cache apply + handler fan-out + bind confirm; seconds)",
+            buckets=[1e-5 * (2 ** (i / 2)) for i in range(44)],
+        ))
+        self.watch_frames = r.register(Counter(
+            "scheduler_watch_frames_total",
+            "column-packed watch frames applied by this scheduler's "
+            "informers (one a correlated store batch txn)",
+        ))
+        self.watch_frame_events = r.register(Counter(
+            "scheduler_watch_frame_events_total",
+            "events delivered inside watch frames",
+        ))
+        self.confirm_fallbacks = r.register(Counter(
+            "scheduler_confirm_fallbacks_total",
+            "frame bind-confirm entries the columnar revision fence "
+            "rejected, routed through the per-pod compare instead",
         ))
         self.pipeline_prep_failures = r.register(Counter(
             "scheduler_pipeline_prep_failures_total",

@@ -163,7 +163,8 @@ def _churn_cluster(n_nodes: int, total_pods: int, workload: str, seed: int):
 
 
 def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
-              workload: str = "mixed", seed: int = 0, device=None) -> dict:
+              workload: str = "mixed", seed: int = 0, device=None,
+              lazy_ingest: bool = True) -> dict:
     """Steady-state arrival load through the port's ``Scheduler`` (the
     reference harness's churn preset, ``bench.py`` ``_run_churn_timed``):
     an arrival thread creates one wave of pods in one ``create_many`` txn
@@ -172,16 +173,33 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
     on and the event sink running.
 
     ``device`` is the backend's: None means the card and raises without
-    one; ``"cpu"`` runs the plain scan.  Returns bound/unbound counts from
-    the final store state, wall seconds and pods/s, e2e p50/p99 in ms,
-    per-wave phase seconds (pump, tensorize, dispatch, device_wait,
-    commit, prep, and the informers' decode and apply seconds) with the
-    wave's kernel ms, the backend's stats, the
-    recorded drain batches, the final binding map and the round-robin
-    counter (the inputs of ``oracle_replay_waves``)."""
+    one; ``"cpu"`` runs the plain scan.  ``lazy_ingest`` (the default)
+    runs the serving ingest path: lazy decode, watch frames, columnar
+    LIST and the frame confirm; False runs the eager path (typed decode of
+    every event, per-event delivery) for the run and restores the default
+    after.  Returns bound/unbound counts from the final store state, wall
+    seconds and pods/s, e2e p50/p99 in ms, per-wave phases (pump,
+    tensorize, dispatch, device_wait, commit and prep seconds, the
+    informers' decode and apply seconds, frames, frame events, lazy
+    promotions and confirm fallbacks) with the wave's kernel ms, the
+    backend's stats, the recorded drain batches, the final binding map and
+    the round-robin counter (the inputs of ``oracle_replay_waves``)."""
+    from .api import lazy
+    from .store import frames
+
+    saved = lazy.ENABLED, frames.ENABLED
+    lazy.ENABLED = frames.ENABLED = lazy_ingest
+    try:
+        return _run_churn(n_nodes, total_pods, waves, workload, seed, device)
+    finally:
+        lazy.ENABLED, frames.ENABLED = saved
+
+
+def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
     import threading
     import time
 
+    from .api import lazy
     from .ops.backend import BatchBackend
     from .scheduler import GenericScheduler, Scheduler
 
@@ -206,12 +224,15 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
 
     sched.pump = timed_pump
 
-    def informer_seconds():
-        """Cumulative (decode, apply) seconds over the scheduler's informers:
-        the part of pump_s spent applying watch events."""
-        infs = sched.informers.informers()
-        return (sum(i.stats["decode_s"] for i in infs),
-                sum(i.stats["apply_s"] for i in infs))
+    ingest_keys = ("decode_s", "promotions", "apply_s", "frames", "frame_events", "parse_s")
+
+    def ingest_counters() -> dict:
+        """Cumulative ingest counters: the informers' decode and apply
+        seconds (the part of pump_s spent on watch events), frames, frame
+        events, lazy promotions and the confirm's fallbacks."""
+        out = dict(zip(ingest_keys, sched._ingest_stats()))
+        out["confirm_fallbacks"] = sched.metrics.confirm_fallbacks.value
+        return out
 
     # wave-drain detection feeds the arrival thread: wave w+1 is created
     # the moment wave w left the queue, so creation overlaps scheduling
@@ -248,7 +269,7 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
     try:
         for _ in range(waves):
             pump_before = pump_acc[0]
-            inf_before = informer_seconds()
+            ingest_before = ingest_counters()
             b = sched.run_batch_loop(min_batch=per_wave, max_wait=30.0,
                                      max_waves=1, poll_interval=0.002)
             bound += b
@@ -256,9 +277,8 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
                   for k in ("tensorize_s", "dispatch_s", "device_wait_s",
                             "commit_s", "prep_s", "kernel_ms")}
             ph["pump_s"] = pump_acc[0] - pump_before
-            inf_after = informer_seconds()
-            ph["decode_s"] = inf_after[0] - inf_before[0]
-            ph["apply_s"] = inf_after[1] - inf_before[1]
+            ingest_after = ingest_counters()
+            ph.update({k: ingest_after[k] - ingest_before[k] for k in ingest_after})
             ph["bound"] = b
             phase_timers.append(ph)
         elapsed = time.perf_counter() - t0
@@ -280,6 +300,7 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
         "pods": total_pods,
         "waves": waves,
         "device": str(backend.device),
+        "lazy_ingest": lazy.ENABLED,
         "bound": bound,
         "unbound": sum(1 for node in assignments.values() if node is None),
         "drained": drained[0],
@@ -298,7 +319,7 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
 
 def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
                    waves: int = 10, workload: str = "mixed", seed: int = 0,
-                   wave_deadline_s: float = 60.0) -> dict:
+                   wave_deadline_s: float = 60.0, on_wave=None) -> dict:
     """The client side of a daemon run: the churn preset driven over the
     wire against the apiserver at ``url``, served by whatever scheduler
     watches it (``python -m kubernetes_tpu_torch.scheduler``).
@@ -310,7 +331,8 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
     ``wave_deadline_s`` a wave (else ``TimeoutError``).  Returns the
     bound and unbound counts of the final LIST, the wall seconds of the
     waves and pods/s, the client-observed create→bind p50 and p99 in ms,
-    each wave's seconds and the final binding map."""
+    each wave's seconds and the final binding map.  ``on_wave(w)``, when
+    given, is called after wave ``w`` settled (outside the timed wave)."""
     import threading
     import time
 
@@ -367,6 +389,10 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
                             f"FailedScheduling after {wave_deadline_s} s")
                     cv.wait(timeout=left)
             wave_s.append(time.perf_counter() - t_wave)
+            if on_wave is not None:
+                t_cb = time.perf_counter()
+                on_wave(w)
+                t0 += time.perf_counter() - t_cb  # keep the callback off the wall
         wall = time.perf_counter() - t0
     finally:
         factory.stop_all()

@@ -244,6 +244,68 @@ def compacted_watch_relists(p: Pair):
         inf.stop()
 
 
+def _frames_watch_open(w) -> bool:
+    """The framed watch's stream is up (the port's reader keeps it in
+    ``_stream``, the JAX one in ``_resp``)."""
+    return getattr(w, "_stream", None) is not None or getattr(w, "_resp", None) is not None
+
+
+def framed_watch(p: Pair):
+    """``?frames=1``: a ``create_many`` and a ``bind_many`` txn each arrive
+    as one frame line; a single delete as a plain event."""
+    _, rev = p.rs.list("Pod")
+    w = p.rs.watch("Pod", from_revision=rev, frames=True)
+    try:
+        deadline = time.monotonic() + 10
+        while not _frames_watch_open(w) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        pods = []
+        for i in range(5):
+            pod = p.tu.make_pod(f"f{i}", cpu="100m", labels={"app": "web"})
+            pod.meta.uid = f"uid-f{i}"
+            pods.append(pod)
+        p.cs.pods.create_many(pods)
+        p.cs.pods.bind_many([p.api.Binding(pod_namespace="default", pod_name=f"f{i}",
+                                           node_name=f"n{i % 2}") for i in range(3)])
+        p.cs.pods.delete("f4")
+        items = []
+        while len(items) < 3 and time.monotonic() < deadline:
+            it = w.get(timeout=0.1)
+            if it is not None:
+                items.append(it)
+    finally:
+        w.stop()
+    out = []
+    for it in items:
+        if it.type == "FRAME":
+            out.append({"type": it.type, "kind": it.kind, "types": it.types, "keys": it.keys,
+                        "revisions": it.revisions, "prev": it.prev_revisions,
+                        "nodes": it.node_names, "objects": it.objects,
+                        "txn": (it.txn or "").split("-")[0]})
+        else:
+            out.append({"type": it.type, "key": it.key, "object": it.object})
+    return {"items": out}
+
+
+def columnar_list(p: Pair):
+    """``?columnar=1``: a Pod and a Node LIST as one packed column batch;
+    a kind without a columnar form answers None."""
+    for i in range(3):
+        node = p.tu.make_node(f"n{i}", cpu="4", memory="8Gi",
+                              labels={"failure-domain.beta.kubernetes.io/zone": f"z{i}"})
+        node.meta.uid = f"uid-n{i}"
+        p.cs.nodes.create(node)
+    for i in range(4):
+        pod = p.tu.make_pod(f"c{i}", cpu=f"{100 * (i + 1)}m", memory="64Mi")
+        pod.meta.uid = f"uid-c{i}"
+        p.cs.pods.create(pod)
+    pods, nodes = p.rs.list_columns("Pod"), p.rs.list_columns("Node")
+    return {"pod_wire": pods.to_wire(), "keys": pods.keys, "sig_ids": pods.sig_ids.tolist(),
+            "req": pods.req_units.tolist(), "node_keys": nodes.keys, "zones": nodes.zones,
+            "lazy_names": [o.meta.name for o in pods.objects()],
+            "service": p.rs.list_columns("Service")}
+
+
 @pytest.fixture(params=PAIRINGS, ids=lambda p: f"{p[0]}-client-{p[1]}-server")
 def pairing(request):
     return request.param
@@ -359,6 +421,19 @@ def _status(code, reason):
 
 
 POD_LIST = (200, {}, {"items": [], "resourceVersion": 7})
+
+
+@pytest.mark.timeout(60)
+def test_framed_watch(pairing):
+    got = check(framed_watch, pairing)
+    assert [i["type"] for i in got["items"]] == ["FRAME", "FRAME", "DELETED"]
+    assert got["items"][1]["nodes"] == ["n0", "n1", "n0"]
+
+
+@pytest.mark.timeout(60)
+def test_columnar_list(pairing):
+    got = check(columnar_list, pairing)
+    assert got["keys"] == [f"default/c{i}" for i in range(4)] and got["service"] is None
 
 
 @pytest.mark.timeout(60)

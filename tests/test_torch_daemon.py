@@ -419,6 +419,10 @@ def test_daemon_processes_serve_a_flood_and_exit_cleanly(tmp_path):
         with urllib.request.urlopen(f"http://127.0.0.1:{hp}/metrics", timeout=10) as resp:
             text = resp.read().decode()
         assert "scheduler_e2e_scheduling_latency_microseconds_count 200" in text
+        # the ingest seconds its drains observed, by the /metrics sums
+        sums = {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
+                if ln.startswith(("scheduler_ingest_parse_seconds_sum",
+                                  "scheduler_ingest_decode_seconds_sum"))}
 
         assert _terminate(scheduler) == 0
         lines = [json.loads(line) for line in sched_out.read_text().splitlines()
@@ -428,6 +432,11 @@ def test_daemon_processes_serve_a_flood_and_exit_cleanly(tmp_path):
         assert stats["bound"] == 200 and stats["oracle_pods"] == 0
         assert stats["kernel_pods"] == stats["drained"] >= 200
         assert stats["launches"] == 0  # the CPU runs the plain scan, never the kernel
+        # the watch readers parsed the frames before the informers wrapped
+        # them; the drains observed part of each total, never more
+        assert stats["ingest_lazy"] and stats["ingest_frames"] > 0
+        assert 0 < sums["scheduler_ingest_parse_seconds_sum"] <= stats["ingest_parse_s"] + 1e-9
+        assert 0 < sums["scheduler_ingest_decode_seconds_sum"] <= stats["ingest_decode_s"] + 1e-9
         assert _terminate(apiserver) == 0
         assert "apiserver serving on http://" in (tmp_path / "apiserver.out").read_text()
     finally:

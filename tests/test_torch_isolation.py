@@ -68,7 +68,9 @@ def test_import_leaves_jax_and_reference_unloaded():
             "kubernetes_tpu_torch.client.remote", "kubernetes_tpu_torch.client.leaderelection",
             "kubernetes_tpu_torch.utils.features", "kubernetes_tpu_torch.utils.health",
             "kubernetes_tpu_torch.scheduler.__main__",
-            "kubernetes_tpu_torch.__main__"} <= set(mods)
+            "kubernetes_tpu_torch.__main__", "kubernetes_tpu_torch.native",
+            "kubernetes_tpu_torch.api.lazy", "kubernetes_tpu_torch.store.frames",
+            "kubernetes_tpu_torch.store.columns"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -80,3 +82,26 @@ def test_import_leaves_jax_and_reference_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _inside_port(path: str) -> bool:
+    return os.path.commonpath([os.path.abspath(path), PORT_DIR]) == PORT_DIR
+
+
+def test_the_port_builds_only_from_its_own_sources():
+    """The native helpers and the CUDA kernels build from sources under
+    ``kubernetes_tpu_torch/`` into build directories under it: never from
+    or into the repo's root ``csrc/``, which belongs to the reference."""
+    from kubernetes_tpu_torch import native
+    from kubernetes_tpu_torch.ops import _build
+
+    for d in (native.CSRC, native.BUILD_DIR, _build.CSRC, _build.BUILD_DIR):
+        assert _inside_port(d), d
+    assert {"labelmatch.cpp", "fastcopy.c"} <= set(os.listdir(native.CSRC))
+    assert "fused_scan.cu" in os.listdir(_build.CSRC)
+    assert all(_inside_port(p) for p in _build.sources("fused_scan"))
+    root_csrc = os.path.join(ROOT, "csrc")
+    before = sorted(os.listdir(root_csrc))
+    assert native.get_lib() is not None and native.get_fastcopy() is not None
+    assert _inside_port(native._lib._name)
+    assert sorted(os.listdir(root_csrc)) == before

@@ -111,3 +111,20 @@ def test_plan_fits_the_card(case):
     q = fused_scan.query(s, st, fused_scan.pack(s, st, pl), pl)
     assert q["static_smem"] <= fused_scan.STATIC_RESERVE
     assert q["max_active_clusters"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_zones,n_nodes", [(16, 64), (64, 300),
+                                             # the planner's cap at the largest cluster
+                                             (fused_scan.MAX_ZONES, 5000)])
+def test_zone_path_matches_scan_ref_on_card(n_zones, n_nodes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused scan is a CUDA kernel with no CPU mode")
+    static, init = cases.tensorize(cases.PORT, "many_zones", n_zones=n_zones,
+                                   n_nodes=n_nodes, n_pods=200)
+    assert static.num_zones > fused_scan.REG_ZONES
+    s, st = from_reference(vars(static), vars(init), "cuda")
+    want, rr_want = scan_ref.scan(s, st)
+    got, rr_got = fused_scan.schedule(s, st)
+    assert rr_got == rr_want
+    np.testing.assert_array_equal(got, want.cpu().numpy())

@@ -513,7 +513,8 @@ def test_batch_phases_and_on_idle_wiring(cluster):
     assert calls == [(None, 24)]  # 3 of 4 segments committed before it
     ph = sched.last_batch_phases
     assert set(ph) == {"tensorize_s", "dispatch_s", "device_wait_s", "kernel_ms",
-                       "commit_s", "prep_s"}
+                       "commit_s", "prep_s", "decode_s", "promotions", "apply_s",
+                       "frames", "frame_events", "parse_s", "confirm_fallbacks"}
     assert ph["commit_s"] > 0 and ph["prep_s"] > 0 and ph["kernel_ms"] == 0.0
     assert backend.stats["segments"] == 4
 
@@ -959,3 +960,26 @@ def test_churn_on_card_matches_cpu_and_oracle_replay():
     replay = workload.oracle_replay_waves(drains, got, CHURN["n_nodes"], CHURN["total_pods"],
                                           CHURN["workload"], CHURN["seed"])
     assert replay["mismatches"] == 0 and replay["round_robin"] == rr
+
+
+@pytest.mark.timeout(300)
+def test_run_churn_lazy_framed_and_eager_paths_equal_the_jax_scheduler():
+    """``run_churn`` on the default ingest path (lazy decode, watch frames,
+    columnar LIST, the frame confirm) and on the eager path (typed decode,
+    per-event delivery) bind every pod as the JAX ``Scheduler`` does, with
+    the same final round-robin counter.  Tolerance: exact."""
+    args = (40, 160, 4, "mixed", 3)
+    want, _, _, want_rr = _jax_churn(*args)
+    lazy_run = workload.run_churn(*args, device="cpu")
+    eager_run = workload.run_churn(*args, device="cpu", lazy_ingest=False)
+    for r in (lazy_run, eager_run):
+        assert r["assignments"] == want and r["round_robin"] == want_rr
+    assert lazy_run["lazy_ingest"] and not eager_run["lazy_ingest"]
+    lazy_ph, eager_ph = lazy_run["phase_timers"], eager_run["phase_timers"]
+    assert sum(p["frames"] for p in lazy_ph) >= 4 and sum(p["frame_events"] for p in lazy_ph) >= 160
+    assert sum(p["confirm_fallbacks"] for p in lazy_ph) == 0
+    assert sum(p["frames"] for p in eager_ph) == 0 and sum(p["promotions"] for p in eager_ph) == 0
+    from kubernetes_tpu_torch.api import lazy
+    from kubernetes_tpu_torch.store import frames
+
+    assert lazy.ENABLED and frames.ENABLED  # the eager run restored the defaults

@@ -376,13 +376,13 @@ def test_informer_expired_watch_relists():
     real_watch = store.watch
     calls = {"n": 0}
 
-    def racing_watch(kind=None, from_revision=None):
+    def racing_watch(kind=None, from_revision=None, frames=False):
         calls["n"] += 1
         if calls["n"] == 1:
             # a writer lands between LIST and WATCH and slides the window
             for j in range(3):
                 store.create("Pod", make_pod_dict(f"late{j}"))
-        return real_watch(kind, from_revision)
+        return real_watch(kind, from_revision, frames=frames)
 
     store.watch = racing_watch
     inf = SharedInformer(cs.pods)
@@ -390,7 +390,7 @@ def test_informer_expired_watch_relists():
     assert calls["n"] == 2  # expired once, listed again
     assert len(inf.keys()) == 8
 
-    def dead_watch(kind=None, from_revision=None):
+    def dead_watch(kind=None, from_revision=None, frames=False):
         raise ExpiredRevisionError("window slid")
 
     store.watch = dead_watch

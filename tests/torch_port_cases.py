@@ -215,7 +215,54 @@ def few_feasible(pkg: str, n_pods: int = 12):
     return m, pods, M.PriorityContext(m)
 
 
+def many_zones(pkg: str, n_zones: int = 16, seed: int = 3, n_nodes: int = 64, n_pods: int = 80):
+    """A zone key spanning ``n_zones`` zones (more than the kernel keeps in
+    registers), services and a ReplicaSet so the zone spread score decides
+    ties, uneven capacities, some existing pods."""
+    M = mods(pkg)
+    api, tu = M.api, M.tu
+    rng = random.Random(seed)
+    m = {}
+    for i in range(n_nodes):
+        name = f"n{i:03d}"
+        node = tu.make_node(name, cpu=rng.choice(["4", "8", "16"]), memory="32Gi",
+                            labels={HOST: name, ZONE: f"z{(i * 7) % n_zones}"})
+        info = M.NodeInfo(node)
+        for e in range(rng.randrange(3)):
+            info.add_pod(tu.make_pod(f"ex-{i}-{e}", cpu="100m", node_name=name,
+                                     labels={"app": rng.choice(["web", "db"])}))
+        m[name] = info
+    pods = [tu.make_pod(f"p{i:03d}", cpu=rng.choice(["100m", "500m"]), memory="128Mi",
+                        labels={"app": rng.choice(["web", "db", "cache"])})
+            for i in range(n_pods)]
+    svcs = [api.Service(meta=api.ObjectMeta(name=a), selector={"app": a}) for a in ("web", "db")]
+    rs = api.ReplicaSet(meta=api.ObjectMeta(name="rs-cache"),
+                        selector=api.LabelSelector.from_match_labels({"app": "cache"}))
+    return m, pods, M.PriorityContext(m, services=svcs, replicasets=[rs])
+
+
+def host_ports(pkg: str, n_ports: int = 200, seed: int = 4, n_nodes: int = 16, n_pods: int = None):
+    """``n_ports`` distinct host ports over the batch (every pod its own,
+    a few pods repeating one), on few nodes so ports collide."""
+    M = mods(pkg)
+    rng = random.Random(seed)
+    m = {}
+    for i in range(n_nodes):
+        node = M.tu.make_node(f"n{i:02d}", cpu="64", memory="128Gi", pods=200,
+                              labels={HOST: f"n{i:02d}", ZONE: f"z{i % 3}"})
+        m[node.meta.name] = M.NodeInfo(node)
+    pods = [M.tu.make_pod(f"p{i:03d}", cpu="100m", labels={"app": "web"},
+                          host_ports=[9000 + i])
+            for i in range(n_ports)]
+    for i in range(n_pods or n_ports // 4):
+        pods.insert(rng.randrange(len(pods)), M.tu.make_pod(
+            f"r{i:03d}", cpu="100m", host_ports=[9000 + rng.randrange(n_ports)]))
+    return m, pods, M.PriorityContext(m)
+
+
 CASES = {
+    "many_zones": many_zones,
+    "host_ports": host_ports,
     "plain": plain,
     "mixed": mixed,
     "terms_only": terms_only,
