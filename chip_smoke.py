@@ -15,8 +15,11 @@ Phases, one line each:
    kernel's shared-memory zone path, timed beside the 3-zone segment) and
    with 600 distinct host ports (``BatchBackend`` cuts the batch under the
    kernel's port vocabulary; every segment is held against the plain
-   scan); and the port's sequential oracle against ``BatchBackend`` on a
-   300-pod prefix;
+   scan); a wave of 50 pods and one with more host ports than the
+   kernel's vocabulary through ``Scheduler.schedule_pending_batch`` (the
+   50 bind, the one is refused with the kernel's limit, nothing raises);
+   and the port's sequential oracle against ``BatchBackend`` on a 300-pod
+   prefix;
 4. the main path at full width: one ``BatchBackend(device="cuda")
    .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, with the
    fused-kernel launch count read around it; then the kernel against the
@@ -46,7 +49,23 @@ Phases, one line each:
    what came after the last drain add up to the daemon's totals);
    (b) a fresh pair of daemons on 1000 nodes whose 400 pods exist before
    the scheduler starts, its bindings and round-robin counter read back
-   and held against the port's sequential oracle.
+   and held against the port's sequential oracle;
+7. preemption: (a) ``workload.run_preemption`` at full width, 5000 nodes
+   filled by 20 000 priority-0 pods, then 2500 priority-100 preemptors
+   (fill batch, failing batch, the cohort pass, follow-up batch; each
+   batch a kernel launch): evictions per second, the cohort split (state
+   build, ranking, evictions), victims == preemptors == bound after, the
+   failing and follow-up batches' kernel segments against the plain scan;
+   (b) 1000 nodes, 4000 fillers and 500 preemptors, a seeded tenth of
+   them with a host port or a required affinity: every cohort decision
+   held against the exhaustive ``find_preemption_target``, the later
+   batches' kernel segments against the plain scan; (c) the two daemons
+   at their defaults (batch backend, preemption on, leader election) over
+   HTTP at 1000 nodes, 4000 fillers and 500 preemptors: every preemptor
+   bound, the daemon's victims printed;
+8. the upstream ``ClusterAutoscalerProvider`` as a policy file
+   (``load_policy_file``) at 1000 x 2000 ``mixed``: the scan's ``most``
+   weight plane, kernel == plain scan == the sequential oracle on it.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -219,26 +238,100 @@ def bound(s, st) -> tuple[float, str, dict]:
     return (t_bytes, "bytes", detail) if t_bytes >= t_ops else (t_ops, "operations", detail)
 
 
-def checked_batch(m, pods, pctx) -> tuple:
-    """``BatchBackend(device="cuda")`` over the batch, each segment's kernel
-    held against the plain scan on that segment's inputs before the
-    backend launches it.  Returns (bindings, [(plan, compare result,
-    ScanStatic) per segment], backend)."""
+def checking_backend(seen: list, skip: int = 0):
+    """A ``BatchBackend`` class whose kernel segments, after the first
+    ``skip``, are each held against the plain scan on that segment's
+    inputs before the backend launches it; ``seen`` collects (plan,
+    compare result, ScanStatic, ScanState) per checked segment, and the
+    class's ``check_s`` the checks' wall seconds.  Each check launches
+    the kernel once more (``fused_scan.launches``)."""
     from kubernetes_tpu_torch.models.carry import from_reference
     from kubernetes_tpu_torch.ops import fused_scan
     from kubernetes_tpu_torch.ops.backend import BatchBackend
 
-    seen = []
-
     class Checked(BatchBackend):
+        dispatches = 0
+        check_s = 0.0
+
         def _dispatch(self, static, init):
-            s, st = from_reference(vars(static), vars(init), self.device)
-            seen.append((fused_scan.plan(s), compare(s, st), s, st))
+            self.dispatches += 1
+            if self.dispatches > skip:
+                t = time.perf_counter()
+                s, st = from_reference(vars(static), vars(init), self.device)
+                seen.append((fused_scan.plan(s), compare(s, st), s, st))
+                Checked.check_s += time.perf_counter() - t
             return super()._dispatch(static, init)
 
-    backend = Checked(device="cuda")
+    return Checked
+
+
+def checked_batch(m, pods, pctx, algorithm=None) -> tuple:
+    """``BatchBackend(device="cuda")`` over the batch, each segment's kernel
+    held against the plain scan on that segment's inputs before the
+    backend launches it.  Returns (bindings, [(plan, compare result,
+    ScanStatic, ScanState) per segment], backend)."""
+    seen = []
+    backend = checking_backend(seen)(algorithm=algorithm, device="cuda")
     got = backend.schedule_batch(pods, m, pctx)
     return got, seen, backend
+
+
+def oracle_bindings(m, pods, pctx, algorithm) -> list:
+    """The sequential oracle over ``pods`` on a copy of ``m``: each pod's
+    node (None if it fits nowhere), placements fed back."""
+    from kubernetes_tpu_torch.scheduler.generic_scheduler import FitError
+    from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
+
+    work = {n: i.clone() for n, i in m.items()}
+    wctx = PriorityContext(work, services=pctx.services)
+    want = []
+    for pod in pods:
+        try:
+            name = algorithm.schedule(pod, work, wctx).node_name
+            work[name].add_pod(pod)
+        except FitError:
+            name = None
+        want.append(name)
+    return want
+
+
+def refused_wave() -> None:
+    """Phase 3's refusal: one wave of 50 ordinary pods and one with a host
+    port more than the kernel's vocabulary, through
+    ``Scheduler.schedule_pending_batch`` on the card.  The 50 bind; the
+    one is refused with the kernel's limit as its FailedScheduling
+    message, and nothing raises."""
+    from kubernetes_tpu_torch.client import Clientset
+    from kubernetes_tpu_torch.ops import fused_scan
+    from kubernetes_tpu_torch.ops.backend import BatchBackend
+    from kubernetes_tpu_torch.scheduler import GenericScheduler, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testutil import make_node, make_pod
+
+    cs = Clientset(Store())
+    for i in range(4):
+        cs.nodes.create(make_node(f"n{i}", cpu="8", memory="16Gi"))
+    for i in range(50):
+        cs.pods.create(make_pod(f"p{i:03d}", cpu="100m"))
+        if i == 25:
+            cs.pods.create(make_pod("wide", cpu="100m", host_ports=list(
+                range(20000, 20000 + fused_scan.MAX_PORTS + 1))))
+    algo = GenericScheduler()
+    backend = BatchBackend(algorithm=algo, device="cuda")
+    sched = Scheduler(cs, algorithm=algo, backend=backend)
+    sched.start()
+    bound, failed = sched.schedule_pending_batch()
+    msgs = {e.involved_key: e.message for e in cs.events.list()[0]
+            if e.reason == "FailedScheduling"}
+    placed = {p.meta.name: p.spec.node_name for p in cs.pods.list()[0]}
+    print(f"phase 3 refusal: a wave of 50 pods and 1 with {fused_scan.MAX_PORTS + 1} host ports "
+          f"through schedule_pending_batch on the card: bound {bound}, failed {failed}, "
+          f"refused_pods {backend.stats['refused_pods']}, FailedScheduling "
+          f"{json.dumps(msgs)}", flush=True)
+    if ((bound, failed) != (50, 1) or placed.pop("wide") or not all(placed.values())
+            or list(msgs) != ["default/wide"] or "host ports" not in msgs["default/wide"]
+            or backend.stats["refused_pods"] != 1):
+        raise AssertionError("the refused pod did not fail alone with the kernel's limit")
 
 
 def repaired_shapes() -> list:
@@ -615,6 +708,200 @@ def daemon_phase() -> int:
     return launches
 
 
+def preemption_line(tag: str, r: dict) -> None:
+    c = r["cohort"]
+    lat = r["preemption_latency_ms"]
+    print(f"phase {tag} preemption {r['nodes']} nodes, {r['fillers']} fillers, "
+          f"{r['preemptors']} preemptors: fill bound {r['fill_bound']} in {r['fill_s']:.3f} s; "
+          f"preemptor wave failed {r['wave_failed']} in {r['wave_s']:.3f} s (cohort included); "
+          f"attempts {r['attempts']} victims {r['victims']} bound after "
+          f"{r['preemptor_bound_after']} (follow-up batch {r['follow_s']:.3f} s); fillers bound "
+          f"{r['fillers_bound']} evicted {r['fillers_evicted']}; evictions_per_s "
+          f"{r['evictions_per_sec']:.1f}; preemption latency p50 {lat['p50']} ms p99 "
+          f"{lat['p99']} ms; preempt and bind {r['preempt_and_bind_s']:.3f} s", flush=True)
+    print(f"phase {tag} cohort split: state build {c['state_s']:.4f} s, per-preemptor ranking "
+          f"{c['rank_s']:.4f} s, evictions with pump and snapshot {c['evict_s']:.4f} s, "
+          f"cohort total {c['total_s']:.4f} s ({c['preempted']} of {c['preemptors']} preempted)",
+          flush=True)
+    ok = (r["victims"] == r["preemptors"] == r["preemptor_bound_after"] == r["preemptors_bound"]
+          and r["fillers_bound"] + r["fillers_evicted"] == r["fillers"]
+          and r["backend"]["oracle_pods"] == 0)
+    if not ok:
+        raise AssertionError(f"phase {tag}: victims {r['victims']}, preemptors "
+                             f"{r['preemptors']}, bound after {r['preemptor_bound_after']}, "
+                             f"fillers bound {r['fillers_bound']} evicted {r['fillers_evicted']}")
+
+
+def preemption_phase() -> tuple[int, dict]:
+    """Phase 7: preemption.  (a) ``workload.run_preemption`` at full width
+    on the card: 5000 nodes, 20 000 fillers, 2500 preemptors, the
+    preemptor and follow-up batches' kernel segments held against the
+    plain scan; (b) 1000
+    nodes, 4000 fillers and 500 preemptors, a seeded tenth of them with a
+    host port or a required affinity (branch and bound): every cohort
+    decision held against the exhaustive ``find_preemption_target`` on the
+    state it was made on, and the preemptor and follow-up batches' kernel
+    segments against the plain scan; (c) the daemons at their defaults
+    over HTTP, 1000 nodes, 4000 fillers and 500 preemptors.  Returns the
+    fused-kernel launches of the three runs and each run's seconds."""
+    from kubernetes_tpu_torch.ops import fused_scan
+    from kubernetes_tpu_torch.ops.preemption_kernel import PreemptionState
+    from kubernetes_tpu_torch.scheduler import preemption
+    from kubernetes_tpu_torch.workload import run_preemption, run_wire_preemption
+
+    secs = {}
+    t = time.perf_counter()
+    # the vectorized state's own seconds inside the ranking: its numpy
+    # greedy over every node, one call a preemptor
+    ranked = {"calls": 0, "s": 0.0}
+    rank_arrays = PreemptionState.rank_arrays
+
+    def timed_rank_arrays(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return rank_arrays(self, *a, **kw)
+        finally:
+            ranked["calls"] += 1
+            ranked["s"] += time.perf_counter() - t0
+
+    # the preemptor wave's and the follow-up's segments, at the shapes this
+    # path gives the kernel, held against the plain scan (the fill is
+    # phase 4's shape)
+    seen = []
+    checked = checking_backend(seen, skip=1)
+    fused_scan.launches = 0
+    PreemptionState.rank_arrays = timed_rank_arrays
+    try:
+        r = run_preemption(5000, 20000, 2500, device="cuda", seed=0, backend_cls=checked)
+    finally:
+        PreemptionState.rank_arrays = rank_arrays
+    launches_a = fused_scan.launches - len(seen)  # each check launched once more
+    preemption_line("7a", r)
+    print(f"phase 7a {len(seen)} preemptor and follow-up segments kernel == scan_ref "
+          f"(pods {[c['pods'] for _, c, _, _ in seen]}, plain "
+          f"{[round(c['plain_ms'], 3) for _, c, _, _ in seen]} ms); the checks' "
+          f"{checked.check_s:.3f} s are inside the wave and follow-up seconds: preempt and "
+          f"bind less the checks {r['preempt_and_bind_s'] - checked.check_s:.3f} s", flush=True)
+    if len(seen) < 2:
+        raise AssertionError(f"phase 7a checked {len(seen)} segments against scan_ref")
+    c = r["cohort"]
+    print(f"phase 7a PreemptionState (host numpy): build {c['state_s']:.4f} s + rank_arrays "
+          f"{ranked['s']:.4f} s in {ranked['calls']} calls ({ranked['s'] / max(ranked['calls'], 1) * 1e3:.3f} "
+          f"ms a call) = {(c['state_s'] + ranked['s']) / c['total_s']:.4f} of the cohort",
+          flush=True)
+    st = r["backend"]
+    print(f"phase 7a fused-scan launches {launches_a} (fill, preemptor wave, follow-up), "
+          f"segments {st['segments']} kernel_pods {st['kernel_pods']} kernel_ms "
+          f"{st['kernel_ms']:.3f}", flush=True)
+    if launches_a < 3:
+        raise AssertionError(f"phase 7a launched the fused kernel {launches_a} times")
+    secs["7a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    decisions = {"checked": 0, "branch_and_bound": 0, "mismatches": []}
+    fast = preemption.find_preemption_target_fast
+
+    def held(pod, node_info_map, candidates, predicates=None, pvcs=None, pvs=None, **kw):
+        got = fast(pod, node_info_map, candidates, predicates, pvcs=pvcs, pvs=pvs, **kw)
+        want = preemption.find_preemption_target(pod, node_info_map, predicates, pvcs, pvs)
+        key = [None if x is None else (x.node_name, sorted(v.meta.key for v in x.victims))
+               for x in (got, want)]
+        decisions["checked"] += 1
+        decisions["branch_and_bound"] += not preemption._fast_eligible(pod, predicates)
+        if key[0] != key[1]:
+            decisions["mismatches"].append((pod.meta.key, *key))
+        return got
+
+    seen = []
+    fused_scan.launches = 0
+    preemption.find_preemption_target_fast = held
+    try:
+        r = run_preemption(1000, 4000, 500, device="cuda", seed=7, odd_share=0.1,
+                           backend_cls=checking_backend(seen, skip=1))
+    finally:
+        preemption.find_preemption_target_fast = fast
+    launches_b = fused_scan.launches - len(seen)  # each check launched once more
+    preemption_line("7b", r)
+    print(f"phase 7b parity: {decisions['checked']} cohort decisions == exhaustive oracle "
+          f"({decisions['branch_and_bound']} by branch and bound; the check runs inside the "
+          f"ranking seconds above), mismatches "
+          f"{len(decisions['mismatches'])}; {len(seen)} preemptor and follow-up segments "
+          f"kernel == scan_ref, rr {r['round_robin']}; launches {launches_b}", flush=True)
+    if (decisions["mismatches"] or decisions["checked"] != r["preemptors"]
+            or decisions["branch_and_bound"] == 0 or len(seen) < 2):
+        raise AssertionError(f"phase 7b: {decisions}, {len(seen)} segments checked")
+    secs["7b"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        d = Daemons(workdir, "7c")
+        try:
+            d.start_scheduler()
+            w = run_wire_preemption(d.url, 1000, 4000, 500, deadline_s=120.0)
+            st = d.stop_scheduler()
+        except BaseException:
+            print(f"phase 7c scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+    print(f"phase 7c daemons at defaults over HTTP, {w['nodes']} nodes, {w['fillers']} fillers, "
+          f"{w['preemptors']} preemptors: fillers bound in {w['fill_s']:.3f} s, every preemptor "
+          f"bound in {w['preempt_and_bind_s']:.3f} s ({w['preemptors_bound']} bound, fillers "
+          f"left {w['fillers_bound']}, evicted {w['fillers_evicted']}); the daemon: attempts "
+          f"{st['preemption_attempts']} victims {st['preemption_victims']} (victims beyond one "
+          f"a preemptor: {st['preemption_victims'] - w['preemptors']}), drains {st['waves']}, "
+          f"launches {st['launches']}, kernel_pods {st['kernel_pods']} oracle_pods "
+          f"{st['oracle_pods']}", flush=True)
+    if (w["preemptors_bound"] != w["preemptors"] or st["oracle_pods"] != 0
+            or st["preemption_victims"] < w["preemptors"] or st["launches"] < 3):
+        raise AssertionError(f"phase 7c: {w}, stats {st}")
+    secs["7c"] = time.perf_counter() - t
+    print("phase 7 seconds: " + " ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return launches_a + launches_b + st["launches"], secs
+
+
+def policy_phase() -> int:
+    """Phase 8: the upstream ``ClusterAutoscalerProvider`` as a policy
+    document (the default predicates, MostRequested in place of
+    LeastRequested), loaded by ``load_policy_file`` and run at 1000 x 2000
+    ``mixed``: each kernel segment against the plain scan, the bindings and
+    rr against the sequential oracle on the same policy, and the segment's
+    ``most`` weight plane on.  Returns the fused-kernel launches."""
+    from kubernetes_tpu_torch.ops import fused_scan
+    from kubernetes_tpu_torch.scheduler.policy import algorithm_from_provider, load_policy_file
+
+    provider = algorithm_from_provider("ClusterAutoscalerProvider")
+    doc = {"predicates": [{"name": n} for n in provider.predicates],
+           "priorities": [{"name": type(p).name, "weight": w} for p, w in provider.priorities]}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "policy.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        algo, oracle = load_policy_file(path), load_policy_file(path)
+    m, pods, pctx = cluster(1000, 2000, "mixed", seed=1)
+    before = fused_scan.launches
+    got, seen, backend = checked_batch(m, pods, pctx, algorithm=algo)
+    launches = fused_scan.launches - before - len(seen)
+    want = oracle_bindings(m, pods, pctx, oracle)
+    planes = [s.weights for _, _, s, _ in seen]
+    # the policy's segment against the same cluster's default-weight one
+    policy_ms = time_kernel(*seen[0][2:])
+    default_ms = time_kernel(*segment(m, pods, pctx, "cuda")[1:])
+    print(f"phase 8 policy ClusterAutoscalerProvider from a file, mixed {len(m)}x{len(pods)}: "
+          f"{len(seen)} "
+          f"segments kernel == scan_ref, BatchBackend == GenericScheduler on the policy "
+          f"{got == want}, rr {algo._round_robin} vs {oracle._round_robin}, bound "
+          f"{sum(g is not None for g in got)}/{len(pods)}, weights {planes}, kernel_pods "
+          f"{backend.stats['kernel_pods']} oracle_pods {backend.stats['oracle_pods']}, launches "
+          f"{launches}; kernel {policy_ms:.3f} ms against {default_ms:.3f} ms for the default "
+          f"weights", flush=True)
+    if (got != want or algo._round_robin != oracle._round_robin or launches < 1
+            or backend.stats["oracle_pods"] != 0
+            or any(w["most"] != 1 or w["least"] != 0 for w in planes)):
+        raise AssertionError("phase 8: the policy's batch != the plain scan or the oracle")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -624,8 +911,7 @@ def main() -> int:
     from kubernetes_tpu_torch import native
     from kubernetes_tpu_torch.ops import _build, fused_scan
     from kubernetes_tpu_torch.ops.backend import BatchBackend
-    from kubernetes_tpu_torch.scheduler.generic_scheduler import FitError, GenericScheduler
-    from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
+    from kubernetes_tpu_torch.scheduler.generic_scheduler import GenericScheduler
 
     t_start = time.perf_counter()
     card = card_line()
@@ -648,18 +934,10 @@ def main() -> int:
         print(f"phase 3 {workload} 1000x2000: kernel == scan_ref, bound {r['bound']}/"
               f"{r['pods']}, rr {r['rr']}, max_abs_err {r['max_abs_err']}", flush=True)
     shape_errs = repaired_shapes()
+    refused_wave()
     m, pods, pctx = cluster(1000, 300, "mixed", seed=2)
     oracle = GenericScheduler()
-    work = {n: i.clone() for n, i in m.items()}
-    wctx = PriorityContext(work, services=pctx.services)
-    want = []
-    for pod in pods:
-        try:
-            name = oracle.schedule(pod, work, wctx).node_name
-            work[name].add_pod(pod)
-        except FitError:
-            name = None
-        want.append(name)
+    want = oracle_bindings(m, pods, pctx, oracle)
     backend = BatchBackend(device="cuda")
     got = backend.schedule_batch(pods, m, pctx)
     if got != want or backend.algorithm._round_robin != oracle._round_robin:
@@ -716,13 +994,18 @@ def main() -> int:
           f"{lazy_pps:.1f} pods/s (5a) against eager {eager_pps:.1f} pods/s (5c), "
           f"ratio {lazy_pps / eager_pps:.3f}", flush=True)
     daemon_launches = daemon_phase()
+    preemption_launches, _ = preemption_phase()
+    policy_launches = policy_phase()
 
     entry = {
         "name": "fused_scan", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/fused_scan.cu",
-        "replaces": REPLACES, "launches": launches + churn_launches + daemon_launches,
+        "replaces": REPLACES,
+        "launches": (launches + churn_launches + daemon_launches + preemption_launches
+                     + policy_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
-                             "daemon": daemon_launches, "churn_eager": eager_launches},
+                             "daemon": daemon_launches, "churn_eager": eager_launches,
+                             "preemption": preemption_launches, "policy": policy_launches},
         "max_abs_err": max(errs),
         "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

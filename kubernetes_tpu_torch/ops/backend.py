@@ -14,7 +14,13 @@ scanned, and its chosen nodes committed into a copy-on-write work map.
 On CUDA every kernel segment runs on the fused kernel
 (``ops/fused_scan.py``); on the CPU it runs on the plain scan
 (``ops/scan_ref.py``).  A kernel that fails to build or launch raises: no
-segment is quietly rerouted to another path.
+segment is quietly rerouted to another path.  Two shapes past the
+kernel's fixed limits are decided before the first launch and cost only
+the pods they touch: a pod with more host ports than its vocabulary, and
+a cluster with more zones than ``fused_scan.MAX_ZONES`` (then every pod).
+Such a pod is refused (``ShapeRefused``), not scheduled anywhere: the
+CPU's plain scan and the JAX package take both shapes, so the divergence
+stays visible.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from ..models.snapshot import (
     pod_disk_vols,
     pod_signature_key,
 )
-from ..scheduler.generic_scheduler import FitError, GenericScheduler
+from ..scheduler.generic_scheduler import FitError, GenericScheduler, ShapeRefused
 from ..scheduler.nodeinfo import NodeInfo
 from ..scheduler.predicates import DEFAULT_PREDICATES
 from ..scheduler.priorities import (
@@ -110,6 +116,8 @@ class BatchBackend:
         # reconciled against each batch's snapshot by node generation
         self._host_state: Optional[HostBatchState] = None
         self.stats = {"kernel_pods": 0, "oracle_pods": 0, "segments": 0,
+                      # pods the card's kernel refused by shape (CUDA only)
+                      "refused_pods": 0,
                       # host seconds (cumulative): tensorize, pack + launch,
                       # wait for the device's result
                       "tensorize_s": 0.0, "dispatch_s": 0.0, "device_wait_s": 0.0,
@@ -119,7 +127,7 @@ class BatchBackend:
     # -- greedy segmentation ------------------------------------------------
     def _segments(
         self, pods: list[api.Pod], mounted_disks: Optional[set] = None
-    ) -> list[tuple[str, list[tuple[int, api.Pod]]]]:
+    ) -> list[tuple[str, list[tuple[int, api.Pod]], Optional[ShapeRefused]]]:
         """Split the ordered batch into kernel segments that respect the
         tensor budgets, walking pod order once — every cut preserves
         sequential-greedy parity because each segment re-tensorizes against
@@ -129,15 +137,16 @@ class BatchBackend:
         segment or already mounted).  The host-port budget keeps the
         segment's port vocabulary, bucketed as the tensorizer buckets it,
         within the fused kernel's ``MAX_PORTS`` (on the CPU too, so both
-        devices cut alike).  On the card a signature with more ports than
-        that raises here, before anything is tensorized: a wider segment
-        would also widen the tensorizer's sticky port bucket for every
-        later one.  The CPU's plain scan takes it as a segment of its
-        own."""
+        devices cut alike).  On the card a pod whose signature has more
+        ports than that becomes a ``"refused"`` segment of its own, before
+        anything is tensorized: a wider segment would also widen the
+        tensorizer's sticky port bucket for every later one.  The CPU's
+        plain scan takes it as a kernel segment of its own.  Each segment
+        is (kind, [(index, pod)], the refusal of a ``"refused"`` one)."""
         tz = self.tensorizer
         max_ports = fused_scan.MAX_PORTS // tz.port_multiple * tz.port_multiple
         mounted = mounted_disks if mounted_disks is not None else set()
-        out: list[tuple[str, list[tuple[int, api.Pod]]]] = []
+        out: list = []
         cur: list[tuple[int, api.Pod]] = []
         sigs: set = set()
         vols_once: set = set()
@@ -148,7 +157,7 @@ class BatchBackend:
         def flush() -> None:
             nonlocal cur, sigs, vols_once, vols_conflict, ports, n_terms
             if cur:
-                out.append(("kernel", cur))
+                out.append(("kernel", cur, None))
             cur, sigs, vols_once, vols_conflict, ports, n_terms = [], set(), set(), set(), set(), 0
 
         for i, pod in enumerate(pods):
@@ -157,12 +166,14 @@ class BatchBackend:
             # a signature's host ports are part of its key: count them once
             hp = set(pod.host_ports()) if key not in sigs else set()
             if len(hp) > max_ports and self.device.type == "cuda":
-                raise ValueError(
+                flush()
+                out.append(("refused", [(i, pod)], ShapeRefused(
                     f"fused scan supports at most {max_ports} host ports a segment, pod "
-                    f"{pod.meta.namespace}/{pod.meta.name} has {len(hp)}")
+                    f"{pod.meta.namespace}/{pod.meta.name} has {len(hp)}")))
+                continue
             if len(pv) > tz.vols_per_pod:
                 flush()
-                out.append(("oracle", [(i, pod)]))
+                out.append(("oracle", [(i, pod)], None))
                 continue
             pv_conflict = {d for d in pv if d in mounted or d in vols_once}
             t_new = count_affinity_terms(pod) if key not in sigs else 0
@@ -185,6 +196,18 @@ class BatchBackend:
             cur.append((i, pod))
         flush()
         return out
+
+    def _zone_refusal(self, node_info_map: dict[str, NodeInfo]) -> Optional[ShapeRefused]:
+        """On the card: the refusal every pod of a batch gets when the
+        cluster has more zones than the kernel keeps (the tensorizer gives
+        every segment the whole cluster's zone axis), else None."""
+        if self.device.type != "cuda":
+            return None
+        zones = {i.zone_key for i in node_info_map.values() if i.node is not None and i.zone_key}
+        if len(zones) <= fused_scan.MAX_ZONES:
+            return None
+        return ShapeRefused(f"fused scan supports at most {fused_scan.MAX_ZONES} zones, "
+                            f"the cluster has {len(zones)}")
 
     # -- config support check ---------------------------------------------
     def _kernel_weights(self) -> Optional[dict]:
@@ -246,9 +269,11 @@ class BatchBackend:
         mutated: placements land in clones made on first write.
 
         ``on_segment`` (optional) is called with ``[(pod, node_name|None,
-        req_vec|None, nz_vec|None), ...]`` per completed segment, after the
-        next segment's scan has been launched, so the caller's commit work
-        overlaps device time.  Entry order across calls equals pod order.
+        req_vec|None, nz_vec|None, refusal|None), ...]`` per completed
+        segment, after the next segment's scan has been launched, so the
+        caller's commit work overlaps device time.  Entry order across
+        calls equals pod order.  ``refusal`` is the ``ShapeRefused`` of a
+        pod the card's kernel cannot take (its node is None).
 
         ``on_idle`` (optional) is called once as ``on_idle(device_busy=fn)``
         after the batch's final kernel segment was launched and every
@@ -352,7 +377,7 @@ class BatchBackend:
                     node_name = static.node_names[int(idx)] if int(idx) >= 0 else None
                     g = int(static.group_of_pod[k])
                     apply(pod, node_name, i, req_vecs[g], nz_vecs[g])
-                    entries.append((pod, node_name, req_vecs[g], nz_vecs[g]))
+                    entries.append((pod, node_name, req_vecs[g], nz_vecs[g], None))
                 self.stats["kernel_pods"] += len(segment)
                 self.stats["segments"] += 1
                 return entries
@@ -375,7 +400,15 @@ class BatchBackend:
             for i, pod in enumerate(pods):
                 run_oracle(pod, i)
             if on_segment is not None and pods:
-                on_segment([(pod, assignments[i], None, None) for i, pod in enumerate(pods)])
+                on_segment([(pod, assignments[i], None, None, None)
+                            for i, pod in enumerate(pods)])
+            return assignments
+
+        zone_refusal = self._zone_refusal(work_map)
+        if zone_refusal is not None:
+            self.stats["refused_pods"] += len(pods)
+            if on_segment is not None and pods:
+                on_segment([(pod, None, None, None, zone_refusal) for pod in pods])
             return assignments
 
         pending: list = []  # prior segments' entries awaiting the caller
@@ -388,17 +421,21 @@ class BatchBackend:
 
         try:
             segments = self._segments(pods, mounted_disks=mounted_disks)
-            for si, (kind, segment) in enumerate(segments):
+            for si, (kind, segment, refusal) in enumerate(segments):
+                if kind == "refused":
+                    self.stats["refused_pods"] += len(segment)
+                    pending.extend((pod, None, None, None, refusal) for _, pod in segment)
+                    continue
                 if kind == "oracle":
                     for i, pod in segment:
                         run_oracle(pod, i)
-                    pending.extend((pod, assignments[i], None, None) for i, pod in segment)
+                    pending.extend((pod, assignments[i], None, None, None) for i, pod in segment)
                     continue
                 finish, device_busy = dispatch_kernel_segment(segment)
                 if finish is None:
                     flush_pending()
                     run_kernel_segment(segment)
-                    pending.extend((pod, assignments[i], None, None) for i, pod in segment)
+                    pending.extend((pod, assignments[i], None, None, None) for i, pod in segment)
                     continue
                 # the device is scanning this segment: hand earlier entries
                 # to the caller in its shadow

@@ -1,0 +1,239 @@
+"""Preemption prefilter: the masked min-cost victim-threshold kernel.
+
+SURVEY.md §7.4.7 — victim selection designed as a kernel rather than a
+host scan.  For a failed cohort of priority pods, compute over the node
+axis the smallest priority level v such that evicting every pod with
+priority < v frees enough RESOURCES for the preemptor ("min priority
+that frees enough").  That level is a provable lower bound on the exact
+max-victim-priority on the node (any feasible victim set must free
+enough resources, and resource feasibility is monotone in eviction even
+where affinity is not), so ``scheduler/preemption.py``'s branch-and-bound
+evaluates only the handful of nodes whose bound can win — instead of the
+oracle's full O(nodes × pods) predicate sweep per preemptor.
+
+State shape: levels L = sorted distinct priorities of placed pods
+([Pd]); per node, cumulative freeable request vectors and counts at each
+level ([Pd, N, R] / [Pd, N]).  One evicted node re-derives only its own
+columns (``update_node``), so a preemption wave pays O(touched nodes).
+
+Placement: the computation is kernel-shaped (vectorized integer compares
+over the node axis) but runs in host numpy, as the JAX package's copy of
+this module does; neither package has a device program here.  The
+operands are a few MB of int64 and the outputs a few KB.  Whether they
+would pay on the card is an open measurement (``PERF.md`` § 7): the
+cohort's time splits into this state's build, the per-preemptor ranking
+and the evictions, and ``workload.run_preemption`` reports each.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..scheduler.nodeinfo import NodeInfo
+from ..scheduler.units import (
+    NUM_RESOURCES,
+    node_allocatable_pods,
+    node_allocatable_vec,
+    pod_request_vec,
+)
+
+
+class PreemptionState:
+    """Per-snapshot victim-threshold arrays over (priority level, node)."""
+
+    def __init__(self, node_info_map: dict[str, NodeInfo]):
+        self.node_names = sorted(
+            n for n, i in node_info_map.items() if i.node is not None)
+        self.node_index = {n: j for j, n in enumerate(self.node_names)}
+        n = len(self.node_names)
+        levels: set[int] = set()
+        for name in self.node_names:
+            for q in node_info_map[name].pods:
+                levels.add(q.spec.priority)
+        self.levels = np.array(sorted(levels), dtype=np.int64)  # [Pd]
+        pd = len(self.levels)
+        self.alloc = np.zeros((n, NUM_RESOURCES), dtype=np.int64)
+        self.alloc_pods = np.zeros(n, dtype=np.int64)
+        self.requested = np.zeros((n, NUM_RESOURCES), dtype=np.int64)
+        self.pod_count = np.zeros(n, dtype=np.int64)
+        self.cum_req = np.zeros((pd, n, NUM_RESOURCES), dtype=np.int64)
+        self.cum_cnt = np.zeros((pd, n), dtype=np.int64)
+        # [N, M] reprieve-order pod arrays (lazy — see _ensure_pod_arrays)
+        self._pa_built = False
+        self.pp_prio = None
+        self.pp_req = None
+        self.pp_pods: list[list] = []
+        self._vec_memo: dict = {}
+        for name in self.node_names:
+            self.update_node(name, node_info_map[name])
+
+    def update_node(self, name: str, info: Optional[NodeInfo]) -> None:
+        """(Re)derive one node's columns — called after its victims are
+        evicted, so the next preemptor in the cohort sees the new truth."""
+        j = self.node_index.get(name)
+        if j is None:
+            return
+        if self._pa_built:
+            self._refresh_pod_row(j, info)
+        if info is None or info.node is None:
+            # node vanished mid-cohort: zero capacity excludes it
+            self.alloc[j] = 0
+            self.alloc_pods[j] = 0
+            self.cum_req[:, j] = 0
+            self.cum_cnt[:, j] = 0
+            return
+        self.alloc[j] = node_allocatable_vec(info.node).units
+        self.alloc_pods[j] = node_allocatable_pods(info.node)
+        self.requested[j] = info.requested.units
+        self.pod_count[j] = len(info.pods)
+        self.cum_req[:, j] = 0
+        self.cum_cnt[:, j] = 0
+        if len(self.levels) == 0:
+            return
+        for q in info.pods:
+            # pods at level L[k] are freed by any threshold > L[k]:
+            # accumulate into the cumulative-≤ slot, prefix-summed below
+            k = int(np.searchsorted(self.levels, q.spec.priority))
+            if k >= len(self.levels) or self.levels[k] != q.spec.priority:
+                continue  # priority level not in the frozen axis (new pod
+                # class mid-cohort); conservative: it is never freeable
+            self.cum_req[k, j] += pod_request_vec(q).units
+            self.cum_cnt[k, j] += 1
+        np.cumsum(self.cum_req[:, j], axis=0, out=self.cum_req[:, j])
+        np.cumsum(self.cum_cnt[:, j], axis=0, out=self.cum_cnt[:, j])
+
+    def _pod_vec(self, q) -> "np.ndarray":
+        hit = self._vec_memo.get(id(q))
+        if hit is None:
+            hit = self._vec_memo[id(q)] = (
+                q, np.asarray(pod_request_vec(q).units, dtype=np.int64))
+        return hit[1]
+
+    # -- [N, M] reprieve arrays (the vectorized greedy's operands) ------
+    def _ensure_pod_arrays(self, node_info_map: dict) -> None:
+        """Per-node resident pods in REPRIEVE ORDER (highest priority
+        first, then key — exactly ``_evaluate_node``'s victim sort) as
+        dense [N, M] arrays, so the greedy reprieve runs as M vectorized
+        column passes over every node at once instead of a Python loop
+        per (preemptor, node).  Rows refresh individually on eviction."""
+        if self._pa_built:
+            return
+        n = len(self.node_names)
+        self.pp_pods = [[] for _ in range(n)]
+        m = 1
+        for name in self.node_names:
+            info = node_info_map.get(name)
+            if info is not None and info.node is not None:
+                m = max(m, len(info.pods))
+        self.pp_prio = np.full((n, m), np.iinfo(np.int64).max, dtype=np.int64)
+        self.pp_req = np.zeros((n, m, NUM_RESOURCES), dtype=np.int64)
+        for name in self.node_names:
+            self._refresh_pod_row(self.node_index[name], node_info_map.get(name))
+        self._pa_built = True
+
+    def _refresh_pod_row(self, j: int, info: Optional[NodeInfo]) -> None:
+        pods = [] if info is None or info.node is None else list(info.pods)
+        if len(pods) > self.pp_prio.shape[1]:
+            # row outgrew the M axis: rebuild lazily with a larger M
+            self._pa_built = False
+            return
+        pods.sort(key=lambda q: (-q.spec.priority, q.meta.key))
+        self.pp_pods[j] = pods
+        self.pp_prio[j, :] = np.iinfo(np.int64).max
+        self.pp_req[j, :, :] = 0
+        for c, q in enumerate(pods):
+            self.pp_prio[j, c] = q.spec.priority
+            self.pp_req[j, c] = self._pod_vec(q)
+
+    def rank_arrays(self, req_units: list[int], priority: int,
+                    node_info_map: dict):
+        """Exact per-node preemption ranks for a FAST-ELIGIBLE preemptor
+        (victim-dependent predicates = resources+count), vectorized over
+        every node: the greedy reprieve runs as M sequential column
+        passes (column order = reprieve order), identical decisions to
+        ``scheduler/preemption._evaluate_node``.
+
+        Returns (ok[N], max_prio[N], n_vict[N], total_req[N], victim
+        mask [N, M]); the caller materializes the winner's victim list
+        from ``pp_pods`` + the mask row and applies the node-static
+        predicate gate."""
+        self._ensure_pod_arrays(node_info_map)
+        req = np.asarray(req_units, dtype=np.int64)
+        lower = self.pp_prio < priority  # [N, M]
+        slot_checked = req > 0  # [R]
+        need = (self.requested + req[None, :] - self.alloc)  # [N, R]
+        need_cnt = self.pod_count + 1 - self.alloc_pods  # [N]
+        freed = (self.pp_req * lower[:, :, None]).sum(axis=1)  # [N, R]
+        count_lower = lower.sum(axis=1)  # [N]
+        ok = (
+            np.all((freed >= need) | ~slot_checked[None, :], axis=1)
+            & (count_lower >= need_cnt)
+            & (count_lower > 0)
+        )
+        victim = lower.copy()
+        nvict = count_lower.copy()
+        m = self.pp_prio.shape[1]
+        for c in range(m):  # reprieve in column (= priority, key) order
+            v = self.pp_req[:, c]  # [N, R]
+            can = (
+                victim[:, c]
+                & (nvict - 1 >= need_cnt)
+                & np.all((freed - v >= need) | ~slot_checked[None, :], axis=1)
+            )
+            victim[:, c] &= ~can
+            freed -= v * can[:, None]
+            nvict -= can
+        ok &= nvict > 0
+        max_prio = np.max(
+            np.where(victim, self.pp_prio, np.iinfo(np.int64).min), axis=1)
+        total = (self.pp_req.sum(axis=2) * victim).sum(axis=1)
+        return ok, max_prio, nvict, total, victim
+
+    # -- the prefilter --------------------------------------------------
+    def candidates_for(self, req_units: list[int], priority: int) -> list[tuple[int, str]]:
+        """(bound, node_name) for every node where evicting all pods below
+        some level < ``priority`` makes the preemptor resource-feasible.
+        bound = the smallest sufficient level's value = the lower bound on
+        exact max victim priority."""
+        bounds, ok = self._bounds_numpy(
+            np.asarray([req_units], dtype=np.int64),
+            np.asarray([priority], dtype=np.int64))
+        return self._to_candidates(bounds[0], ok[0])
+
+    def _to_candidates(self, bounds: "np.ndarray", ok: "np.ndarray") -> list[tuple[int, str]]:
+        idx = np.flatnonzero(ok)
+        return [(int(bounds[j]), self.node_names[j]) for j in idx]
+
+    def _fit_masks(self, xp, u_req, u_pri):
+        """Shared arithmetic (xp = numpy, or an array module with its API):
+        ok[u, k, n] — evicting every pod with priority ≤ L[k] on node n
+        makes preemptor u resource-feasible with at least one victim."""
+        levels = xp.asarray(self.levels)
+        allowed = levels[None, :] < u_pri[:, None]  # [U, Pd]
+        head = (self.alloc[None, :, :] - self.requested[None, :, :]
+                + xp.asarray(self.cum_req))  # [Pd, N, R] broadcast below
+        fits_r = xp.all(
+            (u_req[:, None, None, :] <= head[None, :, :, :])
+            | (u_req[:, None, None, :] == 0),
+            axis=-1,
+        )  # [U, Pd, N]
+        fits_p = (self.pod_count[None, :] - xp.asarray(self.cum_cnt) + 1
+                  <= self.alloc_pods[None, :])  # [Pd, N]
+        ok = (fits_r & fits_p[None, :, :]
+              & (xp.asarray(self.cum_cnt)[None, :, :] > 0)
+              & allowed[:, :, None])  # [U, Pd, N]
+        return ok
+
+    def _bounds_numpy(self, u_req, u_pri):
+        if len(self.levels) == 0 or not self.node_names:
+            u = len(u_pri)
+            n = len(self.node_names)
+            return np.zeros((u, n), dtype=np.int64), np.zeros((u, n), dtype=bool)
+        ok = self._fit_masks(np, u_req, u_pri)
+        any_ok = ok.any(axis=1)  # [U, N]
+        kmin = ok.argmax(axis=1)  # first True along Pd (argmax of bool)
+        bounds = self.levels[kmin]
+        return bounds, any_ok
+

@@ -2,17 +2,26 @@
 server.go:67 Run``, leader election ``:133``).
 
     python -m kubernetes_tpu_torch.scheduler --apiserver http://127.0.0.1:6443 \
-        [--leader-elect] [--backend batch|oracle] [--device cuda|cpu] \
-        [--batch-interval 0.05] [--healthz-port N] [--config config.json]
+        [--leader-elect] [--backend batch|tpu|oracle] [--device cuda|cpu] \
+        [--batch-interval 0.05] [--policy-config-file policy.json] \
+        [--healthz-port N] [--config config.json]
 
 It watches the apiserver over HTTP with threaded informers and serves with
 ``Scheduler.run_batch_loop`` on ``BatchBackend`` (the fused CUDA scan;
 ``--device cpu`` runs the plain scan) or, with ``--backend oracle``, pod
-by pod.  ``--device cuda`` is the default and the process exits non-zero,
-before it takes the lease, where there is no card.  On SIGTERM it stops,
-releases the lease and prints one JSON line ``{"scheduler_stats": ...}``
-with the backend's stats, the fused kernel's launch count, the final
-round-robin counter and the pods bound."""
+by pod with asynchronous binds.  ``tpu``, the JAX daemon's name for its
+batch backend, is taken as ``batch``, so the JAX daemon's configuration
+loads unchanged.  Preemption is on, as in the JAX daemon.  A
+``--policy-config-file`` (JSON) selects predicates, priorities and
+extenders (``scheduler/policy.py``).  On ``--device cuda`` the batch
+backend refuses, before the lease, a policy the fused scan does not
+express (``BatchBackend`` would schedule it on the CPU oracle): such a
+policy runs with ``--backend oracle``.  ``--device cuda`` is the default
+and the process exits non-zero, before it takes the lease, where there is
+no card.  On SIGTERM it stops, releases the lease and prints one JSON line
+``{"scheduler_stats": ...}`` with the backend's stats, the fused kernel's
+launch count, the final round-robin counter, the pods bound and the
+preemption counters."""
 
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from ..daemon import install_signal_stop, remote_clientset, run_with_leader_elec
 from ..utils.features import DEFAULT_FEATURE_GATES, SchedulerConfiguration, load_component_config
 
 BACKENDS = ("batch", "oracle")
+# the JAX daemon's backend names, as this daemon takes them
+BACKEND_ALIASES = {"tpu": "batch"}
 
 
 def _parse(argv):
@@ -36,11 +47,14 @@ def _parse(argv):
     ap.add_argument("--leader-elect", action="store_true")
     # SUPPRESS tells a flag given from a default when a --config file is
     # layered underneath (flag > file > default)
-    ap.add_argument("--backend", choices=BACKENDS, default=argparse.SUPPRESS)
+    ap.add_argument("--backend", choices=BACKENDS + tuple(BACKEND_ALIASES),
+                    default=argparse.SUPPRESS)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the batch backend scans; cuda needs a card")
     ap.add_argument("--batch-interval", type=float, default=argparse.SUPPRESS,
                     help="seconds to coalesce pending pods before a batch")
+    ap.add_argument("--policy-config-file", default=argparse.SUPPRESS,
+                    help="scheduler Policy (predicates, priorities, extenders) as JSON")
     ap.add_argument("--scheduler-name", default=argparse.SUPPRESS)
     ap.add_argument("--feature-gates", default="")
     ap.add_argument("--config", default=None, help="SchedulerConfiguration as JSON")
@@ -49,9 +63,10 @@ def _parse(argv):
     args = ap.parse_args(argv)
     cfg = (load_component_config(SchedulerConfiguration, args.config)
            if args.config else SchedulerConfiguration())
-    for attr in ("scheduler_name", "backend", "batch_interval"):
+    for attr in ("scheduler_name", "backend", "batch_interval", "policy_config_file"):
         if not hasattr(args, attr):
             setattr(args, attr, getattr(cfg, attr))
+    args.backend = BACKEND_ALIASES.get(args.backend, args.backend)
     if args.backend not in BACKENDS:
         ap.error(f"backend {args.backend!r}: one of {list(BACKENDS)}")
     args.leader_elect = args.leader_elect or cfg.leader_elect
@@ -73,6 +88,19 @@ def main(argv=None) -> int:
             print("kubernetes_tpu_torch.scheduler: no CUDA device; pass --device cpu to "
                   "schedule on the CPU", file=sys.stderr)
             return 1
+    policy_algo = None
+    if args.policy_config_file:
+        from .policy import load_policy_file
+
+        policy_algo = load_policy_file(args.policy_config_file)
+        if args.backend == "batch" and args.device == "cuda":
+            from ..ops.backend import BatchBackend
+
+            if BatchBackend(algorithm=policy_algo, device="cuda")._config_supported() is None:
+                print(f"kubernetes_tpu_torch.scheduler: the policy {args.policy_config_file} "
+                      "selects predicates, priorities or extenders the fused scan does not "
+                      "compute; run it with --backend oracle", file=sys.stderr)
+                return 1
     cs = remote_clientset(args.apiserver, args.token)
 
     # health before leader election: a standby must answer its liveness
@@ -96,7 +124,7 @@ def main(argv=None) -> int:
         from .scheduler import Scheduler
 
         # one algorithm for both: the backend writes the round-robin counter
-        algo = GenericScheduler()
+        algo = policy_algo if policy_algo is not None else GenericScheduler()
         backend = None
         if args.backend == "batch":
             from ..ops.backend import BatchBackend
@@ -130,7 +158,7 @@ def main(argv=None) -> int:
                     if n:
                         logging.info("batch loop: %d bound", n)
                 else:
-                    sched.schedule_one(timeout=0.2)
+                    sched.schedule_one(timeout=0.2, async_bind=True)
         finally:
             sched.informers.stop_all()
             sched.broadcaster.stop()
@@ -157,6 +185,8 @@ def main(argv=None) -> int:
                  "ingest_frame_events": sum(i.stats["frame_events"] for i in infs),
                  "ingest_promotions": lazy.STATS["promotions"] + lazy.STATS["sections"],
                  "confirm_fallbacks": int(m.confirm_fallbacks.value),
+                 "preemption_attempts": int(m.preemption_attempts.value),
+                 "preemption_victims": int(m.preemption_victims.value),
                  "helpers": native.helpers(),
                  "round_robin": algo._round_robin, "launches": 0}
         if backend is not None:

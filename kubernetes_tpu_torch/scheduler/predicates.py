@@ -540,6 +540,91 @@ def match_inter_pod_affinity(pod, meta: PredicateMetadata, info: NodeInfo, ctx: 
 
 PredicateFn = Callable[[api.Pod, PredicateMetadata, NodeInfo, PredicateContext], tuple[bool, list[str]]]
 
+
+def make_check_node_label_presence(labels: list, presence: bool) -> PredicateFn:
+    """``CheckNodeLabelPresence`` factory (predicates.go:737): with
+    presence=True every listed label must EXIST on the node; with
+    presence=False none may (value-agnostic — used to steer off/onto
+    labeled pools).
+
+    No scan mask: a policy-file-only predicate, and any config whose
+    predicate set differs from DEFAULT_PREDICATES schedules on the oracle
+    (``ops/backend._config_supported``)."""
+
+    def check_node_label_presence(pod, meta, info: NodeInfo, ctx):
+        node_labels = info.node.meta.labels if info.node else {}
+        for label in labels:
+            if (label in node_labels) != presence:
+                want = "present" if presence else "absent"
+                return False, [f"node label {label!r} must be {want}"]
+        return True, []
+
+    return check_node_label_presence
+
+
+def make_check_service_affinity(labels: list) -> PredicateFn:
+    """``CheckServiceAffinity`` factory (predicates.go:821): pods of one
+    Service co-locate on nodes sharing the same VALUES for the given
+    label set — the first scheduled pod of a service pins those values
+    (e.g. all of service S in one region).
+
+    No scan mask: the pinned values depend on which pod of the service
+    lands first, a cross-pod dynamic the tensorizer does not model, and
+    non-default predicate configs schedule on the oracle anyway
+    (``ops/backend._config_supported``)."""
+
+    def _pinned_values(pod, ctx) -> dict:
+        """Node-independent: the label values this pod must match —
+        explicit nodeSelector first, else inherited from the first
+        resident pod of the pod's services.  Memoized on ctx (one
+        Schedule call evaluates N nodes; the resident-pod scan must not
+        run N times)."""
+        cache = getattr(ctx, "_svc_affinity_want", None)
+        if cache is None:
+            cache = ctx._svc_affinity_want = {}
+        hit = cache.get(id(pod))
+        if hit is not None:
+            return hit
+        want: dict = {}
+        for label in labels:
+            if pod.spec.node_selector and label in pod.spec.node_selector:
+                want[label] = pod.spec.node_selector[label]
+        missing = [label for label in labels if label not in want]
+        if missing:
+            selectors = [
+                svc.selector for svc in ctx.services
+                if svc.selector and svc.meta.namespace == pod.meta.namespace
+                and all(pod.meta.labels.get(k) == v for k, v in svc.selector.items())
+            ]
+            if selectors:
+                for other, other_info in ctx.all_pods():
+                    if other.meta.namespace != pod.meta.namespace:
+                        continue
+                    if not any(
+                        all(other.meta.labels.get(k) == v for k, v in sel.items())
+                        for sel in selectors
+                    ):
+                        continue
+                    other_labels = (other_info.node.meta.labels
+                                    if other_info.node else {})
+                    for label in missing:
+                        if label in other_labels:
+                            want.setdefault(label, other_labels[label])
+                    break  # first service pod pins the values
+        cache[id(pod)] = want
+        return want
+
+    def check_service_affinity(pod, meta, info: NodeInfo, ctx):
+        node_labels = info.node.meta.labels if info.node else {}
+        for label, value in _pinned_values(pod, ctx).items():
+            if node_labels.get(label) != value:
+                return False, [
+                    f"service affinity: node label {label!r} must be {value!r}"]
+        return True, []
+
+    return check_service_affinity
+
+
 DEFAULT_PREDICATES: dict[str, PredicateFn] = {
     "CheckNodeSchedulable": check_node_schedulable,
     "CheckNodeCondition": check_node_condition,

@@ -439,3 +439,24 @@ def cluster_autoscaler_priorities() -> list[tuple[object, int]]:
         else:
             out.append((prio, weight))
     return out
+
+
+class ServiceSpreadingPriority(SelectorSpreadPriority):
+    """Registered non-default priority (``defaults.go``
+    ServiceSpreadingPriority): SelectorSpread restricted to SERVICE
+    selectors only — the pre-SelectorSpread spreading behavior kept for
+    compatibility.
+
+    No scan weight: not in ``ops/backend._PRIORITY_WEIGHT_KEY``, so a
+    policy that uses it schedules every batch on the oracle, as in the
+    JAX package."""
+
+    name = "ServiceSpreadingPriority"
+
+    def _selectors_for_pod(self, pod: api.Pod, ctx: PriorityContext):
+        return [
+            ("simple", svc.selector)
+            for svc in ctx.services
+            if svc.meta.namespace == pod.meta.namespace and svc.selector
+            and matches_simple_selector(svc.selector, pod.meta.labels)
+        ]

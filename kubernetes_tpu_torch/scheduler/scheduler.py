@@ -15,8 +15,18 @@ The batch path: ``schedule_pending_batch`` drains the queue and hands the
 batch to ``backend`` (``ops/backend.py`` ``BatchBackend``), committing each
 segment's results (assume, one ``bind_many`` txn, events) while the card
 scans the next segment; ``run_batch_loop`` serves arrivals wave by wave
-under a min-batch/max-wait policy.  Preemption is not part of this
-package yet.
+under a min-batch/max-wait policy.  A pod the card's kernel refuses by
+shape (``ShapeRefused``) fails alone with the refusal as its
+FailedScheduling message; if anything else leaves the backend, the pods
+no committed segment took are requeued before the error goes on.
+
+Preemption (the PostFilter phase, on by default as in the JAX package): a
+priority pod that fits nowhere evicts a minimal set of lower-priority
+victims (``preemption.py``).  The per-pod path tries it at once
+(``_try_preempt``); the batch path collects the wave's failed priority
+pods and runs one cohort pass after the scan (``_preempt_cohort``, with
+the vectorized ``ops.preemption_kernel.PreemptionState``).  Each evicted
+preemptor is requeued at once and binds in the next wave.
 
 Ingest: the pod handlers route on ``lazy.pod_brief`` (node name, scheduler
 name and phase read straight off a lazy pod's wire dict), and a
@@ -42,7 +52,7 @@ from ..client.record import EventBroadcaster
 from ..store.store import ADDED, MODIFIED, NotFoundError
 from ..utils.metrics import SchedulerMetrics
 from ..utils.trace import Trace
-from .generic_scheduler import FitError, GenericScheduler
+from .generic_scheduler import FitError, GenericScheduler, ShapeRefused
 from .nodeinfo import NodeInfo, SchedulerCache
 from .priorities import PriorityContext
 from .queue import PodBackoff, SchedulingQueue
@@ -75,12 +85,8 @@ class Scheduler:
         assume_ttl: float = 30.0,
         clock: Callable[[], float] = time.monotonic,
         emit_events: bool = True,
-        enable_preemption: bool = False,
+        enable_preemption: bool = True,
     ):
-        if enable_preemption:
-            raise NotImplementedError(
-                "preemption is not ported to kubernetes_tpu_torch yet "
-                "(ROADMAP.md Queue 1, item 5: Preemption)")
         self.clientset = clientset
         self.algorithm = algorithm or GenericScheduler()
         self.backend = backend  # ops.backend.BatchBackend or None
@@ -90,12 +96,17 @@ class Scheduler:
         self.backoff = PodBackoff(clock=clock)
         self.metrics = SchedulerMetrics()
         self.emit_events = emit_events
+        self.enable_preemption = enable_preemption
         self._clock = clock
         self._snapshot: dict[str, NodeInfo] = {}
         self._last_prep_s = 0.0
         # per-wave phase split of the last schedule_pending_batch call:
         # deltas of the backend's timers plus the commit and prep seconds
         self.last_batch_phases: dict = {}
+        # seconds of the last cohort pass: the state's build, the
+        # per-preemptor ranking (victim selection), and the evictions with
+        # the pump and snapshot that observe them
+        self.last_cohort_phases: dict = {}
         # async event pipeline (client-go tools/record): the hot path only
         # enqueues; correlation and store writes happen on the sink
         self.broadcaster = EventBroadcaster(clientset, source=scheduler_name, clock=clock)
@@ -285,14 +296,25 @@ class Scheduler:
         return True
 
     def handle_schedule_failure(self, pod: api.Pod, err: Exception,
-                                ev_batch: Optional[list] = None) -> None:
+                                ev_batch: Optional[list] = None,
+                                preempt_cohort: Optional[list] = None) -> None:
         """MakeDefaultErrorFunc (factory.go:718): re-enqueue with backoff.
 
         Re-enqueues the *latest* version from the informer cache, not the
         popped object: a spec patch that landed while the pod was in
-        flight (the missing toleration, say) must not be lost.  Batch
-        callers pass ``ev_batch`` to collect the FailedScheduling event
-        instead of enqueueing it per pod mid-batch."""
+        flight (the missing toleration, say) must not be lost.
+
+        For priority pods, tries preemption first (the PostFilter phase):
+        evicting a minimal set of lower-priority victims and requeueing the
+        preemptor without backoff into the freed space.  A pod the card
+        refused by shape (``ShapeRefused``) did not fail to fit, so it is
+        only backed off.
+
+        ``ev_batch``: batch callers pass a list to collect the
+        FailedScheduling event instead of enqueueing it per pod mid-batch.
+        ``preempt_cohort``: batch callers pass a list to DEFER priority
+        pods' preemption to one cohort pass after the drain
+        (``_preempt_cohort``)."""
         self.metrics.schedule_failures.inc()
         if ev_batch is not None and self.emit_events:
             ev_batch.append((pod, "Warning", "FailedScheduling", str(err)))
@@ -303,7 +325,158 @@ class Scheduler:
             return  # deleted while we were scheduling it
         if latest.spec.node_name or not _is_scheduler_pod(latest, self.scheduler_name):
             return  # bound by someone else, or became terminal
+        if (self.enable_preemption and latest.spec.priority > 0
+                and not isinstance(err, ShapeRefused)):
+            # the JAX scheduler's overload ladder sheds lower tiers here
+            # (preempt_tier_floor); it is not ported (ROADMAP Queue 1 item 4)
+            if preempt_cohort is not None:
+                preempt_cohort.append(latest)  # requeue decided at cohort time
+                return
+            if self._try_preempt(latest):
+                self.queue.add(latest)  # victims evicted; retry immediately
+                return
         self.queue.add_after(latest, self.backoff.get_backoff(pod.meta.key))
+
+    def _evict_victims(self, pod: api.Pod, target, ev_batch: Optional[list] = None) -> None:
+        for victim in target.victims:
+            try:
+                self.clientset.pods.delete(victim.meta.name, victim.meta.namespace)
+                self.metrics.preemption_victims.inc()
+                msg = (f"Preempted by {pod.meta.key} (priority "
+                       f"{pod.spec.priority}) on {target.node_name}")
+                if ev_batch is not None and self.emit_events:
+                    ev_batch.append((victim, "Normal", "Preempted", msg))
+                else:
+                    self._event(victim, "Normal", "Preempted", msg)
+            except NotFoundError:
+                continue
+
+    def _try_preempt(self, pod: api.Pod) -> bool:
+        from .preemption import find_preemption_target
+
+        start = self._clock()
+        self.metrics.preemption_attempts.inc()
+        pvs, pvcs = self._volume_listers()
+        target = find_preemption_target(
+            pod, self.snapshot(), self.algorithm.predicates, pvcs=pvcs, pvs=pvs
+        )
+        if target is None:
+            self.metrics.preemption_latency.observe((self._clock() - start) * 1e6)
+            return False
+        self._evict_victims(pod, target)
+        self.pump()  # observe the deletions so the next attempt sees freed space
+        self.metrics.preemption_latency.observe((self._clock() - start) * 1e6)
+        return True
+
+    def _preempt_cohort(self, cohort: list, ev_batch: Optional[list] = None) -> int:
+        """Batch-path PostFilter: the vectorized state bounds every
+        (preemptor, node) pair's victim cost; the exact reprieve evaluation
+        then runs only on nodes whose bound can win
+        (``find_preemption_target_fast``, whose decisions equal the per-pod
+        oracle's on the same state by construction).  Preemptors are
+        processed in batch order; each eviction updates the state columns
+        of the touched node so later preemptors see the new truth.  Returns
+        the number of successful preemptions; every cohort pod is requeued
+        (immediately on success, with backoff otherwise).
+
+        As in the JAX package, the state's rows are refreshed only for the
+        evicted node: a pump that delivers other nodes' changes mid-cohort
+        (threaded informers, concurrent writers) leaves their rows stale,
+        and a priority level that appears mid-cohort is never freeable
+        (``PreemptionState.update_node``)."""
+        from ..models.snapshot import pod_signature_key
+        from ..ops.preemption_kernel import PreemptionState
+        from .preemption import _fast_eligible, find_preemption_target_fast
+        from .units import pod_request_vec
+
+        if not cohort:
+            return 0
+        t_start = time.perf_counter()
+        snapshot = self.snapshot()
+        pvs, pvcs = self._volume_listers()
+        state = PreemptionState(snapshot)
+        rank_s = evict_s = 0.0
+        t_built = time.perf_counter()
+        # node-static predicate gate memo per preemptor SIGNATURE (the gate
+        # is victim-independent and generation-checked inside
+        # find_preemption_target_fast, so same-template preemptors pay it
+        # once per node across the whole cohort)
+        static_caches: dict = {}
+        preempted = 0
+        # fits-now recheck state: shadow clones of earlier-eviction targets
+        # (the ONLY nodes that can have become feasible since the batch
+        # proved these pods unschedulable).  ``claims`` carries every
+        # cohort member already promised capacity on a node, and shadows
+        # are rebuilt as fresh state plus claims, so a second eviction on
+        # the same node never drops earlier claimants.  Capped: a huge
+        # touched set turns the recheck off.
+        recheck_shadow: dict[str, NodeInfo] = {}
+        claims: dict[str, list] = {}
+        recheck_cap = 64
+        for pod in cohort:
+            start = self._clock()
+            self.metrics.preemption_attempts.inc()
+            latest = self.informers.informer("Pod").get(pod.meta.key)
+            if latest is None:
+                continue  # deleted while deferred
+            if latest.spec.node_name or not _is_scheduler_pod(latest, self.scheduler_name):
+                continue
+            t_rank = time.perf_counter()
+            cands: list = []
+            if not _fast_eligible(latest, self.algorithm.predicates):
+                # odd preemptors (ports, volumes, own required affinity, a
+                # custom predicate set) take the branch-and-bound path,
+                # which needs the prefilter bounds; the fast vectorized path
+                # derives everything from `state` directly
+                cands = state.candidates_for(
+                    pod_request_vec(latest).units, latest.spec.priority)
+            target = find_preemption_target_fast(
+                latest, snapshot, cands, self.algorithm.predicates,
+                pvcs=pvcs, pvs=pvs,
+                static_cache=static_caches.setdefault(pod_signature_key(latest), {}),
+                state=state,
+                recheck_nodes=sorted(recheck_shadow.items())
+                if 0 < len(recheck_shadow) <= recheck_cap else None)
+            t_ranked = time.perf_counter()
+            rank_s += t_ranked - t_rank
+            if target is None:
+                self.metrics.preemption_latency.observe((self._clock() - start) * 1e6)
+                self.queue.add_after(latest, self.backoff.get_backoff(pod.meta.key))
+                continue
+            if not target.victims:
+                # an earlier cohort eviction already freed space this pod
+                # provably fits into: no eviction, retry immediately, and
+                # record the claim so later cohort members see it taken
+                claims.setdefault(target.node_name, []).append(latest)
+                shadow = recheck_shadow.get(target.node_name)
+                if shadow is not None:
+                    shadow.add_pod(latest)
+                self.queue.add(latest)
+                self.metrics.preemption_latency.observe((self._clock() - start) * 1e6)
+                continue
+            self._evict_victims(latest, target, ev_batch)
+            self.pump()  # observe deletions: cache and informers advance
+            snapshot = self.snapshot()
+            fresh = snapshot.get(target.node_name)
+            state.update_node(target.node_name, fresh)
+            evict_s += time.perf_counter() - t_ranked
+            claims.setdefault(target.node_name, []).append(latest)
+            if fresh is not None:
+                # shadow = post-eviction state PLUS every outstanding claim
+                # on this node: later cohort members must not be granted
+                # already-promised capacity
+                shadow = fresh.clone()
+                for claimant in claims[target.node_name]:
+                    shadow.add_pod(claimant)
+                recheck_shadow[target.node_name] = shadow
+            preempted += 1
+            self.queue.add(latest)  # retry immediately into the freed space
+            self.metrics.preemption_latency.observe((self._clock() - start) * 1e6)
+        self.last_cohort_phases = {
+            "preemptors": len(cohort), "preempted": preempted,
+            "state_s": t_built - t_start, "rank_s": rank_s, "evict_s": evict_s,
+            "total_s": time.perf_counter() - t_start}
+        return preempted
 
     # -- the per-pod oracle loop (scheduler.go:253) ------------------------
     def schedule_one(self, timeout: Optional[float] = 0.0, async_bind: bool = False) -> bool:
@@ -462,7 +635,12 @@ class Scheduler:
     # -- the batch path ----------------------------------------------------
     def schedule_pending_batch(self, max_batch: Optional[int] = None) -> tuple[int, int]:
         """Drain the queue, schedule the batch on the backend, and assume +
-        bind each segment's results in pod order.  Returns (bound, failed)."""
+        bind each segment's results in pod order; then one preemption pass
+        over the wave's failed priority pods.  Returns (bound, failed).
+
+        If the backend raises, every drained pod that no committed segment
+        took is requeued before the error goes on: a card fault loses no
+        pod in process."""
         if self.backend is None:
             raise RuntimeError("no batch backend configured")
         pods = self.queue.drain(max_batch)
@@ -474,12 +652,15 @@ class Scheduler:
         # everything it frees
         gc_was_enabled = gc.isenabled()
         gc.disable()
-        totals = {"bound": 0, "failed": 0, "commit_s": 0.0}
+        totals = {"bound": 0, "failed": 0, "committed": 0, "commit_s": 0.0}
         # ONE event enqueue for the whole batch, after the last commit: a
         # per-segment enqueue would wake the sink thread mid-batch, and its
         # store writes would take the GIL from the host phases outside the
         # card's shadow
         ev_batch: list = []
+        # priority pods whose scheduling failed: preemption is deferred to
+        # ONE cohort pass after the scan (see _preempt_cohort)
+        preempt_cohort: Optional[list] = [] if self.enable_preemption else None
         start = self._clock()
 
         def commit_segment(entries: list) -> None:
@@ -488,9 +669,12 @@ class Scheduler:
             t_commit = time.perf_counter()
             to_bind: list[tuple[api.Pod, api.Binding]] = []
             to_assume: list[tuple] = []
-            for pod, node_name, req_vec, nz_vec in entries:
+            for pod, node_name, req_vec, nz_vec, refusal in entries:
                 if node_name is None:
-                    self.handle_schedule_failure(pod, FitError(pod, {}), ev_batch)
+                    # a refusal by shape is reported as it is and backed
+                    # off; a pod that fits nowhere may preempt
+                    self.handle_schedule_failure(pod, refusal or FitError(pod, {}), ev_batch,
+                                                 preempt_cohort=preempt_cohort)
                     totals["failed"] += 1
                     continue
                 # the kernel path's per-signature request vectors spare the
@@ -535,6 +719,9 @@ class Scheduler:
             # p50 and p99 distinct without per-pod lock rounds
             self.metrics.e2e_scheduling_latency.observe_many(
                 (self._clock() - start) * 1e6, len(to_bind))
+            # entries arrive in pod order: the committed pods are a prefix
+            # of the drained batch
+            totals["committed"] += len(entries)
             totals["commit_s"] += time.perf_counter() - t_commit
 
         bstats = self.backend.stats
@@ -544,12 +731,23 @@ class Scheduler:
             snapshot = self.snapshot()
             pctx = self.priority_context(snapshot)
             algo_start = self._clock()
-            self.backend.schedule_batch(pods, snapshot, pctx, on_segment=commit_segment,
-                                        on_idle=self._pipeline_idle)
+            try:
+                self.backend.schedule_batch(pods, snapshot, pctx, on_segment=commit_segment,
+                                            on_idle=self._pipeline_idle)
+            except BaseException:
+                self._requeue_uncommitted(pods[totals["committed"]:])
+                # the committed prefix's failed priority pods wait on a
+                # cohort pass that will not run: back them off as failures
+                self._requeue_uncommitted(preempt_cohort or [], backoff=True)
+                raise
             # wall time of the whole dispatch; commits of all but the final
             # segment ran in the card's shadow
             self.metrics.batch_device_latency.observe((self._clock() - algo_start) * 1e6)
             self.metrics.schedule_attempts.inc(len(pods))
+            if preempt_cohort:
+                # PostFilter: one vectorized pass over the failed priority
+                # pods, exact victim selection on the survivors
+                self._preempt_cohort(preempt_cohort, ev_batch)
             self.last_batch_phases = {k: bstats[k] - pre_phases[k] for k in _PHASE_KEYS}
             self.last_batch_phases["commit_s"] = totals["commit_s"]
             self.last_batch_phases["prep_s"] = self._last_prep_s
@@ -581,6 +779,20 @@ class Scheduler:
         if self.emit_events and not self.broadcaster.running:
             self.broadcaster.flush()
         return (totals["bound"], totals["failed"])
+
+    def _requeue_uncommitted(self, pods: list, backoff: bool = False) -> None:
+        """Put back drained pods no committed segment took, in their latest
+        informer version, while each is still ours to place; with
+        ``backoff``, after each pod's backoff."""
+        pod_informer = self.informers.informer("Pod")
+        for pod in pods:
+            latest = pod_informer.get(pod.meta.key)
+            if (latest is not None and not latest.spec.node_name
+                    and _is_scheduler_pod(latest, self.scheduler_name)):
+                if backoff:
+                    self.queue.add_after(latest, self.backoff.get_backoff(pod.meta.key))
+                else:
+                    self.queue.add(latest)
 
     # -- housekeeping ------------------------------------------------------
     def cleanup(self) -> list[str]:

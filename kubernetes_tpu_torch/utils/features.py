@@ -20,8 +20,10 @@ BETA = "BETA"
 
 # feature -> (default, maturity)
 KNOWN_FEATURES: dict[str, tuple[bool, str]] = {
-    # accepted so configs that set it load; nothing in the port reads pod
-    # priority until preemption is ported (ROADMAP Queue 1 item 5)
+    # accepted so configs that set it load.  It gates nothing in the
+    # scheduler, as in the JAX package (there only admission and the
+    # PriorityClass kind read it): preemption reads spec.priority whatever
+    # the gate says
     "PodPriority": (True, BETA),
     "BatchScheduling": (True, BETA),  # the batch backend itself
 }
@@ -70,8 +72,9 @@ class SchedulerConfiguration:
     """``KubeSchedulerConfiguration`` analogue."""
 
     scheduler_name: str = "default-scheduler"
-    backend: str = "batch"  # batch | oracle
+    backend: str = "batch"  # batch | oracle; "tpu" (the JAX package's name) = batch
     batch_interval: float = 0.05
+    policy_config_file: str = ""  # a scheduler Policy as JSON (scheduler/policy.py)
     leader_elect: bool = False
     feature_gates: dict = field(default_factory=dict)
 

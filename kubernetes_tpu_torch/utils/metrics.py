@@ -359,6 +359,16 @@ class SchedulerMetrics:
             "overlapped-prep runs that raised; the work is deferred to the "
             "next wave's synchronous path (no decisions are affected)",
         ))
+        # preemption (the PostFilter phase)
+        self.preemption_attempts = r.register(Counter(
+            "scheduler_preemption_attempts_total",
+            "preemption attempts, one per failed priority pod (a cohort "
+            "member that is granted freed space without evicting counts too)"))
+        self.preemption_victims = r.register(Counter(
+            "scheduler_preemption_victims_total", "pods evicted by preemption"))
+        self.preemption_latency = r.register(Histogram(
+            "scheduler_preemption_latency_microseconds",
+            "one preemption attempt: victim selection and the evictions"))
         self.pending_pods = r.register(Gauge(
             "scheduler_pending_pods",
             "ready pods in the scheduling queue at the last batch-loop "

@@ -454,3 +454,166 @@ def oracle_replay_waves(drain_batches: list, final_assignments: dict,
     return {"mode": "exact per-wave replay", "checked": checked,
             "mismatches": mismatches, "sample": sample,
             "round_robin": sched.algorithm._round_robin}
+
+
+def preemption_nodes(n_nodes: int):
+    """The preemption preset's nodes (``bench.py`` ``run_preemption``):
+    ``node-%05d`` at 8 CPU / 32 Gi / 110 pods over 3 zones."""
+    return [make_node(f"node-{i:05d}", cpu="8", memory="32Gi", pods=110,
+                      labels={"kubernetes.io/hostname": f"node-{i:05d}", ZONE: f"zone-{i % 3}"})
+            for i in range(n_nodes)]
+
+
+def preemption_pods(n_fillers: int, n_preemptors: int, seed: int = 0,
+                    odd_share: float = 0.0) -> tuple[list, list]:
+    """(fillers, preemptors): fillers of 2 CPU / 256 Mi at priority 0 (four
+    fill a node's CPU) and preemptors of the same size at priority 100.  A
+    seeded ``odd_share`` of the preemptors carries host port 8080 or a
+    required zone affinity to the fillers: the branch-and-bound path of
+    the cohort pass, not the vectorized one."""
+    rng = random.Random(seed)
+    fillers = [make_pod(f"filler-{i:06d}", cpu="2", memory="256Mi", labels={"app": "filler"})
+               for i in range(n_fillers)]
+    follow = Affinity(pod_affinity_required=[PodAffinityTerm(
+        selector=LabelSelector.from_match_labels({"app": "filler"}), topology_key=ZONE)])
+    preemptors = []
+    for i in range(n_preemptors):
+        r = rng.random()
+        p = make_pod(f"vip-{i:06d}", cpu="2", memory="256Mi", labels={"app": "vip"},
+                     host_ports=[8080] if r < odd_share / 2 else None,
+                     affinity=follow if odd_share / 2 <= r < odd_share else None)
+        p.spec.priority = 100
+        preemptors.append(p)
+    return fillers, preemptors
+
+
+def run_preemption(n_nodes: int = 2_000, n_fillers: int = None, n_preemptors: int = None,
+                   device=None, seed: int = 0, odd_share: float = 0.0,
+                   backend_cls=None) -> dict:
+    """The priority-preemption preset (``bench.py`` ``run_preemption``)
+    through the port's ``Scheduler`` on ``BatchBackend``: priority-0
+    fillers fill every node's CPU in one batch; one batch of priority-100
+    preemptors then fails wholesale, the cohort pass evicts a victim set
+    for each, and the follow-up batch binds the preemptors into the freed
+    space.  Defaults: 4 fillers a node and half as many preemptors as
+    nodes.
+
+    ``device`` is the backend's (None: the card); ``backend_cls`` replaces
+    ``BatchBackend`` (a checking subclass, say).  Returns the counts
+    (attempts, victims, preemptors bound after, fillers bound and
+    evicted), **evictions per second** (victims over the cohort pass's
+    seconds: attempts would also count grants without an eviction), the
+    cohort split (``Scheduler.last_cohort_phases``: state build,
+    per-preemptor ranking, evictions with pump and snapshot),
+    ``preemption_latency`` p50/p99 in ms, the three batches' seconds and
+    the backend's stats."""
+    import time
+
+    from .client import Clientset
+    from .ops.backend import BatchBackend
+    from .scheduler import GenericScheduler, Scheduler
+    from .store import Store
+
+    n_fillers = 4 * n_nodes if n_fillers is None else n_fillers
+    n_preemptors = n_nodes // 2 if n_preemptors is None else n_preemptors
+    fillers, preemptors = preemption_pods(n_fillers, n_preemptors, seed, odd_share)
+    cs = Clientset(Store(event_log_window=max(200_000, 4 * (n_nodes + n_fillers))))
+    cs.nodes.create_many(preemption_nodes(n_nodes))
+    algo = GenericScheduler()
+    backend = (backend_cls or BatchBackend)(algorithm=algo, device=device)
+    sched = Scheduler(cs, algorithm=algo, backend=backend, emit_events=True)
+    sched.start()
+    sched.broadcaster.start()
+    try:
+        cs.pods.create_many(fillers)
+        sched.pump()
+        t = time.perf_counter()
+        fill_bound, _ = sched.schedule_pending_batch()
+        fill_s = time.perf_counter() - t
+        cs.pods.create_many(preemptors)
+        sched.pump()
+        t0 = time.perf_counter()
+        wave_bound, wave_failed = sched.schedule_pending_batch()  # fails -> cohort
+        wave_s = time.perf_counter() - t0
+        cohort = dict(sched.last_cohort_phases)
+        # read here: the follow-up batch may run a cohort of its own
+        m = sched.metrics
+        attempts, victims = int(m.preemption_attempts.value), int(m.preemption_victims.value)
+        sched.pump()
+        t = time.perf_counter()
+        bound_after, _ = sched.schedule_pending_batch()  # into the freed space
+        follow_s = time.perf_counter() - t
+        total_s = time.perf_counter() - t0
+    finally:
+        sched.broadcaster.stop(drain=True)
+    final = {p.meta.name: p.spec.node_name for p in cs.pods.list()[0]}
+
+    def _pq(h, q):
+        v = h.quantile(q)
+        return v / 1e3 if v != float("inf") else None
+
+    cohort_s = cohort.get("total_s", 0.0)
+    return {
+        "nodes": n_nodes, "fillers": n_fillers, "preemptors": n_preemptors,
+        "fill_bound": fill_bound, "fill_s": fill_s,
+        "wave_bound": wave_bound, "wave_failed": wave_failed, "wave_s": wave_s,
+        "attempts": attempts, "victims": victims,
+        "preemptor_bound_after": bound_after, "follow_s": follow_s,
+        "evictions_per_sec": victims / cohort_s if cohort_s > 0 else 0.0,
+        "cohort": cohort,
+        "preempt_and_bind_s": total_s,
+        "preemption_latency_ms": {"p50": _pq(m.preemption_latency, 0.5),
+                                  "p99": _pq(m.preemption_latency, 0.99)},
+        "fillers_bound": sum(1 for p in fillers if final.get(p.meta.name)),
+        "fillers_evicted": sum(1 for p in fillers if p.meta.name not in final),
+        "preemptors_bound": sum(1 for p in preemptors if final.get(p.meta.name)),
+        "backend": dict(backend.stats),
+        "round_robin": algo._round_robin,
+    }
+
+
+def run_wire_preemption(url: str, n_nodes: int = 1_000, n_fillers: int = None,
+                        n_preemptors: int = None, deadline_s: float = 120.0) -> dict:
+    """The client side of the preemption preset against a scheduler daemon:
+    over the wire, create the nodes and the fillers and wait until every
+    filler is bound, then create the preemptors and wait until every one
+    is bound (the daemon preempts by default), each within ``deadline_s``
+    (else ``TimeoutError``).  Returns the seconds of each wait, the
+    preemptors bound, and the fillers left bound and evicted."""
+    import time
+
+    from .client import Clientset, RemoteStore
+
+    n_fillers = 4 * n_nodes if n_fillers is None else n_fillers
+    n_preemptors = n_nodes // 2 if n_preemptors is None else n_preemptors
+    fillers, preemptors = preemption_pods(n_fillers, n_preemptors)
+    cs = Clientset(RemoteStore(url, timeout=120.0))
+    cs.nodes.create_many(preemption_nodes(n_nodes))
+
+    def bound_names() -> dict:
+        items, _ = cs.store.list("Pod")
+        return {d["metadata"]["name"]: (d.get("spec") or {}).get("nodeName") or None
+                for d in items}
+
+    def wait_bound(pods: list, what: str) -> tuple[float, dict]:
+        t = time.perf_counter()
+        while True:
+            got = bound_names()
+            if all(got.get(p.meta.name) for p in pods):
+                return time.perf_counter() - t, got
+            if time.perf_counter() - t > deadline_s:
+                left = sum(1 for p in pods if not got.get(p.meta.name))
+                raise TimeoutError(f"{left} {what} not bound after {deadline_s} s")
+            time.sleep(0.2)
+
+    cs.pods.create_many(fillers)
+    fill_s, _ = wait_bound(fillers, "fillers")
+    cs.pods.create_many(preemptors)
+    preempt_s, got = wait_bound(preemptors, "preemptors")
+    return {
+        "nodes": n_nodes, "fillers": n_fillers, "preemptors": n_preemptors,
+        "fill_s": fill_s, "preempt_and_bind_s": preempt_s,
+        "preemptors_bound": sum(1 for p in preemptors if got.get(p.meta.name)),
+        "fillers_bound": sum(1 for p in fillers if got.get(p.meta.name)),
+        "fillers_evicted": sum(1 for p in fillers if p.meta.name not in got),
+    }

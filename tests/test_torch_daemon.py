@@ -11,6 +11,9 @@ wire, and the two entry points as real processes.
   ``Scheduler`` + ``BatchBackend(device="cpu")`` against the port's
   ``APIServer``.  Tolerance: exact; the binding maps and round-robin
   counters equal each other and the port's sequential oracle.
+- Daemon-stack preemption: both stacks at their defaults over the wire;
+  a priority pod that binds only after an eviction evicts the same victim
+  and binds alike.
 - A smaller twin of ``tests/test_e2e_daemons.py``
   ``test_ha_scheduler_failover_mid_flood``: no pod is bound twice.
 - ``python -m kubernetes_tpu_torch.apiserver`` and ``python -m
@@ -18,6 +21,9 @@ wire, and the two entry points as real processes.
   metrics, a 200-pod flood through ``workload.run_wire_churn``, exit 0 on
   SIGTERM with the stats line; and the refusals (no
   ``--disable-admission``; ``--device cuda`` without a card).
+- The JAX daemon's configuration (``backend: "tpu"``,
+  ``policy_config_file``, ``--policy-config-file``) loads, and the oracle
+  loop binds asynchronously on a preempting ``Scheduler``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import time
 import urllib.request
 
 import pytest
+import torch
 
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.apiserver import APIServer
@@ -254,6 +261,89 @@ def test_daemon_stack_parity_jax_stack_port_stack_and_oracle():
     assert got == want == oracle
     assert algo._round_robin == jalgo._round_robin == oracle_rr
     assert backend.stats["segments"] == 1 and backend.stats["oracle_pods"] == 0
+
+
+PREEMPT_NODES, PREEMPT_FILLERS = 3, 6
+
+
+def _preempt_precreate(url: str) -> None:
+    """Three 2-CPU nodes and six 1-CPU fillers at priorities 0, 1 and 2,
+    created over the wire before the scheduler starts."""
+    cs = Clientset(RemoteStore(url, timeout=60.0))
+    assert all(d is not None for d in cs.nodes.create_many([
+        make_node(f"pn{i}", cpu="2", labels={"kubernetes.io/hostname": f"pn{i}"})
+        for i in range(PREEMPT_NODES)]))
+    fillers = []
+    for i in range(PREEMPT_FILLERS):
+        p = make_pod(f"filler-{i}", cpu="1")
+        p.spec.priority = i % 3
+        fillers.append(p)
+    assert all(d is not None for d in cs.pods.create_many(fillers))
+
+
+def _serve_preemption(sched, url: str) -> None:
+    """The fillers in one wave; then a priority-100 pod that fits nowhere,
+    created over the wire: its wave fails and the cohort pass evicts; once
+    the scheduler's informers saw the eviction, the next wave binds it."""
+    sched.start()
+    try:
+        sched.run_batch_loop(min_batch=PREEMPT_FILLERS, max_wait=5.0, max_waves=1,
+                             poll_interval=0.002)
+        vip = make_pod("vip", cpu="1")
+        vip.spec.priority = 100
+        Clientset(RemoteStore(url)).pods.create(vip)
+        sched.run_batch_loop(min_batch=1, max_wait=5.0, max_waves=1, poll_interval=0.002)
+        pods = sched.informers.informer("Pod")
+        deadline = time.monotonic() + 30
+        while len(pods.list()) != PREEMPT_FILLERS and time.monotonic() < deadline:
+            sched.pump()
+            time.sleep(0.02)
+        assert len(pods.list()) == PREEMPT_FILLERS  # one victim gone, the vip in
+        sched.run_batch_loop(min_batch=1, max_wait=5.0, max_waves=1, poll_interval=0.002)
+    finally:
+        sched.informers.stop_all()
+
+
+@pytest.mark.timeout(300)
+def test_daemon_stack_preemption_jax_stack_and_port_stack_at_defaults():
+    """Both stacks at their defaults (preemption on): the same victim is
+    evicted and the priority pod and every survivor bind alike."""
+    from kubernetes_tpu.apiserver import APIServer as JaxAPIServer
+    from kubernetes_tpu.client import Clientset as JaxClientset
+    from kubernetes_tpu.client.remote import RemoteStore as JaxRemoteStore
+    from kubernetes_tpu.ops import TPUBatchBackend
+    from kubernetes_tpu.scheduler import GenericScheduler as JaxGeneric
+    from kubernetes_tpu.scheduler import Scheduler as JaxScheduler
+    from kubernetes_tpu.store import Store as JaxStore
+
+    jax_server = JaxAPIServer(JaxStore())
+    port_server = APIServer(Store())
+    jax_server.start()
+    port_server.start()
+    try:
+        _preempt_precreate(jax_server.url)
+        _preempt_precreate(port_server.url)
+        jalgo = JaxGeneric()
+        jsched = JaxScheduler(JaxClientset(JaxRemoteStore(jax_server.url)), algorithm=jalgo,
+                              backend=TPUBatchBackend(algorithm=jalgo, kernel_impl="xla"))
+        _serve_preemption(jsched, jax_server.url)
+        want = _bindings(jax_server.url)
+
+        algo = GenericScheduler()
+        sched = Scheduler(Clientset(RemoteStore(port_server.url)), algorithm=algo,
+                          backend=BatchBackend(algorithm=algo, device="cpu"))
+        assert sched.enable_preemption
+        _serve_preemption(sched, port_server.url)
+        got = _bindings(port_server.url)
+    finally:
+        jax_server.stop()
+        port_server.stop()
+    assert got == want and got["default/vip"] and all(got.values())
+    evicted = {f"default/filler-{i}" for i in range(PREEMPT_FILLERS)} - set(got)
+    assert len(evicted) == 1 and evicted == {f"default/filler-{i}"
+                                             for i in range(PREEMPT_FILLERS)} - set(want)
+    assert sched.metrics.preemption_victims.value == jsched.metrics.preemption_victims.value == 1
+    assert algo._round_robin == jalgo._round_robin
 
 
 # -- HA failover over the wire (tests/test_e2e_daemons.py:171) --------------
@@ -513,9 +603,96 @@ def test_feature_gates_and_config_layering(tmp_path, monkeypatch):
     assert (args.backend, args.batch_interval, args.leader_elect,
             args.scheduler_name) == ("oracle", 0.5, True, "default-scheduler")
     bad = tmp_path / "bad.json"
-    bad.write_text(json.dumps({"policy_config_file": "p.json"}))
+    bad.write_text(json.dumps({"algorithm_provider": "DefaultProvider"}))
     with pytest.raises(ValueError, match="unknown config keys"):
         load_component_config(SchedulerConfiguration, str(bad))
     with pytest.raises(SystemExit):
         sched_main._parse(["--apiserver", "http://127.0.0.1:1", "--feature-gates",
                            "BatchScheduling=false"])
+
+
+def test_the_jax_daemons_configuration_and_flags_load(tmp_path, monkeypatch):
+    """``backend: "tpu"`` (the JAX default) is the batch backend, and
+    ``policy_config_file`` loads from the file and from the flag
+    (flag > file > default)."""
+    from kubernetes_tpu_torch.scheduler import __main__ as sched_main
+    from kubernetes_tpu_torch.utils import features
+
+    monkeypatch.setattr(features, "DEFAULT_FEATURE_GATES", FeatureGates())
+    monkeypatch.setattr(sched_main, "DEFAULT_FEATURE_GATES", features.DEFAULT_FEATURE_GATES)
+    cfg = tmp_path / "sched.json"
+    cfg.write_text(json.dumps({"backend": "tpu", "policy_config_file": "file.json"}))
+    assert load_component_config(SchedulerConfiguration, str(cfg)).policy_config_file == "file.json"
+    base = ["--apiserver", "http://127.0.0.1:1"]
+    args = sched_main._parse(base + ["--config", str(cfg)])
+    assert (args.backend, args.policy_config_file) == ("batch", "file.json")
+    args = sched_main._parse(base + ["--config", str(cfg), "--policy-config-file", "flag.json",
+                                     "--backend", "oracle"])
+    assert (args.backend, args.policy_config_file) == ("oracle", "flag.json")
+    args = sched_main._parse(base + ["--backend", "tpu"])
+    assert (args.backend, args.policy_config_file) == ("batch", "")
+    assert SchedulerConfiguration().policy_config_file == ""
+
+
+def test_a_policy_the_scan_cannot_express_is_refused_on_the_card(tmp_path, monkeypatch, capsys):
+    """On ``--device cuda`` the batch daemon refuses, before it reaches the
+    apiserver, a policy the fused scan does not compute: the backend would
+    schedule every pod on the CPU oracle.  The refusal needs no card, so
+    the test claims one; the same policy is taken by ``--backend oracle``
+    (the test below)."""
+    from kubernetes_tpu_torch.scheduler import __main__ as sched_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    policy = tmp_path / "policy.json"
+    policy.write_text(json.dumps({"priorities": [{"name": "ServiceSpreadingPriority",
+                                                  "weight": 1}]}))
+    assert sched_main.main(["--apiserver", "http://127.0.0.1:1", "--backend", "tpu",
+                            "--policy-config-file", str(policy)]) == 1
+    err = capsys.readouterr().err
+    assert "does not compute" in err and "--backend oracle" in err
+
+
+@pytest.mark.timeout(120)
+def test_oracle_daemon_binds_asynchronously_with_preemption_and_a_policy(tmp_path, monkeypatch,
+                                                                          capsys):
+    """The ``--backend oracle`` loop calls ``schedule_one(timeout=0.2,
+    async_bind=True)`` as the JAX daemon does, on a ``Scheduler`` that
+    preempts by default and runs the ``--policy-config-file`` algorithm."""
+    from kubernetes_tpu_torch.scheduler import __main__ as sched_main
+    from kubernetes_tpu_torch.scheduler import scheduler as sched_mod
+
+    policy = tmp_path / "policy.json"
+    policy.write_text(json.dumps({"priorities": [{"name": "MostRequestedPriority",
+                                                  "weight": 2}]}))
+    stop = threading.Event()
+    calls = []
+    orig = sched_mod.Scheduler.schedule_one
+
+    def recording(self, timeout=0.0, async_bind=False):
+        calls.append((timeout, async_bind, self.enable_preemption,
+                      [(type(p).__name__, w) for p, w in self.algorithm.priorities]))
+        if orig(self, timeout=timeout, async_bind=async_bind):
+            stop.set()  # one pod scheduled: the daemon stops as on SIGTERM
+        return True
+
+    monkeypatch.setattr(sched_mod.Scheduler, "schedule_one", recording)
+    monkeypatch.setattr(sched_main, "install_signal_stop", lambda: stop)
+    server = APIServer(Store())
+    server.start()
+    try:
+        cs = Clientset(RemoteStore(server.url))
+        cs.nodes.create(make_node("n1"))
+        cs.pods.create(make_pod("p", cpu="100m"))
+        assert sched_main.main(["--apiserver", server.url, "--backend", "oracle",
+                                "--device", "cpu", "--policy-config-file", str(policy)]) == 0
+        deadline = time.monotonic() + 30
+        while not _bindings(server.url)["default/p"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert _bindings(server.url) == {"default/p": "n1"}
+    finally:
+        server.stop()
+    assert calls and all(c == (0.2, True, True, [("MostRequestedPriority", 2)]) for c in calls)
+    stats = [json.loads(line)["scheduler_stats"] for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"scheduler_stats"')]
+    assert len(stats) == 1 and stats[0]["backend"] == "oracle"
+    assert stats[0]["preemption_attempts"] == stats[0]["preemption_victims"] == 0

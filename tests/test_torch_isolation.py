@@ -70,7 +70,9 @@ def test_import_leaves_jax_and_reference_unloaded():
             "kubernetes_tpu_torch.scheduler.__main__",
             "kubernetes_tpu_torch.__main__", "kubernetes_tpu_torch.native",
             "kubernetes_tpu_torch.api.lazy", "kubernetes_tpu_torch.store.frames",
-            "kubernetes_tpu_torch.store.columns"} <= set(mods)
+            "kubernetes_tpu_torch.store.columns", "kubernetes_tpu_torch.scheduler.preemption",
+            "kubernetes_tpu_torch.ops.preemption_kernel", "kubernetes_tpu_torch.scheduler.policy",
+            "kubernetes_tpu_torch.scheduler.extender"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -359,11 +359,6 @@ def test_terminal_or_foreign_pods_never_queue(cluster):
     assert [p.meta.name for p in sched.queue.snapshot_pending()] == ["mine"]
 
 
-def test_preemption_is_not_ported_and_says_so(cluster):
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Scheduler(cluster, enable_preemption=True)
-
-
 def test_bind_conflict_forgets_assumption(cluster):
     """A bind that loses to another writer rolls the assumption back and
     records FailedBinding; the informer then delivers the truth."""
@@ -608,6 +603,164 @@ def test_aborted_batch_closes_host_state_and_next_batch_rebuilds(monkeypatch):
     oracle = M.gs.GenericScheduler()
     assert got == cases.oracle_batch(cases.PORT, pods, m, pctx, oracle)
     assert algo._round_robin == oracle._round_robin
+
+
+# -- shape refusals and backend faults ------------------------------------
+
+
+class _CardShapes(BatchBackend):
+    """The card's shape rules (refusals decided from ``device``), with the
+    CPU's plain scan doing the scans: the refusal plumbing without a card."""
+
+    def __init__(self, **kw):
+        super().__init__(device="cpu", **kw)
+        self.device = torch.device("cuda")
+
+    def _dispatch(self, static, init):
+        self.device = torch.device("cpu")
+        try:
+            return super()._dispatch(static, init)
+        finally:
+            self.device = torch.device("cuda")
+
+
+def _wide_wave(cs, n_ordinary: int = 50):
+    """Four nodes, ``n_ordinary`` small pods and, in the middle of them, a
+    priority pod with one host port more than the kernel's vocabulary."""
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    for i in range(4):
+        cs.nodes.create(make_node(f"n{i}", cpu="8", memory="16Gi"))
+    for i in range(n_ordinary):
+        cs.pods.create(make_pod(f"p{i:03d}", cpu="100m"))
+        if i == n_ordinary // 2:
+            wide = make_pod("wide", cpu="100m", host_ports=list(
+                range(20000, 20000 + fused_scan.MAX_PORTS + 1)))
+            wide.spec.priority = 100  # a refusal is not a fit failure: no preemption
+            cs.pods.create(wide)
+
+
+def _failed_scheduling(cs) -> dict:
+    return {e.involved_key: e.message for e in cs.events.list()[0]
+            if e.reason == "FailedScheduling"}
+
+
+def _assert_only_wide_refused(cs, sched, bound, failed):
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    assert (bound, failed) == (50, 1)
+    placed = {p.meta.name: p.spec.node_name for p in cs.pods.list()[0]}
+    assert placed.pop("wide") == "" and all(placed.values()) and len(placed) == 50
+    assert _failed_scheduling(cs) == {"default/wide": (
+        f"fused scan supports at most {fused_scan.MAX_PORTS} host ports a segment, "
+        f"pod default/wide has {fused_scan.MAX_PORTS + 1}")}
+    assert sched.backend.stats["refused_pods"] == 1
+    assert sched.metrics.preemption_attempts.value == 0
+    assert len(sched.queue) == 0  # backed off, not hot-requeued
+
+
+def test_a_refused_pod_fails_alone_and_the_rest_of_the_wave_binds(cluster):
+    _wide_wave(cluster)
+    algo = GenericScheduler()
+    sched = Scheduler(cluster, algorithm=algo, backend=_CardShapes(algorithm=algo))
+    sched.start()
+    _assert_only_wide_refused(cluster, sched, *sched.schedule_pending_batch())
+    # the loop goes on: the next wave schedules as before
+    cluster.pods.create(make_pod("later", cpu="100m"))
+    sched.pump()
+    assert sched.schedule_pending_batch() == (1, 0)
+
+
+def _many_zone_cluster(cs, n_pods: int = 6):
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    for i in range(fused_scan.MAX_ZONES + 1):
+        cs.nodes.create(make_node(f"n{i:03d}", labels={
+            "failure-domain.beta.kubernetes.io/zone": f"z{i}"}))
+    for i in range(n_pods):
+        cs.pods.create(make_pod(f"p{i}", cpu="100m"))
+
+
+def test_more_zones_than_the_kernel_keeps_refuses_every_pod_before_a_launch(cluster):
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    _many_zone_cluster(cluster)
+    algo = GenericScheduler()
+    backend = BatchBackend(algorithm=algo, device="cpu")
+    backend.device = torch.device("cuda")  # the card's rule; no launch may happen
+    sched = Scheduler(cluster, algorithm=algo, backend=backend)
+    sched.start()
+    assert sched.schedule_pending_batch() == (0, 6)
+    msg = (f"fused scan supports at most {fused_scan.MAX_ZONES} zones, the cluster has "
+           f"{fused_scan.MAX_ZONES + 1}")
+    assert _failed_scheduling(cluster) == {f"default/p{i}": msg for i in range(6)}
+    assert backend.stats["refused_pods"] == 6 and backend.stats["segments"] == 0
+    # the CPU's plain scan takes the same cluster
+    backend.device = torch.device("cpu")
+    assert backend._zone_refusal(sched.snapshot()) is None
+
+
+def test_a_backend_fault_requeues_the_pods_no_segment_committed(cluster):
+    for i in range(3):
+        cluster.nodes.create(make_node(f"n{i}", cpu="8"))
+    # a priority pod that fits nowhere fails in the committed first segment
+    # and waits on the cohort pass the fault cancels
+    big = make_pod("big", cpu="100")
+    big.spec.priority = 100
+    cluster.pods.create(big)
+    for i in range(20):
+        cluster.pods.create(make_pod(f"p{i:02d}", cpu="100m"))
+    algo = GenericScheduler()
+    backend = BatchBackend(algorithm=algo, device="cpu", max_segment_pods=8)
+    sched = Scheduler(cluster, algorithm=algo, backend=backend)
+    sched.start()
+    launches = []
+    orig = backend._dispatch
+
+    def failing(static, init):
+        launches.append(1)
+        if len(launches) == 3:
+            raise RuntimeError("launch failed")
+        return orig(static, init)
+
+    backend._dispatch = failing
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sched.schedule_pending_batch()
+    sched.pump()
+    placed = {p.meta.name: p.spec.node_name for p in cluster.pods.list()[0]}
+    bound = sorted(k for k, n in placed.items() if n)
+    assert bound == [f"p{i:02d}" for i in range(7)]  # the first segment committed
+    assert sorted(p.meta.name for p in sched.queue.snapshot_pending()) == ["big"] + [
+        f"p{i:02d}" for i in range(7, 20)]
+    assert sched.queue.pending_delayed() == 1  # big is backed off
+    backend._dispatch = orig
+    assert sched.schedule_pending_batch() == (13, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(300)
+def test_on_card_a_wide_port_pod_or_too_many_zones_fail_alone():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the refusals are the fused CUDA kernel's limits")
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    cs = Clientset(Store())
+    _wide_wave(cs)
+    algo = GenericScheduler()
+    sched = Scheduler(cs, algorithm=algo, backend=BatchBackend(algorithm=algo, device="cuda"))
+    sched.start()
+    before = fused_scan.launches
+    _assert_only_wide_refused(cs, sched, *sched.schedule_pending_batch())
+    assert fused_scan.launches > before
+
+    cs = Clientset(Store())
+    _many_zone_cluster(cs)
+    algo = GenericScheduler()
+    sched = Scheduler(cs, algorithm=algo, backend=BatchBackend(algorithm=algo, device="cuda"))
+    sched.start()
+    before = fused_scan.launches
+    assert sched.schedule_pending_batch() == (0, 6) and fused_scan.launches == before
+    assert len(_failed_scheduling(cs)) == 6
 
 
 # -- run_batch_loop ---------------------------------------------------------

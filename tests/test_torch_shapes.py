@@ -1,6 +1,7 @@
 """Segments the fused kernel used to refuse: more zones than it keeps in
 registers, and a batch whose host ports outnumber its port vocabulary.
-A pod whose own ports outnumber it is refused on the card before launch.
+A pod whose own ports outnumber it is refused on the card before launch,
+and it alone.
 
 On the CPU every kernel segment of ``BatchBackend(device="cpu")`` must pass
 ``fused_scan.plan`` (what the card's path calls before a launch), and the
@@ -95,16 +96,21 @@ def test_a_pod_with_more_ports_than_the_vocabulary_is_refused_on_the_card():
     algo = M.gs.GenericScheduler()
     backend = BatchBackend(algorithm=algo, device="cpu")
     segs = backend._segments(pods)
-    assert [k for k, _ in segs] == ["kernel", "kernel", "kernel"]
+    assert [k for k, _, _ in segs] == ["kernel", "kernel", "kernel"]
     assert segs[1][1] == [(3, pods[3])]
     got = backend.schedule_batch(pods, m, pctx)
     assert got == want and algo._round_robin == rr_want
     assert backend.stats["oracle_pods"] == 0 and backend.stats["segments"] == 3
-    # the card's branch of the same cut (it raises before any launch)
+    # the card's branch of the same cut: the pod alone is refused, before
+    # anything is tensorized, with the kernel's limit
     backend.device = torch.device("cuda")
-    with pytest.raises(ValueError, match=f"at most {fused_scan.MAX_PORTS} host ports a "
-                                         f"segment, pod default/wide has 257"):
-        backend._segments(pods)
+    card = backend._segments(pods)
+    assert [k for k, _, _ in card] == ["kernel", "refused", "kernel"]
+    assert card[1][1] == [(3, pods[3])] and card[0][1] == segs[0][1] and card[2][1] == segs[2][1]
+    assert [r for _, _, r in segs] == [None, None, None] and card[0][2] is card[2][2] is None
+    assert str(card[1][2]) == (
+        f"fused scan supports at most {fused_scan.MAX_PORTS} host ports a segment, pod "
+        f"default/wide has 257")
 
 
 def test_zone_cap_is_derived_and_still_refuses_above_it():
