@@ -12,14 +12,18 @@ Phases, one line each:
 3. the kernel against its plain PyTorch version (``ops/scan_ref.py``) on
    the card, on 1000-node x 2000-pod ``mixed`` and ``plain`` segments; on
    the same ``mixed`` cluster with its zone label over 16 zones (the
-   kernel's shared-memory zone path, timed beside the 3-zone segment) and
-   with 600 distinct host ports (``BatchBackend`` cuts the batch under the
-   kernel's port vocabulary; every segment is held against the plain
-   scan); a wave of 50 pods and one with more host ports than the
-   kernel's vocabulary through ``Scheduler.schedule_pending_batch`` (the
-   50 bind, the one is refused with the kernel's limit, nothing raises);
-   and the port's sequential oracle against ``BatchBackend`` on a 300-pod
-   prefix;
+   kernel's shared-memory zone path, timed beside the 3-zone segment),
+   over 300 zones (shared memory at the plan's 4-block cluster) and over
+   1000 zones (the global-memory zone path with its second fold), each
+   with its plan line, time and bound; with 600 distinct host ports
+   (``BatchBackend`` cuts the batch under a signature row's port slot;
+   every segment is held against the plain scan); with one pod of 257
+   host ports (a segment of its own whose port flags past the row's
+   shared slot come from global memory, timed with its bound); a wave of
+   50 pods and one with 257 host ports through
+   ``Scheduler.schedule_pending_batch`` (all 51 bind, nothing is
+   refused); and the port's sequential oracle against ``BatchBackend`` on
+   a 300-pod prefix;
 4. the main path at full width: one ``BatchBackend(device="cuda")
    .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, with the
    fused-kernel launch count read around it; then the kernel against the
@@ -56,7 +60,7 @@ Phases, one line each:
    batch a kernel launch): evictions per second, the cohort split (state
    build, ranking, evictions), victims == preemptors == bound after, the
    failing and follow-up batches' kernel segments against the plain scan;
-   (b) 1000 nodes, 4000 fillers and 500 preemptors, a seeded tenth of
+   (b) 1000 nodes, 4000 fillers and 250 preemptors, a seeded tenth of
    them with a host port or a required affinity: every cohort decision
    held against the exhaustive ``find_preemption_target``, the later
    batches' kernel segments against the plain scan; (c) the two daemons
@@ -65,10 +69,34 @@ Phases, one line each:
    bound, the daemon's victims printed;
 8. the upstream ``ClusterAutoscalerProvider`` as a policy file
    (``load_policy_file``) at 1000 x 2000 ``mixed``: the scan's ``most``
-   weight plane, kernel == plain scan == the sequential oracle on it.
+   weight plane, kernel == plain scan == the sequential oracle on it;
+   (8b) the daemons with a ``ServiceSpreadingPriority`` policy, which the
+   scan does not express, on ``--device cuda``: 6b's parity set binds on
+   the host oracle, equal to the sequential oracle on the policy, with
+   ``scheduler_backend_oracle_pods_total`` > 0 on /metrics;
+9. tracing, faults and overload: (a) 6a's cell again with the daemon's
+   ``--trace --timeseries --telemetry-sink``: its pods/s beside 6a's, the
+   chrome trace from /debug/traces (one root span a wave, the
+   ``tensorize`` spans' seconds equal to the daemon's ``tensorize_s``,
+   the ``dispatch`` spans' ``kernel_ms`` equal to its launches and
+   ``kernel_ms``), the sink's time series covering every wave, and the
+   per-wave idle share from the spans; (b) in process on the card, 1000
+   nodes and 2000 ``mixed`` pods in four waves, one fault a wave from a
+   seeded ``FaultPlan`` (``backend.pallas.segment``: the wave raises and
+   its pods are requeued; ``scheduler.bind``: forget, requeue, rebind;
+   ``scheduler.pipeline.prep``: contained), each with a flight-recorder
+   dump naming the point and its wave, the bindings against the
+   per-wave oracle replay; (c) ``workload.run_overload`` at 5000 nodes
+   (surge at 3x the calibrated drain for at most 20 s, recovery, tail):
+   each tier's goodput and e2e p50/p99, the rung timeline, transitions,
+   score-plane sheds and 429s; every segment scanned with the interpod
+   score plane shed is held against the plain scan afterwards, the
+   ladder must engage and recover, and the tail at rung 0 must equal the
+   oracle replay.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
+No phase refuses a pod: the backend has no refusal left.
 Any mismatch or error exits non-zero.  The last lines are the kernel
 table as JSON, the card line, and ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits 2 and prints no result.
@@ -223,7 +251,7 @@ def bound(s, st) -> tuple[float, str, dict]:
     bufs = fused_scan.pack(s, st)
     out_bytes = bufs["chosen"].numel() * 4 + 4
     in_bytes = sum(t.numel() * t.element_size() for k, t in bufs.items()
-                   if k not in ("chosen", "rr_out", "res"))  # res: the kernel's scratch
+                   if k not in ("chosen", "rr_out", "res", "zbuf"))  # the kernel's scratch
     n, r = s.node_alloc.shape
     gids = s.group_of_pod.long()
     term_count = bufs["sig"][:, r + 3].long()  # active terms of each signature
@@ -295,12 +323,10 @@ def oracle_bindings(m, pods, pctx, algorithm) -> list:
     return want
 
 
-def refused_wave() -> None:
-    """Phase 3's refusal: one wave of 50 ordinary pods and one with a host
-    port more than the kernel's vocabulary, through
-    ``Scheduler.schedule_pending_batch`` on the card.  The 50 bind; the
-    one is refused with the kernel's limit as its FailedScheduling
-    message, and nothing raises."""
+def wide_wave() -> None:
+    """Phase 3's wave that the card used to refuse: 50 ordinary pods and
+    one with 257 host ports through ``Scheduler.schedule_pending_batch``
+    on the card.  All 51 bind; nothing fails or is refused."""
     from kubernetes_tpu_torch.client import Clientset
     from kubernetes_tpu_torch.ops import fused_scan
     from kubernetes_tpu_torch.ops.backend import BatchBackend
@@ -320,26 +346,44 @@ def refused_wave() -> None:
     backend = BatchBackend(algorithm=algo, device="cuda")
     sched = Scheduler(cs, algorithm=algo, backend=backend)
     sched.start()
+    before = fused_scan.launches
     bound, failed = sched.schedule_pending_batch()
-    msgs = {e.involved_key: e.message for e in cs.events.list()[0]
-            if e.reason == "FailedScheduling"}
     placed = {p.meta.name: p.spec.node_name for p in cs.pods.list()[0]}
-    print(f"phase 3 refusal: a wave of 50 pods and 1 with {fused_scan.MAX_PORTS + 1} host ports "
-          f"through schedule_pending_batch on the card: bound {bound}, failed {failed}, "
-          f"refused_pods {backend.stats['refused_pods']}, FailedScheduling "
-          f"{json.dumps(msgs)}", flush=True)
-    if ((bound, failed) != (50, 1) or placed.pop("wide") or not all(placed.values())
-            or list(msgs) != ["default/wide"] or "host ports" not in msgs["default/wide"]
-            or backend.stats["refused_pods"] != 1):
-        raise AssertionError("the refused pod did not fail alone with the kernel's limit")
+    failed_events = [e for e in cs.events.list()[0] if e.reason == "FailedScheduling"]
+    print(f"phase 3 a wave of 50 pods and 1 with {fused_scan.MAX_PORTS + 1} host ports through "
+          f"schedule_pending_batch on the card: bound {bound}, failed {failed}, segments "
+          f"{backend.stats['segments']}, kernel_pods {backend.stats['kernel_pods']}, oracle_pods "
+          f"{backend.stats['oracle_pods']}, launches {fused_scan.launches - before}, the wide "
+          f"pod on {placed['wide']}, FailedScheduling events {len(failed_events)}", flush=True)
+    if ((bound, failed) != (51, 0) or not all(placed.values()) or failed_events
+            or backend.stats["kernel_pods"] != 51 or "refused_pods" in backend.stats):
+        raise AssertionError("the wide pod's wave did not bind whole on the card")
 
 
-def repaired_shapes() -> list:
-    """Phase 3's shapes the kernel used to refuse: 16 zones, and 600
-    distinct host ports.  Returns their max_abs_err."""
+def shape_cell(what: str, pl, r: dict, s, st) -> dict:
+    """Time a repaired shape's segment, print its plan line, and return
+    its kernel-table cell (kernel, plain and bound ms)."""
+    ms = time_kernel(s, st)
+    b_ms, b_by, detail = bound(s, st)
+    print(f"phase 3 {what}: plan cluster {pl.cs} blocks x {pl.threads} threads, zone "
+          f"statistics in {pl.zones_at} memory (msg_a {pl.msg_a} words, zone arrays at "
+          f"{pl.zone_off}), signature row {pl.sw} ints ({pl.sws} in shared memory); kernel == "
+          f"scan_ref, bound {r['bound']}/{r['pods']}, rr {r['rr']}; kernel {ms:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({detail['bytes']} bytes, "
+          f"{detail['ops']} ops)", flush=True)
+    return {"ms": ms, "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "nodes": int(s.node_alloc.shape[0]), "pods": int(s.p_real), "cluster": pl.cs,
+            "zones": int(s.num_zones), "zones_at": pl.zones_at, "sw": pl.sw, "sws": pl.sws}
+
+
+def repaired_shapes() -> tuple[list, dict]:
+    """Phase 3's shapes the kernel used to refuse: 16, 300 and 1000 zones,
+    600 distinct host ports, and one pod with 257.  Returns their
+    max_abs_err and the timed cells."""
+    from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.ops import fused_scan
 
-    errs = []
+    errs, cells = [], {}
     m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, zones=16)
     got, seen, backend = checked_batch(m, pods, pctx)
     (pl, r, s, st), = seen
@@ -354,6 +398,17 @@ def repaired_shapes() -> list:
           f"(msg_a {pl.msg_a} words, zone arrays at {pl.zone_off}) {zone_ms:.3f} ms against "
           f"{reg_ms:.3f} ms for the same cluster's 3-zone segment (register path)", flush=True)
 
+    for zones, where in ((300, "shared"), (1000, "global")):
+        m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, zones=zones)
+        got, seen, backend = checked_batch(m, pods, pctx)
+        (pl, r, s, st), = seen
+        if (s.num_zones != zones or pl.zones_at != where
+                or backend.stats["kernel_pods"] != len(pods)):
+            raise AssertionError(f"{zones}-zone batch: {s.num_zones} zones in {pl.zones_at} "
+                                 f"memory, kernel_pods {backend.stats['kernel_pods']}")
+        errs.append(r["max_abs_err"])
+        cells[f"zones_{zones}"] = shape_cell(f"mixed 1000x2000 over {zones} zones", pl, r, s, st)
+
     m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, host_ports=600)
     got, seen, backend = checked_batch(m, pods, pctx)
     widths = [s.g_ports.shape[1] for _, _, s, _ in seen]
@@ -365,9 +420,28 @@ def repaired_shapes() -> list:
     print(f"phase 3 mixed 1000x2000 with 600 distinct host ports: {len(seen)} segments cut "
           f"under the kernel's {fused_scan.MAX_PORTS}-port vocabulary (port widths "
           f"{widths}), every segment kernel == scan_ref, bound "
-          f"{sum(g is not None for g in got)}/{len(pods)}, max_abs_err {max(errs[1:])}",
+          f"{sum(g is not None for g in got)}/{len(pods)}, max_abs_err {max(errs[3:])}",
           flush=True)
-    return errs
+
+    m, pods, pctx = cluster(1000, 2000, "mixed", seed=1)
+    wide = api.Pod.from_dict(pods[25].to_dict())
+    wide.spec.containers[0].ports = [api.ContainerPort(container_port=20000 + k,
+                                                       host_port=20000 + k)
+                                     for k in range(fused_scan.MAX_PORTS + 1)]
+    pods[25] = wide
+    got, seen, backend = checked_batch(m, pods, pctx)
+    errs += [r["max_abs_err"] for _, r, _, _ in seen]
+    wide_segs = [x for x in seen if x[0].sws < x[0].sw]
+    if (len(wide_segs) != 1 or wide_segs[0][2].p_real != 1
+            or backend.stats["kernel_pods"] != len(pods) or backend.stats["oracle_pods"] != 0):
+        raise AssertionError(f"257-port pod: {len(seen)} segments, {len(wide_segs)} wide, "
+                             f"kernel_pods {backend.stats['kernel_pods']}")
+    print(f"phase 3 mixed 1000x2000 with one pod of {fused_scan.MAX_PORTS + 1} host ports: "
+          f"{len(seen)} segments (the pod alone in the middle one), every segment kernel == "
+          f"scan_ref, bound {sum(g is not None for g in got)}/{len(pods)}, the wide pod on "
+          f"{got[25]}; port widths {[x[2].g_ports.shape[1] for x in seen]}", flush=True)
+    cells["wide_port_257"] = shape_cell("the 257-port pod's segment", *wide_segs[0])
+    return errs, cells
 
 
 def other_segments() -> list:
@@ -522,10 +596,10 @@ class Daemons:
                                 stdout=open(base + ".out", "w"),
                                 stderr=open(base + ".err", "w"))
 
-    def start_scheduler(self) -> None:
+    def start_scheduler(self, *extra: str) -> None:
         self.scheduler = self._spawn("scheduler", [
             "kubernetes_tpu_torch.scheduler", "--apiserver", self.url, "--leader-elect",
-            "--healthz-port", str(self.health_port)])
+            "--healthz-port", str(self.health_port), *extra])
         health = f"http://127.0.0.1:{self.health_port}"
         wait_until(lambda: b"ok" in http_get(health + "/healthz"), self.scheduler,
                    "scheduler /healthz", 120)
@@ -589,10 +663,11 @@ class Daemons:
         return open(path).read()[-4000:] if os.path.exists(path) else ""
 
 
-def daemon_phase() -> int:
+def daemon_phase() -> tuple[int, float, float]:
     """Phase 6: the daemon stack at full width, then parity of a smaller
     daemon run with the sequential oracle.  Returns the fused-kernel
-    launches of 6a, as the daemon counted them."""
+    launches of 6a, as the daemon counted them, 6a's pods/s and its
+    device idle share."""
     from kubernetes_tpu_torch.client import Clientset, RemoteStore
     from kubernetes_tpu_torch.workload import create_cluster, oracle_replay_waves, run_wire_churn
 
@@ -705,7 +780,7 @@ def daemon_phase() -> int:
     t_end = time.perf_counter()
     print(f"phase 6 took {t_end - t_6a:.1f} s: 6a {t_6b - t_6a:.1f} s (daemon start-up and "
           f"cluster creation included), 6b {t_end - t_6b:.1f} s", flush=True)
-    return launches
+    return launches, r["pods_per_sec"], idle
 
 
 def preemption_line(tag: str, r: dict) -> None:
@@ -737,7 +812,7 @@ def preemption_phase() -> tuple[int, dict]:
     on the card: 5000 nodes, 20 000 fillers, 2500 preemptors, the
     preemptor and follow-up batches' kernel segments held against the
     plain scan; (b) 1000
-    nodes, 4000 fillers and 500 preemptors, a seeded tenth of them with a
+    nodes, 4000 fillers and 250 preemptors, a seeded tenth of them with a
     host port or a required affinity (branch and bound): every cohort
     decision held against the exhaustive ``find_preemption_target`` on the
     state it was made on, and the preemptor and follow-up batches' kernel
@@ -816,7 +891,9 @@ def preemption_phase() -> tuple[int, dict]:
     fused_scan.launches = 0
     preemption.find_preemption_target_fast = held
     try:
-        r = run_preemption(1000, 4000, 500, device="cuda", seed=7, odd_share=0.1,
+        # 250 preemptors, not 500: the exhaustive oracle is the phase's
+        # wall (0.2 s a decision), and the script stays near 600 s
+        r = run_preemption(1000, 4000, 250, device="cuda", seed=7, odd_share=0.1,
                            backend_cls=checking_backend(seen, skip=1))
     finally:
         preemption.find_preemption_target_fast = fast
@@ -902,6 +979,319 @@ def policy_phase() -> int:
     return launches
 
 
+def metric_value(text: str, name: str) -> float:
+    """A metric's value in a Prometheus text exposition (0 if absent)."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def policy_daemon_phase() -> None:
+    """Phase 8b: the daemons with a policy the scan does not express
+    (``ServiceSpreadingPriority``) on ``--device cuda``: 6b's parity set
+    binds on the host oracle inside the batch backend, as the JAX daemon
+    binds it, equal to the sequential oracle on the same policy; the
+    route shows on /metrics and in the start-up log."""
+    from kubernetes_tpu_torch.client import Clientset, RemoteStore
+    from kubernetes_tpu_torch.scheduler.policy import load_policy_file
+    from kubernetes_tpu_torch.workload import create_cluster, oracle_replay_waves
+
+    n_nodes, n_pods, seed = 1000, 400, 5
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        policy = os.path.join(workdir, "policy.json")
+        with open(policy, "w") as f:
+            json.dump({"priorities": [{"name": "ServiceSpreadingPriority", "weight": 1},
+                                      {"name": "LeastRequestedPriority", "weight": 1}]}, f)
+        d = Daemons(workdir, "8b")
+        try:
+            cs = Clientset(RemoteStore(d.url, timeout=120.0))
+            pods = create_cluster(cs, n_nodes, n_pods, "mixed", seed)
+            if any(x is None for x in cs.pods.create_many(pods)):
+                raise AssertionError("a pod create failed")
+            d.start_scheduler("--policy-config-file", policy)
+            deadline = time.monotonic() + 180
+            while True:
+                items, _ = cs.store.list("Pod")
+                got = {f"default/{i['metadata']['name']}": i["spec"].get("nodeName") or None
+                       for i in items}
+                if all(got.values()) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            metrics = http_get(f"http://127.0.0.1:{d.health_port}/metrics").decode()
+            st = d.stop_scheduler()
+        except BaseException:
+            print(f"phase 8b scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+        logged = "host oracle" in d.stderr_tail()
+        o = oracle_replay_waves([sorted(got)], got, n_nodes, n_pods, "mixed", seed,
+                                algorithm=load_policy_file(policy))
+    oracle_pods = metric_value(metrics, "scheduler_backend_oracle_pods_total")
+    print(f"phase 8b daemons with a ServiceSpreadingPriority policy on --device cuda, "
+          f"{n_nodes}x{n_pods} pre-created: {o['mode']}, checked {o['checked']}, mismatches "
+          f"{o['mismatches']}, bound {sum(1 for n in got.values() if n)}, rr "
+          f"{st['round_robin']} vs {o['round_robin']}; /metrics "
+          f"scheduler_backend_oracle_pods_total {oracle_pods:.0f}, stats oracle_pods "
+          f"{st['oracle_pods']} kernel_pods {st['kernel_pods']} launches {st['launches']}; "
+          f"the start-up log names the host oracle: {logged} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if (o["mismatches"] != 0 or o["checked"] != n_pods or o["round_robin"] != st["round_robin"]
+            or oracle_pods <= 0 or st["oracle_pods"] != n_pods or st["kernel_pods"] != 0
+            or not logged):
+        raise AssertionError(f"phase 8b: {o}, stats {st}")
+
+
+def traced_daemon_phase(pps_6a: float, idle_6a: float) -> int:
+    """Phase 9a: 6a's cell with the daemon's tracing and continuous
+    telemetry on.  Returns the fused-kernel launches, as the daemon
+    counted them."""
+    from kubernetes_tpu_torch.workload import run_wire_churn
+
+    n_nodes, n_pods, waves = 5000, 20000, 10
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        sink = os.path.join(workdir, "telemetry.ndjson")
+        d = Daemons(workdir, "9a")
+        try:
+            d.start_scheduler("--trace", "--timeseries", "--telemetry-sink", sink)
+            r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=0)
+            time.sleep(2.5)  # two scrapes past the last wave
+            health = f"http://127.0.0.1:{d.health_port}"
+            doc = json.loads(http_get(health + "/debug/traces"))
+            flight = json.loads(http_get(health + "/debug/flightrecorder"))
+            series = json.loads(http_get(health + "/debug/timeseries"))
+            st = d.stop_scheduler()
+        except BaseException:
+            print(f"phase 9a scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+        records = [json.loads(line) for line in open(sink) if line.strip()]
+    events = doc["traceEvents"]
+    roots = sorted((e for e in events if e.get("cat") == "wave" and e["ph"] == "X"),
+                   key=lambda e: e["ts"])
+    tensorize_s = sum(e["dur"] for e in events if e["name"] == "tensorize") / 1e6
+    dispatch = [e for e in events if e["name"] == "dispatch" and e["ph"] == "X"]
+    span_kernel_ms = sum(e["args"].get("kernel_ms", 0.0) for e in dispatch)
+    timed = sum(1 for e in dispatch if "kernel_ms" in e["args"])
+    # each wave's idle share from its own spans: 1 - its kernel ms / its wall
+    idle_waves = []
+    for root in roots:
+        t_end = root["ts"] + root["dur"]
+        k_ms = sum(e["args"].get("kernel_ms", 0.0) for e in dispatch
+                   if root["ts"] <= e["ts"] <= t_end)
+        idle_waves.append(1.0 - k_ms / (root["dur"] / 1e3))
+    waves_seen = max((v for rec in records if rec.get("kind") == "timeseries"
+                      for name, _t, v in rec["samples"] if name == "scheduler_batch_size:count"),
+                     default=0.0)
+    wall_idle = 1.0 - st["kernel_ms"] / 1e3 / r["wall_s"]
+    print(f"phase 9a traced daemons (--trace --timeseries --telemetry-sink) {n_nodes}x{n_pods} "
+          f"mixed in {waves} waves: bound {r['bound']} wall_s {r['wall_s']:.3f} pods_per_s "
+          f"{r['pods_per_sec']:.1f} against 6a's {pps_6a:.1f} in this call "
+          f"(ratio {r['pods_per_sec'] / pps_6a:.4f}); create_to_bind p99 "
+          f"{r['create_to_bind_ms']['p99']:.1f} ms; drains {st['waves']}, wave roots in the "
+          f"trace {len(roots)}, trace events {len(events)}, flight dumps "
+          f"{len(flight['dumps'])}, time-series tracks {len(series.get('tracks', {}))}, sink "
+          f"records {len(records)} (timeseries "
+          f"{sum(1 for x in records if x.get('kind') == 'timeseries')}), batch_size count in "
+          f"the sink's series {waves_seen:.0f}", flush=True)
+    print(f"phase 9a spans against the daemon's stats: tensorize {tensorize_s:.6f} s vs "
+          f"tensorize_s {st['tensorize_s']:.6f} s; dispatch spans with kernel_ms {timed} vs "
+          f"launches {st['launches']}; their kernel_ms {span_kernel_ms:.6f} vs "
+          f"{st['kernel_ms']:.6f}", flush=True)
+    print("phase 9a per-wave device idle share from the spans (1 - kernel_ms / wave wall): "
+          + " ".join(f"{x:.4f}" for x in idle_waves)
+          + f"; over the run's wall {wall_idle:.4f} (6a's, from CUDA-event totals: "
+          f"{idle_6a:.4f}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if (r["bound"] + r["unbound"] != n_pods or len(roots) != st["waves"]
+            or any(e["name"] != f"wave-{i + 1}" for i, e in enumerate(roots))
+            or abs(tensorize_s - st["tensorize_s"]) > 1e-6 * max(1.0, st["tensorize_s"])
+            or timed != st["launches"]
+            or abs(span_kernel_ms - st["kernel_ms"]) > 1e-6 * max(1.0, st["kernel_ms"])
+            or int(waves_seen) != st["waves"] or st["oracle_pods"] != 0):
+        raise AssertionError(f"phase 9a: the trace or the sink disagrees with the daemon: {st}")
+    return st["launches"]
+
+
+def faults_phase() -> int:
+    """Phase 9b: faults on the card, in process: 1000 nodes and 2000
+    ``mixed`` pods arriving in four waves, tracing on, one seeded fault a
+    wave: ``backend.pallas.segment`` once at the launch (the wave raises,
+    its drained pods are requeued and bind in the next drain),
+    ``scheduler.pipeline.prep`` (contained), none, then one ``bind_many``
+    item dropped (``scheduler.bind``: the pod is forgotten, requeued after
+    its backoff, and bound again).  Each fault's flight-recorder dump must
+    name its point and hold the live wave it fired in; every binding but
+    the re-decided pod's must equal the per-wave oracle replay.  Returns
+    the fused-kernel launches."""
+    from kubernetes_tpu_torch.faults import FaultInjected, FaultPlan
+    from kubernetes_tpu_torch.ops import fused_scan
+    from kubernetes_tpu_torch.ops.backend import BatchBackend
+    from kubernetes_tpu_torch.scheduler import GenericScheduler, Scheduler
+    from kubernetes_tpu_torch.utils import tracing
+    from kubernetes_tpu_torch.workload import _churn_cluster, oracle_replay_waves
+
+    n_nodes, n_pods, seed = 1000, 2000, 8
+    t0 = time.perf_counter()
+    cs, pods = _churn_cluster(n_nodes, n_pods, "mixed", seed)
+    algo = GenericScheduler()
+    backend = BatchBackend(algorithm=algo, device="cuda")
+    sched = Scheduler(cs, algorithm=algo, backend=backend, emit_events=False)
+    sched.start()
+    drains: list[list[str]] = []
+    orig_drain = sched.queue.drain
+
+    def recording_drain(max_n=None):
+        out = orig_drain(max_n)
+        if out:
+            drains.append([p.meta.key for p in out])
+        return out
+
+    sched.queue.drain = recording_drain
+    plans = [("backend.pallas.segment", dict(mode="error", match={"phase": "launch"},
+                                             first_n=1)),
+             ("scheduler.pipeline.prep", dict(mode="error", first_n=1)),
+             (None, None),
+             ("scheduler.bind", dict(mode="drop", match={"via": "bind_many"}, first_n=1))]
+    armed = {point: FaultPlan(seed=k).on(point, **spec)
+             for k, (point, spec) in enumerate(plans) if point}
+    per = n_pods // len(plans)
+    results, failed_drains = [], set()
+    tr = tracing.enable()
+    fused_scan.launches = 0
+    try:
+        for w, (point, _) in enumerate(plans):
+            cs.pods.create_many(pods[w * per:(w + 1) * per])
+            sched.pump()
+            try:
+                if point is None:
+                    results.append(sched.schedule_pending_batch())
+                else:
+                    with armed[point].armed():
+                        results.append(sched.schedule_pending_batch())
+            except FaultInjected:
+                failed_drains.add(len(drains) - 1)
+                results.append(("raised", len(sched.queue)))
+            # what a fault put back binds before the next wave arrives
+            deadline = time.monotonic() + 30
+            while (len(sched.queue) or sched.queue.pending_delayed()) and \
+                    time.monotonic() < deadline:
+                sched.pump()
+                if len(sched.queue):
+                    results.append(sched.schedule_pending_batch())
+                else:
+                    time.sleep(0.05)
+        sched.pump()
+        launches = fused_scan.launches
+    finally:
+        tracing.disable()
+    dumps = {p: [d for d in tr.dumps if d["reason"] == f"fault:{p}"] for p in armed}
+    live = {p: [s["attrs"].get("wave") for d in ds for s in d["live"] if s.get("cat") == "wave"]
+            for p, ds in dumps.items()}
+    final = {p.meta.key: p.spec.node_name or None for p in cs.pods.list()[0]}
+    # the replay: every drain but the failed one, a pod at its first decision
+    replay, done, twice = [], set(), set()
+    for i, batch in enumerate(drains):
+        if i in failed_drains:
+            continue
+        twice.update(k for k in batch if k in done)
+        replay.append([k for k in batch if k not in done])
+        done.update(batch)
+    o = oracle_replay_waves(replay, final, n_nodes, n_pods, "mixed", seed,
+                            skip=frozenset(twice))
+    bound = sum(1 for n in final.values() if n)
+    print(f"phase 9b faults on the card in process, {n_nodes}x{n_pods} mixed, {len(plans)} "
+          f"waves ({', '.join(p or 'none' for p, _ in plans)}): drains {results} (the failed "
+          f"one: {sorted(failed_drains)}), fired "
+          f"{ {p: armed[p].fired.get(p, 0) for p in armed} }, bind requeues "
+          f"{sched.metrics.bind_requeues.value:.0f} (re-decided {sorted(twice)}), prep "
+          f"failures {sched.metrics.pipeline_prep_failures.value:.0f}, launches {launches}; "
+          f"dumps " + ", ".join(f"{p}: {len(ds)} (live wave {live[p]})" for p, ds in dumps.items())
+          + f"; bound {bound}/{n_pods}; oracle replay {o['mode']}, checked {o['checked']}, "
+          f"mismatches {o['mismatches']} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if (any(armed[p].fired.get(p, 0) != 1 for p in armed) or len(failed_drains) != 1
+            or any(not live[p] for p in armed) or len(twice) != 1
+            or sched.metrics.bind_requeues.value != 1
+            or sched.metrics.pipeline_prep_failures.value != 1
+            or o["mismatches"] != 0 or o["checked"] != n_pods - 1
+            or not final[next(iter(twice))] or len(sched.queue) or launches < len(plans)
+            or backend.stats["oracle_pods"] != 0):
+        raise AssertionError(f"phase 9b: {o}, drains {results}")
+    return launches
+
+
+def overload_phase() -> tuple[int, dict]:
+    """Phase 9c: ``workload.run_overload`` at 5000 nodes on a backend that
+    records every segment scanned with the interpod score plane shed
+    (rung >= 2); each is held against the plain scan after the run, under
+    the same shed weights.  Returns the fused-kernel launches of the run
+    and its result."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.models.carry import from_reference
+    from kubernetes_tpu_torch.ops import fused_scan, scan_ref
+    from kubernetes_tpu_torch.ops.backend import BatchBackend
+    from kubernetes_tpu_torch.workload import run_overload
+
+    shed: list = []
+
+    class ShedRecorder(BatchBackend):
+        def _dispatch(self, static, init):
+            finish, busy = super()._dispatch(static, init)
+            if not self.shed_score_planes:
+                return finish, busy
+            inputs = from_reference(vars(static), vars(init), self.device)
+
+            def recorded():
+                chosen, rr = finish()
+                shed.append((inputs, np.array(chosen), rr))
+                return chosen, rr
+            return recorded, busy
+
+    t0 = time.perf_counter()
+    fused_scan.launches = 0
+    r = run_overload(n_nodes=5000, surge_mult=3.0, max_surge_s=20.0, device="cuda",
+                     backend_cls=ShedRecorder)
+    launches = fused_scan.launches
+    t1 = time.perf_counter()
+    mismatched = 0
+    for (s, st), chosen, rr in shed:
+        want, rr_want = scan_ref.scan(s, st)
+        if s.weights["interpod"] != 0 or rr != rr_want or not np.array_equal(
+                chosen, want.cpu().numpy()):
+            mismatched += 1
+    tiers = " ".join(
+        f"{t} arrivals {x['arrivals']} rejected {x['rejected']} bound {x['bound']} goodput "
+        f"{x['goodput']:.4f} e2e p50 {x['e2e_ms']['p50']} ms p99 {x['e2e_ms']['p99']} ms;"
+        for t, x in r["tiers"].items())
+    ad = r["admission"]
+    print(f"phase 9c overload {r['nodes']} nodes: drain {r['drain_pods_per_s']:.1f} pods/s, "
+          f"arrivals paced at {r['arrival_pods_per_s']:.1f} pods/s for {r['surge_pods']} pods, "
+          f"{sum(x['arrivals'] for x in r['tiers'].values())} created in the 20 s window, the "
+          f"creators done after {r['surge_s']:.3f} s (pending threshold "
+          f"{r['pending_threshold']:.1f}); {tiers} "
+          f"rung timeline {[(round(t, 3), g) for t, g in r['rung_timeline']]}, max rung "
+          f"{r['max_rung']}, transitions {r['transitions']}, recovered {r['recovered']} in "
+          f"{r['recovery_s']} s; score_plane_sheds {r['score_plane_sheds']:.0f}, preemption "
+          f"sheds {r['preemption_sheds']:.0f}; 429s {ad['server_429']:.0f} (throttled "
+          f"{ad['throttled']}, by tier {ad['throttled_by_tier']}, Retry-After honoured "
+          f"{ad['retry_after_honored']}); tail at rung {r['tail']['rung']}: bound "
+          f"{r['tail']['bound']}/{r['tail']['pods']}, exact {r['tail']['exact_parity']}, "
+          f"mismatches {r['tail']['mismatches']}; launches {launches}; shed segments held "
+          f"against scan_ref {len(shed)}, mismatched {mismatched} ({t1 - t0:.1f} s run, "
+          f"{time.perf_counter() - t1:.1f} s checks)", flush=True)
+    if (r["max_rung"] < 1 or not r["recovered"] or r["tail"]["rung"] != 0
+            or not r["tail"]["exact_parity"] or not r["tail"]["all_bound"]
+            or mismatched or (r["max_rung"] >= 2 and not shed)
+            or r["stats"]["oracle_pods"] != 0):
+        raise AssertionError(f"phase 9c: the ladder or a shed segment failed: "
+                             f"{ {k: v for k, v in r.items() if k != 'stats'} }")
+    return launches, r
+
+
 def main() -> int:
     import torch
 
@@ -933,8 +1323,8 @@ def main() -> int:
         r = compare(s, st)
         print(f"phase 3 {workload} 1000x2000: kernel == scan_ref, bound {r['bound']}/"
               f"{r['pods']}, rr {r['rr']}, max_abs_err {r['max_abs_err']}", flush=True)
-    shape_errs = repaired_shapes()
-    refused_wave()
+    shape_errs, shape_cells = repaired_shapes()
+    wide_wave()
     m, pods, pctx = cluster(1000, 300, "mixed", seed=2)
     oracle = GenericScheduler()
     want = oracle_bindings(m, pods, pctx, oracle)
@@ -993,19 +1383,27 @@ def main() -> int:
     print(f"phase 5c ingest A/B in this call, 5000x20000 mixed churn: lazy, framed "
           f"{lazy_pps:.1f} pods/s (5a) against eager {eager_pps:.1f} pods/s (5c), "
           f"ratio {lazy_pps / eager_pps:.3f}", flush=True)
-    daemon_launches = daemon_phase()
+    daemon_launches, pps_6a, idle_6a = daemon_phase()
     preemption_launches, _ = preemption_phase()
     policy_launches = policy_phase()
+    policy_daemon_phase()
+    traced_launches = traced_daemon_phase(pps_6a, idle_6a)
+    fault_launches = faults_phase()
+    overload_launches, _ = overload_phase()
 
     entry = {
         "name": "fused_scan", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/fused_scan.cu",
         "replaces": REPLACES,
         "launches": (launches + churn_launches + daemon_launches + preemption_launches
-                     + policy_launches),
+                     + policy_launches + traced_launches + fault_launches + overload_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "daemon": daemon_launches, "churn_eager": eager_launches,
-                             "preemption": preemption_launches, "policy": policy_launches},
+                             "preemption": preemption_launches, "policy": policy_launches,
+                             "traced_daemon": traced_launches, "faults": fault_launches,
+                             "overload": overload_launches},
+        # the repaired shapes' segments (phase 3): many zones, a wide port row
+        "cells": shape_cells,
         "max_abs_err": max(errs),
         "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

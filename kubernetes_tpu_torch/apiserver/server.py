@@ -20,6 +20,9 @@ reference package's wire forms.
 
 Routes:
   GET    /healthz  /metrics  /version  /api  /api/v1
+  GET    /debug/traces  /debug/flightrecorder  /debug/timeseries
+  POST   /telemetry   (the telemetry shipper's collector: ndjson records)
+  GET    /telemetry   (the records held, newest last)
   GET    /api/v1/{resource}[?namespace=&labelSelector=&fieldSelector=&columnar=1]
   GET    /api/v1/{resource}?watch=true[&resourceVersion=N&timeoutSeconds=S&frames=1]
   POST   /api/v1/{resource}
@@ -32,23 +35,30 @@ Routes:
   POST   /api/v1/bindings:batch          (one store txn for a wave's binds)
   POST   /api/v1/{resource}:batch        (batch create: one store txn)
 Cluster-scoped objects use ns "-" in paths.  Any other route answers 404,
-a known route with another method 405.  Authentication, authorization,
-audit, admission, TLS, PATCH and the overload throttle are not part of
-this server yet.
+a known route with another method 405.
+
+The create paths pass an overload gate first: ``admission_throttle`` (a
+``utils.overload.AdmissionThrottle``, or anything with ``admit(resource,
+bodies) -> Optional[retry_after_s]``) and the ``apiserver.admit`` fault
+point may answer 429 with a ``Retry-After`` header, which ``RemoteStore``
+honours.  Authentication, authorization, audit, the validating admission
+chain, TLS and PATCH are not part of this server yet.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import re
 import threading
 import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 from urllib.parse import parse_qs, urlparse
 
-from .. import __version__
+from .. import __version__, faults
 from ..api.selectors import parse_selector_string
 from ..api.types import CLUSTER_SCOPED_KINDS, KIND_PLURALS, convert_to_internal, kind_for_plural
 from ..store.store import (
@@ -59,6 +69,7 @@ from ..store.store import (
     Store,
 )
 from ..store.frames import FRAME, event_wire_bytes
+from ..utils import tracing
 from ..utils.health import handle_debug_path
 from ..utils.metrics import APIServerMetrics
 
@@ -117,6 +128,13 @@ class APIServer:
         self.store = store
         self.metrics = APIServerMetrics()
         self.registry = self.metrics.registry
+        # the overload gate of the create paths (None: always admit)
+        self.admission_throttle = None
+        self.admission_throttled = self.metrics.admission_throttled
+        # /telemetry: records the daemons' shippers POST, bounded (the
+        # oldest go first; the shippers count their own drops)
+        self.telemetry_records: deque = deque(maxlen=4096)
+        self._telemetry_mu = threading.Lock()
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.port = self.httpd.server_port
         self._thread: Optional[threading.Thread] = None
@@ -138,6 +156,16 @@ class APIServer:
         if self._thread is not None:
             self._thread.join(timeout=5)
 
+    def ingest_telemetry(self, records: list) -> int:
+        with self._telemetry_mu:
+            self.telemetry_records.extend(records)
+        self.metrics.telemetry_accepted.inc(len(records))
+        return len(records)
+
+    def telemetry_snapshot(self) -> list:
+        with self._telemetry_mu:
+            return list(self.telemetry_records)
+
 
 def _make_handler(server: APIServer):
     store = server.store
@@ -153,16 +181,71 @@ def _make_handler(server: APIServer):
         def _send(self, code: int, obj) -> None:
             self._send_bytes(code, json.dumps(obj).encode(), "application/json")
 
-        def _send_bytes(self, code: int, data: bytes, ctype: str) -> None:
+        def _send_bytes(self, code: int, data: bytes, ctype: str,
+                        headers: tuple = ()) -> None:
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
+            for k, v in headers:
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
 
-        def _error(self, code: int, reason: str, message: str) -> None:
-            self._send(code, {"kind": "Status", "code": code, "reason": reason,
-                              "message": message})
+        def _error(self, code: int, reason: str, message: str,
+                   retry_after: Optional[float] = None) -> None:
+            # Retry-After in whole seconds, rounded up: a sub-second hint
+            # never becomes an immediate retry
+            headers = (("Retry-After", str(max(1, math.ceil(retry_after)))),) \
+                if retry_after is not None else ()
+            self._send_bytes(code, json.dumps({"kind": "Status", "code": code, "reason": reason,
+                                               "message": message}).encode(),
+                             "application/json", headers)
+
+        def _admission_gate(self, resource: str, bodies: list) -> bool:
+            """The overload gate of a create path: False when the request
+            was throttled (the 429 with its Retry-After is written).  The
+            ``apiserver.admit`` fault point injects a throttle (drop mode;
+            its value is the hint in seconds)."""
+            retry_after: Optional[float] = None
+            fault = faults.hit("apiserver.admit", resource=resource, verb="create",
+                               n=len(bodies))
+            if fault is not None and fault.mode == "drop":
+                retry_after = float(fault.value or 1.0)
+            elif server.admission_throttle is not None:
+                retry_after = server.admission_throttle.admit(resource, bodies)
+            if retry_after is None:
+                return True
+            server.admission_throttled.inc()
+            tr = tracing.current()
+            if tr is not None:
+                tr.instant("apiserver.admit.throttle", resource=resource, n=len(bodies),
+                           retry_after=retry_after)
+            self._error(429, "TooManyRequests",
+                        f"admission throttled under overload ({len(bodies)} {resource})",
+                        retry_after=retry_after)
+            return False
+
+        def _serve_telemetry(self, method: str) -> None:
+            """POST: ndjson records (the shipper's wire form), or a JSON
+            document (``{"items": [...]}``, a list, or one record).  GET:
+            the records held."""
+            if method == "GET":
+                records = server.telemetry_snapshot()
+                return self._send(200, {"kind": "TelemetryRecordList", "count": len(records),
+                                        "items": records})
+            if method != "POST":
+                return self._error(405, "MethodNotAllowed", method)
+            try:
+                text = self._raw.decode()
+                if "ndjson" in self.headers.get("Content-Type", ""):
+                    records = [json.loads(line) for line in text.splitlines() if line.strip()]
+                else:
+                    doc = json.loads(text) if text.strip() else []
+                    records = doc.get("items", [doc]) if isinstance(doc, dict) else list(doc)
+            except (UnicodeDecodeError, ValueError) as e:
+                return self._error(400, "BadRequest", f"undecodable telemetry payload: {e}")
+            self._send(200, {"kind": "Status", "code": 200,
+                             "accepted": server.ingest_telemetry(records)})
 
         def _body(self):
             if self._parsed is None:
@@ -224,6 +307,8 @@ def _make_handler(server: APIServer):
             q = parse_qs(url.query)
             path = url.path
 
+            if path == "/telemetry":
+                return self._serve_telemetry(method)
             shared = handle_debug_path(path, server.registry)
             if shared is not None:
                 if method != "GET":
@@ -248,6 +333,8 @@ def _make_handler(server: APIServer):
                 kind = kind_for_plural(res)
                 if kind is None:
                     return self._error(404, "NotFound", f"unknown resource {res}")
+                if not self._admission_gate(res, self._body().get("items", [])):
+                    return
                 items = [convert_to_internal(d) for d in self._body().get("items", [])]
                 if kind in CLUSTER_SCOPED_KINDS:
                     for d in items:
@@ -268,6 +355,8 @@ def _make_handler(server: APIServer):
                 if method == "GET":
                     return self._serve_list(kind, q.get("namespace", [None])[0], q)
                 if method == "POST":
+                    if not self._admission_gate(parts[0], [self._body()]):
+                        return
                     body = convert_to_internal(self._body())
                     if kind in CLUSTER_SCOPED_KINDS:
                         body.setdefault("metadata", {})["namespace"] = ""
@@ -286,6 +375,8 @@ def _make_handler(server: APIServer):
                 if method == "GET":
                     return self._serve_list(kind, ns, q)
                 if method == "POST":
+                    if not self._admission_gate(parts[2], [self._body()]):
+                        return
                     body = convert_to_internal(self._body())
                     body.setdefault("metadata", {})["namespace"] = (
                         "" if kind in CLUSTER_SCOPED_KINDS else ns)

@@ -28,6 +28,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from .. import faults
 from ..api import lazy as lazy_mod
 from ..store.frames import FRAME, WatchFrame
 from ..store.store import (
@@ -38,6 +39,7 @@ from ..store.store import (
     ExpiredRevisionError,
     WatchEvent,
 )
+from ..utils import tracing
 from ..utils.metrics import DEFAULT_CLIENT_METRICS
 from .clientset import TypedClient
 
@@ -84,7 +86,7 @@ class SharedInformer:
         # frames applied, the events they carried, frames lost whole
         # (-> gap), and objects compacted (promote-and-drop-raw)
         self.stats = {"relists": 0, "handler_errors": 0, "relist_failures": 0,
-                      "decode_errors": 0, "decode_s": 0.0,
+                      "decode_errors": 0, "decode_s": 0.0, "dropped_events": 0,
                       "apply_s": 0.0, "frames": 0, "frame_events": 0,
                       "batch_errors": 0, "compactions": 0}
         # serializes relist(): two callers must not build two watches
@@ -232,6 +234,12 @@ class SharedInformer:
         The new LIST and watch are built before the old watch is touched,
         so a failure here leaves the informer as it was; ``_try_relist``
         marks the gap for the next turn."""
+        tr = tracing.current()
+        with (tr.span("informer.relist", cat="ingest", kind=self.kind)
+              if tr is not None else tracing.NULL_SPAN):
+            self._relist_inner()
+
+    def _relist_inner(self) -> None:
         with self._relist_mu:
             new_cache, rev, new_watch = self._list_and_watch()
             with self._mu:
@@ -291,25 +299,38 @@ class SharedInformer:
         if ev.type == FRAME:
             # a column-packed batch: one lock hold for the whole frame
             return self._apply_batch(ev)
-        t_apply = time.perf_counter()
-        try:
-            self._apply_event(ev)
-        finally:
-            dt = time.perf_counter() - t_apply
-            with self._mu:
-                self.stats["apply_s"] += dt
-
-    def _apply_event(self, ev: WatchEvent) -> None:
         if ev.type == WATCH_GAP:
             # the transport lost continuity (410 on resume) and ended its
             # stream: no payload to apply; rebuild from a fresh LIST
             self._try_relist()
             return
+        tr = tracing.current()
+        # a span an event only when the tracer is verbose (frames always get one)
+        with (tr.span("informer.event.apply", cat="ingest", kind=self.kind, key=ev.key,
+                      type=ev.type)
+              if tr is not None and tr.verbose else tracing.NULL_SPAN):
+            t_apply = time.perf_counter()
+            try:
+                self._apply_event(ev)
+            finally:
+                dt = time.perf_counter() - t_apply
+                with self._mu:
+                    self.stats["apply_s"] += dt
+
+    def _apply_event(self, ev: WatchEvent) -> None:
         if ev.revision <= self.last_revision:
             # a straggler from a watch a relist already superseded
             return
+        fault = faults.hit("informer.deliver", kind=self.kind, key=ev.key, type=ev.type)
+        if fault is not None and fault.mode == "drop":
+            # lossy delivery: the cache diverges until a relist reconverges it
+            with self._mu:
+                self.stats["dropped_events"] += 1
+            self.metrics.informer_dropped_events.inc()
+            return
         t_decode = time.perf_counter()
         try:
+            faults.hit("informer.decode", kind=self.kind, key=ev.key, type=ev.type)
             if lazy_mod.ENABLED:
                 # the payload becomes the object's wire backing; typed
                 # fields materialize on first touch
@@ -346,18 +367,23 @@ class SharedInformer:
     # -- batch (frame) application -----------------------------------------
     def _decode_frame(self, frame: WatchFrame, fence: int) -> tuple:
         """Decode a frame's payloads outside the cache lock.  Returns
-        (decoded, decode_errors, decode_s), decoded = [(i, type, key,
-        revision, obj)].  An undecodable payload loses that delta (gap
-        marked), never the frame."""
+        (decoded, dropped, decode_errors, decode_s), decoded = [(i, type,
+        key, revision, obj)].  A dropped delivery or an undecodable payload
+        loses that delta (gap marked), never the frame."""
         decoded = []
-        decode_errors = 0
+        dropped = decode_errors = 0
         t_decode = time.perf_counter()
         cls = self._client._cls
         for i in range(len(frame)):
             etype, key, rev = frame.types[i], frame.keys[i], frame.revisions[i]
             if rev <= fence:
                 continue  # stragglers inside a superseded frame
+            fault = faults.hit("informer.deliver", kind=self.kind, key=key, type=etype)
+            if fault is not None and fault.mode == "drop":
+                dropped += 1
+                continue
             try:
+                faults.hit("informer.decode", kind=self.kind, key=key, type=etype)
                 raw = frame.objects[i]
                 obj = lazy_mod.wrap(cls, raw) if lazy_mod.ENABLED else cls.from_dict(raw)
             except Exception:
@@ -366,17 +392,28 @@ class SharedInformer:
                                  "relist scheduled", self.kind, etype, key)
                 continue
             decoded.append((i, etype, key, rev, obj))
-        return decoded, decode_errors, time.perf_counter() - t_decode
+        return decoded, dropped, decode_errors, time.perf_counter() - t_decode
 
     def _apply_batch(self, frame: WatchFrame) -> None:
         """Apply one frame: decode outside the lock, land the whole batch
         in the cache under one lock hold, and hand it to each handler in
         one isolated ``on_batch`` call (or the per-event callbacks).  A
         frame that fails before any event applied is lost as a unit and
-        marks a gap, which the relist path heals."""
+        marks a gap, which the relist path heals.  Its span carries the
+        store txn's correlation id, as the scheduler's confirm span inside
+        it does."""
+        tr = tracing.current()
+        with (tr.span("informer.frame.apply", cat="ingest", kind=self.kind, txn=frame.txn,
+                      events=len(frame))
+              if tr is not None else tracing.NULL_SPAN):
+            self._apply_batch_inner(frame)
+
+    def _apply_batch_inner(self, frame: WatchFrame) -> None:
         t_apply = time.perf_counter()
         try:
-            decoded, decode_errors, decode_s = self._decode_frame(frame, self.last_revision)
+            faults.hit("informer.apply_batch", kind=self.kind, n=len(frame))
+            decoded, dropped, decode_errors, decode_s = self._decode_frame(
+                frame, self.last_revision)
         except Exception:
             with self._mu:
                 self.stats["batch_errors"] += 1
@@ -385,11 +422,14 @@ class SharedInformer:
             logger.exception("informer %s: failed to apply a %d-event frame — relist "
                              "scheduled", self.kind, len(frame))
             return
+        if dropped:
+            self.metrics.informer_dropped_events.inc(dropped)
         if decode_errors:
             self.metrics.informer_decode_errors.inc(decode_errors)
         applied: list = []
         with self._mu:
             self.stats["frames"] += 1
+            self.stats["dropped_events"] += dropped
             self.stats["decode_errors"] += decode_errors
             if decode_errors:
                 self._gap_pending = True
@@ -476,6 +516,13 @@ class InformerFactory:
         for inf in self.informers():
             if not inf.has_synced():
                 inf.start_manual()
+
+    def relist_all(self) -> None:
+        """Resync every synced informer (the factory's resync tick): each
+        re-LISTs, diffs and restarts its watch."""
+        for inf in self.informers():
+            if inf.has_synced():
+                inf.relist()
 
     def pump_all(self) -> int:
         return sum(inf.pump() for inf in self.informers())

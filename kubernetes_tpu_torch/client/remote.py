@@ -47,9 +47,10 @@ import urllib.request
 from typing import Callable, Optional
 from urllib.parse import quote, urlsplit
 
+from .. import faults
 from ..api.types import KIND_PLURALS
 from ..store.columns import COLUMN_BATCH_KINDS
-from ..store.frames import FRAME, FrameDecodeError, WatchFrame
+from ..store.frames import FRAME, WatchFrame
 from ..store.store import (
     WATCH_GAP,
     AlreadyExistsError,
@@ -58,6 +59,7 @@ from ..store.store import (
     NotFoundError,
     WatchEvent,
 )
+from ..utils import tracing
 from ..utils.metrics import ClientMetrics
 
 logger = logging.getLogger("kubernetes_tpu_torch.client.remote")
@@ -192,12 +194,29 @@ class RemoteWatch:
             path += f"&resourceVersion={self._last_rev}"
         return path
 
+    def _connect(self) -> _Stream:
+        tr = tracing.current()
+        # the (re)connect is the slow, failure-prone edge of the stream:
+        # one span a dial, nothing an event
+        with (tr.span("remote.watch.connect", cat="client", resource=self._resource)
+              if tr is not None else tracing.NULL_SPAN):
+            faults.hit("remote.watch.stream", phase="connect", resource=self._resource)
+            return self._opener(self._path())
+
+    def _gap(self, cause: str) -> None:
+        """The stream cannot heal itself: a gap for the informer's relist."""
+        self.metrics.watch_gaps.inc()
+        tr = tracing.current()
+        if tr is not None:
+            tr.instant("remote.watch.gap", resource=self._resource, cause=cause)
+        self._queue.put(WatchEvent(WATCH_GAP, "", "", self._last_rev or 0, {}))
+
     def _run(self) -> None:
         backoff = BACKOFF_MIN_S
         while not self._stopped.is_set():
             stream = None
             try:
-                stream = self._opener(self._path())
+                stream = self._connect()
                 with self._stream_mu:
                     if self._stopped.is_set():
                         return
@@ -208,19 +227,22 @@ class RemoteWatch:
                     line = raw.strip()
                     if not line:
                         continue
+                    faults.hit("remote.watch.stream", phase="event", resource=self._resource)
                     self.metrics.ingest_bytes.inc(len(line))
                     t_parse = time.perf_counter()
                     d = json.loads(line)
                     if d.get("type") == FRAME:
                         try:
+                            faults.hit("remote.watch.stream", phase="frame",
+                                       resource=self._resource)
                             frame = WatchFrame.from_wire(d)
                             self.metrics.watch_parse_seconds.inc(time.perf_counter() - t_parse)
-                        except (FrameDecodeError, TypeError, ValueError) as e:
-                            logger.warning("watch %s: undecodable frame (%s): emitting a gap "
-                                           "for a relist", self._resource, e)
+                        except Exception as e:  # noqa: BLE001 - a frame lost as a unit
+                            logger.warning("watch %s: undecodable frame (%s: %s): emitting a "
+                                           "gap for a relist", self._resource,
+                                           type(e).__name__, e)
                             self.metrics.watch_errors.inc()
-                            self.metrics.watch_gaps.inc()
-                            self._queue.put(WatchEvent(WATCH_GAP, "", "", self._last_rev or 0, {}))
+                            self._gap("bad-frame")
                             return
                         # the frame's fence: a replayed frame at or below
                         # the bookmark was seen already
@@ -244,8 +266,7 @@ class RemoteWatch:
                 if code == 410:
                     logger.warning("watch %s: revision %s too old (410): emitting a gap "
                                    "for a relist", self._resource, self._last_rev)
-                    self.metrics.watch_gaps.inc()
-                    self._queue.put(WatchEvent(WATCH_GAP, "", "", self._last_rev or 0, {}))
+                    self._gap("410")
                     return
                 sleep_s = backoff
                 if code in (429, 503):
@@ -362,12 +383,18 @@ class RemoteStore:
         retry_after: Optional[float] = None
         for attempt in range(self.max_retries + 1):
             if attempt > 0:
+                tr = tracing.current()
+                if tr is not None:
+                    # each retry is latency the caller ate: a point event
+                    tr.instant("remote.request.retry", method=method, path=path,
+                               attempt=attempt)
                 self._sleep(self._retry_delay(attempt - 1, retry_after))
                 if retry_after is not None:
                     self.metrics.retry_after_honored.inc()
                 retry_after = None
                 self.metrics.remote_retries.inc()
             try:
+                faults.hit("remote.request", method=method, path=path, attempt=attempt)
                 return send()
             except urllib.error.HTTPError as e:
                 if e.code not in RETRYABLE_STATUS:

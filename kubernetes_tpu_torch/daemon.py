@@ -1,5 +1,6 @@
 """Shared daemon runtime: the wire clientset, signals, the leader-election
-loop, serve-forever and the health server.
+loop, serve-forever, the health server and the continuous telemetry (the
+time-series scraper, the SLO monitor and the shipper's sink).
 
 The reference ships runnable binaries (``cmd/kube-apiserver``,
 ``plugin/cmd/kube-scheduler``); the port's process-model equivalents are::
@@ -119,9 +120,37 @@ def wait_forever(stop: threading.Event) -> None:
         pass
 
 
+def telemetry_sink(spec: str):
+    """``--telemetry-sink``: an ``http(s)://`` URL is a collector (the
+    apiserver's ``/telemetry`` route), anything else a JSON-lines file."""
+    from .utils.telemetry import FileSink, HTTPSink
+
+    if spec.startswith("http://") or spec.startswith("https://"):
+        return HTTPSink(spec)
+    return FileSink(spec)
+
+
+def enable_continuous_telemetry(registry, interval_s: float = 1.0,
+                                sink_spec: Optional[str] = None, slos: bool = True):
+    """Start the time-series scraper over ``registry``, attach the burn-rate
+    SLO monitor (a breach dumps the flight recorder) and, with a sink, the
+    shipper fed with flight dumps and per-scrape time-series deltas.
+    Returns the store (``timeseries.disable()`` and ``telemetry.disable()``
+    tear it down)."""
+    from .utils import slo, telemetry, timeseries
+
+    store = timeseries.enable(registry, interval_s=interval_s)
+    if slos:
+        slo.monitor(store=store)
+    if sink_spec:
+        shipper = telemetry.enable(telemetry_sink(sink_spec), registry=registry)
+        store.add_observer(telemetry.timeseries_observer(shipper))
+    return store
+
+
 class HealthServer:
-    """``/healthz`` and ``/metrics`` on a port of their own (the scheduler's
-    :10251).  ``registry`` may be anything with ``expose()``; None serves
+    """``/healthz``, ``/metrics`` and the ``/debug/*`` routes
+    (``utils/health.py``) on a port of their own (the scheduler's :10251).  ``registry`` may be anything with ``expose()``; None serves
     no ``/metrics``."""
 
     def __init__(self, port: int, registry=None, host: str = "127.0.0.1"):

@@ -14,13 +14,18 @@ scanned, and its chosen nodes committed into a copy-on-write work map.
 On CUDA every kernel segment runs on the fused kernel
 (``ops/fused_scan.py``); on the CPU it runs on the plain scan
 (``ops/scan_ref.py``).  A kernel that fails to build or launch raises: no
-segment is quietly rerouted to another path.  Two shapes past the
-kernel's fixed limits are decided before the first launch and cost only
-the pods they touch: a pod with more host ports than its vocabulary, and
-a cluster with more zones than ``fused_scan.MAX_ZONES`` (then every pod).
-Such a pod is refused (``ShapeRefused``), not scheduled anywhere: the
-CPU's plain scan and the JAX package take both shapes, so the divergence
-stays visible.
+segment is quietly rerouted to another path, and neither is a failure the
+``backend.pallas.segment`` fault point injects at the launch or the
+finalize.  The kernel takes any zone count and any host-port count.
+
+With tracing on, each kernel segment records a ``tensorize`` and a
+``dispatch`` span from the same clock reads as the stats timers; the
+dispatch span carries the route (``impl``), the kernel's plan and, at the
+segment's finish, the kernel's device milliseconds from the CUDA events
+that ``stats["kernel_ms"]`` reads (no extra device sync).  Oracle work
+records an ``oracle`` span.  Under overload rung 2 the scheduler sets
+``shed_score_planes``: the interpod score weight is zeroed (feasibility
+untouched) and the shed is counted.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from .. import faults
 from ..api import types as api
 from ..models.carry import from_reference
 from ..models.snapshot import (
@@ -39,7 +45,7 @@ from ..models.snapshot import (
     pod_disk_vols,
     pod_signature_key,
 )
-from ..scheduler.generic_scheduler import FitError, GenericScheduler, ShapeRefused
+from ..scheduler.generic_scheduler import FitError, GenericScheduler
 from ..scheduler.nodeinfo import NodeInfo
 from ..scheduler.predicates import DEFAULT_PREDICATES
 from ..scheduler.priorities import (
@@ -56,6 +62,7 @@ from ..scheduler.priorities import (
     TaintTolerationPriority,
 )
 from ..scheduler.units import CPU_MILLI, MEM_MIB, ResourceVec
+from ..utils import tracing
 from . import fused_scan, scan_ref
 
 # The oracle priorities the scan reproduces bit for bit; a configured
@@ -115,9 +122,19 @@ class BatchBackend:
         # selector-match corpus and disk locations, kept across batches and
         # reconciled against each batch's snapshot by node generation
         self._host_state: Optional[HostBatchState] = None
+        # overload rung 2: zero the interpod score weight (the scheduler
+        # sets it a wave); the sheds count into shed_counter when wired
+        self.shed_score_planes = False
+        self.shed_counter = None
+        # pods scheduled on the host oracle, into the scheduler's metrics
+        # when wired
+        self.oracle_counter = None
+        # the last kernel segment's route and plan (and, once finished, its
+        # kernel_ms): the dispatch span's attributes
+        self.dispatch_attrs: dict = {}
         self.stats = {"kernel_pods": 0, "oracle_pods": 0, "segments": 0,
-                      # pods the card's kernel refused by shape (CUDA only)
-                      "refused_pods": 0,
+                      # batches whose interpod score plane was shed
+                      "score_plane_sheds": 0,
                       # host seconds (cumulative): tensorize, pack + launch,
                       # wait for the device's result
                       "tensorize_s": 0.0, "dispatch_s": 0.0, "device_wait_s": 0.0,
@@ -127,7 +144,7 @@ class BatchBackend:
     # -- greedy segmentation ------------------------------------------------
     def _segments(
         self, pods: list[api.Pod], mounted_disks: Optional[set] = None
-    ) -> list[tuple[str, list[tuple[int, api.Pod]], Optional[ShapeRefused]]]:
+    ) -> list[tuple[str, list[tuple[int, api.Pod]]]]:
         """Split the ordered batch into kernel segments that respect the
         tensor budgets, walking pod order once — every cut preserves
         sequential-greedy parity because each segment re-tensorizes against
@@ -136,13 +153,12 @@ class BatchBackend:
         budget counts conflict-capable disks only (shared within the
         segment or already mounted).  The host-port budget keeps the
         segment's port vocabulary, bucketed as the tensorizer buckets it,
-        within the fused kernel's ``MAX_PORTS`` (on the CPU too, so both
-        devices cut alike).  On the card a pod whose signature has more
-        ports than that becomes a ``"refused"`` segment of its own, before
-        anything is tensorized: a wider segment would also widen the
-        tensorizer's sticky port bucket for every later one.  The CPU's
-        plain scan takes it as a kernel segment of its own.  Each segment
-        is (kind, [(index, pod)], the refusal of a ``"refused"`` one)."""
+        within the signature row's shared port slot, ``MAX_PORTS`` (on the
+        CPU too, so both devices cut alike).  A pod whose signature alone
+        has more ports than that is a kernel segment of its own, and the
+        tensorizer's sticky port bucket does not keep its width (see
+        ``schedule_batch``).  Each segment is (kind, [(index, pod)]), kind
+        ``"kernel"`` or ``"oracle"``."""
         tz = self.tensorizer
         max_ports = fused_scan.MAX_PORTS // tz.port_multiple * tz.port_multiple
         mounted = mounted_disks if mounted_disks is not None else set()
@@ -157,7 +173,7 @@ class BatchBackend:
         def flush() -> None:
             nonlocal cur, sigs, vols_once, vols_conflict, ports, n_terms
             if cur:
-                out.append(("kernel", cur, None))
+                out.append(("kernel", cur))
             cur, sigs, vols_once, vols_conflict, ports, n_terms = [], set(), set(), set(), set(), 0
 
         for i, pod in enumerate(pods):
@@ -165,15 +181,9 @@ class BatchBackend:
             key = pod_signature_key(pod)
             # a signature's host ports are part of its key: count them once
             hp = set(pod.host_ports()) if key not in sigs else set()
-            if len(hp) > max_ports and self.device.type == "cuda":
-                flush()
-                out.append(("refused", [(i, pod)], ShapeRefused(
-                    f"fused scan supports at most {max_ports} host ports a segment, pod "
-                    f"{pod.meta.namespace}/{pod.meta.name} has {len(hp)}")))
-                continue
             if len(pv) > tz.vols_per_pod:
                 flush()
-                out.append(("oracle", [(i, pod)], None))
+                out.append(("oracle", [(i, pod)]))
                 continue
             pv_conflict = {d for d in pv if d in mounted or d in vols_once}
             t_new = count_affinity_terms(pod) if key not in sigs else 0
@@ -197,18 +207,6 @@ class BatchBackend:
         flush()
         return out
 
-    def _zone_refusal(self, node_info_map: dict[str, NodeInfo]) -> Optional[ShapeRefused]:
-        """On the card: the refusal every pod of a batch gets when the
-        cluster has more zones than the kernel keeps (the tensorizer gives
-        every segment the whole cluster's zone axis), else None."""
-        if self.device.type != "cuda":
-            return None
-        zones = {i.zone_key for i in node_info_map.values() if i.node is not None and i.zone_key}
-        if len(zones) <= fused_scan.MAX_ZONES:
-            return None
-        return ShapeRefused(f"fused scan supports at most {fused_scan.MAX_ZONES} zones, "
-                            f"the cluster has {len(zones)}")
-
     # -- config support check ---------------------------------------------
     def _kernel_weights(self) -> Optional[dict]:
         """Map the oracle's priority config onto scan weights; None if any
@@ -221,6 +219,14 @@ class BatchBackend:
             if key is None:
                 return None
             weights[key] += weight
+        if self.shed_score_planes and weights["interpod"]:
+            # overload rung 2: the interpod score plane changes which
+            # feasible node wins, never whether a pod fits; counted so the
+            # degradation is stated
+            weights["interpod"] = 0
+            self.stats["score_plane_sheds"] += 1
+            if self.shed_counter is not None:
+                self.shed_counter.inc()
         return weights
 
     def _config_supported(self) -> Optional[dict]:
@@ -236,22 +242,37 @@ class BatchBackend:
         Returns (finisher, device_busy): the zero-argument finisher gives
         (chosen, final rr); ``device_busy`` polls, without synchronizing,
         whether the launched scan is still running (None on the CPU, where
-        the scan has already run)."""
+        the scan has already run).  ``self.dispatch_attrs`` is this
+        segment's route and plan; the finisher adds the kernel's device
+        milliseconds (the dispatch span's attributes)."""
         scan_static, scan_state = from_reference(vars(static), vars(init), self.device)
+        impl = "cuda" if self.device.type == "cuda" else "cpu"
+        self.dispatch_attrs = span_attrs = {"impl": impl}
+        # the kernel's seam: an injected failure raises like a real one
+        faults.hit("backend.pallas.segment", impl=impl, phase="launch")
         if self.device.type != "cuda":
             chosen, rr = scan_ref.scan(scan_static, scan_state)
-            return (lambda: (chosen.numpy(), rr)), None
-        bufs = fused_scan.pack(scan_static, scan_state)
+
+            def finish_cpu():
+                faults.hit("backend.pallas.segment", impl=impl, phase="finalize")
+                return chosen.numpy(), rr
+            return finish_cpu, None
+        pl = fused_scan.plan(scan_static)
+        bufs = fused_scan.pack(scan_static, scan_state, pl)
         fused_scan.load()  # a first call builds: keep that out of kernel_ms
+        span_attrs.update(cluster=pl.cs, threads=pl.threads, zones_at=pl.zones_at)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fused_scan.launch(scan_static, scan_state, bufs)
+        fused_scan.launch(scan_static, scan_state, bufs, pl)
         end.record()
 
         def finish():
             out = fused_scan.finalize(scan_static, bufs)
-            self.stats["kernel_ms"] += start.elapsed_time(end)
+            faults.hit("backend.pallas.segment", impl=impl, phase="finalize")
+            # finalize synchronized on the result: the events are complete
+            span_attrs["kernel_ms"] = ms = start.elapsed_time(end)
+            self.stats["kernel_ms"] += ms
             return out
         return finish, (lambda: not end.query())
 
@@ -269,11 +290,9 @@ class BatchBackend:
         mutated: placements land in clones made on first write.
 
         ``on_segment`` (optional) is called with ``[(pod, node_name|None,
-        req_vec|None, nz_vec|None, refusal|None), ...]`` per completed
-        segment, after the next segment's scan has been launched, so the
-        caller's commit work overlaps device time.  Entry order across
-        calls equals pod order.  ``refusal`` is the ``ShapeRefused`` of a
-        pod the card's kernel cannot take (its node is None).
+        req_vec|None, nz_vec|None), ...]`` per completed segment, after the
+        next segment's scan has been launched, so the caller's commit work
+        overlaps device time.  Entry order across calls equals pod order.
 
         ``on_idle`` (optional) is called once as ``on_idle(device_busy=fn)``
         after the batch's final kernel segment was launched and every
@@ -334,6 +353,16 @@ class BatchBackend:
             except FitError:
                 apply(pod, None, i)
             self.stats["oracle_pods"] += 1
+            if self.oracle_counter is not None:
+                self.oracle_counter.inc()
+
+        def run_oracle_pods(segment: list[tuple[int, api.Pod]]) -> None:
+            t0 = time.perf_counter()
+            for i, pod in segment:
+                run_oracle(pod, i)
+            tr = tracing.current()
+            if tr is not None:
+                tr.complete("oracle", t0, time.perf_counter(), cat="phase", pods=len(segment))
 
         def dispatch_kernel_segment(segment: list[tuple[int, api.Pod]]):
             """Tensorize + launch; returns (finisher, device_busy) where the
@@ -341,6 +370,9 @@ class BatchBackend:
             entries, or (None, None) when the tensorizer rejects the
             segment (budget)."""
             seg_pods = [p for _, p in segment]
+            tr = tracing.current()
+            tz = self.tensorizer
+            sticky_ports = tz._sticky.get("ports")
             t0 = time.perf_counter()
             static = self.tensorizer.build_static(
                 seg_pods, work_map, work_pctx,
@@ -355,21 +387,46 @@ class BatchBackend:
                 interpod_weight=weights["interpod"],
                 mounted_disks=mounted_disks,
             )
+            if static is not None and static.g_ports.shape[1] > max_ports:
+                # a wide pod's own segment: the segments after it keep the
+                # port width they had
+                if sticky_ports is None:
+                    tz._sticky.pop("ports", None)
+                else:
+                    tz._sticky["ports"] = sticky_ports
             if static is None:
-                self.stats["tensorize_s"] += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                self.stats["tensorize_s"] += t1 - t0
+                if tr is not None:
+                    tr.complete("tensorize", t0, t1, cat="phase", pods=len(seg_pods),
+                                rejected=True)
                 return None, None
             init = self.tensorizer.initial_state(
                 static, work_map, work_pctx, seg_pods,
                 round_robin=self.algorithm._round_robin, host_state=host_state)
             t1 = time.perf_counter()
             self.stats["tensorize_s"] += t1 - t0
+            if tr is not None:
+                # the same clock reads as the stats timer
+                tr.complete("tensorize", t0, t1, cat="phase", pods=len(seg_pods),
+                            groups=len(static.g_request), n_pad=int(static.n_pad))
+            self.dispatch_attrs = {}
             wait, device_busy = self._dispatch(static, init)
-            self.stats["dispatch_s"] += time.perf_counter() - t1
+            span_attrs = self.dispatch_attrs
+            t2 = time.perf_counter()
+            self.stats["dispatch_s"] += t2 - t1
+            if tr is not None:
+                dispatch_span = tr.complete("dispatch", t1, t2, cat="phase", **span_attrs)
 
             def finish() -> list:
-                t2 = time.perf_counter()
+                t3 = time.perf_counter()
                 chosen, final_rr = wait()
-                self.stats["device_wait_s"] += time.perf_counter() - t2
+                t4 = time.perf_counter()
+                self.stats["device_wait_s"] += t4 - t3
+                if tr is not None:
+                    tr.complete("device_wait", t3, t4, cat="phase", pods=len(segment))
+                    if "kernel_ms" in span_attrs:
+                        dispatch_span.set(kernel_ms=span_attrs["kernel_ms"])
                 self.algorithm._round_robin = final_rr
                 req_vecs, nz_vecs = _segment_vecs(static)
                 entries = []
@@ -377,7 +434,7 @@ class BatchBackend:
                     node_name = static.node_names[int(idx)] if int(idx) >= 0 else None
                     g = int(static.group_of_pod[k])
                     apply(pod, node_name, i, req_vecs[g], nz_vecs[g])
-                    entries.append((pod, node_name, req_vecs[g], nz_vecs[g], None))
+                    entries.append((pod, node_name, req_vecs[g], nz_vecs[g]))
                 self.stats["kernel_pods"] += len(segment)
                 self.stats["segments"] += 1
                 return entries
@@ -397,19 +454,13 @@ class BatchBackend:
                 run_kernel_segment(segment[mid:])
 
         if weights is None:
-            for i, pod in enumerate(pods):
-                run_oracle(pod, i)
+            run_oracle_pods(list(enumerate(pods)))
             if on_segment is not None and pods:
-                on_segment([(pod, assignments[i], None, None, None)
+                on_segment([(pod, assignments[i], None, None)
                             for i, pod in enumerate(pods)])
             return assignments
-
-        zone_refusal = self._zone_refusal(work_map)
-        if zone_refusal is not None:
-            self.stats["refused_pods"] += len(pods)
-            if on_segment is not None and pods:
-                on_segment([(pod, None, None, None, zone_refusal) for pod in pods])
-            return assignments
+        max_ports = fused_scan.MAX_PORTS // self.tensorizer.port_multiple \
+            * self.tensorizer.port_multiple
 
         pending: list = []  # prior segments' entries awaiting the caller
 
@@ -421,21 +472,16 @@ class BatchBackend:
 
         try:
             segments = self._segments(pods, mounted_disks=mounted_disks)
-            for si, (kind, segment, refusal) in enumerate(segments):
-                if kind == "refused":
-                    self.stats["refused_pods"] += len(segment)
-                    pending.extend((pod, None, None, None, refusal) for _, pod in segment)
-                    continue
+            for si, (kind, segment) in enumerate(segments):
                 if kind == "oracle":
-                    for i, pod in segment:
-                        run_oracle(pod, i)
-                    pending.extend((pod, assignments[i], None, None, None) for i, pod in segment)
+                    run_oracle_pods(segment)
+                    pending.extend((pod, assignments[i], None, None) for i, pod in segment)
                     continue
                 finish, device_busy = dispatch_kernel_segment(segment)
                 if finish is None:
                     flush_pending()
                     run_kernel_segment(segment)
-                    pending.extend((pod, assignments[i], None, None, None) for i, pod in segment)
+                    pending.extend((pod, assignments[i], None, None) for i, pod in segment)
                     continue
                 # the device is scanning this segment: hand earlier entries
                 # to the caller in its shadow

@@ -71,13 +71,23 @@
 //  5. Zones. Up to REG_ZONES zones, each thread keeps its columns' zone
 //     sums in registers and the warps fold them on the redux.sync unit (the
 //     main path). A segment with more zones (a zone key that spans regions)
-//     runs the BZ instantiation: threads add their columns' spread counts
-//     into a per-zone accumulator in shared memory (64-bit shared atomics),
-//     the last warp sends it in exchange (a), and the block folds the
-//     blocks' messages into per-zone totals in shared memory. Exchange (a)'s
-//     message is 10 + 2 words a zone in both. The planner
-//     (fused_scan.py) owns the zone cap and the layout; dispatch checks
-//     only that msg_a and the zone arrays fit what it was given.
+//     runs the BZ instantiation, with the zone statistics where the planner
+//     (fused_scan.py) placed them. In shared memory: threads add their
+//     columns' spread counts into a per-zone accumulator (64-bit shared
+//     atomics), the last warp sends it in exchange (a), whose message is 10
+//     + 2 words a zone, and the block folds the blocks' messages into
+//     per-zone totals. Past what shared memory holds (zbuf set): each block
+//     adds into its own row of a global scratch, by pod parity, fences, and
+//     sends only the 10 words; after exchange (a) every block folds the
+//     cluster's rows from L2 into its own totals row (a second fold), and a
+//     block clears its row for pod i+2 once exchange (b) of pod i+1 shows
+//     that every block has folded pod i. No zone count is refused: the
+//     planner owns the layout, and dispatch checks only that msg_a and the
+//     zone arrays fit what it was given.
+//  7. Host ports. A signature row carries the segment's port flags, and its
+//     first MAX_PORTS flags travel with the row into shared memory (the
+//     planner's `sws`). A pod whose signature has more ports than that
+//     reads the rest of its flags from the row in global memory.
 //  6. Less arithmetic a pod. The resource scores (least-requested,
 //     most-requested, balanced) of a column change only when a pod lands on
 //     it, so they are kept per (signature, column) in the `res` plane and a
@@ -99,7 +109,7 @@ constexpr int MAX_CLUSTER = 16;
 constexpr int MAX_CPT = 16;
 constexpr int REG_ZONES = 8;  // zones whose sums a thread keeps in registers
 constexpr int MAX_TERMS = 128;
-constexpr int MAX_PORTS = 256;
+constexpr int MAX_PORTS = 256;  // port flags a signature row holds in shared memory
 constexpr int MAX_SLOTS = 8;
 constexpr int MAX_KINDS = 4;
 constexpr int MAX_R = 8;
@@ -162,9 +172,12 @@ struct ScanParams {
     // outputs
     int32_t* chosen;              // [P]
     int32_t* rr_out;              // [1]
+    // past shared memory's zone budget: [2][cs][num_zones] accumulators by
+    // pod parity, then [cs][num_zones] totals, zeroed by the host; else null
+    int64_t* zbuf;
     // sizes, the plan and flags
     int32_t n, ns, cols, cs, threads, cpt;
-    int32_t g, g4, t, pv, v, r, w, w4, k, sw;
+    int32_t g, g4, t, pv, v, r, w, w4, k, sw, sws;  // sws: ints of a signature row in shared memory
     int32_t p_real, num_zones, rr0;
     int32_t use_terms, use_vols, use_ports, smem_bytes;
     int32_t gnz_off, inbox_a_off, inbox_b_off, msg_a, msg_b;  // the planner's fixed layout
@@ -478,17 +491,24 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     const int rank = static_cast<int>(cluster.block_rank());
     const int base = rank * L;
     const int R = p.r, T = p.t, G = p.g, PV = p.pv, W = p.w, K = p.k;
-    const int SW = p.sw, G4 = p.g4, W4 = p.w4, MA = p.msg_a, MB = p.msg_b;
+    const int SW = p.sw, SWS = p.sws, G4 = p.g4, W4 = p.w4, MA = p.msg_a, MB = p.msg_b;
     const int NZ = p.num_zones;
+    // zone statistics in global memory (zg), as 64-bit words
+    long long* const zbuf = reinterpret_cast<long long*>(p.zbuf);
+    const bool zg = BZ && zbuf != nullptr;
+    // a signature's port flags in its shared row, and where the rest start
+    // in its global row
+    const int PORT0 = R + 4 + TERM_FIELDS * T;
+    const int PQ = PV < SWS - PORT0 ? PV : SWS - PORT0;
     const bool wt_ip = p.wt[6] != 0;
     const int ENTS = CPT * NW;  // tie ballots a block sends
     const uint32_t bytes_a = CS * MA * 4, bytes_b = CS * MB * 4;
 
-    // dynamic shared memory: [sig NBUF x sw][pod_vol NBUF x w4] at 0, the
+    // dynamic shared memory: [sig NBUF x sws][pod_vol NBUF x w4] at 0, the
     // nonzero requests of every signature [g4 x 2], the two inboxes, then
     // the placed planes (offsets from the planner)
     int32_t* s_sig = reinterpret_cast<int32_t*>(smem);
-    int32_t* s_pvol = s_sig + NBUF * SW;
+    int32_t* s_pvol = s_sig + NBUF * SWS;
     const int32_t* s_gnz = reinterpret_cast<const int32_t*>(smem + p.gnz_off);
     // inboxes [2][chunk][CS] of 16-byte chunks: lane q reads block q's
     // chunk k without bank conflicts
@@ -499,9 +519,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     int32_t* s_pod = pod_rows_shared ? reinterpret_cast<int32_t*>(smem + p.off[P_POD]) : nullptr;
     int32_t* s_inc = inc_shared ? reinterpret_cast<int32_t*>(smem + p.off[P_INC]) : nullptr;
     const int32_t* g_rows[POD_ROWS] = {p.static_ok, p.aff_raw, p.taint_raw, p.score_raw, p.interpod_raw};
-    // BZ: this block's zone sums of the pod [NZ], then the cluster's [NZ]
-    long long* s_zacc = BZ ? reinterpret_cast<long long*>(smem + p.zone_off) : nullptr;
-    long long* s_ztot = BZ ? s_zacc + NZ : nullptr;
+    // BZ in shared memory: this block's zone sums of the pod [NZ], then the
+    // cluster's [NZ]; in global memory (zg): the cluster's, this block's row
+    long long* s_zacc = BZ && !zg ? reinterpret_cast<long long*>(smem + p.zone_off) : nullptr;
+    long long* s_ztot = BZ && !zg ? s_zacc + NZ : nullptr;
+    long long* g_ztot = zg ? zbuf + ((size_t)2 * CS + rank) * NZ : nullptr;
 
     const View<int32_t> req = view<SH>(p.req, p.off[P_REQ], smem, base, L, NS);
     const View<int32_t> nz = view<SH>(p.nz, p.off[P_NZ], smem, base, L, NS);
@@ -536,7 +558,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     for (int t = tid; t < T; t += BT) s_total[t] = p.total[t];
     if (tid < K) s_vlim[tid] = p.vol_limits[tid];
     if (tid < 4) s_done[tid] = 0;
-    if constexpr (BZ)
+    if (BZ && !zg)
         for (int z = tid; z < NZ; z += BT) s_zacc[z] = 0;
     for (int h = tid; h < G; h += BT) {
         int32_t* gnz = const_cast<int32_t*>(s_gnz);
@@ -565,13 +587,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     // pod i's inputs into buffer i % NBUF, issued by lane 0 of the last warp
     auto prefetch = [&](int i, int gid) {
         const int b = i % NBUF;
-        uint32_t bytes = (SW + W4) * 4;
+        uint32_t bytes = (SWS + W4) * 4;
         if (pod_rows_shared) bytes += POD_ROWS * L * 4;
         if (inc_shared) bytes += G4 * 4;
         s_gid[b] = gid;
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         mbar_expect_tx(&s_bar[1 + b], bytes);
-        bulk_load(s_sig + b * SW, p.sig + (size_t)gid * SW, SW * 4, &s_bar[1 + b]);
+        bulk_load(s_sig + b * SWS, p.sig + (size_t)gid * SW, SWS * 4, &s_bar[1 + b]);
         bulk_load(s_pvol + b * W4, p.pod_vol + (size_t)i * W4, W4 * 4, &s_bar[1 + b]);
         if (inc_shared) bulk_load(s_inc + b * G4, p.spread_inc_t + (size_t)gid * G4, G4 * 4, &s_bar[1 + b]);
         if (pod_rows_shared)
@@ -611,9 +633,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
         const uint32_t xpar = (i >> 1) & 1;
         mbar_wait(&s_bar[1 + b], (i / NBUF) & 1);
         const int gid = s_gid[b];
-        const int32_t* sg = s_sig + b * SW;
+        const int32_t* sg = s_sig + b * SWS;
         const int32_t* terms = sg + R + 4;
-        const int32_t* gports = terms + TERM_FIELDS * T;
+        const int32_t* gports = sg + PORT0;
+        const int32_t* gports_far = p.sig + (size_t)gid * SW + PORT0;  // flags PQ.. of a wide row
+        // zg: this block's row of the pod's zone sums
+        long long* g_zacc = zg ? zbuf + ((size_t)par * CS + rank) * NZ : nullptr;
         const int32_t* pvol = s_pvol + b * W4;
         const int tcount = p.use_terms ? sg[R + 3] : 0;
         const int32_t* row[POD_ROWS];
@@ -645,9 +670,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                     const int gr = sg[r];
                     if (gr > 0) f &= (long long)req(r, lc) + gr <= alloc(r, lc);
                 }
-                if (p.use_ports)
-                    for (int q = 0; q < PV; ++q)
+                if (p.use_ports) {
+                    for (int q = 0; q < PQ; ++q)
                         if (gports[q]) f &= !ports(q, lc);
+                    for (int q = PQ; q < PV; ++q)
+                        if (gports_far[q]) f &= !ports(q, lc);
+                }
                 for (int a = 0; a < tcount; ++a) {
                     const int32_t* te = terms + a * TERM_FIELDS;
                     const int t = te[0];
@@ -683,9 +711,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                     if (z >= 0) {
                         nzc += 1;
                         if constexpr (BZ) {
-                            if (z < NZ)
-                                atomicAdd(reinterpret_cast<unsigned long long*>(&s_zacc[z]),
-                                          static_cast<unsigned long long>(static_cast<long long>(sc)));
+                            if (z < NZ) {
+                                const unsigned long long v = static_cast<unsigned long long>(static_cast<long long>(sc));
+                                if (zg) atomicAdd(reinterpret_cast<unsigned long long*>(&g_zacc[z]), v);
+                                else atomicAdd(reinterpret_cast<unsigned long long*>(&s_zacc[z]), v);
+                            }
                         } else {
 #pragma unroll
                             for (int zz = 0; zz < REG_ZONES; ++zz)
@@ -720,7 +750,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                 for (int zz = 0; zz < REG_ZONES; ++zz)
                     if (zz < NZ) zsum[zz] = warp_sum64(zsum[zz]);
             } else {
-                __syncwarp();  // the warp's zone atomics before its lane 0 counts it done
+                // the warp's zone atomics before its lane 0 counts it done;
+                // in global memory, before any block can read them
+                if (zg) __threadfence();
+                __syncwarp();
             }
             if (lane == 0) {
                 uint32_t(*pa)[MAX_WARPS] = s_part[par];
@@ -780,6 +813,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                             if (q < MA)
                                 send4(&s_ina[(par * (MA / 4) + q / 4) * CS + rank], &s_xa[par], lane,
                                       m[q], m[q + 1], m[q + 2], m[q + 3]);
+                    }
+                } else if (zg) {
+                    // the zone sums went to this block's global row: only the
+                    // statistics' 10 words travel
+                    if (lane < CS) {
+                        uint4* to = &s_ina[par * (MA / 4) * CS + rank];
+                        send4(to, &s_xa[par], lane, m[0], m[1], m[2], m[3]);
+                        send4(to + CS, &s_xa[par], lane, m[4], m[5], m[6], m[7]);
+                        send4(to + 2 * CS, &s_xa[par], lane, m[8], m[9], 0u, 0u);
                     }
                 } else {
                     // words 10 + 2z, 11 + 2z: zone z's sum from the accumulator;
@@ -850,6 +892,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                     zsum[zz] = warp_sum64(join64(xa[11 + 2 * zz], xa[10 + 2 * zz]));
                     max_z = zsum[zz] > max_z ? zsum[zz] : max_z;
                 }
+        } else if (zg) {
+            // the second fold: the cluster's rows from L2 (past L1, which
+            // does not see other blocks' atomics), one zone a thread, into
+            // this block's totals row
+            const long long* rows = zbuf + (size_t)par * CS * NZ;
+            for (int z = tid; z < NZ; z += BT) {
+                long long sum = 0;
+                for (int q = 0; q < CS; ++q) sum += __ldcg(rows + (size_t)q * NZ + z);
+                g_ztot[z] = sum;
+            }
+            __syncthreads();
+            long long mz = 0;
+            for (int z = lane; z < NZ; z += 32) mz = g_ztot[z] > mz ? g_ztot[z] : mz;
+            max_z = warp_max64(mz);
         } else {
             // the cluster's zone totals, one zone a thread, then every
             // warp's maximum over them
@@ -897,7 +953,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                     if (have_zones && z >= 0) {
                         long long zcnt = 0;
                         if constexpr (BZ) {
-                            if (z < NZ) zcnt = s_ztot[z];
+                            if (z < NZ) zcnt = zg ? g_ztot[z] : s_ztot[z];
                         } else {
 #pragma unroll
                             for (int zz = 0; zz < REG_ZONES; ++zz)
@@ -988,6 +1044,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
         PHASE(6);  // (b) sent, prefetch issued, stale scores refreshed
         mbar_wait_cluster(&s_xb[par], xpar);
         if (tid == 0) mbar_expect_tx(&s_xb[par], bytes_b);  // for pod i+2
+        if (zg) {
+            // every block has folded pod i-1's rows (it sent pod i's (b)
+            // message after): clear this block's row for pod i+1
+            long long* next = zbuf + ((size_t)((i + 1) & 1) * CS + rank) * NZ;
+            for (int z = tid; z < NZ; z += BT) next[z] = 0;
+            __threadfence();
+        }
         PHASE(7);  // (b) wait
 
         // every warp picks the same node: the (rr % ties)-th tie in node
@@ -1061,7 +1124,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
                 }
                 if (p.use_ports)
                     for (int q = tid; q < PV; q += BT)
-                        if (gports[q]) ports(q, lcc) = 1;
+                        if (q < PQ ? gports[q] : gports_far[q]) ports(q, lcc) = 1;
                 const int32_t* inc = inc_shared ? s_inc + b * G4 : p.spread_inc_t + (size_t)gid * G4;
                 for (int h = tid; h < G; h += BT) {
                     const int v = inc[h];
@@ -1148,16 +1211,19 @@ int launch(const ScanParams& params, cudaStream_t stream, int* max_clusters, int
 int dispatch(const ScanParams* p, cudaStream_t s, int* max_clusters, int* static_smem) {
     const int nw = p->threads / 32;
     const bool bz = p->num_zones > REG_ZONES;
-    if (p->r > MAX_R || p->t > MAX_TERMS || p->pv > MAX_PORTS || p->w > MAX_SLOTS || p->k > MAX_KINDS ||
+    const bool zg = p->zbuf != nullptr;
+    if (p->r > MAX_R || p->t > MAX_TERMS || p->w > MAX_SLOTS || p->k > MAX_KINDS ||
         p->num_zones < 0 || p->cs < 1 || p->cs > MAX_CLUSTER || p->threads < 32 ||
         p->threads > MAX_THREADS || p->threads % 32 || p->cols % 16 || p->ns != p->cs * p->cols ||
         p->cols > p->threads * p->cpt || nw * p->cpt > MAX_CPT * MAX_WARPS || p->sw % 4 ||
+        p->sws % 4 || p->sws > p->sw || p->sws < p->r + 4 + TERM_FIELDS * p->t ||
         p->g4 % 4 || p->w4 % 4 || p->w4 < p->w || p->g4 < p->g || p->msg_a % 4 ||
-        p->msg_a < 10 + 2 * p->num_zones || (!bz && p->msg_a > MAX_MSG_A) || p->msg_b % 4 ||
-        p->msg_b < 3 + p->cpt * nw ||
-        (bz && (p->zone_off % 16 || p->zone_off + 16 * p->num_zones > p->smem_bytes)))
+        (zg ? p->msg_a != 12 : p->msg_a < 10 + 2 * p->num_zones) || (!bz && p->msg_a > MAX_MSG_A) ||
+        p->msg_b % 4 ||
+        p->msg_b < 3 + p->cpt * nw || (zg && !bz) ||
+        (bz && !zg && (p->zone_off % 16 || p->zone_off + 16 * p->num_zones > p->smem_bytes)))
         return -1;
-    if (bz) {  // more zones than registers hold: the shared-memory zone path
+    if (bz) {  // more zones than registers hold: the zone statistics in shared or global memory
         switch (p->cpt) {
             case 1: return launch<1, false, true>(*p, s, max_clusters, static_smem);
             case 2: return launch<2, false, true>(*p, s, max_clusters, static_smem);

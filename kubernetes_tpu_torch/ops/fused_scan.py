@@ -13,7 +13,13 @@ columns each, and which planes live in each block's shared memory.  It
 places them in the fixed order of ``PLANES`` (the next pod's prefetched
 rows, the small hot state planes, ``spread``, then the node-constant rows)
 until the block's budget is spent; the rest stay in global memory and the
-kernel reads them through the same code.  One kernel, one path.
+kernel reads them through the same code.  One kernel, one path.  It also
+places the zone statistics (``zones_at``): up to ``REG_ZONES`` zones in
+registers, more in shared memory while they fit ``ZONE_SMEM`` at the
+plan's cluster size, and past that in a global scratch (``zbuf``) with a
+second fold.  A signature row keeps its first ``MAX_PORTS`` port flags in
+shared memory (``sws``); a wider row's other flags are read from global
+memory.  No zone or port count is refused.
 
 Layouts: every node-axis plane is row-major int32 ``[rows, ns]`` with
 ``ns = cs * cols`` (zero past column ``n``: no padded column exists, so none
@@ -45,9 +51,9 @@ MAX_THREADS = 512
 MAX_CLUSTER = 16
 MAX_CPT = 16
 REG_ZONES = 8       # zones whose sums the kernel keeps in registers (the main path)
-ZONE_SMEM = 65536   # bytes the zone statistics may take at MAX_CLUSTER
+ZONE_SMEM = 65536   # bytes the zone statistics may take in a block's shared memory
 MAX_TERMS = 128
-MAX_PORTS = 256
+MAX_PORTS = 256     # port flags a signature row holds in shared memory
 MAX_SLOTS = 8
 MAX_KINDS = 4
 MAX_R = 8
@@ -75,9 +81,19 @@ def zone_bytes(zones: int, cs: int = MAX_CLUSTER) -> int:
     return 2 * cs * _msg_a_words(zones) * 4 + (16 * zones if zones > REG_ZONES else 0)
 
 
-# the most zones whose statistics fit ZONE_SMEM at the largest cluster; the
-# kernel has no cap of its own and takes the layout this module plans
-MAX_ZONES = max(z for z in range(1, 4096) if zone_bytes(z) <= ZONE_SMEM)
+def zones_at(zones: int, cs: int) -> str:
+    """Where a cluster of ``cs`` keeps the statistics of ``zones`` zones:
+    ``registers``, ``shared`` memory while they fit ``ZONE_SMEM``, else
+    ``global`` memory."""
+    if zones <= REG_ZONES:
+        return "registers"
+    return "shared" if zone_bytes(zones, cs) <= ZONE_SMEM else "global"
+
+
+def zbuf_words(zones: int, cs: int) -> int:
+    """int64 words of the global zone scratch: the accumulators of both
+    pod parities [2, cs, zones], then each block's totals [cs, zones]."""
+    return 3 * cs * zones
 
 # placement order; the kernel's `enum Plane` lists the same names
 PLANES = ("pod_rows", "spread_inc", "req", "nz", "cnt", "ports", "dm", "downer",
@@ -92,10 +108,10 @@ _PTR_FIELDS = (
     "taint_raw", "score_raw", "interpod_raw", "node_domain", "dom_valid",
     "sig", "spread_inc_t", "vol_limits", "gids", "pod_vol",
     "req", "nz", "cnt", "ports", "spread", "dm", "downer", "total", "volf", "nk", "res",
-    "chosen", "rr_out",
+    "chosen", "rr_out", "zbuf",
 )
 _INT_FIELDS = ("n", "ns", "cols", "cs", "threads", "cpt",
-               "g", "g4", "t", "pv", "v", "r", "w", "w4", "k", "sw",
+               "g", "g4", "t", "pv", "v", "r", "w", "w4", "k", "sw", "sws",
                "p_real", "num_zones", "rr0",
                "use_terms", "use_vols", "use_ports", "smem_bytes",
                "gnz_off", "inbox_a_off", "inbox_b_off", "msg_a", "msg_b", "zone_off")
@@ -124,6 +140,7 @@ class Plan:
     threads: int     # threads a block
     cpt: int         # columns a thread
     sw: int          # ints in a signature row
+    sws: int         # ints of it a pod buffer in shared memory holds
     g4: int          # ints in a spread-increment row
     w4: int          # ints in a pod's volume-slot row
     msg_a: int       # words of a block's statistics message (exchange a)
@@ -131,7 +148,8 @@ class Plan:
     gnz_off: int     # byte offsets in shared memory of the signatures' nonzero
     inbox_a_off: int  # requests and of the two exchanges' inboxes
     inbox_b_off: int
-    zone_off: int     # past REG_ZONES: zone accumulator and totals (else 0)
+    zone_off: int     # zones in shared memory: zone accumulator and totals (else 0)
+    zones_at: str     # "registers", "shared" or "global" (see zones_at)
     fixed_bytes: int  # buffers, nonzero requests, inboxes and zone arrays, before the planes
     smem_bytes: int  # dynamic shared memory a block
     offsets: dict    # plane -> byte offset in shared memory, None = global memory
@@ -166,6 +184,7 @@ def plan_for(n: int, r: int, g: int, t: int, pv: int, v: int, w: int, k: int, zo
     cpt = next(c for c in (1, 2, 4, 8, MAX_CPT) if c >= want and -(-cols // c) <= MAX_THREADS)
     threads = _round_up(-(-cols // cpt), 32)
     sw = _round_up(r + 4 + TERM_FIELDS * t + pv, 4)
+    sws = min(sw, _round_up(r + 4 + TERM_FIELDS * t + MAX_PORTS, 4))
     g4 = _round_up(max(g, 1), 4)
     w4 = _round_up(max(w, 1), 4)
     terms = t if use_terms else 0
@@ -178,23 +197,27 @@ def plan_for(n: int, r: int, g: int, t: int, pv: int, v: int, w: int, k: int, zo
     plane_bytes.update({p: rows[p] * cols * esz.get(p, 4) for p in rows})
     budget = SMEM_LIMIT - STATIC_RESERVE
     warps = threads // 32
-    msg_a = _msg_a_words(zones)
+    where = zones_at(zones, cs)
+    zones_smem = where == "shared"
+    # the global zone path sends only the statistics' 10 words
+    msg_a = _msg_a_words(0 if where == "global" else zones)
     msg_b = _round_up(3 + cpt * warps, 4)
-    gnz_off = NBUF * (sw + w4) * 4
+    gnz_off = NBUF * (sws + w4) * 4
     inbox_a_off = gnz_off + 2 * g4 * 4
     inbox_b_off = inbox_a_off + 2 * cs * msg_a * 4
     zone_off = inbox_b_off + 2 * cs * msg_b * 4
-    fixed = zone_off + (16 * zones if zones > REG_ZONES else 0)
-    zone_off = zone_off if zones > REG_ZONES else 0
+    fixed = zone_off + (16 * zones if zones_smem else 0)
+    zone_off = zone_off if zones_smem else 0
     off = fixed
     offsets, placing = {}, True
     for p in PLANES:
         placing = placing and off + plane_bytes[p] <= budget
         offsets[p] = off if placing else None
         off += plane_bytes[p] if placing else 0
-    return Plan(cs=cs, cols=cols, ns=cs * cols, threads=threads, cpt=cpt, sw=sw, g4=g4,
-                w4=w4, msg_a=msg_a, msg_b=msg_b, gnz_off=gnz_off, inbox_a_off=inbox_a_off,
-                inbox_b_off=inbox_b_off, zone_off=zone_off, fixed_bytes=fixed, smem_bytes=off, offsets=offsets,
+    return Plan(cs=cs, cols=cols, ns=cs * cols, threads=threads, cpt=cpt, sw=sw, sws=sws,
+                g4=g4, w4=w4, msg_a=msg_a, msg_b=msg_b, gnz_off=gnz_off,
+                inbox_a_off=inbox_a_off, inbox_b_off=inbox_b_off, zone_off=zone_off,
+                zones_at=where, fixed_bytes=fixed, smem_bytes=off, offsets=offsets,
                 plane_bytes=plane_bytes)
 
 
@@ -224,9 +247,7 @@ def check_shape(static: ScanStatic) -> None:
     n, r = static.node_alloc.shape
     limits = (
         ("node axis", n, MAX_NODES),
-        ("zones", static.num_zones, MAX_ZONES),
         ("affinity terms", static.term_matches_sig.shape[0], MAX_TERMS),
-        ("host-port vocabulary", static.g_ports.shape[1], MAX_PORTS),
         ("volume slots per pod", static.pod_vol_ids.shape[1], MAX_SLOTS),
         ("volume kinds", static.vol_limits.shape[0], MAX_KINDS),
         ("resources", r, MAX_R),
@@ -318,6 +339,10 @@ def pack(static: ScanStatic, state: ScanState, plan_: Plan | None = None) -> dic
         "res": torch.empty((static.static_ok.shape[0], ns), dtype=torch.int16, device=dev),
         "chosen": torch.full((max(static.p_real, 1),), -1, dtype=torch.int32, device=dev),
         "rr_out": torch.zeros(1, dtype=torch.int32, device=dev),
+        # scratch of the global zone path (see zones_at), zeroed; empty
+        # (and passed as null) on the other paths
+        "zbuf": torch.zeros(zbuf_words(static.num_zones, pl.cs) if pl.zones_at == "global" else 0,
+                            dtype=torch.int64, device=dev),
     }
 
 
@@ -325,10 +350,11 @@ def params(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan) -> ScanPa
     """The kernel's argument block for packed ``bufs`` under plan ``pl``."""
     d = _dims(static)
     return ScanParams(
-        **{f: bufs[f].data_ptr() for f in _PTR_FIELDS},
+        **{f: bufs[f].data_ptr() for f in _PTR_FIELDS if f != "zbuf"},
+        zbuf=bufs["zbuf"].data_ptr() if pl.zones_at == "global" else None,
         n=d["n"], ns=pl.ns, cols=pl.cols, cs=pl.cs, threads=pl.threads, cpt=pl.cpt,
         g=d["g"], g4=pl.g4, t=d["t"], pv=d["pv"], v=d["v"], r=d["r"], w=d["w"], w4=pl.w4,
-        k=d["k"], sw=pl.sw, p_real=static.p_real, num_zones=static.num_zones,
+        k=d["k"], sw=pl.sw, sws=pl.sws, p_real=static.p_real, num_zones=static.num_zones,
         rr0=state.round_robin, use_terms=int(static.use_terms),
         use_vols=int(static.use_vols), use_ports=int(static.use_ports),
         smem_bytes=pl.smem_bytes, gnz_off=pl.gnz_off, inbox_a_off=pl.inbox_a_off,

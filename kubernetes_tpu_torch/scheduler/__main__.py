@@ -4,7 +4,9 @@ server.go:67 Run``, leader election ``:133``).
     python -m kubernetes_tpu_torch.scheduler --apiserver http://127.0.0.1:6443 \
         [--leader-elect] [--backend batch|tpu|oracle] [--device cuda|cpu] \
         [--batch-interval 0.05] [--policy-config-file policy.json] \
-        [--healthz-port N] [--config config.json]
+        [--healthz-port N] [--config config.json] \
+        [--trace [--trace-dump-dir DIR]] [--timeseries [--timeseries-interval S]] \
+        [--telemetry-sink URL-or-file]
 
 It watches the apiserver over HTTP with threaded informers and serves with
 ``Scheduler.run_batch_loop`` on ``BatchBackend`` (the fused CUDA scan;
@@ -13,15 +15,24 @@ by pod with asynchronous binds.  ``tpu``, the JAX daemon's name for its
 batch backend, is taken as ``batch``, so the JAX daemon's configuration
 loads unchanged.  Preemption is on, as in the JAX daemon.  A
 ``--policy-config-file`` (JSON) selects predicates, priorities and
-extenders (``scheduler/policy.py``).  On ``--device cuda`` the batch
-backend refuses, before the lease, a policy the fused scan does not
-express (``BatchBackend`` would schedule it on the CPU oracle): such a
-policy runs with ``--backend oracle``.  ``--device cuda`` is the default
-and the process exits non-zero, before it takes the lease, where there is
-no card.  On SIGTERM it stops, releases the lease and prints one JSON line
-``{"scheduler_stats": ...}`` with the backend's stats, the fused kernel's
-launch count, the final round-robin counter, the pods bound and the
-preemption counters."""
+extenders (``scheduler/policy.py``).  A policy the fused scan does not
+express runs, as in the JAX daemon, on the host oracle inside the batch
+backend: the daemon logs that once at start-up, and
+``scheduler_backend_oracle_pods_total`` on ``/metrics`` counts those pods.
+``--device cuda`` is the default and the process exits non-zero, before
+it takes the lease, where there is no card.
+
+``--trace`` turns on wave tracing and the flight recorder
+(``/debug/traces``, ``/debug/flightrecorder`` on the health port;
+``--trace-dump-dir`` also writes each dump as a file); ``--timeseries``
+scrapes the metrics into rings (``/debug/timeseries``) with the burn-rate
+SLO monitor, and ``--telemetry-sink`` ships flight dumps and time-series
+deltas to a collector URL (the apiserver's ``/telemetry``) or a JSON-lines
+file.  Each of these flags may also come from the ``--config`` file (flag
+> file > default).  On SIGTERM it stops, releases the lease and prints
+one JSON line ``{"scheduler_stats": ...}`` with the backend's stats, the
+fused kernel's launch count, the final round-robin counter, the pods
+bound and the preemption counters."""
 
 from __future__ import annotations
 
@@ -59,11 +70,28 @@ def _parse(argv):
     ap.add_argument("--feature-gates", default="")
     ap.add_argument("--config", default=None, help="SchedulerConfiguration as JSON")
     ap.add_argument("--healthz-port", type=int, default=-1,
-                    help="serve /healthz and /metrics (reference :10251); -1 off, 0 any port")
+                    help="serve /healthz, /metrics and /debug/* (reference :10251); "
+                         "-1 off, 0 any port")
+    ap.add_argument("--trace", action="store_true", default=argparse.SUPPRESS,
+                    help="wave tracing and the flight recorder (/debug/traces, "
+                         "/debug/flightrecorder)")
+    ap.add_argument("--trace-dump-dir", default=argparse.SUPPRESS,
+                    help="with --trace: also write each flight-recorder dump as a JSON file")
+    ap.add_argument("--timeseries", action="store_true", default=argparse.SUPPRESS,
+                    help="time-series rings of the metrics (/debug/timeseries) and the "
+                         "burn-rate SLO monitor")
+    ap.add_argument("--timeseries-interval", type=float, default=argparse.SUPPRESS,
+                    help="scrape period in seconds")
+    ap.add_argument("--telemetry-sink", default=argparse.SUPPRESS,
+                    help="ship flight dumps and time-series deltas to an http:// collector "
+                         "(the apiserver's /telemetry) or a JSON-lines file; implies "
+                         "--timeseries")
     args = ap.parse_args(argv)
     cfg = (load_component_config(SchedulerConfiguration, args.config)
            if args.config else SchedulerConfiguration())
-    for attr in ("scheduler_name", "backend", "batch_interval", "policy_config_file"):
+    for attr in ("scheduler_name", "backend", "batch_interval", "policy_config_file",
+                 "trace", "trace_dump_dir", "timeseries", "timeseries_interval",
+                 "telemetry_sink"):
         if not hasattr(args, attr):
             setattr(args, attr, getattr(cfg, attr))
     args.backend = BACKEND_ALIASES.get(args.backend, args.backend)
@@ -93,14 +121,20 @@ def main(argv=None) -> int:
         from .policy import load_policy_file
 
         policy_algo = load_policy_file(args.policy_config_file)
-        if args.backend == "batch" and args.device == "cuda":
+        if args.backend == "batch":
             from ..ops.backend import BatchBackend
 
-            if BatchBackend(algorithm=policy_algo, device="cuda")._config_supported() is None:
-                print(f"kubernetes_tpu_torch.scheduler: the policy {args.policy_config_file} "
-                      "selects predicates, priorities or extenders the fused scan does not "
-                      "compute; run it with --backend oracle", file=sys.stderr)
-                return 1
+            if BatchBackend(algorithm=policy_algo, device="cpu")._config_supported() is None:
+                # as the JAX daemon does: the waves run, on the host oracle
+                logging.warning(
+                    "the policy %s selects predicates, priorities or extenders the fused "
+                    "scan does not compute: its waves run on the host oracle "
+                    "(scheduler_backend_oracle_pods_total)", args.policy_config_file)
+    if args.trace:
+        from ..utils import tracing
+
+        tracing.enable(dump_dir=args.trace_dump_dir or None)
+        logging.info("wave tracing on (flight recorder armed)")
     cs = remote_clientset(args.apiserver, args.token)
 
     # health before leader election: a standby must answer its liveness
@@ -141,6 +175,15 @@ def main(argv=None) -> int:
                 torch.empty(1, device=backend.device)
         sched = Scheduler(cs, algorithm=algo, backend=backend,
                           scheduler_name=args.scheduler_name)
+        telemetry_on = args.timeseries or bool(args.telemetry_sink)
+        if telemetry_on:
+            from ..daemon import enable_continuous_telemetry
+
+            enable_continuous_telemetry(sched.metrics.registry,
+                                        interval_s=args.timeseries_interval,
+                                        sink_spec=args.telemetry_sink or None)
+            logging.info("continuous telemetry on (scrape %.2fs, sink %s)",
+                         args.timeseries_interval, args.telemetry_sink or "-")
         sched.start(manual=False)  # threaded informers and the event sink
         # /metrics answers with the scheduler's registry from here: serving
         holder["registry"] = sched.metrics.registry
@@ -162,6 +205,11 @@ def main(argv=None) -> int:
         finally:
             sched.informers.stop_all()
             sched.broadcaster.stop()
+            if telemetry_on:
+                from ..utils import telemetry, timeseries
+
+                timeseries.disable()
+                telemetry.disable()  # the shipper's last drain
         m = sched.metrics
         infs = sched.informers.informers()
         stats = {"backend": args.backend, "device": args.device,

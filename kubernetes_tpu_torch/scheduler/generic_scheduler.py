@@ -43,13 +43,6 @@ class FitError(Exception):
         )
 
 
-class ShapeRefused(ValueError):
-    """The batch backend's kernel on the card cannot take this pod: a shape
-    past one of its fixed limits (``ops/fused_scan.py``).  The pod is not
-    scheduled anywhere (no route to another path); the scheduler reports
-    the message as FailedScheduling and backs the pod off."""
-
-
 @dataclass
 class ScheduleResult:
     node_name: str

@@ -15,10 +15,9 @@ The batch path: ``schedule_pending_batch`` drains the queue and hands the
 batch to ``backend`` (``ops/backend.py`` ``BatchBackend``), committing each
 segment's results (assume, one ``bind_many`` txn, events) while the card
 scans the next segment; ``run_batch_loop`` serves arrivals wave by wave
-under a min-batch/max-wait policy.  A pod the card's kernel refuses by
-shape (``ShapeRefused``) fails alone with the refusal as its
-FailedScheduling message; if anything else leaves the backend, the pods
-no committed segment took are requeued before the error goes on.
+under a min-batch/max-wait policy.  If anything leaves the backend (a
+kernel fault, real or injected), the pods no committed segment took are
+requeued before the error goes on.
 
 Preemption (the PostFilter phase, on by default as in the JAX package): a
 priority pod that fits nowhere evicts a minimal set of lower-priority
@@ -33,6 +32,16 @@ name and phase read straight off a lazy pod's wire dict), and a
 ``bind_many`` watch frame confirms the whole wave's assumptions in one
 cache lock hold (``SchedulerCache.confirm_many``); what its revision fence
 rejects takes the per-pod path.
+
+Tracing (``utils/tracing.py``): each batch wave is one ``wave-N`` root
+span; the backend's ``tensorize``/``dispatch``/``oracle`` spans, the
+``commit`` and ``prep`` phases, ``ingest.pump`` and the informers' spans
+nest under it on this thread.  Fault points: ``scheduler.bind`` (the
+per-pod bind; ``bind_many`` items fail in the store) and
+``scheduler.pipeline.prep``.  Overload (``utils/overload.py``): with a
+``DegradationLadder`` attached, the batch loop re-reads the ladder every
+iteration (wider accumulation at rung 1, the interpod score plane shed
+and preemption reserved for the critical tier at rung 2).
 """
 
 from __future__ import annotations
@@ -44,15 +53,17 @@ import threading
 import time
 from typing import Callable, Optional
 
+from .. import faults
 from ..api import lazy
 from ..api import types as api
 from ..client.clientset import BindConflictError, Clientset
 from ..client.informer import Handler, InformerFactory
 from ..client.record import EventBroadcaster
 from ..store.store import ADDED, MODIFIED, NotFoundError
+from ..utils import tracing
 from ..utils.metrics import SchedulerMetrics
 from ..utils.trace import Trace
-from .generic_scheduler import FitError, GenericScheduler, ShapeRefused
+from .generic_scheduler import FitError, GenericScheduler
 from .nodeinfo import NodeInfo, SchedulerCache
 from .priorities import PriorityContext
 from .queue import PodBackoff, SchedulingQueue
@@ -95,6 +106,13 @@ class Scheduler:
         self.queue = SchedulingQueue(clock=clock)
         self.backoff = PodBackoff(clock=clock)
         self.metrics = SchedulerMetrics()
+        if backend is not None and hasattr(backend, "shed_counter"):
+            backend.shed_counter = self.metrics.score_plane_sheds
+            backend.oracle_counter = self.metrics.oracle_pods
+        # the overload ladder (attach_overload); None = full fidelity
+        self.overload = None
+        # attributes the batch loop stamps onto the next wave's root span
+        self._wave_attrs_pending: dict = {}
         self.emit_events = emit_events
         self.enable_preemption = enable_preemption
         self._clock = clock
@@ -172,7 +190,18 @@ class Scheduler:
         the wave against the frame's identity, node and prev-revision
         columns in one cache lock hold (``SchedulerCache.confirm_many``).
         What the revision fence rejects, and every other delta, takes the
-        per-pod routing, so the outcome equals per-event delivery."""
+        per-pod routing, so the outcome equals per-event delivery.  Its
+        span carries the store txn's correlation id."""
+        tr = tracing.current()
+        if tr is None:
+            return self._route_pod_frame(frame, deltas)
+        with tr.span("scheduler.confirm", cat="ingest", kind=frame.kind, txn=frame.txn,
+                     events=len(deltas)) as sp:
+            fb0 = self.metrics.confirm_fallbacks.value
+            self._route_pod_frame(frame, deltas)
+            sp.set(fallbacks=int(self.metrics.confirm_fallbacks.value - fb0))
+
+    def _route_pod_frame(self, frame, deltas) -> None:
         self.metrics.watch_frames.inc()
         self.metrics.watch_frame_events.inc(len(deltas))
         rest = deltas
@@ -223,10 +252,14 @@ class Scheduler:
         self.informers.stop_all()
 
     def pump(self) -> int:
-        n = self.informers.pump_all()
-        if not self.broadcaster.running:
-            # manual drive: no sink thread, so drain events here
-            self.broadcaster.flush()
+        tr = tracing.current()
+        with (tr.span("ingest.pump", cat="ingest")
+              if tr is not None else tracing.NULL_SPAN) as sp:
+            n = self.informers.pump_all()
+            if not self.broadcaster.running:
+                # manual drive: no sink thread, so drain events here
+                self.broadcaster.flush()
+            sp.set(events=n)
         return n
 
     # -- snapshot ----------------------------------------------------------
@@ -265,11 +298,20 @@ class Scheduler:
         if latest.spec.node_name or not _is_scheduler_pod(latest, self.scheduler_name):
             return
         self.metrics.bind_requeues.inc()
+        # a decided placement that did not land: a flight-recorder trigger
+        tracing.notify_requeue(pod.meta.key)
         self.queue.add_after(latest, self.backoff.get_backoff(pod.meta.key))
 
     def _bind(self, pod: api.Pod, node_name: str) -> bool:
+        tr = tracing.current()
+        with (tr.span("scheduler.bind", cat="bind", pod=pod.meta.key, node=node_name)
+              if tr is not None else tracing.NULL_SPAN):
+            return self._bind_attempt(pod, node_name)
+
+    def _bind_attempt(self, pod: api.Pod, node_name: str) -> bool:
         start = self._clock()
         try:
+            faults.hit("scheduler.bind", pod=pod.meta.key, node=node_name, via="bind")
             self.clientset.pods.bind(api.Binding(
                 pod_namespace=pod.meta.namespace, pod_name=pod.meta.name, node_name=node_name))
         except (BindConflictError, NotFoundError) as e:
@@ -306,9 +348,9 @@ class Scheduler:
 
         For priority pods, tries preemption first (the PostFilter phase):
         evicting a minimal set of lower-priority victims and requeueing the
-        preemptor without backoff into the freed space.  A pod the card
-        refused by shape (``ShapeRefused``) did not fail to fit, so it is
-        only backed off.
+        preemptor without backoff into the freed space.  Under overload
+        rung 2 only the critical tier may preempt; the others are backed
+        off and counted (``preemption_sheds``).
 
         ``ev_batch``: batch callers pass a list to collect the
         FailedScheduling event instead of enqueueing it per pod mid-batch.
@@ -325,14 +367,14 @@ class Scheduler:
             return  # deleted while we were scheduling it
         if latest.spec.node_name or not _is_scheduler_pod(latest, self.scheduler_name):
             return  # bound by someone else, or became terminal
-        if (self.enable_preemption and latest.spec.priority > 0
-                and not isinstance(err, ShapeRefused)):
-            # the JAX scheduler's overload ladder sheds lower tiers here
-            # (preempt_tier_floor); it is not ported (ROADMAP Queue 1 item 4)
-            if preempt_cohort is not None:
+        if self.enable_preemption and latest.spec.priority > 0:
+            ov = self.overload
+            if ov is not None and ov.classifier.tier_of(latest) < ov.preempt_tier_floor:
+                self.metrics.preemption_sheds.inc()
+            elif preempt_cohort is not None:
                 preempt_cohort.append(latest)  # requeue decided at cohort time
                 return
-            if self._try_preempt(latest):
+            elif self._try_preempt(latest):
                 self.queue.add(latest)  # victims evicted; retry immediately
                 return
         self.queue.add_after(latest, self.backoff.get_backoff(pod.meta.key))
@@ -546,6 +588,7 @@ class Scheduler:
         t0 = time.perf_counter()
         poll = device_busy is not None and self._poll_full_device_window()
         try:
+            faults.hit("scheduler.pipeline.prep")
             while True:
                 self.pump()
                 for pod in self.queue.snapshot_pending():
@@ -559,8 +602,40 @@ class Scheduler:
             logger.warning("overlapped prep failed (work deferred to the "
                            "next wave): %s: %s", type(e).__name__, e)
         finally:
-            self._last_prep_s = time.perf_counter() - t0
+            t_end = time.perf_counter()
+            self._last_prep_s = t_end - t0
             self.metrics.pipeline_prep_latency.observe(self._last_prep_s * 1e6)
+            tr = tracing.current()
+            if tr is not None:
+                # the overlapped prep inside the wave (same clock reads)
+                tr.complete("prep", t0, t_end, cat="phase", polled=poll)
+
+    # -- overload control ---------------------------------------------------
+    def attach_overload(self, ladder) -> None:
+        """Wire a ``utils.overload.DegradationLadder``: its rung lands in
+        this scheduler's gauge and counter, and the batch loop reads it
+        every iteration (accumulation knobs, the score-plane shed, the
+        preemption tier floor)."""
+        self.overload = ladder
+        ladder.gauge = self.metrics.degradation_rung
+        ladder.transition_counter = self.metrics.degradation_transitions
+
+    def _apply_overload_knobs(self) -> None:
+        """Push the ladder's rung-2 shed onto the backend before a wave."""
+        ov = self.overload
+        if ov is not None and self.backend is not None and hasattr(self.backend,
+                                                                   "shed_score_planes"):
+            self.backend.shed_score_planes = ov.shed_score_planes
+
+    def _top_tier_ready(self) -> bool:
+        """A critical-tier pod waits in the queue: under overload the
+        accumulation window ends early for it.  O(pending); rate-limited
+        by the caller."""
+        ov = self.overload
+        if ov is None:
+            return False
+        cls = ov.classifier
+        return any(cls.tier_of(pod) >= cls.CRITICAL for pod in self.queue.snapshot_pending())
 
     def run_batch_loop(
         self,
@@ -596,16 +671,36 @@ class Scheduler:
                     break
                 self.queue.wait_ready(timeout=poll_interval)
                 continue
+            # the ladder is read every iteration: a rung change takes
+            # effect at the next wave
+            ov = self.overload
+            eff_min_batch, eff_max_wait = min_batch, max_wait
+            if ov is not None:
+                ov.poll()
+                eff_min_batch, eff_max_wait = ov.batch_knobs(min_batch, max_wait)
             t_first = self._clock()
-            while (ready < min_batch and not stopped()
-                   and self._clock() - t_first < max_wait):
+            tier_check_at = t_first
+            while (ready < eff_min_batch and not stopped()
+                   and self._clock() - t_first < eff_max_wait):
                 # a plain sleep, not wait_ready: a pod is already ready, so
                 # wait_ready would return at once and spin
                 time.sleep(poll_interval)
                 self.pump()
                 ready = len(self.queue)
-            self.metrics.batch_queue_wait.observe((self._clock() - t_first) * 1e6)
+                if ov is not None and ov.rung >= 1:
+                    now = self._clock()
+                    if now >= tier_check_at:
+                        tier_check_at = now + 0.025
+                        if self._top_tier_ready():
+                            break  # critical pods never wait the widened window
+            queue_wait = self._clock() - t_first
+            self.metrics.batch_queue_wait.observe(queue_wait * 1e6)
             self.metrics.pending_pods.set(float(ready))
+            # the accumulation window rides on the next wave's root span
+            self._wave_attrs_pending = {"queue_wait_s": round(queue_wait, 6),
+                                        "accumulated": ready, "min_batch": eff_min_batch}
+            if ov is not None:
+                self._wave_attrs_pending["overload_rung"] = ov.rung
             bound, _ = self.schedule_pending_batch(max_batch)
             bound_total += bound
             waves += 1
@@ -646,7 +741,9 @@ class Scheduler:
         pods = self.queue.drain(max_batch)
         if not pods:
             return (0, 0)
+        self._apply_overload_knobs()
         self.metrics.batch_size.observe(len(pods))
+        tr = tracing.current()
         # Cyclic GC is paused for the whole batch: at 10^5 pods a
         # collection walks millions of live objects and costs more than
         # everything it frees
@@ -669,11 +766,9 @@ class Scheduler:
             t_commit = time.perf_counter()
             to_bind: list[tuple[api.Pod, api.Binding]] = []
             to_assume: list[tuple] = []
-            for pod, node_name, req_vec, nz_vec, refusal in entries:
+            for pod, node_name, req_vec, nz_vec in entries:
                 if node_name is None:
-                    # a refusal by shape is reported as it is and backed
-                    # off; a pod that fits nowhere may preempt
-                    self.handle_schedule_failure(pod, refusal or FitError(pod, {}), ev_batch,
+                    self.handle_schedule_failure(pod, FitError(pod, {}), ev_batch,
                                                  preempt_cohort=preempt_cohort)
                     totals["failed"] += 1
                     continue
@@ -722,11 +817,25 @@ class Scheduler:
             # entries arrive in pod order: the committed pods are a prefix
             # of the drained batch
             totals["committed"] += len(entries)
-            totals["commit_s"] += time.perf_counter() - t_commit
+            t_commit_end = time.perf_counter()
+            totals["commit_s"] += t_commit_end - t_commit
+            if tr is not None:
+                # the same clock reads as commit_s
+                tr.complete("commit", t_commit, t_commit_end, cat="phase", pods=len(entries),
+                            bound=len(finished))
 
         bstats = self.backend.stats
         pre_phases = {k: bstats[k] for k in _PHASE_KEYS}
         self._last_prep_s = 0.0
+        # one span tree a wave: everything this thread does for the batch
+        # nests under the root, entered right before the try so that no
+        # exception path leaks an open root
+        wave_cm = wave_span = None
+        if tr is not None:
+            wave_cm = tr.wave(pods=len(pods), **self._wave_attrs_pending)
+            wave_span = wave_cm.__enter__()
+        self._wave_attrs_pending = {}
+        wave_exc = None
         try:
             snapshot = self.snapshot()
             pctx = self.priority_context(snapshot)
@@ -734,7 +843,8 @@ class Scheduler:
             try:
                 self.backend.schedule_batch(pods, snapshot, pctx, on_segment=commit_segment,
                                             on_idle=self._pipeline_idle)
-            except BaseException:
+            except BaseException as e:
+                wave_exc = e
                 self._requeue_uncommitted(pods[totals["committed"]:])
                 # the committed prefix's failed priority pods wait on a
                 # cohort pass that will not run: back them off as failures
@@ -769,7 +879,19 @@ class Scheduler:
             if promos > 0:
                 self.metrics.ingest_promotions.inc(promos)
             self.metrics.pump_apply_seconds.observe(apply_s)
+            if wave_span is not None:
+                wave_span.set(decode_s=round(decode_s, 6), promotions=promos,
+                              apply_s=round(apply_s, 6), frames=frames,
+                              frame_events=frame_events)
         finally:
+            if wave_cm is not None:
+                wave_span.set(bound=totals["bound"], failed=totals["failed"],
+                              committed=totals["committed"])
+                wave_cm.__exit__(type(wave_exc) if wave_exc is not None else None, wave_exc,
+                                 None)
+                # the phase split from the wave's spans: the same clock
+                # reads as the stats timers, so the two agree
+                self.last_batch_phases.update(wave_span.phase_totals())
             if gc_was_enabled:
                 gc.enable()
             # committed segments' events survive a mid-batch failure:

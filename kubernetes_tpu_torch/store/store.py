@@ -20,6 +20,9 @@ every get/list/event (natively where ``native.get_fastcopy`` built), so
 informer objects are immutable by construction.  ``list_columns`` emits a
 columnar LIST (``store/columns.py``) and ``watch(frames=True)`` delivers a
 ``create_many``/``bind_many`` txn as one ``WatchFrame`` (``store/frames.py``).
+Every write passes the ``store.commit`` fault point before it starts and,
+with tracing on, runs in a ``store.txn`` span; batch txns carry a
+correlation id (``tracing.next_txn``) on their span and their frame.
 Durability, replication and the coalescing window of the reference package
 are not part of this store.
 """
@@ -27,13 +30,14 @@ are not part of this store.
 from __future__ import annotations
 
 import collections
-import itertools
 import queue
 import threading
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional
 
+from .. import faults
 from ..api.meta import new_uid
+from ..utils import tracing
 
 
 def _py_fast_deepcopy(obj):
@@ -59,14 +63,6 @@ def _fast_deepcopy(obj):
 
     _fast_deepcopy = get_fastcopy() or _py_fast_deepcopy
     return _fast_deepcopy(obj)
-
-
-# correlation ids of batch txns: "<op>-<n>", carried by their watch frames
-_TXN = itertools.count(1)
-
-
-def next_txn(op: str) -> str:
-    return f"{op}-{next(_TXN)}"
 
 
 def object_key(namespace: str, name: str) -> str:
@@ -190,7 +186,12 @@ class Store:
         """``_trusted`` marks ``obj`` as privately owned (the typed client's
         freshly built wire dict), which skips the defensive copy.  The
         returned dict is the event's copy: read-only by contract."""
-        with self._mu:
+        # before the lock and any mutation: an injected commit failure
+        # models an overloaded store, and the write never starts
+        faults.hit("store.commit", op="create", kind=kind)
+        tr = tracing.current()
+        with (tr.span("store.txn", cat="store", op="create", kind=kind)
+              if tr is not None else tracing.NULL_SPAN), self._mu:
             ev = self._insert_locked(self._objects.setdefault(kind, {}), kind, obj, _trusted)
             self._emit(ev)
             return ev.object
@@ -201,9 +202,14 @@ class Store:
         :meth:`create` (same defaulting, same ADDED event, events in list
         order).  An item that fails (already exists, malformed) yields None
         in its slot and the rest of the batch still commits."""
+        faults.hit("store.commit", op="create_many", kind=kind)
         results: list[Optional[dict]] = []
-        txn = next_txn("create_many")
-        with self._mu:
+        # minted whether or not tracing is on: it rides the watch frame
+        txn = tracing.next_txn("create_many")
+        tr = tracing.current()
+        with (tr.span("store.txn", cat="store", op="create_many", kind=kind, txn=txn,
+                      n=len(objs))
+              if tr is not None else tracing.NULL_SPAN) as sp, self._mu:
             bucket = self._objects.setdefault(kind, {})
             events: list[WatchEvent] = []
             for obj in objs:
@@ -216,6 +222,7 @@ class Store:
                 results.append(ev.object)
             # the txn fans out as one frame to each frame-aware watcher
             self._emit_many(events, txn=txn)
+            sp.set(committed=len(events))
         return results
 
     def update(
@@ -223,7 +230,10 @@ class Store:
     ) -> dict:
         """CAS write.  ``expect_rev`` defaults to obj.metadata.resourceVersion;
         0 there forces the write (last write wins)."""
-        with self._mu:
+        faults.hit("store.commit", op="update", kind=kind)
+        tr = tracing.current()
+        with (tr.span("store.txn", cat="store", op="update", kind=kind)
+              if tr is not None else tracing.NULL_SPAN), self._mu:
             meta = obj.get("metadata") or {}
             key = object_key(meta.get("namespace", "default"), meta.get("name", ""))
             bucket = self._objects.setdefault(kind, {})
@@ -270,14 +280,24 @@ class Store:
         path ever mutates in place.  Frame-aware watchers get the txn as
         one frame whose ``prev_revisions`` column holds each pod's revision
         before the bind (the scheduler's confirm fence)."""
+        faults.hit("store.commit", op="bind_many", kind="Pod")
         results: list[Optional[str]] = []
-        txn = next_txn("bind_many")
-        with self._mu:
+        txn = tracing.next_txn("bind_many")
+        tr = tracing.current()
+        with (tr.span("store.txn", cat="store", op="bind_many", kind="Pod", txn=txn,
+                      n=len(items))
+              if tr is not None else tracing.NULL_SPAN) as sp, self._mu:
             bucket = self._objects.setdefault("Pod", {})
             events: list[WatchEvent] = []
             prev_revs: list[int] = []
             for namespace, name, node_name in items:
                 key = object_key(namespace, name)
+                # one pod's bind fails while the rest of the txn commits
+                # (a partial bind): this item's error string, no exception
+                if faults.hit("scheduler.bind", pod=key, node=node_name,
+                              via="bind_many") is not None:
+                    results.append("injected: bind fault")
+                    continue
                 item = bucket.get(key)
                 if item is None:
                     results.append("not found")
@@ -300,6 +320,7 @@ class Store:
                 events.append(WatchEvent(MODIFIED, "Pod", key, rev, ev_obj))
                 results.append(None)
             self._emit_many(events, prev_revisions=prev_revs, txn=txn)
+            sp.set(committed=len(events), errors=sum(1 for r in results if r is not None))
         return results
 
     def guaranteed_update(
@@ -321,7 +342,10 @@ class Store:
         non-empty the object is only marked deleting (``deletionRevision``
         tombstone, MODIFIED event); the removal happens when an update
         clears the last finalizer."""
-        with self._mu:
+        faults.hit("store.commit", op="delete", kind=kind)
+        tr = tracing.current()
+        with (tr.span("store.txn", cat="store", op="delete", kind=kind)
+              if tr is not None else tracing.NULL_SPAN), self._mu:
             key = object_key(namespace, name)
             bucket = self._objects.setdefault(kind, {})
             item = bucket.get(key)

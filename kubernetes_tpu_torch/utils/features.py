@@ -77,6 +77,13 @@ class SchedulerConfiguration:
     policy_config_file: str = ""  # a scheduler Policy as JSON (scheduler/policy.py)
     leader_elect: bool = False
     feature_gates: dict = field(default_factory=dict)
+    # tracing and continuous telemetry (utils/tracing.py, timeseries.py,
+    # telemetry.py); the daemon's flags of the same names override them
+    trace: bool = False
+    trace_dump_dir: str = ""
+    timeseries: bool = False
+    timeseries_interval: float = 1.0
+    telemetry_sink: str = ""  # an http:// collector URL or a JSON-lines file
 
 
 def load_component_config(cls, path: str):

@@ -246,6 +246,16 @@ class ClientMetrics:
         self.informer_compaction_freed_bytes = r.register(Gauge(
             "client_informer_compaction_freed_bytes",
             "approximate wire-payload bytes released by the last compaction"))
+        self.informer_dropped_events = r.register(Counter(
+            "client_informer_dropped_events_total",
+            "deltas dropped before application (fault injection)"))
+        # the worst watcher's revision lag behind the store head, sampled
+        # by utils.fanout.WatchFanoutTracker (a gauge: it keeps producing
+        # samples while the fleet idles)
+        self.watch_worst_staleness = r.register(Gauge(
+            "client_watch_worst_staleness_revisions",
+            "largest per-client revision lag behind the store head at the "
+            "last fan-out staleness sample (0 = every watcher caught up)"))
 
 
 # informers without an explicit metrics object aggregate here
@@ -253,8 +263,9 @@ DEFAULT_CLIENT_METRICS = ClientMetrics()
 
 
 class APIServerMetrics:
-    """The apiserver's request count and latency (microseconds), and the
-    error responses that could not be written because the client hung up."""
+    """The apiserver's request count and latency (microseconds), the error
+    responses that could not be written because the client hung up, the
+    creates the overload gate throttled and the telemetry records taken."""
 
     def __init__(self, registry: Optional[Registry] = None):
         r = registry or Registry()
@@ -265,6 +276,13 @@ class APIServerMetrics:
         self.error_write_failures = r.register(Counter(
             "apiserver_error_write_failures_total",
             "error responses that could not be written (client hung up)"))
+        self.admission_throttled = r.register(Counter(
+            "apiserver_admission_throttled_total",
+            "create requests answered 429 + Retry-After by the overload "
+            "admission gate"))
+        self.telemetry_accepted = r.register(Counter(
+            "apiserver_telemetry_accepted_total",
+            "telemetry records accepted at /telemetry"))
 
 
 class SchedulerMetrics:
@@ -369,7 +387,31 @@ class SchedulerMetrics:
         self.preemption_latency = r.register(Histogram(
             "scheduler_preemption_latency_microseconds",
             "one preemption attempt: victim selection and the evictions"))
+        # overload control: pending_pods is the degradation ladder's input
+        # (a gauge sampled every scrape, so the ladder can recover with no
+        # traffic); the rest are its state and its shed actions
         self.pending_pods = r.register(Gauge(
             "scheduler_pending_pods",
             "ready pods in the scheduling queue at the last batch-loop "
-            "iteration"))
+            "iteration (the overload ladder's queue-depth signal)"))
+        self.degradation_rung = r.register(Gauge(
+            "scheduler_degradation_rung",
+            "current overload degradation rung (0=full fidelity, "
+            "1=widened batching, 2=score planes shed, 3=admission "
+            "throttled)"))
+        self.degradation_transitions = r.register(Counter(
+            "scheduler_degradation_transitions_total",
+            "degradation-ladder rung changes (engage, step, recover)"))
+        self.score_plane_sheds = r.register(Counter(
+            "scheduler_score_plane_sheds_total",
+            "batches scheduled with the preferred interpod-affinity score "
+            "plane shed (rung >= 2; feasibility untouched)"))
+        self.oracle_pods = r.register(Counter(
+            "scheduler_backend_oracle_pods_total",
+            "pods the batch backend scheduled on the host oracle (a policy "
+            "the fused scan does not express, or a pod with more disks than "
+            "a volume slot row holds)"))
+        self.preemption_sheds = r.register(Counter(
+            "scheduler_preemption_sheds_total",
+            "preemption-eligible pods denied the PostFilter pass because "
+            "their tier is below the ladder's floor (rung >= 2)"))

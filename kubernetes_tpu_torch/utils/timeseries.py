@@ -1,0 +1,256 @@
+"""In-process TSDB-lite: a background scraper over the metrics Registry.
+
+``Registry.expose()`` is a point-in-time snapshot with no history — a
+throughput sag between two scrapes is invisible, and the SLO layer
+(``utils/slo.py``) needs windows, not points.  This module samples a
+:class:`~kubernetes_tpu_torch.utils.metrics.Registry` on a fixed cadence into
+bounded per-track rings:
+
+- **counters** → one track per counter holding the *cumulative* value
+  (deltas/rates are computed at query time from two ring points, so a
+  scrape is one read, not a diff);
+- **gauges** → last-value track;
+- **histograms** → quantile tracks (``name:p50`` / ``name:p90`` /
+  ``name:p99``) derived from the existing 80-bucket exponential layout
+  via one consistent ``state()`` snapshot, plus ``name:count`` and
+  ``name:sum`` cumulative tracks (windowed averages need both).
+
+The rings are served as JSON at ``/debug/timeseries`` on every daemon's
+health server (see ``utils/health.py``) and feed the off-box shipper
+(``utils/telemetry.py``) with per-scrape deltas.
+
+Like the tracer, the module-global switch keeps the disabled path at one
+global load + a None check: nothing in the wave hot path ever touches
+this module — the scraper runs on its own thread and the only producers
+it reads are the metric objects the pipeline already updates.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+from .metrics import Counter, Gauge, Histogram, Registry
+
+# -- the global switch (one load + None check at every consumer site) ------
+_ACTIVE: Optional["TimeSeriesStore"] = None
+
+#: quantile tracks derived per histogram per scrape
+QUANTILE_TRACKS = (("p50", 0.50), ("p90", 0.90), ("p99", 0.99))
+
+
+def current() -> Optional["TimeSeriesStore"]:
+    """The active store, or None (disabled)."""
+    return _ACTIVE
+
+
+def enable(registry: Registry, interval_s: float = 1.0, capacity: int = 600,
+           clock: Optional[Callable[[], float]] = None,
+           start_thread: bool = True) -> "TimeSeriesStore":
+    """Install a process-wide store scraping ``registry`` and return it.
+
+    ``clock`` is injectable for deterministic tests; ``start_thread=False``
+    leaves sampling to explicit :meth:`TimeSeriesStore.sample_once` calls
+    (tests, and the bench's synchronous mode)."""
+    global _ACTIVE
+    disable()
+    store = TimeSeriesStore(registry, interval_s=interval_s,
+                            capacity=capacity, clock=clock)
+    if start_thread:
+        store.start()
+    _ACTIVE = store
+    return store
+
+
+def disable() -> Optional["TimeSeriesStore"]:
+    """Uninstall the active store (its rings stay readable) and stop its
+    scraper thread."""
+    global _ACTIVE
+    store = _ACTIVE
+    _ACTIVE = None
+    if store is not None:
+        store.stop()
+    return store
+
+
+def _quantile_from_state(buckets: list[float], counts: list[int],
+                         total: int, q: float) -> float:
+    """Bucket-boundary quantile (upper bound) from a ``Histogram.state()``
+    snapshot — the same arithmetic as ``Histogram.quantile`` but over ONE
+    consistent population for all three tracks of a scrape."""
+    if total == 0:
+        return 0.0
+    target = q * total
+    acc = 0
+    for i, c in enumerate(counts):
+        acc += c
+        if acc >= target:
+            return buckets[i] if i < len(buckets) else float("inf")
+    return float("inf")
+
+
+class TimeSeriesStore:
+    """Bounded per-track rings of ``(t, value)`` samples.
+
+    ``sample_once`` walks the registry's locked snapshot; the rings are
+    guarded by one store lock (scraper thread vs. the health server's
+    per-connection query threads).  Observers registered with
+    :meth:`add_observer` run after every scrape on the scraper thread —
+    the SLO evaluator and the telemetry shipper hook in there, each
+    wrapped so a crashing observer can never kill the scrape loop."""
+
+    def __init__(self, registry: Registry, interval_s: float = 1.0,
+                 capacity: int = 600,
+                 clock: Optional[Callable[[], float]] = None):
+        self.registry = registry
+        self.interval_s = interval_s
+        self.capacity = capacity
+        self.clock = clock or time.monotonic
+        self._mu = threading.Lock()
+        self._tracks: dict[str, deque] = {}
+        self._observers: list[Callable[[list], None]] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.scrapes = 0
+        self.observer_errors = 0
+
+    # -- sampling ----------------------------------------------------------
+    def _append(self, out: list, t: float, track: str, value: float) -> None:
+        ring = self._tracks.get(track)
+        if ring is None:
+            # bounded: one ring per registered metric name; rings evict via maxlen
+            ring = self._tracks[track] = deque(maxlen=self.capacity)
+        ring.append((t, value))
+        out.append((track, t, value))
+
+    def sample_once(self) -> list[tuple[str, float, float]]:
+        """Scrape every registered metric into the rings; returns the
+        samples this scrape appended (the telemetry shipper's delta
+        batch).  Safe to call concurrently with queries and with metric
+        writers — each metric read is its own consistent snapshot."""
+        t = self.clock()
+        metrics = self.registry.snapshot()
+        # read the metrics OUTSIDE the store lock (each takes its own),
+        # then append under one short hold
+        readings: list[tuple[str, float]] = []
+        for m in metrics:
+            if isinstance(m, Histogram):
+                counts, total, hsum = m.state()
+                for label, q in QUANTILE_TRACKS:
+                    readings.append((
+                        f"{m.name}:{label}",
+                        _quantile_from_state(m.buckets, counts, total, q)))
+                readings.append((f"{m.name}:count", float(total)))
+                readings.append((f"{m.name}:sum", hsum))
+            elif isinstance(m, (Counter, Gauge)):
+                readings.append((m.name, m.value))
+        out: list[tuple[str, float, float]] = []
+        with self._mu:
+            self.scrapes += 1
+            for track, value in readings:
+                self._append(out, t, track, value)
+        for obs in list(self._observers):
+            try:
+                obs(out)
+            except Exception:  # noqa: BLE001 - observers never kill scrapes
+                with self._mu:
+                    self.observer_errors += 1
+        return out
+
+    def add_observer(self, fn: Callable[[list], None]) -> None:
+        """``fn(samples)`` runs after every scrape on the scraper thread
+        (outside the store lock, so observers may query the rings)."""
+        with self._mu:
+            self._observers.append(fn)
+
+    # -- queries -----------------------------------------------------------
+    def tracks(self) -> list[str]:
+        with self._mu:
+            return sorted(self._tracks)
+
+    def query(self, track: str,
+              window_s: Optional[float] = None) -> list[tuple[float, float]]:
+        """Samples of ``track`` newer than ``now - window_s`` (all of the
+        ring when ``window_s`` is None), oldest first."""
+        with self._mu:
+            ring = self._tracks.get(track)
+            samples = list(ring) if ring is not None else []
+        if window_s is None:
+            return samples
+        cutoff = self.clock() - window_s
+        return [s for s in samples if s[0] >= cutoff]
+
+    def delta(self, track: str, window_s: float) -> float:
+        """last - first over the window — the counter-delta primitive the
+        burn-rate math is built on.  0.0 when the window holds fewer than
+        two samples (no data is never a breach)."""
+        samples = self.query(track, window_s)
+        if len(samples) < 2:
+            return 0.0
+        return samples[-1][1] - samples[0][1]
+
+    def rate(self, track: str, window_s: float) -> float:
+        """delta / observed span (per second); 0.0 without two samples."""
+        samples = self.query(track, window_s)
+        if len(samples) < 2:
+            return 0.0
+        dt = samples[-1][0] - samples[0][0]
+        if dt <= 0:
+            return 0.0
+        return (samples[-1][1] - samples[0][1]) / dt
+
+    def last(self, track: str) -> Optional[float]:
+        with self._mu:
+            ring = self._tracks.get(track)
+            return ring[-1][1] if ring else None
+
+    def to_dict(self, window_s: Optional[float] = None) -> dict:
+        """The ``/debug/timeseries`` payload.  Non-finite quantile values
+        (beyond the last bucket) serialize as None — strict-JSON clients
+        choke on ``Infinity``."""
+        with self._mu:
+            tracks = {name: list(ring) for name, ring in self._tracks.items()}
+        if window_s is not None:
+            cutoff = self.clock() - window_s
+            tracks = {n: [s for s in ss if s[0] >= cutoff]
+                      for n, ss in tracks.items()}
+        import math
+
+        return {
+            "enabled": True,
+            "interval_s": self.interval_s,
+            "capacity": self.capacity,
+            "scrapes": self.scrapes,
+            "tracks": {
+                n: [[t, v if math.isfinite(v) else None] for t, v in ss]
+                for n, ss in sorted(tracks.items())
+            },
+        }
+
+    # -- the scraper thread ------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="ktpu-torch-timeseries-scraper", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.sample_once()
+            except Exception:  # noqa: BLE001 - scraping must never crash
+                import logging
+
+                logging.getLogger("kubernetes_tpu_torch.timeseries").exception(
+                    "metrics scrape failed (scraper keeps running)")
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5)
+            self._thread = None

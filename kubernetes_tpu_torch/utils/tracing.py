@@ -1,0 +1,545 @@
+"""Wave tracing and the flight recorder: correlated spans from the store
+txn to the device commit.
+
+- a **span tree per scheduling wave**: ``Scheduler.schedule_pending_batch``
+  opens a ``wave`` root; everything the wave does on that thread
+  (tensorize, each segment's dispatch on the card, commit, the overlapped
+  prep, ingest pumps) nests under it through a per-thread span stack.
+  Spans carry attributes (the kernel's device milliseconds, its plan, txn
+  ids) and step marks;
+- **correlation ids minted at the store txn**: ``Store.create_many`` and
+  ``bind_many`` stamp a ``txn`` id onto the batch's watch frame; the
+  informer's frame-apply span and the scheduler's confirm span carry the
+  same id, so one trace shows store → informer → confirm;
+- a **flight recorder**: a bounded ring of the last K wave traces plus
+  instant events, dumped as a JSON snapshot when a fault point fires
+  (:func:`notify_fault`, called by ``faults/core.py``) or a bind requeues
+  (:func:`notify_requeue`);
+- **Chrome trace-event export** (:meth:`Tracer.chrome_trace`): the JSON of
+  ``/debug/traces`` or of a flight dump loads into ``chrome://tracing`` or
+  Perfetto.
+
+Disabled (the default) an instrumented site costs one module-global load
+and a ``None`` check, as ``faults.hit`` does.  Enabled, every tracer
+operation takes one lock.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+# -- the global switch (one load + None check at every instrumented site) --
+_ACTIVE: Optional["Tracer"] = None
+
+
+def current() -> Optional["Tracer"]:
+    """The active tracer, or None (disabled).  Instrumented sites do
+    ``tr = tracing.current()`` and branch on ``tr is None`` — nothing
+    else happens on the disabled path."""
+    return _ACTIVE
+
+
+def enable(clock: Optional[Callable[[], float]] = None, ring_waves: int = 16,
+           max_dumps: int = 32, dump_dir: Optional[str] = None,
+           slow_wave_s: Optional[float] = None,
+           verbose: bool = False) -> "Tracer":
+    """Install a fresh process-wide tracer and return it.  ``clock`` is
+    injectable for deterministic tests (defaults to ``time.perf_counter``
+    — the same clock the backend's phase timers use, so trace-derived
+    phase totals and the stats timers agree).  ``dump_dir`` additionally
+    writes each flight-recorder dump as a JSON file."""
+    global _ACTIVE
+    tracer = Tracer(clock=clock, ring_waves=ring_waves, max_dumps=max_dumps,
+                    dump_dir=dump_dir, slow_wave_s=slow_wave_s,
+                    verbose=verbose)
+    _ACTIVE = tracer
+    return tracer
+
+
+def disable() -> Optional["Tracer"]:
+    """Uninstall the active tracer (its rings stay readable)."""
+    global _ACTIVE
+    tracer = _ACTIVE
+    _ACTIVE = None
+    return tracer
+
+
+# -- spans -----------------------------------------------------------------
+
+
+class Span:
+    """One timed operation.  Opened/mutated by the thread that owns it;
+    a span minted by a tracer carries the tracer's lock (``_mu``) so
+    ``set``/``step`` synchronize with the cross-thread reads a flight
+    dump or a ``/debug/traces`` export does on the LIVE tree.  Bare
+    spans (``Trace``'s single-threaded bookkeeping) skip the lock.
+    ``children`` form the tree, ``steps`` are the cheap ``Trace.step``
+    marks, ``attrs`` is the structured payload."""
+
+    __slots__ = ("name", "cat", "t0", "t1", "tid", "attrs", "steps",
+                 "children", "_mu")
+
+    def __init__(self, name: str, cat: str = "", t0: float = 0.0,
+                 tid: int = 0, attrs: Optional[dict] = None, mu=None):
+        self.name = name
+        self.cat = cat
+        self.t0 = t0
+        self.t1: Optional[float] = None  # None while open
+        self.tid = tid
+        self.attrs = dict(attrs) if attrs else {}
+        self.steps: list[tuple[float, str]] = []
+        self.children: list[Span] = []
+        self._mu = mu
+
+    def set(self, **attrs) -> "Span":
+        if self._mu is not None:
+            with self._mu:
+                self.attrs.update(attrs)
+        else:
+            self.attrs.update(attrs)
+        return self
+
+    def step(self, t: float, msg: str) -> None:
+        if self._mu is not None:
+            with self._mu:
+                self.steps.append((t, msg))
+        else:
+            self.steps.append((t, msg))
+
+    @property
+    def duration(self) -> float:
+        return (self.t1 if self.t1 is not None else self.t0) - self.t0
+
+    def iter_spans(self):
+        yield self
+        for c in self.children:
+            yield from c.iter_spans()
+
+    def phase_totals(self) -> dict[str, float]:
+        """Sum ``cat="phase"`` descendant durations by name, keyed
+        ``<name>_s`` — the single source ``last_batch_phases`` derives
+        from when tracing is enabled, so the dict and the trace can
+        never disagree (they are the same measurements)."""
+        out: dict[str, float] = {}
+        for sp in self.iter_spans():
+            if sp.cat == "phase" and sp.t1 is not None:
+                key = f"{sp.name}_s"
+                out[key] = out.get(key, 0.0) + sp.duration
+        return out
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "cat": self.cat, "t0": self.t0,
+             "t1": self.t1, "tid": self.tid, "attrs": _jsonable(self.attrs)}
+        if self.steps:
+            d["steps"] = [[t, m] for t, m in self.steps]
+        if self.children:
+            d["children"] = [c.to_dict() for c in self.children]
+        return d
+
+
+def _jsonable(v):
+    """Best-effort coercion to JSON-serializable values (attrs may carry
+    tuples, numpy scalars, shape keys...)."""
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    try:  # numpy scalars expose item()
+        return v.item()
+    except Exception:
+        return repr(v)
+
+
+def format_slow(name: str, t0: float, steps: list[tuple[float, str]],
+                t_end: float) -> str:
+    """The shared slow-trace rendering: total + per-step deltas.  Both
+    ``utils.trace.Trace.log_if_long`` and the tracer's slow-wave logging
+    go through here — one code path for slow-operation logging."""
+    lines = [f'Trace "{name}" (total {(t_end - t0) * 1e3:.1f}ms):']
+    prev = t0
+    for t, msg in steps:
+        lines.append(f"  +{(t - prev) * 1e3:.1f}ms {msg}")
+        prev = t
+    return "\n".join(lines)
+
+
+class _SpanCM:
+    """Context manager for one span; also usable via explicit
+    ``__enter__``/``__exit__`` when a ``with`` block can't wrap the
+    scope (the scheduler's wave brackets a try/finally it must nest
+    around)."""
+
+    __slots__ = ("_tracer", "_span")
+
+    def __init__(self, tracer: "Tracer", span: Span):
+        self._tracer = tracer
+        self._span = span
+
+    def __enter__(self) -> Span:
+        self._tracer._push(self._span)
+        return self._span
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            with self._tracer._mu:
+                self._span.attrs.setdefault(
+                    "error", f"{exc_type.__name__}: {exc}")
+        self._tracer._pop(self._span)
+
+
+class _NullSpan:
+    """The disabled-path span: ``set``/``step`` are no-ops, so an
+    instrumented site can be one plain ``with`` block over either a real
+    span or this singleton — no per-site ``if cm is not None`` forest."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> "_NullSpan":
+        return self
+
+    def step(self, t: float, msg: str) -> None:
+        pass
+
+
+class _NullCM:
+    __slots__ = ()
+
+    def __enter__(self) -> _NullSpan:
+        return _NULL_SPAN
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+#: shared no-op context manager for instrumented sites:
+#: ``with (tr.span(...) if tr is not None else tracing.NULL_SPAN) as sp:``
+#: keeps the disabled path at one global load + None check + two no-op
+#: calls, and lets the enabled path record error attrs via a real
+#: ``with`` (the hand-rolled __enter__/__exit__(None, None, None)
+#: pattern this replaces silently discarded exception info).
+NULL_SPAN = _NullCM()
+
+
+# txn-id mint: shared by every Store in the process (the ids only need
+# to be unique, not dense); itertools.count is atomic under the GIL
+_TXN_COUNTER = itertools.count(1)
+
+
+def next_txn(op: str) -> str:
+    """Mint a correlation id for one store batch txn.  Minted whether or
+    not tracing is enabled — the id rides the watch frame and a consumer
+    enabling tracing mid-stream must still see correlated ids."""
+    return f"{op}-{next(_TXN_COUNTER)}"
+
+
+class Tracer:
+    """Process-wide span collector + flight recorder.
+
+    Span trees are built through a per-thread stack: a span opened while
+    another is open on the same thread becomes its child; a span opened
+    on a bare stack is a root — ``cat="wave"`` roots complete into the
+    wave ring, everything else into the background ring (store txns on
+    the arrival thread, watch-thread applies).  All structural mutation
+    happens under ``_mu`` so a flight dump from any thread sees
+    consistent trees."""
+
+    def __init__(self, clock: Optional[Callable[[], float]] = None,
+                 ring_waves: int = 16, max_dumps: int = 32,
+                 dump_dir: Optional[str] = None,
+                 slow_wave_s: Optional[float] = None,
+                 verbose: bool = False):
+        self.clock = clock or time.perf_counter
+        self._mu = threading.RLock()
+        self._tls = threading.local()
+        self.ring: deque[Span] = deque(maxlen=ring_waves)
+        self.background: deque[Span] = deque(maxlen=max(4 * ring_waves, 64))
+        self.instants: deque[dict] = deque(maxlen=512)
+        self.dumps: deque[dict] = deque(maxlen=max_dumps)
+        self.dump_dir = dump_dir
+        self.slow_wave_s = slow_wave_s
+        # verbose=True additionally opens a span per WATCH EVENT on the
+        # per-event informer path (frames always get one span per frame)
+        self.verbose = verbose
+        self._t0 = self.clock()
+        self._wave_seq = itertools.count(1)
+        self._dump_seq = itertools.count(1)
+        self._open_roots: dict[int, Span] = {}
+        self._tid_map: dict[int, int] = {}
+        self.dropped_dumps = 0
+        # per-reason coalescing (bind.requeue can fire per POD in a
+        # failed segment; one dump per window keeps the recorder from
+        # amplifying the very stall it is recording)
+        self._last_dump_t: dict[str, float] = {}
+        self.coalesced_dumps = 0
+
+    # -- span plumbing -----------------------------------------------------
+    def _stack(self) -> list:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    def _tid(self) -> int:
+        ident = threading.get_ident()
+        with self._mu:
+            tid = self._tid_map.get(ident)
+            if tid is None:
+                tid = self._tid_map[ident] = len(self._tid_map) + 1
+            return tid
+
+    def span(self, name: str, cat: str = "", **attrs) -> _SpanCM:
+        return _SpanCM(self, Span(name, cat=cat, t0=self.clock(),
+                                  tid=self._tid(), attrs=attrs, mu=self._mu))
+
+    def wave(self, **attrs) -> _SpanCM:
+        wid = next(self._wave_seq)
+        cm = self.span(f"wave-{wid}", cat="wave", **attrs)
+        cm._span.attrs["wave"] = wid
+        return cm
+
+    def _push(self, span: Span) -> None:
+        stack = self._stack()
+        with self._mu:
+            if stack:
+                stack[-1].children.append(span)
+            else:
+                self._open_roots[id(span)] = span
+            stack.append(span)
+
+    def _pop(self, span: Span) -> None:
+        stack = self._stack()
+        with self._mu:
+            span.t1 = self.clock()
+            # unwind to this span even if a child leaked open (an
+            # exception path that skipped a __exit__ must not corrupt
+            # every later span's parentage)
+            while stack and stack[-1] is not span:
+                leaked = stack.pop()
+                if leaked.t1 is None:
+                    leaked.t1 = span.t1
+            if stack:
+                stack.pop()
+            root = self._open_roots.pop(id(span), None)
+            if root is not None:
+                (self.ring if span.cat == "wave"
+                 else self.background).append(span)
+        if (span.cat == "wave" and self.slow_wave_s is not None
+                and span.duration >= self.slow_wave_s):
+            import logging
+
+            logging.getLogger("kubernetes_tpu_torch.tracing").info(
+                format_slow(span.name, span.t0, span.steps, span.t1))
+
+    def complete(self, name: str, t0: float, t1: float, cat: str = "",
+                 **attrs) -> Span:
+        """Record an already-timed span from explicit timestamps (the
+        backend's phase timers measure once and feed BOTH their stats
+        counters and the trace from the same two clock reads — that
+        identity is what lets ``last_batch_phases`` derive from the
+        trace without a second measurement that could disagree)."""
+        span = Span(name, cat=cat, t0=t0, tid=self._tid(), attrs=attrs,
+                    mu=self._mu)
+        span.t1 = t1
+        stack = self._stack()
+        with self._mu:
+            if stack:
+                stack[-1].children.append(span)
+            else:
+                self.background.append(span)
+        return span
+
+    def instant(self, name: str, **attrs) -> dict:
+        ev = {"name": name, "t": self.clock(), "tid": self._tid(),
+              "attrs": _jsonable(attrs)}
+        with self._mu:
+            self.instants.append(ev)
+        return ev
+
+    # -- the flight recorder ----------------------------------------------
+    def dump(self, reason: str, _coalesce_s: Optional[float] = None,
+             **attrs) -> Optional[dict]:
+        """Snapshot the recorder — last K wave traces, in-flight (live)
+        roots, background spans, instant events — under one lock hold,
+        as a JSON-serializable dict.  Appended to ``dumps`` (bounded;
+        overflow counted) and optionally written to ``dump_dir``.
+
+        ``_coalesce_s`` (underscored so a caller attr named
+        ``coalesce_s`` can't collide): skip the dump — returning None,
+        counting it in ``coalesced_dumps`` — when one with the same
+        reason was taken inside the window.  Used by per-pod triggers
+        (bind requeues): a 2000-pod failed segment must not serialize
+        the recorder 2000 times on the commit path it is debugging."""
+        with self._mu:
+            now = self.clock()
+            if _coalesce_s is not None:
+                last = self._last_dump_t.get(reason)
+                if last is not None and now - last < _coalesce_s:
+                    self.coalesced_dumps += 1
+                    return None
+            self._last_dump_t[reason] = now
+            n = next(self._dump_seq)
+            snap = {
+                "seq": n,
+                "reason": reason,
+                "at": now,
+                "attrs": _jsonable(attrs),
+                "waves": [s.to_dict() for s in self.ring],
+                "live": [s.to_dict() for s in self._open_roots.values()],
+                "background": [s.to_dict() for s in self.background],
+                "instants": list(self.instants),
+            }
+            if len(self.dumps) == self.dumps.maxlen:
+                self.dropped_dumps += 1
+            self.dumps.append(snap)
+        if self.dump_dir:
+            try:
+                os.makedirs(self.dump_dir, exist_ok=True)
+                path = os.path.join(self.dump_dir, f"flight_{n:04d}.json")
+                with open(path, "w", encoding="utf-8") as f:
+                    json.dump(snap, f, indent=1)
+            except Exception:  # noqa: BLE001 - recording must never crash
+                import logging
+
+                logging.getLogger("kubernetes_tpu_torch.tracing").exception(
+                    "flight-recorder dump write failed (in-memory copy kept)")
+        # off-box shipping (outside _mu: offer() takes the shipper's own
+        # lock, and a slow sink must never serialize the recorder).  Lazy
+        # import — telemetry imports tracing, so the edge must point this
+        # way only at call time.
+        try:
+            from . import telemetry
+
+            shp = telemetry.current()
+            if shp is not None:
+                shp.offer({"kind": "flight_dump", "reason": reason,
+                           "dump": snap})
+        except Exception:  # noqa: BLE001 - recording must never crash
+            import logging
+
+            logging.getLogger("kubernetes_tpu_torch.tracing").debug(
+                "flight-dump telemetry offer failed (in-memory copy kept)",
+                exc_info=True)
+        return snap
+
+    def flight_snapshot(self) -> dict:
+        """The ``/debug/flightrecorder`` payload: every dump taken so
+        far plus the current ring state (itself a fresh dump that is NOT
+        appended — reading the recorder must not fill it)."""
+        with self._mu:
+            return {
+                "enabled": True,
+                "dropped_dumps": self.dropped_dumps,
+                "coalesced_dumps": self.coalesced_dumps,
+                "dumps": list(self.dumps),
+                "current": {
+                    "waves": [s.to_dict() for s in self.ring],
+                    "live": [s.to_dict() for s in self._open_roots.values()],
+                    "instants": list(self.instants),
+                },
+            }
+
+    # -- export ------------------------------------------------------------
+    def _chrome_events_for(self, span: Span, out: list) -> None:
+        t1 = span.t1 if span.t1 is not None else self.clock()
+        out.append({
+            "name": span.name,
+            "cat": span.cat or "span",
+            "ph": "X",
+            "ts": (span.t0 - self._t0) * 1e6,
+            "dur": max((t1 - span.t0) * 1e6, 0.0),
+            "pid": 1,
+            "tid": span.tid,
+            "args": _jsonable(span.attrs),
+        })
+        for t, msg in span.steps:
+            out.append({"name": msg, "cat": "step", "ph": "i", "s": "t",
+                        "ts": (t - self._t0) * 1e6, "pid": 1,
+                        "tid": span.tid, "args": {}})
+        for c in span.children:
+            self._chrome_events_for(c, out)
+
+    def chrome_trace(self) -> dict:
+        """Chrome trace-event JSON (the ``chrome://tracing`` / Perfetto
+        object form): every completed wave, background span, live span,
+        and instant event as ``X``/``i`` phase events, timestamps in
+        microseconds since the tracer was enabled."""
+        events: list[dict] = []
+        with self._mu:
+            # the whole walk stays under the lock: live spans gain
+            # children/attrs concurrently, and Span.set synchronizes on
+            # this same lock — releasing it mid-walk would re-open the
+            # torn-read race the lock exists to prevent
+            roots = (list(self.ring) + list(self.background)
+                     + list(self._open_roots.values()))
+            instants = list(self.instants)
+            for root in roots:
+                self._chrome_events_for(root, events)
+        for ev in instants:
+            events.append({"name": ev["name"], "cat": "instant", "ph": "i",
+                           "s": "g", "ts": (ev["t"] - self._t0) * 1e6,
+                           "pid": 1, "tid": ev["tid"],
+                           "args": ev["attrs"]})
+        events.sort(key=lambda e: e["ts"])
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"source": "kubernetes_tpu_torch.utils.tracing"}}
+
+
+# -- integration hooks (disabled path: one global load + None check) -------
+
+
+def _never_crash(record: Callable[["Tracer"], None]) -> None:
+    """Run one recording action against the active tracer, swallowing
+    (and logging) ANY failure: the notify hooks sit on production paths
+    (fault sites, bind handling) and a recorder bug must
+    never change the behavior it is observing."""
+    tr = _ACTIVE
+    if tr is None:
+        return
+    try:
+        record(tr)
+    except Exception:  # noqa: BLE001 - recording must never crash
+        import logging
+
+        logging.getLogger("kubernetes_tpu_torch.tracing").exception(
+            "flight-recorder notify hook failed (event lost)")
+
+
+def notify_fault(point: str, ctx: dict, mode: str) -> None:
+    """Called by ``faults.core`` the moment a fault policy fires —
+    records an instant and dumps the flight recorder, so every injected
+    failure carries the trace of the wave it fired into."""
+    def record(tr: "Tracer") -> None:
+        # ctx is the site's free-form kwargs: nest it rather than splat
+        # it (a site key named "mode"/"name" must not crash the recorder)
+        tr.instant(f"fault.{point}", mode=mode, ctx=_jsonable(ctx))
+        tr.dump(f"fault:{point}", mode=mode, ctx=_jsonable(ctx))
+
+    _never_crash(record)
+
+
+#: minimum seconds between bind.requeue dumps: a transient bind_many
+#: failure requeues every pod in the segment — each one still records an
+#: instant (the timeline keeps per-pod visibility), but only the first
+#: in a window pays for a full recorder serialization
+REQUEUE_DUMP_COALESCE_S = 1.0
+
+
+def notify_requeue(pod_key: str) -> None:
+    """Called when a transient bind failure requeues a pod with
+    backoff — the 'a placement we decided did not land' signal."""
+    def record(tr: "Tracer") -> None:
+        tr.instant("bind.requeue", pod=pod_key)
+        tr.dump("bind.requeue", _coalesce_s=REQUEUE_DUMP_COALESCE_S,
+                pod=pod_key)
+
+    _never_crash(record)

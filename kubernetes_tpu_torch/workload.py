@@ -416,7 +416,7 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
 
 def oracle_replay_waves(drain_batches: list, final_assignments: dict,
                         n_nodes: int, total_pods: int, workload: str,
-                        seed: int) -> dict:
+                        seed: int, algorithm=None, skip: frozenset = frozenset()) -> dict:
     """Per-wave oracle parity for a churn run: replay the recorded drain
     batches, in drain order, through the per-pod CPU oracle
     (``Scheduler(backend=None).run_pending``) on an identically seeded
@@ -424,7 +424,10 @@ def oracle_replay_waves(drain_batches: list, final_assignments: dict,
     Exact by prefix closure (pod i's placement depends only on the initial
     cluster and the pods placed before it) as long as no key was drained
     twice; a requeue re-decides under other queue state, so the replay
-    then reports itself skipped."""
+    then reports itself skipped.  ``algorithm`` replaces the default
+    ``GenericScheduler`` (a policy's, say); the keys in ``skip`` are
+    replayed but not compared (a pod whose bind failed and was decided
+    again)."""
     from .scheduler import GenericScheduler, Scheduler
 
     flat = [k for b in drain_batches for k in b]
@@ -433,7 +436,8 @@ def oracle_replay_waves(drain_batches: list, final_assignments: dict,
                 "checked": 0, "mismatches": -1, "round_robin": None}
     cs, pods = _churn_cluster(n_nodes, total_pods, workload, seed)
     pods_by_key = {p.meta.key: p for p in pods}
-    sched = Scheduler(cs, algorithm=GenericScheduler(), backend=None, emit_events=False)
+    sched = Scheduler(cs, algorithm=algorithm or GenericScheduler(), backend=None,
+                      emit_events=False)
     sched.start()
     checked = mismatches = 0
     sample = []
@@ -446,6 +450,8 @@ def oracle_replay_waves(drain_batches: list, final_assignments: dict,
         pods_now, _ = cs.pods.list()
         got = {p.meta.key: p.spec.node_name or None for p in pods_now}
         for key in batch:
+            if key in skip:
+                continue
             checked += 1
             if got.get(key) != final_assignments.get(key):
                 mismatches += 1
@@ -616,4 +622,313 @@ def run_wire_preemption(url: str, n_nodes: int = 1_000, n_fillers: int = None,
         "preemptors_bound": sum(1 for p in preemptors if got.get(p.meta.name)),
         "fillers_bound": sum(1 for p in fillers if got.get(p.meta.name)),
         "fillers_evicted": sum(1 for p in fillers if p.meta.name not in got),
+    }
+
+
+def overload_node(i: int, pods_per_node: int = 200):
+    """``node-%05d`` of the overload preset: 8 CPU, distinct memory, a
+    generous pod cap (so the surge can outlast the SLO windows), three
+    zones."""
+    return make_node(f"node-{i:05d}", cpu="8", memory=f"{16_384 + i}Mi", pods=pods_per_node,
+                     labels={"kubernetes.io/hostname": f"node-{i:05d}", ZONE: f"zone-{i % 3}"})
+
+
+# the overload preset's tiers: (priority, share of the surge)
+OVERLOAD_TIERS = {"batch": (0, 0.5), "standard": (5, 0.3), "critical": (9, 0.2)}
+
+
+def run_overload(n_nodes: int = 320, surge_mult: float = 3.0, surge_pods_cap: int = 60_000,
+                 max_surge_s: float = 20.0, goodput_deadline_s: float = 5.0, seed: int = 0,
+                 fast_window_s: float = 0.5, slow_window_s: float = 1.5,
+                 step_hold_s: float = 0.5, device=None, backend_cls=None) -> dict:
+    """The overload-control surge preset (``bench.py`` ``run_overload``):
+    arrivals at ``surge_mult`` times the measured drain rate through the
+    apiserver's create path, and what the degradation ladder does about
+    it.  Phases:
+
+    1. **calibrate**: two batches of 768 pods created in the store and
+       served by ``run_batch_loop``; the second's rate is the drain rate.
+    2. **surge**: six arrival threads pace 25-pod ``create_many`` calls
+       over HTTP through one ``RemoteStore`` a tier (batch priority 0,
+       standard 5, critical 9 at 50/30/20%, interleaved by largest
+       deficit so the mix stays constant) at ``surge_mult`` times the
+       drain rate, for at most ``max_surge_s`` of wall time: chunks not
+       started by then are never created (creators that fall behind the
+       pace do not stretch the surge).  The ladder
+       (``overload_slos`` over the queue-depth gauge, scraped every 0.1 s)
+       engages; rung 2 sheds the interpod score plane and rung 3
+       throttles the batch tier at the apiserver (429 + Retry-After).  A
+       pod's e2e is its create attempt to its bind as the scheduler sees
+       it.
+    3. **recover**: arrivals stop; the time until the ladder is back at
+       rung 0 with an empty queue.
+    4. **tail**: 300 pods at rung 0, replayed through the per-pod oracle
+       from the live bound state and round-robin counter: the tail must
+       equal it exactly.
+
+    ``device`` is the backend's (None: the card); ``backend_cls`` replaces
+    ``BatchBackend`` (a checking subclass, say).  Returns the drain rate,
+    each tier's arrivals, rejected, bound, goodput (bound within
+    ``goodput_deadline_s``) and e2e p50/p99 ms, the rung timeline, the
+    transitions, ``score_plane_sheds``, the 429 counts and the tail's
+    parity."""
+    import collections
+    import threading
+    import time
+
+    from .apiserver.server import APIServer
+    from .client import Clientset
+    from .client.remote import RemoteStore, RetryExhaustedError
+    from .ops.backend import BatchBackend
+    from .scheduler import GenericScheduler, Scheduler
+    from .store import Store
+    from .utils import timeseries as timeseries_mod
+    from .utils.overload import AdmissionThrottle, DegradationLadder, overload_slos
+
+    store = Store(event_log_window=400_000)
+    server = APIServer(store)
+    server.start()
+    cs = Clientset(store)
+    pods_per_node = 200
+    cs.nodes.create_many([overload_node(i, pods_per_node) for i in range(n_nodes)])
+    algo = GenericScheduler()
+    backend = (backend_cls or BatchBackend)(algorithm=algo, device=device)
+    sched = Scheduler(cs, algorithm=algo, backend=backend, emit_events=False)
+    sched.start()
+
+    t_create: dict[str, float] = {}
+    t_bind: dict[str, float] = {}
+    rejected: set[str] = set()
+    drain_batches: list[list[str]] = []
+    orig_drain = sched.queue.drain
+
+    def recording_drain(max_n=None):
+        out = orig_drain(max_n)
+        if out:
+            drain_batches.append([p.meta.name for p in out])
+        return out
+
+    sched.queue.drain = recording_drain
+    orig_spb = sched.schedule_pending_batch
+
+    def stamping_spb(max_batch=None):
+        # probe only the pods this wave drained: a full LIST a wave would
+        # hold the store lock against the HTTP handlers
+        mark = len(drain_batches)
+        r = orig_spb(max_batch)
+        now = time.perf_counter()
+        for batch in drain_batches[mark:]:
+            for n in batch:
+                if n not in t_bind:
+                    try:
+                        if cs.pods.get(n).spec.node_name:
+                            t_bind[n] = now
+                    except Exception:  # noqa: BLE001 - deleted meanwhile
+                        pass
+        return r
+
+    sched.schedule_pending_batch = stamping_spb
+    stop = threading.Event()
+    serve = threading.Thread(target=lambda: sched.run_batch_loop(
+        min_batch=32, max_wait=0.05, poll_interval=0.002, max_batch=384, stop=stop),
+        daemon=True)
+    serve.start()
+
+    def tmpl(name: str, prio: int = 0):
+        p = make_pod(name, cpu="10m", memory="16Mi")
+        if prio:
+            p.spec.priority = prio
+        return p
+
+    def wait_all_bound(names, timeout) -> bool:
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if all(n in t_bind for n in names):
+                return True
+            time.sleep(0.02)
+        return False
+
+    ladder = ts_store = None
+    clients: dict = {}
+    tiers = {t: {"prio": p, "frac": f} for t, (p, f) in OVERLOAD_TIERS.items()}
+    try:
+        # -- calibrate: the drain rate (the first batch warms the path)
+        cal_rate = None
+        for attempt in range(2):
+            names = [f"cal{attempt}-{i:05d}" for i in range(768)]
+            t0 = time.perf_counter()
+            for n in names:
+                t_create[n] = t0
+            cs.pods.create_many_nowait([tmpl(n) for n in names])
+            if not wait_all_bound(names, 120):
+                raise RuntimeError("overload calibration never drained")
+            cal_rate = len(names) / (max(t_bind[n] for n in names) - t0)
+
+        # -- the ladder and the throttle (absent while calibrating)
+        pending_threshold = max(32.0, cal_rate * 0.5)
+        ts_store = timeseries_mod.enable(sched.metrics.registry, interval_s=0.1,
+                                         capacity=4_096)
+        ladder = DegradationLadder(
+            slos=overload_slos(pending_threshold=pending_threshold,
+                               fast_window_s=fast_window_s, slow_window_s=slow_window_s,
+                               recovery_evals=2),
+            step_hold_s=step_hold_s, recover_hold_s=1.0)
+        sched.attach_overload(ladder)
+        ladder.attach(ts_store)
+        server.admission_throttle = AdmissionThrottle(ladder, retry_after_s=0.75)
+
+        # -- the surge, sized by duration: the gauge breaches only once
+        # its windowed means sustain past the slow window
+        arrival_rate = surge_mult * cal_rate
+        slot_budget = n_nodes * pods_per_node - 2 * 768 - 600
+        surge_s_target = min(max_surge_s, slot_budget / arrival_rate)
+        surge_pods = min(surge_pods_cap, max(900, int(arrival_rate * surge_s_target)))
+        per_tier_chunks = {}
+        for tname, cfg in tiers.items():
+            n = int(surge_pods * cfg["frac"])
+            rs = RemoteStore(server.url, max_retries=2, retry_seed=seed + cfg["prio"])
+            clients[tname] = rs
+            pods = [tmpl(f"{tname}-{i:05d}", cfg["prio"]) for i in range(n)]
+            cfg["names"] = [p.meta.name for p in pods]
+            per_tier_chunks[tname] = (Clientset(rs), [pods[i:i + 25] for i in range(0, n, 25)])
+        # largest-deficit interleave: one chunk schedule keeps the tier mix
+        # constant over the whole surge
+        schedule = []
+        emitted = {t: 0 for t in tiers}
+        for k in range(sum(len(c) for _, c in per_tier_chunks.values())):
+            pick = max((t for t in tiers if emitted[t] < len(per_tier_chunks[t][1])),
+                       key=lambda t: tiers[t]["frac"] * (k + 1) - emitted[t])
+            rcs, chunks = per_tier_chunks[pick]
+            schedule.append((rcs, chunks[emitted[pick]]))
+            emitted[pick] += 1
+        next_idx = [0]
+        idx_lock = threading.Lock()
+        surge_t0 = time.perf_counter()
+        surge_stop = surge_t0 + max_surge_s
+
+        def worker():
+            while True:
+                with idx_lock:
+                    k = next_idx[0]
+                    if k >= len(schedule):
+                        return
+                    next_idx[0] = k + 1
+                rcs, chunk = schedule[k]
+                target = surge_t0 + (k * 25) / arrival_rate
+                now = time.perf_counter()
+                if max(now, target) > surge_stop:
+                    return
+                if target > now:
+                    time.sleep(target - now)
+                stamp = time.perf_counter()
+                for p in chunk:
+                    t_create[p.meta.name] = stamp
+                try:
+                    rcs.pods.create_many(chunk)
+                except RetryExhaustedError:
+                    rejected.update(p.meta.name for p in chunk)  # shed load
+
+        threads = [threading.Thread(target=worker, daemon=True) for _ in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        surge_end = time.perf_counter()
+
+        # -- recovery: back at rung 0 with an empty queue.  The windowed
+        # means lag the queue, so a ladder that engages at all may do so
+        # after the last arrival: wait out the windows before reading a
+        # ladder that never left rung 0 as settled
+        recovery_s = None
+        settle = surge_end + 3 * slow_window_s + step_hold_s
+        while time.perf_counter() < surge_end + 180:
+            now = time.perf_counter()
+            if (ladder.rung == 0 and len(sched.queue) == 0
+                    and (ladder.max_rung_seen > 0 or now > settle)):
+                recovery_s = now - surge_end
+                break
+            time.sleep(0.05)
+        # the pods whose create was attempted are the arrivals
+        for cfg in tiers.values():
+            cfg["names"] = [n for n in cfg["names"] if n in t_create]
+        accepted = [n for cfg in tiers.values() for n in cfg["names"] if n not in rejected]
+        wait_all_bound(accepted, 60)
+
+        # -- the tail at rung 0; the oracle replays it from the live state
+        # and the live round-robin counter (integer scores tie often)
+        tail_mark = len(drain_batches)
+        rr_at_tail = algo._round_robin
+        rung_at_tail = ladder.rung
+        tail_names = [f"tail-{i:05d}" for i in range(300)]
+        t0 = time.perf_counter()
+        for n in tail_names:
+            t_create[n] = t0
+        cs.pods.create_many_nowait([tmpl(n) for n in tail_names])
+        tail_bound = wait_all_bound(tail_names, 60)
+        live_map = {p.meta.name: p.spec.node_name for p in cs.pods.list()[0]}
+    finally:
+        stop.set()
+        sched.queue.close()
+        serve.join(timeout=30)
+        timeseries_mod.disable()
+        server.stop()
+
+    cs_o = Clientset(Store())
+    cs_o.nodes.create_many([overload_node(i, pods_per_node) for i in range(n_nodes)])
+    tail_set = set(tail_names)
+    cs_o.pods.create_many_nowait([make_pod(n, cpu="10m", memory="16Mi", node_name=node)
+                                  for n, node in live_map.items()
+                                  if node and n not in tail_set])
+    algo_o = GenericScheduler()
+    algo_o._round_robin = rr_at_tail
+    sched_o = Scheduler(cs_o, algorithm=algo_o, emit_events=False)
+    sched_o.start()
+    for batch in drain_batches[tail_mark:]:
+        cs_o.pods.create_many_nowait([tmpl(n) for n in batch if n in tail_set])
+        sched_o.pump()
+        sched_o.run_pending()
+    oracle_tail = {p.meta.name: p.spec.node_name for p in cs_o.pods.list()[0]
+                   if p.meta.name in tail_set}
+    live_tail = {n: live_map.get(n) for n in tail_names}
+
+    def tier_stats(cfg):
+        names = cfg["names"]
+        e2e = sorted(t_bind[n] - t_create[n] for n in names if n in t_bind)
+        good = sum(1 for n in names
+                   if n in t_bind and t_bind[n] - t_create[n] <= goodput_deadline_s)
+        return {"arrivals": len(names), "rejected": sum(1 for n in names if n in rejected),
+                "bound": len(e2e), "goodput": good / max(len(names), 1),
+                "e2e_ms": {"p50": e2e[len(e2e) // 2] * 1e3 if e2e else None,
+                           "p99": e2e[int(len(e2e) * 0.99)] * 1e3 if e2e else None}}
+
+    throttle = server.admission_throttle.stats()
+    return {
+        "nodes": n_nodes, "drain_pods_per_s": cal_rate, "surge_mult": surge_mult,
+        "arrival_pods_per_s": arrival_rate, "surge_pods": surge_pods,
+        "surge_s": surge_end - surge_t0, "pending_threshold": pending_threshold,
+        "goodput_deadline_s": goodput_deadline_s,
+        "tiers": {t: tier_stats(cfg) for t, cfg in tiers.items()},
+        "rung_timeline": [(t - surge_t0, r) for t, r in ladder.history()],
+        "max_rung": ladder.max_rung_seen, "transitions": ladder.transitions,
+        "engaged": ladder.max_rung_seen > 0,
+        "recovered": ladder.max_rung_seen > 0 and recovery_s is not None,
+        "recovery_s": recovery_s,
+        "degradation_transitions_total": sched.metrics.degradation_transitions.value,
+        "score_plane_sheds": sched.metrics.score_plane_sheds.value,
+        "preemption_sheds": sched.metrics.preemption_sheds.value,
+        "admission": {"admitted": throttle["admitted"], "throttled": throttle["throttled"],
+                      "throttled_by_tier": {str(k): v for k, v in
+                                            throttle["throttled_by_tier"].items()},
+                      "server_429": server.admission_throttled.value,
+                      "retry_after_honored": {t: clients[t].metrics.retry_after_honored.value
+                                              for t in tiers}},
+        "tail": {"pods": len(tail_names), "rung": rung_at_tail,
+                 "bound": sum(1 for v in live_tail.values() if v),
+                 "all_bound": tail_bound,
+                 "exact_parity": live_tail == oracle_tail,
+                 "mismatches": sum(1 for n in tail_names
+                                   if live_tail.get(n) != oracle_tail.get(n)),
+                 "occupancy_parity": (collections.Counter(live_tail.values())
+                                      == collections.Counter(oracle_tail.values()))},
+        "stats": dict(backend.stats),
     }

@@ -29,6 +29,7 @@ wire, and the two entry points as real processes.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import signal
 import socket
@@ -39,7 +40,6 @@ import time
 import urllib.request
 
 import pytest
-import torch
 
 from kubernetes_tpu_torch import workload
 from kubernetes_tpu_torch.apiserver import APIServer
@@ -634,22 +634,51 @@ def test_the_jax_daemons_configuration_and_flags_load(tmp_path, monkeypatch):
     assert SchedulerConfiguration().policy_config_file == ""
 
 
-def test_a_policy_the_scan_cannot_express_is_refused_on_the_card(tmp_path, monkeypatch, capsys):
-    """On ``--device cuda`` the batch daemon refuses, before it reaches the
-    apiserver, a policy the fused scan does not compute: the backend would
-    schedule every pod on the CPU oracle.  The refusal needs no card, so
-    the test claims one; the same policy is taken by ``--backend oracle``
-    (the test below)."""
+@pytest.mark.timeout(120)
+def test_a_policy_the_scan_cannot_express_runs_on_the_oracle(tmp_path, monkeypatch, capsys,
+                                                               caplog):
+    """The batch daemon takes a policy the fused scan does not compute, as
+    the JAX daemon does: it logs once at start-up that the waves run on the
+    host oracle, binds, and counts those pods on /metrics
+    (``scheduler_backend_oracle_pods_total``) and in its stats."""
     from kubernetes_tpu_torch.scheduler import __main__ as sched_main
+    from kubernetes_tpu_torch.scheduler import scheduler as sched_mod
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     policy = tmp_path / "policy.json"
     policy.write_text(json.dumps({"priorities": [{"name": "ServiceSpreadingPriority",
                                                   "weight": 1}]}))
-    assert sched_main.main(["--apiserver", "http://127.0.0.1:1", "--backend", "tpu",
-                            "--policy-config-file", str(policy)]) == 1
-    err = capsys.readouterr().err
-    assert "does not compute" in err and "--backend oracle" in err
+    stop = threading.Event()
+    scrapes = []
+    orig = sched_mod.Scheduler.schedule_pending_batch
+
+    def recording(self, max_batch=None):
+        out = orig(self, max_batch)
+        if out[0]:
+            scrapes.append(self.metrics.registry.expose())
+            stop.set()  # one wave bound: the daemon stops as on SIGTERM
+        return out
+
+    monkeypatch.setattr(sched_mod.Scheduler, "schedule_pending_batch", recording)
+    monkeypatch.setattr(sched_main, "install_signal_stop", lambda: stop)
+    server = APIServer(Store())
+    server.start()
+    try:
+        cs = Clientset(RemoteStore(server.url))
+        cs.nodes.create(make_node("n1"))
+        cs.pods.create(make_pod("p", cpu="100m"))
+        with caplog.at_level(logging.WARNING):
+            assert sched_main.main(["--apiserver", server.url, "--backend", "tpu",
+                                    "--device", "cpu", "--policy-config-file",
+                                    str(policy)]) == 0
+        assert _bindings(server.url) == {"default/p": "n1"}
+    finally:
+        server.stop()
+    logged = [r.getMessage() for r in caplog.records if "host oracle" in r.getMessage()]
+    assert len(logged) == 1 and str(policy) in logged[0]
+    assert "scheduler_backend_oracle_pods_total 1" in scrapes[0]
+    stats = [json.loads(line)["scheduler_stats"] for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"scheduler_stats"')]
+    assert len(stats) == 1 and stats[0]["oracle_pods"] == 1 and stats[0]["kernel_pods"] == 0
 
 
 @pytest.mark.timeout(120)

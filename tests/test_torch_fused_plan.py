@@ -64,7 +64,8 @@ def _every_plane_once(pl):
     spans = sorted((pl.offsets[p], pl.offsets[p] + pl.plane_bytes[p]) for p in pl.shared)
     fixed = pl.fixed_bytes
     # the kernel's fixed layout: pod buffers, nonzero requests, two inboxes
-    assert pl.gnz_off == fused_scan.NBUF * (pl.sw + pl.w4) * 4
+    assert pl.gnz_off == fused_scan.NBUF * (pl.sws + pl.w4) * 4
+    assert pl.sws <= pl.sw and pl.sws % 4 == 0
     assert pl.gnz_off < pl.inbox_a_off < pl.inbox_b_off < fixed
     assert all(x % 16 == 0 for x in (pl.gnz_off, pl.inbox_a_off, pl.inbox_b_off, fixed))
     assert pl.msg_a % 4 == 0 and pl.msg_b % 4 == 0 and pl.msg_b >= 3 + pl.cpt * pl.threads // 32
@@ -90,17 +91,19 @@ def test_no_segment_check_shape_accepts_is_refused():
     """Seeded sweep up to every limit of ``check_shape``: the planner
     always finds a plan whose fixed buffers fit."""
     rng = np.random.default_rng(7)
+    # zones and host ports have no cap: the sweep goes well past the
+    # shared-memory zone budget and the signature row's port slot
     edges = [dict(n=fused_scan.MAX_NODES, r=fused_scan.MAX_R, g=512, t=fused_scan.MAX_TERMS,
-                  pv=fused_scan.MAX_PORTS, v=2048, w=fused_scan.MAX_SLOTS,
-                  k=fused_scan.MAX_KINDS, zones=fused_scan.MAX_ZONES)]
+                  pv=4096, v=2048, w=fused_scan.MAX_SLOTS,
+                  k=fused_scan.MAX_KINDS, zones=8192)]
     for _ in range(200):
         edges.append(dict(n=int(rng.integers(1, fused_scan.MAX_NODES + 1)),
                           r=int(rng.integers(1, fused_scan.MAX_R + 1)),
                           g=int(rng.integers(1, 1025)), t=int(rng.integers(0, fused_scan.MAX_TERMS + 1)),
-                          pv=int(rng.integers(0, fused_scan.MAX_PORTS + 1)),
+                          pv=int(rng.integers(0, 4 * fused_scan.MAX_PORTS + 1)),
                           v=int(rng.integers(1, 2049)), w=int(rng.integers(0, fused_scan.MAX_SLOTS + 1)),
                           k=int(rng.integers(0, fused_scan.MAX_KINDS + 1)),
-                          zones=int(rng.integers(0, fused_scan.MAX_ZONES + 1))))
+                          zones=int(rng.integers(0, 4097))))
     for dims in edges:
         for flags in ((True, True, True), (False, False, False)):
             pl = fused_scan.plan_for(**dims, use_terms=flags[0], use_vols=flags[1],
@@ -108,6 +111,47 @@ def test_no_segment_check_shape_accepts_is_refused():
             _every_plane_once(pl)
             assert _block_bytes(pl) <= fused_scan.SMEM_LIMIT
             assert pl.threads <= fused_scan.MAX_THREADS and pl.threads * pl.cpt >= pl.cols
+
+
+@pytest.mark.parametrize("zones,n,where,cs", [
+    (3, 5120, "registers", 16),
+    (235, 5120, "shared", 16),   # the most that fit at 16 blocks
+    (236, 5120, "global", 16),
+    (236, 1000, "shared", 4),
+    (300, 1000, "shared", 4),
+    (300, 5120, "global", 16),
+    (1000, 1000, "global", 4),
+])
+def test_zone_statistics_are_placed_where_they_fit(zones, n, where, cs):
+    """Registers up to REG_ZONES; shared memory while both inboxes and the
+    zone arrays fit ZONE_SMEM at the plan's cluster; else a global scratch,
+    and exchange (a) carries only the statistics' 10 words."""
+    pl = fused_scan.plan_for(**{**MAIN, "n": n, "zones": zones})
+    assert (pl.zones_at, pl.cs) == (where, cs)
+    _every_plane_once(pl)
+    assert _block_bytes(pl) <= fused_scan.SMEM_LIMIT
+    if where == "shared":
+        assert pl.msg_a >= 10 + 2 * zones and pl.zone_off >= pl.inbox_b_off
+        assert fused_scan.zone_bytes(zones, cs) <= fused_scan.ZONE_SMEM
+    elif where == "global":
+        assert pl.msg_a == 12 and pl.zone_off == 0
+        assert fused_scan.zone_bytes(zones, cs) > fused_scan.ZONE_SMEM
+        assert fused_scan.zbuf_words(zones, cs) == 3 * cs * zones
+    else:
+        assert pl.zone_off == 0
+
+
+def test_a_wide_signature_row_keeps_its_port_slot_in_shared_memory():
+    """A row with more port flags than MAX_PORTS keeps the first MAX_PORTS
+    (and the terms before them) in the pod buffers; the rest are read from
+    global memory.  A narrow row is copied whole."""
+    narrow = fused_scan.plan_for(**{**MAIN, "pv": 64})
+    assert narrow.sws == narrow.sw
+    wide = fused_scan.plan_for(**{**MAIN, "pv": 1000})
+    head = MAIN["r"] + 4 + fused_scan.TERM_FIELDS * MAIN["t"]
+    assert wide.sw == -(-(head + 1000) // 4) * 4
+    assert wide.sws == -(-(head + fused_scan.MAX_PORTS) // 4) * 4 < wide.sw
+    assert wide.gnz_off == narrow.gnz_off + fused_scan.NBUF * (wide.sws - narrow.sws) * 4
 
 
 def test_plan_of_a_real_segment_matches_its_packing():

@@ -58,8 +58,9 @@ def _module_names():
 
 def test_import_leaves_jax_and_reference_unloaded():
     """Every module of the port (store, client, utils, the scheduler, the
-    apiserver and the daemon entry points included) imports without
-    pulling JAX or the reference package in."""
+    apiserver, the daemon entry points, the fault registry and the testing
+    helpers included) imports without pulling JAX or the reference package
+    in."""
     mods = sorted(_module_names())
     assert {"kubernetes_tpu_torch.store.store", "kubernetes_tpu_torch.client.informer",
             "kubernetes_tpu_torch.client.record", "kubernetes_tpu_torch.utils.metrics",
@@ -72,7 +73,14 @@ def test_import_leaves_jax_and_reference_unloaded():
             "kubernetes_tpu_torch.api.lazy", "kubernetes_tpu_torch.store.frames",
             "kubernetes_tpu_torch.store.columns", "kubernetes_tpu_torch.scheduler.preemption",
             "kubernetes_tpu_torch.ops.preemption_kernel", "kubernetes_tpu_torch.scheduler.policy",
-            "kubernetes_tpu_torch.scheduler.extender"} <= set(mods)
+            "kubernetes_tpu_torch.scheduler.extender",
+            # tracing, the fault registry, telemetry and overload control
+            "kubernetes_tpu_torch.faults", "kubernetes_tpu_torch.faults.core",
+            "kubernetes_tpu_torch.testing", "kubernetes_tpu_torch.testing.chaos",
+            "kubernetes_tpu_torch.testing.slo", "kubernetes_tpu_torch.utils.tracing",
+            "kubernetes_tpu_torch.utils.timeseries", "kubernetes_tpu_torch.utils.slo",
+            "kubernetes_tpu_torch.utils.fanout", "kubernetes_tpu_torch.utils.telemetry",
+            "kubernetes_tpu_torch.utils.overload"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

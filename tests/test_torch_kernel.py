@@ -1,7 +1,9 @@
 """The fused CUDA scan (``ops/fused_scan.py`` + ``ops/csrc/fused_scan.cu``).
 
 Its host packing, CPU refusal and shape guard are checked here on CPU
-tensors.  The kernel itself has no CPU mode: the ``cuda``-marked test holds
+tensors.  The ``cuda``-marked tests also hold the zone statistics in
+shared and in global memory, and a signature row wider than its shared
+port slot, against the plain scan.  The kernel itself has no CPU mode: the ``cuda``-marked test holds
 it against the plain scan on a card and skips with a reason elsewhere.
 This file imports nothing of the JAX package, so it also runs where only
 the port is installed:
@@ -78,10 +80,14 @@ def test_fused_scan_refuses_cpu_tensors():
 
 
 def test_shape_guard_names_the_limit():
+    """The guard names what is past the kernel's fixed arrays; zones and
+    host ports are not among them any more."""
     static, init = cases.tensorize(cases.PORT, "plain")
-    static.num_zones = fused_scan.MAX_ZONES + 1
+    static.num_zones = 5000
     s, _ = from_reference(vars(static), vars(init), "cpu")
-    with pytest.raises(ValueError, match="zones"):
+    fused_scan.check_shape(s)
+    s.vol_limits = torch.zeros(fused_scan.MAX_KINDS + 1, dtype=s.vol_limits.dtype)
+    with pytest.raises(ValueError, match="volume kinds"):
         fused_scan.check_shape(s)
 
 
@@ -114,16 +120,37 @@ def test_plan_fits_the_card(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_zones,n_nodes", [(16, 64), (64, 300),
-                                             # the planner's cap at the largest cluster
-                                             (fused_scan.MAX_ZONES, 5000)])
-def test_zone_path_matches_scan_ref_on_card(n_zones, n_nodes):
+@pytest.mark.parametrize("n_zones,n_nodes,where", [
+    (16, 64, "shared"), (64, 300, "shared"), (235, 5000, "shared"),
+    # past the shared-memory budget at 16 blocks, and at 4 blocks
+    (236, 5000, "global"), (300, 1000, "shared"), (1000, 1000, "global")])
+def test_zone_path_matches_scan_ref_on_card(n_zones, n_nodes, where):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused scan is a CUDA kernel with no CPU mode")
     static, init = cases.tensorize(cases.PORT, "many_zones", n_zones=n_zones,
                                    n_nodes=n_nodes, n_pods=200)
-    assert static.num_zones > fused_scan.REG_ZONES
+    assert static.num_zones == n_zones > fused_scan.REG_ZONES
     s, st = from_reference(vars(static), vars(init), "cuda")
+    assert fused_scan.plan(s).zones_at == where
+    want, rr_want = scan_ref.scan(s, st)
+    got, rr_got = fused_scan.schedule(s, st)
+    assert rr_got == rr_want
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ports,wide", [(8, fused_scan.MAX_PORTS + 1), (40, 700), (60, 1000)])
+def test_wide_port_row_matches_scan_ref_on_card(n_ports, wide):
+    """A segment whose port vocabulary is wider than a signature row's
+    shared slot (one pod with ``wide`` ports of its own, or ``n_ports``
+    pods of one port each): flags past the slot come from global memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused scan is a CUDA kernel with no CPU mode")
+    static, init = cases.tensorize(cases.PORT, "host_ports", n_ports=n_ports, n_nodes=24,
+                                   wide=wide)
+    s, st = from_reference(vars(static), vars(init), "cuda")
+    pl = fused_scan.plan(s)
+    assert s.g_ports.shape[1] > fused_scan.MAX_PORTS and pl.sws < pl.sw
     want, rr_want = scan_ref.scan(s, st)
     got, rr_got = fused_scan.schedule(s, st)
     assert rr_got == rr_want

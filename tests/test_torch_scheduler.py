@@ -605,28 +605,13 @@ def test_aborted_batch_closes_host_state_and_next_batch_rebuilds(monkeypatch):
     assert algo._round_robin == oracle._round_robin
 
 
-# -- shape refusals and backend faults ------------------------------------
-
-
-class _CardShapes(BatchBackend):
-    """The card's shape rules (refusals decided from ``device``), with the
-    CPU's plain scan doing the scans: the refusal plumbing without a card."""
-
-    def __init__(self, **kw):
-        super().__init__(device="cpu", **kw)
-        self.device = torch.device("cuda")
-
-    def _dispatch(self, static, init):
-        self.device = torch.device("cpu")
-        try:
-            return super()._dispatch(static, init)
-        finally:
-            self.device = torch.device("cuda")
+# -- the repaired shapes and backend faults --------------------------------
 
 
 def _wide_wave(cs, n_ordinary: int = 50):
     """Four nodes, ``n_ordinary`` small pods and, in the middle of them, a
-    priority pod with one host port more than the kernel's vocabulary."""
+    priority pod with one host port more than a signature row's shared
+    port slot."""
     from kubernetes_tpu_torch.ops import fused_scan
 
     for i in range(4):
@@ -636,7 +621,7 @@ def _wide_wave(cs, n_ordinary: int = 50):
         if i == n_ordinary // 2:
             wide = make_pod("wide", cpu="100m", host_ports=list(
                 range(20000, 20000 + fused_scan.MAX_PORTS + 1)))
-            wide.spec.priority = 100  # a refusal is not a fit failure: no preemption
+            wide.spec.priority = 100
             cs.pods.create(wide)
 
 
@@ -645,59 +630,64 @@ def _failed_scheduling(cs) -> dict:
             if e.reason == "FailedScheduling"}
 
 
-def _assert_only_wide_refused(cs, sched, bound, failed):
-    from kubernetes_tpu_torch.ops import fused_scan
-
-    assert (bound, failed) == (50, 1)
+def _assert_wave_bound_as_the_oracle(cs, sched, bound, failed, n_pods):
+    """Every pod bound, none failed, and each on the node the sequential
+    oracle picks for the same pods in the same order."""
+    assert (bound, failed) == (n_pods, 0)
     placed = {p.meta.name: p.spec.node_name for p in cs.pods.list()[0]}
-    assert placed.pop("wide") == "" and all(placed.values()) and len(placed) == 50
-    assert _failed_scheduling(cs) == {"default/wide": (
-        f"fused scan supports at most {fused_scan.MAX_PORTS} host ports a segment, "
-        f"pod default/wide has {fused_scan.MAX_PORTS + 1}")}
-    assert sched.backend.stats["refused_pods"] == 1
-    assert sched.metrics.preemption_attempts.value == 0
-    assert len(sched.queue) == 0  # backed off, not hot-requeued
+    assert all(placed.values()) and len(placed) == n_pods
+    assert _failed_scheduling(cs) == {}
+    assert "refused_pods" not in sched.backend.stats
+    assert sched.backend.stats["oracle_pods"] == 0
+    ocs = Clientset(Store())
+    for n in cs.nodes.list()[0]:
+        ocs.nodes.create(n)
+    algo = GenericScheduler()
+    oracle = Scheduler(ocs, algorithm=algo)
+    oracle.start()
+    for p in sorted(cs.pods.list()[0], key=lambda p: p.meta.resource_version):
+        pod = make_pod(p.meta.name, cpu="100m", host_ports=[hp for _, hp in p.host_ports()])
+        pod.spec.priority = p.spec.priority
+        ocs.pods.create(pod)
+    oracle.pump()
+    oracle.run_pending()
+    want = {p.meta.name: p.spec.node_name for p in ocs.pods.list()[0]}
+    assert placed == want
 
 
-def test_a_refused_pod_fails_alone_and_the_rest_of_the_wave_binds(cluster):
+def test_a_wide_port_pod_binds_with_the_rest_of_the_wave(cluster):
     _wide_wave(cluster)
     algo = GenericScheduler()
-    sched = Scheduler(cluster, algorithm=algo, backend=_CardShapes(algorithm=algo))
+    sched = Scheduler(cluster, algorithm=algo,
+                      backend=BatchBackend(algorithm=algo, device="cpu"))
     sched.start()
-    _assert_only_wide_refused(cluster, sched, *sched.schedule_pending_batch())
+    _assert_wave_bound_as_the_oracle(cluster, sched, *sched.schedule_pending_batch(), 51)
+    # the priority pod drains first, alone in its segment; the rest follow
+    assert sched.backend.stats["segments"] == 2
     # the loop goes on: the next wave schedules as before
     cluster.pods.create(make_pod("later", cpu="100m"))
     sched.pump()
     assert sched.schedule_pending_batch() == (1, 0)
 
 
-def _many_zone_cluster(cs, n_pods: int = 6):
-    from kubernetes_tpu_torch.ops import fused_scan
-
-    for i in range(fused_scan.MAX_ZONES + 1):
+def _many_zone_cluster(cs, n_zones: int = 300, n_pods: int = 6):
+    for i in range(n_zones):
         cs.nodes.create(make_node(f"n{i:03d}", labels={
             "failure-domain.beta.kubernetes.io/zone": f"z{i}"}))
     for i in range(n_pods):
         cs.pods.create(make_pod(f"p{i}", cpu="100m"))
 
 
-def test_more_zones_than_the_kernel_keeps_refuses_every_pod_before_a_launch(cluster):
-    from kubernetes_tpu_torch.ops import fused_scan
-
+def test_a_cluster_of_many_zones_binds_every_pod(cluster):
+    """300 zones, past what a 16-block cluster keeps in shared memory:
+    every pod binds, on the node the oracle picks."""
     _many_zone_cluster(cluster)
     algo = GenericScheduler()
     backend = BatchBackend(algorithm=algo, device="cpu")
-    backend.device = torch.device("cuda")  # the card's rule; no launch may happen
     sched = Scheduler(cluster, algorithm=algo, backend=backend)
     sched.start()
-    assert sched.schedule_pending_batch() == (0, 6)
-    msg = (f"fused scan supports at most {fused_scan.MAX_ZONES} zones, the cluster has "
-           f"{fused_scan.MAX_ZONES + 1}")
-    assert _failed_scheduling(cluster) == {f"default/p{i}": msg for i in range(6)}
-    assert backend.stats["refused_pods"] == 6 and backend.stats["segments"] == 0
-    # the CPU's plain scan takes the same cluster
-    backend.device = torch.device("cpu")
-    assert backend._zone_refusal(sched.snapshot()) is None
+    _assert_wave_bound_as_the_oracle(cluster, sched, *sched.schedule_pending_batch(), 6)
+    assert backend.stats["segments"] == 1 and backend.stats["kernel_pods"] == 6
 
 
 def test_a_backend_fault_requeues_the_pods_no_segment_committed(cluster):
@@ -739,28 +729,21 @@ def test_a_backend_fault_requeues_the_pods_no_segment_committed(cluster):
 
 @pytest.mark.cuda
 @pytest.mark.timeout(300)
-def test_on_card_a_wide_port_pod_or_too_many_zones_fail_alone():
+def test_on_card_a_wide_port_pod_and_many_zones_bind():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the refusals are the fused CUDA kernel's limits")
+        pytest.skip("needs a CUDA device: the shapes are the fused CUDA kernel's")
     from kubernetes_tpu_torch.ops import fused_scan
 
-    cs = Clientset(Store())
-    _wide_wave(cs)
-    algo = GenericScheduler()
-    sched = Scheduler(cs, algorithm=algo, backend=BatchBackend(algorithm=algo, device="cuda"))
-    sched.start()
-    before = fused_scan.launches
-    _assert_only_wide_refused(cs, sched, *sched.schedule_pending_batch())
-    assert fused_scan.launches > before
-
-    cs = Clientset(Store())
-    _many_zone_cluster(cs)
-    algo = GenericScheduler()
-    sched = Scheduler(cs, algorithm=algo, backend=BatchBackend(algorithm=algo, device="cuda"))
-    sched.start()
-    before = fused_scan.launches
-    assert sched.schedule_pending_batch() == (0, 6) and fused_scan.launches == before
-    assert len(_failed_scheduling(cs)) == 6
+    for build, n_pods in ((_wide_wave, 51), (_many_zone_cluster, 6)):
+        cs = Clientset(Store())
+        build(cs)
+        algo = GenericScheduler()
+        sched = Scheduler(cs, algorithm=algo,
+                          backend=BatchBackend(algorithm=algo, device="cuda"))
+        sched.start()
+        before = fused_scan.launches
+        _assert_wave_bound_as_the_oracle(cs, sched, *sched.schedule_pending_batch(), n_pods)
+        assert fused_scan.launches > before
 
 
 # -- run_batch_loop ---------------------------------------------------------

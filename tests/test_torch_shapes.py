@@ -1,7 +1,7 @@
 """Segments the fused kernel used to refuse: more zones than it keeps in
-registers, and a batch whose host ports outnumber its port vocabulary.
-A pod whose own ports outnumber it is refused on the card before launch,
-and it alone.
+registers (in shared memory, and past it in global memory), a batch whose
+host ports outnumber a signature row's port slot, and a pod whose own
+ports outnumber it (a kernel segment of its own).
 
 On the CPU every kernel segment of ``BatchBackend(device="cpu")`` must pass
 ``fused_scan.plan`` (what the card's path calls before a launch), and the
@@ -53,15 +53,21 @@ def _port_with_plans(build, monkeypatch, **kw):
     return got, algo._round_robin, backend, plans
 
 
-@pytest.mark.parametrize("n_zones,n_nodes", [(12, 64), (64, 160)])
-def test_many_zones_plan_and_match_the_reference(monkeypatch, n_zones, n_nodes):
+@pytest.mark.parametrize("n_zones,n_nodes,where", [(12, 64, "shared"), (64, 160, "shared"),
+                                                   (300, 1000, "shared"),
+                                                   (1000, 1000, "global")])
+def test_many_zones_plan_and_match_the_reference(monkeypatch, n_zones, n_nodes, where):
     kw = dict(n_zones=n_zones, n_nodes=n_nodes, n_pods=90)
     want, rr_want = _jax(cases.many_zones, **kw)
     got, rr_got, backend, plans = _port_with_plans(cases.many_zones, monkeypatch, **kw)
     assert got == want and rr_got == rr_want
     assert backend.stats["oracle_pods"] == 0 and plans
     for pl in plans:
-        assert pl.msg_a >= 10 + 2 * n_zones and pl.zone_off >= pl.inbox_b_off
+        assert pl.zones_at == where
+        if where == "shared":
+            assert pl.msg_a >= 10 + 2 * n_zones and pl.zone_off >= pl.inbox_b_off
+        else:
+            assert pl.msg_a == 12 and pl.zone_off == 0
         assert pl.smem_bytes + fused_scan.STATIC_RESERVE <= fused_scan.SMEM_LIMIT
 
 
@@ -85,41 +91,36 @@ def _wide_port_pod(pkg, **kw):
     return m, pods, pctx
 
 
-def test_a_pod_with_more_ports_than_the_vocabulary_is_refused_on_the_card():
-    """Such a pod is never sent to the oracle.  The card's path refuses the
-    batch before tensorizing it, with the kernel's limit; the CPU's plain
-    scan takes the pod as a kernel segment of its own, and the bindings
-    equal the JAX package's."""
+def test_a_pod_with_more_ports_than_the_slot_binds_in_a_segment_of_its_own(monkeypatch):
+    """Such a pod is never sent to the oracle: it is a kernel segment of its
+    own on both devices (the card reads its flags past the row's shared
+    slot from global memory), the bindings equal the JAX package's, and
+    the segments after it keep their port width."""
     want, rr_want = _jax(_wide_port_pod)
-    M = cases.mods(cases.PORT)
-    m, pods, pctx = _wide_port_pod(cases.PORT)
-    algo = M.gs.GenericScheduler()
-    backend = BatchBackend(algorithm=algo, device="cpu")
-    segs = backend._segments(pods)
-    assert [k for k, _, _ in segs] == ["kernel", "kernel", "kernel"]
-    assert segs[1][1] == [(3, pods[3])]
-    got = backend.schedule_batch(pods, m, pctx)
-    assert got == want and algo._round_robin == rr_want
+    got, rr_got, backend, plans = _port_with_plans(_wide_port_pod, monkeypatch)
+    assert got == want and rr_got == rr_want
     assert backend.stats["oracle_pods"] == 0 and backend.stats["segments"] == 3
-    # the card's branch of the same cut: the pod alone is refused, before
-    # anything is tensorized, with the kernel's limit
-    backend.device = torch.device("cuda")
-    card = backend._segments(pods)
-    assert [k for k, _, _ in card] == ["kernel", "refused", "kernel"]
-    assert card[1][1] == [(3, pods[3])] and card[0][1] == segs[0][1] and card[2][1] == segs[2][1]
-    assert [r for _, _, r in segs] == [None, None, None] and card[0][2] is card[2][2] is None
-    assert str(card[1][2]) == (
-        f"fused scan supports at most {fused_scan.MAX_PORTS} host ports a segment, pod "
-        f"default/wide has 257")
+    m, pods, _ = _wide_port_pod(cases.PORT)
+    for device in ("cpu", "cuda"):
+        backend.device = torch.device(device)  # the cut is the same on both
+        segs = backend._segments(pods)
+        assert [k for k, _ in segs] == ["kernel", "kernel", "kernel"]
+        assert segs[1][1] == [(3, pods[3])]
+    assert [pl.sws < pl.sw for pl in plans] == [False, True, False]
+    assert plans[2].sw == plans[0].sw, "the wide pod widened the next segment's rows"
+    assert backend.tensorizer._sticky["ports"] <= fused_scan.MAX_PORTS
 
 
-def test_zone_cap_is_derived_and_still_refuses_above_it():
-    assert fused_scan.MAX_ZONES >= 64
-    assert fused_scan.zone_bytes(fused_scan.MAX_ZONES) <= fused_scan.ZONE_SMEM
-    assert fused_scan.zone_bytes(fused_scan.MAX_ZONES + 1) > fused_scan.ZONE_SMEM
-    static, init = cases.tensorize(cases.PORT, "many_zones")
-    assert static.num_zones > fused_scan.REG_ZONES
-    static.num_zones = fused_scan.MAX_ZONES + 1
-    s, _ = from_reference(vars(static), vars(init), "cpu")
-    with pytest.raises(ValueError, match=f"at most {fused_scan.MAX_ZONES} zones"):
-        fused_scan.check_shape(s)
+def test_no_zone_count_is_refused_and_the_planner_places_them():
+    """Past shared memory's zone budget the planner keeps the statistics
+    in global memory; check_shape names no zone limit."""
+    static, init = cases.tensorize(cases.PORT, "many_zones", n_zones=1000, n_nodes=1000,
+                                   n_pods=20)
+    assert static.num_zones == 1000
+    s, st = from_reference(vars(static), vars(init), "cpu")
+    fused_scan.check_shape(s)
+    pl = fused_scan.plan(s)
+    assert pl.zones_at == "global" and pl.cs == 4
+    b = fused_scan.pack(s, st, pl)
+    assert b["zbuf"].numel() == fused_scan.zbuf_words(1000, pl.cs) and not b["zbuf"].any()
+    assert fused_scan.params(s, st, b, pl).zbuf == b["zbuf"].data_ptr()

@@ -241,9 +241,11 @@ def many_zones(pkg: str, n_zones: int = 16, seed: int = 3, n_nodes: int = 64, n_
     return m, pods, M.PriorityContext(m, services=svcs, replicasets=[rs])
 
 
-def host_ports(pkg: str, n_ports: int = 200, seed: int = 4, n_nodes: int = 16, n_pods: int = None):
+def host_ports(pkg: str, n_ports: int = 200, seed: int = 4, n_nodes: int = 16, n_pods: int = None,
+               wide: int = 0):
     """``n_ports`` distinct host ports over the batch (every pod its own,
-    a few pods repeating one), on few nodes so ports collide."""
+    a few pods repeating one), on few nodes so ports collide; ``wide``
+    adds, fourth in the batch, a pod with that many ports of its own."""
     M = mods(pkg)
     rng = random.Random(seed)
     m = {}
@@ -257,6 +259,9 @@ def host_ports(pkg: str, n_ports: int = 200, seed: int = 4, n_nodes: int = 16, n
     for i in range(n_pods or n_ports // 4):
         pods.insert(rng.randrange(len(pods)), M.tu.make_pod(
             f"r{i:03d}", cpu="100m", host_ports=[9000 + rng.randrange(n_ports)]))
+    if wide:
+        pods.insert(3, M.tu.make_pod("wide", cpu="100m",
+                                     host_ports=list(range(20000, 20000 + wide))))
     return m, pods, M.PriorityContext(m)
 
 
