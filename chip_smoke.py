@@ -6,9 +6,10 @@
 Phases, one line each:
 
 1. the card: name and power limit as nvidia-smi reports them;
-2. build the fused-scan CUDA kernel from ``kubernetes_tpu_torch/ops/csrc``,
-   and name which host helpers (``native.py``: the label matcher and the
-   store's deep copy) serve, ``native`` or ``python``;
+2. build the CUDA kernels from ``kubernetes_tpu_torch/ops/csrc`` (the fused
+   scan and the frontier loop's refresh, one ``nvcc`` each, started
+   together), and name which host helpers (``native.py``: the label
+   matcher and the store's deep copy) serve, ``native`` or ``python``;
 3. the kernel against its plain PyTorch version (``ops/scan_ref.py``) on
    the card, on 1000-node x 2000-pod ``mixed`` and ``plain`` segments; on
    the same ``mixed`` cluster with its zone label over 16 zones (the
@@ -24,13 +25,18 @@ Phases, one line each:
    ``Scheduler.schedule_pending_batch`` (all 51 bind, nothing is
    refused); and the port's sequential oracle against ``BatchBackend`` on
    a 300-pod prefix;
-4. the main path at full width: one ``BatchBackend(device="cuda")
-   .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, with the
-   fused-kernel launch count read around it; then the kernel against the
-   plain version on that very segment, on a 5000-node x 2000-pod one, on a
-   10 000-node x 1000-pod one and on a 20 000-node x 500-pod one (whose
-   plan leaves planes in global memory), the kernel's plan (cluster and
-   block size, the planes in shared memory), and its times;
+4. the main path at full width: ``BatchBackend(device="cuda")
+   .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, four times in
+   turns with the frontier off, on (the default: the device-resident loop
+   of 512-pod chunks and refreshes), on, off, each with both kernels'
+   launch counts read around it, its wall, kernel_ms and host syncs; all
+   four bind alike; then the kernel against the plain version on that
+   very segment, on a 5000-node x 2000-pod one, on a 10 000-node x
+   1000-pod one and on a 20 000-node x 500-pod one (whose plan leaves
+   planes in global memory), the kernel's plan (cluster and block size,
+   the planes in shared memory), its times, one 512-pod chunk launch's
+   time, and the refresh kernel against its plain version at the main
+   segment's width, with its times and bound;
 5. the serving path: (a) ``workload.run_churn`` at full width, 20 000
    ``mixed`` pods arriving in 10 waves on 5000 nodes and served by the
    port's ``Scheduler.run_batch_loop`` on ``BatchBackend(device="cuda")``
@@ -41,7 +47,8 @@ Phases, one line each:
    (c) 5a and 5b again on the eager ingest path (typed decode of every
    event, per-event delivery): the same-call A/B of ingest, 5c's parity
    held like 5b's.  Every wave prints its frames, frame events, lazy
-   promotions, confirm fallbacks and decode seconds;
+   promotions, confirm fallbacks and decode seconds; 5a and 5c print the
+   ``DeviceNodeCache``'s reuses and the share of node columns uploaded;
 6. the daemon stack: (a) ``python -m kubernetes_tpu_torch.apiserver`` and
    ``python -m kubernetes_tpu_torch.scheduler --leader-elect`` (its
    default ``--backend batch --device cuda``) as processes, driven over
@@ -60,7 +67,7 @@ Phases, one line each:
    batch a kernel launch): evictions per second, the cohort split (state
    build, ranking, evictions), victims == preemptors == bound after, the
    failing and follow-up batches' kernel segments against the plain scan;
-   (b) 1000 nodes, 4000 fillers and 250 preemptors, a seeded tenth of
+   (b) 1000 nodes, 4000 fillers and 150 preemptors, a seeded tenth of
    them with a host port or a required affinity: every cohort decision
    held against the exhaustive ``find_preemption_target``, the later
    batches' kernel segments against the plain scan; (c) the two daemons
@@ -78,21 +85,31 @@ Phases, one line each:
    ``--trace --timeseries --telemetry-sink``: its pods/s beside 6a's, the
    chrome trace from /debug/traces (one root span a wave, the
    ``tensorize`` spans' seconds equal to the daemon's ``tensorize_s``,
-   the ``dispatch`` spans' ``kernel_ms`` equal to its launches and
-   ``kernel_ms``), the sink's time series covering every wave, and the
+   the ``dispatch`` spans' launches and ``kernel_ms`` equal to its
+   launches and ``kernel_ms``), the sink's time series covering every
+   wave, and the
    per-wave idle share from the spans; (b) in process on the card, 1000
-   nodes and 2000 ``mixed`` pods in four waves, one fault a wave from a
+   nodes and 2000 ``mixed`` pods in five waves, one fault a wave from a
    seeded ``FaultPlan`` (``backend.pallas.segment``: the wave raises and
    its pods are requeued; ``scheduler.bind``: forget, requeue, rebind;
-   ``scheduler.pipeline.prep``: contained), each with a flight-recorder
-   dump naming the point and its wave, the bindings against the
-   per-wave oracle replay; (c) ``workload.run_overload`` at 5000 nodes
+   ``scheduler.pipeline.prep``: contained; ``backend.compact`` at the
+   frontier's prefilter: the wave raises and its pods are requeued, as
+   for the kernel), each with a flight-recorder dump naming the point and
+   its wave, the bindings against the per-wave oracle replay; (c) ``workload.run_overload`` at 5000 nodes
    (surge at 3x the calibrated drain for at most 20 s, recovery, tail):
    each tier's goodput and e2e p50/p99, the rung timeline, transitions,
    score-plane sheds and 429s; every segment scanned with the interpod
    score plane shed is held against the plain scan afterwards, the
    ladder must engage and recover, and the tail at rung 0 must equal the
-   oracle replay.
+   oracle replay;
+10. a pool that fills: 1024 nodes, half of them taking 4 pods and half 110,
+   and 10 000 identical pods at the default frontier settings (what a
+   batch job draining into a nearly full node pool sends): a
+   ``backend.compact`` fault at the first compaction raises; then the
+   frontier route binds the batch, compacting at least once, equal to the
+   full-width kernel and to the plain scan, with at most compactions + 2
+   host syncs; the refresh kernel is held against its plain version at
+   every loop exit; the widths trajectory and times are printed.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -218,6 +235,142 @@ def time_kernel(s, st, reps: int = 3) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def batch_run(m, pods, pctx, frontier: bool) -> dict:
+    """One ``BatchBackend(device="cuda", frontier=...)`` batch with both
+    kernels' launch counts set to 0 just before it and read just after."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan
+    from kubernetes_tpu_torch.ops.backend import BatchBackend
+
+    backend = BatchBackend(device="cuda", frontier=frontier)
+    torch.cuda.synchronize()
+    fused_scan.launches = frontier_refresh.launches = 0
+    t0 = time.perf_counter()
+    assignments = backend.schedule_batch(pods, m, pctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, refresh = fused_scan.launches, frontier_refresh.launches
+    st = backend.stats
+    n_bound = sum(a is not None for a in assignments)
+    lf = backend.last_frontier
+    print(f"phase 4 main {len(m)}x{len(pods)} mixed, frontier {'on' if frontier else 'off'}: "
+          f"bound {n_bound} unbound {len(pods) - n_bound} segments {st['segments']} kernel_pods "
+          f"{st['kernel_pods']} oracle_pods {st['oracle_pods']} launches {launches} "
+          f"refresh_launches {refresh} host_syncs {st['host_syncs']} tensorize_s "
+          f"{st['tensorize_s']:.3f} dispatch_s {st['dispatch_s']:.3f} device_wait_s "
+          f"{st['device_wait_s']:.3f} kernel_ms {st['kernel_ms']:.3f} wall_s {wall:.3f} "
+          f"pods_per_s {len(pods) / wall:.1f} frontier {lf}", flush=True)
+    if launches < 1 or st["oracle_pods"] != 0 or st["kernel_pods"] != len(pods):
+        raise AssertionError("the main path did not run every pod through the fused kernel")
+    if st["segments"] != 1:
+        raise AssertionError(f"expected one segment, got {st['segments']}")
+    if frontier and (refresh < 1 or not lf or lf[0]["mode"] != "loop"
+                     or st["host_syncs"] > lf[0]["compactions"] + 2):
+        raise AssertionError(f"the frontier route did not run its loop: {lf}, {st}")
+    if not frontier and (refresh or lf or st["host_syncs"] != 1):
+        raise AssertionError(f"the frontier was off but ran: {lf}, {st}")
+    return {"frontier": frontier, "assignments": assignments, "wall": wall,
+            "rr": backend.algorithm._round_robin, "launches": launches,
+            "refresh_launches": refresh, "stats": dict(st)}
+
+
+def time_chunk(s, st, chunk: int = 512, reps: int = 3) -> float:
+    """ms of one chunk launch of the frontier loop (the segment's first
+    ``chunk`` pods, the counter from device memory, the state written
+    back) by CUDA events, on freshly packed state each time."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    pl = fused_scan.plan(s)
+    total = 0.0
+    for rep in range(reps + 1):  # the first is a warm-up
+        bufs = fused_scan.pack(s, st, pl)
+        ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_scan.launch(s, st, bufs, pl, start=0, count=min(chunk, s.p_real), ctl=ctl)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end) if rep else 0.0
+    return total / reps
+
+
+def refresh_bound(s, pl, bufs) -> tuple[float, str]:
+    """Least time for one refresh at this width: the [G, ns] planes
+    (still_ok read and written, static_ok) and the state rows it reads,
+    each once, over HBM bandwidth, against its integer operations (per
+    column and signature: 4, 2 a resource, 1 a host port, 2 an active term
+    of the signature) over the non-tensor 32-bit rate."""
+    g, r = s.static_ok.shape[0], s.node_alloc.shape[1]
+    ns, t, pv = pl.ns, s.term_matches_sig.shape[0], s.g_ports.shape[1]
+    rows = 2 * r + 3 + (pv if s.use_ports else 0) + (2 * t if s.use_terms else 0)
+    nbytes = g * ns * (1 + 1 + 4) + rows * ns * 4 + ns + g * pl.sw * 4
+    terms = int(bufs["sig"][:, r + 3].sum()) if s.use_terms else 0
+    ops = ns * (g * (4 + 2 * r + (pv if s.use_ports else 0)) + 2 * terms)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def refresh_cell(s, st, reps: int = 20) -> dict:
+    """The refresh kernel at the main segment's width: the state after the
+    first 512-pod chunk, from an all-True plane (the plane is then the
+    monotone plane itself), held against ``scan_ref.refresh`` on the
+    unpacked state; its ms by CUDA events over ``reps`` launches, the
+    plain version's, and the bound.  Returns its kernel-table entry."""
+    import dataclasses
+
+    import torch
+
+    from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan, scan_ref
+
+    pl = fused_scan.plan(s)
+    bufs = fused_scan.pack(s, st, pl)
+    ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
+    ctl[fused_scan.CTL_RR] = st.round_robin
+    fused_scan.launch(s, st, bufs, pl, start=0, count=min(512, s.p_real), ctl=ctl)
+    state = fused_scan.unpack_state(s, bufs, int(ctl[fused_scan.CTL_RR]))
+    g, n = s.static_ok.shape[0], s.n_pad
+    ones = torch.zeros((g, pl.ns), dtype=torch.bool, device=s.device)
+    ones[:, :n] = True
+    plain_in = dataclasses.replace(state, still_ok=ones[:, :n].clone())
+    thresh = n // 2
+    times = {"kernel": 0.0, "plain": 0.0}
+    for rep in range(reps + 1):
+        still, alive = ones.clone(), torch.zeros(pl.ns, dtype=torch.bool, device=s.device)
+        ctl[fused_scan.CTL_STOP] = 0
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        frontier_refresh.launch(s, bufs, pl, still, alive, ctl, thresh)
+        end.record()
+        end.synchronize()
+        times["kernel"] += start.elapsed_time(end) if rep else 0.0
+    start.record()
+    want, want_alive, want_n, want_stop = scan_ref.refresh(s, plain_in, thresh)
+    end.record()
+    end.synchronize()
+    times["plain"] = start.elapsed_time(end)
+    err = max(int((still[:, :n] != want.still_ok).sum()), int((alive[:n] != want_alive).sum()),
+              abs(int(ctl[fused_scan.CTL_ALIVE]) - want_n),
+              int(bool(ctl[fused_scan.CTL_STOP]) != want_stop), int(still[:, n:].sum()))
+    bound_ms, bound_by = refresh_bound(s, pl, bufs)
+    ms = times["kernel"] / reps
+    print(f"phase 4 frontier_refresh at the main segment's width ({g} signatures x {pl.ns} "
+          f"columns, after 512 pods): kernel == scan_ref.refresh (alive {want_n}, stop "
+          f"{want_stop}), mismatches {err}; kernel {ms:.4f} ms, plain {times['plain']:.3f} ms, "
+          f"bound {bound_ms:.5f} ms by {bound_by}", flush=True)
+    if err:
+        raise AssertionError(f"frontier_refresh != scan_ref.refresh: {err} mismatches")
+    return {"name": "frontier_refresh", "route": "cuda",
+            "source": "kubernetes_tpu_torch/ops/csrc/frontier_refresh.cu",
+            "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
+            "max_abs_err": err, "ms": ms, "plain_ms": times["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def plan_line(what: str, s, st) -> str:
@@ -482,26 +635,32 @@ def ingest_line(ph: dict, keys: tuple = INGEST_KEYS) -> str:
 def churn_phase(lazy_ingest: bool = True) -> tuple:
     """Phase 5: the serving path at full width, then per-wave oracle parity
     of a smaller churn run; ``lazy_ingest=False`` runs both on the eager
-    ingest path (phase 5c).  Returns (the fused-kernel launches of the
-    full-width run, its pods/s)."""
-    from kubernetes_tpu_torch.ops import fused_scan
+    ingest path (phase 5c).  Returns ((the fused-scan and the refresh
+    kernels' launches of the full-width run), its pods/s)."""
+    from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan
     from kubernetes_tpu_torch.workload import oracle_replay_waves, run_churn
 
     a, b = ("5a", "5b") if lazy_ingest else ("5c", "5c parity")
     path = "lazy, framed ingest" if lazy_ingest else "eager ingest"
     n_nodes, n_pods, waves = 5000, 20000, 10
-    fused_scan.launches = 0
+    fused_scan.launches = frontier_refresh.launches = 0
     r = run_churn(n_nodes, n_pods, waves, "mixed", seed=0, device="cuda",
                   lazy_ingest=lazy_ingest)
-    launches = fused_scan.launches
+    launches, refresh = fused_scan.launches, frontier_refresh.launches
     st = r["backend"]
+    nc = r["node_cache"]
     e2e = r["e2e_scheduling_ms"]
     print(f"phase {a} churn {n_nodes}x{n_pods} mixed in {waves} waves, {path}: bound {r['bound']} "
           f"unbound {r['unbound']} drained {r['drained']} wall_s {r['wall_s']:.3f} "
           f"pods_per_s {r['pods_per_sec']:.1f} e2e_p50_ms {e2e['p50']} e2e_p99_ms {e2e['p99']} "
           f"launches {launches} segments {st['segments']} kernel_pods {st['kernel_pods']} "
           f"oracle_pods {st['oracle_pods']} kernel_ms {st['kernel_ms']:.3f} "
-          f"scheduled_events {r['scheduled_events']}", flush=True)
+          f"scheduled_events {r['scheduled_events']}; frontier segments "
+          f"{st['frontier_segments']} compactions {st['frontier_compactions']} refresh_launches "
+          f"{refresh} host_syncs {st['host_syncs']}; DeviceNodeCache reuses {nc['reuses']} "
+          f"col_updates {nc['col_updates']} uploads {nc['uploads']} upload fraction "
+          f"{nc['dirty_cols'] / max(nc['cols_total'], 1):.4f} ({nc['dirty_cols']} of "
+          f"{nc['cols_total']} columns)", flush=True)
     for w, ph in enumerate(r["phase_timers"]):
         print(f"phase {a} wave {w}: bound {ph['bound']} " + " ".join(
             f"{k} {ph[k]:.4f}" for k in ("pump_s", "apply_s", "tensorize_s", "dispatch_s",
@@ -538,7 +697,7 @@ def churn_phase(lazy_ingest: bool = True) -> tuple:
     if (o["mode"] != "exact per-wave replay" or o["checked"] != r["pods"]
             or o["mismatches"] != 0 or o["round_robin"] != r["round_robin"]):
         raise AssertionError(f"churn bindings != per-wave oracle replay: {o}")
-    return launches, pods_per_s
+    return (launches, refresh), pods_per_s
 
 
 def free_port() -> int:
@@ -663,11 +822,11 @@ class Daemons:
         return open(path).read()[-4000:] if os.path.exists(path) else ""
 
 
-def daemon_phase() -> tuple[int, float, float]:
+def daemon_phase() -> tuple[int, float, float, int]:
     """Phase 6: the daemon stack at full width, then parity of a smaller
     daemon run with the sequential oracle.  Returns the fused-kernel
-    launches of 6a, as the daemon counted them, 6a's pods/s and its
-    device idle share."""
+    launches of 6a, as the daemon counted them, 6a's pods/s, its device
+    idle share and the refresh kernel's launches of 6a."""
     from kubernetes_tpu_torch.client import Clientset, RemoteStore
     from kubernetes_tpu_torch.workload import create_cluster, oracle_replay_waves, run_wire_churn
 
@@ -697,7 +856,9 @@ def daemon_phase() -> tuple[int, float, float]:
               f"daemon_e2e_p99_ms {p99:.1f} launches {st['launches']} segments "
               f"{st['segments']} kernel_pods {st['kernel_pods']} oracle_pods "
               f"{st['oracle_pods']} drained {st['drained']} drains {st['waves']} kernel_ms "
-              f"{st['kernel_ms']:.3f} scheduled_events {scheduled}", flush=True)
+              f"{st['kernel_ms']:.3f} scheduled_events {scheduled} refresh_launches "
+              f"{st['refresh_launches']} host_syncs {st['host_syncs']} frontier_compactions "
+              f"{st['frontier_compactions']} node_cache {st['node_cache']}", flush=True)
         print("phase 6a wave seconds: " + " ".join(f"{s:.3f}" for s in r["wave_s"]), flush=True)
         for w in range(waves):
             delta = {k: counters[w + 1][k] - counters[w][k] for k in WIRE_KEYS}
@@ -739,7 +900,7 @@ def daemon_phase() -> tuple[int, float, float]:
             raise AssertionError("the daemon did not run every drained pod through the kernel")
         if scheduled != r["bound"]:
             raise AssertionError(f"{scheduled} Scheduled events for {r['bound']} bound pods")
-        launches = st["launches"]
+        launches, refresh = st["launches"], st["refresh_launches"]
 
         t_6b = time.perf_counter()
         n_nodes, n_pods, seed = 1000, 400, 5
@@ -780,7 +941,7 @@ def daemon_phase() -> tuple[int, float, float]:
     t_end = time.perf_counter()
     print(f"phase 6 took {t_end - t_6a:.1f} s: 6a {t_6b - t_6a:.1f} s (daemon start-up and "
           f"cluster creation included), 6b {t_end - t_6b:.1f} s", flush=True)
-    return launches, r["pods_per_sec"], idle
+    return launches, r["pods_per_sec"], idle, refresh
 
 
 def preemption_line(tag: str, r: dict) -> None:
@@ -812,7 +973,7 @@ def preemption_phase() -> tuple[int, dict]:
     on the card: 5000 nodes, 20 000 fillers, 2500 preemptors, the
     preemptor and follow-up batches' kernel segments held against the
     plain scan; (b) 1000
-    nodes, 4000 fillers and 250 preemptors, a seeded tenth of them with a
+    nodes, 4000 fillers and 150 preemptors, a seeded tenth of them with a
     host port or a required affinity (branch and bound): every cohort
     decision held against the exhaustive ``find_preemption_target`` on the
     state it was made on, and the preemptor and follow-up batches' kernel
@@ -891,9 +1052,10 @@ def preemption_phase() -> tuple[int, dict]:
     fused_scan.launches = 0
     preemption.find_preemption_target_fast = held
     try:
-        # 250 preemptors, not 500: the exhaustive oracle is the phase's
-        # wall (0.2 s a decision), and the script stays near 600 s
-        r = run_preemption(1000, 4000, 250, device="cuda", seed=7, odd_share=0.1,
+        # 150 preemptors (500 once, 250 until the frontier's phases came):
+        # the exhaustive oracle is the phase's wall (0.15-0.25 s a
+        # decision), and the script stays under 750 s
+        r = run_preemption(1000, 4000, 150, device="cuda", seed=7, odd_share=0.1,
                            backend_cls=checking_backend(seen, skip=1))
     finally:
         preemption.find_preemption_target_fast = fast
@@ -1077,6 +1239,8 @@ def traced_daemon_phase(pps_6a: float, idle_6a: float) -> int:
     dispatch = [e for e in events if e["name"] == "dispatch" and e["ph"] == "X"]
     span_kernel_ms = sum(e["args"].get("kernel_ms", 0.0) for e in dispatch)
     timed = sum(1 for e in dispatch if "kernel_ms" in e["args"])
+    # a frontier segment launches the fused scan once a chunk
+    span_launches = sum(e["args"].get("launches", 0) for e in dispatch)
     # each wave's idle share from its own spans: 1 - its kernel ms / its wall
     idle_waves = []
     for root in roots:
@@ -1099,8 +1263,9 @@ def traced_daemon_phase(pps_6a: float, idle_6a: float) -> int:
           f"{sum(1 for x in records if x.get('kind') == 'timeseries')}), batch_size count in "
           f"the sink's series {waves_seen:.0f}", flush=True)
     print(f"phase 9a spans against the daemon's stats: tensorize {tensorize_s:.6f} s vs "
-          f"tensorize_s {st['tensorize_s']:.6f} s; dispatch spans with kernel_ms {timed} vs "
-          f"launches {st['launches']}; their kernel_ms {span_kernel_ms:.6f} vs "
+          f"tensorize_s {st['tensorize_s']:.6f} s; dispatch spans {len(dispatch)}, with "
+          f"kernel_ms {timed}, their launches {span_launches} vs the daemon's "
+          f"{st['launches']}; their kernel_ms {span_kernel_ms:.6f} vs "
           f"{st['kernel_ms']:.6f}", flush=True)
     print("phase 9a per-wave device idle share from the spans (1 - kernel_ms / wave wall): "
           + " ".join(f"{x:.4f}" for x in idle_waves)
@@ -1109,7 +1274,7 @@ def traced_daemon_phase(pps_6a: float, idle_6a: float) -> int:
     if (r["bound"] + r["unbound"] != n_pods or len(roots) != st["waves"]
             or any(e["name"] != f"wave-{i + 1}" for i, e in enumerate(roots))
             or abs(tensorize_s - st["tensorize_s"]) > 1e-6 * max(1.0, st["tensorize_s"])
-            or timed != st["launches"]
+            or timed != len(dispatch) or span_launches != st["launches"]
             or abs(span_kernel_ms - st["kernel_ms"]) > 1e-6 * max(1.0, st["kernel_ms"])
             or int(waves_seen) != st["waves"] or st["oracle_pods"] != 0):
         raise AssertionError(f"phase 9a: the trace or the sink disagrees with the daemon: {st}")
@@ -1118,12 +1283,13 @@ def traced_daemon_phase(pps_6a: float, idle_6a: float) -> int:
 
 def faults_phase() -> int:
     """Phase 9b: faults on the card, in process: 1000 nodes and 2000
-    ``mixed`` pods arriving in four waves, tracing on, one seeded fault a
+    ``mixed`` pods arriving in five waves, tracing on, one seeded fault a
     wave: ``backend.pallas.segment`` once at the launch (the wave raises,
     its drained pods are requeued and bind in the next drain),
-    ``scheduler.pipeline.prep`` (contained), none, then one ``bind_many``
-    item dropped (``scheduler.bind``: the pod is forgotten, requeued after
-    its backoff, and bound again).  Each fault's flight-recorder dump must
+    ``scheduler.pipeline.prep`` (contained), none, ``backend.compact`` at
+    the frontier's prefilter (the wave raises and is requeued as for the
+    kernel), then one ``bind_many`` item dropped (``scheduler.bind``: the
+    pod is forgotten, requeued after its backoff, and bound again).  Each fault's flight-recorder dump must
     name its point and hold the live wave it fired in; every binding but
     the re-decided pod's must equal the per-wave oracle replay.  Returns
     the fused-kernel launches."""
@@ -1155,6 +1321,9 @@ def faults_phase() -> int:
                                              first_n=1)),
              ("scheduler.pipeline.prep", dict(mode="error", first_n=1)),
              (None, None),
+             ("backend.compact", dict(mode="error", match={"phase": "seed"}, first_n=1)),
+             # last: the replay places a re-decided pod at its first decision,
+             # so no wave after a bind requeue can be replayed exactly
              ("scheduler.bind", dict(mode="drop", match={"via": "bind_many"}, first_n=1))]
     armed = {point: FaultPlan(seed=k).on(point, **spec)
              for k, (point, spec) in enumerate(plans) if point}
@@ -1212,7 +1381,7 @@ def faults_phase() -> int:
           f"dumps " + ", ".join(f"{p}: {len(ds)} (live wave {live[p]})" for p, ds in dumps.items())
           + f"; bound {bound}/{n_pods}; oracle replay {o['mode']}, checked {o['checked']}, "
           f"mismatches {o['mismatches']} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    if (any(armed[p].fired.get(p, 0) != 1 for p in armed) or len(failed_drains) != 1
+    if (any(armed[p].fired.get(p, 0) != 1 for p in armed) or len(failed_drains) != 2
             or any(not live[p] for p in armed) or len(twice) != 1
             or sched.metrics.bind_requeues.value != 1
             or sched.metrics.pipeline_prep_failures.value != 1
@@ -1292,14 +1461,141 @@ def overload_phase() -> tuple[int, dict]:
     return launches, r
 
 
+def pool_phase() -> tuple[int, int, list, list]:
+    """Phase 10: a pool that fills.  1024 nodes (half take 4 pods, half
+    110; four zones) and 10 000 identical pods at the default frontier
+    settings (512-pod chunks, compaction at half the width, width floor
+    128): the small half fills within the first few chunks and the loop
+    compacts.  A ``backend.compact`` fault at the first compaction
+    raises first (no full-width retry); then the counted run, whose
+    bindings must equal the full-width kernel's and the plain scan's, with
+    at most compactions + 2 host syncs; at every loop exit the refresh
+    kernel is held (after the run) against ``scan_ref.refresh`` on the
+    exit's state from an all-True plane, and the loop's own plane must lie
+    inside that one.  Returns the run's fused-scan and refresh launches
+    and the mismatches of each kernel."""
+    import dataclasses
+
+    import torch
+
+    from kubernetes_tpu_torch.faults import FaultInjected, FaultPlan
+    from kubernetes_tpu_torch.ops import backend as backend_mod
+    from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan, scan_ref
+    from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
+    from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
+    from kubernetes_tpu_torch.testutil import make_node, make_pod
+    from kubernetes_tpu_torch.workload import ZONE
+
+    t0 = time.perf_counter()
+    n_nodes, n_pods = 1024, 10000
+    m = {}
+    for i in range(n_nodes):
+        name = f"pool-{i:04d}"
+        node = make_node(name, cpu="32", memory="64Gi", pods=4 if i % 2 else 110,
+                         labels={"kubernetes.io/hostname": name, ZONE: f"zone-{i % 4}"})
+        m[name] = NodeInfo(node)
+    pods = [make_pod(f"job-{i:05d}", cpu="100m", memory="128Mi", labels={"app": "batch"})
+            for i in range(n_pods)]
+    pctx = PriorityContext(m)
+    static, s, st = segment(m, pods, pctx, "cuda")
+    r_full = compare(s, st)  # the full-width kernel against the plain scan
+    full_ms = time_kernel(s, st)
+    names = [static.node_names[j] if j >= 0 else None for j in r_full["chosen"]]
+
+    exits: list = []
+
+    class Recorded(backend_mod.FrontierRun):
+        """Keeps each loop exit's state on the card for the checks after
+        the counted run."""
+
+        def _sync_loop(self):
+            out = super()._sync_loop()
+            exits.append((self.static, self._plan, {k: v.clone() for k, v in self._bufs.items()},
+                          self._still.clone(), self._alive.clone(), self._ctl.clone(),
+                          self._loop_thresh()))
+            return out
+
+    plain_route = backend_mod.FrontierRun
+    backend_mod.FrontierRun = Recorded
+    try:
+        # a compaction fault: the batch raises, nothing reroutes it
+        faulted = backend_mod.BatchBackend(device="cuda")
+        plan = FaultPlan(seed=10).on("backend.compact", mode="error", match={"phase": "gather"},
+                                     first_n=1)
+        raised = False
+        with plan.armed():
+            try:
+                faulted.schedule_batch(pods, m, pctx)
+            except FaultInjected:
+                raised = True
+        if not raised or plan.fired.get("backend.compact") != 1 or faulted.stats["kernel_pods"]:
+            raise AssertionError("phase 10: the compaction fault did not raise the batch")
+        exits.clear()
+        backend = backend_mod.BatchBackend(device="cuda")
+        torch.cuda.synchronize()
+        fused_scan.launches = frontier_refresh.launches = 0
+        t1 = time.perf_counter()
+        got = backend.schedule_batch(pods, m, pctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches, refresh = fused_scan.launches, frontier_refresh.launches
+    finally:
+        backend_mod.FrontierRun = plain_route
+    st_b = backend.stats
+    lf = backend.last_frontier[0]
+    fused_errs = [sum(a != b for a, b in zip(got, names))
+                  + int(backend.algorithm._round_robin != r_full["rr"]), r_full["max_abs_err"]]
+    # the refresh kernel at every loop exit, from an all-True plane
+    refresh_errs = []
+    for ex_static, pl, bufs, still_loop, alive_loop, ctl, thresh in exits:
+        n = ex_static.n_pad
+        state = fused_scan.unpack_state(ex_static, bufs, int(ctl[fused_scan.CTL_RR]))
+        g = ex_static.static_ok.shape[0]
+        ones = torch.zeros((g, pl.ns), dtype=torch.bool, device="cuda")
+        ones[:, :n] = True
+        still, alive = ones.clone(), torch.zeros(pl.ns, dtype=torch.bool, device="cuda")
+        ctl[fused_scan.CTL_STOP] = 0
+        frontier_refresh.launch(ex_static, bufs, pl, still, alive, ctl, thresh)
+        want, want_alive, want_n, want_stop = scan_ref.refresh(
+            ex_static, dataclasses.replace(state, still_ok=ones[:, :n].clone()), thresh)
+        torch.cuda.synchronize()
+        err = (int((still[:, :n] != want.still_ok).sum()) + int((alive[:n] != want_alive).sum())
+               + abs(int(ctl[fused_scan.CTL_ALIVE]) - want_n)
+               + int(bool(ctl[fused_scan.CTL_STOP]) != want_stop))
+        # the loop's plane is the seed's intersected with it, never wider
+        err += int((still_loop[:, :n] & ~want.still_ok).sum())
+        err += abs(int(alive_loop[:n].sum()) - scan_ref.alive_of(still_loop[:, :n],
+                                                                 ex_static.node_exists)[1])
+        refresh_errs.append(err)
+    print(f"phase 10 pool that fills, {n_nodes} nodes (half of 4 pods, half of 110) x {n_pods} "
+          f"identical pods, frontier defaults: bound {sum(x is not None for x in got)}, frontier "
+          f"route == full-width kernel == scan_ref (mismatches {fused_errs[0]}), rr "
+          f"{backend.algorithm._round_robin}; widths {lf['widths']}, alive_frac "
+          f"{lf['alive_frac']}, compactions {lf['compactions']}, chunks {lf['chunks']}, "
+          f"host_syncs {lf['host_syncs']}; launches {launches} fused + {refresh} refresh; "
+          f"refresh kernel == scan_ref.refresh at {len(exits)} loop exits (mismatches "
+          f"{sum(refresh_errs)}); a gather fault raised the batch first", flush=True)
+    print(f"phase 10 times: frontier route wall {wall:.3f} s, its kernel_ms {st_b['kernel_ms']:.3f} "
+          f"(tensorize {st_b['tensorize_s']:.3f} s, dispatch {st_b['dispatch_s']:.3f} s, device "
+          f"wait {st_b['device_wait_s']:.3f} s); the full-width kernel {full_ms:.3f} ms; plain scan "
+          f"{r_full['plain_ms']:.1f} ms ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if (any(fused_errs) or any(refresh_errs) or lf["compactions"] < 1 or not exits
+            or lf["host_syncs"] > lf["compactions"] + 2 or launches < 1 or refresh < 1
+            or st_b["oracle_pods"] != 0):
+        raise AssertionError(f"phase 10: {fused_errs}, {refresh_errs}, {lf}, {st_b}")
+    return launches, refresh, fused_errs, refresh_errs
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from kubernetes_tpu_torch import native
-    from kubernetes_tpu_torch.ops import _build, fused_scan
+    from kubernetes_tpu_torch.ops import _build, frontier_refresh, fused_scan
     from kubernetes_tpu_torch.ops.backend import BatchBackend
     from kubernetes_tpu_torch.scheduler.generic_scheduler import GenericScheduler
 
@@ -1308,9 +1604,18 @@ def main() -> int:
     print(f"phase 1 card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build("fused_scan", verbose=True)  # prints ptxas registers and spills
-    _build.load("fused_scan")
-    print(f"phase 2 build: fused_scan {time.perf_counter() - t0:.1f}s", flush=True)
+    built = {}
+
+    def build(name: str) -> None:
+        _build.build(name, verbose=True)  # prints ptxas registers and spills
+        built[name] = time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:  # one nvcc a source, started together
+        list(pool.map(build, ("fused_scan", "frontier_refresh")))
+    fused_scan.load()
+    frontier_refresh.load()
+    print(f"phase 2 build: fused_scan {built['fused_scan']:.1f}s, frontier_refresh "
+          f"{built['frontier_refresh']:.1f}s, both {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     helpers = native.helpers()
     print(f"phase 2 host helpers: matcher {helpers['matcher']}, fastcopy {helpers['fastcopy']} "
@@ -1340,77 +1645,79 @@ def main() -> int:
     # -- phase 4: the main path at full width ------------------------------
     m, pods, pctx = cluster(5000, 20000, "mixed", seed=0)
     main_static, s_main, st_main = segment(m, pods, pctx, "cuda")
-    backend = BatchBackend(device="cuda")
-    torch.cuda.synchronize()
-    fused_scan.launches = 0
-    t0 = time.perf_counter()
-    assignments = backend.schedule_batch(pods, m, pctx)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fused_scan.launches
-    st = backend.stats
-    n_bound = sum(a is not None for a in assignments)
-    print(f"phase 4 main 5000x20000 mixed: bound {n_bound} unbound {len(pods) - n_bound} "
-          f"segments {st['segments']} kernel_pods {st['kernel_pods']} oracle_pods "
-          f"{st['oracle_pods']} launches {launches} tensorize_s {st['tensorize_s']:.3f} "
-          f"dispatch_s {st['dispatch_s']:.3f} device_wait_s {st['device_wait_s']:.3f} "
-          f"kernel_ms_per_segment {st['kernel_ms'] / max(st['segments'], 1):.3f} "
-          f"wall_s {wall:.3f} pods_per_s {len(pods) / wall:.1f}", flush=True)
-    if launches < 1 or st["oracle_pods"] != 0 or st["kernel_pods"] != len(pods):
-        raise AssertionError("the main path did not run every pod through the fused kernel")
-    if st["segments"] != 1:
-        raise AssertionError(f"expected one segment, got {st['segments']}")
+    runs = []
+    for frontier in (False, True, True, False):  # in turns
+        runs.append(batch_run(m, pods, pctx, frontier))
+    main = next(r for r in runs if r["frontier"])  # the default route: the main path
+    launches, refresh_launches = main["launches"], main["refresh_launches"]
+    walls = {f: [r["wall"] for r in runs if r["frontier"] == f] for f in (True, False)}
+    print(f"phase 4 frontier on/off in turns: walls on {walls[True]} off {walls[False]}, "
+          f"ratio of the means on/off {sum(walls[True]) / sum(walls[False]):.4f}; card {card}",
+          flush=True)
 
     # the main path's segment: its bindings against the plain version
     r_main = compare(s_main, st_main)
     names = [main_static.node_names[j] if j >= 0 else None for j in r_main["chosen"]]
-    if names != assignments or backend.algorithm._round_robin != r_main["rr"]:
-        raise AssertionError("BatchBackend bindings != scan_ref on the main-path segment")
-    print(f"phase 4 main segment: kernel == scan_ref == BatchBackend, rr {r_main['rr']}",
-          flush=True)
+    for r in runs:
+        if names != r["assignments"] or r["rr"] != r_main["rr"]:
+            raise AssertionError(f"BatchBackend (frontier {r['frontier']}) bindings != scan_ref "
+                                 "on the main-path segment")
+    print(f"phase 4 main segment: kernel == scan_ref == BatchBackend with the frontier on and "
+          f"off, rr {r_main['rr']}", flush=True)
     print(plan_line("main segment", s_main, st_main), flush=True)
     errs = [r_main["max_abs_err"], *other_segments(), *shape_errs]
 
     ms = time_kernel(s_main, st_main)
     plain_ms = r_main["plain_ms"]
     bound_ms, bound_by, detail = bound(s_main, st_main)
+    chunk_ms = time_chunk(s_main, st_main)
     print(f"phase 4 times on the main segment ({s_main.n_pad} nodes x {s_main.p_real} pods): "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops)", flush=True)
+          f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops); one 512-pod chunk "
+          f"launch (write-back on) {chunk_ms:.3f} ms, x {-(-s_main.p_real // 512)} chunks "
+          f"{chunk_ms * -(-s_main.p_real // 512):.3f} ms", flush=True)
+    refresh_entry = refresh_cell(s_main, st_main)
 
-    churn_launches, lazy_pps = churn_phase()
-    eager_launches, eager_pps = churn_phase(lazy_ingest=False)
+    (churn_launches, churn_refresh), lazy_pps = churn_phase()
+    (eager_launches, _), eager_pps = churn_phase(lazy_ingest=False)
     print(f"phase 5c ingest A/B in this call, 5000x20000 mixed churn: lazy, framed "
           f"{lazy_pps:.1f} pods/s (5a) against eager {eager_pps:.1f} pods/s (5c), "
           f"ratio {lazy_pps / eager_pps:.3f}", flush=True)
-    daemon_launches, pps_6a, idle_6a = daemon_phase()
+    daemon_launches, pps_6a, idle_6a, daemon_refresh = daemon_phase()
     preemption_launches, _ = preemption_phase()
     policy_launches = policy_phase()
     policy_daemon_phase()
     traced_launches = traced_daemon_phase(pps_6a, idle_6a)
     fault_launches = faults_phase()
     overload_launches, _ = overload_phase()
+    pool_launches, pool_refresh, pool_errs, pool_refresh_errs = pool_phase()
 
     entry = {
         "name": "fused_scan", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/fused_scan.cu",
         "replaces": REPLACES,
         "launches": (launches + churn_launches + daemon_launches + preemption_launches
-                     + policy_launches + traced_launches + fault_launches + overload_launches),
+                     + policy_launches + traced_launches + fault_launches + overload_launches
+                     + pool_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "daemon": daemon_launches, "churn_eager": eager_launches,
                              "preemption": preemption_launches, "policy": policy_launches,
                              "traced_daemon": traced_launches, "faults": fault_launches,
-                             "overload": overload_launches},
+                             "overload": overload_launches, "pool": pool_launches},
         # the repaired shapes' segments (phase 3): many zones, a wide port row
         "cells": shape_cells,
-        "max_abs_err": max(errs),
-        "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real,
+        "max_abs_err": max(errs + pool_errs),
+        "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real, "chunk_ms": chunk_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }
+    refresh_entry.update(
+        max_abs_err=max([refresh_entry["max_abs_err"], *pool_refresh_errs]),
+        launches=refresh_launches + churn_refresh + daemon_refresh + pool_refresh,
+        launches_by_path={"batch": refresh_launches, "churn": churn_refresh,
+                          "daemon": daemon_refresh, "pool": pool_refresh})
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, refresh_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

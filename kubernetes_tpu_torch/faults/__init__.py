@@ -29,6 +29,10 @@ backend.pallas.segment   BatchBackend: the fused scan's     raises: the wave fai
                          launch and its finalize            scheduler requeues its drained
                                                             pods; nothing reroutes the
                                                             segment (no fallback ladder)
+backend.compact          BatchBackend's frontier scan:      raises, as the kernel seam:
+                         phase=seed (the prefilter),        the scheduler requeues the
+                         gather (a compaction), loop (a     drained pods; nothing retries
+                         loop run, first or re-entry)       the segment at full width
 telemetry.ship           TelemetryShipper._ship_batch       retry + backoff, then the
                                                             shipper's local dead ring
 apiserver.admit          APIServer create-path admission    client retries honoring
@@ -36,8 +40,7 @@ apiserver.admit          APIServer create-path admission    client retries honor
 ======================== ================================== ===========================
 
 Not registered, because their sites are not ported yet: ``store.wal.append``
-and ``store.coalesce`` (the durable store and the coalescing window) and
-``backend.compact`` (the frontier scan).
+and ``store.coalesce`` (the durable store and the coalescing window).
 """
 
 from .core import (
@@ -81,6 +84,11 @@ register("scheduler.pipeline.prep",
 register("backend.pallas.segment",
          "the fused scan's launch or finalize for one segment — error: the "
          "kernel fails; the port raises (no fallback ladder)")
+register("backend.compact",
+         "the frontier scan: phase=seed the tensorize-time prefilter, "
+         "phase=gather a node-axis compaction, phase=loop a loop run (the "
+         "first or a re-entry) — error: the port raises (no full-width "
+         "retry)")
 register("telemetry.ship",
          "one telemetry batch through the sink — error: the collector is "
          "down; retry + backoff, then the shipper's local dead ring")

@@ -6,12 +6,16 @@ of numpy arrays and ints — the field names and layouts of the tensorizer's
 ``BatchStatic`` / ``InitialState`` (``vars(static)``, ``vars(init)``) — and
 places them on ``device``.  The backend feeds it the port's own tensorizer
 output; the tests feed it the JAX package's, so both packages scan the very
-same input.
+same input.  ``init["still_ok"]`` (the frontier seed, when present) rides
+along as ``ScanState.still_ok``; ``node_arrays`` takes the four node-axis
+statics from a device-resident cache (``ops/node_cache.py``) instead of
+uploading them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -88,6 +92,9 @@ class ScanState:
     vol_any: torch.Tensor  # [V, N] bool
     vol_ns: torch.Tensor  # [V, N] bool non-sharable instance present
     nk: torch.Tensor  # [K, N] int32 distinct limited-kind disks per node
+    # frontier mode: the monotone feasibility plane per signature, True
+    # where the node may still take a pod of it (None outside the frontier)
+    still_ok: Optional[torch.Tensor] = None  # [G, N] bool
 
 
 _STATIC_INT = ("node_alloc", "node_alloc_pods", "node_zone", "node_aff_raw",
@@ -101,6 +108,8 @@ _STATIC_BOOL = ("node_exists", "static_ok", "g_ports", "g_has_spread",
 _STATE_INT = ("requested", "nonzero_requested", "pod_count", "spread_counts",
               "dm", "downer", "total_match", "nk")
 _STATE_BOOL = ("ports_used", "vol_any", "vol_ns")
+# the node-axis statics a DeviceNodeCache keeps on the card
+NODE_FIELDS = ("node_exists", "node_alloc", "node_alloc_pods", "node_zone")
 
 
 def _put(arr, dtype, device) -> torch.Tensor:
@@ -108,18 +117,23 @@ def _put(arr, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np_dtype)).to(device)
 
 
-def from_reference(static: dict, init: dict, device) -> tuple[ScanStatic, ScanState]:
+def from_reference(static: dict, init: dict, device,
+                   node_arrays: Optional[tuple] = None) -> tuple[ScanStatic, ScanState]:
     """Place one tensorized segment on ``device``.  ``static`` and ``init``
     hold the tensorizer's field names; ``static["terms"]`` may be the term
-    list or its length (only its truth matters here)."""
+    list or its length (only its truth matters here).  ``node_arrays``,
+    when given, are the ``NODE_FIELDS`` tensors already on ``device``."""
     device = torch.device(device)
     weights = {k: int(static["weights"].get(k, 0)) for k in WEIGHT_KEYS}
     count_only = static.get("pod_vol_count_only")
     if count_only is None:
         count_only = np.zeros_like(static["pod_vol_valid"])
-    s = {f: _put(static[f], torch.int32, device) for f in _STATIC_INT}
-    s.update({f: _put(static[f] if f != "pod_vol_count_only" else count_only,
-                      torch.bool, device) for f in _STATIC_BOOL})
+    cached = dict(zip(NODE_FIELDS, node_arrays)) if node_arrays is not None else {}
+    s = {f: cached[f] if f in cached else _put(static[f], torch.int32, device)
+         for f in _STATIC_INT}
+    s.update({f: cached[f] if f in cached else
+              _put(static[f] if f != "pod_vol_count_only" else count_only, torch.bool, device)
+              for f in _STATIC_BOOL})
     scan_static = ScanStatic(
         n_pad=int(static["n_pad"]),
         num_zones=int(static["num_zones"]),
@@ -132,4 +146,7 @@ def from_reference(static: dict, init: dict, device) -> tuple[ScanStatic, ScanSt
     )
     st = {f: _put(init[f], torch.int32, device) for f in _STATE_INT}
     st.update({f: _put(init[f], torch.bool, device) for f in _STATE_BOOL})
+    still_ok = init.get("still_ok")
+    if still_ok is not None:
+        st["still_ok"] = _put(still_ok, torch.bool, device)
     return scan_static, ScanState(round_robin=int(init["round_robin"]), **st)

@@ -19,6 +19,8 @@ NodeInfo map.  ``models/carry.py`` turns both into device tensors.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -616,13 +618,25 @@ class NodeStaticRows:
     identity per axis position (``set_node`` always installs a fresh
     object, so identity diffing is exact) and eagerly recomputes exactly
     the dirty columns of every cached row.  A changed node SET or a
-    changed weight configuration flushes the cache."""
+    changed weight configuration flushes the cache (new axis epoch).
+    The (nonce, epoch, version) token and the dirty column list ride the
+    produced ``BatchStatic`` so the device-side cache
+    (``ops.node_cache.DeviceNodeCache``) can mirror the same
+    only-upload-dirty-columns discipline for the node-axis tensors."""
+
+    _NONCE = itertools.count(1)
 
     def __init__(self, max_entries: int = 4096):
         self.max_entries = max_entries
         self._axis: Optional[tuple] = None
         self._node_refs: list = []
         self._weights_key = None
+        # instance nonce: tokens from DIFFERENT NodeStaticRows instances
+        # must never compare equal (a swapped-in tensorizer restarts at
+        # epoch 1 / version 0, which would alias a stale device cache)
+        self._nonce = next(NodeStaticRows._NONCE)
+        self.epoch = 0
+        self.version = 0
         self.last_dirty: list[int] = []
         # interaction_key -> (rep, is_best_effort, ref, images, rows)
         self._rows: dict = {}
@@ -637,6 +651,8 @@ class NodeStaticRows:
         axis = tuple(node_names)
         if axis != self._axis or weights_key != self._weights_key:
             self._rows.clear()
+            self.epoch += 1
+            self.version = 0
             self._axis = axis
             self._weights_key = weights_key
             self._node_refs = [info.node for info in infos]
@@ -649,6 +665,7 @@ class NodeStaticRows:
             self.last_dirty = []
             return
         self._node_refs = [info.node for info in infos]
+        self.version += 1
         self.last_dirty = dirty
         self.stats["dirty_nodes"] += len(dirty)
         if len(dirty) > max(8, len(infos) // 4):
@@ -674,6 +691,9 @@ class NodeStaticRows:
             self._rows.clear()  # wholesale: keys churn together (rollouts)
             self.stats["flushes"] += 1
         self._rows[key] = (rep, is_best_effort, ref, images, rows)
+
+    def token(self) -> tuple:
+        return (self._nonce, self.epoch, self.version)
 
 
 @dataclass
@@ -746,6 +766,13 @@ class BatchStatic:
     # scoring mode flags
     weights: dict = field(default_factory=dict)
 
+    # node-axis identity for the device-resident node-state cache
+    # (ops.node_cache.DeviceNodeCache): (nonce, epoch, version) from
+    # NodeStaticRows plus the columns dirtied since version-1.  A compacted
+    # frontier view carries None (see compact_segment).
+    node_token: Optional[tuple] = None
+    node_dirty: Optional[list] = None
+
     # compile-time flag: any host port in the segment (no ports → the
     # kernel skips the [N, Pv] port logic and carry write entirely)
     use_ports: bool = True
@@ -773,12 +800,135 @@ class InitialState:
     vol_any: np.ndarray = None  # [V, N] bool volume instance present
     vol_ns: np.ndarray = None  # [V, N] bool non-sharable instance present
     nk: np.ndarray = None  # [K, N] int32 distinct limited-kind disks on node
+    # frontier mode: step-0 monotone feasibility per signature (seeded by
+    # ``frontier_seed``); becomes the scan's still_ok carry plane
+    still_ok: np.ndarray = None  # [G, N] bool
 
 
 def _pad_to(n: int, multiple: int) -> int:
     if multiple <= 1:
         return max(n, 1)
     return max(((n + multiple - 1) // multiple) * multiple, multiple)
+
+
+# -- frontier scan: tensorize-time prefilter + host-side compaction ---------
+
+# BatchStatic / InitialState fields carrying a node axis → axis position
+# (shared by compact_segment; the device-side twin is
+# ops.frontier.gather_node_axis)
+_STATIC_NODE_FIELDS = {
+    "node_exists": 0, "node_alloc": 0, "node_alloc_pods": 0, "node_zone": 0,
+    "static_ok": 1, "node_aff_raw": 1, "taint_intol_raw": 1,
+    "static_score": 1, "interpod_raw": 1, "node_domain": 1, "dom_valid": 1,
+}
+_INIT_NODE_FIELDS = {
+    "requested": 0, "nonzero_requested": 0, "pod_count": 0, "ports_used": 0,
+    "spread_counts": 1, "dm": 1, "downer": 1, "vol_any": 1, "vol_ns": 1,
+    "nk": 1, "still_ok": 1,
+}
+
+
+def monotone_plane(static: BatchStatic, requested: np.ndarray,
+                   pod_count: np.ndarray, ports_used: np.ndarray,
+                   dm: "np.ndarray | None" = None,
+                   downer: "np.ndarray | None" = None) -> np.ndarray:
+    """The MONOTONE feasibility plane [G, N] at an arbitrary dynamic
+    state: the plane builder shared by :func:`frontier_seed` (step-0
+    state) and the tests of the scan's chunk-end ``still_ok`` refresh
+    (whose tensor twin is ``ops.scan_ref.monotone_plane`` and whose kernel
+    is ``ops/csrc/frontier_refresh.cu``).
+
+    Only components that can never improve as the carry grows belong
+    here: resource fit, pod-count, ports, placed-owner symmetric
+    required-anti hits (``downer > 0``), and own required-anti hits
+    (``dm > 0``).  The own required-AFFINITY terms and the first-pod
+    rule are non-monotone (a landing pod can turn them ON) and are
+    deliberately excluded: the plane must over-approximate every
+    FUTURE pod's feasibility, never under."""
+    g_request = static.g_request
+    fit = np.all(
+        (requested[None, :, :] + g_request[:, None, :]
+         <= static.node_alloc[None, :, :]) | (g_request[:, None, :] <= 0),
+        axis=2)  # [G, N]
+    pods_ok = pod_count + 1 <= static.node_alloc_pods  # [N]
+    mono = static.static_ok & static.node_exists[None, :] & fit & pods_ok[None, :]
+    if static.use_ports:
+        ports_bad = (ports_used[None, :, :]
+                     & static.g_ports[:, None, :]).any(axis=2)  # [G, N]
+        mono &= ~ports_bad
+    if static.terms and dm is not None:
+        # own required-anti terms violated by matching pods already in
+        # the node's domain
+        raa_bad = static.own_raa.astype(np.int32) @ (dm > 0).astype(np.int32) > 0
+        mono &= ~raa_bad
+    if static.terms and downer is not None:
+        # placed owners' symmetric required-anti terms forbid their
+        # domains for every matching signature (predicates.go:1146)
+        sym = (static.term_matches_sig & static.is_raa[:, None]).astype(np.int32)
+        mono &= ~(sym.T @ (downer > 0).astype(np.int32) > 0)
+    return mono
+
+
+def frontier_seed(static: BatchStatic, init: InitialState) -> np.ndarray:
+    """Compute the step-0 MONOTONE feasibility plane [G, N] and seed
+    ``init.still_ok`` with it; returns the G-union alive mask [N].
+
+    A column False here for signature g can never become feasible for g
+    within the segment: static_ok never changes, requested/pod_count/
+    ports_used only grow (fit/pods/ports only get worse), and the
+    required-anti-affinity hit (``dm > 0`` on an own-RAA term) is
+    monotone because placements only add matching pods.  A column
+    False for EVERY signature is therefore provably inert: every
+    normalization, tie set, and n_feasible in the scan ranges over
+    feasible columns only, so dropping it is bit-exact."""
+    # downer is omitted: it starts at zero (placed-owner symmetry cannot
+    # have fired before the segment's first step)
+    mono = monotone_plane(
+        static, init.requested, init.pod_count, init.ports_used,
+        dm=init.dm if static.terms and init.dm is not None else None)
+    init.still_ok = mono
+    return mono.any(axis=0)
+
+
+def compact_segment(static: BatchStatic, init: InitialState,
+                    js: np.ndarray, width: int
+                    ) -> tuple[BatchStatic, InitialState]:
+    """Host-side node-axis compaction (the tensorize-time prefilter's
+    second half): keep columns ``js`` (full-axis order preserved: the
+    round-robin tie-break walks the axis in order) padded to ``width``.
+    ``node_names`` becomes the kept subset, so chosen indices map back
+    through it and the backend's commit path needs no change.
+    ``node_token`` is cleared: a compacted view must never alias a
+    full-width DeviceNodeCache entry."""
+    k = len(js)
+    assert width >= k
+
+    def take(arr, axis):
+        pad = [(0, 0)] * arr.ndim
+        pad[axis] = (0, width - k)
+        return np.pad(np.take(arr, js, axis=axis), pad)
+
+    s_fields = {f: take(getattr(static, f), ax)
+                for f, ax in _STATIC_NODE_FIELDS.items()}
+    s_fields["node_exists"][k:] = False
+    cstatic = dataclasses.replace(
+        static,
+        # js past the named range are pre-existing pad columns (the name
+        # list covers real nodes only); they keep node_exists False and
+        # can never be chosen, so dropping their (nonexistent) names is
+        # safe: chosen indices always land inside the named prefix
+        node_names=[static.node_names[j] for j in js
+                    if j < len(static.node_names)],
+        n_pad=width,
+        node_token=None,
+        node_dirty=None,
+        **s_fields,
+    )
+    i_fields = {f: take(getattr(init, f), ax)
+                for f, ax in _INIT_NODE_FIELDS.items()
+                if getattr(init, f) is not None}
+    cinit = dataclasses.replace(init, **i_fields)
+    return cstatic, cinit
 
 
 class Tensorizer:
@@ -975,6 +1125,8 @@ class Tensorizer:
 
         rows_cache.sync(node_names, infos,
                         (prefer_avoid_weight, image_weight), _refresh)
+        node_token = rows_cache.token()
+        node_dirty = list(rows_cache.last_dirty)
 
         all_js = range(n_real)
         for g, rep in enumerate(reps):
@@ -1381,6 +1533,8 @@ class Tensorizer:
             pod_vol_count_only=pod_vol_count_only,
             use_vols=use_vols,
             vol_limits=vol_limits,
+            node_token=node_token,
+            node_dirty=node_dirty,
             use_ports=bool(port_vocab),
             weights={
                 "least": least_requested_weight,

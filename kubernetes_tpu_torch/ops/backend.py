@@ -18,6 +18,20 @@ segment is quietly rerouted to another path, and neither is a failure the
 ``backend.pallas.segment`` fault point injects at the launch or the
 finalize.  The kernel takes any zone count and any host-port count.
 
+The route is the JAX package's on a GPU (its rung 1, ``_dispatch_frontier``):
+the frontier scan is on by default.  The tensorize-time prefilter
+(``models.snapshot.frontier_seed``) drops the node columns no signature can
+take, when that halves the axis; a segment longer than one chunk then runs
+the device-resident loop (``ops/frontier.py``: the fused scan a chunk at a
+time, the ``frontier_refresh`` kernel after each, node-axis compaction when
+the alive columns fall under ``frontier_compact_frac`` of the width), and
+any other segment one full launch (of the prefiltered axis, if the prefilter
+cut it).  Every route takes the four node-axis statics from a
+``DeviceNodeCache`` kept across segments and waves (a prefiltered axis
+bypasses it).  A frontier failure, real or injected at ``backend.compact``
+(phases ``seed``, ``gather``, ``loop``), raises like a kernel failure:
+nothing retries the segment at full width.
+
 With tracing on, each kernel segment records a ``tensorize`` and a
 ``dispatch`` span from the same clock reads as the stats timers; the
 dispatch span carries the route (``impl``), the kernel's plan and, at the
@@ -30,9 +44,11 @@ untouched) and the shed is counted.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import faults
@@ -41,7 +57,9 @@ from ..models.carry import from_reference
 from ..models.snapshot import (
     HostBatchState,
     Tensorizer,
+    compact_segment,
     count_affinity_terms,
+    frontier_seed,
     pod_disk_vols,
     pod_signature_key,
 )
@@ -64,6 +82,8 @@ from ..scheduler.priorities import (
 from ..scheduler.units import CPU_MILLI, MEM_MIB, ResourceVec
 from ..utils import tracing
 from . import fused_scan, scan_ref
+from .frontier import FrontierRun, _pow2_width
+from .node_cache import DeviceNodeCache
 
 # The oracle priorities the scan reproduces bit for bit; a configured
 # priority outside this table sends the whole batch to the oracle.
@@ -114,11 +134,42 @@ class BatchBackend:
         device=None,
         # a power of two so full segments share one scan length
         max_segment_pods: int = 65536,
+        # the frontier scan, with the JAX constructor's defaults: prefilter
+        # dead columns at tensorize time, run segments longer than
+        # frontier_chunk as the device-resident chunk loop, compact the node
+        # axis to a power of two >= frontier_min_width when the alive
+        # columns fall to frontier_compact_frac of the width; the loop
+        # engages while the prefilter's alive fraction is at most
+        # frontier_engage_frac.  The chunked host loop
+        # (frontier_device_loop=False) is not ported.
+        frontier: bool = True,
+        frontier_chunk: int = 512,
+        frontier_compact_frac: float = 0.5,
+        frontier_min_width: int = 128,
+        frontier_device_loop: bool = True,
+        frontier_engage_frac: float = 1.0,
     ):
         self.device = resolve_device(device)
         self.algorithm = algorithm or GenericScheduler()
         self.tensorizer = tensorizer or Tensorizer()
         self.max_segment_pods = max_segment_pods
+        if not frontier_device_loop:
+            raise ValueError("the frontier's chunked host loop is not ported: "
+                             "frontier_device_loop must be True")
+        if frontier_chunk <= 0 or frontier_chunk & (frontier_chunk - 1):
+            raise ValueError("frontier_chunk must be a power of two (the device loop's chunk)")
+        self.frontier = frontier
+        self.frontier_chunk = frontier_chunk
+        self.frontier_compact_frac = frontier_compact_frac
+        self.frontier_min_width = frontier_min_width
+        self.frontier_device_loop = frontier_device_loop
+        self.frontier_engage_frac = frontier_engage_frac
+        # node-axis statics on the device, reused across segments and waves
+        self.device_node_cache = DeviceNodeCache(self.device)
+        # compactions into the scheduler's metrics when wired
+        self.frontier_counter = None
+        # this batch's frontier trajectory, one entry a frontier segment
+        self.last_frontier: list = []
         # selector-match corpus and disk locations, kept across batches and
         # reconciled against each batch's snapshot by node generation
         self._host_state: Optional[HostBatchState] = None
@@ -138,8 +189,15 @@ class BatchBackend:
                       # host seconds (cumulative): tensorize, pack + launch,
                       # wait for the device's result
                       "tensorize_s": 0.0, "dispatch_s": 0.0, "device_wait_s": 0.0,
-                      # fused-kernel device time by CUDA events (CUDA only)
-                      "kernel_ms": 0.0}
+                      # fused-kernel (and frontier refresh) device time by
+                      # CUDA events (CUDA only)
+                      "kernel_ms": 0.0,
+                      # the frontier: segments it served, compactions,
+                      # columns the prefilter dropped
+                      "frontier_segments": 0, "frontier_compactions": 0,
+                      "frontier_prefilter_cols": 0,
+                      # blocking device-to-host reads on the finish path
+                      "host_syncs": 0}
 
     # -- greedy segmentation ------------------------------------------------
     def _segments(
@@ -236,45 +294,150 @@ class BatchBackend:
             return None
         return self._kernel_weights()
 
+    # -- the frontier's seams ----------------------------------------------
+    def _on_frontier_compact(self, width: int, width_new: int, n_alive: int) -> None:
+        # fault seam before the gather: an injected failure raises out of
+        # the segment like a kernel failure
+        faults.hit("backend.compact", phase="gather", width=width, new_width=width_new)
+        self.stats["frontier_compactions"] += 1
+        if self.frontier_counter is not None:
+            self.frontier_counter.inc()
+        tr = tracing.current()
+        if tr is not None:
+            tr.instant("frontier.compact", width=width, new_width=width_new, alive=n_alive)
+
+    def _on_frontier_loop(self, run_index: int, width: int, start_chunk: int) -> None:
+        # fault seam before every loop run (the first and each re-entry
+        # after a compaction)
+        faults.hit("backend.compact", phase="loop", run=run_index, width=width,
+                   start_chunk=start_chunk)
+        tr = tracing.current()
+        if tr is not None:
+            tr.instant("frontier.loop_enter", run=run_index, width=width, start_chunk=start_chunk)
+
+    def _frontier_plan(self, static, init):
+        """The JAX package's rung-1 route for one segment: seed the monotone
+        step-0 plane (``init.still_ok``), compact the node axis at
+        tensorize time when enough columns are already dead, and decide
+        whether the chunked loop engages.  Returns (the segment to scan,
+        its initial state, the kept columns of ``static``'s axis or None,
+        chunked?)."""
+        faults.hit("backend.compact", phase="seed")
+        alive = frontier_seed(static, init)
+        n_alive = int(alive.sum())
+        width = _pow2_width(n_alive, self.frontier_min_width)
+        kept = None
+        if width < static.n_pad and n_alive <= self.frontier_compact_frac * static.n_pad:
+            kept = np.nonzero(alive)[0]
+            static, init = compact_segment(static, init, kept, width)
+        # the loop engages when the segment is longer than a chunk and its
+        # axis wider than the floor; a mostly-alive fleet chunks too
+        # (frontier_engage_frac 1.0)
+        chunked = (len(static.group_of_pod) > self.frontier_chunk
+                   and static.n_pad > self.frontier_min_width
+                   and n_alive <= self.frontier_engage_frac * len(alive))
+        return static, init, kept, chunked
+
     # -- device dispatch -----------------------------------------------------
     def _dispatch(self, static, init):
-        """Carry one tensorized segment to the device and start its scan.
-        Returns (finisher, device_busy): the zero-argument finisher gives
-        (chosen, final rr); ``device_busy`` polls, without synchronizing,
-        whether the launched scan is still running (None on the CPU, where
-        the scan has already run).  ``self.dispatch_attrs`` is this
-        segment's route and plan; the finisher adds the kernel's device
-        milliseconds (the dispatch span's attributes)."""
-        scan_static, scan_state = from_reference(vars(static), vars(init), self.device)
+        """Carry one tensorized segment to the device and start its scan on
+        its route.  Returns (finisher, device_busy): the zero-argument
+        finisher gives (chosen index per pod in ``static``'s axis, final
+        rr); ``device_busy`` polls, without synchronizing, whether the
+        launched work is still running (None on the CPU, where it has
+        already run).  ``self.dispatch_attrs`` is this segment's route and
+        plan; the finisher adds the kernels' device milliseconds (the
+        dispatch span's attributes)."""
         impl = "cuda" if self.device.type == "cuda" else "cpu"
         self.dispatch_attrs = span_attrs = {"impl": impl}
         # the kernel's seam: an injected failure raises like a real one
         faults.hit("backend.pallas.segment", impl=impl, phase="launch")
+        cstatic, cinit, kept, chunked = static, init, None, False
+        if self.frontier:
+            cstatic, cinit, kept, chunked = self._frontier_plan(static, init)
+        entry = None
+        if chunked or kept is not None:
+            if kept is not None:
+                self.stats["frontier_prefilter_cols"] += static.n_pad - cstatic.n_pad
+            entry = {"prefilter": [int(static.n_pad), int(cstatic.n_pad)]}
+            span_attrs["frontier"] = "loop" if chunked else "prefilter"
+        if not chunked:
+            # one launch over the whole segment: the frontier plane stays home
+            cinit = dataclasses.replace(cinit, still_ok=None)
+        scan_static, scan_state = from_reference(
+            vars(cstatic), vars(cinit), self.device,
+            node_arrays=self.device_node_cache.node_arrays(cstatic))
+        if chunked:
+            run = FrontierRun(scan_static, scan_state, chunk_len=self.frontier_chunk,
+                              compact_frac=self.frontier_compact_frac,
+                              min_width=self.frontier_min_width,
+                              on_compact=self._on_frontier_compact,
+                              on_loop=self._on_frontier_loop)
+            busy = run.device_busy
+            self.stats["frontier_segments"] += 1
+
+            def wait():
+                chosen, rr = run.finalize()
+                self.stats["host_syncs"] += run.stats["host_syncs"]
+                entry.update(widths=run.stats["widths"], alive_frac=run.stats["alive_frac"],
+                             chunks=run.stats["chunks"], compactions=run.stats["compactions"],
+                             mode="loop", host_syncs=run.stats["host_syncs"])
+                self.last_frontier.append(entry)
+                if impl == "cuda":
+                    span_attrs.update(launches=run.launches,
+                                      refresh_launches=run.refresh_launches)
+                return chosen, rr, run.kernel_ms if impl == "cuda" else None
+        else:
+            wait, busy = self._launch_full(scan_static, scan_state, span_attrs)
+            if entry is not None:
+                self.stats["frontier_segments"] += 1
+                entry.update(widths=[int(cstatic.n_pad)], alive_frac=[], chunks=1,
+                             compactions=0, mode="plain", host_syncs=1)
+                self.last_frontier.append(entry)
+
+        def finish():
+            chosen, rr, ms = wait()
+            faults.hit("backend.pallas.segment", impl=impl, phase="finalize")
+            if ms is not None:
+                span_attrs["kernel_ms"] = ms
+                self.stats["kernel_ms"] += ms
+            if kept is not None:
+                # the prefiltered axis back to the segment's (kept may be
+                # empty: a pool already full at the segment's start)
+                mapped = np.full(len(chosen), -1, dtype=np.int64)
+                hit = chosen >= 0
+                mapped[hit] = kept[chosen[hit]]
+                chosen = mapped
+            return chosen, rr
+        return finish, busy
+
+    def _launch_full(self, scan_static, scan_state, span_attrs: dict):
+        """One launch of the fused scan over the whole segment (the plain
+        scan on the CPU).  Returns (wait, device_busy); ``wait`` gives
+        (chosen, rr, kernel ms or None)."""
         if self.device.type != "cuda":
             chosen, rr = scan_ref.scan(scan_static, scan_state)
 
-            def finish_cpu():
-                faults.hit("backend.pallas.segment", impl=impl, phase="finalize")
-                return chosen.numpy(), rr
-            return finish_cpu, None
+            def wait_cpu():
+                self.stats["host_syncs"] += 1
+                return chosen.numpy(), rr, None
+            return wait_cpu, None
         pl = fused_scan.plan(scan_static)
         bufs = fused_scan.pack(scan_static, scan_state, pl)
         fused_scan.load()  # a first call builds: keep that out of kernel_ms
-        span_attrs.update(cluster=pl.cs, threads=pl.threads, zones_at=pl.zones_at)
+        span_attrs.update(cluster=pl.cs, threads=pl.threads, zones_at=pl.zones_at, launches=1)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fused_scan.launch(scan_static, scan_state, bufs, pl)
         end.record()
 
-        def finish():
-            out = fused_scan.finalize(scan_static, bufs)
-            faults.hit("backend.pallas.segment", impl=impl, phase="finalize")
+        def wait():
+            chosen, rr = fused_scan.finalize(scan_static, bufs)
+            self.stats["host_syncs"] += 1
             # finalize synchronized on the result: the events are complete
-            span_attrs["kernel_ms"] = ms = start.elapsed_time(end)
-            self.stats["kernel_ms"] += ms
-            return out
-        return finish, (lambda: not end.query())
+            return chosen, rr, start.elapsed_time(end)
+        return wait, (lambda: not end.query())
 
     # -- the batch entry point ---------------------------------------------
     def schedule_batch(
@@ -301,6 +464,7 @@ class BatchBackend:
         ``fn`` polls the launch's end event without synchronizing (None on
         the CPU).  The callback must not mutate ``node_info_map``."""
         weights = self._config_supported()
+        self.last_frontier = []  # this batch's frontier trajectory
         work_map = dict(node_info_map)
         cloned: set[str] = set()
 
@@ -425,8 +589,11 @@ class BatchBackend:
                 self.stats["device_wait_s"] += t4 - t3
                 if tr is not None:
                     tr.complete("device_wait", t3, t4, cat="phase", pods=len(segment))
-                    if "kernel_ms" in span_attrs:
-                        dispatch_span.set(kernel_ms=span_attrs["kernel_ms"])
+                    # what the finish learned: the device time and, on the
+                    # frontier route, the launches its loop runs made
+                    dispatch_span.set(**{k: span_attrs[k] for k in
+                                         ("kernel_ms", "launches", "refresh_launches")
+                                         if k in span_attrs})
                 self.algorithm._round_robin = final_rr
                 req_vecs, nz_vecs = _segment_vecs(static)
                 entries = []

@@ -30,9 +30,12 @@
 //     and updates them there. A column is touched only by its owner, so no
 //     state crosses SMs. Planes that did not fit stay in global memory and
 //     are read through the same code: each plane is a base pointer and a
-//     row stride (cols in shared memory, ns in global memory). The shared
-//     copies are not written back: nothing reads the state planes after a
-//     launch, only `chosen` and `rr_out`.
+//     row stride (cols in shared memory, ns in global memory). A single
+//     launch over a whole segment does not write the shared copies back:
+//     nothing reads the state planes after it, only `chosen` and `rr_out`.
+//     A launch of the frontier loop (write_back set, see 8) copies them
+//     back at its end, since the next chunk's launch and the still_ok
+//     refresh (frontier_refresh.cu) read them.
 //  2. The next pods' inputs in flight. Every gid is known at launch. While
 //     pod i computes, one thread bulk-copies pod i+2's signature row
 //     (requests, term list and flags, ports), its volume slots, its spread
@@ -94,6 +97,18 @@
 //     column's are recomputed at its commit. The other floor divisions take
 //     a double-precision reciprocal and one exact integer correction (fdiv
 //     below) instead of the 64-bit integer division routine.
+//  8. The frontier loop (ops/frontier.py) runs a segment as chunks of pods,
+//     one launch a chunk over the carried state, all chunks enqueued at
+//     once with a refresh launch after each. The host points gids, pod_vol
+//     and chosen at the chunk's first pod and sets p_real to its length;
+//     the round-robin counter comes from device memory (rr_in) and goes
+//     back to it (rr_out), so no chunk needs the host; every block reads
+//     the device stop flag at entry and, once a refresh has set it (a
+//     compaction is wanted), returns before touching anything, so the
+//     chunks enqueued behind it are no-ops; a launch that ran advances the
+//     device chunk cursor. Each block clears its own row of the global zone
+//     scratch for the launch's first pod, so the scratch needs no host
+//     reset between chunks.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -175,6 +190,11 @@ struct ScanParams {
     // past shared memory's zone budget: [2][cs][num_zones] accumulators by
     // pod parity, then [cs][num_zones] totals, zeroed by the host; else null
     int64_t* zbuf;
+    // the frontier loop (all null for a single launch, see 8): the counter
+    // to start from (null: rr0), the stop flag, and the chunk cursor
+    const int32_t* rr_in;
+    const int32_t* stop;
+    int32_t* cursor;
     // sizes, the plan and flags
     int32_t n, ns, cols, cs, threads, cpt;
     int32_t g, g4, t, pv, v, r, w, w4, k, sw, sws;  // sws: ints of a signature row in shared memory
@@ -182,6 +202,7 @@ struct ScanParams {
     int32_t use_terms, use_vols, use_ports, smem_bytes;
     int32_t gnz_off, inbox_a_off, inbox_b_off, msg_a, msg_b;  // the planner's fixed layout
     int32_t zone_off;  // past REG_ZONES: the zone accumulator and totals, 2 x num_zones int64
+    int32_t write_back;  // copy the shared state planes and total_match back at the end
     int32_t wt[7];    // least, most, balanced, spread, node_affinity, taint, interpod
     int32_t off[18];  // NPLANES placement offsets
 };
@@ -542,6 +563,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     const View<const int32_t> node_domain = view<SH>(p.node_domain, p.off[P_NODE_DOMAIN], smem, base, L, NS);
     const View<const int32_t> dom_valid = view<SH>(p.dom_valid, p.off[P_DOM_VALID], smem, base, L, NS);
 
+    // a compaction is wanted (frontier loop): this chunk waits for the
+    // host; every block reads the same flag, so all return together
+    if (p.stop != nullptr && *p.stop != 0) return;
+
     if (tid == 0) {
         for (int b = 0; b < 1 + NBUF; ++b) mbar_init(&s_bar[b]);
         for (int b = 0; b < 2; ++b) {
@@ -560,6 +585,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     if (tid < 4) s_done[tid] = 0;
     if (BZ && !zg)
         for (int z = tid; z < NZ; z += BT) s_zacc[z] = 0;
+    if (zg) {
+        // this block's row for pod 0 (parity 0); the cluster barrier below
+        // orders the clear before any block's pod-0 atomics and folds
+        for (int z = tid; z < NZ; z += BT) zbuf[(size_t)rank * NZ + z] = 0;
+        __threadfence();
+    }
     for (int h = tid; h < G; h += BT) {
         int32_t* gnz = const_cast<int32_t*>(s_gnz);
         gnz[2 * h] = p.sig[(size_t)h * SW + R];
@@ -624,7 +655,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
 
     // the round-robin counter: one a pod at most, from the 32-bit rr0 into
     // the 32-bit rr_out, so 32 unsigned bits hold it
-    uint32_t rr = static_cast<uint32_t>(p.rr0);
+    uint32_t rr = static_cast<uint32_t>(p.rr_in != nullptr ? *p.rr_in : p.rr0);
     // this block's column that took a pod at the last commit, or -1: its
     // resource scores are refreshed during the next pod's exchanges
     int stale = -1;
@@ -1163,7 +1194,29 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     if (clocked)
         for (int k = 0; k < NPHASES; ++k) g_phases[k] = phase_acc[k];
 #endif
-    if (rank == 0 && tid == 0) p.rr_out[0] = static_cast<int32_t>(rr);
+    if (p.write_back) {
+        // the state planes placed in shared memory (req .. spread in the
+        // planner's order), this block's columns, back to their global
+        // rows; the pod loop ended on a block barrier
+        for (int k = P_REQ; k <= P_SPREAD; ++k) {
+            if (!(SH || p.off[k] >= 0)) continue;
+            const int rows = plane_rows(p, k);
+            unsigned char* dst = static_cast<unsigned char*>(const_cast<void*>(plane_global(p, k)));
+            const unsigned char* src = smem + p.off[k];
+            for (int e = tid; e < rows * L; e += BT) {
+                const int row = e / L, col = e - row * L;
+                if (k == P_VOLF) dst[(size_t)row * NS + base + col] = src[e];
+                else reinterpret_cast<int32_t*>(dst)[(size_t)row * NS + base + col] =
+                         reinterpret_cast<const int32_t*>(src)[e];
+            }
+        }
+        if (rank == 0)  // every block's copy is the same
+            for (int t = tid; t < T; t += BT) p.total[t] = s_total[t];
+    }
+    if (rank == 0 && tid == 0) {
+        p.rr_out[0] = static_cast<int32_t>(rr);
+        if (p.cursor != nullptr) p.cursor[0] += 1;
+    }
     // no block leaves while another may still send to it
     cluster_arrive();
     cluster_wait();

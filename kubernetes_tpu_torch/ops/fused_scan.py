@@ -33,6 +33,13 @@ bits of a uint8 ``[V, ns]`` plane.
 All of this runs on the card: ``pack`` is torch code on the segment's own
 device, and every entry point raises unless the tensors are on CUDA.  The
 count of kernel launches is ``launches``.
+
+The frontier loop (``ops/frontier.py``) launches the same kernel once a
+chunk of pods: ``launch(..., start=, count=, ctl=)`` points the pod inputs
+and ``chosen`` at the chunk, reads and writes the round-robin counter in
+the control words ``ctl`` on the card, honours their stop flag, advances
+their cursor, and writes the state planes back; ``unpack_state`` reads the
+written-back state as a ``ScanState``.
 """
 
 from __future__ import annotations
@@ -103,18 +110,24 @@ PLANES = ("pod_rows", "spread_inc", "req", "nz", "cnt", "ports", "dm", "downer",
 # kernel launches since the count was last reset
 launches = 0
 
+# the frontier loop's control words: one int32 tensor on the card that the
+# chunk launches and the refresh kernel (frontier_refresh.cu) share
+CTL_CURSOR, CTL_STOP, CTL_ALIVE, CTL_ACC, CTL_DONE, CTL_RR = range(6)
+CTL_WORDS = 8
+
 _PTR_FIELDS = (
     "alloc", "alloc_pods", "exists", "zone", "static_ok", "aff_raw",
     "taint_raw", "score_raw", "interpod_raw", "node_domain", "dom_valid",
     "sig", "spread_inc_t", "vol_limits", "gids", "pod_vol",
     "req", "nz", "cnt", "ports", "spread", "dm", "downer", "total", "volf", "nk", "res",
-    "chosen", "rr_out", "zbuf",
+    "chosen", "rr_out", "zbuf", "rr_in", "stop", "cursor",
 )
 _INT_FIELDS = ("n", "ns", "cols", "cs", "threads", "cpt",
                "g", "g4", "t", "pv", "v", "r", "w", "w4", "k", "sw", "sws",
                "p_real", "num_zones", "rr0",
                "use_terms", "use_vols", "use_ports", "smem_bytes",
-               "gnz_off", "inbox_a_off", "inbox_b_off", "msg_a", "msg_b", "zone_off")
+               "gnz_off", "inbox_a_off", "inbox_b_off", "msg_a", "msg_b", "zone_off",
+               "write_back")
 
 
 class ScanParams(ctypes.Structure):
@@ -346,19 +359,37 @@ def pack(static: ScanStatic, state: ScanState, plan_: Plan | None = None) -> dic
     }
 
 
-def params(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan) -> ScanParams:
-    """The kernel's argument block for packed ``bufs`` under plan ``pl``."""
+def params(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan, start: int = 0,
+           count: int | None = None, ctl: torch.Tensor | None = None) -> ScanParams:
+    """The kernel's argument block for packed ``bufs`` under plan ``pl``:
+    the whole segment, or with ``ctl`` (the frontier loop's control words)
+    the ``count`` pods from ``start``, the counter, stop flag and cursor in
+    ``ctl``, and the state planes written back."""
     d = _dims(static)
+    ptrs = {f: bufs[f].data_ptr() for f in _PTR_FIELDS
+            if f not in ("zbuf", "rr_in", "stop", "cursor")}
+    count = static.p_real - start if count is None else count
+    if ctl is not None:
+        word = ctl.element_size()
+        ptrs["gids"] += start * 4
+        ptrs["pod_vol"] += start * pl.w4 * 4
+        ptrs["chosen"] += start * 4
+        ptrs["rr_out"] = ctl.data_ptr() + CTL_RR * word
+        ptrs.update(rr_in=ptrs["rr_out"], stop=ctl.data_ptr() + CTL_STOP * word,
+                    cursor=ctl.data_ptr() + CTL_CURSOR * word)
+    elif start or count != static.p_real:
+        raise ValueError("a pod range is a frontier-loop launch: pass its control words")
     return ScanParams(
-        **{f: bufs[f].data_ptr() for f in _PTR_FIELDS if f != "zbuf"},
+        **ptrs,
         zbuf=bufs["zbuf"].data_ptr() if pl.zones_at == "global" else None,
         n=d["n"], ns=pl.ns, cols=pl.cols, cs=pl.cs, threads=pl.threads, cpt=pl.cpt,
         g=d["g"], g4=pl.g4, t=d["t"], pv=d["pv"], v=d["v"], r=d["r"], w=d["w"], w4=pl.w4,
-        k=d["k"], sw=pl.sw, sws=pl.sws, p_real=static.p_real, num_zones=static.num_zones,
+        k=d["k"], sw=pl.sw, sws=pl.sws, p_real=count, num_zones=static.num_zones,
         rr0=state.round_robin, use_terms=int(static.use_terms),
         use_vols=int(static.use_vols), use_ports=int(static.use_ports),
         smem_bytes=pl.smem_bytes, gnz_off=pl.gnz_off, inbox_a_off=pl.inbox_a_off,
         inbox_b_off=pl.inbox_b_off, msg_a=pl.msg_a, msg_b=pl.msg_b, zone_off=pl.zone_off,
+        write_back=int(ctl is not None),
         wt=(ctypes.c_int32 * len(WEIGHT_KEYS))(*(static.weights[k] for k in WEIGHT_KEYS)),
         off=(ctypes.c_int32 * len(PLANES))(
             *(-1 if pl.offsets[p] is None else pl.offsets[p] for p in PLANES)),
@@ -378,18 +409,37 @@ def query(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan) -> dict:
     return {"max_active_clusters": clusters.value, "static_smem": static_smem.value}
 
 
-def launch(static: ScanStatic, state: ScanState, bufs: dict, plan_: Plan | None = None) -> None:
+def launch(static: ScanStatic, state: ScanState, bufs: dict, plan_: Plan | None = None,
+           start: int = 0, count: int | None = None, ctl: torch.Tensor | None = None) -> None:
     """Launch the kernel on the current stream over packed ``bufs`` (packed
-    under the same plan)."""
+    under the same plan): the whole segment, or with ``ctl`` one chunk of
+    the frontier loop (see ``params``)."""
     global launches
     _require_cuda(static, state)
     pl = plan_ or plan(static)
     stream = torch.cuda.current_stream(static.device).cuda_stream
-    err = load().fused_scan_launch(ctypes.byref(params(static, state, bufs, pl)),
-                                   ctypes.c_void_p(stream))
+    err = load().fused_scan_launch(
+        ctypes.byref(params(static, state, bufs, pl, start, count, ctl)), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused scan launch failed (error {err})")
     launches += 1
+
+
+def unpack_state(static: ScanStatic, bufs: dict, round_robin: int,
+                 still_ok: torch.Tensor | None = None) -> ScanState:
+    """The carried state as a ``ScanState`` at the segment's width, read
+    from the kernel's written-back planes (the inverse of ``pack``'s state
+    part); ``still_ok`` [G, >= n] rides along cut to the width."""
+    n = static.n_pad
+    b = bufs
+    return ScanState(
+        requested=b["req"][:, :n].t().contiguous(), nonzero_requested=b["nz"][:, :n].t().contiguous(),
+        pod_count=b["cnt"][:n].clone(), ports_used=b["ports"][:, :n].t().bool().contiguous(),
+        spread_counts=b["spread"][:, :n].clone(), round_robin=int(round_robin),
+        dm=b["dm"][:, :n].clone(), downer=b["downer"][:, :n].clone(), total_match=b["total"].clone(),
+        vol_any=(b["volf"][:, :n] & 1).bool(), vol_ns=((b["volf"][:, :n] >> 1) & 1).bool(),
+        nk=b["nk"][:, :n].clone(),
+        still_ok=still_ok[:, :n].clone() if still_ok is not None else None)
 
 
 def finalize(static: ScanStatic, bufs: dict) -> tuple[np.ndarray, int]:

@@ -3,9 +3,16 @@ pod by pod, each step vectorized over the node axis.
 
 This is the plain version of the fused CUDA kernel (``fused_scan.py``) and
 the port of the JAX package's XLA step (``kubernetes_tpu/ops/
-batch_kernel.py::make_step`` with ``axis_name=None``, no frontier plane).
-On ``device="cpu"`` it is the scan of the main path; on a card only the
-tests and ``chip_smoke.py`` call it, to hold the kernel against it.
+batch_kernel.py::make_step`` with ``axis_name=None``).  ``scan_range``
+scans a pod range over a carried ``ScanState`` and returns the final state,
+as a chunk of the frontier loop does (``ops/frontier.py``); with
+``still_ok_steps`` it also tightens the ``still_ok`` row of each pod's
+signature, as ``make_step(use_frontier=True)`` does.  ``monotone_plane``
+and ``refresh`` are the plain versions of the loop's chunk-end refresh
+(``ops/csrc/frontier_refresh.cu``; the JAX package's
+``monotone_plane_device``).  On ``device="cpu"`` these are the scan of the
+main path; on a card only the tests and ``chip_smoke.py`` call them, to
+hold the kernels against them.
 
 Arithmetic contract, shared with the kernel lane for lane:
 
@@ -24,6 +31,8 @@ chosen index stay on the device until the segment ends.
 from __future__ import annotations
 
 import torch
+
+import dataclasses
 
 from ..models.carry import ScanState, ScanStatic
 from ..scheduler.units import FIXED_POINT_ONE, MAX_PRIORITY
@@ -71,6 +80,17 @@ def scan(static: ScanStatic, state: ScanState) -> tuple[torch.Tensor, int]:
     """Run the segment scan; returns (chosen node index per pod [P] int32
     on the static's device, -1 = unschedulable; final round-robin
     counter).  ``state`` is left untouched."""
+    chosen, final = scan_range(static, state)
+    return chosen, final.round_robin
+
+
+def scan_range(static: ScanStatic, state: ScanState, start: int = 0, stop: int | None = None,
+               still_ok_steps: bool = False) -> tuple[torch.Tensor, ScanState]:
+    """Scan pods ``start`` to ``stop`` (default: the segment's end) from the
+    carried ``state``; returns (chosen node index per pod of the range,
+    the final state).  ``state`` is left untouched.  Its ``still_ok``
+    plane, when present, is carried; ``still_ok_steps`` ANDs each pod's
+    monotone filter components into its signature's row at every step."""
     dev = static.device
     n = static.n_pad
     w = static.weights
@@ -108,19 +128,31 @@ def scan(static: ScanStatic, state: ScanState) -> tuple[torch.Tensor, int]:
     vol_any = state.vol_any.clone()
     vol_ns = state.vol_ns.clone()
     nk = state.nk.to(i64).clone()
+    still_ok = state.still_ok.clone() if state.still_ok is not None else None
+    if still_ok_steps and still_ok is None:
+        raise ValueError("still_ok_steps needs a seeded still_ok plane")
     rr = torch.tensor(state.round_robin, dtype=i64, device=dev)
 
-    p_real = static.p_real
-    chosen_out = torch.empty(p_real, dtype=torch.int32, device=dev)
-    for i, g in enumerate(static.group_of_pod.tolist()):
+    stop = static.p_real if stop is None else stop
+    chosen_out = torch.empty(stop - start, dtype=torch.int32, device=dev)
+    for k, g in enumerate(static.group_of_pod[start:stop].tolist()):
+        i = start + k
         g_req = g_request[g]
         g_nz = g_nonzero[g]
         # -- feasibility ---------------------------------------------------
         fit = ~((g_req > 0) & (requested + g_req > alloc)).any(dim=1)
         pods_ok = pod_count + 1 <= alloc_pods
         feasible = static.static_ok[g] & fit & pods_ok & static.node_exists
+        if still_ok_steps:
+            # monotone components only: each can only get worse as the
+            # carry grows (see monotone_plane); the step never reads the
+            # plane for feasibility
+            still_ok[g] &= fit & pods_ok
         if static.use_ports:
-            feasible = feasible & ~(ports_used & static.g_ports[g]).any(dim=1)
+            ports_ok = ~(ports_used & static.g_ports[g]).any(dim=1)
+            feasible = feasible & ports_ok
+            if still_ok_steps:
+                still_ok[g] &= ports_ok
         if static.use_terms:
             m_g = static.term_matches_sig[:, g]  # [T]
             sym_anti_bad = ((m_g & static.is_raa)[:, None] & (downer > 0)).any(dim=0)
@@ -129,6 +161,8 @@ def scan(static: ScanStatic, state: ScanState) -> tuple[torch.Tensor, int]:
             own_ra_bad = (static.own_ra[g][:, None] & ~ra_ok).any(dim=0)
             own_raa_bad = (static.own_raa[g][:, None] & (dm > 0)).any(dim=0)
             feasible = feasible & ~sym_anti_bad & ~own_ra_bad & ~own_raa_bad
+            if still_ok_steps:
+                still_ok[g] &= ~sym_anti_bad & ~own_raa_bad
         if static.use_vols:
             vids = static.pod_vol_ids[i].long()
             vvalid = static.pod_vol_valid[i]
@@ -193,7 +227,7 @@ def scan(static: ScanStatic, state: ScanState) -> tuple[torch.Tensor, int]:
         pick = torch.argmax((ties & (cum == idx + 1)).to(torch.int8))
         chosen = torch.where(n_feasible == 0, -1, pick)
         rr = rr + (n_feasible >= 2).to(i64)
-        chosen_out[i] = chosen
+        chosen_out[k] = chosen
 
         # -- commit ------------------------------------------------------------
         landed = chosen >= 0
@@ -222,4 +256,59 @@ def scan(static: ScanStatic, state: ScanState) -> tuple[torch.Tensor, int]:
             vol_ns[vids] = vol_ns[vids] | (vol_upd & ~vro[:, None])
             newv_chosen = vvalid & (new_v & onehot[None, :]).any(dim=1) & landed
             nk += (k_onehot & newv_chosen[None, :]).sum(dim=1)[:, None] * oh[None, :]
-    return chosen_out, int(rr)
+    i32 = torch.int32
+    final = ScanState(
+        requested=requested.to(i32), nonzero_requested=nonzero.to(i32),
+        pod_count=pod_count.to(i32), ports_used=ports_used, spread_counts=spread.to(i32),
+        round_robin=int(rr), dm=dm.to(i32), downer=downer.to(i32),
+        total_match=total_match.to(i32), vol_any=vol_any, vol_ns=vol_ns, nk=nk.to(i32),
+        still_ok=still_ok)
+    return chosen_out, final
+
+
+def monotone_plane(static: ScanStatic, state: ScanState) -> torch.Tensor:
+    """The monotone feasibility plane [G, N] at ``state``: static_ok,
+    existence, resource fit, pod count, host ports, own required
+    anti-affinity (``dm > 0``) and placed owners' symmetric required
+    anti-affinity (``downer > 0``).  Every component only gets worse as
+    the carry grows.  The tensor twin of ``models.snapshot.monotone_plane``
+    and of the JAX package's ``monotone_plane_device``; the term products
+    there are integer matmuls, here per-term loops (no integer matmul on
+    CUDA)."""
+    i64 = torch.int64
+    g_req = static.g_request.to(i64)  # [G, R]
+    fit = torch.ones(static.static_ok.shape, dtype=torch.bool, device=static.device)
+    for r in range(g_req.shape[1]):
+        need = g_req[:, r, None]
+        fit &= (state.requested[None, :, r].to(i64) + need
+                <= static.node_alloc[None, :, r].to(i64)) | (need <= 0)
+    pods_ok = state.pod_count.to(i64) + 1 <= static.node_alloc_pods.to(i64)
+    mono = static.static_ok & static.node_exists[None, :] & fit & pods_ok[None, :]
+    if static.use_ports:
+        for q in range(static.g_ports.shape[1]):
+            mono &= ~(static.g_ports[:, q, None] & state.ports_used[None, :, q])
+    if static.use_terms:
+        sym = static.term_matches_sig & static.is_raa[:, None]  # [T, G]
+        for t in range(static.term_matches_sig.shape[0]):
+            mono &= ~(static.own_raa[:, t, None] & (state.dm[t] > 0)[None, :])
+            mono &= ~(sym[t][:, None] & (state.downer[t] > 0)[None, :])
+    return mono
+
+
+def alive_of(still_ok: torch.Tensor, node_exists: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The G-union alive mask [N] (a node some signature may still take)
+    and its count."""
+    alive = still_ok.any(dim=0) & node_exists
+    return alive, int(alive.sum())
+
+
+def refresh(static: ScanStatic, state: ScanState, thresh: int
+            ) -> tuple[ScanState, torch.Tensor, int, bool]:
+    """The plain version of the frontier loop's chunk-end refresh
+    (``ops/csrc/frontier_refresh.cu``): ``still_ok &= monotone_plane``,
+    the alive mask and count, and the compaction flag ``n_alive <=
+    thresh`` (``thresh`` -1: never).  Returns (the state with the new
+    plane, alive, n_alive, stop)."""
+    still_ok = state.still_ok & monotone_plane(static, state)
+    alive, n_alive = alive_of(still_ok, static.node_exists)
+    return dataclasses.replace(state, still_ok=still_ok), alive, n_alive, n_alive <= thresh

@@ -238,9 +238,11 @@ def main(argv=None) -> int:
                  "helpers": native.helpers(),
                  "round_robin": algo._round_robin, "launches": 0}
         if backend is not None:
-            from ..ops import fused_scan
+            from ..ops import frontier_refresh, fused_scan
 
-            stats.update(backend.stats, launches=fused_scan.launches)
+            stats.update(backend.stats, launches=fused_scan.launches,
+                         refresh_launches=frontier_refresh.launches,
+                         node_cache=dict(backend.device_node_cache.stats))
         print(json.dumps({"scheduler_stats": stats}), flush=True)
 
     stop = install_signal_stop()

@@ -109,6 +109,8 @@ class Scheduler:
         if backend is not None and hasattr(backend, "shed_counter"):
             backend.shed_counter = self.metrics.score_plane_sheds
             backend.oracle_counter = self.metrics.oracle_pods
+        if backend is not None and hasattr(backend, "frontier_counter"):
+            backend.frontier_counter = self.metrics.frontier_compactions
         # the overload ladder (attach_overload); None = full fidelity
         self.overload = None
         # attributes the batch loop stamps onto the next wave's root span
@@ -826,6 +828,12 @@ class Scheduler:
 
         bstats = self.backend.stats
         pre_phases = {k: bstats[k] for k in _PHASE_KEYS}
+        # blocking device-to-host reads and the node cache's uploads: the
+        # same pre/post deltas as the phase timers
+        pre_syncs = bstats.get("host_syncs", 0)
+        ncache = getattr(self.backend, "device_node_cache", None)
+        pre_cols = ((ncache.stats["dirty_cols"], ncache.stats["cols_total"])
+                    if ncache is not None else None)
         self._last_prep_s = 0.0
         # one span tree a wave: everything this thread does for the batch
         # nests under the root, entered right before the try so that no
@@ -861,6 +869,30 @@ class Scheduler:
             self.last_batch_phases = {k: bstats[k] - pre_phases[k] for k in _PHASE_KEYS}
             self.last_batch_phases["commit_s"] = totals["commit_s"]
             self.last_batch_phases["prep_s"] = self._last_prep_s
+            wave_syncs = int(bstats.get("host_syncs", 0) - pre_syncs)
+            self.last_batch_phases["host_syncs"] = wave_syncs
+            if wave_syncs:
+                self.metrics.host_syncs.inc(wave_syncs)
+            if wave_span is not None:
+                wave_span.set(host_syncs=wave_syncs)
+            if pre_cols is not None:
+                dirty = ncache.stats["dirty_cols"] - pre_cols[0]
+                cols = ncache.stats["cols_total"] - pre_cols[1]
+                if cols > 0:
+                    self.metrics.tensorize_upload_fraction.observe(dirty / cols)
+                    if wave_span is not None:
+                        # tensorize attribution: the node axis's upload
+                        wave_span.set(dirty_cols=dirty, cols_total=cols,
+                                      upload_fraction=round(dirty / cols, 4))
+            # the frontier trajectory of this wave, one entry a segment
+            lf = getattr(self.backend, "last_frontier", None)
+            if lf:
+                self.last_batch_phases["frontier"] = [dict(seg) for seg in lf]
+                if wave_span is not None:
+                    wave_span.set(frontier=[dict(seg) for seg in lf])
+                for seg in lf:
+                    if seg.get("alive_frac"):
+                        self.metrics.frontier_alive_fraction.observe(min(seg["alive_frac"]))
             self.metrics.pipeline_device_wait.observe(
                 self.last_batch_phases["device_wait_s"] * 1e6)
             # the ingest of the wave: informer decode and application

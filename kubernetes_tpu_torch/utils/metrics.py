@@ -415,3 +415,23 @@ class SchedulerMetrics:
             "scheduler_preemption_sheds_total",
             "preemption-eligible pods denied the PostFilter pass because "
             "their tier is below the ladder's floor (rung >= 2)"))
+        # the frontier scan and the device-resident node cache
+        self.tensorize_upload_fraction = r.register(Histogram(
+            "scheduler_tensorize_upload_fraction",
+            "fraction of node-axis columns re-uploaded to device per wave "
+            "(0 = fully cache-resident, 1 = full upload)",
+            buckets=[i / 20 for i in range(21)]))
+        self.frontier_compactions = r.register(Counter(
+            "scheduler_frontier_compactions_total",
+            "mid-segment device node-axis compactions (the alive-union "
+            "fraction fell below the threshold and the scan resumed at a "
+            "smaller power-of-two width)"))
+        self.frontier_alive_fraction = r.register(Histogram(
+            "scheduler_frontier_alive_fraction",
+            "lowest alive-union fraction observed per frontier segment "
+            "(1.0 = no column ever died; small = heavy pruning)",
+            buckets=[i / 20 for i in range(21)]))
+        self.host_syncs = r.register(Counter(
+            "scheduler_host_syncs_total",
+            "blocking device→host round-trips performed by batch "
+            "finalize (control reads + result copies)"))

@@ -310,6 +310,7 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
                               "p99": _pq(m.e2e_scheduling_latency, 0.99)},
         "phase_timers": phase_timers,
         "backend": dict(backend.stats),
+        "node_cache": dict(backend.device_node_cache.stats),
         "scheduled_events": sum(e.count for e in events if e.reason == "Scheduled"),
         "drain_batches": drain_batches,
         "assignments": assignments,

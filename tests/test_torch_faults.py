@@ -11,11 +11,12 @@ requeues a pod (identical pods).  Both packages run the same world: six
 nodes of pairwise non-proportional capacities (no score ties) created
 directly, forty identical pods, no kubelets.
 
-One row differs by design: ``backend.pallas.segment``.  The JAX backend
-degrades a failed segment down its ladder (the XLA scan, then the oracle);
-the port has no ladder, so the injected kernel failure raises out of the
-wave, the scheduler requeues the drained pods, and the next wave binds
-them.  Both end on the oracle's bindings.
+Two rows differ by design: ``backend.pallas.segment`` and
+``backend.compact``.  The JAX backend degrades a failed segment down its
+ladder (the XLA scan, then the oracle) and retries a failed frontier
+segment at full width; the port has neither, so the injected failure
+raises out of the wave, the scheduler requeues the drained pods, and the
+next wave binds them.  Both end on the oracle's bindings.
 
 Tolerance: exact equality of bindings (or of per-node counts where noted).
 """
@@ -223,6 +224,12 @@ MATRIX = {
         jax_spec=dict(mode="error", match={"impl": "interpret"}, first_n=1),
         world="local", exact=True,
         check=lambda w: w.raised == 1 and w.backend.stats["oracle_pods"] == 0),
+    # the frontier's prefilter seam: the port raises and requeues, the JAX
+    # backend retries the segment at full width
+    "backend.compact": dict(
+        spec=dict(mode="error", match={"phase": "seed"}, first_n=1),
+        world="local", exact=True,
+        check=lambda w: w.raised == 1 and w.backend.stats["oracle_pods"] == 0),
     "scheduler.pipeline.prep": dict(
         spec=dict(mode="error", first_n=1),
         world="local", exact=True,
@@ -255,7 +262,7 @@ def test_the_registry_is_the_ported_points_and_apart_from_the_jax_one():
 
     assert set(faults.registry()) < set(jax_faults.registry())
     assert set(jax_faults.registry()) - set(faults.registry()) == {
-        "store.wal.append", "store.coalesce", "backend.compact"}
+        "store.wal.append", "store.coalesce"}
     assert faults.registry() is not jax_faults.registry()
     assert faults.FaultPlan is not jax_faults.FaultPlan
 

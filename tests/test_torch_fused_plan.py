@@ -215,6 +215,18 @@ def test_scan_params_mirror_matches_the_cuda_struct():
         {"pod_rows": "pod", "spread_inc": "inc"}.get(p, p) for p in fused_scan.PLANES]
 
 
+def test_refresh_params_mirror_matches_the_cuda_struct():
+    from kubernetes_tpu_torch.ops import frontier_refresh
+
+    with open(os.path.join(_build.CSRC, "frontier_refresh.cu")) as f:
+        text = f.read()
+    assert _ctypes_fields(frontier_refresh.RefreshParams) == _parse_struct(text, "RefreshParams")
+    # the control words' slots the kernel names, as the host numbers them
+    for name in ("STOP", "ALIVE", "ACC", "DONE"):
+        slot = re.search(r"CTL_%s = (\d+)" % name, text).group(1)
+        assert int(slot) == getattr(fused_scan, f"CTL_{name}")
+
+
 def test_struct_parser_sees_a_drifted_field():
     text = "struct ScanParams {\n const int32_t* a; // x\n int32_t n, m;\n int32_t wt[7];\n};"
     assert _parse_struct(text, "ScanParams") == [("a", "ptr", 1), ("n", "i32", 1),

@@ -509,7 +509,8 @@ def test_batch_phases_and_on_idle_wiring(cluster):
     ph = sched.last_batch_phases
     assert set(ph) == {"tensorize_s", "dispatch_s", "device_wait_s", "kernel_ms",
                        "commit_s", "prep_s", "decode_s", "promotions", "apply_s",
-                       "frames", "frame_events", "parse_s", "confirm_fallbacks"}
+                       "frames", "frame_events", "parse_s", "confirm_fallbacks",
+                       "host_syncs"}
     assert ph["commit_s"] > 0 and ph["prep_s"] > 0 and ph["kernel_ms"] == 0.0
     assert backend.stats["segments"] == 4
 
