@@ -109,7 +109,29 @@ Phases, one line each:
    frontier route binds the batch, compacting at least once, equal to the
    full-width kernel and to the plain scan, with at most compactions + 2
    host syncs; the refresh kernel is held against its plain version at
-   every loop exit; the widths trajectory and times are printed.
+   every loop exit; the widths trajectory and times are printed, and
+   ``gather_node_axis`` is timed alone on the first compaction's inputs
+   (phase 4 also times ``DeviceNodeCache``'s upload of the main segment's
+   node statics);
+11. the apiserver as the JAX package starts it (no ``--disable-admission``:
+   the default admission chain on; earlier phases keep the flag): (a) 1000
+   nodes, a tenth tainted ``node.alpha.kubernetes.io/unreachable:NoExecute``,
+   a namespace, a LimitRange (100m / 128Mi default requests), two
+   PriorityClasses and a pod quota; 2000 pods with no requests POSTed one
+   at a time (half naming ``high``) and three that must answer 403 (past
+   the quota, a missing namespace, a missing class); every stored pod
+   carries the admitted requests, tolerations and priority, some bind to
+   the tainted nodes, the daemon's bindings and rr equal the sequential
+   oracle over the objects as read back, and the in-process batch path
+   over them has kernel == scan_ref on every segment; (b) 6a's cell in 5
+   waves through a ``--data-dir`` apiserver, SIGKILLed while wave 3 is
+   being bound and restarted on the same port and directory under the
+   same scheduler daemon: every bind of the LIST before the kill reads
+   back, every pod ends bound, no node over capacity, the daemon's watch
+   reconnects on /metrics, the recovery line printed, waves 1-2's pods/s
+   beside 6a's; (c) what ``--fsync`` costs: a 2000-pod wave at 5000 nodes
+   under no flag, ``--data-dir`` and ``--data-dir --fsync``, three of
+   each interleaved, create and bind seconds and create->bind p99 per arm.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -129,6 +151,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 
@@ -730,24 +753,55 @@ def wait_until(ready, proc: subprocess.Popen, what: str, deadline_s: float) -> N
 
 class Daemons:
     """An apiserver and a leader-elected scheduler daemon as processes,
-    their output in ``workdir``.  ``stop_scheduler`` sends SIGTERM and
-    returns the daemon's stats line; ``close`` ends whatever still runs."""
+    their output in ``workdir``.  The apiserver runs with
+    ``--disable-admission`` unless ``admitted`` (then at its defaults: the
+    admission chain on), durable with ``data_dir`` (and ``fsync``).
+    ``crash_apiserver`` SIGKILLs it and starts it again on the same port
+    and directory; ``stop_scheduler`` sends SIGTERM and returns the
+    daemon's stats line; ``close`` ends whatever still runs."""
 
-    def __init__(self, workdir: str, tag: str):
+    def __init__(self, workdir: str, tag: str, admitted: bool = False,
+                 data_dir: str = None, fsync: bool = False):
         self.workdir, self.tag = workdir, tag
         self.api_port, self.health_port = free_port(), free_port()
         self.url = f"http://127.0.0.1:{self.api_port}"
         self.env = {**os.environ, "PYTHONPATH": ROOT}
         self.scheduler = None
-        self.apiserver = self._spawn("apiserver", [
-            "kubernetes_tpu_torch.apiserver", "--port", str(self.api_port),
-            "--disable-admission"])
+        self.api_args = ["kubernetes_tpu_torch.apiserver", "--port", str(self.api_port)]
+        if not admitted:
+            self.api_args.append("--disable-admission")
+        if data_dir:
+            self.api_args += ["--data-dir", data_dir] + (["--fsync"] if fsync else [])
+        self.starts = 0
+        self.apiserver = None
         try:
-            wait_until(lambda: b"ok" in http_get(self.url + "/healthz"), self.apiserver,
-                       "apiserver /healthz", 60)
+            self._start_apiserver()
         except BaseException:
             self.close()
             raise
+
+    def _start_apiserver(self) -> None:
+        self.starts += 1
+        name = "apiserver" if self.starts == 1 else f"apiserver{self.starts}"
+        self.apiserver = self._spawn(name, self.api_args)
+        wait_until(lambda: b"ok" in http_get(self.url + "/healthz"), self.apiserver,
+                   "apiserver /healthz", 120)
+
+    def crash_apiserver(self) -> dict:
+        """SIGKILL the apiserver, start it again on the same port and
+        directory; returns the restarted one's recovery line (revision,
+        records replayed, torn tail, truncated bytes) and the seconds from
+        the kill to its /healthz."""
+        t = time.perf_counter()
+        self.apiserver.send_signal(signal.SIGKILL)
+        self.apiserver.wait(timeout=60)
+        self._start_apiserver()
+        restart_s = time.perf_counter() - t
+        out = open(os.path.join(self.workdir, f"{self.tag}-apiserver{self.starts}.out")).read()
+        lines = [ln for ln in out.splitlines() if ln.startswith("apiserver recovered ")]
+        if len(lines) != 1:
+            raise AssertionError(f"the restarted apiserver logged {len(lines)} recovery lines")
+        return {"restart_s": restart_s, **json.loads(lines[0][len("apiserver recovered "):])}
 
     def _spawn(self, name: str, args: list) -> subprocess.Popen:
         base = os.path.join(self.workdir, f"{self.tag}-{name}")
@@ -766,10 +820,13 @@ class Daemons:
         wait_until(lambda: E2E_METRIC.encode() in http_get(health + "/metrics"),
                    self.scheduler, "scheduler serving", 300)
 
+    def metrics_text(self) -> str:
+        return http_get(f"http://127.0.0.1:{self.health_port}/metrics").decode()
+
     def e2e_quantiles_ms(self) -> tuple[float, float]:
         """p50 and p99 of the daemon's e2e SLI histogram from its /metrics
         (the upper bound of the bucket each quantile falls in)."""
-        text = http_get(f"http://127.0.0.1:{self.health_port}/metrics").decode()
+        text = self.metrics_text()
         buckets = []
         for line in text.splitlines():
             if line.startswith(E2E_METRIC + "_bucket"):
@@ -788,7 +845,7 @@ class Daemons:
                       "scheduler_ingest_decode_seconds_sum", "scheduler_ingest_parse_seconds_sum")
 
     def ingest_counters(self) -> dict:
-        text = http_get(f"http://127.0.0.1:{self.health_port}/metrics").decode()
+        text = self.metrics_text()
         values = {}
         for line in text.splitlines():
             name, _, value = line.partition(" ")
@@ -1461,6 +1518,62 @@ def overload_phase() -> tuple[int, dict]:
     return launches, r
 
 
+def median_ms(fn, reps: int = 11) -> float:
+    """Median wall ms of ``fn()`` ended by a device sync (one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def gather_cell(gathers: list) -> None:
+    """``gather_node_axis`` timed alone on the inputs of phase 10's first
+    compaction, against its bytes (every gathered plane read once and
+    written once, the index read once) over the card's memory rate."""
+    from kubernetes_tpu_torch.ops.frontier import gather_node_axis
+
+    if not gathers:
+        raise AssertionError("phase 10: the counted run did not compact")
+    static, state, js, width = gathers[0]
+    out_s, out_st = gather_node_axis(static, state, js, width)
+    out_bytes = sum(v.numel() * v.element_size()
+                    for obj in (out_s, out_st) for v in vars(obj).values()
+                    if hasattr(v, "element_size") and v.dim() > 0)
+    src_bytes = sum(v.numel() * v.element_size()
+                    for obj in (static, state) for v in vars(obj).values()
+                    if hasattr(v, "element_size") and v.dim() > 0)
+    ms = median_ms(lambda: gather_node_axis(static, state, js, width))
+    bound_ms = (2 * out_bytes + js.numel() * 8) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 10 gather_node_axis alone at the first compaction ({static.n_pad} -> {width} "
+          f"columns, {js.numel()} kept): {ms:.4f} ms (median of 11, host clock with a device "
+          f"sync); bound {bound_ms:.6f} ms (bytes: {2 * out_bytes + js.numel() * 8} gathered "
+          f"in and out of {src_bytes} bytes of planes)", flush=True)
+
+
+def node_cache_cell(static) -> None:
+    """``DeviceNodeCache``'s full upload of the main segment's node-axis
+    statics, against its bytes over the card's memory rate."""
+    from kubernetes_tpu_torch.models.carry import NODE_FIELDS
+    from kubernetes_tpu_torch.ops.node_cache import DeviceNodeCache, _host
+
+    cache = DeviceNodeCache("cuda")
+    host = tuple(_host(static, f) for f in NODE_FIELDS)
+    nbytes = sum(h.nbytes for h in host)
+    ms = median_ms(lambda: cache._upload(host))
+    print(f"phase 4 DeviceNodeCache upload of the main segment's node statics "
+          f"({len(NODE_FIELDS)} arrays, {nbytes} bytes): {ms:.4f} ms (median of 11, host clock "
+          f"with a device sync); bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the copy crosses PCIe from pageable memory)",
+          flush=True)
+
+
 def pool_phase() -> tuple[int, int, list, list]:
     """Phase 10: a pool that fills.  1024 nodes (half take 4 pods, half
     110; four zones) and 10 000 identical pods at the default frontier
@@ -1515,6 +1628,15 @@ def pool_phase() -> tuple[int, int, list, list]:
                           self._loop_thresh()))
             return out
 
+    from kubernetes_tpu_torch.ops import frontier as frontier_mod
+
+    gathers: list = []
+    plain_gather = frontier_mod.gather_node_axis
+
+    def recorded_gather(*args):
+        gathers.append(args)
+        return plain_gather(*args)
+
     plain_route = backend_mod.FrontierRun
     backend_mod.FrontierRun = Recorded
     try:
@@ -1531,6 +1653,8 @@ def pool_phase() -> tuple[int, int, list, list]:
         if not raised or plan.fired.get("backend.compact") != 1 or faulted.stats["kernel_pods"]:
             raise AssertionError("phase 10: the compaction fault did not raise the batch")
         exits.clear()
+        gathers.clear()
+        frontier_mod.gather_node_axis = recorded_gather
         backend = backend_mod.BatchBackend(device="cuda")
         torch.cuda.synchronize()
         fused_scan.launches = frontier_refresh.launches = 0
@@ -1541,6 +1665,8 @@ def pool_phase() -> tuple[int, int, list, list]:
         launches, refresh = fused_scan.launches, frontier_refresh.launches
     finally:
         backend_mod.FrontierRun = plain_route
+        frontier_mod.gather_node_axis = plain_gather
+    gather_cell(gathers)
     st_b = backend.stats
     lf = backend.last_frontier[0]
     fused_errs = [sum(a != b for a, b in zip(got, names))
@@ -1584,6 +1710,372 @@ def pool_phase() -> tuple[int, int, list, list]:
             or st_b["oracle_pods"] != 0):
         raise AssertionError(f"phase 10: {fused_errs}, {refresh_errs}, {lf}, {st_b}")
     return launches, refresh, fused_errs, refresh_errs
+
+
+UNREACHABLE = "node.alpha.kubernetes.io/unreachable"
+DEFAULT_TOLERATIONS = {"node.alpha.kubernetes.io/notReady", UNREACHABLE}
+
+
+def mount_of(path: str) -> str:
+    """The file system ``path`` lies on (its mount point and type), from
+    /proc/self/mounts: whether an fsync there reaches a disk."""
+    path = os.path.realpath(path)
+    best = ("", "?")
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt, fstype = parts[1], parts[2]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) > len(best[0]):
+                best = (mnt, fstype)
+    return f"{best[0]} ({best[1]})"
+
+
+def _capture(fn):
+    """Run ``fn()``; return the exception it raised, else None (for a
+    thread whose failure the caller re-raises)."""
+    try:
+        fn()
+    except BaseException as e:  # noqa: BLE001 - handed to the joining thread
+        return e
+    return None
+
+
+def admitted_parity(workdir: str, n_nodes: int = 1000, n_pods: int = 2000) -> tuple[int, int]:
+    """Phase 11a: 1000 nodes (a tenth tainted unreachable:NoExecute), the
+    objects the chain reads, 2000 pods with no requests POSTed one at a
+    time through the apiserver at its defaults, three POSTs it must
+    refuse; then the scheduler daemon binds them, and its bindings and rr
+    are held against the sequential oracle and the in-process batch path
+    (each segment kernel == scan_ref) over the objects as read back.
+    Returns the daemon's fused-scan and refresh launches."""
+    from kubernetes_tpu_torch.api import (
+        LimitRange,
+        LimitRangeItem,
+        Namespace,
+        ObjectMeta,
+        PriorityClass,
+        Quantity,
+        ResourceQuota,
+        Taint,
+    )
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client import Clientset, RemoteStore
+    from kubernetes_tpu_torch.client.remote import ForbiddenError
+    from kubernetes_tpu_torch.scheduler.generic_scheduler import GenericScheduler
+    from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
+    from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
+    from kubernetes_tpu_torch.store import NotFoundError
+    from kubernetes_tpu_torch.testutil import make_pod
+    from kubernetes_tpu_torch.workload import make_nodes, make_pods, make_services
+
+    seed = 12
+    rng = random.Random(seed)
+    nodes = make_nodes(n_nodes, rng, "mixed")
+    for i, node in enumerate(nodes):
+        if i % 10 == 0:
+            node.spec.taints.append(Taint(key=UNREACHABLE, effect="NoExecute"))
+    tainted = {n.meta.name for i, n in enumerate(nodes) if i % 10 == 0}
+    pods = make_pods(n_pods, rng, "mixed")
+    for i, pod in enumerate(pods):
+        pod.meta.namespace = "tenant-a"
+        for c in pod.spec.containers:
+            c.resources.requests = {}
+        pod.spec.priority_class_name = "high" if i % 2 == 0 else ""
+    d = Daemons(workdir, "11a", admitted=True)
+    try:
+        cs = Clientset(RemoteStore(d.url, timeout=120.0))
+        cs.nodes.create_many(nodes)
+        cs.services.create_many(make_services())
+        M = ObjectMeta
+        cs.namespaces.create(Namespace(meta=M(name="tenant-a")))
+        cs.limitranges.create(LimitRange(meta=M(name="defaults", namespace="tenant-a"), limits=[
+            LimitRangeItem(default_request={"cpu": Quantity("100m"),
+                                            "memory": Quantity("128Mi")})]))
+        cs.priorityclasses.create(PriorityClass(meta=M(name="high"), value=1000))
+        cs.priorityclasses.create(PriorityClass(meta=M(name="batch"), value=0,
+                                                global_default=True))
+        cs.resourcequotas.create(ResourceQuota(meta=M(name="pods", namespace="tenant-a"),
+                                               hard={"pods": Quantity(str(n_pods))}))
+        t = time.perf_counter()
+        for pod in pods:  # one POST each, through the chain
+            cs.pods.create(pod)
+        create_s = time.perf_counter() - t
+        ghost = make_pod("ghost-class", namespace="tenant-a")
+        ghost.spec.priority_class_name = "ghost"
+        refusals = {}
+        for want, pod in (("ResourceQuota", make_pod("over-quota", namespace="tenant-a")),
+                          ("NamespaceLifecycle", make_pod("lost", namespace="nowhere")),
+                          ("Priority", ghost)):
+            try:
+                cs.pods.create(pod)
+                raise AssertionError(f"phase 11a: {pod.meta.key} was admitted")
+            except ForbiddenError as e:
+                if f"admission denied by {want}" not in str(e):
+                    raise AssertionError(f"phase 11a: {pod.meta.key} refused by another "
+                                         f"plugin: {e}")
+                refusals[pod.meta.key] = want
+            try:
+                cs.store.get("Pod", pod.meta.namespace, pod.meta.name)
+                raise AssertionError(f"phase 11a: the refused {pod.meta.key} is stored")
+            except NotFoundError:
+                pass
+        # the objects as admitted, read back before anything binds: the
+        # oracle and the in-process batch path run on them while the
+        # scheduler daemon starts (a thread waits for it to serve)
+        admitted, _ = cs.store.list("Pod")
+        nodes_back, _ = cs.store.list("Node")
+        services_back, _ = cs.store.list("Service")
+        started: list = []
+        starter = threading.Thread(target=lambda: started.append(
+            _capture(d.start_scheduler)))
+        starter.start()
+        m = {n["metadata"]["name"]: NodeInfo(api.Node.from_dict(n)) for n in nodes_back}
+        pods_back = [api.Pod.from_dict(i) for i in admitted]
+        pctx = PriorityContext(m, services=[api.Service.from_dict(x) for x in services_back])
+        algo = GenericScheduler()
+        want = oracle_bindings(m, pods_back, pctx, algo)
+        batch, seen, backend = checked_batch(m, pods_back, pctx)
+        starter.join()
+        if started[0] is not None:
+            raise started[0]
+        deadline = time.monotonic() + 180
+        while True:
+            items, _ = cs.store.list("Pod")
+            if all((i["spec"].get("nodeName") for i in items)) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        st = d.stop_scheduler()
+    except BaseException:
+        print(f"phase 11a scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+        raise
+    finally:
+        d.close()
+    got = {f"{i['metadata']['namespace']}/{i['metadata']['name']}": i["spec"].get("nodeName")
+           for i in items}
+    if [i["metadata"]["name"] for i in items] != [p.meta.name for p in pods_back]:
+        raise AssertionError("phase 11a: the LIST order changed between the reads")
+    # the admitted fields, exactly
+    bad_fields = 0
+    high_names = {p.meta.name for p in pods[::2]}
+    for i in items:
+        spec = i["spec"]
+        high = i["metadata"]["name"] in high_names
+        tols = {t["key"]: t for t in spec.get("tolerations") or []}
+        ok = (all((c.get("resources") or {}).get("requests") == {"cpu": "100m",
+                                                                  "memory": "128Mi"}
+                  for c in spec["containers"])
+              and DEFAULT_TOLERATIONS <= set(tols)
+              and all(tols[k].get("tolerationSeconds") == 300 and tols[k]["effect"] == "NoExecute"
+                      for k in DEFAULT_TOLERATIONS)
+              and spec.get("priority") == (1000 if high else 0)
+              and spec.get("priorityClassName") == ("high" if high else "batch"))
+        bad_fields += not ok
+    on_tainted = sum(1 for n in got.values() if n in tainted)
+    # the daemon against the sequential oracle over the read-back objects,
+    # in LIST order (the order the daemon drained them)
+    mismatches = sum(got[p.meta.key] != w for p, w in zip(pods_back, want))
+    batch_mismatch = sum(a != b for a, b in zip(batch, want))
+    print(f"phase 11a apiserver at its defaults (admission on), {n_nodes} nodes ({len(tainted)} "
+          f"tainted {UNREACHABLE}:NoExecute) x {n_pods} pods POSTed one at a time in "
+          f"{create_s:.3f} s ({n_pods / create_s:.1f} creates/s through the chain); refused with "
+          f"403: {refusals}; admitted fields wrong on {bad_fields} pods; bound "
+          f"{sum(1 for n in got.values() if n)}, {on_tainted} on the tainted nodes; daemon vs "
+          f"sequential oracle over the read-back objects: mismatches {mismatches}, rr "
+          f"{st['round_robin']} vs {algo._round_robin}; in-process batch path: {len(seen)} "
+          f"segments kernel == scan_ref, bindings vs oracle mismatches {batch_mismatch}, rr "
+          f"{backend.algorithm._round_robin}; daemon drains {st['waves']} launches "
+          f"{st['launches']} refresh_launches {st['refresh_launches']}", flush=True)
+    if (bad_fields or len(refusals) != 3 or mismatches or batch_mismatch or not seen
+            or st["round_robin"] != algo._round_robin
+            or backend.algorithm._round_robin != algo._round_robin
+            or not all(got.values()) or on_tainted == 0 or st["oracle_pods"] != 0
+            or st["launches"] < 1):
+        raise AssertionError(f"phase 11a failed: {bad_fields} {refusals} {mismatches} "
+                             f"{batch_mismatch} {on_tainted} {st}")
+    return st["launches"], st["refresh_launches"]
+
+
+def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int = 20000,
+                   waves: int = 5) -> tuple[int, int]:
+    """Phase 11b: 6a's cell in 5 waves through a durable apiserver at its
+    defaults; once wave 3's creates are acknowledged, while the daemon
+    drains and binds them, the client LISTs the pods and the apiserver is
+    SIGKILLed and restarted on the same port and directory.  The scheduler daemon is not restarted.  Returns its
+    fused-scan and refresh launches."""
+    from kubernetes_tpu_torch.client import RemoteStore
+    from kubernetes_tpu_torch.workload import overcommitted_nodes, run_wire_churn
+
+    data = os.path.join(workdir, "11b-data")
+    d = Daemons(workdir, "11b", admitted=True, data_dir=data)
+    try:
+        d.start_scheduler()
+        rs = RemoteStore(d.url, timeout=120.0)
+
+        def drill() -> dict:
+            t = time.perf_counter()
+            items, rev = rs.list("Pod")
+            acked = {i["metadata"]["name"]: i["spec"]["nodeName"] for i in items
+                     if i["spec"].get("nodeName")}
+            list_s = time.perf_counter() - t
+            return {"acked": acked, "list_rev": rev, "list_s": list_s, **d.crash_apiserver()}
+
+        r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=0,
+                           wave_deadline_s=120, crash=(2, drill))
+        text = d.metrics_text()
+        st = d.stop_scheduler()
+        pods_now, _ = rs.list("Pod")
+        nodes_now, _ = rs.list("Node")
+    except BaseException:
+        print(f"phase 11b scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+        raise
+    finally:
+        d.close()
+    c = r["crash"]
+    now = {i["metadata"]["name"]: i["spec"].get("nodeName") for i in pods_now}
+    lost = sorted(k for k, v in c["acked"].items() if now.get(k) != v)
+    over = overcommitted_nodes(pods_now, nodes_now)
+    reconnects = metric_value(text, "client_watch_reconnects_total")
+    gaps = metric_value(text, "client_watch_gaps_total")
+    per_wave = n_pods // waves
+    pps_12 = 2 * per_wave / (r["wave_s"][0] + r["wave_s"][1])
+    c2b = r["create_to_bind_ms"]
+    print(f"phase 11b durable apiserver at its defaults ({mount_of(data)}), {n_nodes}x{n_pods} "
+          f"mixed in {waves} waves: SIGKILL once wave 3's creates were acknowledged, while the "
+          f"daemon bound them ({c['pending_at_crash']} of its {per_wave} pods unbound as the "
+          f"client saw it); the LIST before the kill held "
+          f"{len(c['acked'])} bound pods at revision {c['list_rev']} ({c['list_s']:.3f} s); "
+          f"restarted in {c['restart_s']:.3f} s, recovery: revision {c['revision']}, records "
+          f"replayed {c['replayed']}, torn tail {c['torn_tail']}, truncated bytes "
+          f"{c['truncated_bytes']}; acknowledged binds lost {len(lost)}; bound {r['bound']} "
+          f"unbound {r['unbound']}; nodes over capacity {len(over)}; the daemon's watch "
+          f"reconnects {reconnects:.0f}, gaps {gaps:.0f}", flush=True)
+    print(f"phase 11b pods_per_s {r['pods_per_sec']:.1f} create_to_bind_p50_ms {c2b['p50']:.1f} "
+          f"create_to_bind_p99_ms {c2b['p99']:.1f}; wave seconds "
+          + " ".join(f"{x:.3f}" for x in r["wave_s"]) + "; create seconds "
+          + " ".join(f"{x:.3f}" for x in r["create_s"])
+          + f"; waves 1-2 {pps_12:.1f} pods/s (--data-dir) beside 6a's {pps_6a:.1f} (no "
+          f"admission, in memory, this call); daemon launches {st['launches']} refresh_launches "
+          f"{st['refresh_launches']} drains {st['waves']} bound {st['bound']} oracle_pods "
+          f"{st['oracle_pods']}", flush=True)
+    if (lost or over or r["bound"] != n_pods or r["unbound"] or not all(now.values())
+            or reconnects + gaps <= 0 or not c["acked"] or c["replayed"] <= 0
+            or st["oracle_pods"] != 0 or st["launches"] < waves):
+        raise AssertionError(f"phase 11b failed: lost {lost[:5]}, over {over[:5]}, "
+                             f"{r['bound']}/{n_pods}, reconnects {reconnects} gaps {gaps}, {st}")
+    return st["launches"], st["refresh_launches"]
+
+
+def fsync_cost(workdir: str, n_nodes: int = 5000, per_wave: int = 2000,
+               reps: int = 3) -> tuple[int, int]:
+    """Phase 11c: at 5000 nodes, one 2000-pod wave under each of: no flag,
+    ``--data-dir``, ``--data-dir --fsync`` (each arm its own apiserver at
+    its defaults and scheduler daemon, all started first), three waves an
+    arm interleaved (arm by arm within a round).  Returns the daemons'
+    fused-scan and refresh launches."""
+    from kubernetes_tpu_torch.workload import run_wire_churn
+
+    arms = [("memory", {}), ("data-dir", {"data_dir": os.path.join(workdir, "11c-dd")}),
+            ("fsync", {"data_dir": os.path.join(workdir, "11c-fs"), "fsync": True})]
+    order = [(w, a) for w in range(reps) for a in range(len(arms))]
+    cv = threading.Condition()
+    pos = [0]
+    ready = threading.Barrier(len(arms))
+    results: dict = {}
+    errors: list = []
+    ds = []
+    try:
+        # the arms' daemons start together: each pair's start-up is idle waiting
+        made: list = [None] * len(arms)
+
+        def start(a: int) -> None:
+            made[a] = Daemons(workdir, f"11c-{arms[a][0]}", admitted=True, **arms[a][1])
+            made[a].start_scheduler()
+
+        errs = [None] * len(arms)
+        starters = [threading.Thread(target=lambda a=a: errs.__setitem__(a, _capture(
+            lambda: start(a)))) for a in range(len(arms))]
+        for t in starters:
+            t.start()
+        for t in starters:
+            t.join()
+        ds = [d for d in made if d is not None]
+        if any(errs):
+            raise RuntimeError(f"phase 11c start-up: {errs}")
+
+        def run(a: int) -> None:
+            def before(w):
+                if w == 0:
+                    ready.wait(timeout=300)
+                deadline = time.monotonic() + 300
+                with cv:
+                    while order[pos[0]] != (w, a):
+                        if errors or time.monotonic() > deadline:
+                            raise RuntimeError(f"arm {arms[a][0]}: its turn never came")
+                        cv.wait(timeout=0.5)
+
+            def after(w):
+                with cv:
+                    pos[0] = min(pos[0] + 1, len(order) - 1)
+                    cv.notify_all()
+
+            try:
+                results[a] = run_wire_churn(ds[a].url, n_nodes, per_wave * reps, reps, "mixed",
+                                            seed=11, before_wave=before, on_wave=after)
+            except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+                errors.append((arms[a][0], e))
+                ready.abort()
+                with cv:
+                    cv.notify_all()
+
+        threads = [threading.Thread(target=run, args=(a,)) for a in range(len(arms))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise RuntimeError(f"phase 11c: {errors}")
+        stats = [d.stop_scheduler() for d in ds]
+    except BaseException:
+        for d in ds:
+            print(f"phase 11c {d.tag} scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+        raise
+    finally:
+        for d in ds:
+            d.close()
+    for a, (name, kw) in enumerate(arms):
+        r = results[a]
+        create = r["create_s"]
+        bind = [w - c for w, c in zip(r["wave_s"], create)]
+        p99 = r["wave_c2b_p99_ms"]
+
+        def spread(xs):
+            return f"mean {sum(xs) / len(xs):.4f} [{min(xs):.4f}, {max(xs):.4f}]"
+
+        where = mount_of(kw["data_dir"]) if kw else "-"
+        print(f"phase 11c arm {name} (data dir on {where}), {n_nodes} nodes, {reps} waves of "
+              f"{per_wave} pods: create s {spread(create)}; bind s {spread(bind)}; create->bind "
+              f"p99 ms {spread(p99)}; bound {r['bound']} unbound {r['unbound']}; launches "
+              f"{stats[a]['launches']}", flush=True)
+        if r["bound"] != per_wave * reps or stats[a]["oracle_pods"] != 0:
+            raise AssertionError(f"phase 11c arm {name}: {r['bound']} bound, {stats[a]}")
+    return (sum(s["launches"] for s in stats), sum(s["refresh_launches"] for s in stats))
+
+
+def admitted_phase(pps_6a: float) -> tuple[int, int]:
+    """Phase 11: the apiserver as the JAX package starts it.  Returns the
+    daemons' fused-scan and refresh launches over 11a-11c."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        la, ra = admitted_parity(workdir)
+        t1 = time.perf_counter()
+        lb, rb = crash_recovery(workdir, pps_6a)
+        t2 = time.perf_counter()
+        lc, rc = fsync_cost(workdir)
+    t3 = time.perf_counter()
+    print(f"phase 11 took {t3 - t0:.1f} s: 11a {t1 - t0:.1f}, 11b {t2 - t1:.1f}, 11c "
+          f"{t3 - t2:.1f}; launches {la} + {lb} + {lc} fused, {ra} + {rb} + {rc} refresh",
+          flush=True)
+    return la + lb + lc, ra + rb + rc
 
 
 def main() -> int:
@@ -1677,6 +2169,7 @@ def main() -> int:
           f"launch (write-back on) {chunk_ms:.3f} ms, x {-(-s_main.p_real // 512)} chunks "
           f"{chunk_ms * -(-s_main.p_real // 512):.3f} ms", flush=True)
     refresh_entry = refresh_cell(s_main, st_main)
+    node_cache_cell(main_static)
 
     (churn_launches, churn_refresh), lazy_pps = churn_phase()
     (eager_launches, _), eager_pps = churn_phase(lazy_ingest=False)
@@ -1691,6 +2184,7 @@ def main() -> int:
     fault_launches = faults_phase()
     overload_launches, _ = overload_phase()
     pool_launches, pool_refresh, pool_errs, pool_refresh_errs = pool_phase()
+    admitted_launches, admitted_refresh = admitted_phase(pps_6a)
 
     entry = {
         "name": "fused_scan", "route": "cuda",
@@ -1698,12 +2192,13 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": (launches + churn_launches + daemon_launches + preemption_launches
                      + policy_launches + traced_launches + fault_launches + overload_launches
-                     + pool_launches),
+                     + pool_launches + admitted_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "daemon": daemon_launches, "churn_eager": eager_launches,
                              "preemption": preemption_launches, "policy": policy_launches,
                              "traced_daemon": traced_launches, "faults": fault_launches,
-                             "overload": overload_launches, "pool": pool_launches},
+                             "overload": overload_launches, "pool": pool_launches,
+                             "apiserver_defaults": admitted_launches},
         # the repaired shapes' segments (phase 3): many zones, a wide port row
         "cells": shape_cells,
         "max_abs_err": max(errs + pool_errs),
@@ -1713,9 +2208,11 @@ def main() -> int:
     }
     refresh_entry.update(
         max_abs_err=max([refresh_entry["max_abs_err"], *pool_refresh_errs]),
-        launches=refresh_launches + churn_refresh + daemon_refresh + pool_refresh,
+        launches=(refresh_launches + churn_refresh + daemon_refresh + pool_refresh
+                  + admitted_refresh),
         launches_by_path={"batch": refresh_launches, "churn": churn_refresh,
-                          "daemon": daemon_refresh, "pool": pool_refresh})
+                          "daemon": daemon_refresh, "pool": pool_refresh,
+                          "apiserver_defaults": admitted_refresh})
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [entry, refresh_entry]}))
     print(card)

@@ -1,7 +1,7 @@
 """hyperkube: one entry point for every component of the port (reference
 ``cmd/hyperkube``):
 
-    python -m kubernetes_tpu_torch apiserver --port 6443 --disable-admission
+    python -m kubernetes_tpu_torch apiserver --port 6443 [--data-dir DIR]
     python -m kubernetes_tpu_torch scheduler --apiserver http://127.0.0.1:6443
 """
 

@@ -139,6 +139,15 @@ class Quantity:
     def __repr__(self) -> str:
         return f"Quantity({str(self)!r})"
 
+    def to_json(self) -> str:
+        return str(self)
+
+    @classmethod
+    def from_json(cls, v) -> "Quantity":
+        if isinstance(v, (int, float, str)):
+            return cls(v)
+        raise TypeError(f"bad quantity json: {v!r}")
+
 
 def _coerce(v) -> Fraction:
     if isinstance(v, Quantity):

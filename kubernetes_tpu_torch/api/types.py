@@ -37,6 +37,10 @@ NO_SCHEDULE = "NoSchedule"
 PREFER_NO_SCHEDULE = "PreferNoSchedule"
 NO_EXECUTE = "NoExecute"
 
+# the era's node-failure taint keys (taint_controller.go): the node
+# lifecycle controller applies them, DefaultTolerationSeconds tolerates them
+TAINT_NODE_NOT_READY = "node.alpha.kubernetes.io/notReady"
+TAINT_NODE_UNREACHABLE = "node.alpha.kubernetes.io/unreachable"
 
 # Node condition types
 NODE_READY = "Ready"
@@ -1199,6 +1203,10 @@ def kind_for_plural(plural: str) -> Optional[str]:
         if p == plural:
             return kind
     return None
+
+
+def register_cluster_scoped(cls):
+    return register_kind(cls, cluster_scoped=True)
 
 
 def convert_to_internal(doc: dict) -> dict:

@@ -41,8 +41,11 @@ The create paths pass an overload gate first: ``admission_throttle`` (a
 ``utils.overload.AdmissionThrottle``, or anything with ``admit(resource,
 bodies) -> Optional[retry_after_s]``) and the ``apiserver.admit`` fault
 point may answer 429 with a ``Retry-After`` header, which ``RemoteStore``
-honours.  Authentication, authorization, audit, the validating admission
-chain, TLS and PATCH are not part of this server yet.
+honours.  Over an ``AdmittedStore`` (``admission/framework.py``) the
+writes then pass the admission chain, and a plugin's denial answers 403
+Forbidden.  Authentication, authorization, audit, TLS and PATCH are not
+part of this server yet: every request runs as the empty (anonymous)
+identity.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from typing import Callable, Optional
 from urllib.parse import parse_qs, urlparse
 
 from .. import __version__, faults
+from ..admission.framework import AdmissionDenied
 from ..api.selectors import parse_selector_string
 from ..api.types import CLUSTER_SCOPED_KINDS, KIND_PLURALS, convert_to_internal, kind_for_plural
 from ..store.store import (
@@ -265,8 +269,14 @@ def _make_handler(server: APIServer):
             # find an unread body where its next request line should be
             self._raw = self.rfile.read(length) if length else b""
             self._parsed = None
+            # the request's identity for the admission plugins (thread-local
+            # on an AdmittedStore): no authenticator is ported, so it is the
+            # anonymous empty name, set anew so no request inherits another's
+            store.user = ""
             try:
                 self._dispatch(method)
+            except AdmissionDenied as e:
+                self._error(403, "Forbidden", str(e))
             except NotFoundError as e:
                 self._error(404, "NotFound", str(e))
             except AlreadyExistsError as e:

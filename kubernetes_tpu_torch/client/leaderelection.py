@@ -9,11 +9,20 @@ way.
 The lease is an annotated Event-kind object in ``kube-system`` (the
 reference uses an annotated Endpoints or ConfigMap the same way) holding
 the holder's identity and its renew time on the injected clock.  Every
-write is a CAS, so two holders cannot both win."""
+write is a CAS, so two holders cannot both win.
+
+A round that cannot reach the store (the apiserver down or restarting)
+is a failed round, not an error: ``try_acquire_or_renew`` logs it and
+returns False (``leaderelection.go`` ``tryAcquireOrRenew``: "error
+retrieving resource lock"), and the holder keeps trying until its renew
+deadline passes (``daemon.run_with_leader_election``).  The JAX
+package's elector raises there instead, which ends its daemon on any
+apiserver restart longer than the client's retries."""
 
 from __future__ import annotations
 
 import json
+import logging
 import time
 from typing import Callable, Optional
 
@@ -21,6 +30,9 @@ from ..api import types as api
 from ..api.meta import ObjectMeta
 from ..store.store import AlreadyExistsError, ConflictError, NotFoundError
 from .clientset import Clientset
+from .remote import RemoteError
+
+logger = logging.getLogger("kubernetes_tpu_torch.leaderelection")
 
 LEASE_ANNOTATION = "control-plane.alpha.kubernetes.io/leader"
 
@@ -71,7 +83,18 @@ class LeaderElector:
 
     # -- acquire / renew (leaderelection.go:172 acquire, :202 renew) -------
     def try_acquire_or_renew(self) -> bool:
-        """One election round; True while this identity holds the lease."""
+        """One election round; True while this identity holds the lease.
+        A round the store cannot answer (transport failure) returns False
+        and leaves ``is_leader`` as it was: the caller's renew deadline
+        decides whether the lease is lost."""
+        try:
+            return self._round()
+        except (RemoteError, OSError) as e:
+            logger.warning("%s: error retrieving the lease: %s: %s", self.lock_name,
+                           type(e).__name__, e)
+            return False
+
+    def _round(self) -> bool:
         now = self._clock()
         cur = self._read()
         if cur is None:

@@ -27,7 +27,10 @@ relist):
 ``bind_many`` txn arrives as one ``WatchFrame`` line, fenced by its last
 revision; a frame line whose columns are broken loses its events as a
 unit, so the watch emits ``WATCH_GAP`` and ends, as on a 410.
-``list_columns`` is the ``?columnar=1`` LIST.
+``watch(label_selector=, field_selector=)`` filters on the server; with
+frames a txn arrives as the sub-frame of its matching entries.
+``list_columns`` is the ``?columnar=1`` LIST.  A write an admission
+plugin denies raises ``ForbiddenError`` (HTTP 403).
 
 Every failure path bumps a counter of ``utils.metrics.ClientMetrics``.
 There is no TLS, binary wire form or PATCH here yet."""
@@ -169,9 +172,14 @@ class RemoteWatch:
 
     def __init__(self, resource: str, from_revision: Optional[int],
                  opener: Callable[[str], _Stream], metrics: ClientMetrics,
-                 sleep: Callable[[float], None] = time.sleep, frames: bool = False):
+                 sleep: Callable[[float], None] = time.sleep, frames: bool = False,
+                 label_selector: Optional[str] = None, field_selector: Optional[str] = None):
         self._resource = resource
         self._frames = frames
+        # a selector watch: the server filters events, and frames at the
+        # column level (a matching sub-frame); every reconnect keeps them
+        self._label_selector = label_selector
+        self._field_selector = field_selector
         self._opener = opener
         self.metrics = metrics
         self._sleep = sleep
@@ -190,6 +198,10 @@ class RemoteWatch:
         path = f"/api/v1/{self._resource}?watch=true&timeoutSeconds={WATCH_TIMEOUT_S}"
         if self._frames:
             path += "&frames=1"
+        if self._label_selector:
+            path += f"&labelSelector={quote(self._label_selector)}"
+        if self._field_selector:
+            path += f"&fieldSelector={quote(self._field_selector)}"
         if self._last_rev is not None:
             path += f"&resourceVersion={self._last_rev}"
         return path
@@ -536,8 +548,10 @@ class RemoteStore:
         return out["errors"]
 
     def watch(self, kind: Optional[str] = None, from_revision: Optional[int] = None,
-              frames: bool = False) -> RemoteWatch:
+              frames: bool = False, label_selector: Optional[str] = None,
+              field_selector: Optional[str] = None) -> RemoteWatch:
         if kind is None:
             raise RemoteError("a remote watch needs a kind")
         return RemoteWatch(self._resource(kind), from_revision, self._open_stream,
-                           self.metrics, sleep=self._sleep, frames=frames)
+                           self.metrics, sleep=self._sleep, frames=frames,
+                           label_selector=label_selector, field_selector=field_selector)

@@ -5,7 +5,7 @@ time-series scraper, the SLO monitor and the shipper's sink).
 The reference ships runnable binaries (``cmd/kube-apiserver``,
 ``plugin/cmd/kube-scheduler``); the port's process-model equivalents are::
 
-    python -m kubernetes_tpu_torch.apiserver --port 6443 --disable-admission
+    python -m kubernetes_tpu_torch.apiserver --port 6443 [--data-dir DIR]
     python -m kubernetes_tpu_torch.scheduler --apiserver http://127.0.0.1:6443 --leader-elect
 
 Each daemon runs threaded informers over the wire clientset, takes the
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import signal
 import threading
 import time
@@ -32,9 +33,11 @@ logger = logging.getLogger("kubernetes_tpu_torch.daemon")
 # how long a stopping lease holder waits for its payload to wind down
 # (drain the event sink, report) before it releases the lease anyway
 PAYLOAD_JOIN_S = 60.0
-# how often a lease holder checks that its payload thread is alive, and a
-# standby tries for the lease
+# how often a lease holder checks its payload thread and its renew
+# deadline
 _LIVENESS_POLL_S = 0.2
+# the retry period (leaderelection.go RetryPeriod): how often a standby
+# tries for the lease and a holder renews it
 _ACQUIRE_RETRY_S = 2.0
 
 
@@ -60,6 +63,75 @@ def install_signal_stop() -> threading.Event:
     return stop
 
 
+class _HeldLease:
+    """The renewing side of a held lease, on a thread of its own: a
+    renewal stuck in the client's retries (an apiserver that is down or
+    restarting) cannot delay the holder's check of its renew deadline.
+
+    ``renewed_at`` is the monotonic time at the start of the last round
+    that renewed.  The record that round wrote carries a later renew time,
+    so the lease is the holder's at least until ``renewed_at +
+    lease_duration``, and no standby takes it before then."""
+
+    def __init__(self, elector: LeaderElector, renewed_at: float):
+        self.elector = elector
+        self.renewed_at = renewed_at
+        self.taken = False  # a round answered that the lease is another's
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=f"{elector.lock_name}-renew")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        # leaderelection.go renew: a round every retry period until one
+        # renews, abandoned at the renew deadline by the holder's check
+        while not self._stop.wait(_ACQUIRE_RETRY_S):
+            started = time.monotonic()
+            if self.elector.try_acquire_or_renew():
+                self.renewed_at = started
+            elif not self.elector.is_leader:
+                self.taken = True
+                return
+
+    def lost(self) -> bool:
+        """Taken by another, or no renewal within the renew deadline.  As in
+        ``leaderelection.go`` ``renew``, the deadline starts with the first
+        round after the last renewal, a retry period after it: the holder
+        gives up leaseDuration - renewDeadline - retryPeriod (3 s at the
+        defaults) before the lease it last wrote expires."""
+        return self.taken or (time.monotonic() - self.renewed_at
+                              >= _ACQUIRE_RETRY_S + self.elector.renew_deadline)
+
+    def expires(self) -> float:
+        """The monotonic time from which a standby may hold the lease."""
+        return self.renewed_at + self.elector.lease_duration
+
+    def stop(self, wait: float = 0.0) -> None:
+        """No more rounds; wait up to ``wait`` seconds for one in flight, so
+        that it cannot renew after the holder releases the lease."""
+        self._stop.set()
+        self._thread.join(timeout=wait)
+
+
+def _fence_exit(lock_name: str) -> None:
+    """A payload that outlives its lease would bind beside the next holder:
+    end the process, as the reference's scheduler does when it stops
+    leading (``server.go`` ``OnStoppedLeading``: ``klog.Fatalf``)."""
+    logger.critical("%s: the payload did not stop before the lease expired; exiting",
+                    lock_name)
+    logging.shutdown()
+    os._exit(1)
+
+
+def _end_before_expiry(t: threading.Thread, lease: _HeldLease, lock_name: str) -> None:
+    """The lease is lost and the payload told to stop: wait for it until
+    just before the lease expires, and fence the process if it is still
+    running then."""
+    t.join(timeout=max(0.0, lease.expires() - _LIVENESS_POLL_S - time.monotonic()))
+    if t.is_alive():
+        _fence_exit(lock_name)
+
+
 def run_with_leader_election(
     clientset: Clientset,
     lock_name: str,
@@ -70,47 +142,72 @@ def run_with_leader_election(
 ) -> bool:
     """RunOrDie (``leaderelection.go:152``): wait until the lease is ours,
     run the payload in a thread, renew until the lease is lost or ``stop``
-    is set.  Losing the lease stops the payload and returns to standby.
+    is set.  Renewals run every ``_ACQUIRE_RETRY_S`` on a thread of their
+    own (``_HeldLease``); a failed one is retried, and the lease is lost
+    when a round says it is another's or when no round has renewed within
+    the elector's renew deadline, counted from the first round after the
+    last one that did (``_HeldLease.lost``).  An apiserver restart shorter
+    than that leaves the payload running.  Losing the lease stops the payload and returns to standby;
+    the payload must be gone before the lease it last wrote expires, or
+    the process exits (``_fence_exit``), so two holders never run at once.
 
     Returns True after a clean stop and False when the payload thread
-    died: the lease is then released at once so a standby takes over, and
-    the caller exits non-zero.  Without ``leader_elect`` the payload runs
-    on this thread and its exception propagates."""
+    died or did not stop within ``PAYLOAD_JOIN_S``: a lease whose payload
+    died is released at once so a standby takes over, and the caller exits
+    non-zero.  Without ``leader_elect`` the payload runs on this thread
+    and its exception propagates."""
     if not leader_elect:
         run(stop)
         return True
     elector = LeaderElector(clientset, lock_name, identity)
     while not stop.is_set():
+        started = time.monotonic()
         if not elector.try_acquire_or_renew():
             stop.wait(_ACQUIRE_RETRY_S)
             continue
         logger.info("%s: became leader (%s)", lock_name, identity)
-        lost = False
+        lease = _HeldLease(elector, started)
         payload_stop = threading.Event()
         t = threading.Thread(target=run, args=(payload_stop,), daemon=True,
                              name=f"{lock_name}-payload")
         t.start()
-        next_renew = time.monotonic() + elector.renew_deadline / 2
+        lost = False
         while not stop.is_set():
             if not t.is_alive():
                 # a holder doing no work would stall the control plane
                 logger.error("%s: payload thread died; releasing the lease", lock_name)
+                lease.stop(wait=_ACQUIRE_RETRY_S)
                 elector.release()
                 return False
-            if time.monotonic() >= next_renew:
-                if not elector.try_acquire_or_renew():
-                    logger.warning("%s: lost the lease", lock_name)
-                    lost = True
-                    break
-                next_renew = time.monotonic() + elector.renew_deadline / 2
+            if lease.lost():
+                logger.warning("%s: lost the lease (%s)", lock_name,
+                               "taken" if lease.taken else
+                               f"no renewal in {elector.renew_deadline:.1f} s")
+                lost = True
+                break
             stop.wait(_LIVENESS_POLL_S)
         payload_stop.set()
-        t.join(timeout=PAYLOAD_JOIN_S)
-        if not lost:
-            elector.release()
-            return not t.is_alive()
-        # lost the lease: back to standby (a supervised binary would exit
-        # and restart into the same loop)
+        if lost:
+            lease.stop()
+            _end_before_expiry(t, lease, lock_name)
+            # back to standby (a supervised binary would exit and restart
+            # into the same loop)
+            continue
+        # a clean stop: the lease is renewed while the payload winds down
+        # (drains the event sink, reports), then released
+        deadline = time.monotonic() + PAYLOAD_JOIN_S
+        while t.is_alive() and time.monotonic() < deadline:
+            if lease.lost():
+                _end_before_expiry(t, lease, lock_name)
+                break
+            t.join(timeout=_LIVENESS_POLL_S)
+        lease.stop(wait=_ACQUIRE_RETRY_S)
+        if t.is_alive():
+            # still running: keep the lease until the process ends and it
+            # expires, rather than hand it to a standby beside this payload
+            return False
+        elector.release()
+        return True
     return True
 
 

@@ -11,8 +11,12 @@ Catalogue (point → instrumented site → recovery path):
 ======================== ================================== ===========================
 point                    site                               recovery
 ======================== ================================== ===========================
+store.wal.append         WriteAheadLog.append               crash + recover: replay
+                         (torn: a partial record lands)     truncates the torn tail
 store.commit             Store.create/create_many/update/   caller retry (remote 5xx) or
                          delete/bind_many entry             scheduler requeue-with-backoff
+store.coalesce           Store._flush_pending_locked        that window degrades to
+                         (the coalescing window's flush)    per-event delivery
 remote.request           RemoteStore request loop           retry + exponential backoff
 remote.watch.stream      RemoteWatch connect/read loop      reconnect from resourceVersion;
                          (phase=frame: a packed frame)      410 → GAP → informer relist
@@ -39,8 +43,7 @@ apiserver.admit          APIServer create-path admission    client retries honor
                          gate (429 + Retry-After)           Retry-After
 ======================== ================================== ===========================
 
-Not registered, because their sites are not ported yet: ``store.wal.append``
-and ``store.coalesce`` (the durable store and the coalescing window).
+The registry names every point of the JAX package's.
 """
 
 from .core import (
@@ -56,9 +59,17 @@ from .core import (
     registry,
 )
 
+register("store.wal.append",
+         "WAL record append — error: append fails before any byte lands; "
+         "torn: a partial record hits disk and the process 'crashes'")
 register("store.commit",
          "store write commit (create/create_many/update/delete/bind_many) — "
          "error: the write fails before any state mutates")
+register("store.coalesce",
+         "coalescing-window flush at the broadcaster seam — error: the "
+         "framed flush path fails and THAT window degrades to per-event "
+         "delivery of the same folded events (state preserved, packing "
+         "lost, store_coalesce_fallbacks_total increments)")
 register("remote.request",
          "one HTTP request attempt in RemoteStore — error: transport "
          "failure; delay: slow apiserver")

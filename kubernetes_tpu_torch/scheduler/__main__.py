@@ -139,13 +139,16 @@ def main(argv=None) -> int:
 
     # health before leader election: a standby must answer its liveness
     # probe.  The metrics registry appears once the payload builds the
-    # scheduler.
+    # scheduler; the wire client's (retries, watch reconnects and gaps)
+    # follows it.
     holder: dict = {}
 
     class _LazyRegistry:
         def expose(self):
             reg = holder.get("registry")
-            return reg.expose() if reg is not None else "# standby\n"
+            if reg is None:
+                return "# standby\n"
+            return reg.expose() + cs.store.metrics.registry.expose()
 
     health = serve_health(args.healthz_port, _LazyRegistry())
     if health is not None:

@@ -1,4 +1,5 @@
-"""Revisioned in-process store + watch streams."""
+"""Revisioned in-process store + watch streams, its write-ahead log and
+its replication."""
 
 from .store import (
     ADDED,
@@ -12,4 +13,10 @@ from .store import (
     Store,
     Watch,
     WatchEvent,
+)
+from .replication import (
+    FollowerReplica,
+    NoQuorumError,
+    ReplicaDownError,
+    ReplicatedStore,
 )

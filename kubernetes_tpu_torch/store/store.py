@@ -23,8 +23,15 @@ columnar LIST (``store/columns.py``) and ``watch(frames=True)`` delivers a
 Every write passes the ``store.commit`` fault point before it starts and,
 with tracing on, runs in a ``store.txn`` span; batch txns carry a
 correlation id (``tracing.next_txn``) on their span and their frame.
-Durability, replication and the coalescing window of the reference package
-are not part of this store.
+
+Durability (``data_dir``): every committed event is appended to a
+write-ahead log (``store/wal.py``) before any watcher or the caller sees
+it, snapshots bound the replay, and a new ``Store`` over the same
+directory recovers the objects and the revision.  ``transformer``
+encrypts the records at rest (``store/encryption.py``).  A follower
+applies a leader's events through ``apply_replicated`` and
+``install_snapshot`` (``store/replication.py``).  ``coalesce_window_s``
+folds single-event churn per key for live delivery (off by default).
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional
 
 from .. import faults
 from ..api.meta import new_uid
 from ..utils import tracing
+from ..utils.metrics import DEFAULT_STORE_METRICS
 
 
 def _py_fast_deepcopy(obj):
@@ -140,10 +149,32 @@ class Watch:
             return None
 
 
+class _PendingBatch:
+    """One open coalescing window: the latest buffered event of each
+    (kind, key), awaiting one framed flush.
+
+    A fold deletes and reinserts the key, so the dict's order is each
+    key's latest commit and the flush frame's revision column is strictly
+    increasing (the ``from_wire`` invariant).  The WAL, the event log and
+    replication stay per-event at commit time; only live delivery to the
+    watchers waits for the window."""
+
+    __slots__ = ("latest", "deadline", "txn", "folded")
+
+    def __init__(self, deadline: float, txn: str):
+        self.latest: "collections.OrderedDict[tuple, WatchEvent]" = collections.OrderedDict()
+        self.deadline = deadline
+        self.txn = txn
+        self.folded = 0  # deliveries superseded inside this window
+
+
 class Store:
     """In-process strongly ordered object store."""
 
-    def __init__(self, event_log_window: int = 100_000):
+    def __init__(self, event_log_window: int = 100_000,
+                 data_dir: Optional[str] = None, fsync: bool = False,
+                 compact_every: int = 100_000, transformer=None,
+                 coalesce_window_s: float = 0.0):
         self._mu = threading.RLock()
         self._rev = 0
         # kind -> {key -> _Item}
@@ -154,12 +185,74 @@ class Store:
         # (watch(frames=True)) gets one WatchFrame a batch txn, everyone
         # else the per-event expansion
         self._watchers: list[tuple[Optional[str], "queue.Queue[Optional[WatchEvent]]", bool]] = []
+        # the coalescing window: 0.0 (the default) fans every event out at
+        # commit; > 0 folds single-event churn per key (latest wins) and
+        # flushes one frame a kind when the window closes.  Batch txns,
+        # a new watcher and a snapshot install flush the open window first.
+        self._coalesce_window = float(coalesce_window_s or 0.0)
+        self._coalesce_max_keys = 10_000
+        self._pending: Optional[_PendingBatch] = None
+        self._coalesce_closed = False
+        self._coalesce_wake: Optional[threading.Event] = None
+        self._coalesce_thread: Optional[threading.Thread] = None
+        if self._coalesce_window > 0.0:
+            self._coalesce_wake = threading.Event()
+            self._coalesce_thread = threading.Thread(
+                target=self._coalesce_loop, name="store-coalesce", daemon=True)
+            self._coalesce_thread.start()
+        # durability: with a data_dir every committed event is logged
+        # before the call returns, and a new Store over the same directory
+        # recovers the objects and the revision
+        self._wal = None
+        if data_dir is not None:
+            from .wal import WriteAheadLog
+
+            self._wal = WriteAheadLog(data_dir, compact_every=compact_every,
+                                      fsync=fsync, transformer=transformer)
+            rev, objects, _ = self._wal.recover()
+            self._rev = rev
+            for kind, bucket in objects.items():
+                for key, data in bucket.items():
+                    self._objects.setdefault(kind, {})[key] = _Item(
+                        data=data,
+                        revision=int(data.get("metadata", {}).get("resourceVersion", rev)))
+            self._wal.open()
+
+    def compact(self) -> None:
+        """Write a snapshot and truncate the WAL (etcd compaction).  The
+        snapshot is encoded while the store lock is held, so the live
+        dicts need no copy."""
+        if self._wal is None:
+            return
+        with self._mu:
+            objects = {kind: {key: item.data for key, item in bucket.items()}
+                       for kind, bucket in self._objects.items()}
+            self._wal.write_snapshot(self._rev, objects)
+
+    def close(self) -> None:
+        if self._coalesce_thread is not None:
+            self._coalesce_closed = True
+            self._coalesce_wake.set()
+            self._coalesce_thread.join(timeout=5.0)
+            self.flush_coalesced()  # nothing buffered outlives the store
+        if self._wal is not None:
+            self._wal.close()
 
     # -- revision ----------------------------------------------------------
     @property
     def revision(self) -> int:
         with self._mu:
             return self._rev
+
+    @property
+    def user(self) -> str:
+        """The request's identity, which the apiserver sets on every
+        request; only an admitted store keeps it (for its plugins)."""
+        return ""
+
+    @user.setter
+    def user(self, name: str) -> None:
+        pass
 
     def _next_rev(self) -> int:
         self._rev += 1
@@ -375,6 +468,44 @@ class Store:
                 raise NotFoundError(f"{kind} {namespace}/{name}")
             return _fast_deepcopy(item.data)
 
+    # -- the follower side of replication (store/replication.py) -----------
+    def apply_replicated(self, ev: WatchEvent) -> None:
+        """Apply a leader's committed event as it is: no CAS re-check (it
+        won on the leader), the revision follows the leader's, and the
+        local WAL and watchers see it as a local commit.  An event at or
+        below the applied revision is a no-op (catch-up may ship twice)."""
+        with self._mu:
+            if ev.revision <= self._rev:
+                return
+            bucket = self._objects.setdefault(ev.kind, {})
+            if ev.type == DELETED:
+                bucket.pop(ev.key, None)
+            else:
+                bucket[ev.key] = _Item(data=_fast_deepcopy(ev.object), revision=ev.revision)
+            self._rev = ev.revision
+            self._emit(WatchEvent(ev.type, ev.kind, ev.key, ev.revision,
+                                  _fast_deepcopy(ev.object)))
+
+    def install_snapshot(self, rev: int, objects: dict) -> None:
+        """Replace the state wholesale (raft InstallSnapshot): a rejoining
+        replica older than the leader's log window takes this path."""
+        with self._mu:
+            # buffered events precede the snapshot: deliver them before
+            # the jump (watchers older than the snapshot relist)
+            self._flush_pending_locked()
+            self._objects = {
+                kind: {key: _Item(data=_fast_deepcopy(data),
+                                  revision=data["metadata"].get("resourceVersion", rev))
+                       for key, data in bucket.items()}
+                for kind, bucket in objects.items()
+            }
+            self._rev = rev
+            self._log.clear()  # watchers older than the snapshot must relist
+            if self._wal is not None:
+                # the old WAL's events do not compose with the new revision
+                # line: snapshot now or recovery diverges
+                self.compact()
+
     def list(self, kind: str, namespace: Optional[str] = None) -> tuple[list[dict], int]:
         """Returns (objects sorted by namespace/name, list revision): the
         revision to start a watch from, the reflector's LIST-then-WATCH
@@ -422,6 +553,10 @@ class Store:
         ``bind_many``) arrives as one :class:`~.frames.WatchFrame` instead
         of N events (the log replay stays per-event)."""
         with self._mu:
+            # ordering barrier: flush the open coalescing window before the
+            # log replay, which already holds the buffered events, or the
+            # flush would deliver them a second time
+            self._flush_pending_locked()
             q: "queue.Queue[Optional[WatchEvent]]" = queue.Queue()
             if from_revision is not None and from_revision < self._rev:
                 oldest = self._log[0].revision if self._log else self._rev + 1
@@ -439,14 +574,128 @@ class Store:
         with self._mu:
             self._watchers = [(k, w, f) for (k, w, f) in self._watchers if w is not q]
 
+    def _append_log(self, ev: WatchEvent) -> None:
+        """Durability and the watch-cache window for one event (no fan-out)."""
+        if self._wal is not None:
+            # durability before visibility: the record is on disk before
+            # any watcher or the caller observes the commit
+            self._wal.append(ev.type, ev.kind, ev.key, ev.revision, ev.object)
+            if self._wal.needs_compaction():
+                self.compact()  # an RLock: the write path may re-enter
+        self._log.append(ev)  # deque maxlen trims the window
+
+    def _replicate(self, ev: WatchEvent) -> None:
+        """The per-event shipping hook, a no-op here: ``ReplicatedStore``
+        ships to its followers.  Both emit paths call it, after local
+        durability."""
+
     def _emit(self, ev: WatchEvent) -> None:
         # WatchEvent.object is shared read-only: one private copy is made
         # at emit time and handed to the log and every watcher (the
         # informer parses it into fresh typed objects)
-        self._log.append(ev)  # deque maxlen trims the window
+        self._append_log(ev)
+        self._replicate(ev)
+        if self._coalesce_window > 0.0:
+            # only live delivery waits for the window; with nobody watching
+            # there is nothing to deliver (watch() replays the log)
+            if self._watchers:
+                self._buffer_event(ev)
+            return
         for kind, q, _frames in self._watchers:
             if kind is None or kind == ev.kind:
                 q.put(ev)
+
+    # -- the coalescing window ---------------------------------------------
+    def _buffer_event(self, ev: WatchEvent) -> None:
+        """Fold one committed event into the open window, opening one if
+        needed.  The caller holds the store lock."""
+        p = self._pending
+        if p is None:
+            p = self._pending = _PendingBatch(time.monotonic() + self._coalesce_window,
+                                              tracing.next_txn("coalesce"))
+            self._coalesce_wake.set()
+        k = (ev.kind, ev.key)
+        if k in p.latest:
+            # latest wins: the superseded delivery is dropped and the key
+            # moves to the tail, so the flush's revisions stay increasing
+            del p.latest[k]
+            p.folded += 1
+        p.latest[k] = ev
+        # bounded: the window flushes inline at its key cap
+        if len(p.latest) >= self._coalesce_max_keys:
+            self._flush_pending_locked()
+
+    def flush_coalesced(self) -> None:
+        """Deliver the open window now: the flusher's deadline, an ordering
+        barrier, or an explicit flush."""
+        with self._mu:
+            self._flush_pending_locked()
+
+    def _flush_pending_locked(self) -> None:
+        p = self._pending
+        if p is None:
+            return
+        self._pending = None
+        events = list(p.latest.values())
+        if not events:
+            return
+        from . import frames as frames_mod
+
+        m = DEFAULT_STORE_METRICS
+        m.coalesce_flushes.inc()
+        if p.folded:
+            m.coalesced_events.inc(p.folded)
+        by_kind: dict[str, list[WatchEvent]] = {}
+        for ev in events:
+            by_kind.setdefault(ev.kind, []).append(ev)
+        # a synthetic frame carries no prev_revisions: the fold hides the
+        # intermediate transitions, so consumers take the per-object
+        # compare; the frame's fence (its last revision) is exact
+        frames_by_kind: dict[str, object] = {}
+        try:
+            faults.hit("store.coalesce", n=len(events), folded=p.folded)
+            if frames_mod.ENABLED:
+                for kind, evs in by_kind.items():
+                    if len(evs) > 1:
+                        frames_by_kind[kind] = frames_mod.WatchFrame(
+                            kind, [e.type for e in evs], [e.key for e in evs],
+                            [e.revision for e in evs], [e.object for e in evs],
+                            prev_revisions=None, txn=p.txn)
+        except Exception:  # noqa: BLE001 - degrade, never drop state
+            # this window falls back to per-event delivery of the same
+            # folded events: every consumer converges to the same state,
+            # only the packing is lost
+            frames_by_kind = {}
+            m.coalesce_fallbacks.inc()
+        for wkind, q, wants_frames in self._watchers:
+            for kind, evs in by_kind.items():
+                if wkind is not None and wkind != kind:
+                    continue
+                frame = frames_by_kind.get(kind) if wants_frames else None
+                if frame is not None:
+                    q.put(frame)
+                else:
+                    for ev in evs:
+                        q.put(ev)
+
+    def _coalesce_loop(self) -> None:
+        """The flusher thread: parked until a window opens, then sleeps out
+        its deadline and flushes, never holding the store lock asleep."""
+        while True:
+            self._coalesce_wake.wait()  # blocking-ok — parked until a window opens
+            self._coalesce_wake.clear()
+            if self._coalesce_closed:
+                return
+            while not self._coalesce_closed:
+                with self._mu:
+                    p = self._pending
+                    delay = 0.0 if p is None else p.deadline - time.monotonic()
+                if p is None:
+                    break
+                if delay > 0:
+                    time.sleep(delay)  # blocking-ok — outside the lock, bounded by the window
+                    continue
+                self.flush_coalesced()
 
     def _emit_many(self, events: list[WatchEvent],
                    prev_revisions: Optional[list[int]] = None,
@@ -459,7 +708,12 @@ class Store:
             return
         from . import frames as frames_mod
 
-        self._log.extend(events)
+        # ordering barrier: a batch txn fans out at commit, so an open
+        # coalescing window reaches the queues first
+        self._flush_pending_locked()
+        for ev in events:
+            self._append_log(ev)
+            self._replicate(ev)
         want_frame = len(events) > 1 and frames_mod.ENABLED
         kind = events[0].kind  # batch txns are single-kind
         frame = None

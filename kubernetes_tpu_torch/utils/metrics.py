@@ -262,6 +262,31 @@ class ClientMetrics:
 DEFAULT_CLIENT_METRICS = ClientMetrics()
 
 
+class StoreMetrics:
+    """The coalescing window's flushes, folds and flush-path fallbacks (the
+    fault matrix reads ``store_coalesce_fallbacks_total``)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.coalesce_flushes = r.register(Counter(
+            "store_coalesce_flushes_total",
+            "coalescing windows flushed to the watcher queues (deadline, "
+            "ordering barrier, key cap, or shutdown)"))
+        self.coalesced_events = r.register(Counter(
+            "store_coalesced_events_total",
+            "per-key deliveries superseded inside a coalescing window "
+            "(latest-wins folds)"))
+        self.coalesce_fallbacks = r.register(Counter(
+            "store_coalesce_fallbacks_total",
+            "coalescing windows degraded to per-event delivery after a "
+            "flush-path failure (state preserved, packing lost)"))
+
+
+# the stores of a process aggregate here
+DEFAULT_STORE_METRICS = StoreMetrics()
+
+
 class APIServerMetrics:
     """The apiserver's request count and latency (microseconds), the error
     responses that could not be written because the client hung up, the

@@ -320,7 +320,8 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
 
 def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
                    waves: int = 10, workload: str = "mixed", seed: int = 0,
-                   wave_deadline_s: float = 60.0, on_wave=None) -> dict:
+                   wave_deadline_s: float = 60.0, on_wave=None, crash=None,
+                   before_wave=None) -> dict:
     """The client side of a daemon run: the churn preset driven over the
     wire against the apiserver at ``url``, served by whatever scheduler
     watches it (``python -m kubernetes_tpu_torch.scheduler``).
@@ -332,8 +333,17 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
     ``wave_deadline_s`` a wave (else ``TimeoutError``).  Returns the
     bound and unbound counts of the final LIST, the wall seconds of the
     waves and pods/s, the client-observed create→bind p50 and p99 in ms,
-    each wave's seconds and the final binding map.  ``on_wave(w)``, when
-    given, is called after wave ``w`` settled (outside the timed wave)."""
+    each wave's seconds (and of it the ``create_many`` call's seconds,
+    and the wave's create→bind p99) and the final binding map.
+    ``before_wave(w)`` and ``on_wave(w)``, when given, are called before
+    wave ``w`` and after it settled (outside the timed waves).
+
+    ``crash=(w, fn)``: as soon as wave ``w``'s creates are acknowledged,
+    while the scheduler drains and binds it, ``fn()`` runs (inside the
+    timed wave): the crash drill's LIST, kill and restart of the
+    apiserver.  Its return value is the result's ``crash``, with
+    ``pending_at_crash``, the wave's pods not yet bound as this client saw
+    it when the drill began."""
     import threading
     import time
 
@@ -371,16 +381,29 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
     factory.start_all()
     per_wave = total_pods // waves
     wave_s: list[float] = []
+    create_s: list[float] = []
+    wave_p99_ms: list = []
+    crashed = None
     try:
         t0 = time.perf_counter()
         for w in range(waves):
             batch = pods[w * per_wave:(w + 1) * per_wave]
+            if before_wave is not None:
+                t_cb = time.perf_counter()
+                before_wave(w)
+                t0 += time.perf_counter() - t_cb
             t_wave = time.perf_counter()
             with cv:
                 for p in batch:
                     created_at[p.meta.key] = t_wave
                     pending.add(p.meta.key)
             cs.pods.create_many_nowait(batch)
+            create_s.append(time.perf_counter() - t_wave)
+            if crash is not None and crash[0] == w:
+                with cv:
+                    at_crash = len(pending)
+                crashed = crash[1]()
+                crashed["pending_at_crash"] = at_crash
             with cv:
                 while pending:
                     left = t_wave + wave_deadline_s - time.perf_counter()
@@ -390,6 +413,11 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
                             f"FailedScheduling after {wave_deadline_s} s")
                     cv.wait(timeout=left)
             wave_s.append(time.perf_counter() - t_wave)
+            with cv:
+                lat = sorted(bound_at[p.meta.key] - t_wave for p in batch
+                             if p.meta.key in bound_at)
+            wave_p99_ms.append(lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3
+                               if lat else None)
             if on_wave is not None:
                 t_cb = time.perf_counter()
                 on_wave(w)
@@ -411,8 +439,34 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
         "bound": bound, "unbound": len(assignments) - bound,
         "wall_s": wall, "pods_per_sec": bound / wall if wall > 0 else 0.0,
         "create_to_bind_ms": {"p50": pct(0.5), "p99": pct(0.99)},
-        "wave_s": wave_s, "assignments": assignments,
+        "wave_s": wave_s, "create_s": create_s, "wave_c2b_p99_ms": wave_p99_ms,
+        "assignments": assignments,
+        "crash": crashed if crash is not None else None,
     }
+
+
+def overcommitted_nodes(pods: list, nodes: list) -> list:
+    """Names of the nodes whose bound pods (wire dicts) request more cpu,
+    memory or pod slots than the node's allocatable."""
+    from .api.quantity import Quantity
+
+    alloc = {n["metadata"]["name"]: (n.get("status") or {}).get("allocatable") or {}
+             for n in nodes}
+    used: dict[str, list] = {}
+    for p in pods:
+        node = (p.get("spec") or {}).get("nodeName")
+        if not node:
+            continue
+        u = used.setdefault(node, [Quantity(0), Quantity(0), 0])
+        for c in (p.get("spec") or {}).get("containers") or []:
+            req = (c.get("resources") or {}).get("requests") or {}
+            u[0] += Quantity(req.get("cpu", 0))
+            u[1] += Quantity(req.get("memory", 0))
+        u[2] += 1
+    return sorted(n for n, (cpu, mem, count) in used.items()
+                  if Quantity(alloc[n].get("cpu", 0)) < cpu
+                  or Quantity(alloc[n].get("memory", 0)) < mem
+                  or Quantity(alloc[n].get("pods", 0)).value() < count)
 
 
 def oracle_replay_waves(drain_batches: list, final_assignments: dict,

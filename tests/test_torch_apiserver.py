@@ -31,11 +31,16 @@ class Pair:
     """One apiserver of ``server``'s package and a clientset of
     ``client``'s package over the wire to it."""
 
-    def __init__(self, client: str, server: str, **store_kw):
+    def __init__(self, client: str, server: str, admitted: bool = False, **store_kw):
         self.client_pkg = client
         srv = importlib.import_module(f"{PKG[server]}.apiserver")
         store = importlib.import_module(f"{PKG[server]}.store")
-        self.server = srv.APIServer(store.Store(**store_kw))
+        if admitted:  # the apiserver as its entry point starts it
+            adm = importlib.import_module(f"{PKG[server]}.admission")
+            backing = adm.AdmittedStore(adm.default_chain(), **store_kw)
+        else:
+            backing = store.Store(**store_kw)
+        self.server = srv.APIServer(backing)
         self.server.start()
         self.url = self.server.url
         self.remote = importlib.import_module(f"{PKG[client]}.client.remote")
@@ -287,6 +292,63 @@ def framed_watch(p: Pair):
     return {"items": out}
 
 
+def selector_framed_watch(p: Pair):
+    """``?frames=1&labelSelector=``: a txn arrives as the sub-frame of the
+    entries the selector matches; a txn none of whose entries match sends
+    nothing; a plain event the selector misses is not sent."""
+    _, rev = p.rs.list("Pod")
+    w = p.rs.watch("Pod", from_revision=rev, frames=True, label_selector="app=web")
+    try:
+        deadline = time.monotonic() + 10
+        while not _frames_watch_open(w) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        pods = []
+        for i in range(6):
+            pod = p.tu.make_pod(f"s{i}", cpu="100m", labels={"app": "web" if i % 2 else "db"})
+            pod.meta.uid = f"uid-s{i}"
+            pods.append(pod)
+        p.cs.pods.create_many(pods)
+        p.cs.pods.bind_many([p.api.Binding(pod_namespace="default", pod_name=f"s{i}",
+                                           node_name="n0") for i in (0, 2)])  # db only
+        p.cs.pods.delete("s4")  # db: filtered
+        p.cs.pods.delete("s5")  # web: sent
+        items = []
+        while len(items) < 2 and time.monotonic() < deadline:
+            it = w.get(timeout=0.1)
+            if it is not None:
+                items.append(it)
+    finally:
+        w.stop()
+    out = []
+    for it in items:
+        if it.type == "FRAME":
+            out.append({"type": it.type, "keys": it.keys, "objects": it.objects})
+        else:
+            out.append({"type": it.type, "key": it.key})
+    return {"items": out}
+
+
+def admitted_writes(p: Pair):
+    """An apiserver over ``AdmittedStore(default_chain())``: a create in a
+    missing namespace or naming a missing PriorityClass answers 403
+    Forbidden; an admitted pod is stored with the chain's defaults; a
+    batch create skips the chain (the reference package's own rule)."""
+    req = urllib.request.Request(
+        p.url + "/api/v1/namespaces/nowhere/pods",
+        data=json.dumps(p.tu.make_pod("lost", namespace="nowhere").to_dict()).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    code, body = http_error(req)
+    ghost = p.tu.make_pod("ghost")
+    ghost.spec.priority_class_name = "ghost"
+    with pytest.raises(p.remote.ForbiddenError, match="PriorityClass"):
+        p.cs.pods.create(ghost)
+    admitted = p.cs.pods.create(p.tu.make_pod("ok", cpu="100m"))
+    batch = p.rs.create_many("Pod", [p.tu.make_pod("b", namespace="nowhere").to_dict()])
+    return {"code": code, "reason": body["reason"], "message": body["message"],
+            "admitted": admitted.to_dict(), "batch_namespace": batch[0]["metadata"]["namespace"],
+            "names": sorted(x["metadata"]["name"] for x in p.rs.list("Pod")[0])}
+
+
 def columnar_list(p: Pair):
     """``?columnar=1``: a Pod and a Node LIST as one packed column batch;
     a kind without a columnar form answers None."""
@@ -428,6 +490,26 @@ def test_framed_watch(pairing):
     got = check(framed_watch, pairing)
     assert [i["type"] for i in got["items"]] == ["FRAME", "FRAME", "DELETED"]
     assert got["items"][1]["nodes"] == ["n0", "n1", "n0"]
+
+
+@pytest.mark.timeout(60)
+def test_selector_framed_watch(pairing):
+    got = check(selector_framed_watch, pairing)
+    assert got["items"] == [
+        {"type": "FRAME", "keys": ["default/s1", "default/s3", "default/s5"],
+         "objects": got["items"][0]["objects"]},
+        {"type": "DELETED", "key": "default/s5"}]
+
+
+@pytest.mark.timeout(60)
+def test_admitted_writes_answer_403_and_carry_the_chains_defaults(pairing):
+    got = check(admitted_writes, pairing, admitted=True)
+    assert got["code"] == 403 and got["reason"] == "Forbidden"
+    assert "NamespaceLifecycle" in got["message"]
+    tolerations = got["admitted"]["spec"]["tolerations"]
+    assert {t["key"] for t in tolerations} == {"node.alpha.kubernetes.io/notReady",
+                                               "node.alpha.kubernetes.io/unreachable"}
+    assert got["batch_namespace"] == "nowhere" and got["names"] == ["b", "ok"]
 
 
 @pytest.mark.timeout(60)

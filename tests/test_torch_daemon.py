@@ -19,8 +19,8 @@ wire, and the two entry points as real processes.
 - ``python -m kubernetes_tpu_torch.apiserver`` and ``python -m
   kubernetes_tpu_torch.scheduler --device cpu`` as processes: health,
   metrics, a 200-pod flood through ``workload.run_wire_churn``, exit 0 on
-  SIGTERM with the stats line; and the refusals (no
-  ``--disable-admission``; ``--device cuda`` without a card).
+  SIGTERM with the stats line; and the refusals (an auth or TLS flag;
+  ``--device cuda`` without a card).
 - The JAX daemon's configuration (``backend: "tpu"``,
   ``policy_config_file``, ``--policy-config-file``) loads, and the oracle
   loop binds asynchronously on a preempting ``Scheduler``.
@@ -50,6 +50,7 @@ from kubernetes_tpu_torch.client import (
     RemoteStore,
     SharedInformer,
 )
+from kubernetes_tpu_torch.client.remote import ForbiddenError
 from kubernetes_tpu_torch.daemon import run_with_leader_election
 from kubernetes_tpu_torch.ops.backend import BatchBackend
 from kubernetes_tpu_torch.scheduler import GenericScheduler, Scheduler
@@ -139,6 +140,203 @@ def test_payload_death_releases_the_lease_and_reports_failure():
     assert ok is False
     # released: a standby takes the lease at once, with no stale wait
     assert LeaderElector(cs, "kube-scheduler", "b").try_acquire_or_renew()
+
+
+@pytest.mark.timeout(60)
+def test_an_apiserver_outage_shorter_than_the_renew_deadline_keeps_the_lease(monkeypatch):
+    """The holder's renewal meets an apiserver that is down: the round
+    fails without raising (the JAX elector raises there and its daemon
+    dies), the holder retries, and an outage shorter than the renew
+    deadline leaves the payload running; a longer one loses the lease,
+    the payload stops, and the daemon takes the lease again once the
+    apiserver is back."""
+    from kubernetes_tpu_torch import daemon
+
+    class QuickElector(LeaderElector):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, lease_duration=3.0, renew_deadline=1.5, **kw)
+
+    monkeypatch.setattr(daemon, "LeaderElector", QuickElector)
+    monkeypatch.setattr(daemon, "_ACQUIRE_RETRY_S", 0.1)
+    store = Store()
+    server = APIServer(store)
+    server.start()
+    port = server.port
+    cs = Clientset(RemoteStore(server.url, timeout=2.0, max_retries=0))
+    down = RemoteStore(server.url, timeout=2.0, max_retries=0)
+    starts, stop = [], threading.Event()
+
+    def payload(payload_stop):
+        starts.append(time.monotonic())
+        payload_stop.wait()
+
+    t = threading.Thread(target=run_with_leader_election,
+                         args=(cs, "kube-scheduler", "me", payload, stop), daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + 10
+        while not starts and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert len(starts) == 1
+        server.stop()
+        # a round against the stopped server fails without raising
+        assert LeaderElector(Clientset(down), "kube-scheduler", "other").try_acquire_or_renew() \
+            is False
+        time.sleep(0.9)  # within the 1.5 s deadline
+        server = APIServer(store, port=port)
+        server.start()
+        time.sleep(1.5)  # renewals succeed again
+        assert len(starts) == 1, "a short outage restarted the payload"
+        server.stop()
+        time.sleep(2.5)  # past the deadline: the lease is lost
+        server = APIServer(store, port=port)
+        server.start()
+        deadline = time.monotonic() + 15
+        while len(starts) < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert len(starts) == 2, "the daemon did not take the lease back"
+    finally:
+        stop.set()
+        t.join(timeout=20)
+        server.stop()
+    assert not t.is_alive()
+
+
+def _scaled_lease(monkeypatch):
+    """The reference's lease timing (lease 15 s, renew deadline 10 s, retry
+    period 2 s) and the holder's 0.2 s poll, all scaled down tenfold."""
+    from kubernetes_tpu_torch import daemon
+
+    class ScaledElector(LeaderElector):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, lease_duration=1.5, renew_deadline=1.0, **kw)
+
+    monkeypatch.setattr(daemon, "LeaderElector", ScaledElector)
+    monkeypatch.setattr(daemon, "_ACQUIRE_RETRY_S", 0.2)
+    monkeypatch.setattr(daemon, "_LIVENESS_POLL_S", 0.02)
+    return daemon
+
+
+def _hang(port: int) -> socket.socket:
+    """A listener on ``port`` that takes connections and never answers: an
+    apiserver hung mid-restart, on which each of the holder's requests
+    waits out its timeout and retries."""
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("127.0.0.1", port))
+    sock.listen(64)
+    return sock
+
+
+def _lease_expiry(store: Store, lock_name: str) -> float:
+    from kubernetes_tpu_torch.client.leaderelection import LEASE_ANNOTATION
+
+    ev = [e for e in store.list("Event")[0] if e["metadata"]["name"] == lock_name][0]
+    rec = json.loads(ev["metadata"]["annotations"][LEASE_ANNOTATION])
+    return rec["renewTime"] + rec["leaseDurationSeconds"]
+
+
+@pytest.mark.timeout(60)
+def test_a_hung_apiserver_stops_the_payload_before_a_standby_can_take_the_lease(
+        monkeypatch):
+    """At the reference's proportions the holder's renewals hang in the
+    client's retries (each call outlasts the renew deadline).  The renew
+    deadline counts from the last renewal that succeeded (plus one retry
+    period, as in the reference), not from a failed call's return, so the
+    payload has stopped before the lease it last wrote expires, and so
+    before a standby (reaching the store another way) takes it."""
+    _scaled_lease(monkeypatch)
+    store = Store()
+    server = APIServer(store)
+    server.start()
+    port = server.port
+    # a hung request takes 3 x 0.5 s: longer than the 1.0 s deadline
+    cs = Clientset(RemoteStore(server.url, timeout=0.5, max_retries=2))
+    events, stop = {}, threading.Event()
+
+    def payload(payload_stop):
+        events["start"] = time.time()
+        while not payload_stop.is_set():  # binding, as far as the lease goes
+            events["last_work"] = time.time()
+            time.sleep(0.005)
+        events["end"] = time.time()
+
+    t = threading.Thread(target=run_with_leader_election,
+                         args=(cs, "kube-scheduler", "holder", payload, stop), daemon=True)
+    t.start()
+    hung = None
+    try:
+        deadline = time.monotonic() + 10
+        while "start" not in events and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert "start" in events
+        time.sleep(0.5)  # a few renewals
+        server.stop()
+        hung = _hang(port)
+        standby = LeaderElector(Clientset(store), "kube-scheduler", "standby",
+                                lease_duration=1.5, renew_deadline=1.0)
+        deadline = time.monotonic() + 10
+        while not standby.try_acquire_or_renew() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        taken = time.time()
+        assert standby.is_leader
+        assert "end" in events, "the payload still runs beside the new holder"
+        assert events["last_work"] < events["end"] < taken
+    finally:
+        stop.set()
+        if hung is not None:
+            hung.close()
+        t.join(timeout=20)
+    assert not t.is_alive()
+
+
+@pytest.mark.timeout(60)
+def test_a_payload_that_ignores_its_stop_is_fenced_before_the_lease_expires(monkeypatch):
+    """A payload still running when its lease is lost must not outlive the
+    lease: the holder ends the process before the expiry (the fence is
+    recorded here instead of exiting)."""
+    daemon = _scaled_lease(monkeypatch)
+    fenced = []
+
+    class Fenced(Exception):
+        pass
+
+    def fence(lock_name):
+        fenced.append(time.time())
+        release.set()
+        raise Fenced(lock_name)
+
+    monkeypatch.setattr(daemon, "_fence_exit", fence)
+    store = Store()
+    server = APIServer(store)
+    server.start()
+    cs = Clientset(RemoteStore(server.url, timeout=0.5, max_retries=0))
+    started, release, raised = threading.Event(), threading.Event(), []
+
+    def payload(payload_stop):
+        started.set()
+        release.wait(30)  # deaf to payload_stop
+
+    def hold():
+        try:
+            run_with_leader_election(cs, "kube-scheduler", "holder", payload,
+                                     threading.Event())
+        except Fenced as e:
+            raised.append(e)
+
+    t = threading.Thread(target=hold, daemon=True)
+    t.start()
+    try:
+        assert started.wait(10)
+        time.sleep(0.5)
+    finally:
+        server.stop()
+    try:
+        t.join(timeout=10)
+        assert not t.is_alive() and raised, "the holder was not fenced"
+        assert fenced[0] < _lease_expiry(store, "kube-scheduler")
+    finally:
+        release.set()
 
 
 # -- the informer's gap relist ----------------------------------------------
@@ -536,15 +734,98 @@ def test_daemon_processes_serve_a_flood_and_exit_cleanly(tmp_path):
                 proc.wait(timeout=10)
 
 
+def _metric(text: str, name: str) -> float:
+    return sum(float(ln.split()[-1]) for ln in text.splitlines()
+               if ln.startswith(name) and not ln.startswith("#"))
+
+
+@pytest.mark.timeout(240)
+def test_durable_admitted_apiserver_survives_a_sigkill_under_the_daemon(tmp_path):
+    """The apiserver at its defaults (the admission chain on) with
+    ``--data-dir``: SIGKILLed while a wave is being bound and restarted on
+    the same port and directory, it reads back every bind the LIST before
+    the kill saw acknowledged; the scheduler daemon (not restarted)
+    reconnects or relists and binds the rest, each pod once, no node over
+    its capacity."""
+    ap, hp = _free_port(), _free_port()
+    url = f"http://127.0.0.1:{ap}"
+    data = tmp_path / "data"
+    procs = []
+
+    def start_apiserver(tag):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.apiserver", "--port", str(ap),
+             "--data-dir", str(data)], env=_env(), cwd=tmp_path,
+            stdout=open(tmp_path / f"apiserver-{tag}.out", "w"), stderr=subprocess.STDOUT)
+        procs.append(proc)
+        _wait_healthz(ap, proc)
+        return proc
+
+    try:
+        apiserver = start_apiserver("first")
+        scheduler = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.scheduler", "--apiserver", url,
+             "--leader-elect", "--device", "cpu", "--healthz-port", str(hp)], env=_env(),
+            cwd=tmp_path, stdout=open(tmp_path / "scheduler.out", "w"),
+            stderr=open(tmp_path / "scheduler.err", "w"))
+        procs.append(scheduler)
+        _wait_healthz(hp, scheduler)
+        rs = RemoteStore(url, timeout=30.0)
+        # admission is on: a pod in a missing namespace is refused
+        with pytest.raises(ForbiddenError):
+            rs.create("Pod", make_pod("lost", namespace="nowhere").to_dict())
+
+        def drill():
+            nonlocal apiserver
+            acked = {p["metadata"]["name"]: p["spec"].get("nodeName")
+                     for p in rs.list("Pod")[0]}
+            apiserver.send_signal(signal.SIGKILL)
+            apiserver.wait(timeout=30)
+            apiserver = start_apiserver("second")
+            return {"acked": acked}
+
+        r = workload.run_wire_churn(url, 40, 300, 3, "mixed", seed=4, wave_deadline_s=90,
+                                    crash=(1, drill))
+        acked = {k: v for k, v in r["crash"]["acked"].items() if v}
+        assert acked, "no bind was acknowledged before the kill"
+        pods, _ = rs.list("Pod")
+        nodes, _ = rs.list("Node")
+        now = {p["metadata"]["name"]: p["spec"].get("nodeName") for p in pods}
+        assert all(now[name] == node for name, node in acked.items())
+        assert r["bound"] == 300 and r["unbound"] == 0 and all(now.values())
+        assert workload.overcommitted_nodes(pods, nodes) == []
+        recovered = [json.loads(ln.split(" ", 2)[2]) for ln in
+                     (tmp_path / "apiserver-second.out").read_text().splitlines()
+                     if ln.startswith("apiserver recovered ")]
+        assert len(recovered) == 1 and recovered[0]["revision"] >= len(acked)
+        assert recovered[0]["replayed"] > 0
+        with urllib.request.urlopen(f"http://127.0.0.1:{hp}/metrics", timeout=10) as resp:
+            text = resp.read().decode()
+        assert (_metric(text, "client_watch_reconnects_total")
+                + _metric(text, "client_informer_relists_total")) > 0
+        assert _terminate(scheduler) == 0
+        assert _terminate(apiserver) == 0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
+
 @pytest.mark.timeout(120)
 def test_entry_points_refuse_without_admission_or_card(tmp_path):
-    """The apiserver never serves as if admitted; the scheduler with its
-    default ``--device cuda`` exits before it takes the lease where there
-    is no card (hidden from it here on any host)."""
-    out = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.apiserver", "--port",
-                          str(_free_port())], env=_env(), cwd=tmp_path, capture_output=True,
-                         text=True, timeout=60)
-    assert out.returncode != 0 and "ROADMAP.md" in out.stderr and "--disable-admission" in out.stderr
+    """The apiserver never serves as if it had authenticated anyone: each
+    auth, audit or TLS flag of the JAX entry point makes it exit non-zero,
+    naming ROADMAP.md.  The scheduler with its default ``--device cuda``
+    exits before it takes the lease where there is no card (hidden from it
+    here on any host)."""
+    for flag, value in (("--token-file", "tokens.csv"), ("--authorization-mode", "RBAC"),
+                        ("--tls-cert-file", "c.pem")):
+        out = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.apiserver",
+                              "--port", str(_free_port()), flag, value], env=_env(),
+                             cwd=tmp_path, capture_output=True, text=True, timeout=60)
+        assert out.returncode != 0 and "ROADMAP.md" in out.stderr and flag in out.stderr
+        assert "serving on" not in out.stdout
     server = APIServer(Store())
     server.start()
     try:
@@ -572,7 +853,8 @@ def test_hyperkube_multiplexer():
 
     assert set(COMPONENTS) == {"apiserver", "kube-apiserver", "scheduler", "kube-scheduler"}
     assert main(["--help"]) == 0 and main([]) == 2 and main(["kubelet"]) == 2
-    assert main(["apiserver", "--port", "0"]) == 2  # no --disable-admission
+    # an auth flag is refused before anything serves
+    assert main(["apiserver", "--port", "0", "--audit-log", "audit.jsonl"]) == 2
 
 
 # -- feature gates and component config -------------------------------------

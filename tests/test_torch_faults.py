@@ -18,6 +18,13 @@ segment at full width; the port has neither, so the injected failure
 raises out of the wave, the scheduler requeues the drained pods, and the
 next wave binds them.  Both end on the oracle's bindings.
 
+Two rows run worlds of their own, in both packages alike.
+``store.wal.append`` crashes a durable store mid-append (a torn record)
+after the cluster converged: the recovered store holds every binding and
+not the unacknowledged write.  ``store.coalesce`` schedules over a store
+with a coalescing window and fails one flush: that window degrades to
+per-event delivery, counted in ``store_coalesce_fallbacks_total``.
+
 Tolerance: exact equality of bindings (or of per-node counts where noted).
 """
 
@@ -246,6 +253,18 @@ MATRIX = {
         check=lambda w: w.remote.metrics.watch_reconnects.value > 0),
     "telemetry.ship": dict(world="telemetry"),
     "apiserver.admit": dict(world="admit"),
+    # a torn append after convergence: the crash and recovery keep every
+    # binding and drop exactly the unacknowledged record
+    "store.wal.append": dict(
+        spec=dict(mode="torn", value=0.5, first_n=1),
+        world="wal", exact=True,
+        check=lambda w: (w.recovery["torn_tail"] and w.recovery["truncated_bytes"] > 0)),
+    # the whole run over a coalescing store; one flush fails and its
+    # window is delivered per event: packing changes, no decision
+    "store.coalesce": dict(
+        spec=dict(mode="error", nth=1),
+        world="coalesce", exact=True,
+        check=lambda w: w.fallbacks == 1),
 }
 
 
@@ -256,21 +275,22 @@ def test_every_registered_point_has_a_matrix_scenario():
 
 
 def test_the_registry_is_the_ported_points_and_apart_from_the_jax_one():
-    """Every port point carries its JAX twin's name; the points whose
-    sites are not ported are absent; the JAX registry is untouched."""
+    """The port's registry names every point of the JAX package's, and the
+    two registries are distinct objects (arming one never arms the other)."""
     from kubernetes_tpu import faults as jax_faults
 
-    assert set(faults.registry()) < set(jax_faults.registry())
-    assert set(jax_faults.registry()) - set(faults.registry()) == {
-        "store.wal.append", "store.coalesce"}
+    assert set(faults.registry()) == set(jax_faults.registry())
     assert faults.registry() is not jax_faults.registry()
     assert faults.FaultPlan is not jax_faults.FaultPlan
+    for name in ("store.wal.append", "store.coalesce"):
+        assert (faults.registry()[name].description
+                == jax_faults.registry()[name].description)
 
 
 def test_hit_is_noop_when_disarmed_and_plans_are_checked():
     assert faults.hit("scheduler.bind", pod="x") is None
     with pytest.raises(FaultConfigError, match="unknown fault point"):
-        FaultPlan().on("store.wal.append", mode="error")  # not ported
+        FaultPlan().on("store.wal.apend", mode="error")  # no such point
     plan = FaultPlan()
     with plan.armed():
         with pytest.raises(FaultConfigError):
@@ -371,7 +391,60 @@ def _run_admit(pkg, oracle_bindings):
         server.stop()
 
 
-def _run_point(pkg, point, oracle_bindings):
+def _run_wal(pkg, tmp_path, oracle_bindings):
+    """Converge over a durable store, then a torn append (the marker pod's
+    create) and a crash; a new store over the directory recovers."""
+    M = _mods(pkg)
+    d = str(tmp_path / pkg / "state")
+    w = World(pkg, store=M.Store(data_dir=d))
+    w.create_workload()
+    w.drive()
+    assert w.converged()
+    plan = M.faults.FaultPlan(seed=3).on("store.wal.append",
+                                         M.faults.FaultSpec(**MATRIX["store.wal.append"]["spec"]))
+    with plan.armed():
+        with pytest.raises(M.faults.FaultInjected):
+            w.cs.pods.create(M.make_pod("marker", cpu="100m"))
+    assert plan.fired["store.wal.append"] == 1
+    w.store.close()  # the crash
+    store2 = M.Store(data_dir=d)
+    w.recovery = dict(store2._wal.last_recovery)
+    pods, _ = M.Clientset(store2).pods.list()
+    store2.close()
+    assert all(p.meta.name != "marker" for p in pods), "the unacknowledged create survived"
+    if pkg == PORT:
+        assert MATRIX["store.wal.append"]["check"](w)
+    return {p.meta.name: p.spec.node_name for p in pods if p.meta.name.startswith("work-")}
+
+
+def _run_coalesce(pkg, oracle_bindings):
+    """The whole run over a coalescing store (a 20 ms window, flushed as
+    frames); the first flush faults and degrades to per-event delivery."""
+    M = _mods(pkg)
+    sm = importlib.import_module(f"{pkg}.utils.metrics").DEFAULT_STORE_METRICS
+    fb0 = sm.coalesce_fallbacks.value
+    w = World(pkg, store=M.Store(coalesce_window_s=0.02))
+    try:
+        plan = M.faults.FaultPlan(seed=5).on("store.coalesce",
+                                             M.faults.FaultSpec(**MATRIX["store.coalesce"]["spec"]))
+        with plan.armed():
+            w.create_workload()
+            # realtime: the window's deadline runs on the wall clock
+            w.drive(realtime=True)
+        if not w.converged():
+            w.store.flush_coalesced()
+            w.drive(rounds=5, realtime=True)
+        assert w.converged(), f"{pkg}: never converged on a coalescing store"
+        assert plan.fired["store.coalesce"] == 1
+        w.fallbacks = sm.coalesce_fallbacks.value - fb0
+        if pkg == PORT:
+            assert MATRIX["store.coalesce"]["check"](w), "the degraded window was not counted"
+        return w.bindings()
+    finally:
+        w.store.close()
+
+
+def _run_point(pkg, point, oracle_bindings, tmp_path=None):
     """One seeded single-fault run of ``point`` in ``pkg``; returns the
     recovered bindings after checking convergence and the recovery path."""
     scenario = MATRIX[point]
@@ -379,6 +452,10 @@ def _run_point(pkg, point, oracle_bindings):
         return _run_telemetry(pkg, oracle_bindings)
     if scenario["world"] == "admit":
         return _run_admit(pkg, oracle_bindings)
+    if scenario["world"] == "wal":
+        return _run_wal(pkg, tmp_path, oracle_bindings)
+    if scenario["world"] == "coalesce":
+        return _run_coalesce(pkg, oracle_bindings)
     M = _mods(pkg)
     server = None
     if scenario["world"] == "remote":
@@ -407,9 +484,9 @@ def _run_point(pkg, point, oracle_bindings):
 
 
 @pytest.mark.parametrize("point", sorted(MATRIX))
-def test_fault_matrix_recovers_as_the_jax_package(point, oracle_bindings):
-    got = _run_point(PORT, point, oracle_bindings)
-    want = _run_point(JAX, point, oracle_bindings)
+def test_fault_matrix_recovers_as_the_jax_package(point, oracle_bindings, tmp_path):
+    got = _run_point(PORT, point, oracle_bindings, tmp_path)
+    want = _run_point(JAX, point, oracle_bindings, tmp_path)
     exact = MATRIX[point].get("exact", True) if MATRIX[point]["world"] != "admit" else False
     if exact:
         assert got == want == oracle_bindings, f"{point}: bindings differ"

@@ -518,8 +518,13 @@ def test_registry_and_scopes_match_reference():
     for kind in port_types.KINDS:
         assert port_types.KIND_PLURALS[kind] == jax_types.KIND_PLURALS[kind]
         assert (kind in port_types.CLUSTER_SCOPED_KINDS) == (kind in jax_types.CLUSTER_SCOPED_KINDS)
+    # the scheduler's kinds, and since the admission slice the kinds the
+    # default chain reads (api/cluster.py)
     assert set(port_types.KINDS) == {"Pod", "Node", "Service", "ReplicaSet", "Event",
-                                     "PersistentVolume", "PersistentVolumeClaim"}
+                                     "PersistentVolume", "PersistentVolumeClaim",
+                                     "Namespace", "Secret", "ServiceAccount", "ResourceQuota",
+                                     "LimitRange", "PodPreset", "StorageClass", "PriorityClass",
+                                     "PodSecurityPolicy", "NetworkPolicy"}
 
 
 def _store_history(pkg):

@@ -292,17 +292,23 @@ def _warm(w, realtime=False):
     assert len(tracing.current().ring) >= 1, "the warm phase completed no wave"
 
 
-def _fire(point):
+def _fire(point, tmp_path):
     scenario = MATRIX[point]
     M = _mods(PORT)
     server = None
     if scenario["world"] in ("remote", "admit"):
         server = M.APIServer(Store())
         server.start()
+    own_store = None
+    if scenario["world"] == "wal":
+        own_store = Store(data_dir=str(tmp_path / "state"))
+    elif scenario["world"] == "coalesce":
+        own_store = Store(coalesce_window_s=0.02)
     w = None
     try:
-        w = World(PORT, server=server)
-        realtime = server is not None
+        w = World(PORT, server=server, store=own_store)
+        # the coalescing window's deadline runs on the wall clock
+        realtime = server is not None or scenario["world"] == "coalesce"
         _warm(w, realtime)
         if scenario["world"] == "telemetry":
             from kubernetes_tpu_torch.utils import telemetry, timeseries
@@ -325,6 +331,12 @@ def _fire(point):
             plan = FaultPlan(seed=3).on(point, mode="drop", value=0.05, first_n=1)
             with plan.armed():
                 Clientset(w.remote).pods.create(make_pod("admit-marker", cpu="100m"))
+        elif scenario["world"] == "wal":
+            # the torn append of a write after the warm waves: the crash
+            plan = FaultPlan(seed=3).on(point, FaultSpec(**scenario["spec"]))
+            with plan.armed():
+                with pytest.raises(FaultInjected):
+                    w.cs.pods.create(make_pod("marker", cpu="100m"))
         else:
             plan = FaultPlan(seed=42).on(point, FaultSpec(**scenario["spec"]))
             with plan.armed():
@@ -333,6 +345,8 @@ def _fire(point):
                 w.drive(rounds=8, relist_every=4, realtime=realtime)
         assert plan.fired.get(point, 0) > 0, f"{point}: the fault never fired"
     finally:
+        if own_store is not None:
+            own_store.close()
         if server is not None:
             if w is not None:
                 w.sched.informers.stop_all()
@@ -341,9 +355,9 @@ def _fire(point):
 
 @pytest.mark.timeout(180)
 @pytest.mark.parametrize("point", sorted(MATRIX))
-def test_every_fault_point_dumps_the_firing_waves_trace(point):
+def test_every_fault_point_dumps_the_firing_waves_trace(point, tmp_path):
     tr = tracing.enable()
-    _fire(point)
+    _fire(point, tmp_path)
     dumps = [d for d in tr.dumps if d["reason"] == f"fault:{point}"]
     assert dumps, f"{point}: no dump (saw {[d['reason'] for d in tr.dumps]})"
     d = dumps[0]
