@@ -18,7 +18,8 @@ Phases, one line each:
    1000 zones (the global-memory zone path with its second fold), each
    with its plan line, time and bound; with 600 distinct host ports
    (``BatchBackend`` cuts the batch under a signature row's port slot;
-   every segment is held against the plain scan); with one pod of 257
+   every segment is held against the plain scan, and the refresh kernel
+   at its widest segment, timed); with one pod of 257
    host ports (a segment of its own whose port flags past the row's
    shared slot come from global memory, timed with its bound); a wave of
    50 pods and one with 257 host ports through
@@ -35,8 +36,10 @@ Phases, one line each:
    1000-pod one and on a 20 000-node x 500-pod one (whose plan leaves
    planes in global memory), the kernel's plan (cluster and block size,
    the planes in shared memory), its times, one 512-pod chunk launch's
-   time, and the refresh kernel against its plain version at the main
-   segment's width, with its times and bound;
+   time, the refresh kernel against its plain version at the main
+   segment's width and at the 20 000-node segment's, with its device time,
+   launch floor, host enqueue time and bound, and the frontier loop against
+   one launch of the segment in turns;
 5. the serving path: (a) ``workload.run_churn`` at full width, 20 000
    ``mixed`` pods arriving in 10 waves on 5000 nodes and served by the
    port's ``Scheduler.run_batch_loop`` on ``BatchBackend(device="cuda")``
@@ -109,7 +112,8 @@ Phases, one line each:
    frontier route binds the batch, compacting at least once, equal to the
    full-width kernel and to the plain scan, with at most compactions + 2
    host syncs; the refresh kernel is held against its plain version at
-   every loop exit; the widths trajectory and times are printed, and
+   every loop exit and timed at the pool's width; the widths trajectory
+   and times are printed, and
    ``gather_node_axis`` is timed alone on the first compaction's inputs
    (phase 4 also times ``DeviceNodeCache``'s upload of the main segment's
    node statics);
@@ -135,6 +139,10 @@ Phases, one line each:
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
+Kernel times are device times (``device_ms``): the launches, their inputs
+made beforehand, are enqueued between two CUDA events behind a device-side
+sleep that outlasts the host's enqueueing, so the window holds no host
+work.
 No phase refuses a pod: the backend has no refusal left.
 Any mismatch or error exits non-zero.  The last lines are the kernel
 table as JSON, the card line, and ``{"ok": true, "device": ...}``.
@@ -194,11 +202,12 @@ def cluster(n_nodes: int, n_pods: int, workload: str, seed: int, zones: int = 0,
     return m, pods, PriorityContext(m, services=make_services())
 
 
-def segment(m, pods, pctx, device):
+def segment(m, pods, pctx, device, frontier: bool = False):
     """One segment tensorized exactly as BatchBackend tensorizes its first
-    segment of the same batch, carried to ``device``."""
+    segment of the same batch, carried to ``device``; ``frontier`` seeds
+    its ``still_ok`` plane (``frontier_seed``) for a frontier loop."""
     from kubernetes_tpu_torch.models.carry import from_reference
-    from kubernetes_tpu_torch.models.snapshot import HostBatchState, Tensorizer
+    from kubernetes_tpu_torch.models.snapshot import HostBatchState, Tensorizer, frontier_seed
     from kubernetes_tpu_torch.ops.backend import BatchBackend
 
     w = BatchBackend(device=device)._config_supported()
@@ -212,6 +221,8 @@ def segment(m, pods, pctx, device):
         image_weight=w["image"], interpod_weight=w["interpod"],
         mounted_disks=host.mounted_disks)
     init = tz.initial_state(static, m, pctx, pods, round_robin=0, host_state=host)
+    if frontier:
+        frontier_seed(static, init)
     s, st = from_reference(vars(static), vars(init), device)
     return static, s, st
 
@@ -238,26 +249,47 @@ def compare(s, st) -> dict:
             "rr": rr_got, "chosen": want, "plain_ms": start.elapsed_time(end)}
 
 
-def time_kernel(s, st, reps: int = 3) -> float:
-    """ms per launch by CUDA events; each launch gets freshly packed state
-    (the kernel updates its state planes in place), packed outside the
-    timed window."""
+# the longest the host may take to enqueue one timed window, in device clock
+# cycles at the H100's 1.98 GHz top SM clock (a slower clock sleeps longer)
+SLEEP_S = 0.05
+
+
+def device_ms(launches: list) -> tuple[float, float]:
+    """(ms a launch on the device, the host's median ms to enqueue one).
+    ``launches`` are zero-argument callables whose inputs were all made
+    beforehand.  They are enqueued back to back between two CUDA events
+    behind a device-side sleep that outlasts the host's enqueueing, so the
+    window holds the launches and nothing of the host; raises if the
+    device reached the window before the host had enqueued them all."""
     import torch
 
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host = []
+    torch.cuda._sleep(int(SLEEP_S * 1.98e9))
+    start.record()
+    for fn in launches:
+        t = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t)
+    end.record()
+    behind = start.query()  # the device already past the window's start
+    end.synchronize()
+    if behind:
+        raise AssertionError(f"the host took longer than the {SLEEP_S} s sleep to enqueue "
+                             f"{len(launches)} launches: the window is not the device's alone")
+    return start.elapsed_time(end) / len(launches), sorted(host)[len(host) // 2] * 1e3
+
+
+def time_kernel(s, st, reps: int = 3) -> float:
+    """ms per launch of the whole-segment scan on the device (``device_ms``);
+    each launch gets its own freshly packed state (the kernel updates its
+    state planes in place), packed before the window."""
     from kubernetes_tpu_torch.ops import fused_scan
 
     fused_scan.launch(s, st, fused_scan.pack(s, st))  # warm-up
-    total = 0.0
-    for _ in range(reps):
-        bufs = fused_scan.pack(s, st)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fused_scan.launch(s, st, bufs)
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    ring = [fused_scan.pack(s, st) for _ in range(reps)]
+    return device_ms([lambda b=b: fused_scan.launch(s, st, b) for b in ring])[0]
 
 
 def batch_run(m, pods, pctx, frontier: bool) -> dict:
@@ -300,58 +332,75 @@ def batch_run(m, pods, pctx, frontier: bool) -> dict:
             "refresh_launches": refresh, "stats": dict(st)}
 
 
-def time_chunk(s, st, chunk: int = 512, reps: int = 3) -> float:
+def time_chunk(s, st, chunk: int = 512, reps: int = 5) -> float:
     """ms of one chunk launch of the frontier loop (the segment's first
     ``chunk`` pods, the counter from device memory, the state written
-    back) by CUDA events, on freshly packed state each time."""
+    back) on the device (``device_ms``), each on its own freshly packed
+    state and control words."""
     import torch
 
     from kubernetes_tpu_torch.ops import fused_scan
 
     pl = fused_scan.plan(s)
-    total = 0.0
-    for rep in range(reps + 1):  # the first is a warm-up
-        bufs = fused_scan.pack(s, st, pl)
-        ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fused_scan.launch(s, st, bufs, pl, start=0, count=min(chunk, s.p_real), ctl=ctl)
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end) if rep else 0.0
-    return total / reps
+    ring = [(fused_scan.pack(s, st, pl),
+             torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device))
+            for _ in range(reps + 1)]
+
+    def chunk_launch(bufs, ctl):
+        return lambda: fused_scan.launch(s, st, bufs, pl, start=0, count=min(chunk, s.p_real),
+                                         ctl=ctl)
+
+    chunk_launch(*ring.pop())()  # warm-up
+    return device_ms([chunk_launch(*x) for x in ring])[0]
 
 
 def refresh_bound(s, pl, bufs) -> tuple[float, str]:
-    """Least time for one refresh at this width: the [G, ns] planes
-    (still_ok read and written, static_ok) and the state rows it reads,
-    each once, over HBM bandwidth, against its integer operations (per
-    column and signature: 4, 2 a resource, 1 a host port, 2 an active term
-    of the signature) over the non-tensor 32-bit rate."""
-    g, r = s.static_ok.shape[0], s.node_alloc.shape[1]
-    ns, t, pv = pl.ns, s.term_matches_sig.shape[0], s.g_ports.shape[1]
-    rows = 2 * r + 3 + (pv if s.use_ports else 0) + (2 * t if s.use_terms else 0)
-    nbytes = g * ns * (1 + 1 + 4) + rows * ns * 4 + ns + g * pl.sw * 4
-    terms = int(bufs["sig"][:, r + 3].sum()) if s.use_terms else 0
-    ops = ns * (g * (4 + 2 * r + (pv if s.use_ports else 0)) + 2 * terms)
+    """Least time for one refresh at this width: what the kernel reads and
+    writes, each once, over HBM bandwidth (still_ok read and written, the
+    byte copy of static_ok, the column state rows, the dm, downer and
+    host-port rows some signature names, the signature table at its width
+    ``tw``, alive written) against its integer operations (per column and
+    signature: 4, 2 a resource it requests, 1 a row it names) over the
+    non-tensor 32-bit rate."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import frontier_refresh
+
+    rp = frontier_refresh.plan(s, pl)
+    table, _ = frontier_refresh.tables(s, bufs, rp)
+    g, r, ns = table.shape[0], s.node_alloc.shape[1], pl.ns
+    n_named = table[:, r]
+    ids = table[:, r + 1:]
+    named = ids[torch.arange(ids.shape[1], device=ids.device) < n_named[:, None]]
+    rows = 2 * r + 3 + int(named.unique().numel())
+    nbytes = g * ns * (1 + 1 + 1) + rows * ns * 4 + ns + g * rp.tw * 4
+    ops = ns * (4 * g + 2 * int((table[:, :r] > 0).sum()) + int(n_named.sum()))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def refresh_cell(s, st, reps: int = 20) -> dict:
-    """The refresh kernel at the main segment's width: the state after the
-    first 512-pod chunk, from an all-True plane (the plane is then the
-    monotone plane itself), held against ``scan_ref.refresh`` on the
-    unpacked state; its ms by CUDA events over ``reps`` launches, the
-    plain version's, and the bound.  Returns its kernel-table entry."""
+def refresh_cell(what: str, s, st, launches: int = 200, launch=None) -> dict:
+    """The refresh kernel at a segment's width: the state after the
+    segment's first chunk (up to 512 pods, one chunk launch), from an
+    all-True plane (the plane is then the monotone plane itself), held
+    against ``scan_ref.refresh`` on the unpacked state.  Its device ms a
+    launch over ``launches`` launches (``device_ms``: a ring of fresh
+    planes and control words, one a launch), the launch floor (the same
+    ring with the stop flag raised: no launch writes anything), the host's
+    enqueue ms (of the ring, and of relaunches on the same tensors, as the
+    loop launches), the plain version's ms and the bound.  ``launch``
+    (``frontier_refresh.launch``'s signature; that function by default)
+    is the refresh measured.  Returns the measurements."""
     import dataclasses
 
     import torch
 
     from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan, scan_ref
 
+    launch = launch or frontier_refresh.launch
+
     pl = fused_scan.plan(s)
+    rp = frontier_refresh.plan(s, pl)
     bufs = fused_scan.pack(s, st, pl)
     ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
     ctl[fused_scan.CTL_RR] = st.round_robin
@@ -360,40 +409,112 @@ def refresh_cell(s, st, reps: int = 20) -> dict:
     g, n = s.static_ok.shape[0], s.n_pad
     ones = torch.zeros((g, pl.ns), dtype=torch.bool, device=s.device)
     ones[:, :n] = True
-    plain_in = dataclasses.replace(state, still_ok=ones[:, :n].clone())
     thresh = n // 2
-    times = {"kernel": 0.0, "plain": 0.0}
-    for rep in range(reps + 1):
-        still, alive = ones.clone(), torch.zeros(pl.ns, dtype=torch.bool, device=s.device)
-        ctl[fused_scan.CTL_STOP] = 0
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        frontier_refresh.launch(s, bufs, pl, still, alive, ctl, thresh)
-        end.record()
-        end.synchronize()
-        times["kernel"] += start.elapsed_time(end) if rep else 0.0
+    still, alive = ones.clone(), torch.zeros(pl.ns, dtype=torch.bool, device=s.device)
+    ctl[fused_scan.CTL_STOP] = 0
+    launch(s, bufs, pl, still, alive, ctl, thresh)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
-    want, want_alive, want_n, want_stop = scan_ref.refresh(s, plain_in, thresh)
+    want, want_alive, want_n, want_stop = scan_ref.refresh(
+        s, dataclasses.replace(state, still_ok=ones[:, :n].clone()), thresh)
     end.record()
     end.synchronize()
-    times["plain"] = start.elapsed_time(end)
+    plain_ms = start.elapsed_time(end)
     err = max(int((still[:, :n] != want.still_ok).sum()), int((alive[:n] != want_alive).sum()),
               abs(int(ctl[fused_scan.CTL_ALIVE]) - want_n),
-              int(bool(ctl[fused_scan.CTL_STOP]) != want_stop), int(still[:, n:].sum()))
+              int(bool(ctl[fused_scan.CTL_STOP]) != want_stop), int(still[:, n:].sum()),
+              int(alive[n:].sum()))
+
+    def ring(stop: int) -> list:
+        planes = [ones.clone() for _ in range(launches)]
+        ctls = torch.zeros((launches, fused_scan.CTL_WORDS), dtype=torch.int32, device=s.device)
+        ctls[:, fused_scan.CTL_STOP] = stop
+        return [lambda i=i: launch(s, bufs, pl, planes[i], alive, ctls[i], thresh)
+                for i in range(launches)]
+
+    ms, host_ms = device_ms(ring(0))
+    floor_ms, _ = device_ms(ring(1))
+    # the loop's case: the same plane and control words every launch (the
+    # stop flag raised: no-ops), by the host clock alone
+    ctl[fused_scan.CTL_STOP] = 1
+    host = []
+    for _ in range(50):
+        t = time.perf_counter()
+        launch(s, bufs, pl, still, alive, ctl, thresh)
+        host.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    host_same_ms = sorted(host)[len(host) // 2] * 1e3
     bound_ms, bound_by = refresh_bound(s, pl, bufs)
-    ms = times["kernel"] / reps
-    print(f"phase 4 frontier_refresh at the main segment's width ({g} signatures x {pl.ns} "
-          f"columns, after 512 pods): kernel == scan_ref.refresh (alive {want_n}, stop "
-          f"{want_stop}), mismatches {err}; kernel {ms:.4f} ms, plain {times['plain']:.3f} ms, "
+    pv = s.g_ports.shape[1] if s.use_ports else 0
+    print(f"phase {what}: frontier_refresh at {g} signatures x {pl.ns} columns (terms "
+          f"{s.term_matches_sig.shape[0] if s.use_terms else 0}, host-port slots {pv}), after "
+          f"{min(512, s.p_real)} pods: kernel == scan_ref.refresh (alive {want_n}, stop "
+          f"{want_stop}), mismatches {err}; plan {rp.tiles}x{rp.groups} blocks of {rp.threads} "
+          f"threads ({rp.cols} columns x {rp.gs} signatures), {rp.smem_bytes} B shared, {rp.kcap} "
+          f"named rows a stage; device {ms:.5f} ms a launch over {launches}, launch floor "
+          f"{floor_ms:.5f} ms, host enqueue {host_ms:.5f} ms (median; {host_same_ms:.5f} ms "
+          f"relaunching the same tensors, as the loop does), plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.5f} ms by {bound_by}", flush=True)
     if err:
-        raise AssertionError(f"frontier_refresh != scan_ref.refresh: {err} mismatches")
-    return {"name": "frontier_refresh", "route": "cuda",
-            "source": "kubernetes_tpu_torch/ops/csrc/frontier_refresh.cu",
-            "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
-            "max_abs_err": err, "ms": ms, "plain_ms": times["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+        raise AssertionError(f"frontier_refresh != scan_ref.refresh at {what}: {err} mismatches")
+    return {"signatures": g, "columns": pl.ns, "port_slots": pv, "max_abs_err": err, "ms": ms,
+            "floor_ms": floor_ms, "host_ms": host_ms, "host_same_ms": host_same_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def loop_cell(s, st, card: str, refresh=None) -> dict:
+    """The frontier loop against one launch of the whole segment, in turns
+    (one, loop, loop, one) on the main segment seeded for the frontier,
+    after a loop run that loads every kernel the loop launches: the loop's
+    device time (read from ``FrontierRun.kernel_ms``; its chunk and
+    refresh launches enqueued behind a device-side sleep that starts once
+    the run has packed, through its ``on_loop`` seam; raises if the device
+    woke before the host had enqueued them) against the single launch's
+    (``time_kernel``), their bindings alike.  ``refresh``
+    (``frontier_refresh.launch``'s signature) stands in for the refresh
+    kernel in the loop's arms.  Returns the times."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan
+    from kubernetes_tpu_torch.ops.frontier import FrontierRun
+
+    one_chosen, one_rr = fused_scan.schedule(s, st)
+    times = {"one": [], "loop": []}
+    asleep = torch.cuda.Event()
+
+    def window(*_):  # the run has packed; its launches come next
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(SLEEP_S * 1.98e9))
+        asleep.record()
+
+    kernel = frontier_refresh.launch
+    frontier_refresh.launch = refresh or kernel
+    try:
+        FrontierRun(s, st).finalize()
+        for arm in ("one", "loop", "loop", "one"):
+            if arm == "one":
+                times[arm].append(time_kernel(s, st, reps=1))
+                continue
+            run = FrontierRun(s, st, on_loop=window)
+            if asleep.query():
+                raise AssertionError(f"the host took longer than the {SLEEP_S} s sleep to "
+                                     "enqueue the loop: its window is not the device's alone")
+            chosen, rr = run.finalize()
+            if (run.stats["loop_runs"] != 1 or rr != one_rr
+                    or not (chosen == one_chosen.astype(chosen.dtype)).all()):
+                raise AssertionError(f"the main segment's loop: {run.stats}, rr {rr} vs {one_rr}")
+            times[arm].append(run.kernel_ms)
+    finally:
+        frontier_refresh.launch = kernel
+    one, loop = sum(times["one"]) / 2, sum(times["loop"]) / 2
+    chunks = -(-s.p_real // 512)
+    print(f"phase 4 the loop ({chunks} chunks and refreshes) against one launch, in turns: "
+          f"one {times['one'][0]:.3f} / {times['one'][1]:.3f} ms, loop {times['loop'][0]:.3f} / "
+          f"{times['loop'][1]:.3f} ms; the loop's gap {loop - one:.3f} ms, "
+          f"{(loop - one) / chunks * 1e3:.1f} us a chunk boundary; card {card}", flush=True)
+    return {"chunks": chunks, "ms": times, "gap_ms": loop - one}
 
 
 def plan_line(what: str, s, st) -> str:
@@ -554,8 +675,9 @@ def shape_cell(what: str, pl, r: dict, s, st) -> dict:
 
 def repaired_shapes() -> tuple[list, dict]:
     """Phase 3's shapes the kernel used to refuse: 16, 300 and 1000 zones,
-    600 distinct host ports, and one pod with 257.  Returns their
-    max_abs_err and the timed cells."""
+    600 distinct host ports (and the refresh at that batch's widest port
+    row), and one pod with 257.  Returns their max_abs_err and the timed
+    cells."""
     from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.ops import fused_scan
 
@@ -598,6 +720,9 @@ def repaired_shapes() -> tuple[list, dict]:
           f"{widths}), every segment kernel == scan_ref, bound "
           f"{sum(g is not None for g in got)}/{len(pods)}, max_abs_err {max(errs[3:])}",
           flush=True)
+    _, _, s, st = max(seen, key=lambda x: x[2].g_ports.shape[1])
+    cells["refresh_ports_600"] = refresh_cell(
+        "3 mixed 1000x2000 with 600 distinct host ports, its widest segment", s, st)
 
     m, pods, pctx = cluster(1000, 2000, "mixed", seed=1)
     wide = api.Pod.from_dict(pods[25].to_dict())
@@ -620,15 +745,16 @@ def repaired_shapes() -> tuple[list, dict]:
     return errs, cells
 
 
-def other_segments() -> list:
+def other_segments() -> tuple[list, dict]:
     """Phase 4's other segments, kernel against the plain version; returns
-    their max_abs_err.  5000 and 10 000 nodes keep every plane in 16
-    blocks' shared memory; 20 000 nodes leave spread and the node rows in
-    global memory.  Their clusters are freed on return, so the later
-    phases' garbage collections do not walk them."""
+    their max_abs_err and the refresh's cell at the 20 000-node segment's
+    width.  5000 and 10 000 nodes keep every plane in 16 blocks' shared
+    memory; 20 000 nodes leave spread and the node rows in global memory.
+    Their clusters are freed on return, so the later phases' garbage
+    collections do not walk them."""
     from kubernetes_tpu_torch.ops import fused_scan
 
-    errs = []
+    errs, cell = [], None
     for n_nodes, n_pods, seed in ((5000, 2000, 3), (10000, 1000, 4), (20000, 500, 6)):
         m, pods, pctx = cluster(n_nodes, n_pods, "mixed", seed=seed)
         _, s, st = segment(m, pods, pctx, "cuda")
@@ -641,7 +767,8 @@ def other_segments() -> list:
             if not fused_scan.plan(s).global_:
                 raise AssertionError("the 20 000-node segment was meant to leave planes "
                                      "in global memory")
-    return errs
+            cell = refresh_cell(f"4 mixed {n_nodes}x{n_pods}", s, st)
+    return errs, cell
 
 
 INGEST_KEYS = ("frames", "frame_events", "promotions", "confirm_fallbacks", "decode_s")
@@ -1574,7 +1701,26 @@ def node_cache_cell(static) -> None:
           flush=True)
 
 
-def pool_phase() -> tuple[int, int, list, list]:
+def pool_cluster(n_nodes: int = 1024, n_pods: int = 10000):
+    """Phase 10's pool: half the nodes take 4 pods, half 110, four zones,
+    and identical batch pods."""
+    from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
+    from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
+    from kubernetes_tpu_torch.testutil import make_node, make_pod
+    from kubernetes_tpu_torch.workload import ZONE
+
+    m = {}
+    for i in range(n_nodes):
+        name = f"pool-{i:04d}"
+        node = make_node(name, cpu="32", memory="64Gi", pods=4 if i % 2 else 110,
+                         labels={"kubernetes.io/hostname": name, ZONE: f"zone-{i % 4}"})
+        m[name] = NodeInfo(node)
+    pods = [make_pod(f"job-{i:05d}", cpu="100m", memory="128Mi", labels={"app": "batch"})
+            for i in range(n_pods)]
+    return m, pods, PriorityContext(m)
+
+
+def pool_phase() -> tuple[int, int, list, list, dict]:
     """Phase 10: a pool that fills.  1024 nodes (half take 4 pods, half
     110; four zones) and 10 000 identical pods at the default frontier
     settings (512-pod chunks, compaction at half the width, width floor
@@ -1586,7 +1732,8 @@ def pool_phase() -> tuple[int, int, list, list]:
     kernel is held (after the run) against ``scan_ref.refresh`` on the
     exit's state from an all-True plane, and the loop's own plane must lie
     inside that one.  Returns the run's fused-scan and refresh launches
-    and the mismatches of each kernel."""
+    and the mismatches of each kernel, and the refresh's cell at the
+    pool's width."""
     import dataclasses
 
     import torch
@@ -1594,25 +1741,14 @@ def pool_phase() -> tuple[int, int, list, list]:
     from kubernetes_tpu_torch.faults import FaultInjected, FaultPlan
     from kubernetes_tpu_torch.ops import backend as backend_mod
     from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan, scan_ref
-    from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
-    from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
-    from kubernetes_tpu_torch.testutil import make_node, make_pod
-    from kubernetes_tpu_torch.workload import ZONE
 
     t0 = time.perf_counter()
-    n_nodes, n_pods = 1024, 10000
-    m = {}
-    for i in range(n_nodes):
-        name = f"pool-{i:04d}"
-        node = make_node(name, cpu="32", memory="64Gi", pods=4 if i % 2 else 110,
-                         labels={"kubernetes.io/hostname": name, ZONE: f"zone-{i % 4}"})
-        m[name] = NodeInfo(node)
-    pods = [make_pod(f"job-{i:05d}", cpu="100m", memory="128Mi", labels={"app": "batch"})
-            for i in range(n_pods)]
-    pctx = PriorityContext(m)
+    m, pods, pctx = pool_cluster()
+    n_nodes, n_pods = len(m), len(pods)
     static, s, st = segment(m, pods, pctx, "cuda")
     r_full = compare(s, st)  # the full-width kernel against the plain scan
     full_ms = time_kernel(s, st)
+    pool_cell = refresh_cell(f"10 pool {n_nodes}x{n_pods}", s, st)
     names = [static.node_names[j] if j >= 0 else None for j in r_full["chosen"]]
 
     exits: list = []
@@ -1662,7 +1798,7 @@ def pool_phase() -> tuple[int, int, list, list]:
         got = backend.schedule_batch(pods, m, pctx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches, refresh = fused_scan.launches, frontier_refresh.launches
+        launches, refresh_launches = fused_scan.launches, frontier_refresh.launches
     finally:
         backend_mod.FrontierRun = plain_route
         frontier_mod.gather_node_axis = plain_gather
@@ -1698,18 +1834,18 @@ def pool_phase() -> tuple[int, int, list, list]:
           f"route == full-width kernel == scan_ref (mismatches {fused_errs[0]}), rr "
           f"{backend.algorithm._round_robin}; widths {lf['widths']}, alive_frac "
           f"{lf['alive_frac']}, compactions {lf['compactions']}, chunks {lf['chunks']}, "
-          f"host_syncs {lf['host_syncs']}; launches {launches} fused + {refresh} refresh; "
-          f"refresh kernel == scan_ref.refresh at {len(exits)} loop exits (mismatches "
+          f"host_syncs {lf['host_syncs']}; launches {launches} fused + {refresh_launches} "
+          f"refresh; refresh kernel == scan_ref.refresh at {len(exits)} loop exits (mismatches "
           f"{sum(refresh_errs)}); a gather fault raised the batch first", flush=True)
     print(f"phase 10 times: frontier route wall {wall:.3f} s, its kernel_ms {st_b['kernel_ms']:.3f} "
           f"(tensorize {st_b['tensorize_s']:.3f} s, dispatch {st_b['dispatch_s']:.3f} s, device "
           f"wait {st_b['device_wait_s']:.3f} s); the full-width kernel {full_ms:.3f} ms; plain scan "
           f"{r_full['plain_ms']:.1f} ms ({time.perf_counter() - t0:.1f} s)", flush=True)
     if (any(fused_errs) or any(refresh_errs) or lf["compactions"] < 1 or not exits
-            or lf["host_syncs"] > lf["compactions"] + 2 or launches < 1 or refresh < 1
+            or lf["host_syncs"] > lf["compactions"] + 2 or launches < 1 or refresh_launches < 1
             or st_b["oracle_pods"] != 0):
         raise AssertionError(f"phase 10: {fused_errs}, {refresh_errs}, {lf}, {st_b}")
-    return launches, refresh, fused_errs, refresh_errs
+    return launches, refresh_launches, fused_errs, refresh_errs, pool_cell
 
 
 UNREACHABLE = "node.alpha.kubernetes.io/unreachable"
@@ -2121,6 +2257,7 @@ def main() -> int:
         print(f"phase 3 {workload} 1000x2000: kernel == scan_ref, bound {r['bound']}/"
               f"{r['pods']}, rr {r['rr']}, max_abs_err {r['max_abs_err']}", flush=True)
     shape_errs, shape_cells = repaired_shapes()
+    refresh_ports = shape_cells.pop("refresh_ports_600")
     wide_wave()
     m, pods, pctx = cluster(1000, 300, "mixed", seed=2)
     oracle = GenericScheduler()
@@ -2157,7 +2294,8 @@ def main() -> int:
     print(f"phase 4 main segment: kernel == scan_ref == BatchBackend with the frontier on and "
           f"off, rr {r_main['rr']}", flush=True)
     print(plan_line("main segment", s_main, st_main), flush=True)
-    errs = [r_main["max_abs_err"], *other_segments(), *shape_errs]
+    other_errs, refresh_wide = other_segments()
+    errs = [r_main["max_abs_err"], *other_errs, *shape_errs]
 
     ms = time_kernel(s_main, st_main)
     plain_ms = r_main["plain_ms"]
@@ -2167,8 +2305,10 @@ def main() -> int:
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops); one 512-pod chunk "
           f"launch (write-back on) {chunk_ms:.3f} ms, x {-(-s_main.p_real // 512)} chunks "
-          f"{chunk_ms * -(-s_main.p_real // 512):.3f} ms", flush=True)
-    refresh_entry = refresh_cell(s_main, st_main)
+          f"{chunk_ms * -(-s_main.p_real // 512):.3f} ms (device times: launches behind a "
+          f"device-side sleep)", flush=True)
+    refresh_main = refresh_cell("4 main segment", s_main, st_main)
+    loop_cell(*segment(m, pods, pctx, "cuda", frontier=True)[1:], card)
     node_cache_cell(main_static)
 
     (churn_launches, churn_refresh), lazy_pps = churn_phase()
@@ -2183,7 +2323,7 @@ def main() -> int:
     traced_launches = traced_daemon_phase(pps_6a, idle_6a)
     fault_launches = faults_phase()
     overload_launches, _ = overload_phase()
-    pool_launches, pool_refresh, pool_errs, pool_refresh_errs = pool_phase()
+    pool_launches, pool_refresh, pool_errs, pool_refresh_errs, refresh_pool = pool_phase()
     admitted_launches, admitted_refresh = admitted_phase(pps_6a)
 
     entry = {
@@ -2206,13 +2346,27 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }
-    refresh_entry.update(
-        max_abs_err=max([refresh_entry["max_abs_err"], *pool_refresh_errs]),
-        launches=(refresh_launches + churn_refresh + daemon_refresh + pool_refresh
-                  + admitted_refresh),
-        launches_by_path={"batch": refresh_launches, "churn": churn_refresh,
-                          "daemon": daemon_refresh, "pool": pool_refresh,
-                          "apiserver_defaults": admitted_refresh})
+    refresh_cells = {"pool_1024": refresh_pool, "main_5120": refresh_main,
+                     "wide_20224": refresh_wide, "ports_600": refresh_ports}
+    refresh_entry = {
+        "name": "frontier_refresh", "route": "cuda",
+        "source": "kubernetes_tpu_torch/ops/csrc/frontier_refresh.cu",
+        "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
+        "launches": (refresh_launches + churn_refresh + daemon_refresh + pool_refresh
+                     + admitted_refresh),
+        "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
+                             "daemon": daemon_refresh, "pool": pool_refresh,
+                             "apiserver_defaults": admitted_refresh},
+        # the main segment's width; the other widths and the launch floor in cells
+        "cells": refresh_cells,
+        "max_abs_err": max([c["max_abs_err"] for c in refresh_cells.values()]
+                           + pool_refresh_errs),
+        "ms": refresh_main["ms"], "floor_ms": refresh_main["floor_ms"],
+        "host_ms": refresh_main["host_ms"], "host_same_ms": refresh_main["host_same_ms"],
+        "plain_ms": refresh_main["plain_ms"],
+        "bound_ms": refresh_main["bound_ms"], "bound_by": refresh_main["bound_by"],
+        "library_ms": None,
+    }
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [entry, refresh_entry]}))
     print(card)

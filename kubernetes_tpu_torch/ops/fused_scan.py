@@ -111,8 +111,11 @@ PLANES = ("pod_rows", "spread_inc", "req", "nz", "cnt", "ports", "dm", "downer",
 launches = 0
 
 # the frontier loop's control words: one int32 tensor on the card that the
-# chunk launches and the refresh kernel (frontier_refresh.cu) share
-CTL_CURSOR, CTL_STOP, CTL_ALIVE, CTL_ACC, CTL_DONE, CTL_RR = range(6)
+# chunk launches and the refresh kernel (frontier_refresh.cu) share; CTL_ACC
+# is the refresh's count word (tiles done, the alive count), zero between
+# refreshes; word 4 is unused
+CTL_CURSOR, CTL_STOP, CTL_ALIVE, CTL_ACC = range(4)
+CTL_RR = 5
 CTL_WORDS = 8
 
 _PTR_FIELDS = (

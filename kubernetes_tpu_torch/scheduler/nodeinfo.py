@@ -217,13 +217,18 @@ class SchedulerCache:
 
     # -- assume / confirm / forget ----------------------------------------
     def assume_pod(self, pod: api.Pod, node_name: str) -> None:
-        self.assume_many([(pod, node_name)])
+        if self.assume_many([(pod, node_name)]):
+            raise ValueError(f"pod {pod.meta.key} already assumed/added")
 
-    def assume_many(self, pairs: list) -> None:
+    def assume_many(self, pairs: list) -> list[str]:
         """Batch assume under ONE lock acquisition + deadline read — the
         batch path lands a whole wave's assumptions at once and per-pod
         locking is measurable at that scale.  Same semantics as
-        assume_pod per pair.
+        assume_pod per pair, except that a pod the cache already holds
+        (assumed, or added because its binding reached the informer while
+        the wave was scheduled) is left as it is and its key returned: the
+        reference's ``AssumePod`` refuses it and ``scheduleOne`` then drops
+        the pod, since binding it makes no sense.
 
         Entries are (pod, node_name) or (pod, node_name, req_vec, nz_vec);
         the 4-tuple form carries the batch backend's per-signature request
@@ -231,12 +236,18 @@ class SchedulerCache:
         MUST equal ``pod_request_vec(pod)``/``pod_nonzero_request_vec``,
         the ``add_pod_counted`` contract)."""
         deadline = self._clock() + self._ttl
+        held = []
         with self._mu:
             for entry in pairs:
                 pod, node_name = entry[0], entry[1]
                 key = pod.meta.key
                 if key in self._pod_states:
-                    raise ValueError(f"pod {key} already assumed/added")
+                    held.append(key)
+                    # the wave counted the pod on node_name: a moved
+                    # generation makes the views keyed by it (snapshots, the
+                    # batch backend's host state) read that node again
+                    self._node_info(node_name).generation += 1
+                    continue
                 info = self._node_info(node_name)
                 if len(entry) >= 4 and entry[2] is not None:
                     info.add_pod_counted(pod, entry[2], entry[3])
@@ -244,6 +255,7 @@ class SchedulerCache:
                     info.add_pod(pod)
                 self._pod_states[key] = (pod, node_name, "assumed")
                 self._assume_deadlines[key] = deadline
+        return held
 
     def finish_binding(self, pod_key: str) -> None:
         """Binding RPC issued; start the expiry clock (``cache.go:130``)."""

@@ -781,7 +781,14 @@ class Scheduler:
                 to_bind.append((pod, api.Binding(
                     pod_namespace=pod.meta.namespace, pod_name=pod.meta.name,
                     node_name=node_name)))
-            self.cache.assume_many(to_assume)
+            held = self.cache.assume_many(to_assume)
+            if held:
+                # bound meanwhile (a bind that landed before its reply was
+                # lost, then the relist): not bound again
+                logger.warning("%d pods of the wave are already in the scheduler cache, "
+                               "not bound again: %s", len(held), held[:5])
+                held = set(held)
+                to_bind = [x for x in to_bind if x[0].meta.key not in held]
             bind_start = self._clock()
             try:
                 errors = self.clientset.pods.bind_many([b for _, b in to_bind])

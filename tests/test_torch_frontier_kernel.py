@@ -120,23 +120,42 @@ def test_a_raised_stop_flag_makes_launches_no_ops():
     assert torch.equal(ctl, ctl_before) and still.all() and not alive.any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed", "terms_only", "host_ports", "ties"])
-def test_refresh_kernel_matches_plain_refresh(case):
-    """After a few chunks: the kernel's still_ok, alive mask, count and
-    stop flag equal ``scan_ref.refresh`` on the unpacked state, from an
-    all-True plane (the strictest test of the monotone plane) and from the
-    seeded one, with a threshold on each side of the count."""
-    _card()
+# the planner's edges as synthetic segments (tests/torch_port_cases.py
+# refresh_segment): (signatures, nodes, terms, host-port slots)
+EDGES = {
+    "ports_40_g7_20224": (7, 20224, 4, 40),   # > 32 port slots, 20 224 columns, G not a split's multiple
+    "main_32_5120": (32, 5120, 4, 0),
+    "ports_40_g200_1024": (200, 1024, 4, 40),
+    "ports_300_g3": (3, 100, 4, 300),         # more named rows than a chunk stages
+    "ragged_208_g7": (7, 200, 0, 40),         # a packed width of 208: a ragged last tile
+    "plain_g1_128": (1, 128, 0, 0),
+}
+
+
+def _refresh_inputs(case):
+    """(static, plan, packed bufs, state, start planes) for the refresh: a
+    tensorized case after a few chunks (an all-True plane and the frontier
+    seed), or an edge segment (an all-True plane and its partly dead one)."""
+    if case in EDGES:
+        g, n, t, pv = EDGES[case]
+        s, st = from_reference(*cases.refresh_segment(g, n, t, pv, use_terms=t > 0,
+                                                       use_ports=pv > 0, seed=g + n), "cuda")
+        pl = fused_scan.plan(s)
+        return s, pl, fused_scan.pack(s, st, pl), st, st.still_ok
     kw = {"n_ports": 40, "n_nodes": 24} if case == "host_ports" else {}
     s, st = _segment(case, **kw)
     pl = fused_scan.plan(s)
     ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device="cuda")
     ctl[fused_scan.CTL_RR] = st.round_robin
     bufs, want_state = _chunks(s, st, pl, max(1, s.p_real // 3), ctl)
+    return s, pl, bufs, want_state, st.still_ok
+
+
+def _held_refresh(s, pl, bufs, state, seeded):
     g, n = s.static_ok.shape[0], s.n_pad
-    for start_plane in (torch.ones((g, n), dtype=torch.bool, device="cuda"), st.still_ok):
-        plain_in = dataclasses.replace(want_state, still_ok=start_plane)
+    ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device="cuda")
+    for start_plane in (torch.ones((g, n), dtype=torch.bool, device="cuda"), seeded):
+        plain_in = dataclasses.replace(state, still_ok=start_plane)
         _, _, n_alive, _ = scan_ref.refresh(s, plain_in, -1)
         for thresh in (-1, n_alive - 1, n_alive):
             want, alive, want_n, stop = scan_ref.refresh(s, plain_in, thresh)
@@ -150,7 +169,37 @@ def test_refresh_kernel_matches_plain_refresh(case):
             assert torch.equal(got_alive[:n], alive) and not got_alive[n:].any()
             assert int(ctl[fused_scan.CTL_ALIVE]) == want_n
             assert bool(ctl[fused_scan.CTL_STOP]) == stop
-            assert int(ctl[fused_scan.CTL_ACC]) == 0 and int(ctl[fused_scan.CTL_DONE]) == 0
+            assert int(ctl[fused_scan.CTL_ACC]) == 0  # the count word, reset for the next
+            # the kernel leaves its scratch (alive words, tile tickets) zeroed
+            assert not bufs["refresh_scratch"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "terms_only", "host_ports", "ties", *EDGES])
+def test_refresh_kernel_matches_plain_refresh(case):
+    """The kernel's still_ok, alive mask, count and stop flag equal
+    ``scan_ref.refresh`` on the same state, from an all-True plane (the
+    strictest test of the monotone plane) and from a partly dead one (the
+    frontier seed, or the edge segment's own), with a threshold on each
+    side of the count; tensorized cases after a few chunks, and the
+    planner's edge shapes."""
+    _card()
+    _held_refresh(*_refresh_inputs(case))
+
+
+@pytest.mark.cuda
+def test_refresh_kernel_stages_named_rows_in_several_chunks(monkeypatch):
+    """Two named rows a chunk: the kernel's chunk loop (its stages and the
+    buffer's reuse) still equals the plain refresh."""
+    _card()
+    monkeypatch.setattr(frontier_refresh, "KCAP_MAX", 2)
+    frontier_refresh.plan_for.cache_clear()
+    try:
+        s, pl, bufs, state, seeded = _refresh_inputs("ports_40_g200_1024")
+        assert frontier_refresh.plan(s, pl).kcap == 2
+        _held_refresh(s, pl, bufs, state, seeded)
+    finally:
+        frontier_refresh.plan_for.cache_clear()
 
 
 def _tie_segment(device, n=16, pods=110):

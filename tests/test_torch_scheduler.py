@@ -455,6 +455,63 @@ def test_batch_assume_then_confirm_keeps_host_state_in_step():
     assert sum(len(i.pods) for i in snap.values()) == 36
 
 
+def test_cache_assume_many_leaves_a_held_pod_and_returns_it():
+    """A pod the cache already holds is neither assumed again nor counted
+    twice; ``assume_many`` returns its key (``assume_pod`` raises) and
+    moves the generation of the node the caller chose for it."""
+    cache = SchedulerCache()
+    cache.add_node(make_node("n1"))
+    cache.add_node(make_node("n2"))
+    pod = make_pod("p", cpu="1", node_name="n1")
+    cache.add_pod(pod)
+    snap: dict = {}
+    cache.snapshot_into(snap)
+    gen = snap["n2"].generation
+    other = make_pod("q", cpu="1")
+    assert cache.assume_many([(make_pod("p", cpu="1"), "n2"), (other, "n2")]) == ["default/p"]
+    cache.snapshot_into(snap)
+    assert snap["n1"].requested[CPU_MILLI] == 1000 and snap["n2"].requested[CPU_MILLI] == 1000
+    assert snap["n2"].generation > gen + 1  # q's assume and the held pod's move
+    assert cache.is_assumed("default/q") and not cache.is_assumed("default/p")
+    with pytest.raises(ValueError):
+        cache.assume_pod(make_pod("p", cpu="1"), "n2")
+
+
+def test_a_pod_bound_while_its_wave_was_scheduled_is_not_bound_again():
+    """A pod whose binding reaches the informer after its wave drained it
+    (a bind that landed before its reply was lost, then the relist) stays
+    where the store has it: the wave neither raises nor binds it again,
+    and the backend's host state drops the placement the wave made."""
+    from kubernetes_tpu_torch.api import Binding
+
+    cs = Clientset(Store())
+    cs.nodes.create(make_node("n0"))
+    cs.nodes.create(make_node("n1", labels={"disk": "ssd"}))
+    cs.pods.create(make_pod("p0", cpu="1", node_selector={"disk": "ssd"}))
+    algo = GenericScheduler()
+
+    class BoundMeanwhile(BatchBackend):
+        def schedule_batch(self, pods, *args, **kw):
+            cs.pods.bind(Binding(pod_name="p0", node_name="n0"))
+            sched.pump()
+            assert sched.cache.pod_count() == 1  # the informer delivered it
+            return super().schedule_batch(pods, *args, **kw)
+
+    backend = BoundMeanwhile(algorithm=algo, device="cpu")
+    sched = Scheduler(cs, algorithm=algo, backend=backend)
+    sched.start()
+    assert sched.schedule_pending_batch() == (0, 0)
+    assert cs.pods.get("p0").spec.node_name == "n0"
+    sched.pump()
+    snap = sched.snapshot()
+    assert [p.meta.key for p in snap["n0"].pods] == ["default/p0"] and not snap["n1"].pods
+    assert not sched.cache.is_assumed("default/p0")
+    hs = backend._host_state
+    hs.reconcile(snap)
+    assert "default/p0" in hs.node_pods[hs.node_index["n0"]]
+    assert "default/p0" not in hs.node_pods[hs.node_index["n1"]]
+
+
 def test_batch_e2e_sli_recorded_per_segment():
     """Pods committed in an earlier segment record a smaller e2e latency
     than pods committed later: the histogram shows a spread."""

@@ -306,3 +306,56 @@ def tensorize(pkg: str, case: str, **kw):
     host_state = M.snapshot.HostBatchState(m)
     init = tz.initial_state(static, m, pctx, pods, host_state=host_state)
     return static, init
+
+
+def refresh_segment(g: int, n: int, t: int = 4, pv: int = 0, use_terms: bool = True,
+                    use_ports: bool = False, seed: int = 0, r: int = 4):
+    """A seeded synthetic segment for the frontier refresh at any shape:
+    (static, init) dicts of numpy arrays under the tensorizer's field names
+    (``carry.from_reference`` takes them), one pod.  Every component of the
+    monotone plane fires somewhere: columns that do not exist, full pod
+    slots, resources near their allocatable, zero requests, taken host
+    ports, own required anti-affinity terms with ``dm > 0`` and matching
+    ones with ``downer > 0``; ``still_ok`` starts partly dead."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    t = t if use_terms else 0
+
+    def bits(shape, p):
+        return rng.random(shape) < p
+
+    alloc = rng.integers(500, 4000, (n, r)).astype(i32)
+    alloc[bits((n, r), 0.02)] = 0
+    requested = np.maximum(alloc - rng.integers(0, 4000, (n, r)), 0).astype(i32)
+    alloc_pods = rng.integers(1, 12, n).astype(i32)
+    g_request = rng.integers(100, 1500, (g, r)).astype(i32)
+    g_request[bits((g, r), 0.5)] = 0
+    static = dict(
+        n_pad=n, num_zones=1, weights={}, terms=t, use_vols=False, use_ports=use_ports,
+        v_state=1,
+        node_exists=bits(n, 0.92), node_alloc=alloc, node_alloc_pods=alloc_pods,
+        node_zone=np.zeros(n, i32), static_ok=bits((g, n), 0.85),
+        node_aff_raw=np.zeros((g, n), i32), taint_intol_raw=np.zeros((g, n), i32),
+        static_score=np.zeros((g, n), i32), interpod_raw=np.zeros((g, n), i32),
+        g_request=g_request, g_nonzero=g_request[:, :2].copy(),
+        g_ports=bits((g, pv), 3.0 / max(pv, 1)), g_has_spread=np.zeros(g, bool),
+        spread_inc=np.zeros((g, g), i32),
+        term_matches_sig=bits((t, g), 0.3), sym_w=rng.integers(0, 3, t).astype(i32),
+        own_w=np.zeros((g, t), i32), own_ra=bits((g, t), 0.1), own_raa=bits((g, t), 0.25),
+        own_all=bits((g, t), 0.2), is_raa=bits(t, 0.6), self_match=bits(t, 0.5),
+        node_domain=rng.integers(0, 4, (t, n)).astype(i32), dom_valid=bits((t, n), 0.9),
+        vol_limits=np.zeros(1, i32), group_of_pod=np.zeros(1, i32),
+        pod_vol_ids=np.zeros((1, 1), i32), pod_vol_valid=np.zeros((1, 1), bool),
+        pod_vol_ro_ok=np.zeros((1, 1), bool), pod_vol_kind=np.zeros((1, 1), i32),
+        pod_vol_count_only=np.zeros((1, 1), bool))
+    init = dict(
+        requested=requested, nonzero_requested=requested[:, :2].copy(),
+        pod_count=rng.integers(0, alloc_pods + 1).astype(i32),
+        ports_used=bits((n, pv), 0.05), spread_counts=np.zeros((g, n), i32), round_robin=0,
+        dm=(rng.integers(0, 3, (t, n)) * bits((t, n), 0.2)).astype(i32),
+        downer=bits((t, n), 0.1).astype(i32), total_match=np.zeros(t, i32),
+        vol_any=np.zeros((1, n), bool), vol_ns=np.zeros((1, n), bool), nk=np.zeros((1, n), i32),
+        still_ok=bits((g, n), 0.9))
+    return static, init
