@@ -135,7 +135,30 @@ Phases, one line each:
    reconnects on /metrics, the recovery line printed, waves 1-2's pods/s
    beside 6a's; (c) what ``--fsync`` costs: a 2000-pod wave at 5000 nodes
    under no flag, ``--data-dir`` and ``--data-dir --fsync``, three of
-   each interleaved, create and bind seconds and create->bind p99 per arm.
+   each interleaved, create and bind seconds and create->bind p99 per arm;
+12. auth, PKI, TLS and kubeconfig: (a) the control plane as ``cluster
+   init`` starts it, at 6a's shape: the apiserver at its defaults with
+   ``--tls-cert-file``, ``--tls-private-key-file``, ``--client-ca-file``
+   and ``--audit-log`` (the committed test PKI,
+   ``kubernetes_tpu_torch/testing/pki``: nothing is minted here), the
+   scheduler daemon on ``--kubeconfig`` (its client certificate and no
+   token) with ``--leader-elect`` at its defaults, and
+   ``workload.run_wire_churn`` through the admin kubeconfig, 20 000
+   ``mixed`` pods in 10 waves on 5000 nodes, every pod bound: pods/s,
+   create->bind p50/p99, the ratio to 6a's pods/s in this call, both
+   kernels' launches as the daemon counted them (each > 0), the audit
+   log's lines and its users (the creates ``kubernetes-admin``'s, the binds
+   and the lease ``system:kube-scheduler``'s); (b) on the same server, the
+   refusals: anonymous requests get 403 but ``/healthz`` and the
+   ``kube-public`` configmaps; a certificate of another CA is refused at
+   the handshake; a malformed bearer token gets 401; a bootstrap token
+   whose Secret the admin created authenticates as
+   ``system:bootstrap:<id>``, an expired one gets 401; four connections
+   that send nothing do not keep the server from answering; (c) RBAC
+   mode over HTTP (``--token-file``, ``--authorization-mode RBAC``, the
+   grants seeded into ``--data-dir`` by ``Store``): 1000 nodes x 2000
+   pods in 4 waves, bindings and rr equal to the sequential oracle wave
+   by wave, a token with no binding gets 403 on create.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -161,6 +184,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor-core
@@ -856,8 +880,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http_get(url: str) -> bytes:
-    with urllib.request.urlopen(url, timeout=10) as r:
+def http_get(url: str, ctx=None, token: str = None) -> bytes:
+    req = urllib.request.Request(url)
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
+    with urllib.request.urlopen(req, timeout=10, context=ctx) as r:
         return r.read()
 
 
@@ -885,20 +912,37 @@ class Daemons:
     admission chain on), durable with ``data_dir`` (and ``fsync``).
     ``crash_apiserver`` SIGKILLs it and starts it again on the same port
     and directory; ``stop_scheduler`` sends SIGTERM and returns the
-    daemon's stats line; ``close`` ends whatever still runs."""
+    daemon's stats line; ``close`` ends whatever still runs.  With ``tls``
+    the apiserver serves HTTPS with the test PKI's serving pair (``ctx``
+    trusts its CA); ``api_extra`` adds flags, ``health_token`` is the bearer
+    token its /healthz probe sends, and ``connect`` replaces the
+    scheduler's ``--apiserver URL`` (a ``--kubeconfig``, a ``--token``)."""
 
     def __init__(self, workdir: str, tag: str, admitted: bool = False,
-                 data_dir: str = None, fsync: bool = False):
+                 data_dir: str = None, fsync: bool = False, tls: bool = False,
+                 api_extra: tuple = (), health_token: str = None):
         self.workdir, self.tag = workdir, tag
         self.api_port, self.health_port = free_port(), free_port()
-        self.url = f"http://127.0.0.1:{self.api_port}"
+        self.url = f"{'https' if tls else 'http'}://127.0.0.1:{self.api_port}"
+        self.ctx = None
+        self.health_token = health_token  # a bearer token for the apiserver's /healthz
         self.env = {**os.environ, "PYTHONPATH": ROOT}
         self.scheduler = None
+        self.connect = ["--apiserver", self.url]
         self.api_args = ["kubernetes_tpu_torch.apiserver", "--port", str(self.api_port)]
         if not admitted:
             self.api_args.append("--disable-admission")
         if data_dir:
             self.api_args += ["--data-dir", data_dir] + (["--fsync"] if fsync else [])
+        if tls:
+            import ssl
+
+            from kubernetes_tpu_torch.testing import pki as fixture
+
+            self.ctx = ssl.create_default_context(cafile=fixture.path("ca.crt"))
+            self.api_args += ["--tls-cert-file", fixture.path("apiserver.crt"),
+                              "--tls-private-key-file", fixture.path("apiserver.key")]
+        self.api_args += list(api_extra)
         self.starts = 0
         self.apiserver = None
         try:
@@ -911,8 +955,8 @@ class Daemons:
         self.starts += 1
         name = "apiserver" if self.starts == 1 else f"apiserver{self.starts}"
         self.apiserver = self._spawn(name, self.api_args)
-        wait_until(lambda: b"ok" in http_get(self.url + "/healthz"), self.apiserver,
-                   "apiserver /healthz", 120)
+        wait_until(lambda: b"ok" in http_get(self.url + "/healthz", self.ctx, self.health_token),
+                   self.apiserver, "apiserver /healthz", 120)
 
     def crash_apiserver(self) -> dict:
         """SIGKILL the apiserver, start it again on the same port and
@@ -938,7 +982,7 @@ class Daemons:
 
     def start_scheduler(self, *extra: str) -> None:
         self.scheduler = self._spawn("scheduler", [
-            "kubernetes_tpu_torch.scheduler", "--apiserver", self.url, "--leader-elect",
+            "kubernetes_tpu_torch.scheduler", *self.connect, "--leader-elect",
             "--healthz-port", str(self.health_port), *extra])
         health = f"http://127.0.0.1:{self.health_port}"
         wait_until(lambda: b"ok" in http_get(health + "/healthz"), self.scheduler,
@@ -2214,6 +2258,243 @@ def admitted_phase(pps_6a: float) -> tuple[int, int]:
     return la + lb + lc, ra + rb + rc
 
 
+def audit_summary(path: str) -> tuple[int, dict]:
+    """The audit log's line count and, for the requests that completed
+    under 400, the users by ``verb resource`` (the scheduler's lease, an
+    Event in ``kube-system``, as ``lease``)."""
+    lines, users = 0, {}
+    with open(path) as f:
+        for line in f:
+            lines += 1
+            r = json.loads(line)
+            if r["stage"] != "ResponseComplete" or not 0 < r["code"] < 400:
+                continue
+            key = ("lease" if (r["resource"], r["namespace"]) == ("events", "kube-system")
+                   else f"{r['verb']} {r['resource']}")
+            users.setdefault(key, set()).add(r["user"])
+    return lines, {k: sorted(v) for k, v in users.items()}
+
+
+def refusals(d: "Daemons", admin_kubeconfig: str) -> dict:
+    """Phase 12b, on 12a's server: what it must refuse and what it must
+    serve.  Returns each check's outcome."""
+    from kubernetes_tpu_torch.client.remote import RemoteStore, tls_refused
+    from kubernetes_tpu_torch.daemon import remote_clientset
+    from kubernetes_tpu_torch.testing import pki as fixture
+
+    def code(path: str, token: str = None) -> int:
+        req = urllib.request.Request(d.url + path)
+        if token:
+            req.add_header("Authorization", f"Bearer {token}")
+        try:
+            with urllib.request.urlopen(req, timeout=10, context=d.ctx) as r:
+                r.read()
+                return r.status
+        except urllib.error.HTTPError as e:
+            e.read()
+            return e.code
+
+    out = {"anonymous pods": code("/api/v1/pods"), "anonymous healthz": code("/healthz"),
+           "anonymous kube-public configmaps": code("/api/v1/configmaps?namespace=kube-public"),
+           "malformed bearer": code("/api/v1/pods", token="not-a.token!")}
+    other = RemoteStore(d.url, ca_file=fixture.path("ca.crt"),
+                        client_cert=fixture.path("other/client.crt"),
+                        client_key=fixture.path("other/client.key"))
+    try:
+        other.list("Pod")
+        out["second CA's certificate"] = "served"
+    except OSError as e:
+        out["second CA's certificate"] = "refused" if tls_refused(e) else repr(e)
+    admin = remote_clientset(kubeconfig=admin_kubeconfig, timeout=60.0)
+    for tid, expires in (("abcdef", time.time() + 3600), ("expird", time.time() - 3600)):
+        admin.store.create("Secret", {
+            "kind": "Secret", "type": "bootstrap.kubernetes.io/token",
+            "metadata": {"name": f"bootstrap-token-{tid}", "namespace": "kube-system"},
+            "data": {"token-id": tid, "token-secret": "0123456789abcdef",
+                     "expiration": str(expires), "usage-bootstrap-authentication": "true"}})
+    out["bootstrap token"] = code("/api/v1/services?namespace=kube-system",
+                                  "abcdef.0123456789abcdef")
+    out["expired bootstrap token"] = code("/api/v1/services?namespace=kube-system",
+                                          "expird.0123456789abcdef")
+    # clients that connect and say nothing hold their own threads
+    silent = [socket.create_connection(("127.0.0.1", d.api_port), timeout=10) for _ in range(4)]
+    try:
+        t = time.perf_counter()
+        served = code("/healthz") == 200 and admin.store.list("Service", "kube-system")[0] == []
+        out["served beside 4 silent connections (s)"] = (
+            round(time.perf_counter() - t, 4) if served else "not served")
+    finally:
+        for sock in silent:
+            sock.close()
+    return out
+
+
+def tls_control_plane(workdir: str, pps_6a: float) -> tuple[int, int]:
+    """Phases 12a-12b: the control plane as ``cluster init`` starts it.
+    Returns the daemon's fused-scan and refresh launches."""
+    from kubernetes_tpu_torch.pki import write_kubeconfig
+    from kubernetes_tpu_torch.testing import pki as fixture
+    from kubernetes_tpu_torch.workload import run_wire_churn
+
+    n_nodes, n_pods, waves = 5000, 20000, 10
+    audit = os.path.join(workdir, "12a-audit.jsonl")
+    d = Daemons(workdir, "12a", admitted=True, tls=True,
+                api_extra=("--client-ca-file", fixture.path("ca.crt"), "--audit-log", audit))
+    try:
+        kc = {name: write_kubeconfig(workdir, name, d.url, fixture.path("ca.crt"),
+                                     *fixture.pair(name)) for name in ("admin", "kube-scheduler")}
+        # the scheduler holds no token: its client certificate is its identity
+        d.connect = ["--kubeconfig", kc["kube-scheduler"]]
+        d.start_scheduler()
+        r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=0,
+                           kubeconfig=kc["admin"])
+        st = d.stop_scheduler()
+        refused = refusals(d, kc["admin"])
+    except BaseException:
+        print(f"phase 12a scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+        raise
+    finally:
+        d.close()
+    lines, users = audit_summary(audit)
+    c2b = r["create_to_bind_ms"]
+    print(f"phase 12a TLS control plane (--tls-cert-file --tls-private-key-file "
+          f"--client-ca-file --audit-log; admission on), the scheduler on --kubeconfig "
+          f"(client certificate {fixture.CLIENTS['kube-scheduler'][0]}) --leader-elect, "
+          f"{n_nodes}x{n_pods} mixed in {waves} waves through the admin kubeconfig: bound "
+          f"{r['bound']} unbound {r['unbound']} wall_s {r['wall_s']:.3f} pods_per_s "
+          f"{r['pods_per_sec']:.1f} create_to_bind_p50_ms {c2b['p50']:.1f} "
+          f"create_to_bind_p99_ms {c2b['p99']:.1f}; ratio to 6a's {pps_6a:.1f} pods/s in this "
+          f"call {r['pods_per_sec'] / pps_6a:.3f}; the daemon's launches: fused_scan "
+          f"{st['launches']} frontier_refresh {st['refresh_launches']} (segments "
+          f"{st['segments']}, kernel_ms {st['kernel_ms']:.3f}, batch_s {st['batch_s']:.3f}); "
+          f"its watch readers parsed {st['ingest_bytes']} wire bytes in "
+          f"{st['ingest_parse_s']:.3f} s (the TLS read and decryption not included), decode "
+          f"{st['ingest_decode_s']:.3f} s, apply {st['ingest_apply_s']:.3f} s; device idle "
+          f"share {1.0 - st['kernel_ms'] / 1e3 / r['wall_s']:.4f}; wave seconds "
+          + " ".join(f"{x:.3f}" for x in r["wave_s"]), flush=True)
+    print(f"phase 12a audit log: {lines} lines; users by verb and resource (completed under "
+          f"400): {json.dumps(users, sort_keys=True)}", flush=True)
+    print(f"phase 12b refusals on the same server: {json.dumps(refused)}", flush=True)
+    bootstrap_users = users.get("list services", [])
+    want = {"anonymous pods": 403, "anonymous healthz": 200,
+            "anonymous kube-public configmaps": 200, "malformed bearer": 401,
+            "second CA's certificate": "refused", "bootstrap token": 200,
+            "expired bootstrap token": 401}
+    bad = {k: v for k, v in want.items() if refused[k] != v}
+    slow = refused["served beside 4 silent connections (s)"]
+    if bad or not isinstance(slow, float) or slow > 2.0 or "system:bootstrap:abcdef" not in (
+            bootstrap_users):
+        raise AssertionError(f"phase 12b: {bad}, silent connections {slow}, "
+                             f"list services by {bootstrap_users}")
+    if r["bound"] != n_pods or st["launches"] <= 0 or st["refresh_launches"] <= 0:
+        raise AssertionError(f"phase 12a: bound {r['bound']}, launches {st['launches']} + "
+                             f"{st['refresh_launches']}")
+    if (users.get("create pods") != ["kubernetes-admin"]
+            or users.get("bind pods") != ["system:kube-scheduler"]
+            or users.get("lease") != ["system:kube-scheduler"]):
+        raise AssertionError(f"phase 12a: the audit's users {users}")
+    return st["launches"], st["refresh_launches"]
+
+
+def rbac_mode(workdir: str) -> tuple[int, int]:
+    """Phase 12c: plain HTTP with ``--token-file`` and ``--authorization-mode
+    RBAC`` over a ``--data-dir`` seeded beforehand with the grants (RBAC
+    mode has none of its own).  Returns the daemon's launches."""
+    from kubernetes_tpu_torch.api import (
+        ClusterRole,
+        ClusterRoleBinding,
+        ObjectMeta,
+        PolicyRule,
+        Subject,
+    )
+    from kubernetes_tpu_torch.client.remote import ForbiddenError, RemoteStore
+    from kubernetes_tpu_torch.pki import write_kubeconfig
+    from kubernetes_tpu_torch.store.store import Store
+    from kubernetes_tpu_torch.testing import pki as fixture
+    from kubernetes_tpu_torch.workload import oracle_replay_waves, run_wire_churn
+
+    n_nodes, n_pods, waves, seed = 1000, 2000, 4, 7
+    data = os.path.join(workdir, "12c-data")
+    tokens = os.path.join(workdir, "12c-tokens.csv")
+    with open(tokens, "w") as f:
+        f.write("scheduler-token,system:kube-scheduler\nload-token,load\n"
+                "nobody-token,nobody\n")
+    read = ["get", "list", "watch"]
+    # the RBAC kinds have no nonResourceURLs: /healthz is the resource ""
+    grants = {
+        "system:kube-scheduler": [
+            PolicyRule(verbs=read, resources=["nodes", "services", "replicasets",
+                                               "replicationcontrollers", "statefulsets",
+                                               "persistentvolumes", "persistentvolumeclaims"]),
+            PolicyRule(verbs=read + ["update", "delete", "bind"], resources=["pods"]),
+            PolicyRule(verbs=["create"], resources=["bindings"]),
+            # Events: the scheduler's own and its lease (an Event in kube-system)
+            PolicyRule(verbs=read + ["create", "update"], resources=["events", "leases"])],
+        "load": [PolicyRule(verbs=read + ["create"],
+                            resources=["nodes", "services", "pods", "events", ""])]}
+    seeded = Store(data_dir=data)
+    for user, rules in grants.items():
+        seeded.create("ClusterRole", ClusterRole(meta=ObjectMeta(name=user),
+                                                 rules=rules).to_dict())
+        seeded.create("ClusterRoleBinding", ClusterRoleBinding(
+            meta=ObjectMeta(name=user), role_name=user,
+            subjects=[Subject(kind="User", name=user)]).to_dict())
+    seeded.close()
+    d = Daemons(workdir, "12c", admitted=True, data_dir=data,
+                api_extra=("--token-file", tokens, "--authorization-mode", "RBAC"),
+                health_token="load-token")
+    try:
+        nobody = RemoteStore(d.url, token="nobody-token", max_retries=0)
+        try:
+            nobody.create("Node", {"kind": "Node", "metadata": {"name": "intruder"}})
+            refused = "created"
+        except ForbiddenError:
+            refused = "403"
+        load = write_kubeconfig(workdir, "12c-load", d.url, fixture.path("ca.crt"),
+                                token="load-token")
+        d.connect = ["--apiserver", d.url, "--token", "scheduler-token"]
+        # the scheduler starts once the nodes and services exist, so its
+        # informers hold them before the first wave: a pod drained before
+        # its nodes reach the Node informer (another watch stream) fails,
+        # backs off and binds later, out of the oracle's order
+        r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=seed, kubeconfig=load,
+                           before_wave=lambda w: w == 0 and d.start_scheduler())
+        st = d.stop_scheduler()
+    except BaseException:
+        print(f"phase 12c scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+        raise
+    finally:
+        d.close()
+    o = oracle_replay_waves(r["wave_keys"], r["assignments"], n_nodes, n_pods, "mixed", seed)
+    print(f"phase 12c RBAC mode over HTTP (--token-file --authorization-mode RBAC, grants "
+          f"seeded in --data-dir), {n_nodes}x{n_pods} mixed in {waves} waves: bound "
+          f"{r['bound']} pods_per_s {r['pods_per_sec']:.1f} create_to_bind_p99_ms "
+          f"{r['create_to_bind_ms']['p99']:.1f}; vs the sequential oracle wave by wave: "
+          f"{o['mode']}, checked {o['checked']}, mismatches {o['mismatches']}, rr "
+          f"{st['round_robin']} vs {o['round_robin']}; a token with no binding: {refused} on "
+          f"create; launches fused_scan {st['launches']} frontier_refresh "
+          f"{st['refresh_launches']}", flush=True)
+    if (r["bound"] != n_pods or o["checked"] != n_pods or o["mismatches"] != 0
+            or o["round_robin"] != st["round_robin"] or refused != "403"
+            or st["launches"] <= 0):
+        raise AssertionError(f"phase 12c: {o}, rr {st['round_robin']}, refused {refused}")
+    return st["launches"], st["refresh_launches"]
+
+
+def auth_phase(pps_6a: float) -> tuple[int, int]:
+    """Phase 12: auth, PKI, TLS and kubeconfig.  Returns the daemons'
+    fused-scan and refresh launches over 12a and 12c."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        la, ra = tls_control_plane(workdir, pps_6a)
+        t1 = time.perf_counter()
+        lc, rc = rbac_mode(workdir)
+    t2 = time.perf_counter()
+    print(f"phase 12 took {t2 - t0:.1f} s: 12a-12b {t1 - t0:.1f}, 12c {t2 - t1:.1f}; launches "
+          f"{la} + {lc} fused, {ra} + {rc} refresh", flush=True)
+    return la + lc, ra + rc
+
+
 def main() -> int:
     import torch
 
@@ -2325,6 +2606,7 @@ def main() -> int:
     overload_launches, _ = overload_phase()
     pool_launches, pool_refresh, pool_errs, pool_refresh_errs, refresh_pool = pool_phase()
     admitted_launches, admitted_refresh = admitted_phase(pps_6a)
+    auth_launches, auth_refresh = auth_phase(pps_6a)
 
     entry = {
         "name": "fused_scan", "route": "cuda",
@@ -2332,13 +2614,13 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": (launches + churn_launches + daemon_launches + preemption_launches
                      + policy_launches + traced_launches + fault_launches + overload_launches
-                     + pool_launches + admitted_launches),
+                     + pool_launches + admitted_launches + auth_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "daemon": daemon_launches, "churn_eager": eager_launches,
                              "preemption": preemption_launches, "policy": policy_launches,
                              "traced_daemon": traced_launches, "faults": fault_launches,
                              "overload": overload_launches, "pool": pool_launches,
-                             "apiserver_defaults": admitted_launches},
+                             "apiserver_defaults": admitted_launches, "auth": auth_launches},
         # the repaired shapes' segments (phase 3): many zones, a wide port row
         "cells": shape_cells,
         "max_abs_err": max(errs + pool_errs),
@@ -2353,10 +2635,10 @@ def main() -> int:
         "source": "kubernetes_tpu_torch/ops/csrc/frontier_refresh.cu",
         "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
         "launches": (refresh_launches + churn_refresh + daemon_refresh + pool_refresh
-                     + admitted_refresh),
+                     + admitted_refresh + auth_refresh),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
                              "daemon": daemon_refresh, "pool": pool_refresh,
-                             "apiserver_defaults": admitted_refresh},
+                             "apiserver_defaults": admitted_refresh, "auth": auth_refresh},
         # the main segment's width; the other widths and the launch floor in cells
         "cells": refresh_cells,
         "max_abs_err": max([c["max_abs_err"] for c in refresh_cells.values()]

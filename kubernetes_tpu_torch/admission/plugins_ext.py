@@ -16,20 +16,18 @@ HTTP form posts JSON like the scheduler extender does), because the
 webhook CONTRACT — review request in, allow/deny out, failure policy on
 error — is the capability, not the socket.
 
-``OwnerReferencesPermissionEnforcement`` takes any authorizer with
-``authorize(attrs) -> (decision, reason)``; ``attrs`` carries ``user``
-(with ``name``), ``verb``, ``resource``, ``namespace``, ``name`` and
-``path``, and the decision ``"allow"`` admits (the JAX package's
-authorizer contract; the port has no authorizer of its own yet)."""
+``OwnerReferencesPermissionEnforcement`` asks an ``auth`` authorizer
+(``authorize(AuthzAttributes) -> (decision, reason)``) whether the user
+may delete the object; ``auth.ALLOW`` admits."""
 
 from __future__ import annotations
 
 import json
 import urllib.request
-from dataclasses import dataclass
 from typing import Callable, Optional
 
 from ..api.selectors import LabelSelector
+from ..auth import ALLOW, AuthzAttributes, UserInfo
 from ..store.store import NotFoundError
 from .framework import CREATE, DELETE, UPDATE, AdmissionPlugin, Attributes
 
@@ -447,26 +445,6 @@ class DenyEscalatingExec(AdmissionPlugin):
                     f"cannot exec into privileged container {c.get('name')!r}")
 
 
-ALLOW = "allow"
-
-
-@dataclass
-class AuthzUser:
-    name: str = ""
-
-
-@dataclass
-class AuthzRequest:
-    """What an authorizer is asked (reference ``authorizer.Attributes``)."""
-
-    user: AuthzUser
-    verb: str
-    resource: str
-    namespace: str = ""
-    name: str = ""
-    path: str = ""
-
-
 class OwnerReferencesPermissionEnforcement(AdmissionPlugin):
     """``plugin/pkg/admission/gc/gc_admission.go``: changing an object's
     ownerReferences requires DELETE rights on the object — otherwise a
@@ -495,8 +473,8 @@ class OwnerReferencesPermissionEnforcement(AdmissionPlugin):
         if self.authorizer is not None:
             from ..api.types import KIND_PLURALS
 
-            decision, _ = self.authorizer.authorize(AuthzRequest(
-                user=AuthzUser(name=user), verb="delete",
+            decision, _ = self.authorizer.authorize(AuthzAttributes(
+                user=UserInfo(name=user), verb="delete",
                 resource=KIND_PLURALS.get(attrs.kind, attrs.kind.lower()),
                 namespace=attrs.namespace, name=attrs.name))
             if decision == ALLOW:

@@ -5,7 +5,8 @@ for it to read.
 Capability equivalents of the reference internal types:
 
 - Namespace, Secret, ServiceAccount: ``pkg/api/types.go`` (Namespace
-  ~:3010, Secret ~:3330, ServiceAccount ~:2960);
+  ~:3010, Secret ~:3330, ServiceAccount ~:2960); ConfigMap, which holds
+  the ``kube-public`` discovery document anonymous clients may read;
 - ResourceQuota / LimitRange: ``pkg/api/types.go`` (~:3180 / ~:3120),
   enforced by admission (``plugin/pkg/admission/resourcequota``,
   ``limitranger``);
@@ -91,6 +92,29 @@ class Secret:
         return cls(
             meta=ObjectMeta.from_dict(d.get("metadata") or {}),
             type=d.get("type", "Opaque"),
+            data=dict(d.get("data") or {}),
+        )
+
+
+@register_kind
+@dataclass
+class ConfigMap:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    data: dict[str, str] = field(default_factory=dict)
+
+    KIND = "ConfigMap"
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "data": dict(self.data),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ConfigMap":
+        return cls(
+            meta=ObjectMeta.from_dict(d.get("metadata") or {}),
             data=dict(d.get("data") or {}),
         )
 

@@ -1,3 +1,4 @@
-"""HTTP API server: the store over REST and watch streams."""
+"""HTTP API server: the store over REST and watch streams, behind the
+authentication, audit and authorization filters, over TLS when asked."""
 
-from .server import APIServer
+from .server import APIServer, TLSConfig

@@ -34,8 +34,26 @@ Routes:
   POST   /api/v1/namespaces/{ns}/pods/{name}/binding
   POST   /api/v1/bindings:batch          (one store txn for a wave's binds)
   POST   /api/v1/{resource}:batch        (batch create: one store txn)
+  POST   /apis/authorization.k8s.io/v1/selfsubjectaccessreviews
 Cluster-scoped objects use ns "-" in paths.  Any other route answers 404,
 a known route with another method 405.
+
+The filter chain runs in the JAX server's order (reference
+``server/config.go:469 DefaultBuildHandlerChain``): panic recovery →
+request info (verb, resource, namespace, name) → authentication (with
+``tls.client_ca``, a verified client certificate's subject first) →
+impersonation → audit (RequestReceived, under the impersonated user with
+the real one beside it) → authorization → dispatch, and
+audit again (ResponseComplete, with the status code) once the response is
+written.  ``tokens`` is the static-token shorthand; ``authenticator``,
+``authorizer`` and ``auditor`` take the ``auth`` package's objects; with
+none of them every request runs as the empty (anonymous) identity.  The
+request info maps ``POST /api/v1/{resource}:batch`` to ``create`` on
+``{resource}`` and ``POST /api/v1/bindings:batch`` to ``bind`` on
+``pods`` (the single binding route's verb), where the JAX server names
+the resource ``{resource}:batch``.  With ``tls`` the server speaks HTTPS,
+and each connection's handshake runs in its own request thread with a
+10 s limit, never in the accept loop.
 
 The create paths pass an overload gate first: ``admission_throttle`` (a
 ``utils.overload.AdmissionThrottle``, or anything with ``admit(resource,
@@ -43,9 +61,8 @@ bodies) -> Optional[retry_after_s]``) and the ``apiserver.admit`` fault
 point may answer 429 with a ``Retry-After`` header, which ``RemoteStore``
 honours.  Over an ``AdmittedStore`` (``admission/framework.py``) the
 writes then pass the admission chain, and a plugin's denial answers 403
-Forbidden.  Authentication, authorization, audit, TLS and PATCH are not
-part of this server yet: every request runs as the empty (anonymous)
-identity.
+Forbidden.  PATCH, eviction and max-in-flight are not part of this
+server yet.
 """
 
 from __future__ import annotations
@@ -54,6 +71,9 @@ import json
 import logging
 import math
 import re
+import socket
+import ssl
+import sys
 import threading
 import time
 from collections import deque
@@ -63,6 +83,15 @@ from urllib.parse import parse_qs, urlparse
 
 from .. import __version__, faults
 from ..admission.framework import AdmissionDenied
+from ..auth import (
+    ALLOW,
+    ANONYMOUS,
+    AuthzAttributes,
+    TokenFileAuthenticator,
+    UnionAuthenticator,
+    UserInfo,
+    X509CertificateAuthenticator,
+)
 from ..api.selectors import parse_selector_string
 from ..api.types import CLUSTER_SCOPED_KINDS, KIND_PLURALS, convert_to_internal, kind_for_plural
 from ..store.store import (
@@ -78,6 +107,18 @@ from ..utils.health import handle_debug_path
 from ..utils.metrics import APIServerMetrics
 
 logger = logging.getLogger("kubernetes_tpu_torch.apiserver")
+
+# SelfSubjectAccessReview (reference authorization.k8s.io group), answered
+# by the live authorizer for the calling identity
+SSAR_PATH = "/apis/authorization.k8s.io/v1/selfsubjectaccessreviews"
+# paths every identity the authenticator let through may read: discovery,
+# and "may I?" (the reference's system:discovery and system:basic-user)
+_OPEN_PATHS = frozenset({"/api", "/api/v1", "/apis", SSAR_PATH})
+# the longest a client may take over its TLS handshake
+HANDSHAKE_TIMEOUT_S = 10.0
+# how long a refused handshake's connection waits for the client to close
+# before the server closes it
+REFUSED_LINGER_S = 2.0
 
 # the most watch lines written in one chunk: a burst (a wave's 2000 ADDED
 # events) goes out in a few writes, not one write and flush a line
@@ -124,12 +165,95 @@ def compile_selectors(q: dict) -> tuple[Optional[Callable[[dict], bool]], Option
     return (lambda i: all(t(i) for t in tests)), None
 
 
+class TLSConfig:
+    """Serving-side TLS (reference ``--tls-cert-file``/
+    ``--tls-private-key-file``/``--client-ca-file``).  With ``client_ca``
+    the handshake asks for (does not require) a client certificate and
+    verifies it against the CA; a verified certificate's subject is the
+    request's identity (CN the user, O the groups).  Clients with a token
+    and no certificate authenticate as before."""
+
+    def __init__(self, certfile: str, keyfile: str, client_ca: Optional[str] = None):
+        self.certfile = certfile
+        self.keyfile = keyfile
+        self.client_ca = client_ca
+
+    def context(self):
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(self.certfile, self.keyfile)
+        if self.client_ca:
+            ctx.load_verify_locations(self.client_ca)
+            ctx.verify_mode = ssl.CERT_OPTIONAL
+        return ctx
+
+
+def _linger(sock) -> None:
+    """A refused handshake's close, done so the client reads the alert.
+    Under TLS 1.3 a client finishes its side of the handshake before the
+    server checks its certificate, and sends its request; closing a socket
+    with that request unread sends a reset, which can reach the client
+    before it reads the alert, so it sees a dropped connection where it
+    should see a refusal.  So: end the writing side after the alert, read
+    and drop what the client sends until it closes, for at most
+    ``REFUSED_LINGER_S``.  Plain-socket calls: the TLS session is dead."""
+    try:
+        socket.socket.shutdown(sock, socket.SHUT_WR)
+        sock.settimeout(REFUSED_LINGER_S)
+        deadline = time.monotonic() + REFUSED_LINGER_S
+        while time.monotonic() < deadline and socket.socket.recv(sock, 65536):
+            pass
+    except OSError:
+        pass  # the client is gone: nothing left to wait for
+
+
+class _TLSServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` over TLS.  ``accept`` only wraps the socket;
+    the handshake runs in the connection's own thread with a time limit,
+    so a client that connects and sends nothing (or trickles its hello)
+    holds its own thread, never the accept loop."""
+
+    def __init__(self, address, handler, ctx):
+        self._ctx = ctx
+        super().__init__(address, handler)
+
+    def get_request(self):
+        sock, addr = self.socket.accept()
+        return self._ctx.wrap_socket(sock, server_side=True,
+                                     do_handshake_on_connect=False), addr
+
+    def finish_request(self, request, client_address):
+        request.settimeout(HANDSHAKE_TIMEOUT_S)
+        try:
+            request.do_handshake()
+        except ssl.SSLError:
+            _linger(request)
+            raise
+        request.settimeout(None)
+        super().finish_request(request, client_address)
+
+    def handle_error(self, request, client_address):
+        # dropped, refused and garbage handshakes are routine traffic
+        if isinstance(sys.exc_info()[1], OSError):  # ssl.SSLError and timeouts are OSErrors
+            return
+        super().handle_error(request, client_address)
+
+
 class APIServer:
     """HTTP front end over a ``Store``: one thread per connection, so each
     watch stream holds a thread of its own."""
 
-    def __init__(self, store: Store, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, store: Store, host: str = "127.0.0.1", port: int = 0,
+                 tokens: Optional[dict] = None, authenticator=None, authorizer=None,
+                 auditor=None, tls: Optional[TLSConfig] = None):
         self.store = store
+        self.tls = tls
+        # tokens: token -> user name or UserInfo, the static token file
+        self.authenticator = authenticator
+        if authenticator is None and tokens is not None:
+            self.authenticator = UnionAuthenticator(TokenFileAuthenticator(tokens),
+                                                    allow_anonymous=False)
+        self.authorizer = authorizer
+        self.auditor = auditor
         self.metrics = APIServerMetrics()
         self.registry = self.metrics.registry
         # the overload gate of the create paths (None: always admit)
@@ -139,13 +263,17 @@ class APIServer:
         # oldest go first; the shippers count their own drops)
         self.telemetry_records: deque = deque(maxlen=4096)
         self._telemetry_mu = threading.Lock()
-        self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        if tls is not None:
+            self.httpd = _TLSServer((host, port), _make_handler(self), tls.context())
+        else:
+            self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.port = self.httpd.server_port
         self._thread: Optional[threading.Thread] = None
 
     @property
     def url(self) -> str:
-        return f"http://{self.httpd.server_address[0]}:{self.port}"
+        scheme = "https" if self.tls is not None else "http"
+        return f"{scheme}://{self.httpd.server_address[0]}:{self.port}"
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True,
@@ -187,6 +315,7 @@ def _make_handler(server: APIServer):
 
         def _send_bytes(self, code: int, data: bytes, ctype: str,
                         headers: tuple = ()) -> None:
+            self._last_code = code
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
@@ -260,7 +389,121 @@ def _make_handler(server: APIServer):
             self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
             self.wfile.flush()
 
-        # -- the filter chain: metrics and panic recovery ------------------
+        # -- the filter chain ----------------------------------------------
+        def _request_info(self, method: str) -> tuple[str, str, str, str]:
+            """(verb, resource, namespace, name): the request-info filter
+            (reference ``endpoints/filters/requestinfo``), over this
+            server's routes; worked out once a request, before dispatch (the
+            store may fill in the body it was given)."""
+            if self._info is None:
+                self._info = self._parse_request_info(method)
+            return self._info
+
+        def _parse_request_info(self, method: str) -> tuple[str, str, str, str]:
+            url = urlparse(self.path)
+            q = parse_qs(url.query)
+            parts = [p for p in url.path.split("/") if p]
+            verb = {"POST": "create", "PUT": "update", "DELETE": "delete",
+                    "PATCH": "patch"}.get(method, "get")
+            resource, ns, name = "", "", ""
+            if len(parts) < 3 or parts[:2] != ["api", "v1"]:
+                return verb, resource, ns, name  # a non-resource path
+            rest = parts[2:]
+            if len(rest) == 1:
+                resource = rest[0]
+                if method == "GET":
+                    verb = "watch" if q.get("watch", ["false"])[0] == "true" else "list"
+                    ns = q.get("namespace", [""])[0] or ""
+                elif method == "POST" and resource == "bindings:batch":
+                    verb, resource = "bind", "pods"
+                elif method == "POST" and resource.endswith(":batch"):
+                    resource = resource[:-len(":batch")]
+                elif method == "POST":
+                    # a collection create carries its namespace in the body
+                    try:
+                        ns = (self._body().get("metadata") or {}).get("namespace", "") or ""
+                    except (ValueError, AttributeError):
+                        ns = ""
+            elif rest[0] == "namespaces" and len(rest) >= 3:
+                ns = "" if rest[1] == "-" else rest[1]
+                resource = rest[2]
+                if len(rest) == 3:  # the namespaced collection
+                    if method == "GET":
+                        verb = "watch" if q.get("watch", ["false"])[0] == "true" else "list"
+                else:
+                    name = rest[3]
+                    if len(rest) == 5 and rest[4] == "binding":
+                        verb = "bind"
+                    elif len(rest) == 5 and rest[4] in ("exec", "attach", "cp"):
+                        # their own verb: create rights on pods must not
+                        # imply running commands in them
+                        verb = "exec"
+                    elif len(rest) == 5 and rest[4] == "eviction":
+                        verb = "evict"
+            elif rest[0] == "nodes" and len(rest) >= 3 and rest[2] == "proxy":
+                # reaching a node's kubelet is its own subresource: reading
+                # the Node object must not imply it
+                resource, name = "nodes/proxy", rest[1]
+            return verb, resource, ns, name
+
+        def _audit(self, stage: str, code: int = 0) -> None:
+            verb, resource, ns, name = self._request_info(self.command)
+            server.auditor.record(stage, self._audit_user or (
+                self._user.name if self._user is not None else ""),
+                verb, resource, ns, name, code=code)
+
+        def _auth_filters(self, method: str) -> bool:
+            """authentication → impersonation → audit (RequestReceived) →
+            authorization.  False when the 401 or 403 is already written."""
+            if server.authenticator is not None:
+                user = None
+                if server.tls is not None and server.tls.client_ca:
+                    # the handshake verified the chain: the subject is the user
+                    peercert = getattr(self.connection, "getpeercert", lambda: None)()
+                    user = X509CertificateAuthenticator.from_peercert(peercert)
+                if user is None:
+                    user = server.authenticator.authenticate(self.headers)
+                if user is None:
+                    self._error(401, "Unauthorized", "invalid or missing credentials")
+                    return False
+                target = self.headers.get("Impersonate-User", "")
+                if target:
+                    # endpoints/filters/impersonation.go: the REAL identity
+                    # needs "impersonate" on the user and on every group
+                    if server.authorizer is None:
+                        self._error(403, "Forbidden", "impersonation requires an authorizer")
+                        return False
+                    groups = [g.strip() for raw in (self.headers.get_all("Impersonate-Group")
+                                                    or [])
+                              for g in raw.split(",") if g.strip()]
+                    for resource, name in [("users", target)] + [("groups", g) for g in groups]:
+                        decision, reason = server.authorizer.authorize(AuthzAttributes(
+                            user=user, verb="impersonate", resource=resource, name=name))
+                        if decision != ALLOW:
+                            self._error(403, "Forbidden", f"cannot impersonate "
+                                        f"{resource[:-1]} {name!r}: {reason}")
+                            return False
+                    # the audit trail keeps the real actor
+                    self._audit_user = f"{target} (impersonated-by {user.name})"
+                    user = UserInfo(name=target, groups=groups)
+                self._user = user
+            if server.auditor is not None:
+                self._audit("RequestReceived")
+            path = urlparse(self.path).path
+            if path not in _OPEN_PATHS and server.authorizer is not None:
+                # no authenticator: authorize as anonymous (fail closed,
+                # never skip an authorizer that was given)
+                verb, resource, ns, name = self._request_info(method)
+                decision, reason = server.authorizer.authorize(AuthzAttributes(
+                    user=self._user if self._user is not None else ANONYMOUS, verb=verb,
+                    resource=resource, namespace=ns, name=name, path=path))
+                if decision != ALLOW:
+                    self._error(403, "Forbidden", reason)
+                    return False
+            if self._user is not None:
+                store.user = self._user.name
+            return True
+
         def _route(self, method: str) -> None:
             start = time.perf_counter()
             metrics.request_count.inc()
@@ -269,12 +512,17 @@ def _make_handler(server: APIServer):
             # find an unread body where its next request line should be
             self._raw = self.rfile.read(length) if length else b""
             self._parsed = None
-            # the request's identity for the admission plugins (thread-local
-            # on an AdmittedStore): no authenticator is ported, so it is the
-            # anonymous empty name, set anew so no request inherits another's
+            # every request starts with no identity, for the admission
+            # plugins (thread-local on an AdmittedStore) and the audit: a
+            # connection kept alive never carries one request's into the next
             store.user = ""
+            self._user: Optional[UserInfo] = None
+            self._audit_user: Optional[str] = None
+            self._info: Optional[tuple[str, str, str, str]] = None
+            self._last_code = 0
             try:
-                self._dispatch(method)
+                if self._auth_filters(method):
+                    self._dispatch(method)
             except AdmissionDenied as e:
                 self._error(403, "Forbidden", str(e))
             except NotFoundError as e:
@@ -295,6 +543,8 @@ def _make_handler(server: APIServer):
                     metrics.error_write_failures.inc()
             finally:
                 metrics.request_latency.observe((time.perf_counter() - start) * 1e6)
+                if server.auditor is not None:
+                    self._audit("ResponseComplete", self._last_code)
 
         def do_GET(self):
             self._route("GET")
@@ -333,6 +583,10 @@ def _make_handler(server: APIServer):
                 return self._serve_discovery(path)
             if path == "/version":
                 return self._send(200, {"version": __version__})
+            if path == SSAR_PATH:
+                if method != "POST":
+                    return self._error(405, "MethodNotAllowed", method)
+                return self._serve_ssar()
             if path == "/api/v1/bindings:batch" and method == "POST":
                 items = self._body().get("bindings", [])
                 errors = store.bind_many([(b.get("podNamespace", "default"), b["podName"],
@@ -411,6 +665,22 @@ def _make_handler(server: APIServer):
                 return self._send(200, store.delete(kind, ns, name))
             return self._error(405, "MethodNotAllowed", method)
 
+        def _serve_ssar(self) -> None:
+            """SelfSubjectAccessReview: may the CALLING identity do this?
+            Answered by the live authorizer (reference
+            ``pkg/registry/authorization/selfsubjectaccessreview``); the
+            spec names only the action, never the user."""
+            attrs = (self._body().get("spec") or {}).get("resourceAttributes") or {}
+            if server.authorizer is None:
+                return self._send(201, {"status": {"allowed": True,
+                                                   "reason": "no authorizer configured"}})
+            decision, reason = server.authorizer.authorize(AuthzAttributes(
+                user=self._user if self._user is not None else ANONYMOUS,
+                verb=attrs.get("verb", ""), resource=attrs.get("resource", ""),
+                namespace=attrs.get("namespace", ""), name=attrs.get("name", "")))
+            return self._send(201, {"status": {"allowed": decision == ALLOW,
+                                               "reason": reason}})
+
         def _serve_discovery(self, path: str) -> None:
             """``/api`` lists the versions, ``/api/v1`` the resources of the
             live type registry (reference ``endpoints/discovery``)."""
@@ -455,6 +725,7 @@ def _make_handler(server: APIServer):
             # an expired revision raises here, before any byte is sent: 410
             watch = store.watch(kind, from_revision=from_rev, frames=want_frames)
             try:
+                self._last_code = 200
                 self.send_response(200)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Transfer-Encoding", "chunked")

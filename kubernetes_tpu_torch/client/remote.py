@@ -32,17 +32,26 @@ frames a txn arrives as the sub-frame of its matching entries.
 ``list_columns`` is the ``?columnar=1`` LIST.  A write an admission
 plugin denies raises ``ForbiddenError`` (HTTP 403).
 
+``https://`` servers are spoken to over TLS with one ``SSLContext`` a
+store (``ca_file`` pins the server's CA; ``client_cert``/``client_key``
+present a client identity, the kubeconfig's certificate-authority and
+client-certificate), for requests and watch streams alike.  A refused
+certificate (the server's chain does not verify, or the server refused
+ours) is fatal at once: no retry can make it verify.
+
 Every failure path bumps a counter of ``utils.metrics.ClientMetrics``.
-There is no TLS, binary wire form or PATCH here yet."""
+There is no binary wire form or PATCH here yet."""
 
 from __future__ import annotations
 
 import http.client
+import ipaddress
 import json
 import logging
 import queue as queue_mod
 import random
 import socket
+import ssl
 import threading
 import time
 import urllib.error
@@ -131,6 +140,15 @@ def _parse_retry_after(headers) -> Optional[float]:
         return None
 
 
+def tls_refused(e: BaseException) -> bool:
+    """Did the TLS handshake refuse a certificate (ours or the server's)?
+    Deterministic: a retry would be refused the same way.  A connection
+    dropped mid-handshake is not a refusal."""
+    reason = e.reason if isinstance(e, urllib.error.URLError) else e
+    return isinstance(reason, ssl.SSLError) and not isinstance(
+        reason, (ssl.SSLEOFError, ssl.SSLZeroReturnError, ssl.SSLSyscallError))
+
+
 class _Stream:
     """One open watch response and the connection that carries it."""
 
@@ -141,7 +159,9 @@ class _Stream:
     def close(self) -> None:
         # shutdown, not just close: a reader blocked in recv on this socket
         # returns at once (close alone leaves it blocked until the peer
-        # writes or the server-side timeout ends the stream)
+        # writes or the server-side timeout ends the stream).  On an
+        # SSLSocket this shuts the raw socket down, and a reader blocked in
+        # SSL_read sees the end of the stream just the same
         sock = self.conn.sock
         if sock is not None:
             try:
@@ -327,18 +347,37 @@ class RemoteStore:
 
     def __init__(self, base_url: str, token: Optional[str] = None, timeout: float = 10.0,
                  max_retries: int = 3, retry_seed: Optional[int] = None,
-                 sleep: Callable[[float], None] = time.sleep):
+                 sleep: Callable[[float], None] = time.sleep,
+                 ca_file: Optional[str] = None, client_cert: Optional[str] = None,
+                 client_key: Optional[str] = None):
         """``max_retries`` re-issues of a request after a retryable failure,
         with exponential backoff jittered per instance.  ``retry_seed``
         defaults to fresh entropy (a shared fixed seed would march every
         client through the same jitter); ``retry_seed`` and ``sleep`` are
-        for tests."""
+        for tests.  ``ca_file`` pins the CA of an ``https://`` server and
+        ``client_cert``/``client_key`` present an x509 client identity."""
         parts = urlsplit(base_url)
-        if parts.scheme != "http" or not parts.hostname:
-            raise ValueError(f"RemoteStore speaks plain http:// only (TLS is not ported): "
-                             f"{base_url!r}")
+        if parts.scheme not in ("http", "https") or not parts.hostname:
+            raise ValueError(f"RemoteStore speaks http:// or https://: {base_url!r}")
         self.base_url = base_url.rstrip("/")
-        self._host, self._port = parts.hostname, parts.port or 80
+        self._host = parts.hostname
+        self._port = parts.port or (443 if parts.scheme == "https" else 80)
+        self._ssl_ctx: Optional[ssl.SSLContext] = None
+        if parts.scheme == "https":
+            self._ssl_ctx = ssl.create_default_context(cafile=ca_file)
+            if ca_file:
+                try:
+                    ipaddress.ip_address(self._host)
+                    # an IP-addressed server under a PINNED CA: the chain is
+                    # still verified against it, only the name check goes
+                    # (certificates rarely carry IP SANs).  Without a pinned
+                    # CA the name check stays: any public certificate would
+                    # pass otherwise.  DNS names are always checked.
+                    self._ssl_ctx.check_hostname = False
+                except ValueError:
+                    pass
+            if client_cert:
+                self._ssl_ctx.load_cert_chain(client_cert, client_key)
         self.token = token
         self.timeout = timeout
         self.max_retries = max_retries
@@ -353,7 +392,11 @@ class RemoteStore:
     def _open_stream(self, path: str) -> _Stream:
         """GET ``path`` on a connection of its own and return the open
         response; a status other than 200 raises ``WatchStatusError``."""
-        conn = http.client.HTTPConnection(self._host, self._port, timeout=self.timeout)
+        if self._ssl_ctx is not None:
+            conn = http.client.HTTPSConnection(self._host, self._port, timeout=self.timeout,
+                                               context=self._ssl_ctx)
+        else:
+            conn = http.client.HTTPConnection(self._host, self._port, timeout=self.timeout)
         try:
             conn.request("GET", path, headers=self._headers())
             resp = conn.getresponse()
@@ -370,7 +413,9 @@ class RemoteStore:
         request twice?  GET always; other verbs only when the error proves
         the request never reached the server (connection refused): a reset
         mid-POST may have committed, and a re-send would turn one create
-        into two."""
+        into two.  A refused certificate is never retried."""
+        if tls_refused(e):
+            return False
         if method == "GET":
             return True
         return isinstance(getattr(e, "reason", e), ConnectionRefusedError)
@@ -440,7 +485,7 @@ class RemoteStore:
         def send():
             req = urllib.request.Request(f"{self.base_url}{path}", data=data, method=method,
                                          headers=headers)
-            return urllib.request.urlopen(req, timeout=self.timeout)
+            return urllib.request.urlopen(req, timeout=self.timeout, context=self._ssl_ctx)
 
         try:
             with self._request_with_retries(send, method, path) as resp:

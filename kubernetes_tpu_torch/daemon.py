@@ -7,6 +7,7 @@ The reference ships runnable binaries (``cmd/kube-apiserver``,
 
     python -m kubernetes_tpu_torch.apiserver --port 6443 [--data-dir DIR]
     python -m kubernetes_tpu_torch.scheduler --apiserver http://127.0.0.1:6443 --leader-elect
+    python -m kubernetes_tpu_torch.scheduler --kubeconfig scheduler.kubeconfig --leader-elect
 
 Each daemon runs threaded informers over the wire clientset, takes the
 leader lease where the reference does (scheduler ``app/server.go:133``),
@@ -41,10 +42,26 @@ _LIVENESS_POLL_S = 0.2
 _ACQUIRE_RETRY_S = 2.0
 
 
-def remote_clientset(apiserver: str, token: Optional[str] = None) -> Clientset:
-    """A clientset over the wire to ``apiserver`` with an optional bearer
-    token.  Kubeconfig documents come with the PKI slice."""
-    return Clientset(RemoteStore(apiserver, token=token))
+def remote_clientset(apiserver: Optional[str] = None, token: Optional[str] = None,
+                     kubeconfig: Optional[str] = None, ca_file: Optional[str] = None,
+                     client_cert: Optional[str] = None, client_key: Optional[str] = None,
+                     timeout: float = 10.0) -> Clientset:
+    """A clientset over the wire from a server URL and credentials, or from
+    a kubeconfig document (``pki.write_kubeconfig``: server, CA pin, client
+    certificate and key, optional token); arguments given override the
+    document's fields.  The one place connection settings merge, so every
+    daemon reads a new kubeconfig field alike."""
+    if kubeconfig:
+        from .pki import load_kubeconfig
+
+        doc = load_kubeconfig(kubeconfig)
+        apiserver = apiserver or doc["server"]
+        token = token or doc.get("token")
+        ca_file = ca_file or doc.get("certificate-authority")
+        client_cert = client_cert or doc.get("client-certificate")
+        client_key = client_key or doc.get("client-key")
+    return Clientset(RemoteStore(apiserver, token=token, timeout=timeout, ca_file=ca_file,
+                                 client_cert=client_cert, client_key=client_key))
 
 
 def install_signal_stop() -> threading.Event:

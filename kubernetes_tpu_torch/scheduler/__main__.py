@@ -1,7 +1,8 @@
 """kube-scheduler daemon (reference ``plugin/cmd/kube-scheduler/app/
 server.go:67 Run``, leader election ``:133``).
 
-    python -m kubernetes_tpu_torch.scheduler --apiserver http://127.0.0.1:6443 \
+    python -m kubernetes_tpu_torch.scheduler \
+        (--apiserver http://127.0.0.1:6443 [--token T] | --kubeconfig scheduler.kubeconfig) \
         [--leader-elect] [--backend batch|tpu|oracle] [--device cuda|cpu] \
         [--batch-interval 0.05] [--policy-config-file policy.json] \
         [--healthz-port N] [--config config.json] \
@@ -21,6 +22,16 @@ backend: the daemon logs that once at start-up, and
 ``scheduler_backend_oracle_pods_total`` on ``/metrics`` counts those pods.
 ``--device cuda`` is the default and the process exits non-zero, before
 it takes the lease, where there is no card.
+
+``--kubeconfig`` reads a connection document (``pki.write_kubeconfig``:
+server, CA pin, client certificate and key, optional token), so the
+daemon can reach an ``https://`` apiserver as the identity of its client
+certificate; ``--apiserver``/``--token`` override its fields.
+``--feature-gates`` and the config file's ``feature_gates`` take the JAX
+package's gate names (``TPUBatchScheduling`` is ``BatchScheduling``).  With
+``--device cuda``, ``PallasKernels=false`` is refused: it asks for the JAX
+package's XLA-scan rung, and the port has no kernel-to-plain-version
+ladder.
 
 ``--trace`` turns on wave tracing and the flight recorder
 (``/debug/traces``, ``/debug/flightrecorder`` on the health port;
@@ -53,8 +64,11 @@ BACKEND_ALIASES = {"tpu": "batch"}
 
 def _parse(argv):
     ap = argparse.ArgumentParser(prog="kubernetes_tpu_torch.scheduler")
-    ap.add_argument("--apiserver", required=True)
+    ap.add_argument("--apiserver", default=None)
     ap.add_argument("--token", default=None)
+    ap.add_argument("--kubeconfig", default=None,
+                    help="connection document (server, CA pin, client certificate and "
+                         "key); --apiserver/--token override its fields")
     ap.add_argument("--leader-elect", action="store_true")
     # SUPPRESS tells a flag given from a default when a --config file is
     # layered underneath (flag > file > default)
@@ -98,10 +112,19 @@ def _parse(argv):
     if args.backend not in BACKENDS:
         ap.error(f"backend {args.backend!r}: one of {list(BACKENDS)}")
     args.leader_elect = args.leader_elect or cfg.leader_elect
-    DEFAULT_FEATURE_GATES.set_from_map(cfg.feature_gates)
-    DEFAULT_FEATURE_GATES.set_from_string(args.feature_gates)
+    if not args.apiserver and not args.kubeconfig:
+        ap.error("one of --apiserver or --kubeconfig is required")
+    try:
+        DEFAULT_FEATURE_GATES.set_from_map(cfg.feature_gates)
+        DEFAULT_FEATURE_GATES.set_from_string(args.feature_gates)
+    except (KeyError, ValueError) as e:
+        ap.error(f"feature gates: {e.args[0] if e.args else e}")
     if args.backend == "batch" and not DEFAULT_FEATURE_GATES.enabled("BatchScheduling"):
         ap.error("--backend batch with the BatchScheduling feature gate off")
+    if args.device == "cuda" and not DEFAULT_FEATURE_GATES.enabled("PallasKernels"):
+        ap.error("PallasKernels=false asks for the JAX package's XLA-scan rung; the port has "
+                 "no kernel-to-plain-version ladder (no fallback on the device path): the "
+                 "card runs the fused CUDA scan, or pass --device cpu for the plain scan")
     return args
 
 
@@ -135,7 +158,7 @@ def main(argv=None) -> int:
 
         tracing.enable(dump_dir=args.trace_dump_dir or None)
         logging.info("wave tracing on (flight recorder armed)")
-    cs = remote_clientset(args.apiserver, args.token)
+    cs = remote_clientset(args.apiserver, args.token, kubeconfig=args.kubeconfig)
 
     # health before leader election: a standby must answer its liveness
     # probe.  The metrics registry appears once the payload builds the

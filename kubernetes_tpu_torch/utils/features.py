@@ -6,7 +6,8 @@ feature.Gate``: named features with defaults, flipped per component with
 (``pkg/apis/componentconfig``): one declarative config object per daemon,
 read from a file and overridden by flags.
 
-The gate set is the port's own.  Config files are JSON (the YAML subset
+The gate set is the JAX package's, with ``TPUBatchScheduling`` as a
+second name of ``BatchScheduling``.  Config files are JSON (the YAML subset
 a machine without PyYAML can read)."""
 
 from __future__ import annotations
@@ -16,17 +17,49 @@ import json
 import threading
 from dataclasses import dataclass, field, fields
 
+ALPHA = "ALPHA"
 BETA = "BETA"
 
-# feature -> (default, maturity)
+# feature -> (default, maturity): the JAX package's gate set, names,
+# defaults and maturities alike, so its component configs load here
 KNOWN_FEATURES: dict[str, tuple[bool, str]] = {
-    # accepted so configs that set it load.  It gates nothing in the
-    # scheduler, as in the JAX package (there only admission and the
-    # PriorityClass kind read it): preemption reads spec.priority whatever
-    # the gate says
+    # gates nothing in the scheduler, as in the JAX package (there only
+    # admission and the PriorityClass kind read it): preemption reads
+    # spec.priority whatever the gate says
     "PodPriority": (True, BETA),
-    "BatchScheduling": (True, BETA),  # the batch backend itself
+    # gates nothing until the controller manager is ported (the JAX one
+    # reads it to start the taint manager)
+    "TaintBasedEvictions": (False, ALPHA),
+    # gates nothing, as in the JAX package (no module there reads it)
+    "PodPreset": (True, ALPHA),
+    # the batch backend itself; "TPUBatchScheduling" (the JAX name) is the
+    # same gate, stored once
+    "BatchScheduling": (True, BETA),
+    # the fused kernel against the JAX package's XLA-scan rung.  The port
+    # has no such rung (no kernel -> plain-version ladder): off is refused
+    # on the card by the scheduler daemon and changes nothing on the CPU
+    "PallasKernels": (True, BETA),
+    # K steps unrolled a kernel loop iteration in the JAX package (the
+    # same bindings); the variant is not ported, so it gates nothing
+    "PallasSuperSteps": (False, ALPHA),
+    # gate nothing, as in the JAX package (no module there reads them)
+    "DynamicKindRegistration": (True, BETA),
+    "ExperimentalCriticalPodAnnotation": (False, ALPHA),
+    # gates nothing until the kubelet is ported (the JAX hollow kubelet
+    # reads it)
+    "DynamicKubeletConfig": (False, ALPHA),
 }
+
+# another name for a gate: the JAX package's name for the batch backend
+ALIASES: dict[str, str] = {"TPUBatchScheduling": "BatchScheduling"}
+
+
+def canonical(feature: str) -> str:
+    """The gate's stored name; ``KeyError`` for a name no gate has."""
+    name = ALIASES.get(feature, feature)
+    if name not in KNOWN_FEATURES:
+        raise KeyError(f"unknown feature gate {feature!r}")
+    return name
 
 
 class FeatureGates:
@@ -36,17 +69,16 @@ class FeatureGates:
 
     def enabled(self, feature: str) -> bool:
         with self._mu:
-            if feature not in self._enabled:
-                raise KeyError(f"unknown feature gate {feature!r}")
-            return self._enabled[feature]
+            return self._enabled[canonical(feature)]
 
     def set_from_map(self, overrides: dict[str, bool]) -> None:
+        unknown = sorted(k for k in overrides
+                         if ALIASES.get(k, k) not in KNOWN_FEATURES)
+        if unknown:
+            raise KeyError(f"unknown feature gate(s) {unknown}")
         with self._mu:
-            unknown = sorted(set(overrides) - set(self._enabled))
-            if unknown:
-                raise KeyError(f"unknown feature gate(s) {unknown}")
             for k, v in overrides.items():
-                self._enabled[k] = bool(v)
+                self._enabled[canonical(k)] = bool(v)
 
     def set_from_string(self, spec: str) -> None:
         """``--feature-gates=A=true,B=false`` (the flag's wire format)."""

@@ -12,6 +12,7 @@ toleration-bearing pods for tainted capacity.
 from __future__ import annotations
 
 import random
+from typing import Optional
 
 from .api import (
     Affinity,
@@ -321,7 +322,7 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
 def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
                    waves: int = 10, workload: str = "mixed", seed: int = 0,
                    wave_deadline_s: float = 60.0, on_wave=None, crash=None,
-                   before_wave=None) -> dict:
+                   before_wave=None, kubeconfig: Optional[str] = None) -> dict:
     """The client side of a daemon run: the churn preset driven over the
     wire against the apiserver at ``url``, served by whatever scheduler
     watches it (``python -m kubernetes_tpu_torch.scheduler``).
@@ -334,7 +335,8 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
     bound and unbound counts of the final LIST, the wall seconds of the
     waves and pods/s, the client-observed create→bind p50 and p99 in ms,
     each wave's seconds (and of it the ``create_many`` call's seconds,
-    and the wave's create→bind p99) and the final binding map.
+    and the wave's create→bind p99), the final binding map and each wave's
+    pod keys in creation order.
     ``before_wave(w)`` and ``on_wave(w)``, when given, are called before
     wave ``w`` and after it settled (outside the timed waves).
 
@@ -343,13 +345,18 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
     timed wave): the crash drill's LIST, kill and restart of the
     apiserver.  Its return value is the result's ``crash``, with
     ``pending_at_crash``, the wave's pods not yet bound as this client saw
-    it when the drill began."""
+    it when the drill began.
+
+    ``kubeconfig``: connect as that document says (its CA pin and client
+    certificate; ``url`` overrides its server), as ``daemon
+    .remote_clientset`` does."""
     import threading
     import time
 
-    from .client import Clientset, Handler, InformerFactory, RemoteStore
+    from .client import Handler, InformerFactory
+    from .daemon import remote_clientset
 
-    cs = Clientset(RemoteStore(url, timeout=120.0))
+    cs = remote_clientset(url, kubeconfig=kubeconfig, timeout=120.0)
     pods = create_cluster(cs, n_nodes, total_pods, workload, seed)
     cv = threading.Condition()
     created_at: dict[str, float] = {}
@@ -441,6 +448,10 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
         "create_to_bind_ms": {"p50": pct(0.5), "p99": pct(0.99)},
         "wave_s": wave_s, "create_s": create_s, "wave_c2b_p99_ms": wave_p99_ms,
         "assignments": assignments,
+        # each wave's pod keys in creation order: the per-wave oracle
+        # replay's drain batches
+        "wave_keys": [[p.meta.key for p in pods[w * per_wave:(w + 1) * per_wave]]
+                      for w in range(waves)],
         "crash": crashed if crash is not None else None,
     }
 

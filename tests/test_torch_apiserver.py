@@ -1,9 +1,13 @@
 """The port's apiserver core and wire client (``kubernetes_tpu_torch.
 apiserver`` + ``client/remote.py``) against the JAX package's, on the CPU.
 
-Twins of ``tests/test_apiserver.py`` (auth, PATCH, OpenAPI, late kinds and
-the kubelet field selector wait for their modules), plus a 410 on a
-compacted watch that ends in an informer relist.  Every case is one test
+Twins of ``tests/test_apiserver.py`` (PATCH, OpenAPI, late kinds and the
+kubelet field selector wait for their modules), plus a 410 on a
+compacted watch that ends in an informer relist, and TLS both ways
+between the packages: each package's client, with the test PKI's client
+certificate, against each package's TLS apiserver with a client CA (a
+list, a watch that resumes after the server ends its stream, a
+``bindings:batch``; the server's audit names the certificate's user).  Every case is one test
 parametrised over the four client x server pairings: port/port, the port
 client on the JAX server, the JAX client on the port server, and JAX/JAX.
 Each pairing's record must equal the JAX/JAX record with ``uid``,
@@ -613,3 +617,234 @@ def test_remote_watch_reconnects_from_its_last_revision():
     assert rs.metrics.watch_reconnects.value == 2 and rs.metrics.watch_errors.value == 2
     assert sleeps == [remote.BACKOFF_MIN_S, 2 * remote.BACKOFF_MIN_S]
     assert all("resourceVersion=0" in p for p in paths[:3])
+
+
+# -- TLS, both ways between the packages -------------------------------------
+
+
+def tls_pair(client: str, server: str):
+    """``server``'s apiserver over TLS with the test PKI's client CA, a
+    memory audit and ``AuthenticatedOrDiscovery``; a store of ``client``'s
+    package holding the admin client certificate."""
+    from kubernetes_tpu_torch.testing import pki as fixture
+
+    srv = importlib.import_module(f"{PKG[server]}.apiserver.server")
+    auth = importlib.import_module(f"{PKG[server]}.auth")
+    store = importlib.import_module(f"{PKG[server]}.store").Store()
+    auditor = auth.Auditor()
+    server_obj = srv.APIServer(
+        store, authenticator=auth.UnionAuthenticator(auth.BootstrapTokenAuthenticator(store),
+                                                     allow_anonymous=True),
+        authorizer=auth.AuthenticatedOrDiscovery(), auditor=auditor,
+        tls=srv.TLSConfig(*fixture.pair("apiserver"), client_ca=fixture.path("ca.crt")))
+    server_obj.start()
+    remote = importlib.import_module(f"{PKG[client]}.client.remote")
+    rs = remote.RemoteStore(server_obj.url, ca_file=fixture.path("ca.crt"),
+                            client_cert=fixture.path("admin.crt"),
+                            client_key=fixture.path("admin.key"))
+    return server_obj, auditor, rs
+
+
+def tls_scenario(client: str, server: str) -> dict:
+    server_obj, auditor, rs = tls_pair(client, server)
+    tu = importlib.import_module(f"{PKG[client]}.testutil")
+    try:
+        for n in ("n1", "n2"):
+            rs.create("Node", tu.make_node(n).to_dict())
+        rs.create_many("Pod", [tu.make_pod(f"p{i}", cpu="100m").to_dict() for i in range(3)])
+        pods, _ = rs.list("Pod")
+        w = rs.watch("Pod", from_revision=0)
+        try:
+            seen = [w.get(timeout=10) for _ in range(3)]
+            # the server ends each stream after 5 s: the next event arrives
+            # only through a resume from the last revision
+            time.sleep(6.0)
+            errors = rs.bind_many([("default", "p0", "n1"), ("default", "p1", "n2"),
+                                   ("default", "p9", "n1")])
+            seen += [w.get(timeout=10) for _ in range(2)]
+        finally:
+            w.stop()
+        bound = {p["metadata"]["name"]: p["spec"].get("nodeName") for p in rs.list("Pod")[0]}
+    finally:
+        server_obj.stop()
+    users = sorted({e.user for e in auditor.memory.events})
+    return {"scheme": server_obj.url.split(":")[0], "listed": [p["metadata"]["name"] for p in pods],
+            "events": [(e.type, e.key, (e.object.get("spec") or {}).get("nodeName"))
+                       for e in seen],
+            "revisions_increase": all(a.revision < b.revision for a, b in zip(seen, seen[1:])),
+            "errors": [e is None for e in errors], "bound": bound, "audit_users": users,
+            "verbs": sorted({(e.verb, e.resource) for e in auditor.memory.events
+                             if e.stage == "ResponseComplete"})}
+
+
+_TLS_REFERENCE: dict = {}
+
+
+@pytest.mark.timeout(90)
+def test_tls_both_ways_between_the_packages(pairing):
+    # the JAX/JAX record, run once a process (its own pairing reuses it)
+    if not _TLS_REFERENCE:
+        _TLS_REFERENCE["jj"] = tls_scenario("jax", "jax")
+    want = _TLS_REFERENCE["jj"]
+    got = want if tuple(pairing) == ("jax", "jax") else tls_scenario(*pairing)
+    # the request info of a batch bind is the port's own (ROADMAP.md kept
+    # divergence h): compare the rest of the audit's verbs
+    strip = {("create", "bindings:batch"), ("bind", "pods"), ("create", "pods:batch"),
+             ("create", "pods")}
+    assert {k: v for k, v in got.items() if k != "verbs"} == {
+        k: v for k, v in want.items() if k != "verbs"}
+    assert set(got["verbs"]) - strip == set(want["verbs"]) - strip
+    assert got["scheme"] == "https" and got["listed"] == ["p0", "p1", "p2"]
+    assert got["events"][3:] == [("MODIFIED", "default/p0", "n1"), ("MODIFIED", "default/p1", "n2")]
+    assert got["errors"] == [True, True, False] and got["audit_users"] == ["kubernetes-admin"]
+    if pairing[1] == "port":
+        assert ("bind", "pods") in got["verbs"] and ("create", "pods") in got["verbs"]
+
+
+@pytest.mark.timeout(60)
+def test_a_tls_watch_stops_at_once_and_a_refused_certificate_is_not_retried():
+    """``RemoteWatch.stop`` shuts an SSL stream's socket down and the reader
+    blocked in ``SSL_read`` returns at once.  A certificate the handshake
+    refuses (the server's, under the wrong pinned CA, or ours, from another
+    CA) fails the request on its first attempt: no retry can make it
+    verify.  The JAX client retries such a GET until its budget is spent
+    and fails a POST at once; the port fails both at once."""
+    from kubernetes_tpu.client import remote as jax_remote
+    from kubernetes_tpu_torch.client import remote
+    from kubernetes_tpu_torch.testing import pki as fixture
+
+    server_obj, _, rs = tls_pair("port", "port")
+    try:
+        w = rs.watch("Pod", from_revision=0)
+        deadline = time.monotonic() + 5
+        while w._stream is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.2)  # the reader is blocked in SSL_read
+        t = time.monotonic()
+        w.stop()
+        w._thread.join(timeout=2)
+        assert not w._thread.is_alive() and time.monotonic() - t < 1.0
+        refused = [
+            dict(ca_file=fixture.path("other/ca.crt"), client_cert=fixture.path("admin.crt"),
+                 client_key=fixture.path("admin.key")),
+            dict(ca_file=fixture.path("ca.crt"), client_cert=fixture.path("other/client.crt"),
+                 client_key=fixture.path("other/client.key"))]
+        for kw in refused:
+            for method in ("GET", "POST"):
+                sleeps = []
+                store = remote.RemoteStore(server_obj.url, sleep=sleeps.append, **kw)
+                with pytest.raises(OSError) as exc:
+                    if method == "GET":
+                        store.list("Pod")
+                    else:
+                        store.create("Node", {"kind": "Node", "metadata": {"name": "x"}})
+                assert remote.tls_refused(exc.value)
+                assert sleeps == [] and store.metrics.remote_retries.value == 0
+                assert store.metrics.remote_fatal.value == 1
+        jax = jax_remote.RemoteStore(server_obj.url, sleep=lambda s: None, **refused[0])
+        with pytest.raises(jax_remote.RetryExhaustedError):
+            jax.list("Pod")
+        assert jax.metrics.remote_retries.value == jax.max_retries
+    finally:
+        server_obj.stop()
+
+
+@pytest.mark.timeout(60)
+def test_a_client_certificate_refused_before_the_request_is_sent_reads_as_a_refusal():
+    """Under TLS 1.3 a client finishes its side of the handshake before the
+    server checks its certificate.  A client that sends its request only
+    after the server has refused it must still read the server's alert (a
+    refusal, never retried), not a dropped connection (retried): the server
+    lingers on a refused handshake until the client closes."""
+    import ssl
+
+    from kubernetes_tpu_torch.client import remote
+    from kubernetes_tpu_torch.testing import pki as fixture
+
+    server_obj, _, _ = tls_pair("port", "port")
+    ctx = ssl.create_default_context(cafile=fixture.path("ca.crt"))
+    ctx.load_cert_chain(fixture.path("other/client.crt"), fixture.path("other/client.key"))
+    try:
+        for _ in range(3):
+            with ctx.wrap_socket(socket.create_connection(("127.0.0.1", server_obj.port),
+                                                          timeout=10),
+                                 server_hostname="127.0.0.1") as conn:
+                time.sleep(0.3)  # the server has refused the certificate
+                with pytest.raises(OSError) as exc:
+                    conn.sendall(b"GET /api/v1/pods HTTP/1.1\r\nHost: x\r\n\r\n")
+                    conn.recv(1024)
+                assert remote.tls_refused(exc.value), repr(exc.value)
+    finally:
+        server_obj.stop()
+
+
+@pytest.mark.timeout(60)
+def test_a_kept_alive_connection_carries_no_identity_into_the_next_request():
+    """Each request on one kept-alive connection is authenticated on its
+    own: a token on the first does not make the second (no token) that
+    user, neither for the authorizer nor for the admission plugins
+    (``store.user``, thread-local on the handler's thread) nor the audit."""
+    import http.client
+
+    from kubernetes_tpu_torch.admission import AdmittedStore
+    from kubernetes_tpu_torch.admission.framework import AdmissionChain, AdmissionPlugin
+    from kubernetes_tpu_torch.apiserver import APIServer
+    from kubernetes_tpu_torch.auth import (
+        Auditor,
+        TokenFileAuthenticator,
+        UnionAuthenticator,
+    )
+
+    seen = []
+
+    class Record(AdmissionPlugin):
+        name = "Record"
+
+        def admit(self, attrs):
+            seen.append(attrs.user)
+
+    store = AdmittedStore(AdmissionChain([Record()]))
+    auditor = Auditor()
+    server = APIServer(store, authenticator=UnionAuthenticator(
+        TokenFileAuthenticator({"t": "alice"}), allow_anonymous=True), auditor=auditor)
+    server.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=10)
+    try:
+        codes = []
+        for i, token in enumerate(("t", None, "t", None)):
+            body = json.dumps({"kind": "Node", "metadata": {"name": f"n{i}"}})
+            headers = {"Content-Type": "application/json"}
+            if token:
+                headers["Authorization"] = f"Bearer {token}"
+            conn.request("POST", "/api/v1/nodes", body=body, headers=headers)
+            resp = conn.getresponse()
+            resp.read()
+            codes.append(resp.status)
+        sock = conn.sock  # one connection served all four
+    finally:
+        conn.close()
+        server.stop()
+    assert sock is not None and codes == [201] * 4
+    assert seen == ["alice", "system:anonymous", "alice", "system:anonymous"]
+    assert [e.user for e in auditor.memory.events if e.stage == "ResponseComplete"] == [
+        "alice", "system:anonymous", "alice", "system:anonymous"]
+
+
+@pytest.mark.timeout(60)
+def test_a_silent_tls_client_does_not_hold_the_accept_loop():
+    """The handshake runs in the connection's own thread: clients that
+    connect and send nothing hold their own threads, and everyone else is
+    served at once."""
+    server_obj, _, rs = tls_pair("port", "port")
+    silent = []
+    try:
+        for _ in range(3):
+            s = socket.create_connection(("127.0.0.1", server_obj.port), timeout=5)
+            silent.append(s)
+        t = time.monotonic()
+        items, _ = rs.list("Pod")
+        assert items == [] and time.monotonic() - t < 2.0
+    finally:
+        for s in silent:
+            s.close()
+        server_obj.stop()

@@ -19,10 +19,15 @@ wire, and the two entry points as real processes.
 - ``python -m kubernetes_tpu_torch.apiserver`` and ``python -m
   kubernetes_tpu_torch.scheduler --device cpu`` as processes: health,
   metrics, a 200-pod flood through ``workload.run_wire_churn``, exit 0 on
-  SIGTERM with the stats line; and the refusals (an auth or TLS flag;
-  ``--device cuda`` without a card).
+  SIGTERM with the stats line; and the refusals (an auth or TLS flag set
+  it cannot honour; ``--device cuda`` without a card).
+- The control plane as ``cluster init`` starts it: the apiserver with TLS,
+  a client CA and an audit log, the scheduler on ``--kubeconfig`` with
+  ``--device cpu``; its bindings equal the sequential oracle and the
+  audit names each identity.
 - The JAX daemon's configuration (``backend: "tpu"``,
-  ``policy_config_file``, ``--policy-config-file``) loads, and the oracle
+  ``policy_config_file``, ``--policy-config-file``, the JAX gate names)
+  loads, ``PallasKernels=false`` is refused on the card, and the oracle
   loop binds asynchronously on a preempting ``Scheduler``.
 """
 
@@ -37,6 +42,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import pytest
@@ -734,6 +740,170 @@ def test_daemon_processes_serve_a_flood_and_exit_cleanly(tmp_path):
                 proc.wait(timeout=10)
 
 
+@pytest.mark.timeout(240)
+def test_the_scheduler_daemon_on_a_kubeconfig_behind_tls(tmp_path):
+    """The control plane as ``cluster init`` starts it, on the CPU: the
+    apiserver at its defaults with ``--tls-cert-file``,
+    ``--tls-private-key-file``, ``--client-ca-file`` and ``--audit-log``
+    (the test PKI), and ``python -m kubernetes_tpu_torch.scheduler
+    --kubeconfig`` (written by the port's ``write_kubeconfig``) with
+    ``--device cpu``: it authenticates by its client certificate alone and
+    binds a seeded pre-created wave equal to the port's sequential oracle.
+    The audit log names the admin for the creates and the scheduler for
+    the binds and its lease; anonymous and malformed requests are refused."""
+    import ssl
+
+    from kubernetes_tpu_torch.daemon import remote_clientset
+    from kubernetes_tpu_torch.pki import write_kubeconfig
+    from kubernetes_tpu_torch.testing import pki as fixture
+
+    ap, hp = _free_port(), _free_port()
+    url = f"https://127.0.0.1:{ap}"
+    audit = tmp_path / "audit.jsonl"
+    ctx = ssl.create_default_context(cafile=fixture.path("ca.crt"))
+    kc = {name: write_kubeconfig(str(tmp_path), name, url, fixture.path("ca.crt"),
+                                 *fixture.pair(name)) for name in ("admin", "kube-scheduler")}
+    n_nodes, n_pods, seed = 60, 200, 6
+    procs = []
+    try:
+        apiserver = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.apiserver", "--port", str(ap),
+             "--tls-cert-file", fixture.path("apiserver.crt"), "--tls-private-key-file",
+             fixture.path("apiserver.key"), "--client-ca-file", fixture.path("ca.crt"),
+             "--audit-log", str(audit)], env=_env(), cwd=tmp_path,
+            stdout=open(tmp_path / "apiserver.out", "w"), stderr=subprocess.STDOUT)
+        procs.append(apiserver)
+        deadline = time.time() + 60
+        while True:
+            assert apiserver.poll() is None, (tmp_path / "apiserver.out").read_text()
+            try:
+                with urllib.request.urlopen(url + "/healthz", timeout=2, context=ctx) as r:
+                    assert json.loads(r.read())["status"] == "ok"  # anonymous may ask
+                break
+            except OSError:
+                assert time.time() < deadline
+                time.sleep(0.1)
+
+        def code(path, token=None):
+            req = urllib.request.Request(url + path)
+            if token:
+                req.add_header("Authorization", f"Bearer {token}")
+            try:
+                with urllib.request.urlopen(req, timeout=10, context=ctx) as r:
+                    return r.status
+            except urllib.error.HTTPError as e:
+                return e.code
+
+        assert code("/api/v1/pods") == 403 and code("/api/v1/pods", "not.a.token") == 401
+        assert code("/api/v1/configmaps?namespace=kube-public") == 200
+
+        cs = remote_clientset(kubeconfig=kc["admin"], timeout=60.0)
+        pods = workload.create_cluster(cs, n_nodes, n_pods, "mixed", seed)
+        assert all(x is not None for x in cs.pods.create_many(pods))
+        sched_out = tmp_path / "scheduler.out"
+        scheduler = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.scheduler", "--kubeconfig",
+             kc["kube-scheduler"], "--leader-elect", "--device", "cpu",
+             "--healthz-port", str(hp)], env=_env(), cwd=tmp_path,
+            stdout=open(sched_out, "w"), stderr=open(tmp_path / "scheduler.err", "w"))
+        procs.append(scheduler)
+        deadline = time.time() + 120
+        while True:
+            items, _ = cs.store.list("Pod")
+            got = {f"default/{i['metadata']['name']}": i["spec"].get("nodeName") or None
+                   for i in items}
+            if all(got.values()):
+                break
+            assert scheduler.poll() is None, (tmp_path / "scheduler.err").read_text()[-3000:]
+            assert time.time() < deadline, "the wave did not bind"
+            time.sleep(0.2)
+        assert _terminate(scheduler) == 0
+        stats = [json.loads(line)["scheduler_stats"] for line in
+                 sched_out.read_text().splitlines() if line.startswith('{"scheduler_stats"')][0]
+        assert _terminate(apiserver) == 0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    o = workload.oracle_replay_waves([sorted(got)], got, n_nodes, n_pods, "mixed", seed)
+    assert (o["checked"], o["mismatches"]) == (n_pods, 0)
+    assert stats["round_robin"] == o["round_robin"] and stats["drained"] == n_pods
+    records = [json.loads(line) for line in audit.read_text().splitlines()]
+    by = {}
+    for r in records:
+        if r["stage"] == "ResponseComplete" and r["code"] < 400:
+            by.setdefault((r["verb"], r["resource"]), set()).add(r["user"])
+    assert by[("create", "pods")] == {"kubernetes-admin"}
+    assert by[("bind", "pods")] == {"system:kube-scheduler"}
+    lease = {r["user"] for r in records if r["resource"] == "events"
+             and r["namespace"] == "kube-system" and r["name"] == "kube-scheduler"}
+    assert lease == {"system:kube-scheduler"}
+    assert "apiserver serving on https://" in (tmp_path / "apiserver.out").read_text()
+
+
+@pytest.mark.timeout(120)
+def test_the_apiserver_wires_its_token_file_and_authorization_mode(tmp_path):
+    """``--token-file`` alone authenticates its tokens and nothing else
+    (401 without one); ``--authorization-mode RBAC`` grants nothing of its
+    own (403 until a binding exists), and the grants seeded into
+    ``--data-dir`` by ``Store`` authorize; ``AlwaysAllow`` allows."""
+    from kubernetes_tpu_torch.api import (
+        ClusterRole,
+        ClusterRoleBinding,
+        ObjectMeta,
+        PolicyRule,
+        Subject,
+    )
+
+    tokens = tmp_path / "tokens.csv"
+    tokens.write_text("# token,user,groups\nt-alice,alice,dev|ops\nt-bob,bob\n")
+    data = tmp_path / "data"
+    seeded = Store(data_dir=str(data))
+    seeded.create("ClusterRole", ClusterRole(meta=ObjectMeta(name="reader"), rules=[
+        PolicyRule(verbs=["list"], resources=["pods"])]).to_dict())
+    seeded.create("ClusterRoleBinding", ClusterRoleBinding(
+        meta=ObjectMeta(name="devs-read"), role_name="reader",
+        subjects=[Subject(kind="Group", name="dev")]).to_dict())
+    seeded.close()
+
+    def codes(*flags):
+        port = _free_port()
+        proc = subprocess.Popen([sys.executable, "-m", "kubernetes_tpu_torch.apiserver",
+                                 "--port", str(port), "--token-file", str(tokens), *flags],
+                                env=_env(), cwd=tmp_path, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+
+        def code(token):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v1/pods")
+            if token:
+                req.add_header("Authorization", f"Bearer {token}")
+            try:
+                with urllib.request.urlopen(req, timeout=5) as r:
+                    return r.status
+            except urllib.error.HTTPError as e:
+                return e.code
+
+        try:
+            deadline = time.time() + 60
+            while True:
+                assert proc.poll() is None
+                try:
+                    return [code(t) for t in (None, "t-wrong", "t-alice", "t-bob")]
+                except OSError:
+                    assert time.time() < deadline
+                    time.sleep(0.1)
+        finally:
+            _terminate(proc)
+
+    assert codes() == [401, 401, 200, 200]
+    assert codes("--authorization-mode", "AlwaysAllow") == [401, 401, 200, 200]
+    assert codes("--authorization-mode", "RBAC") == [401, 401, 403, 403]
+    # the seeded grant: alice is in group dev (the token file's third column)
+    assert codes("--authorization-mode", "RBAC", "--data-dir", str(data)) == [401, 401, 200,
+                                                                               403]
+
+
 def _metric(text: str, name: str) -> float:
     return sum(float(ln.split()[-1]) for ln in text.splitlines()
                if ln.startswith(name) and not ln.startswith("#"))
@@ -814,17 +984,19 @@ def test_durable_admitted_apiserver_survives_a_sigkill_under_the_daemon(tmp_path
 
 @pytest.mark.timeout(120)
 def test_entry_points_refuse_without_admission_or_card(tmp_path):
-    """The apiserver never serves as if it had authenticated anyone: each
-    auth, audit or TLS flag of the JAX entry point makes it exit non-zero,
-    naming ROADMAP.md.  The scheduler with its default ``--device cuda``
-    exits before it takes the lease where there is no card (hidden from it
-    here on any host)."""
-    for flag, value in (("--token-file", "tokens.csv"), ("--authorization-mode", "RBAC"),
-                        ("--tls-cert-file", "c.pem")):
+    """The apiserver never serves under an auth configuration it cannot
+    honour: a TLS certificate without its key, a client CA without TLS or
+    an unknown authorization mode makes it exit 2 (``ap.error``, as the JAX
+    entry point does) before it serves.  The scheduler with its default
+    ``--device cuda`` exits before it takes the lease where there is no
+    card (hidden from it here on any host)."""
+    for args, says in ((("--tls-cert-file", "c.pem"), "go together"),
+                       (("--client-ca-file", "ca.crt"), "requires --tls-cert-file"),
+                       (("--authorization-mode", "Webhook"), "invalid choice")):
         out = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.apiserver",
-                              "--port", str(_free_port()), flag, value], env=_env(),
+                              "--port", str(_free_port()), *args], env=_env(),
                              cwd=tmp_path, capture_output=True, text=True, timeout=60)
-        assert out.returncode != 0 and "ROADMAP.md" in out.stderr and flag in out.stderr
+        assert out.returncode == 2 and says in out.stderr and args[0] in out.stderr
         assert "serving on" not in out.stdout
     server = APIServer(Store())
     server.start()
@@ -853,8 +1025,10 @@ def test_hyperkube_multiplexer():
 
     assert set(COMPONENTS) == {"apiserver", "kube-apiserver", "scheduler", "kube-scheduler"}
     assert main(["--help"]) == 0 and main([]) == 2 and main(["kubelet"]) == 2
-    # an auth flag is refused before anything serves
-    assert main(["apiserver", "--port", "0", "--audit-log", "audit.jsonl"]) == 2
+    # an auth flag it cannot honour is refused before anything serves
+    with pytest.raises(SystemExit) as exc:
+        main(["apiserver", "--port", "0", "--client-ca-file", "ca.crt"])
+    assert exc.value.code == 2
 
 
 # -- feature gates and component config -------------------------------------
@@ -868,8 +1042,21 @@ def test_feature_gates_and_config_layering(tmp_path, monkeypatch):
     assert gates.enabled("PodPriority") and gates.enabled("BatchScheduling")
     gates.set_from_string("BatchScheduling=false, PodPriority=true")
     assert not gates.enabled("BatchScheduling")
+    # the JAX package's gate names load with the JAX defaults, and its
+    # name for the batch gate is the same gate
+    from kubernetes_tpu.utils.features import KNOWN_FEATURES as JAX_FEATURES
+
+    fresh = FeatureGates()
+    assert {name: fresh.enabled(name) for name in JAX_FEATURES} == {
+        name: default for name, (default, _) in JAX_FEATURES.items()}
+    assert {name: features.KNOWN_FEATURES[features.canonical(name)][1]
+            for name in JAX_FEATURES} == {name: m for name, (_, m) in JAX_FEATURES.items()}
+    fresh.set_from_string("TPUBatchScheduling=false,PallasKernels=true")
+    assert not fresh.enabled("BatchScheduling") and not fresh.enabled("TPUBatchScheduling")
+    fresh.set_from_map({"BatchScheduling": True})
+    assert fresh.enabled("TPUBatchScheduling")
     with pytest.raises(KeyError):
-        gates.set_from_string("PallasKernels=true")  # the port has no Pallas gates
+        gates.set_from_string("Bogus=true")
     with pytest.raises(ValueError):
         gates.set_from_string("PodPriority=maybe")
 
@@ -914,6 +1101,54 @@ def test_the_jax_daemons_configuration_and_flags_load(tmp_path, monkeypatch):
     args = sched_main._parse(base + ["--backend", "tpu"])
     assert (args.backend, args.policy_config_file) == ("batch", "")
     assert SchedulerConfiguration().policy_config_file == ""
+
+
+def test_the_jax_schedulers_gates_load_and_the_xla_rung_is_refused(tmp_path, monkeypatch,
+                                                                   capsys):
+    """The JAX scheduler's own config file (backend ``tpu``, its gate
+    names) goes through the port's ``_parse``; ``PallasKernels=false`` asks
+    for the JAX XLA-scan rung, which the port does not have: on
+    ``--device cuda`` it exits 2 naming the no-ladder rule, on ``--device
+    cpu`` it loads and changes nothing.  A bad gate string exits 2, not a
+    traceback."""
+    from kubernetes_tpu.utils.features import SchedulerConfiguration as JaxConfig
+    from kubernetes_tpu_torch.scheduler import __main__ as sched_main
+    from kubernetes_tpu_torch.utils import features
+
+    def fresh():
+        gates = FeatureGates()
+        monkeypatch.setattr(features, "DEFAULT_FEATURE_GATES", gates)
+        monkeypatch.setattr(sched_main, "DEFAULT_FEATURE_GATES", gates)
+        return gates
+
+    doc = {"backend": "tpu", "feature_gates": {"TPUBatchScheduling": True,
+                                               "PallasKernels": True}}
+    JaxConfig(**doc)  # the JAX package's own config class takes it
+    cfg = tmp_path / "jax-sched.json"
+    cfg.write_text(json.dumps(doc))
+    base = ["--apiserver", "http://127.0.0.1:1", "--config", str(cfg)]
+    for device in ("cuda", "cpu"):
+        gates = fresh()
+        args = sched_main._parse(base + ["--device", device])
+        assert args.backend == "batch" and gates.enabled("BatchScheduling")
+    gates = fresh()
+    args = sched_main._parse(base + ["--device", "cpu", "--feature-gates", "PallasKernels=false"])
+    assert args.device == "cpu" and not gates.enabled("PallasKernels")
+    fresh()
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exc:
+        sched_main._parse(base + ["--feature-gates", "PallasKernels=false"])
+    err = capsys.readouterr().err
+    assert exc.value.code == 2 and "no kernel-to-plain-version ladder" in err
+    for bad in ("Bogus=true", "PodPriority=maybe", "PodPriority"):
+        fresh()
+        with pytest.raises(SystemExit) as exc:
+            sched_main._parse(["--apiserver", "http://127.0.0.1:1", "--feature-gates", bad])
+        assert exc.value.code == 2 and "feature gates" in capsys.readouterr().err
+    fresh()
+    with pytest.raises(SystemExit) as exc:
+        sched_main._parse(["--device", "cpu"])  # neither --apiserver nor --kubeconfig
+    assert exc.value.code == 2
 
 
 @pytest.mark.timeout(120)

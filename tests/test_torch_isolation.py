@@ -1,7 +1,10 @@
 """The port stands alone: no module of ``kubernetes_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of the JAX package or names one
 of its modules (as a process to start, say), and importing every module
-of the port leaves both out of ``sys.modules``."""
+of the port leaves both out of ``sys.modules``.  Neither needs
+``cryptography``: only the functions that mint certificates or verify a
+PEM header or an RS256 token import it, inside the call, as the JAX
+package's do."""
 
 import ast
 import os
@@ -47,6 +50,27 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports or starts {bad}"
 
 
+def _top_level_imports(tree) -> set:
+    """Modules imported outside any function: what importing the file needs."""
+    names = set()
+    for node in tree.body:
+        for sub in ast.walk(node):
+            if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                break
+            if isinstance(sub, ast.Import):
+                names |= {a.name.split(".")[0] for a in sub.names}
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0 and sub.module:
+                names.add(sub.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("path", list(_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_module_level_cryptography_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    assert "cryptography" not in _top_level_imports(tree), os.path.relpath(path, ROOT)
+
+
 def _module_names():
     for path in _sources():
         rel = os.path.relpath(path, ROOT)
@@ -80,12 +104,18 @@ def test_import_leaves_jax_and_reference_unloaded():
             "kubernetes_tpu_torch.testing.slo", "kubernetes_tpu_torch.utils.tracing",
             "kubernetes_tpu_torch.utils.timeseries", "kubernetes_tpu_torch.utils.slo",
             "kubernetes_tpu_torch.utils.fanout", "kubernetes_tpu_torch.utils.telemetry",
-            "kubernetes_tpu_torch.utils.overload"} <= set(mods)
+            "kubernetes_tpu_torch.utils.overload",
+            # auth, PKI, TLS and the test PKI
+            "kubernetes_tpu_torch.auth", "kubernetes_tpu_torch.auth.authn",
+            "kubernetes_tpu_torch.auth.authz", "kubernetes_tpu_torch.auth.audit",
+            "kubernetes_tpu_torch.api.rbac", "kubernetes_tpu_torch.pki",
+            "kubernetes_tpu_torch.testing.pki", "kubernetes_tpu_torch.testing.pki.mint"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'kubernetes_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'kubernetes_tpu', 'cryptography')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

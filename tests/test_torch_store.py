@@ -518,13 +518,16 @@ def test_registry_and_scopes_match_reference():
     for kind in port_types.KINDS:
         assert port_types.KIND_PLURALS[kind] == jax_types.KIND_PLURALS[kind]
         assert (kind in port_types.CLUSTER_SCOPED_KINDS) == (kind in jax_types.CLUSTER_SCOPED_KINDS)
-    # the scheduler's kinds, and since the admission slice the kinds the
-    # default chain reads (api/cluster.py)
+    # the scheduler's kinds, since the admission slice the kinds the
+    # default chain reads (api/cluster.py), and since the auth slice the
+    # RBAC kinds (api/rbac.py) and ConfigMap (the kube-public discovery
+    # document)
     assert set(port_types.KINDS) == {"Pod", "Node", "Service", "ReplicaSet", "Event",
                                      "PersistentVolume", "PersistentVolumeClaim",
                                      "Namespace", "Secret", "ServiceAccount", "ResourceQuota",
                                      "LimitRange", "PodPreset", "StorageClass", "PriorityClass",
-                                     "PodSecurityPolicy", "NetworkPolicy"}
+                                     "PodSecurityPolicy", "NetworkPolicy", "ConfigMap", "Role",
+                                     "ClusterRole", "RoleBinding", "ClusterRoleBinding"}
 
 
 def _store_history(pkg):
