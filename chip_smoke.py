@@ -158,7 +158,32 @@ Phases, one line each:
    mode over HTTP (``--token-file``, ``--authorization-mode RBAC``, the
    grants seeded into ``--data-dir`` by ``Store``): 1000 nodes x 2000
    pods in 4 waves, bindings and rr equal to the sequential oracle wave
-   by wave, a token with no binding gets 403 on create.
+   by wave, a token with no binding gets 403 on create;
+13. a node drain under the card's scheduler: (a) the apiserver at its
+   defaults, the scheduler daemon with ``--leader-elect`` at its defaults
+   started once the cluster exists; 5000 nodes x 20 000 ``mixed`` pods
+   (seed 7) in 10 waves, all bound; one PodDisruptionBudget an ``app``
+   label, its ``status.disruptionsAllowed`` written by the script (a
+   quarter of the app's pods on the drained nodes, half for ``db``, none
+   for ``lonely``); ``node-00000``..``node-00499`` cordoned by one
+   strategic-merge PATCH each (every node reads back with only
+   ``spec.unschedulable`` changed); every pod on them evicted through
+   ``pods/{name}/eviction`` from 8 threads (the 201s equal the budgets'
+   sum, the 429s the rest, every budget ends at 0); a replacement for each
+   evicted pod in one ``:batch`` POST over ``RemoteStore(binary=True)``;
+   the daemon binds them all, none on a cordoned node, no node over
+   capacity, equal to the port's sequential oracle with rr over the cluster
+   as read back before the wave (run in a process of its own beside the
+   rest of the phase); the wave's uploaded-column share from the daemon's
+   /metrics and its ``DeviceNodeCache`` stats (a diff, not a full upload);
+   the uncordon by JSON patch; PATCHes/s, evictions/s, the wave's pods/s
+   and create->bind p50/p99, both kernels' launches as the daemon counted
+   them (each > 0); (b) on the same server, ``/openapi/v2`` with a path for
+   each of the registry's kinds (the JAX package's 34), an
+   ``apps/v1beta1`` Deployment read back in hub form with its 25% surge
+   resolved, a binary LIST of the 20 000 pods equal to the JSON LIST (both
+   byte counts printed), and ``/apis/<group>`` proxied to a sample backend
+   on loopback that an APIService names (an unregistered group 404).
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -186,6 +211,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor-core
 # 32-bit rate that the scan's integer ALU work runs at
@@ -2456,7 +2482,8 @@ def rbac_mode(workdir: str) -> tuple[int, int]:
         # the scheduler starts once the nodes and services exist, so its
         # informers hold them before the first wave: a pod drained before
         # its nodes reach the Node informer (another watch stream) fails,
-        # backs off and binds later, out of the oracle's order
+        # backs off and binds later, out of the oracle's order, as the JAX
+        # scheduler's does (ROADMAP Queue 3 item 8, a kept divergence)
         r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=seed, kubeconfig=load,
                            before_wave=lambda w: w == 0 and d.start_scheduler())
         st = d.stop_scheduler()
@@ -2493,6 +2520,389 @@ def auth_phase(pps_6a: float) -> tuple[int, int]:
     print(f"phase 12 took {t2 - t0:.1f} s: 12a-12b {t1 - t0:.1f}, 12c {t2 - t1:.1f}; launches "
           f"{la} + {lc} fused, {ra} + {rc} refresh", flush=True)
     return la + lc, ra + rc
+
+
+# -- phase 13: a node drain under the card's scheduler -------------------------
+
+# the kinds of the JAX package's registry (its api package, without the
+# federation group's Cluster): the port's registry must hold the same
+JAX_KINDS = frozenset({
+    "APIService", "CertificateSigningRequest", "ClusterRole", "ClusterRoleBinding",
+    "ConfigMap", "CronJob", "CustomResourceDefinition", "DaemonSet", "Deployment", "Endpoints",
+    "Event", "HorizontalPodAutoscaler", "Job", "LimitRange", "Namespace", "NetworkPolicy",
+    "Node", "PersistentVolume", "PersistentVolumeClaim", "Pod", "PodDisruptionBudget",
+    "PodPreset", "PodSecurityPolicy", "PriorityClass", "ReplicaSet", "ReplicationController",
+    "ResourceQuota", "Role", "RoleBinding", "Secret", "Service", "ServiceAccount",
+    "StatefulSet", "StorageClass"})
+# each app's disruption budget as a divisor of its pods on the drained
+# nodes (0: no disruption allowed); the sum is the number of evictions
+# that must succeed, the rest must answer 429
+DRAIN_DIVISORS = {"web": 4, "api": 4, "db": 2, "batch": 4, "lonely": 0}
+UPLOAD_FRACTION = "scheduler_tensorize_upload_fraction"
+
+
+def quantiles_ms(seconds: list) -> tuple[float, float]:
+    xs = sorted(seconds)
+    return tuple(xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3 for q in (0.5, 0.99))
+
+
+def evict_all(url: str, names: list, threads: int = 8) -> tuple[dict, float]:
+    """``POST .../pods/{name}/eviction`` for every name, from ``threads``
+    threads; returns each name's status code and the seconds taken."""
+    codes: dict = {}
+    mu = threading.Lock()
+
+    def worker(mine: list) -> None:
+        for name in mine:
+            req = urllib.request.Request(
+                f"{url}/api/v1/namespaces/default/pods/{name}/eviction", data=b"{}",
+                method="POST", headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    r.read()
+                    code = r.status
+            except urllib.error.HTTPError as e:
+                e.read()
+                code = e.code
+            with mu:
+                codes[name] = code
+
+    t = time.perf_counter()
+    pool = [threading.Thread(target=worker, args=(names[i::threads],)) for i in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    return codes, time.perf_counter() - t
+
+
+def replacement_of(pod: dict) -> dict:
+    """The pod the ReplicaSet controller would create for an evicted one: a
+    new name, the same labels and spec, no node."""
+    meta = pod["metadata"]
+    return {"kind": "Pod",
+            "metadata": {"name": meta["name"] + "-r", "namespace": meta["namespace"],
+                         "labels": dict(meta.get("labels") or {})},
+            "spec": {k: v for k, v in pod["spec"].items() if k != "nodeName"},
+            "status": dict(pod.get("status") or {})}
+
+
+def node_drain(d: "Daemons", oracle_pool) -> dict:
+    """Phase 13a on ``d``'s apiserver at its defaults.  Returns the run's
+    figures, the daemon's stats and the oracle's future."""
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.workload import (
+        oracle_replay_state,
+        overcommitted_nodes,
+        run_wire_churn,
+    )
+
+    n_nodes, n_pods, waves, seed = 5000, 20000, 10, 7
+    cordoned = [f"node-{i:05d}" for i in range(n_nodes // 10)]
+    # the scheduler starts once the cluster exists (ROADMAP Queue 3 item 8:
+    # started before it, it binds the first wave out of the oracle's order,
+    # as the JAX scheduler does)
+    t_start = time.perf_counter()
+    r = run_wire_churn(d.url, n_nodes, n_pods, waves, "mixed", seed=seed,
+                       before_wave=lambda w: w == 0 and d.start_scheduler())
+    if r["bound"] != n_pods:
+        raise AssertionError(f"phase 13a: {r['bound']} of {n_pods} bound before the drain")
+    out = {"waves_pps": r["pods_per_sec"], "shape": f"{n_nodes}x{n_pods} mixed in {waves} waves"}
+    rs = RemoteStore(d.url, timeout=120.0)
+    pods, _ = rs.list("Pod")
+    drained_set = set(cordoned)
+    drained = sorted((p for p in pods if p["spec"].get("nodeName") in drained_set),
+                     key=lambda p: p["metadata"]["name"])
+    by_app: dict = {}
+    for p in drained:
+        app = p["metadata"]["labels"]["app"]
+        by_app[app] = by_app.get(app, 0) + 1
+    budgets = {app: by_app.get(app, 0) // div if div else 0
+               for app, div in DRAIN_DIVISORS.items()}
+    # the script stands in for the disruption controller: it writes status
+    for app, budget in budgets.items():
+        rs.create("PodDisruptionBudget", {
+            "kind": "PodDisruptionBudget",
+            "metadata": {"name": f"{app}-pdb", "namespace": "default"},
+            "spec": {"minAvailable": by_app.get(app, 0) - budget,
+                     "selector": {"matchLabels": {"app": app}}},
+            "status": {"disruptionsAllowed": budget}})
+    read = {p["metadata"]["name"]: p["status"]["disruptionsAllowed"]
+            for p in rs.list("PodDisruptionBudget", "default")[0]}
+    if read != {f"{a}-pdb": b for a, b in budgets.items()}:
+        raise AssertionError(f"phase 13a: the budgets read back {read}, written {budgets}")
+
+    # cordon a tenth of the fleet, one strategic-merge PATCH a node
+    before = {n["metadata"]["name"]: n for n in rs.list("Node")[0]}
+    t = time.perf_counter()
+    for name in cordoned:
+        rs.patch("Node", "", name, {"spec": {"unschedulable": True}}, patch_type="strategic")
+    out["patch_s"] = time.perf_counter() - t
+    after = {n["metadata"]["name"]: n for n in rs.list("Node")[0]}
+
+    def rest(n: dict) -> dict:
+        meta = {k: v for k, v in n["metadata"].items() if k != "resourceVersion"}
+        spec = {k: v for k, v in n["spec"].items() if k != "unschedulable"}
+        return {**n, "metadata": meta, "spec": spec}
+
+    bad = [name for name, n in after.items()
+           if bool(n["spec"].get("unschedulable")) != (name in drained_set)
+           or rest(n) != rest(before[name])]
+    if bad or len(after) != n_nodes:
+        raise AssertionError(f"phase 13a: {len(bad)} nodes read back wrong after the cordon, "
+                             f"e.g. {bad[:3]}")
+
+    # evict every pod bound to the cordoned nodes
+    codes, out["evict_s"] = evict_all(d.url, [p["metadata"]["name"] for p in drained])
+    n201 = sum(1 for c in codes.values() if c == 201)
+    n429 = sum(1 for c in codes.values() if c == 429)
+    want201 = sum(budgets.values())
+    left = {p["metadata"]["name"]: p["status"]["disruptionsAllowed"]
+            for p in rs.list("PodDisruptionBudget", "default")[0]}
+    out.update(cordoned=len(cordoned), drained=len(drained), evicted=n201, refused=n429,
+               budgets=budgets, by_app=by_app)
+    if n201 != want201 or n429 != len(drained) - want201 or any(v != 0 for v in left.values()):
+        raise AssertionError(f"phase 13a: {n201} evictions (want {want201}), {n429} refused "
+                             f"(want {len(drained) - want201}), budgets left {left}, other "
+                             f"codes {sorted(set(codes.values()) - {201, 429})}")
+
+    # the cluster as read back before the replacement wave, for the oracle
+    evicted = [p for p in drained if codes[p["metadata"]["name"]] == 201]
+    replacements = [replacement_of(p) for p in evicted]
+    state = {"Node": rs.list("Node")[0], "Service": rs.list("Service")[0]}
+    state["Pod"], rev = rs.list("Pod")
+    if len(state["Pod"]) != n_pods - n201:
+        raise AssertionError("phase 13a: the evicted pods are not gone")
+    # every pod bound once: the tie-break counter stands at the pods bound
+    oracle = oracle_pool.submit(oracle_replay_state, state, replacements, n_pods)
+
+    # the replacement wave: one :batch POST in the binary wire form
+    text = d.metrics_text()
+    frac0 = (metric_value(text, UPLOAD_FRACTION + "_sum"),
+             metric_value(text, UPLOAD_FRACTION + "_count"))
+    keys = {f"default/{p['metadata']['name']}" for p in replacements}
+    watch = rs.watch("Pod", from_revision=rev)
+    bound_at: dict = {}
+    try:
+        t_create = time.perf_counter()
+        created = RemoteStore(d.url, timeout=120.0, binary=True).create_many("Pod", replacements)
+        if len(created) != len(replacements) or any(c is None for c in created):
+            raise AssertionError("phase 13a: a replacement's create failed")
+        deadline = time.monotonic() + 60
+        while len(bound_at) < len(keys):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 13a: {len(keys) - len(bound_at)} replacements "
+                                   "unbound after 60 s")
+            ev = watch.get(timeout=1.0)
+            if ev is None or ev.key not in keys or ev.key in bound_at:
+                continue
+            node = ((ev.object or {}).get("spec") or {}).get("nodeName")
+            if node:
+                bound_at[ev.key] = (time.perf_counter() - t_create, node)
+    finally:
+        watch.stop()
+    text = d.metrics_text()
+    waves_up = metric_value(text, UPLOAD_FRACTION + "_count") - frac0[1]
+    out["upload_fraction"] = ((metric_value(text, UPLOAD_FRACTION + "_sum") - frac0[0])
+                              / waves_up if waves_up else None)
+    out["wall_s"] = time.perf_counter() - t_start
+    lat = [s for s, _ in bound_at.values()]
+    out["wave_pps"] = len(lat) / max(lat)
+    out["c2b_ms"] = quantiles_ms(lat)
+    out["replacements"] = len(replacements)
+    got = {k: node for k, (_, node) in bound_at.items()}
+    on_cordoned = sorted(k for k, n in got.items() if n in drained_set)
+    pods_now, _ = rs.list("Pod")
+    over = overcommitted_nodes(pods_now, state["Node"])
+    if on_cordoned or over:
+        raise AssertionError(f"phase 13a: replacements on cordoned nodes {on_cordoned[:3]}, "
+                             f"nodes over capacity {over[:3]}")
+
+    # uncordon by JSON patch
+    t = time.perf_counter()
+    for name in cordoned:
+        rs.patch("Node", "", name, [{"op": "replace", "path": "/spec/unschedulable",
+                                     "value": False}], patch_type="json")
+    out["unpatch_s"] = time.perf_counter() - t
+    still = [n["metadata"]["name"] for n in rs.list("Node")[0] if n["spec"].get("unschedulable")]
+    if still:
+        raise AssertionError(f"phase 13a: {len(still)} nodes still cordoned, e.g. {still[:3]}")
+    out["stats"] = d.stop_scheduler()
+    out["got"], out["oracle"] = got, oracle
+    return out
+
+
+class _SampleAPI(BaseHTTPRequestHandler):
+    """A sample aggregated API server on loopback: one resource of its
+    group, echoing who the aggregator said the caller is."""
+
+    GROUP = "metrics.example.com"
+
+    def log_message(self, *a):
+        pass
+
+    def do_GET(self):
+        found = self.path.startswith(f"/apis/{self.GROUP}/v1/nodemetrics")
+        data = json.dumps({"items": [{"node": "node-00000"}],
+                           "user": self.headers.get("X-Remote-User", ""),
+                           "auth": self.headers.get("Authorization", "")} if found
+                          else {"kind": "Status", "code": 404}).encode()
+        self.send_response(200 if found else 404)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+def api_surface(url: str) -> dict:
+    """Phase 13b on the drained cluster's apiserver: OpenAPI, an era
+    Deployment through the scheme, a binary LIST beside a JSON one, and
+    aggregation to a sample backend."""
+    from kubernetes_tpu_torch.api import wire
+    from kubernetes_tpu_torch.api.types import CLUSTER_SCOPED_KINDS, KIND_PLURALS, KINDS
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+
+    out = {}
+    doc = json.loads(http_get(url + "/openapi/v2"))
+    missing = []
+    for kind, plural in KIND_PLURALS.items():
+        base = (f"/api/v1/{plural}" if kind in CLUSTER_SCOPED_KINDS
+                else f"/api/v1/namespaces/{{namespace}}/{plural}")
+        if base not in doc["paths"] or base + "/{name}" not in doc["paths"]:
+            missing.append(kind)
+    out["openapi_kinds"] = len(KINDS)
+    if missing or set(KINDS) != JAX_KINDS or len(doc["definitions"]) != len(KINDS):
+        raise AssertionError(f"phase 13b: OpenAPI misses {missing}; registry minus the JAX "
+                             f"package's {sorted(set(KINDS) ^ JAX_KINDS)}")
+
+    # an era apps/v1beta1 Deployment: nested rollingUpdate, a 25% surge
+    era = {"apiVersion": "apps/v1beta1", "kind": "Deployment",
+           "metadata": {"name": "web-era", "namespace": "default"},
+           "spec": {"replicas": 10, "strategy": {"type": "RollingUpdate", "rollingUpdate": {
+               "maxSurge": "25%", "maxUnavailable": "25%"}},
+               "template": {"metadata": {"labels": {"app": "web-era"}},
+                            "spec": {"containers": [{"name": "c", "image": "nginx:1.7.9"}]}}}}
+    rs = RemoteStore(url, timeout=120.0)
+    rs.create("Deployment", era)
+    dep = rs.get("Deployment", "default", "web-era")
+    spec = dep["spec"]
+    out["deployment"] = {k: spec[k] for k in ("strategy", "maxSurge", "maxUnavailable")}
+    if (out["deployment"] != {"strategy": "RollingUpdate", "maxSurge": 3, "maxUnavailable": 2}
+            or spec["selector"] != {"matchLabels": {"app": "web-era"}} or "apiVersion" in dep):
+        raise AssertionError(f"phase 13b: the era Deployment read back {spec}")
+
+    # the pod LIST in both wire forms
+    t = time.perf_counter()
+    as_json = http_get(url + "/api/v1/pods")
+    out["json_s"] = time.perf_counter() - t
+    req = urllib.request.Request(url + "/api/v1/pods", headers={"Accept": wire.CONTENT_TYPE})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        ctype, as_binary = r.headers["Content-Type"], r.read()
+    out["binary_s"] = time.perf_counter() - t
+    items_json = json.loads(as_json)["items"]
+    items_bin = wire.decode(as_binary)["items"]
+    out.update(json_bytes=len(as_json), binary_bytes=len(as_binary), listed=len(items_bin))
+    if ctype != wire.CONTENT_TYPE or items_bin != items_json:
+        raise AssertionError(f"phase 13b: the binary LIST ({ctype}) != the JSON LIST")
+
+    # aggregation to a backend on loopback
+    backend = ThreadingHTTPServer(("127.0.0.1", 0), _SampleAPI)
+    threading.Thread(target=backend.serve_forever, daemon=True).start()
+    try:
+        rs.create("APIService", {"kind": "APIService",
+                                 "metadata": {"name": f"v1.{_SampleAPI.GROUP}"},
+                                 "spec": {"group": _SampleAPI.GROUP,
+                                          "url": f"http://127.0.0.1:{backend.server_port}"}})
+        got = json.loads(http_get(f"{url}/apis/{_SampleAPI.GROUP}/v1/nodemetrics",
+                                  token="not-forwarded"))
+        try:
+            http_get(f"{url}/apis/nope.example.com/v1/x")
+            unregistered = 200
+        except urllib.error.HTTPError as e:
+            unregistered = e.code
+        groups = json.loads(http_get(url + "/apis"))["groups"]
+    finally:
+        backend.shutdown()
+        backend.server_close()
+    out["aggregated"] = {"items": got["items"], "auth": got["auth"], "unregistered": unregistered,
+                         "groups": groups}
+    if (got["items"] != [{"node": "node-00000"}] or got["auth"] != "" or unregistered != 404
+            or groups != [{"name": _SampleAPI.GROUP, "available": True}]):
+        raise AssertionError(f"phase 13b: aggregation {out['aggregated']}")
+    return out
+
+
+def drain_phase(pps_6a: float) -> tuple[int, int]:
+    """Phase 13: a node drain under the card's scheduler (13a) and the API
+    surface on the same server (13b).  Returns the daemon's fused-scan and
+    refresh launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    # the sequential oracle of the replacement wave runs in a process of
+    # its own, beside the daemon's binding of it and 13b
+    with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as oracle_pool:
+        d = Daemons(workdir, "13a", admitted=True)
+        try:
+            r = node_drain(d, oracle_pool)
+            t1 = time.perf_counter()
+            s = api_surface(d.url)
+        except BaseException:
+            print(f"phase 13 scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+        t2 = time.perf_counter()
+        oracle = r["oracle"].result()
+    t3 = time.perf_counter()
+    st = r["stats"]
+    mismatches = sum(1 for k, n in r["got"].items() if oracle["assignments"].get(k) != n)
+    print(f"phase 13a node drain, {r['shape']} (bound at "
+          f"{r['waves_pps']:.1f} pods/s; 6a {pps_6a:.1f} in this call) on the apiserver at its "
+          f"defaults: cordon {r['cordoned']} nodes by strategic-merge PATCH in "
+          f"{r['patch_s']:.3f} s ({r['cordoned'] / r['patch_s']:.1f} PATCHes/s), every node "
+          f"read back "
+          f"with only spec.unschedulable changed; {r['drained']} pods on them by app "
+          f"{json.dumps(r['by_app'], sort_keys=True)}, budgets "
+          f"{json.dumps(r['budgets'], sort_keys=True)}; evictions from 8 threads: "
+          f"{r['evicted']} x 201 (= the budgets' sum) and {r['refused']} x 429 in "
+          f"{r['evict_s']:.3f} s ({r['evicted'] / r['evict_s']:.1f} evictions/s), every budget "
+          f"at 0; {r['replacements']} replacements in one binary :batch POST, bound at "
+          f"{r['wave_pps']:.1f} pods/s, create_to_bind_p50_ms {r['c2b_ms'][0]:.1f} "
+          f"create_to_bind_p99_ms {r['c2b_ms'][1]:.1f}, none on a cordoned node, no node over "
+          f"capacity; vs the sequential oracle over the cluster as read back: mismatches "
+          f"{mismatches} of {len(r['got'])}, rr {st['round_robin']} vs "
+          f"{oracle['round_robin']}; uncordon by JSON patch in {r['unpatch_s']:.3f} s; the "
+          f"replacement wave's uploaded-column share {r['upload_fraction']}, node cache "
+          f"{st['node_cache']}; the daemon's launches fused_scan {st['launches']} "
+          f"frontier_refresh {st['refresh_launches']}, kernel_ms {st['kernel_ms']:.3f}, "
+          f"device idle share over 13a's {r['wall_s']:.3f} s from the cluster's creation to "
+          f"the last replacement bound {1.0 - st['kernel_ms'] / 1e3 / r['wall_s']:.4f}",
+          flush=True)
+    print(f"phase 13b the API surface on the same server: /openapi/v2 paths for all "
+          f"{s['openapi_kinds']} kinds (the JAX package's set); an apps/v1beta1 Deployment "
+          f"read back as {json.dumps(s['deployment'], sort_keys=True)}; LIST of "
+          f"{s['listed']} pods: JSON {s['json_bytes']} bytes in {s['json_s']:.3f} s, binary "
+          f"{s['binary_bytes']} bytes ({s['binary_bytes'] / s['json_bytes']:.4f} of JSON) in "
+          f"{s['binary_s']:.3f} s, equal items; aggregation: "
+          f"{json.dumps(s['aggregated'], sort_keys=True)}", flush=True)
+    print(f"phase 13 took {t3 - t0:.1f} s: 13a {t1 - t0:.1f}, 13b {t2 - t1:.1f}, the oracle's "
+          f"wait after them {t3 - t2:.1f}", flush=True)
+    if (mismatches or set(oracle["assignments"]) != set(r["got"])
+            or oracle["round_robin"] != st["round_robin"]):
+        raise AssertionError(f"phase 13a: the daemon's replacement bindings != the sequential "
+                             f"oracle: {mismatches} differ, rr {st['round_robin']} vs "
+                             f"{oracle['round_robin']}")
+    fraction = r["upload_fraction"]
+    if (st["launches"] <= 0 or st["refresh_launches"] <= 0 or r["replacements"] <= 512
+            or st["node_cache"]["col_updates"] < 1 or fraction is None or fraction >= 0.125):
+        raise AssertionError(f"phase 13a: launches {st['launches']} + "
+                             f"{st['refresh_launches']}, replacements {r['replacements']}, "
+                             f"upload fraction {fraction}, node cache {st['node_cache']}")
+    return st["launches"], st["refresh_launches"]
 
 
 def main() -> int:
@@ -2607,6 +3017,7 @@ def main() -> int:
     pool_launches, pool_refresh, pool_errs, pool_refresh_errs, refresh_pool = pool_phase()
     admitted_launches, admitted_refresh = admitted_phase(pps_6a)
     auth_launches, auth_refresh = auth_phase(pps_6a)
+    drain_launches, drain_refresh = drain_phase(pps_6a)
 
     entry = {
         "name": "fused_scan", "route": "cuda",
@@ -2614,13 +3025,14 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": (launches + churn_launches + daemon_launches + preemption_launches
                      + policy_launches + traced_launches + fault_launches + overload_launches
-                     + pool_launches + admitted_launches + auth_launches),
+                     + pool_launches + admitted_launches + auth_launches + drain_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "daemon": daemon_launches, "churn_eager": eager_launches,
                              "preemption": preemption_launches, "policy": policy_launches,
                              "traced_daemon": traced_launches, "faults": fault_launches,
                              "overload": overload_launches, "pool": pool_launches,
-                             "apiserver_defaults": admitted_launches, "auth": auth_launches},
+                             "apiserver_defaults": admitted_launches, "auth": auth_launches,
+                             "drain": drain_launches},
         # the repaired shapes' segments (phase 3): many zones, a wide port row
         "cells": shape_cells,
         "max_abs_err": max(errs + pool_errs),
@@ -2635,10 +3047,11 @@ def main() -> int:
         "source": "kubernetes_tpu_torch/ops/csrc/frontier_refresh.cu",
         "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
         "launches": (refresh_launches + churn_refresh + daemon_refresh + pool_refresh
-                     + admitted_refresh + auth_refresh),
+                     + admitted_refresh + auth_refresh + drain_refresh),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
                              "daemon": daemon_refresh, "pool": pool_refresh,
-                             "apiserver_defaults": admitted_refresh, "auth": auth_refresh},
+                             "apiserver_defaults": admitted_refresh, "auth": auth_refresh,
+                             "drain": drain_refresh},
         # the main segment's width; the other widths and the launch floor in cells
         "cells": refresh_cells,
         "max_abs_err": max([c["max_abs_err"] for c in refresh_cells.values()]

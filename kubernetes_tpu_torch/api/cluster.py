@@ -1,24 +1,32 @@
-"""The namespace, config, quota, storage, priority and policy kinds that
-the default admission chain reads, or that a client must be able to POST
-for it to read.
+"""The namespace, config, service-membership, quota, disruption,
+autoscaling, storage, aggregation, certificate, priority and policy
+kinds.
 
 Capability equivalents of the reference internal types:
 
-- Namespace, Secret, ServiceAccount: ``pkg/api/types.go`` (Namespace
-  ~:3010, Secret ~:3330, ServiceAccount ~:2960); ConfigMap, which holds
-  the ``kube-public`` discovery document anonymous clients may read;
+- Namespace, Secret, ServiceAccount, Endpoints: ``pkg/api/types.go``
+  (Namespace ~:3010, Secret ~:3330, ServiceAccount ~:2960, Endpoints
+  ~:2480); ConfigMap, which holds the ``kube-public`` discovery document
+  anonymous clients may read;
 - ResourceQuota / LimitRange: ``pkg/api/types.go`` (~:3180 / ~:3120),
   enforced by admission (``plugin/pkg/admission/resourcequota``,
   ``limitranger``);
 - PodPreset: ``pkg/apis/settings/types.go``;
+- PodDisruptionBudget: ``pkg/apis/policy/types.go``, read by the eviction
+  subresource;
+- HorizontalPodAutoscaler: ``pkg/apis/autoscaling/types.go``;
 - StorageClass: ``pkg/apis/storage/types.go``;
+- APIService: ``kube-aggregator`` ``apiregistration.k8s.io``, the
+  apiserver's ``/apis/<group>`` proxy table;
 - PriorityClass: ``pkg/apis/scheduling/types.go`` (PodPriority gate);
+- CertificateSigningRequest: ``pkg/apis/certificates/types.go``;
 - PodSecurityPolicy: ``pkg/apis/extensions``;
 - NetworkPolicy: ``pkg/apis/networking/types.go``.
 
-Every kind registers under the JAX package's plural and scope, so
-``kind_for_plural`` routes the same paths, and serializes to the same
-wire dict.
+PersistentVolume and PersistentVolumeClaim live in ``types.py`` beside
+the scheduler's kinds.  Every kind registers under the JAX package's
+plural and scope, so ``kind_for_plural`` routes the same paths, and
+serializes to the same wire dict.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from .types import (
     register_cluster_scoped as _register_cluster_scoped,
     register_kind,
 )
+
 
 @_register_cluster_scoped
 @dataclass
@@ -139,6 +148,92 @@ class ServiceAccount:
         return cls(
             meta=ObjectMeta.from_dict(d.get("metadata") or {}),
             secrets=list(d.get("secrets") or []),
+        )
+
+
+@dataclass
+class EndpointAddress:
+    ip: str = ""
+    node_name: str = ""
+    target_pod: str = ""  # namespace/name of backing pod
+
+    def to_dict(self) -> dict:
+        return {"ip": self.ip, "nodeName": self.node_name, "targetPod": self.target_pod}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EndpointAddress":
+        return cls(
+            ip=d.get("ip", ""),
+            node_name=d.get("nodeName", ""),
+            target_pod=d.get("targetPod", ""),
+        )
+
+
+@dataclass
+class EndpointPort:
+    name: str = ""
+    port: int = 0
+    protocol: str = "TCP"
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "port": self.port, "protocol": self.protocol}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EndpointPort":
+        return cls(
+            name=d.get("name", ""),
+            port=int(d.get("port", 0)),
+            protocol=d.get("protocol", "TCP"),
+        )
+
+
+@dataclass
+class EndpointSubset:
+    addresses: list[EndpointAddress] = field(default_factory=list)
+    not_ready_addresses: list[EndpointAddress] = field(default_factory=list)
+    ports: list[EndpointPort] = field(default_factory=list)
+
+    def to_dict(self) -> dict:
+        return {
+            "addresses": [a.to_dict() for a in self.addresses],
+            "notReadyAddresses": [a.to_dict() for a in self.not_ready_addresses],
+            "ports": [p.to_dict() for p in self.ports],
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EndpointSubset":
+        return cls(
+            addresses=[EndpointAddress.from_dict(a) for a in d.get("addresses") or []],
+            not_ready_addresses=[
+                EndpointAddress.from_dict(a) for a in d.get("notReadyAddresses") or []
+            ],
+            ports=[EndpointPort.from_dict(p) for p in d.get("ports") or []],
+        )
+
+
+@register_kind
+@dataclass
+class Endpoints:
+    """Service backend membership (reference ``pkg/api/types.go`` Endpoints;
+    maintained by ``pkg/controller/endpoint``)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    subsets: list[EndpointSubset] = field(default_factory=list)
+
+    KIND = "Endpoints"
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "subsets": [s.to_dict() for s in self.subsets],
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Endpoints":
+        return cls(
+            meta=ObjectMeta.from_dict(d.get("metadata") or {}),
+            subsets=[EndpointSubset.from_dict(s) for s in d.get("subsets") or []],
         )
 
 
@@ -265,6 +360,112 @@ class LimitRange:
         )
 
 
+@register_kind
+@dataclass
+class PodDisruptionBudget:
+    """Voluntary-eviction budget (reference ``pkg/apis/policy/types.go``;
+    status maintained by ``pkg/controller/disruption``)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    min_available: int = 0
+    selector: LabelSelector = field(default_factory=LabelSelector)
+    status_disruptions_allowed: int = 0
+    status_current_healthy: int = 0
+    status_desired_healthy: int = 0
+    status_expected_pods: int = 0
+
+    KIND = "PodDisruptionBudget"
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "spec": {
+                "minAvailable": self.min_available,
+                "selector": self.selector.to_dict(),
+            },
+            "status": {
+                "disruptionsAllowed": self.status_disruptions_allowed,
+                "currentHealthy": self.status_current_healthy,
+                "desiredHealthy": self.status_desired_healthy,
+                "expectedPods": self.status_expected_pods,
+            },
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PodDisruptionBudget":
+        spec = d.get("spec") or {}
+        status = d.get("status") or {}
+        return cls(
+            meta=ObjectMeta.from_dict(d.get("metadata") or {}),
+            min_available=int(spec.get("minAvailable", 0)),
+            selector=LabelSelector.from_dict(spec.get("selector")),
+            status_disruptions_allowed=int(status.get("disruptionsAllowed", 0)),
+            status_current_healthy=int(status.get("currentHealthy", 0)),
+            status_desired_healthy=int(status.get("desiredHealthy", 0)),
+            status_expected_pods=int(status.get("expectedPods", 0)),
+        )
+
+
+@register_kind
+@dataclass
+class HorizontalPodAutoscaler:
+    """Scale a target workload on observed utilization (reference
+    ``pkg/apis/autoscaling/types.go``; controller
+    ``pkg/controller/podautoscaler/horizontal.go``)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    target_kind: str = "Deployment"
+    target_name: str = ""
+    min_replicas: int = 1
+    max_replicas: int = 1
+    target_cpu_utilization: int = 80  # percent of requests
+    status_current_replicas: int = 0
+    status_desired_replicas: int = 0
+    status_current_utilization: int = 0
+    status_last_scale_time: float = 0.0
+
+    KIND = "HorizontalPodAutoscaler"
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "spec": {
+                "scaleTargetRef": {"kind": self.target_kind, "name": self.target_name},
+                "minReplicas": self.min_replicas,
+                "maxReplicas": self.max_replicas,
+                "targetCPUUtilizationPercentage": self.target_cpu_utilization,
+            },
+            "status": {
+                "currentReplicas": self.status_current_replicas,
+                "desiredReplicas": self.status_desired_replicas,
+                "currentCPUUtilizationPercentage": self.status_current_utilization,
+                "lastScaleTime": self.status_last_scale_time,
+            },
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HorizontalPodAutoscaler":
+        spec = d.get("spec") or {}
+        status = d.get("status") or {}
+        ref = spec.get("scaleTargetRef") or {}
+        return cls(
+            meta=ObjectMeta.from_dict(d.get("metadata") or {}),
+            target_kind=ref.get("kind", "Deployment"),
+            target_name=ref.get("name", ""),
+            min_replicas=int(spec.get("minReplicas", 1)),
+            max_replicas=int(spec.get("maxReplicas", 1)),
+            target_cpu_utilization=int(spec.get("targetCPUUtilizationPercentage", 80)),
+            status_current_replicas=int(status.get("currentReplicas", 0)),
+            status_desired_replicas=int(status.get("desiredReplicas", 0)),
+            status_current_utilization=int(
+                status.get("currentCPUUtilizationPercentage", 0)
+            ),
+            status_last_scale_time=float(status.get("lastScaleTime", 0.0)),
+        )
+
+
 @_register_cluster_scoped
 @dataclass
 class StorageClass:
@@ -308,6 +509,47 @@ class StorageClass:
 
 @_register_cluster_scoped
 @dataclass
+class APIService:
+    """Aggregation registration (reference ``kube-aggregator``
+    ``apiregistration.k8s.io/APIService``): requests under
+    ``/apis/<group>/...`` proxy to the named backend server.  The
+    reference resolves a Service reference; ``url`` carries the resolved
+    backend directly (the proxy handshake, availability condition, and
+    route installation are the capability)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    group: str = ""
+    url: str = ""  # backend base URL, e.g. http://127.0.0.1:9443
+    available: bool = False  # status condition, set by the aggregator probe
+
+    KIND = "APIService"
+
+    def __post_init__(self):
+        self.meta.namespace = ""
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "spec": {"group": self.group, "url": self.url},
+            "status": {"available": self.available},
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "APIService":
+        meta = ObjectMeta.from_dict(d.get("metadata") or {})
+        meta.namespace = ""
+        spec = d.get("spec") or {}
+        return cls(
+            meta=meta,
+            group=spec.get("group", ""),
+            url=spec.get("url", ""),
+            available=bool((d.get("status") or {}).get("available")),
+        )
+
+
+@_register_cluster_scoped
+@dataclass
 class PriorityClass:
     """Named pod priority (reference ``pkg/apis/scheduling/types.go``;
     resolved into ``pod.spec.priority`` by the Priority admission plugin)."""
@@ -340,6 +582,63 @@ class PriorityClass:
             value=int(d.get("value", 0)),
             global_default=bool(d.get("globalDefault", False)),
             description=d.get("description", ""),
+        )
+
+
+@_register_cluster_scoped
+@dataclass
+class CertificateSigningRequest:
+    """CSR (reference ``pkg/apis/certificates/types.go``; signed/approved by
+    ``pkg/controller/certificates``)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    request: str = ""  # opaque CSR payload
+    username: str = ""
+    usages: list[str] = field(default_factory=list)
+    conditions: list[dict] = field(default_factory=list)  # Approved | Denied
+    certificate: str = ""  # issued cert payload
+
+    KIND = "CertificateSigningRequest"
+
+    def __post_init__(self):
+        self.meta.namespace = ""
+
+    @property
+    def approved(self) -> bool:
+        return any(c.get("type") == "Approved" for c in self.conditions)
+
+    @property
+    def denied(self) -> bool:
+        return any(c.get("type") == "Denied" for c in self.conditions)
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "spec": {
+                "request": self.request,
+                "username": self.username,
+                "usages": list(self.usages),
+            },
+            "status": {
+                "conditions": list(self.conditions),
+                "certificate": self.certificate,
+            },
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CertificateSigningRequest":
+        meta = ObjectMeta.from_dict(d.get("metadata") or {})
+        meta.namespace = ""
+        spec = d.get("spec") or {}
+        status = d.get("status") or {}
+        return cls(
+            meta=meta,
+            request=spec.get("request", ""),
+            username=spec.get("username", ""),
+            usages=list(spec.get("usages") or []),
+            conditions=list(status.get("conditions") or []),
+            certificate=status.get("certificate", ""),
         )
 
 

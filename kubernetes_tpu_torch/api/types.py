@@ -1,7 +1,7 @@
-"""The API kinds the scheduling path reads and writes: Pod, Node, Binding,
-Event, the spread owners (Service, ReplicaSet, ReplicationController,
-StatefulSet) and the volume kinds (PersistentVolumeClaim,
-PersistentVolume).
+"""The core API kinds: Pod, Node, Binding, Event, the spread owners
+(Service, ReplicaSet, ReplicationController), Deployment and the volume
+kinds (PersistentVolumeClaim, PersistentVolume).  The other kinds live in
+``apps``, ``cluster``, ``rbac`` and ``crd``, and register on import.
 
 The wire form is JSON-shaped dicts (``to_dict``/``from_dict``), the
 store's serialization unit; a kind gives the same dict as its counterpart
@@ -41,6 +41,10 @@ NO_EXECUTE = "NoExecute"
 # lifecycle controller applies them, DefaultTolerationSeconds tolerates them
 TAINT_NODE_NOT_READY = "node.alpha.kubernetes.io/notReady"
 TAINT_NODE_UNREACHABLE = "node.alpha.kubernetes.io/unreachable"
+
+# stamped on ReplicaSets by the deployment controller; read by kubectl
+# rollout history/undo (reference deployment/util annotation constants)
+DEPLOYMENT_REVISION_ANNOTATION = "deployment.kubernetes.io/revision"
 
 # Node condition types
 NODE_READY = "Ready"
@@ -997,32 +1001,121 @@ class ReplicaSet:
         )
 
 
-
 @dataclass
 class ReplicationController:
-    """ReplicaSet with a plain map selector; an empty selector defaults to
-    the template labels."""
+    """The original replica-keeper (reference ``pkg/api/types.go:2533``).
+    Semantically ReplicaSet with a plain map selector (no set-based
+    expressions); era tooling (``kubectl rolling-update``) was RC-based.
+    Defaulting mirrors v1: an empty selector falls back to the template
+    labels."""
 
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     replicas: int = 1
-    selector_labels: dict = field(default_factory=dict)
-    template_labels: dict = field(default_factory=dict)
+    selector_labels: dict = field(default_factory=dict)  # spec.selector map
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+    status_replicas: int = 0
+    status_ready_replicas: int = 0
+    status_observed_generation: int = 0
 
     KIND = "ReplicationController"
 
     @property
     def selector(self) -> LabelSelector:
+        """Map selector as a LabelSelector, with the v1 default-to-
+        template-labels rule — lets RC share the ReplicaSet controller
+        and kubectl machinery."""
         return LabelSelector.from_match_labels(
-            self.selector_labels or self.template_labels)
+            self.selector_labels or self.template.labels)
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "spec": {
+                "replicas": self.replicas,
+                "selector": dict(self.selector_labels),
+                "template": self.template.to_dict(),
+            },
+            "status": {
+                "replicas": self.status_replicas,
+                "readyReplicas": self.status_ready_replicas,
+                "observedGeneration": self.status_observed_generation,
+            },
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ReplicationController":
+        spec = d.get("spec") or {}
+        status = d.get("status") or {}
+        return cls(
+            meta=ObjectMeta.from_dict(d.get("metadata") or {}),
+            replicas=int(spec.get("replicas", 1)),
+            selector_labels=dict(spec.get("selector") or {}),
+            template=PodTemplateSpec.from_dict(spec.get("template")),
+            status_replicas=int(status.get("replicas", 0)),
+            status_ready_replicas=int(status.get("readyReplicas", 0)),
+            status_observed_generation=int(status.get("observedGeneration", 0)),
+        )
 
 
 @dataclass
-class StatefulSet:
+class Deployment:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     replicas: int = 1
     selector: LabelSelector = field(default_factory=LabelSelector)
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+    strategy: str = "RollingUpdate"  # or "Recreate"
+    max_surge: int = 1
+    max_unavailable: int = 0
+    # kubectl rollout pause/resume (deployment/sync.go: a paused
+    # deployment reconciles SCALE but never progresses the rollout)
+    paused: bool = False
+    status_replicas: int = 0
+    status_updated_replicas: int = 0
+    status_ready_replicas: int = 0
+    status_observed_generation: int = 0
 
-    KIND = "StatefulSet"
+    KIND = "Deployment"
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.KIND,
+            "metadata": self.meta.to_dict(),
+            "spec": {
+                "replicas": self.replicas,
+                "selector": self.selector.to_dict(),
+                "template": self.template.to_dict(),
+                "strategy": self.strategy,
+                "maxSurge": self.max_surge,
+                "maxUnavailable": self.max_unavailable,
+                "paused": self.paused,
+            },
+            "status": {
+                "replicas": self.status_replicas,
+                "updatedReplicas": self.status_updated_replicas,
+                "readyReplicas": self.status_ready_replicas,
+                "observedGeneration": self.status_observed_generation,
+            },
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Deployment":
+        spec = d.get("spec") or {}
+        status = d.get("status") or {}
+        return cls(
+            meta=ObjectMeta.from_dict(d.get("metadata") or {}),
+            replicas=int(spec.get("replicas", 1)),
+            selector=LabelSelector.from_dict(spec.get("selector")),
+            template=PodTemplateSpec.from_dict(spec.get("template")),
+            strategy=spec.get("strategy", "RollingUpdate"),
+            max_surge=int(spec.get("maxSurge", 1)),
+            max_unavailable=int(spec.get("maxUnavailable", 0)),
+            paused=bool(spec.get("paused", False)),
+            status_replicas=int(status.get("replicas", 0)),
+            status_updated_replicas=int(status.get("updatedReplicas", 0)),
+            status_ready_replicas=int(status.get("readyReplicas", 0)),
+            status_observed_generation=int(status.get("observedGeneration", 0)),
+        )
 
 
 @dataclass
@@ -1209,17 +1302,8 @@ def register_cluster_scoped(cls):
     return register_kind(cls, cluster_scoped=True)
 
 
-def convert_to_internal(doc: dict) -> dict:
-    """Decode a wire document into the stored form: the port registers no
-    versioned decoders, so every document passes through with
-    ``apiVersion`` stripped and the store holds one schema.  Returns a
-    shallow copy; ``doc`` is left as it was."""
-    out = dict(doc)
-    out.pop("apiVersion", None)
-    return out
-
-
-for _cls in (Pod, Service, ReplicaSet, Event, PersistentVolumeClaim):
+for _cls in (Pod, Service, ReplicaSet, ReplicationController, Deployment, Event,
+             PersistentVolumeClaim):
     register_kind(_cls)
 for _cls in (Node, PersistentVolume):
     register_kind(_cls, cluster_scoped=True)

@@ -22,6 +22,10 @@ Layout:
         7 list    varint count | values
         8 dict    varint count | (varint key-id | value) pairs
         9 str-interned  varint key-id   (repeated string values)
+
+Content negotiation: ``application/vnd.ktpu.binary`` as Content-Type
+(request bodies) and Accept (responses) on the wire server; RemoteStore
+opts in with ``binary=True``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import struct
 
 MAGIC = b"ktpu"
+CONTENT_TYPE = "application/vnd.ktpu.binary"
 
 
 def _write_varint(out: bytearray, n: int) -> None:

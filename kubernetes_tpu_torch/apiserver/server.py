@@ -10,16 +10,20 @@ metrics.  It answers the reference package's ``RemoteStore`` as it
 answers the port's: the same paths, ``kind: Status`` error bodies, watch
 lines and ``resourceVersion`` semantics.
 
-Wire form: JSON.  A watch is a chunked stream of JSON lines, one event a
-line (``type``, ``kind``, ``key``, ``revision``, ``object``), resumable
-with ``resourceVersion`` and ended by the server after ``timeoutSeconds``.
+Wire form: JSON, or the binary wire form (``api/wire.py``) for a client
+whose ``Accept`` names ``application/vnd.ktpu.binary``; a request body
+in that form says so in its ``Content-Type``.  A watch is a chunked
+stream of JSON lines, one event a line (``type``, ``kind``, ``key``,
+``revision``, ``object``), resumable with ``resourceVersion`` and ended by
+the server after ``timeoutSeconds``.
 With ``frames=1`` a ``create_many``/``bind_many`` txn is one line, a
 ``WatchFrame`` (``store/frames.py``); with ``columnar=1`` a Pod or Node
 LIST is one packed column batch (``store/columns.py``).  Both are the
 reference package's wire forms.
 
 Routes:
-  GET    /healthz  /metrics  /version  /api  /api/v1
+  GET    /healthz  /metrics  /version  /api  /api/v1  /apis
+  GET    /openapi/v2  /swagger.json   (the schema of every registered kind)
   GET    /debug/traces  /debug/flightrecorder  /debug/timeseries
   POST   /telemetry   (the telemetry shipper's collector: ndjson records)
   GET    /telemetry   (the records held, newest last)
@@ -30,22 +34,30 @@ Routes:
   POST   /api/v1/namespaces/{ns}/{resource}
   GET    /api/v1/namespaces/{ns}/{resource}/{name}
   PUT    /api/v1/namespaces/{ns}/{resource}/{name}
+  PATCH  /api/v1/namespaces/{ns}/{resource}/{name}   (merge, strategic-merge
+         or JSON patch by Content-Type; 415 for another type, 422 when the
+         patch cannot apply)
   DELETE /api/v1/namespaces/{ns}/{resource}/{name}
   POST   /api/v1/namespaces/{ns}/pods/{name}/binding
+  POST   /api/v1/namespaces/{ns}/pods/{name}/eviction   (429 while a
+         PodDisruptionBudget allows no disruption)
   POST   /api/v1/bindings:batch          (one store txn for a wave's binds)
   POST   /api/v1/{resource}:batch        (batch create: one store txn)
   POST   /apis/authorization.k8s.io/v1/selfsubjectaccessreviews
+  ANY    /apis/{group}/...   (proxied to the backend its APIService names)
 Cluster-scoped objects use ns "-" in paths.  Any other route answers 404,
 a known route with another method 405.
 
 The filter chain runs in the JAX server's order (reference
 ``server/config.go:469 DefaultBuildHandlerChain``): panic recovery →
-request info (verb, resource, namespace, name) → authentication (with
-``tls.client_ca``, a verified client certificate's subject first) →
-impersonation → audit (RequestReceived, under the impersonated user with
-the real one beside it) → authorization → dispatch, and
-audit again (ResponseComplete, with the status code) once the response is
-written.  ``tokens`` is the static-token shorthand; ``authenticator``,
+request info (verb, resource, namespace, name) → max in flight (with
+``max_in_flight`` > 0, a request over the cap answers 429 at once; a
+watch is exempt) → authentication (with ``tls.client_ca``, a verified
+client certificate's subject first) → impersonation → audit
+(RequestReceived, under the impersonated user with the real one beside
+it) → authorization → dispatch, and audit again (ResponseComplete, with
+the status code) once the response is written.  ``tokens`` is the
+static-token shorthand; ``authenticator``,
 ``authorizer`` and ``auditor`` take the ``auth`` package's objects; with
 none of them every request runs as the empty (anonymous) identity.  The
 request info maps ``POST /api/v1/{resource}:batch`` to ``create`` on
@@ -61,12 +73,13 @@ bodies) -> Optional[retry_after_s]``) and the ``apiserver.admit`` fault
 point may answer 429 with a ``Retry-After`` header, which ``RemoteStore``
 honours.  Over an ``AdmittedStore`` (``admission/framework.py``) the
 writes then pass the admission chain, and a plugin's denial answers 403
-Forbidden.  PATCH, eviction and max-in-flight are not part of this
-server yet.
+Forbidden.  The node and pod proxies (kubelet logs, exec, attach, cp)
+are not part of this server yet.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import math
@@ -76,6 +89,8 @@ import ssl
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
@@ -92,8 +107,12 @@ from ..auth import (
     UserInfo,
     X509CertificateAuthenticator,
 )
+from ..api import wire
+from ..api.patch import CONTENT_TYPES, apply_patch
+from ..api.scheme import convert_from_internal, convert_to_internal
 from ..api.selectors import parse_selector_string
-from ..api.types import CLUSTER_SCOPED_KINDS, KIND_PLURALS, convert_to_internal, kind_for_plural
+from ..api.types import CLUSTER_SCOPED_KINDS, KIND_PLURALS, kind_for_plural
+from ..client.clientset import EvictionDisallowed, PodClient
 from ..store.store import (
     AlreadyExistsError,
     ConflictError,
@@ -105,6 +124,7 @@ from ..store.frames import FRAME, event_wire_bytes
 from ..utils import tracing
 from ..utils.health import handle_debug_path
 from ..utils.metrics import APIServerMetrics
+from .openapi import build_openapi
 
 logger = logging.getLogger("kubernetes_tpu_torch.apiserver")
 
@@ -113,12 +133,21 @@ logger = logging.getLogger("kubernetes_tpu_torch.apiserver")
 SSAR_PATH = "/apis/authorization.k8s.io/v1/selfsubjectaccessreviews"
 # paths every identity the authenticator let through may read: discovery,
 # and "may I?" (the reference's system:discovery and system:basic-user)
-_OPEN_PATHS = frozenset({"/api", "/api/v1", "/apis", SSAR_PATH})
+_OPEN_PATHS = frozenset({"/api", "/api/v1", "/apis", "/openapi/v2", "/swagger.json",
+                         SSAR_PATH})
+# how long the aggregation proxy waits on a backend: a watch holds its
+# stream open, a plain request fails fast
+PROXY_WATCH_TIMEOUT_S = 300.0
+PROXY_TIMEOUT_S = 30.0
 # the longest a client may take over its TLS handshake
 HANDSHAKE_TIMEOUT_S = 10.0
 # how long a refused handshake's connection waits for the client to close
 # before the server closes it
 REFUSED_LINGER_S = 2.0
+
+# the aggregation proxy's client: never an environment proxy, since a
+# backend is reached directly at the address its APIService names
+_PROXY_OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
 # the most watch lines written in one chunk: a burst (a wave's 2000 ADDED
 # events) goes out in a few writes, not one write and flush a line
@@ -244,9 +273,14 @@ class APIServer:
 
     def __init__(self, store: Store, host: str = "127.0.0.1", port: int = 0,
                  tokens: Optional[dict] = None, authenticator=None, authorizer=None,
-                 auditor=None, tls: Optional[TLSConfig] = None):
+                 auditor=None, tls: Optional[TLSConfig] = None, max_in_flight: int = 0):
         self.store = store
         self.tls = tls
+        # the max-in-flight filter (server/filters/maxinflight.go): a
+        # semaphore, never a queue; 0 = unlimited (the reference's default
+        # is 400)
+        self._inflight = (threading.Semaphore(max_in_flight)
+                          if max_in_flight > 0 else None)
         # tokens: token -> user name or UserInfo, the static token file
         self.authenticator = authenticator
         if authenticator is None and tokens is not None:
@@ -310,8 +344,13 @@ def _make_handler(server: APIServer):
             pass
 
         # -- plumbing ------------------------------------------------------
-        def _send(self, code: int, obj) -> None:
-            self._send_bytes(code, json.dumps(obj).encode(), "application/json")
+        def _send(self, code: int, obj, headers: tuple = ()) -> None:
+            # content negotiation: the binary wire form when the request's
+            # Accept names it (the reference's protobuf negotiation)
+            if wire.CONTENT_TYPE in (self.headers.get("Accept") or ""):
+                self._send_bytes(code, wire.encode(obj), wire.CONTENT_TYPE, headers)
+            else:
+                self._send_bytes(code, json.dumps(obj).encode(), "application/json", headers)
 
         def _send_bytes(self, code: int, data: bytes, ctype: str,
                         headers: tuple = ()) -> None:
@@ -330,9 +369,8 @@ def _make_handler(server: APIServer):
             # never becomes an immediate retry
             headers = (("Retry-After", str(max(1, math.ceil(retry_after)))),) \
                 if retry_after is not None else ()
-            self._send_bytes(code, json.dumps({"kind": "Status", "code": code, "reason": reason,
-                                               "message": message}).encode(),
-                             "application/json", headers)
+            self._send(code, {"kind": "Status", "code": code, "reason": reason,
+                              "message": message}, headers)
 
         def _admission_gate(self, resource: str, bodies: list) -> bool:
             """The overload gate of a create path: False when the request
@@ -381,8 +419,15 @@ def _make_handler(server: APIServer):
                              "accepted": server.ingest_telemetry(records)})
 
         def _body(self):
+            """The request body, decoded once: the binary wire form when
+            its Content-Type names it, else JSON."""
             if self._parsed is None:
-                self._parsed = json.loads(self._raw) if self._raw else {}
+                if not self._raw:
+                    self._parsed = {}
+                elif wire.CONTENT_TYPE in (self.headers.get("Content-Type") or ""):
+                    self._parsed = wire.decode(self._raw)
+                else:
+                    self._parsed = json.loads(self._raw)
             return self._parsed
 
         def _write_chunk(self, data: bytes) -> None:
@@ -406,6 +451,22 @@ def _make_handler(server: APIServer):
             verb = {"POST": "create", "PUT": "update", "DELETE": "delete",
                     "PATCH": "patch"}.get(method, "get")
             resource, ns, name = "", "", ""
+            if len(parts) >= 2 and parts[0] == "apis":
+                # an aggregated group: "<group>/<resource>", so an RBAC
+                # rule can scope access a group at a time
+                group, rest = parts[1], parts[3:]  # parts[2] is the version
+                if len(rest) >= 3 and rest[0] == "namespaces":
+                    ns, resource = rest[1], f"{group}/{rest[2]}"
+                    name = rest[3] if len(rest) >= 4 else ""
+                else:
+                    resource = f"{group}/{rest[0]}" if rest else group
+                    name = rest[1] if len(rest) >= 2 else ""
+                if method == "GET":
+                    if q.get("watch", ["false"])[0] == "true":
+                        verb = "watch"
+                    elif not name:
+                        verb = "list"
+                return verb, resource, ns, name
             if len(parts) < 3 or parts[:2] != ["api", "v1"]:
                 return verb, resource, ns, name  # a non-resource path
             rest = parts[2:]
@@ -520,6 +581,19 @@ def _make_handler(server: APIServer):
             self._audit_user: Optional[str] = None
             self._info: Optional[tuple[str, str, str, str]] = None
             self._last_code = 0
+            # max in flight, before the auth filters: a request over the cap
+            # is answered 429 at once (queueing under overload only turns
+            # it into latency).  A watch is exempt (maxinflight.go's
+            # long-running check, judged from the parsed query, so no other
+            # parameter can opt out): held streams must not starve short
+            # requests.  The TLS handshake ran before this, in the same
+            # thread, and holds no slot.
+            acquired = False
+            if server._inflight is not None and parse_qs(urlparse(self.path).query).get(
+                    "watch", ["false"])[0] != "true":
+                acquired = server._inflight.acquire(blocking=False)
+                if not acquired:
+                    return self._error(429, "TooManyRequests", "server overloaded (max in flight)")
             try:
                 if self._auth_filters(method):
                     self._dispatch(method)
@@ -542,6 +616,8 @@ def _make_handler(server: APIServer):
                 except Exception:  # noqa: BLE001 - client gone mid-error; counted
                     metrics.error_write_failures.inc()
             finally:
+                if acquired:
+                    server._inflight.release()
                 metrics.request_latency.observe((time.perf_counter() - start) * 1e6)
                 if server.auditor is not None:
                     self._audit("ResponseComplete", self._last_code)
@@ -577,10 +653,17 @@ def _make_handler(server: APIServer):
                 if isinstance(payload, str):
                     return self._send_bytes(code, payload.encode(), "text/plain")
                 return self._send(code, payload)
-            if path in ("/api", "/api/v1"):
+            if path in ("/api", "/api/v1", "/apis"):
                 if method != "GET":
                     return self._error(405, "MethodNotAllowed", method)
                 return self._serve_discovery(path)
+            if path in ("/openapi/v2", "/swagger.json"):
+                # the published schema (routes/openapi.go; the era also
+                # served /swagger.json), built per request from the live
+                # registry so a kind registered later appears at once
+                if method != "GET":
+                    return self._error(405, "MethodNotAllowed", method)
+                return self._send(200, build_openapi())
             if path == "/version":
                 return self._send(200, {"version": __version__})
             if path == SSAR_PATH:
@@ -607,6 +690,8 @@ def _make_handler(server: APIServer):
                 return self._send(201, {"items": store.create_many(kind, items, _trusted=True)})
 
             parts = [p for p in path.split("/") if p]
+            if len(parts) >= 2 and parts[0] == "apis":
+                return self._proxy_aggregated(method, parts[1], url)
             if len(parts) < 3 or parts[0] != "api" or parts[1] != "v1":
                 return self._error(404, "NotFound", f"no route for {path}")
             parts = parts[2:]
@@ -655,15 +740,59 @@ def _make_handler(server: APIServer):
                     if errors[0] is not None:
                         return self._error(409, "Conflict", errors[0])
                     return self._send(201, {"status": "bound"})
+                if parts[4] == "eviction" and kind == "Pod" and method == "POST":
+                    # pods/eviction: a delete every PodDisruptionBudget
+                    # selecting the pod must allow (eviction.go)
+                    try:
+                        PodClient(store).evict(name, ns)
+                    except EvictionDisallowed as e:
+                        return self._error(429, "TooManyRequests", str(e))
+                    return self._send(201, {"status": "evicted"})
                 return self._error(404, "NotFound", f"unknown subresource {parts[4]}")
             if method == "GET":
                 return self._send(200, store.get(kind, ns, name))
             if method == "PUT":
                 return self._send(200, store.update(kind, convert_to_internal(self._body()),
                                                     _trusted=True))
+            if method == "PATCH":
+                return self._serve_patch(kind, ns, name)
             if method == "DELETE":
                 return self._send(200, store.delete(kind, ns, name))
             return self._error(405, "MethodNotAllowed", method)
+
+        def _serve_patch(self, kind: str, ns: str, name: str) -> None:
+            """PATCH (reference ``handlers/rest.go`` PatchResource): the patch
+            type comes from the Content-Type, and the patch applies on the
+            server under the store's CAS loop, so concurrent writers never
+            lose an update.  An unknown type answers 415 (a mislabeled
+            body is never merged as if it were one), a patch that cannot
+            apply 422."""
+            ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+            patch_type = CONTENT_TYPES.get(ctype)
+            if patch_type is None:
+                return self._error(415, "UnsupportedMediaType",
+                                   f"patch content type {ctype!r}; want one of "
+                                   f"{sorted(CONTENT_TYPES)}")
+            patch_doc = self._body()
+            gv = patch_doc.get("apiVersion", "") if isinstance(patch_doc, dict) else ""
+
+            def mutate(cur: dict) -> dict:
+                if gv:
+                    # a versioned patch applies in wire space: encode the
+                    # stored hub object to the spoke, patch, decode back,
+                    # so nested wire keys land where the conversion puts
+                    # them (the reference patches the versioned object)
+                    return convert_to_internal(
+                        apply_patch(convert_from_internal(cur, gv), patch_doc, patch_type))
+                return apply_patch(cur, patch_doc, patch_type)
+
+            try:
+                out = store.guaranteed_update(kind, ns, name, mutate)
+            except NotFoundError:
+                raise  # a KeyError, but the object's absence: 404 by _route
+            except (KeyError, IndexError, ValueError, TypeError) as e:
+                return self._error(422, "Invalid", f"cannot apply patch: {e}")
+            return self._send(200, out)
 
         def _serve_ssar(self) -> None:
             """SelfSubjectAccessReview: may the CALLING identity do this?
@@ -683,14 +812,116 @@ def _make_handler(server: APIServer):
 
         def _serve_discovery(self, path: str) -> None:
             """``/api`` lists the versions, ``/api/v1`` the resources of the
-            live type registry (reference ``endpoints/discovery``)."""
+            live type registry, ``/apis`` the aggregated groups with
+            whether any APIService of each was last seen available
+            (reference ``endpoints/discovery``)."""
             if path == "/api":
                 return self._send(200, {"kind": "APIVersions", "versions": ["v1"]})
-            resources = [{"name": plural, "kind": kind,
-                          "namespaced": kind not in CLUSTER_SCOPED_KINDS}
-                         for kind, plural in sorted(KIND_PLURALS.items())]
-            return self._send(200, {"kind": "APIResourceList", "groupVersion": "v1",
-                                    "resources": resources})
+            if path == "/api/v1":
+                resources = [{"name": plural, "kind": kind,
+                              "namespaced": kind not in CLUSTER_SCOPED_KINDS}
+                             for kind, plural in sorted(KIND_PLURALS.items())]
+                return self._send(200, {"kind": "APIResourceList", "groupVersion": "v1",
+                                        "resources": resources})
+            by_group: dict[str, bool] = {}
+            for svc in store.list("APIService", "")[0]:
+                g = (svc.get("spec") or {}).get("group", "")
+                if g:
+                    by_group[g] = by_group.get(g, False) or bool(
+                        (svc.get("status") or {}).get("available"))
+            return self._send(200, {"kind": "APIGroupList", "groups": [
+                {"name": g, "available": a} for g, a in sorted(by_group.items())]})
+
+        # -- aggregation (kube-aggregator) ---------------------------------
+        def _lookup_apiservice(self, group: str) -> Optional[dict]:
+            """The APIService named ``group``, else the first whose
+            ``spec.group`` is ``group`` (the reference names them
+            ``<version>.<group>``)."""
+            try:
+                return store.get("APIService", "", group)
+            except NotFoundError:
+                pass
+            for svc in store.list("APIService", "")[0]:
+                if (svc.get("spec") or {}).get("group") == group:
+                    return svc
+            return None
+
+        def _mark_available(self, svc: dict, available: bool) -> None:
+            """The availability condition, from the proxy's own outcomes (the
+            reference's availability controller folded into the proxy).
+            Best effort: the next proxied request observes it again."""
+            name = (svc.get("metadata") or {}).get("name", "")
+            if bool((svc.get("status") or {}).get("available")) == available:
+                return
+
+            def mark(d: dict) -> dict:
+                d.setdefault("status", {})["available"] = available
+                return d
+
+            try:
+                store.guaranteed_update("APIService", "", name, mark)
+            except Exception as e:  # noqa: BLE001 - advisory status; counted
+                logger.debug("APIService %s availability update failed: %s", name, e)
+                metrics.apiservice_status_failures.inc()
+
+        def _proxy_aggregated(self, method: str, group: str, url) -> None:
+            """``/apis/<group>/...`` to the backend its APIService names
+            (``kube-aggregator``'s proxy handler).  Identity crosses only as
+            the front-proxy headers ``X-Remote-User``/``X-Remote-Group``:
+            the client's ``Authorization`` is never forwarded (it would hand
+            a bearer token to whoever registered the APIService).  An
+            unregistered group answers 404, a backend that cannot be
+            reached 502; the backend's own status codes pass through, and a
+            chunked answer (a watch) streams chunk by chunk."""
+            svc = self._lookup_apiservice(group)
+            if svc is None:
+                return self._error(404, "NotFound", f"no APIService for group {group!r}")
+            base = (svc.get("spec") or {}).get("url", "")
+            if not base:
+                return self._error(503, "ServiceUnavailable",
+                                   f"APIService {group} has no backend")
+            is_watch = parse_qs(url.query).get("watch", ["false"])[0] == "true"
+            req = urllib.request.Request(
+                base.rstrip("/") + url.path + (f"?{url.query}" if url.query else ""),
+                data=self._raw or None, method=method)
+            for h in ("Content-Type", "Accept"):
+                if self.headers.get(h):
+                    req.add_header(h, self.headers[h])
+            if self._user is not None and self._user.name:
+                req.add_header("X-Remote-User", self._user.name)
+                if self._user.groups:
+                    req.add_header("X-Remote-Group", ",".join(self._user.groups))
+            try:
+                resp = _PROXY_OPENER.open(
+                    req, timeout=PROXY_WATCH_TIMEOUT_S if is_watch else PROXY_TIMEOUT_S)
+            except urllib.error.HTTPError as e:
+                return self._send_bytes(e.code, e.read(),
+                                        e.headers.get("Content-Type", "application/json"))
+            except (urllib.error.URLError, OSError, http.client.HTTPException) as e:
+                self._mark_available(svc, False)
+                return self._error(502, "BadGateway", f"APIService {group} backend error: {e}")
+            self._mark_available(svc, True)
+            with resp:
+                self._last_code = resp.status
+                self.send_response(resp.status)
+                self.send_header("Content-Type",
+                                 resp.headers.get("Content-Type", "application/json"))
+                # once the answer has started, a failure may only close the
+                # stream: a second status line would corrupt it
+                try:
+                    if resp.headers.get("Transfer-Encoding", "") == "chunked":
+                        self.send_header("Transfer-Encoding", "chunked")
+                        self.end_headers()
+                        while chunk := resp.read1(65536):
+                            self._write_chunk(chunk)
+                        self.wfile.write(b"0\r\n\r\n")
+                    else:
+                        data = resp.read()
+                        self.send_header("Content-Length", str(len(data)))
+                        self.end_headers()
+                        self.wfile.write(data)
+                except OSError:
+                    self.close_connection = True
 
         def _serve_list(self, kind: str, namespace: Optional[str], q: dict) -> None:
             """LIST, or the watch upgrade with ``watch=true``."""

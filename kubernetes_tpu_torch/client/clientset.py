@@ -8,7 +8,9 @@ update/delete/watch per kind, plus the verbs the scheduler commits with:
   (``pkg/registry/core/pod/storage/storage.go:128 BindingREST``): a CAS
   update that sets ``spec.nodeName`` and fails if the pod is already bound
   to a different node;
-- ``PodClient.bind_many`` — one store transaction for a whole wave.
+- ``PodClient.bind_many`` — one store transaction for a whole wave;
+- ``PodClient.evict`` — the eviction subresource: a delete that every
+  PodDisruptionBudget selecting the pod must allow.
 
 Everything passes through the wire form (``to_dict``/``from_dict``), so
 callers never share an object with the store.  Store responses decode to
@@ -23,11 +25,17 @@ from typing import Callable, Optional, Type
 
 from ..api import lazy as lazy_mod
 from ..api import types as api
-from ..store.store import Store, Watch
+from ..api.selectors import LabelSelector
+from ..store.store import NotFoundError, Store, Watch
 
 
 class BindConflictError(Exception):
     pass
+
+
+class EvictionDisallowed(Exception):
+    """Eviction refused by a PodDisruptionBudget (HTTP 429 in the
+    reference's eviction subresource)."""
 
 
 class TypedClient:
@@ -171,6 +179,56 @@ class PodClient(TypedClient):
             [(b.pod_namespace, b.pod_name, b.node_name) for b in bindings]
         )
 
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        """PDB-aware voluntary eviction — the ``pods/eviction`` subresource
+        (reference ``pkg/registry/core/pod/rest/eviction.go``): every PDB
+        selecting the pod must have ``disruptionsAllowed > 0``; the budget
+        is CAS-decremented before the delete so racing evictions cannot
+        overdraw it (the disruption controller replenishes)."""
+        if namespace is None:
+            namespace = self.default_namespace
+        pod = self.get(name, namespace)
+        pdbs, _ = self._store.list("PodDisruptionBudget", namespace)
+        charged: list[str] = []
+        try:
+            for pdb in pdbs:
+                sel = LabelSelector.from_dict((pdb.get("spec") or {}).get("selector"))
+                if not sel.matches(pod.meta.labels):
+                    continue
+                pdb_name = pdb["metadata"]["name"]
+
+                def _decrement(cur: dict) -> dict:
+                    status = cur.setdefault("status", {})
+                    allowed = int(status.get("disruptionsAllowed", 0))
+                    if allowed <= 0:
+                        raise EvictionDisallowed(
+                            f"cannot evict {namespace}/{name}: PDB {pdb_name} "
+                            "allows no disruptions"
+                        )
+                    status["disruptionsAllowed"] = allowed - 1
+                    return cur
+
+                self._store.guaranteed_update(
+                    "PodDisruptionBudget", namespace, pdb_name, _decrement
+                )
+                charged.append(pdb_name)
+            self.delete(name, namespace)
+        except Exception:
+            # roll the budget back for any PDB already charged
+            for pdb_name in charged:
+                def _refund(cur: dict) -> dict:
+                    status = cur.setdefault("status", {})
+                    status["disruptionsAllowed"] = int(status.get("disruptionsAllowed", 0)) + 1
+                    return cur
+
+                try:
+                    self._store.guaranteed_update(
+                        "PodDisruptionBudget", namespace, pdb_name, _refund
+                    )
+                except NotFoundError:
+                    pass  # the budget was deleted meanwhile: nothing to refund
+            raise
+
 
 class Clientset:
     """One typed client per registered kind (``clientset.Interface``),
@@ -189,4 +247,11 @@ class Clientset:
             setattr(self, api.KIND_PLURALS[kind], client)
 
     def client_for(self, kind: str) -> TypedClient:
+        if kind not in self._by_kind:
+            # a kind registered after this clientset was built (a custom
+            # kind): its client is built on first use
+            cls = api.KINDS.get(kind)
+            if cls is None:
+                raise KeyError(kind)
+            self._by_kind[kind] = TypedClient(self.store, kind, cls)
         return self._by_kind[kind]

@@ -39,8 +39,13 @@ client-certificate), for requests and watch streams alike.  A refused
 certificate (the server's chain does not verify, or the server refused
 ours) is fatal at once: no retry can make it verify.
 
-Every failure path bumps a counter of ``utils.metrics.ClientMetrics``.
-There is no binary wire form or PATCH here yet."""
+``binary=True`` negotiates the binary wire form (``api/wire.py``,
+``application/vnd.ktpu.binary``): request bodies go in it, and the
+``Accept`` header asks for it back; an answer is decoded by its
+Content-Type, so a JSON answer still reads.  ``patch`` is the server-side
+PATCH verb in its three patch types (``api/patch.py``).
+
+Every failure path bumps a counter of ``utils.metrics.ClientMetrics``."""
 
 from __future__ import annotations
 
@@ -60,6 +65,8 @@ from typing import Callable, Optional
 from urllib.parse import quote, urlsplit
 
 from .. import faults
+from ..api import wire
+from ..api.patch import CONTENT_TYPES
 from ..api.types import KIND_PLURALS
 from ..store.columns import COLUMN_BATCH_KINDS
 from ..store.frames import FRAME, WatchFrame
@@ -349,13 +356,15 @@ class RemoteStore:
                  max_retries: int = 3, retry_seed: Optional[int] = None,
                  sleep: Callable[[float], None] = time.sleep,
                  ca_file: Optional[str] = None, client_cert: Optional[str] = None,
-                 client_key: Optional[str] = None):
+                 client_key: Optional[str] = None, binary: bool = False):
         """``max_retries`` re-issues of a request after a retryable failure,
         with exponential backoff jittered per instance.  ``retry_seed``
         defaults to fresh entropy (a shared fixed seed would march every
         client through the same jitter); ``retry_seed`` and ``sleep`` are
         for tests.  ``ca_file`` pins the CA of an ``https://`` server and
-        ``client_cert``/``client_key`` present an x509 client identity."""
+        ``client_cert``/``client_key`` present an x509 client identity.
+        ``binary=True`` negotiates the binary wire form (``api/wire.py``)
+        for request bodies and answers; watch streams stay JSON lines."""
         parts = urlsplit(base_url)
         if parts.scheme not in ("http", "https") or not parts.hostname:
             raise ValueError(f"RemoteStore speaks http:// or https://: {base_url!r}")
@@ -379,6 +388,7 @@ class RemoteStore:
             if client_cert:
                 self._ssl_ctx.load_cert_chain(client_cert, client_key)
         self.token = token
+        self.binary = binary
         self.timeout = timeout
         self.max_retries = max_retries
         self._retry_rng = random.Random(retry_seed)
@@ -478,9 +488,22 @@ class RemoteStore:
         raise RetryExhaustedError(f"{method} {path} failed after {self.max_retries + 1} "
                                   f"attempts: {type(last_err).__name__}: {last_err}")
 
-    def _call(self, method: str, path: str, body=None) -> dict:
-        data = json.dumps(body).encode() if body is not None else None
-        headers = {"Content-Type": "application/json", **self._headers()}
+    def _call(self, method: str, path: str, body=None,
+              content_type: Optional[str] = None) -> dict:
+        """One request under the retry policy; the answer decoded by its
+        Content-Type.  With ``binary`` the body goes in the binary wire
+        form and the binary form is asked for back.  ``content_type``
+        (a PATCH's patch type) sends the body as JSON under that type;
+        the binary Accept still applies to the answer."""
+        if content_type is None and self.binary:
+            data = wire.encode(body) if body is not None else None
+            headers = {"Content-Type": wire.CONTENT_TYPE}
+        else:
+            data = json.dumps(body).encode() if body is not None else None
+            headers = {"Content-Type": content_type or "application/json"}
+        if self.binary:
+            headers["Accept"] = wire.CONTENT_TYPE
+        headers.update(self._headers())
 
         def send():
             req = urllib.request.Request(f"{self.base_url}{path}", data=data, method=method,
@@ -489,18 +512,24 @@ class RemoteStore:
 
         try:
             with self._request_with_retries(send, method, path) as resp:
-                raw = resp.read()
+                out = self._decode(resp.read(), resp.headers)
         except urllib.error.HTTPError as e:
             raw = e.read()
             try:
-                out = json.loads(raw)
+                out = self._decode(raw, e.headers)
             except ValueError:
                 raise RemoteError(f"{e.code}: {raw[:200]!r}") from e
             _raise_for_status(out)
             raise RemoteError(f"{e.code}: {out}") from e
-        out = json.loads(raw)
         _raise_for_status(out)
         return out
+
+    @staticmethod
+    def _decode(raw: bytes, headers) -> dict:
+        if wire.CONTENT_TYPE in ((headers.get("Content-Type") if headers is not None else "")
+                                 or ""):
+            return wire.decode(raw)
+        return json.loads(raw)
 
     @staticmethod
     def _ns_path(namespace: str) -> str:
@@ -583,6 +612,17 @@ class RemoteStore:
                 return self.update(kind, mutate(cur), expect_rev=rev)
             except ConflictError:
                 continue
+
+    def patch(self, kind: str, namespace: str, name: str, patch,
+              patch_type: str = "merge") -> dict:
+        """Server-side PATCH (the reference's PATCH verb): the server
+        applies the patch under its CAS loop, so the client makes no
+        read-modify-write round trips.  ``patch_type`` is ``merge``,
+        ``strategic`` or ``json`` (``api.patch.CONTENT_TYPES``)."""
+        ctype = next((c for c, t in CONTENT_TYPES.items() if t == patch_type),
+                     "application/merge-patch+json")
+        return self._call("PATCH", self._object_path(kind, namespace, name), patch,
+                          content_type=ctype)
 
     def delete(self, kind: str, namespace: str, name: str) -> dict:
         return self._call("DELETE", self._object_path(kind, namespace, name))

@@ -45,12 +45,14 @@ _ACQUIRE_RETRY_S = 2.0
 def remote_clientset(apiserver: Optional[str] = None, token: Optional[str] = None,
                      kubeconfig: Optional[str] = None, ca_file: Optional[str] = None,
                      client_cert: Optional[str] = None, client_key: Optional[str] = None,
-                     timeout: float = 10.0) -> Clientset:
+                     timeout: float = 10.0, binary: bool = False) -> Clientset:
     """A clientset over the wire from a server URL and credentials, or from
     a kubeconfig document (``pki.write_kubeconfig``: server, CA pin, client
     certificate and key, optional token); arguments given override the
     document's fields.  The one place connection settings merge, so every
-    daemon reads a new kubeconfig field alike."""
+    daemon reads a new kubeconfig field alike.  ``binary=True`` negotiates
+    the binary wire form (``RemoteStore(binary=True)``); the scheduler
+    daemon speaks JSON, as the JAX daemon does."""
     if kubeconfig:
         from .pki import load_kubeconfig
 
@@ -61,7 +63,8 @@ def remote_clientset(apiserver: Optional[str] = None, token: Optional[str] = Non
         client_cert = client_cert or doc.get("client-certificate")
         client_key = client_key or doc.get("client-key")
     return Clientset(RemoteStore(apiserver, token=token, timeout=timeout, ca_file=ca_file,
-                                 client_cert=client_cert, client_key=client_key))
+                                 client_cert=client_cert, client_key=client_key,
+                                 binary=binary))
 
 
 def install_signal_stop() -> threading.Event:

@@ -290,7 +290,8 @@ DEFAULT_STORE_METRICS = StoreMetrics()
 class APIServerMetrics:
     """The apiserver's request count and latency (microseconds), the error
     responses that could not be written because the client hung up, the
-    creates the overload gate throttled and the telemetry records taken."""
+    creates the overload gate throttled, the telemetry records taken and
+    the APIService availability writes that failed."""
 
     def __init__(self, registry: Optional[Registry] = None):
         r = registry or Registry()
@@ -308,6 +309,9 @@ class APIServerMetrics:
         self.telemetry_accepted = r.register(Counter(
             "apiserver_telemetry_accepted_total",
             "telemetry records accepted at /telemetry"))
+        self.apiservice_status_failures = r.register(Counter(
+            "apiserver_apiservice_status_failures_total",
+            "best-effort APIService availability updates that failed"))
 
 
 class SchedulerMetrics:

@@ -528,6 +528,42 @@ def oracle_replay_waves(drain_batches: list, final_assignments: dict,
             "round_robin": sched.algorithm._round_robin}
 
 
+def oracle_replay_state(objects: dict, arrivals: list, round_robin: int,
+                        algorithm=None) -> dict:
+    """The per-pod CPU oracle over a cluster given as it was read back:
+    ``objects`` maps a kind to its wire dicts (nodes, services, the bound
+    pods; whatever the scheduler's informers would list), ``arrivals`` are
+    the pods to schedule, in arrival order, and ``round_robin`` is the
+    live scheduler's tie-break counter before them.  The oracle
+    (``Scheduler(backend=None).run_pending``) starts on that state, the
+    arrivals come in one store txn, and it schedules them one by one.
+    Returns each arrival's node (None if unbound) and the final counter."""
+    from .client import Clientset
+    from .scheduler import GenericScheduler, Scheduler
+    from .store import Store
+
+    total = sum(len(v) for v in objects.values()) + len(arrivals)
+    cs = Clientset(Store(event_log_window=max(200_000, 2 * total)))
+    for kind, items in objects.items():
+        cs.store.create_many(kind, items)
+    sched = Scheduler(cs, algorithm=algorithm or GenericScheduler(), backend=None,
+                      emit_events=False)
+    sched.algorithm._round_robin = round_robin
+    sched.start()
+    cs.store.create_many("Pod", arrivals)
+    sched.pump()
+    sched.run_pending()
+    sched.pump()
+    keys = {object_key(d["metadata"].get("namespace", ""), d["metadata"]["name"])
+            for d in arrivals}
+    items, _ = cs.store.list("Pod")
+    return {"assignments": {k: (d.get("spec") or {}).get("nodeName") or None
+                            for d in items
+                            if (k := object_key(d["metadata"].get("namespace", ""),
+                                                d["metadata"]["name"])) in keys},
+            "round_robin": sched.algorithm._round_robin}
+
+
 def preemption_nodes(n_nodes: int):
     """The preemption preset's nodes (``bench.py`` ``run_preemption``):
     ``node-%05d`` at 8 CPU / 32 Gi / 110 pods over 3 zones."""

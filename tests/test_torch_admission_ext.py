@@ -31,7 +31,7 @@ from kubernetes_tpu_torch.api import (
     Quantity,
     StorageClass,
 )
-from kubernetes_tpu_torch.api import PodPreset as PodPresetSpec
+from kubernetes_tpu_torch.api import PodPresetSpec
 from kubernetes_tpu_torch.api.selectors import LabelSelector
 from kubernetes_tpu_torch.client import Clientset
 from kubernetes_tpu_torch.store import Store

@@ -5,8 +5,9 @@ Each twin runs one scenario through the JAX package and through the port
 (``_both``): the same inputs, made from fixed values or a seed, and the
 decisions, users, groups, audit records and HTTP status codes each side
 gives must be equal, and equal to what the JAX test asserts.  Exact: no
-tolerance applies.  The JAX test's eviction (``:270``) and max-in-flight
-(``:755``) cases wait for those routes (ROADMAP.md Queue 1 item 8c).
+tolerance applies.  The eviction (``:270``) and max-in-flight (``:755``)
+twins came with those routes, with a case of the JAX test's own: refused
+TLS handshakes hold no in-flight slot.
 
 Where the JAX test mints certificates with ``openssl``, these use the
 port's committed test PKI (``kubernetes_tpu_torch/testing/pki``) for both
@@ -19,6 +20,7 @@ import base64
 import hashlib
 import hmac
 import json
+import socket
 import ssl
 import threading
 import time
@@ -672,3 +674,122 @@ def test_oidc_requires_exp_claim():
                 for t in (immortal, mortal)]
 
     assert _both(scenario) == [None, ("x", [])]
+
+
+# -- eviction and max-in-flight (tests/test_auth.py :270, :755) --------------
+
+
+def test_eviction_requires_evict_verb_not_create():
+    """``POST pods/{name}/eviction`` is the verb ``evict``: create rights on
+    pods do not let a user evict (delete) a pod."""
+
+    def scenario(m):
+        api = m.api
+        cs = m.Clientset(m.Store())
+        cs.pods.create(api.Pod(meta=api.ObjectMeta(name="victim", namespace="prod")))
+        for role, verb in (("creator", "create"), ("evictor", "evict")):
+            cs.roles.create(api.Role(meta=api.ObjectMeta(name=role, namespace="prod"),
+                                     rules=[api.PolicyRule(verbs=[verb], resources=["pods"])]))
+        for binding, user, role in (("carol-creates", "carol", "creator"),
+                                    ("dave-evicts", "dave", "evictor")):
+            cs.rolebindings.create(api.RoleBinding(
+                meta=api.ObjectMeta(name=binding, namespace="prod"),
+                subjects=[api.Subject(kind="User", name=user)], role_kind="Role",
+                role_name=role))
+        auditor = m.auth.Auditor()
+        server = _serving(m, cs.store, authenticator=m.auth.UnionAuthenticator(
+            m.auth.TokenFileAuthenticator({"carol-token": "carol", "dave-token": "dave"}),
+            allow_anonymous=False), authorizer=m.auth.RBACAuthorizer(cs.store),
+            auditor=auditor)
+        try:
+            url = server.url + "/api/v1/namespaces/prod/pods/victim/eviction"
+            codes = [_code(url, tok, "POST", {}) for tok in ("carol-token", "dave-token")]
+        finally:
+            server.stop()
+        try:
+            cs.store.get("Pod", "prod", "victim")
+            gone = False
+        except KeyError:
+            gone = True
+        return codes, gone, sorted({(e.user, e.verb, e.resource, e.code)
+                                    for e in auditor.memory.events
+                                    if e.stage == "ResponseComplete"})
+
+    codes, gone, records = _both(scenario)
+    assert codes == [403, 201] and gone
+    assert records == [("carol", "evict", "pods", 403), ("dave", "evict", "pods", 201)]
+
+
+def _max_in_flight(m):
+    server = _serving(m, m.Store(), max_in_flight=2)
+    out = []
+    try:
+        # exhaust the slots through the filter's own semaphore
+        assert server._inflight.acquire(blocking=False)
+        assert server._inflight.acquire(blocking=False)
+        out.append(_code(f"{server.url}/api/v1/pods"))
+        # a watch still flows while the cap is exhausted
+        with urllib.request.urlopen(f"{server.url}/api/v1/pods?watch=true&timeoutSeconds=1",
+                                    timeout=10) as r:
+            out.append(r.status)
+            r.read()
+        # only the parsed query exempts: a watch=true inside another
+        # parameter's value does not
+        out.append(_code(f"{server.url}/api/v1/pods?foo=watch%3Dtrue"))
+        server._inflight.release()
+        server._inflight.release()
+        out.append(_code(f"{server.url}/api/v1/pods"))
+        # every answered request gave its slot back
+        out.append([server._inflight.acquire(blocking=False) for _ in range(3)])
+    finally:
+        server.stop()
+    return out
+
+
+def test_max_in_flight_sheds_load_but_exempts_watches():
+    assert _both(_max_in_flight) == [429, 200, 429, 200, [True, True, False]]
+
+
+def _refused_handshakes_hold_no_slot(m):
+    """A TLS server with one in-flight slot: clients whose certificates the
+    handshake refuses, and clients that hang up mid-handshake, leave the
+    slot free; a kept-alive connection's requests each take and return it."""
+    server = _serving(m, m.Store(), max_in_flight=1, authenticator=m.auth.UnionAuthenticator(
+        m.auth.TokenFileAuthenticator({}), allow_anonymous=False),
+        tls=m.TLSConfig(*fixture.pair("apiserver"), client_ca=fixture.path("ca.crt")))
+    out = []
+    try:
+        bad = ssl.create_default_context(cafile=fixture.path("ca.crt"))
+        bad.check_hostname = False
+        bad.load_cert_chain(fixture.path("other/client.crt"), fixture.path("other/client.key"))
+        for _ in range(4):
+            try:
+                with urllib.request.urlopen(server.url + "/api/v1/pods", timeout=10,
+                                            context=bad) as r:
+                    out.append(r.status)
+            except urllib.error.HTTPError as e:
+                out.append(e.code)
+            except (urllib.error.URLError, ssl.SSLError, ConnectionError):
+                out.append("refused")
+        for _ in range(3):  # connect and close without a hello
+            socket.create_connection(("127.0.0.1", server.port), timeout=5).close()
+        good = ssl.create_default_context(cafile=fixture.path("ca.crt"))
+        good.check_hostname = False
+        good.load_cert_chain(*fixture.pair("admin"))
+        for _ in range(3):
+            with urllib.request.urlopen(server.url + "/api/v1/pods", timeout=10,
+                                        context=good) as r:
+                out.append(r.status)
+        deadline = time.monotonic() + 5
+        while not server._inflight.acquire(blocking=False):
+            assert time.monotonic() < deadline, "the slot was never returned"
+            time.sleep(0.01)
+        server._inflight.release()
+        out.append("free")
+    finally:
+        server.stop()
+    return out
+
+
+def test_a_refused_tls_handshake_returns_its_in_flight_slot():
+    assert _both(_refused_handshakes_hold_no_slot) == ["refused"] * 4 + [200] * 3 + ["free"]

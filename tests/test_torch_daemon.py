@@ -11,6 +11,14 @@ wire, and the two entry points as real processes.
   ``Scheduler`` + ``BatchBackend(device="cpu")`` against the port's
   ``APIServer``.  Tolerance: exact; the binding maps and round-robin
   counters equal each other and the port's sequential oracle.
+- A scheduler started before its cluster (ROADMAP Queue 3 item 8): each
+  package's ``Scheduler`` on its batch backend starts on an empty store,
+  then the seeded cluster and two waves arrive, the informers pumped by
+  hand, with the Node informer together with or behind the Pod informer.
+  Exact: both packages bind alike, equal to the sequential oracle
+  replayed in the order they drained; behind, both fail the first wave
+  and bind it after the second, off the creation-order oracle (the
+  reference's behaviour, kept).
 - Daemon-stack preemption: both stacks at their defaults over the wire;
   a priority pod that binds only after an eviction evicts the same victim
   and binds alike.
@@ -465,6 +473,115 @@ def test_daemon_stack_parity_jax_stack_port_stack_and_oracle():
     assert got == want == oracle
     assert algo._round_robin == jalgo._round_robin == oracle_rr
     assert backend.stats["segments"] == 1 and backend.stats["oracle_pods"] == 0
+
+
+# -- a scheduler started before its cluster (ROADMAP Queue 3 item 8) --------
+
+EARLY = dict(n_nodes=60, wave=200, seed=11)
+
+
+def _early_start(which: str, order: str) -> dict:
+    """Each package's ``Scheduler`` on its batch backend starts on an empty
+    store (its informers list nothing); then the seeded ``mixed`` cluster
+    and a first wave arrive, then a second wave.  The informers are pumped
+    by hand:
+
+    - ``together``: nodes, services and the first wave are pumped at once;
+      the first wave drains, then the second;
+    - ``pods-first``: only the Pod informer is pumped before the first
+      drain (the race a daemon can lose: its Pod watch delivers before its
+      Node watch).  Every first-wave pod fails (no node), is marked
+      FailedScheduling and backs off; a churn client that waits for each
+      pod to be bound or marked then sends the second wave, which drains
+      while the first backs off; then the clock passes the backoff and
+      the first wave drains.
+
+    Returns the final bindings, the keys of each drain in drain order, the
+    first drain's (bound, failed) and the round-robin counter."""
+    if which == "jax":
+        from kubernetes_tpu.client import Clientset as C
+        from kubernetes_tpu.ops import TPUBatchBackend
+        from kubernetes_tpu.scheduler import GenericScheduler as G
+        from kubernetes_tpu.scheduler import Scheduler as S
+        from kubernetes_tpu.store import Store as St
+
+        algo = G()
+        backend = TPUBatchBackend(algorithm=algo, kernel_impl="xla")
+    else:
+        C, G, S, St = Clientset, GenericScheduler, Scheduler, Store
+        algo = G()
+        backend = BatchBackend(algorithm=algo, device="cpu")
+    cs = C(St())
+    clock = FakeClock()
+    sched = S(cs, algorithm=algo, backend=backend, clock=clock)
+    sched.start(manual=True)
+    # the wire form of each object is the same in both packages, so the
+    # port's workload builds the cluster for either clientset
+    pods = workload.create_cluster(cs, EARLY["n_nodes"], 2 * EARLY["wave"], "mixed",
+                                   EARLY["seed"])
+    waves = [pods[:EARLY["wave"]], pods[EARLY["wave"]:]]
+    drains: list = []
+    bound_keys: set = set()
+
+    def drain() -> tuple:
+        got = sched.schedule_pending_batch()
+        sched.pump()
+        now = {p.meta.key for p in cs.pods.list()[0] if p.spec.node_name}
+        drains.append(sorted(now - bound_keys, key=[p.meta.key for p in pods].index))
+        bound_keys.update(now)
+        return got
+
+    cs.pods.create_many(waves[0])
+    if order == "pods-first":
+        sched.informers.informer("Pod").pump()
+        first = drain()
+        cs.pods.create_many(waves[1])
+        sched.pump()
+        drain()
+        clock.now += 60.0  # past every first-wave pod's backoff
+        sched.pump()
+        drain()
+    else:
+        sched.pump()
+        first = drain()
+        cs.pods.create_many(waves[1])
+        sched.pump()
+        drain()
+    sched.informers.stop_all()
+    return {"bindings": {p.meta.key: p.spec.node_name or None for p in cs.pods.list()[0]},
+            "drains": [d for d in drains if d], "first": tuple(first),
+            "rr": algo._round_robin}
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("order", ["together", "pods-first"])
+def test_a_scheduler_started_before_its_cluster_binds_as_the_jax_scheduler_does(order):
+    """Queue 3 item 8, settled: both packages' schedulers, started before
+    their cluster, bind the same pods to the same nodes with the same
+    round-robin counter, in either order.  With the Pod informer ahead of
+    the Node informer, both fail the first wave, bind the second wave
+    first and the first after its backoff: off the sequential oracle that
+    replays the waves in creation order, and exactly the oracle that
+    replays them in the order the schedulers drained them.  The divergence
+    is the reference's own (a pod with no node fails and retries), kept."""
+    want, got = _early_start("jax", order), _early_start("port", order)
+    assert got == want
+    n, wave, seed = EARLY["n_nodes"], EARLY["wave"], EARLY["seed"]
+    assert all(got["bindings"].values()) and len(got["bindings"]) == 2 * wave
+    pods = workload._churn_cluster(n, 2 * wave, "mixed", seed)[1]
+    by_creation = [[p.meta.key for p in pods[:wave]], [p.meta.key for p in pods[wave:]]]
+    # the oracle replaying the drains in the order the schedulers ran them
+    replay = workload.oracle_replay_waves(got["drains"], got["bindings"], n, 2 * wave,
+                                          "mixed", seed)
+    assert replay["mismatches"] == 0 and replay["round_robin"] == got["rr"]
+    if order == "together":
+        assert got["first"] == (wave, 0) and got["drains"] == by_creation
+    else:
+        # the second wave drained first; the creation-order oracle differs
+        assert got["first"] == (0, wave) and got["drains"] == by_creation[::-1]
+        off = workload.oracle_replay_waves(by_creation, got["bindings"], n, 2 * wave,
+                                           "mixed", seed)
+        assert off["mismatches"] > 0
 
 
 PREEMPT_NODES, PREEMPT_FILLERS = 3, 6

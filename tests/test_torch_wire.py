@@ -5,10 +5,16 @@ The same seeded objects (pods and nodes of a mixed cluster, the admission
 chain's kinds, and seeded JSON-shaped documents with negative and large
 integers, floats, unicode, repeated short and long strings) encode to the
 same bytes in both packages, and each package decodes the other's bytes
-back to the object.  Tolerance: exact byte equality."""
+back to the object.  Tolerance: exact byte equality.
+
+Binary content negotiation over HTTP (a twin of ``tests/test_wire.py``
+``test_http_content_negotiation``): a ``RemoteStore(binary=True)`` and a
+JSON client of each package against each package's apiserver read each
+other's writes; every pairing's records equal the JAX/JAX records."""
 
 import importlib
 import json
+import urllib.request
 
 import numpy as np
 import pytest
@@ -110,3 +116,85 @@ def test_quantities_encode_through_their_json_form_and_garbage_is_refused():
         _wire(PORT).encode({"bad": object()})
     with pytest.raises(ValueError, match="magic"):
         _wire(PORT).decode(b"json{}")
+
+
+def _negotiation(client: str, server: str) -> list:
+    """``RemoteStore(binary=True)`` of ``client``'s package against
+    ``server``'s apiserver, beside a JSON client (``tests/test_wire.py``
+    ``test_http_content_negotiation``): each reads what the other wrote,
+    and a ``guaranteed_update`` and a PATCH go through the binary path.
+    Returns the records with ``uid``/``creationTimestamp``/``resourceVersion``
+    left out."""
+    srv = importlib.import_module(f"{server}.apiserver")
+    store = importlib.import_module(f"{server}.store").Store()
+    remote = importlib.import_module(f"{client}.client.remote")
+    tu = importlib.import_module(f"{client}.testutil")
+    server_ = srv.APIServer(store)
+    server_.start()
+
+    def clean(d):
+        meta = {k: v for k, v in d["metadata"].items()
+                if k not in ("uid", "creationTimestamp", "resourceVersion")}
+        return {**d, "metadata": meta}
+
+    try:
+        rs_bin = remote.RemoteStore(server_.url, binary=True)
+        rs_json = remote.RemoteStore(server_.url)
+        out = [clean(rs_bin.create("Node", tu.make_node("n1", cpu="4").to_dict()))]
+        items, _ = rs_json.list("Node", None)
+        out.append([clean(i) for i in items])
+        rs_json.create("Node", tu.make_node("n2").to_dict())
+        items, _ = rs_bin.list("Node", None)
+        out.append(sorted(i["metadata"]["name"] for i in items))
+        out.append(clean(rs_bin.guaranteed_update(
+            "Node", "", "n1",
+            lambda d: {**d, "spec": {**(d.get("spec") or {}), "unschedulable": True}})))
+        out.append(clean(rs_bin.patch("Node", "", "n2", {"spec": {"unschedulable": True}},
+                                      patch_type="strategic")))
+        created = rs_bin.create_many("Pod", [tu.make_pod(f"p{i}").to_dict() for i in range(3)])
+        out.append([clean(d) for d in created])
+        try:
+            rs_bin.get("Pod", "default", "ghost")
+        except KeyError as e:
+            out.append(type(e).__name__)
+        # the raw answer is in the binary form when Accept asks for it
+        req = urllib.request.Request(server_.url + "/api/v1/nodes",
+                                     headers={"Accept": _wire(client).CONTENT_TYPE})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            out.append(r.headers["Content-Type"])
+            out.append(sorted(i["metadata"]["name"]
+                              for i in _wire(client).decode(r.read())["items"]))
+        return out
+    finally:
+        server_.stop()
+
+
+@pytest.mark.parametrize("client,server", [(PORT, PORT), (PORT, JAX), (JAX, PORT)])
+def test_http_content_negotiation(client, server):
+    got = _negotiation(client, server)
+    assert got == _negotiation(JAX, JAX)
+    assert got[0]["metadata"]["name"] == "n1" and got[2] == ["n1", "n2"]
+    assert got[3]["spec"]["unschedulable"] is True and got[4]["spec"]["unschedulable"] is True
+    assert got[7] == "application/vnd.ktpu.binary" and got[8] == ["n1", "n2"]
+
+
+def test_remote_clientset_negotiates_binary_on_request():
+    """``daemon.remote_clientset(..., binary=True)`` builds a clientset whose
+    store speaks the binary form; by default it speaks JSON, as the
+    scheduler daemon does."""
+    from kubernetes_tpu_torch.apiserver import APIServer
+    from kubernetes_tpu_torch.daemon import remote_clientset
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testutil import make_node
+
+    server = APIServer(Store())
+    server.start()
+    try:
+        binary = remote_clientset(server.url, binary=True)
+        plain = remote_clientset(server.url)
+        assert binary.store.binary and not plain.store.binary
+        binary.nodes.create(make_node("n1"))
+        assert [n.meta.name for n in plain.nodes.list()[0]] == ["n1"]
+        assert binary.nodes.get("n1").meta.name == "n1"
+    finally:
+        server.stop()
