@@ -47,11 +47,13 @@ Phases, one line each:
    columnar LIST, the frame confirm), the launch count read around it;
    (b) a 1000-node x 400-pod churn run on the card replayed wave by wave
    through the port's per-pod oracle (``workload.oracle_replay_waves``);
-   (c) 5a and 5b again on the eager ingest path (typed decode of every
-   event, per-event delivery): the same-call A/B of ingest, 5c's parity
-   held like 5b's.  Every wave prints its frames, frame events, lazy
-   promotions, confirm fallbacks and decode seconds; 5a and 5c print the
-   ``DeviceNodeCache``'s reuses and the share of node columns uploaded;
+   (c) 5b again on the eager ingest path (typed decode of every event,
+   per-event delivery), held like 5b's, its launches counted as the
+   ``churn_eager`` path (5a's eager arm, the same-call A/B of ingest, is
+   cut for the script's time).  Every wave prints its
+   frames, frame events, lazy promotions, confirm fallbacks and decode
+   seconds; 5a prints the ``DeviceNodeCache``'s reuses and the share of
+   node columns uploaded;
 6. the daemon stack: (a) ``python -m kubernetes_tpu_torch.apiserver`` and
    ``python -m kubernetes_tpu_torch.scheduler --leader-elect`` (its
    default ``--backend batch --device cuda``) as processes, driven over
@@ -70,7 +72,7 @@ Phases, one line each:
    batch a kernel launch): evictions per second, the cohort split (state
    build, ranking, evictions), victims == preemptors == bound after, the
    failing and follow-up batches' kernel segments against the plain scan;
-   (b) 1000 nodes, 4000 fillers and 150 preemptors, a seeded tenth of
+   (b) 1000 nodes, 4000 fillers and 75 preemptors, a seeded tenth of
    them with a host port or a required affinity: every cohort decision
    held against the exhaustive ``find_preemption_target``, the later
    batches' kernel segments against the plain scan; (c) the two daemons
@@ -99,7 +101,7 @@ Phases, one line each:
    frontier's prefilter: the wave raises and its pods are requeued, as
    for the kernel), each with a flight-recorder dump naming the point and
    its wave, the bindings against the per-wave oracle replay; (c) ``workload.run_overload`` at 5000 nodes
-   (surge at 3x the calibrated drain for at most 20 s, recovery, tail):
+   (surge at 3x the calibrated drain for at most 10 s, recovery, tail):
    each tier's goodput and e2e p50/p99, the rung timeline, transitions,
    score-plane sheds and 429s; every segment scanned with the interpod
    score plane shed is held against the plain scan afterwards, the
@@ -127,15 +129,16 @@ Phases, one line each:
    carries the admitted requests, tolerations and priority, some bind to
    the tainted nodes, the daemon's bindings and rr equal the sequential
    oracle over the objects as read back, and the in-process batch path
-   over them has kernel == scan_ref on every segment; (b) 6a's cell in 5
-   waves through a ``--data-dir`` apiserver, SIGKILLed while wave 3 is
+   over them has kernel == scan_ref on every segment; (b) 5000 nodes x
+   10 000 ``mixed`` pods in 5 of 6a's 2000-pod waves through a
+   ``--data-dir`` apiserver, SIGKILLed while wave 3 is
    being bound and restarted on the same port and directory under the
    same scheduler daemon: every bind of the LIST before the kill reads
    back, every pod ends bound, no node over capacity, the daemon's watch
    reconnects on /metrics, the recovery line printed, waves 1-2's pods/s
    beside 6a's; (c) what ``--fsync`` costs: a 2000-pod wave at 5000 nodes
-   under no flag, ``--data-dir`` and ``--data-dir --fsync``, three of
-   each interleaved, create and bind seconds and create->bind p99 per arm;
+   under no flag, ``--data-dir`` and ``--data-dir --fsync``, one of
+   each, create and bind seconds and create->bind p99 per arm;
 12. auth, PKI, TLS and kubeconfig: (a) the control plane as ``cluster
    init`` starts it, at 6a's shape: the apiserver at its defaults with
    ``--tls-cert-file``, ``--tls-private-key-file``, ``--client-ca-file``
@@ -156,8 +159,8 @@ Phases, one line each:
    ``system:bootstrap:<id>``, an expired one gets 401; four connections
    that send nothing do not keep the server from answering; (c) RBAC
    mode over HTTP (``--token-file``, ``--authorization-mode RBAC``, the
-   grants seeded into ``--data-dir`` by ``Store``): 1000 nodes x 2000
-   pods in 4 waves, bindings and rr equal to the sequential oracle wave
+   grants seeded into ``--data-dir`` by ``Store``): 1000 nodes x 1000
+   pods in 2 waves, bindings and rr equal to the sequential oracle wave
    by wave, a token with no binding gets 403 on create;
 13. a node drain under the card's scheduler: (a) the apiserver at its
    defaults, the scheduler daemon with ``--leader-elect`` at its defaults
@@ -174,8 +177,9 @@ Phases, one line each:
    the daemon binds them all, none on a cordoned node, no node over
    capacity, equal to the port's sequential oracle with rr over the cluster
    as read back before the wave (run in a process of its own beside the
-   rest of the phase); the wave's uploaded-column share from the daemon's
-   /metrics and its ``DeviceNodeCache`` stats (a diff, not a full upload);
+   rest of the phase and then beside phase 14); the wave's uploaded-column
+   share from the daemon's /metrics and its ``DeviceNodeCache`` stats (a
+   diff, not a full upload);
    the uncordon by JSON patch; PATCHes/s, evictions/s, the wave's pods/s
    and create->bind p50/p99, both kernels' launches as the daemon counted
    them (each > 0); (b) on the same server, ``/openapi/v2`` with a path for
@@ -183,7 +187,32 @@ Phases, one line each:
    ``apps/v1beta1`` Deployment read back in hub form with its 25% surge
    resolved, a binary LIST of the 20 000 pods equal to the JSON LIST (both
    byte counts printed), and ``/apis/<group>`` proxied to a sample backend
-   on loopback that an APIService names (an unregistered group 404).
+   on loopback that an APIService names (an unregistered group 404);
+14. a kubemark density run under the card's scheduler: (a) the apiserver
+   at its defaults; 5000 hollow nodes (``kubernetes_tpu_torch.kubelet``'s
+   ``HollowFleet``) register themselves from spawned processes, one for
+   every two cores (``workload.run_hollow_fleet``), kubelet *i* with node
+   *i*'s cpu, memory, pods and labels of the seeded ``mixed`` cluster
+   (seed 7), heartbeating every 10 s and starting a pod 0.5 s after it
+   admits it; the tenth that the cluster taints gets its taint by PATCH,
+   as ``kubectl taint`` does; then the scheduler daemon (``--device
+   cuda``); 20 000 ``mixed`` pods in 10 ``:batch`` POSTs, each once the
+   last is bound, watched from before the first: the waves' pods/s and
+   create->bind p50/p99, pod startup latency p50/p99 (create to the
+   Running update on the watch) against the density test's 5 s SLO,
+   Running pods/s, each fleet process's tick seconds (a tick that raises
+   ends its process with a nonzero exit, which fails the phase), the apiserver's
+   requests by verb and resource (heartbeats are node GETs and PUTs, a
+   pod's status a GET and a PUT), the daemon's node and pod events, batch,
+   tensorize and dispatch seconds, the card's idle share, both kernels'
+   launches (each > 0); every pod Running, no kubelet admission rejection,
+   no node over capacity, no pod IP twice on a node (the count of
+   addresses on more than one node printed: with no IPAM controller the
+   kubelets' hash-fallback bases could meet); (b) ``python -m kubernetes_tpu_torch
+   kubelet --count 1000`` as one process, 2000 ``plain`` pods in 4 waves
+   through the card's scheduler, every pod Running, the bindings and rr
+   equal to the sequential oracle over the cluster as read back (in a
+   spawned process), the fleet's exit 0 on SIGTERM.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -201,6 +230,7 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import random
 import signal
 import socket
@@ -832,25 +862,22 @@ def ingest_line(ph: dict, keys: tuple = INGEST_KEYS) -> str:
                     for k in keys)
 
 
-def churn_phase(lazy_ingest: bool = True) -> tuple:
-    """Phase 5: the serving path at full width, then per-wave oracle parity
-    of a smaller churn run; ``lazy_ingest=False`` runs both on the eager
-    ingest path (phase 5c).  Returns ((the fused-scan and the refresh
-    kernels' launches of the full-width run), its pods/s)."""
+def churn_phase() -> tuple[int, int]:
+    """Phase 5a-5b: the serving path at full width on the default ingest
+    path, then per-wave oracle parity of a smaller churn run.  Returns the
+    fused-scan and the refresh kernels' launches of the full-width run."""
     from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan
-    from kubernetes_tpu_torch.workload import oracle_replay_waves, run_churn
+    from kubernetes_tpu_torch.workload import run_churn
 
-    a, b = ("5a", "5b") if lazy_ingest else ("5c", "5c parity")
-    path = "lazy, framed ingest" if lazy_ingest else "eager ingest"
     n_nodes, n_pods, waves = 5000, 20000, 10
     fused_scan.launches = frontier_refresh.launches = 0
-    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=0, device="cuda",
-                  lazy_ingest=lazy_ingest)
+    r = run_churn(n_nodes, n_pods, waves, "mixed", seed=0, device="cuda")
     launches, refresh = fused_scan.launches, frontier_refresh.launches
     st = r["backend"]
     nc = r["node_cache"]
     e2e = r["e2e_scheduling_ms"]
-    print(f"phase {a} churn {n_nodes}x{n_pods} mixed in {waves} waves, {path}: bound {r['bound']} "
+    print(f"phase 5a churn {n_nodes}x{n_pods} mixed in {waves} waves, lazy, framed ingest: "
+          f"bound {r['bound']} "
           f"unbound {r['unbound']} drained {r['drained']} wall_s {r['wall_s']:.3f} "
           f"pods_per_s {r['pods_per_sec']:.1f} e2e_p50_ms {e2e['p50']} e2e_p99_ms {e2e['p99']} "
           f"launches {launches} segments {st['segments']} kernel_pods {st['kernel_pods']} "
@@ -862,18 +889,16 @@ def churn_phase(lazy_ingest: bool = True) -> tuple:
           f"{nc['dirty_cols'] / max(nc['cols_total'], 1):.4f} ({nc['dirty_cols']} of "
           f"{nc['cols_total']} columns)", flush=True)
     for w, ph in enumerate(r["phase_timers"]):
-        print(f"phase {a} wave {w}: bound {ph['bound']} " + " ".join(
+        print(f"phase 5a wave {w}: bound {ph['bound']} " + " ".join(
             f"{k} {ph[k]:.4f}" for k in ("pump_s", "apply_s", "tensorize_s", "dispatch_s",
                                         "device_wait_s", "commit_s", "prep_s", "kernel_ms"))
               + " " + ingest_line(ph), flush=True)
     idle = 1.0 - st["kernel_ms"] / 1e3 / r["wall_s"]
-    print(f"phase {a} device idle share over the wall (1 - kernel_ms / wall): {idle:.4f}",
+    print(f"phase 5a device idle share over the wall (1 - kernel_ms / wall): {idle:.4f}",
           flush=True)
     totals = {k: sum(ph[k] for ph in r["phase_timers"]) for k in INGEST_KEYS}
-    if lazy_ingest and (totals["frames"] <= 0 or totals["promotions"] <= 0):
+    if totals["frames"] <= 0 or totals["promotions"] <= 0:
         raise AssertionError(f"the default ingest path ran no frames or promotions: {totals}")
-    if not lazy_ingest and (totals["frames"] or totals["promotions"]):
-        raise AssertionError(f"the eager ingest path ran frames or lazy views: {totals}")
     if launches < waves:
         raise AssertionError(f"churn launched the fused kernel {launches} times in {waves} waves")
     if st["oracle_pods"] != 0 or st["kernel_pods"] != r["drained"]:
@@ -882,13 +907,32 @@ def churn_phase(lazy_ingest: bool = True) -> tuple:
         raise AssertionError(f"churn accounting: bound {r['bound']} unbound {r['unbound']} "
                              f"events {r['scheduled_events']} of {n_pods} pods")
 
-    pods_per_s = r["pods_per_sec"]
+    churn_parity()
+    return launches, refresh
 
+
+def churn_parity(lazy_ingest: bool = True) -> tuple[int, int]:
+    """Phase 5b: a 1000-node x 400-pod churn run on the card replayed wave
+    by wave through the per-pod oracle; ``lazy_ingest=False`` runs it on
+    the eager ingest path (phase 5c).  Returns the run's fused-scan and
+    refresh launches."""
+    from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan
+    from kubernetes_tpu_torch.workload import oracle_replay_waves, run_churn
+
+    b = "5b" if lazy_ingest else "5c"
+    path = "lazy, framed ingest" if lazy_ingest else "eager ingest"
     n_nodes, n_pods, waves, seed = 1000, 400, 4, 5
+    fused_scan.launches = frontier_refresh.launches = 0
     r = run_churn(n_nodes, n_pods, waves, "mixed", seed=seed, device="cuda",
                   lazy_ingest=lazy_ingest)
+    launches, refresh = fused_scan.launches, frontier_refresh.launches
+    if launches <= 0:
+        raise AssertionError(f"phase {b}: the churn run launched no fused scan")
     for w, ph in enumerate(r["phase_timers"]):
         print(f"phase {b} wave {w}: bound {ph['bound']} " + ingest_line(ph), flush=True)
+    totals = {k: sum(ph[k] for ph in r["phase_timers"]) for k in INGEST_KEYS}
+    if not lazy_ingest and (totals["frames"] or totals["promotions"]):
+        raise AssertionError(f"the eager ingest path ran frames or lazy views: {totals}")
     o = oracle_replay_waves(r["drain_batches"], r["assignments"], n_nodes, n_pods,
                             "mixed", seed)
     print(f"phase {b} churn {n_nodes}x{n_pods} in {waves} waves, {path}, vs per-wave oracle "
@@ -897,13 +941,29 @@ def churn_phase(lazy_ingest: bool = True) -> tuple:
     if (o["mode"] != "exact per-wave replay" or o["checked"] != r["pods"]
             or o["mismatches"] != 0 or o["round_robin"] != r["round_robin"]):
         raise AssertionError(f"churn bindings != per-wave oracle replay: {o}")
-    return (launches, refresh), pods_per_s
+    return launches, refresh
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free loopback port below the kernel's ephemeral range: a port in
+    that range can be taken by a client's outgoing connection between this
+    pick and the daemon's bind (phase 14's fleet opens tens of thousands)."""
+    lo = 32768
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        pass
+    pick = random.SystemRandom()
+    for _ in range(1000):
+        port = pick.randrange(max(1024, lo - 16384), lo)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError(f"no free loopback port below {lo}")
 
 
 def http_get(url: str, ctx=None, token: str = None) -> bytes:
@@ -1227,7 +1287,7 @@ def preemption_phase() -> tuple[int, dict]:
     on the card: 5000 nodes, 20 000 fillers, 2500 preemptors, the
     preemptor and follow-up batches' kernel segments held against the
     plain scan; (b) 1000
-    nodes, 4000 fillers and 150 preemptors, a seeded tenth of them with a
+    nodes, 4000 fillers and 75 preemptors, a seeded tenth of them with a
     host port or a required affinity (branch and bound): every cohort
     decision held against the exhaustive ``find_preemption_target`` on the
     state it was made on, and the preemptor and follow-up batches' kernel
@@ -1306,10 +1366,9 @@ def preemption_phase() -> tuple[int, dict]:
     fused_scan.launches = 0
     preemption.find_preemption_target_fast = held
     try:
-        # 150 preemptors (500 once, 250 until the frontier's phases came):
-        # the exhaustive oracle is the phase's wall (0.15-0.25 s a
-        # decision), and the script stays under 750 s
-        r = run_preemption(1000, 4000, 150, device="cuda", seed=7, odd_share=0.1,
+        # 75 preemptors: the exhaustive oracle is the phase's wall (0.15-0.25
+        # s a decision), and the script must end within its time limit
+        r = run_preemption(1000, 4000, 75, device="cuda", seed=7, odd_share=0.1,
                            backend_cls=checking_backend(seen, skip=1))
     finally:
         preemption.find_preemption_target_fast = fast
@@ -1676,7 +1735,7 @@ def overload_phase() -> tuple[int, dict]:
 
     t0 = time.perf_counter()
     fused_scan.launches = 0
-    r = run_overload(n_nodes=5000, surge_mult=3.0, max_surge_s=20.0, device="cuda",
+    r = run_overload(n_nodes=5000, surge_mult=3.0, max_surge_s=10.0, device="cuda",
                      backend_cls=ShedRecorder)
     launches = fused_scan.launches
     t1 = time.perf_counter()
@@ -1693,7 +1752,7 @@ def overload_phase() -> tuple[int, dict]:
     ad = r["admission"]
     print(f"phase 9c overload {r['nodes']} nodes: drain {r['drain_pods_per_s']:.1f} pods/s, "
           f"arrivals paced at {r['arrival_pods_per_s']:.1f} pods/s for {r['surge_pods']} pods, "
-          f"{sum(x['arrivals'] for x in r['tiers'].values())} created in the 20 s window, the "
+          f"{sum(x['arrivals'] for x in r['tiers'].values())} created in the 10 s window, the "
           f"creators done after {r['surge_s']:.3f} s (pending threshold "
           f"{r['pending_threshold']:.1f}); {tiers} "
           f"rung timeline {[(round(t, 3), g) for t, g in r['rung_timeline']]}, max rung "
@@ -2101,10 +2160,10 @@ def admitted_parity(workdir: str, n_nodes: int = 1000, n_pods: int = 2000) -> tu
     return st["launches"], st["refresh_launches"]
 
 
-def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int = 20000,
+def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int = 10000,
                    waves: int = 5) -> tuple[int, int]:
-    """Phase 11b: 6a's cell in 5 waves through a durable apiserver at its
-    defaults; once wave 3's creates are acknowledged, while the daemon
+    """Phase 11b: 5 of 6a's 2000-pod waves through a durable apiserver at
+    its defaults; once wave 3's creates are acknowledged, while the daemon
     drains and binds them, the client LISTs the pods and the apiserver is
     SIGKILLed and restarted on the same port and directory.  The scheduler daemon is not restarted.  Returns its
     fused-scan and refresh launches."""
@@ -2172,11 +2231,11 @@ def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int
 
 
 def fsync_cost(workdir: str, n_nodes: int = 5000, per_wave: int = 2000,
-               reps: int = 3) -> tuple[int, int]:
+               reps: int = 1) -> tuple[int, int]:
     """Phase 11c: at 5000 nodes, one 2000-pod wave under each of: no flag,
     ``--data-dir``, ``--data-dir --fsync`` (each arm its own apiserver at
-    its defaults and scheduler daemon, all started first), three waves an
-    arm interleaved (arm by arm within a round).  Returns the daemons'
+    its defaults and scheduler daemon, all started first), ``reps`` waves
+    an arm interleaved (arm by arm within a round).  Returns the daemons'
     fused-scan and refresh launches."""
     from kubernetes_tpu_torch.workload import run_wire_churn
 
@@ -2439,7 +2498,7 @@ def rbac_mode(workdir: str) -> tuple[int, int]:
     from kubernetes_tpu_torch.testing import pki as fixture
     from kubernetes_tpu_torch.workload import oracle_replay_waves, run_wire_churn
 
-    n_nodes, n_pods, waves, seed = 1000, 2000, 4, 7
+    n_nodes, n_pods, waves, seed = 1000, 1000, 2, 7
     data = os.path.join(workdir, "12c-data")
     tokens = os.path.join(workdir, "12c-tokens.csv")
     with open(tokens, "w") as f:
@@ -2701,8 +2760,15 @@ def node_drain(d: "Daemons", oracle_pool) -> dict:
                 bound_at[ev.key] = (time.perf_counter() - t_create, node)
     finally:
         watch.stop()
-    text = d.metrics_text()
-    waves_up = metric_value(text, UPLOAD_FRACTION + "_count") - frac0[1]
+    # the daemon observes a wave's upload share after its binds land, so
+    # the watch can see the last bind first: wait (at most 30 s) for it
+    deadline = time.monotonic() + 30
+    while True:
+        text = d.metrics_text()
+        waves_up = metric_value(text, UPLOAD_FRACTION + "_count") - frac0[1]
+        if waves_up or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
     out["upload_fraction"] = ((metric_value(text, UPLOAD_FRACTION + "_sum") - frac0[0])
                               / waves_up if waves_up else None)
     out["wall_s"] = time.perf_counter() - t_start
@@ -2833,18 +2899,15 @@ def api_surface(url: str) -> dict:
     return out
 
 
-def drain_phase(pps_6a: float) -> tuple[int, int]:
+def drain_phase(pps_6a: float, oracle_pool, meanwhile) -> tuple:
     """Phase 13: a node drain under the card's scheduler (13a) and the API
-    surface on the same server (13b).  Returns the daemon's fused-scan and
-    refresh launches."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    surface on the same server (13b).  The sequential oracle of 13a's
+    replacement wave runs in a process of ``oracle_pool``'s; ``meanwhile()``
+    (the next phase) runs while it works, then 13a's parity is printed and
+    checked here.  Returns the daemon's fused-scan and refresh launches and
+    what ``meanwhile()`` returned."""
     t0 = time.perf_counter()
-    # the sequential oracle of the replacement wave runs in a process of
-    # its own, beside the daemon's binding of it and 13b
-    with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as oracle_pool:
+    with tempfile.TemporaryDirectory() as workdir:
         d = Daemons(workdir, "13a", admitted=True)
         try:
             r = node_drain(d, oracle_pool)
@@ -2855,11 +2918,8 @@ def drain_phase(pps_6a: float) -> tuple[int, int]:
             raise
         finally:
             d.close()
-        t2 = time.perf_counter()
-        oracle = r["oracle"].result()
-    t3 = time.perf_counter()
+    t2 = time.perf_counter()
     st = r["stats"]
-    mismatches = sum(1 for k, n in r["got"].items() if oracle["assignments"].get(k) != n)
     print(f"phase 13a node drain, {r['shape']} (bound at "
           f"{r['waves_pps']:.1f} pods/s; 6a {pps_6a:.1f} in this call) on the apiserver at its "
           f"defaults: cordon {r['cordoned']} nodes by strategic-merge PATCH in "
@@ -2873,9 +2933,7 @@ def drain_phase(pps_6a: float) -> tuple[int, int]:
           f"at 0; {r['replacements']} replacements in one binary :batch POST, bound at "
           f"{r['wave_pps']:.1f} pods/s, create_to_bind_p50_ms {r['c2b_ms'][0]:.1f} "
           f"create_to_bind_p99_ms {r['c2b_ms'][1]:.1f}, none on a cordoned node, no node over "
-          f"capacity; vs the sequential oracle over the cluster as read back: mismatches "
-          f"{mismatches} of {len(r['got'])}, rr {st['round_robin']} vs "
-          f"{oracle['round_robin']}; uncordon by JSON patch in {r['unpatch_s']:.3f} s; the "
+          f"capacity; uncordon by JSON patch in {r['unpatch_s']:.3f} s; the "
           f"replacement wave's uploaded-column share {r['upload_fraction']}, node cache "
           f"{st['node_cache']}; the daemon's launches fused_scan {st['launches']} "
           f"frontier_refresh {st['refresh_launches']}, kernel_ms {st['kernel_ms']:.3f}, "
@@ -2889,20 +2947,421 @@ def drain_phase(pps_6a: float) -> tuple[int, int]:
           f"{s['binary_bytes']} bytes ({s['binary_bytes'] / s['json_bytes']:.4f} of JSON) in "
           f"{s['binary_s']:.3f} s, equal items; aggregation: "
           f"{json.dumps(s['aggregated'], sort_keys=True)}", flush=True)
-    print(f"phase 13 took {t3 - t0:.1f} s: 13a {t1 - t0:.1f}, 13b {t2 - t1:.1f}, the oracle's "
-          f"wait after them {t3 - t2:.1f}", flush=True)
-    if (mismatches or set(oracle["assignments"]) != set(r["got"])
-            or oracle["round_robin"] != st["round_robin"]):
-        raise AssertionError(f"phase 13a: the daemon's replacement bindings != the sequential "
-                             f"oracle: {mismatches} differ, rr {st['round_robin']} vs "
-                             f"{oracle['round_robin']}")
+    print(f"phase 13 took {t2 - t0:.1f} s: 13a {t1 - t0:.1f}, 13b {t2 - t1:.1f} (13a's "
+          f"oracle runs on beside the next phase)", flush=True)
     fraction = r["upload_fraction"]
     if (st["launches"] <= 0 or st["refresh_launches"] <= 0 or r["replacements"] <= 512
             or st["node_cache"]["col_updates"] < 1 or fraction is None or fraction >= 0.125):
         raise AssertionError(f"phase 13a: launches {st['launches']} + "
                              f"{st['refresh_launches']}, replacements {r['replacements']}, "
                              f"upload fraction {fraction}, node cache {st['node_cache']}")
-    return st["launches"], st["refresh_launches"]
+    after = meanwhile()
+    t = time.perf_counter()
+    oracle = r["oracle"].result()
+    mismatches = sum(1 for k, n in r["got"].items() if oracle["assignments"].get(k) != n)
+    print(f"phase 13a the replacement wave vs the sequential oracle over the cluster as "
+          f"read back: mismatches {mismatches} of {len(r['got'])}, rr "
+          f"{st['round_robin']} vs {oracle['round_robin']} (waited "
+          f"{time.perf_counter() - t:.1f} s for it after the next phase)", flush=True)
+    if (mismatches or set(oracle["assignments"]) != set(r["got"])
+            or oracle["round_robin"] != st["round_robin"]):
+        raise AssertionError(f"phase 13a: the daemon's replacement bindings != the "
+                             f"sequential oracle: {mismatches} differ, rr "
+                             f"{st['round_robin']} vs {oracle['round_robin']}")
+    return st["launches"], st["refresh_launches"], after
+
+
+# -- phase 14: a kubemark density run under the card's scheduler -------------
+
+# the reference density test's SLO (test/e2e/density.go): pod startup
+# latency, create to Running as the test's watch sees it, p99 <= 5 s
+STARTUP_SLO_S = 5.0
+
+
+def request_counts(text: str) -> dict:
+    """``apiserver_requests_total`` from an apiserver's /metrics, keyed
+    ``"<verb> <resource>"``."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("apiserver_requests_total{"):
+            labels, value = line.rsplit(" ", 1)
+            verb = labels.split('verb="', 1)[1].split('"', 1)[0]
+            resource = labels.split('resource="', 1)[1].split('"', 1)[0]
+            out[f"{verb} {resource}"] = int(float(value))
+    return out
+
+
+class PodTimes:
+    """A watch on Pods from ``rev`` on a thread of its own: when each pod was
+    bound and reached Running as this client saw it, and the pods the
+    kubelets rejected (Failed, reason OutOf<resource>)."""
+
+    def __init__(self, rs, rev: int):
+        self.mu = threading.Lock()
+        self.bound: dict = {}
+        self.running: dict = {}
+        self.rejected: dict = {}
+        self.watch = rs.watch("Pod", from_revision=rev)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="pod-times")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            ev = self.watch.get(timeout=0.5)
+            if ev is None or ev.object is None:
+                continue
+            now = time.perf_counter()
+            spec, status = ev.object.get("spec") or {}, ev.object.get("status") or {}
+            with self.mu:
+                if spec.get("nodeName") and ev.key not in self.bound:
+                    self.bound[ev.key] = now
+                if status.get("phase") == "Running" and ev.key not in self.running:
+                    self.running[ev.key] = now
+                if (status.get("phase") == "Failed"
+                        and (status.get("reason") or "").startswith("OutOf")):
+                    self.rejected[ev.key] = status["reason"]
+
+    def wait(self, keys: list, which: str, deadline_s: float, what: str) -> None:
+        """Poll (every 20 ms) until every key is ``which`` (bound, running)."""
+        seen = getattr(self, which)
+        deadline = time.monotonic() + deadline_s
+        while True:
+            with self.mu:
+                missing = sum(1 for k in keys if k not in seen)
+            if not missing:
+                return
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what}: {missing} pods not {which} after "
+                                   f"{deadline_s} s (rejected {len(self.rejected)})")
+            time.sleep(0.02)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.watch.stop()
+
+
+def run_waves(url: str, pods: list, waves: int, times: PodTimes, what: str) -> tuple:
+    """Create ``pods`` in ``waves`` ``:batch`` POSTs, each once the last is
+    bound; returns each pod's create time and the waves' seconds."""
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+
+    rs = RemoteStore(url, timeout=120.0)
+    per = len(pods) // waves
+    created, wave_s = {}, []
+    for w in range(waves):
+        batch = pods[w * per:(w + 1) * per]
+        keys = [f"default/{d['metadata']['name']}" for d in batch]
+        t = time.perf_counter()
+        for k in keys:
+            created[k] = t
+        out = rs.create_many("Pod", batch)
+        if len(out) != len(batch) or any(x is None for x in out):
+            raise AssertionError(f"{what} wave {w}: a create failed")
+        times.wait(keys, "bound", 60, f"{what} wave {w}")
+        wave_s.append(time.perf_counter() - t)
+    return created, wave_s
+
+
+def cpu_s(pid: int) -> float:
+    """The CPU seconds (user and system) process ``pid`` has used so far."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def ip_check(pods: list) -> tuple[int, int]:
+    """Pod IPs: the duplicates within a node (must be 0) and the addresses
+    held on more than one node (the hash fallback's /24 bases can meet:
+    there is no IPAM controller to allocate podCIDRs yet)."""
+    by_node: dict = {}
+    for p in pods:
+        by_node.setdefault(p["spec"]["nodeName"], []).append(p["status"].get("podIP"))
+    within = sum(len(ips) - len(set(ips)) for ips in by_node.values())
+    owners: dict = {}
+    for node, ips in by_node.items():
+        for ip in set(ips):
+            owners.setdefault(ip, set()).add(node)
+    return within, sum(1 for nodes in owners.values() if len(nodes) > 1)
+
+
+def density(d: "Daemons", k_procs: int) -> dict:
+    """Phase 14a on ``d``'s apiserver at its defaults, the kubelets spread
+    over ``k_procs`` fleet processes."""
+    import multiprocessing
+
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.workload import (
+        make_nodes,
+        make_pods,
+        make_services,
+        overcommitted_nodes,
+        run_hollow_fleet,
+    )
+
+    n_nodes, n_pods, waves, seed = 5000, 20000, 10, 7
+    rng = random.Random(seed)
+    nodes = make_nodes(n_nodes, rng, "mixed")
+    services = [s.to_dict() for s in make_services()]
+    pods = [p.to_dict() for p in make_pods(n_pods, rng, "mixed")]
+    mp = multiprocessing.get_context("spawn")
+    stop, results = mp.Event(), mp.Queue()
+    share = -(-n_nodes // k_procs)
+    procs = [mp.Process(target=run_hollow_fleet, name=f"fleet-{i}",
+                        args=(d.url, n_nodes, "mixed", seed, i * share,
+                              min(share, n_nodes - i * share), stop, results))
+             for i in range(k_procs)]
+    out = {"shape": f"{n_nodes} hollow nodes x {n_pods} mixed pods in {waves} waves",
+           "fleet": {}}
+    times = None
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.start()
+        register_s = {}
+        while len(register_s) < k_procs:
+            try:
+                tag, first, value = results.get(timeout=1.0)
+            except queue.Empty:  # check the processes are alive
+                if any(not proc.is_alive() for proc in procs):
+                    raise RuntimeError("phase 14a: a fleet process died while registering")
+                if time.perf_counter() - t0 > 300:
+                    raise TimeoutError("phase 14a: the fleet did not register in 300 s")
+                continue
+            register_s[first] = value
+        out["register_s"] = time.perf_counter() - t0
+        rs = RemoteStore(d.url, timeout=120.0)
+        # kubectl taint: the kubelets register no taints
+        t = time.perf_counter()
+        tainted = [n for n in nodes if n.spec.taints]
+        for n in tainted:
+            rs.patch("Node", "", n.meta.name,
+                     {"spec": {"taints": [x.to_dict() for x in n.spec.taints]}})
+        out["taint_s"], out["tainted"] = time.perf_counter() - t, len(tainted)
+        rs.create_many("Service", services)
+        read = {n["metadata"]["name"]: n for n in rs.list("Node")[0]}
+        want_taints = {n.meta.name for n in tainted}
+        got_taints = {name for name, n in read.items() if (n.get("spec") or {}).get("taints")}
+        if len(read) != n_nodes or got_taints != want_taints:
+            raise AssertionError(f"phase 14a: {len(read)} nodes registered, "
+                                 f"{len(got_taints ^ want_taints)} taints wrong")
+        # the scheduler starts once the cluster exists (kept divergence k)
+        t = time.perf_counter()
+        d.start_scheduler()
+        out["scheduler_start_s"] = time.perf_counter() - t
+        metrics0 = request_counts(http_get(d.url + "/metrics").decode())
+        _, rev = rs.list("Pod")
+        times = PodTimes(rs, rev)
+        pids = {"apiserver": d.apiserver.pid, "scheduler": d.scheduler.pid,
+                "fleet": [proc.pid for proc in procs]}
+        cpu0 = {k: sum(cpu_s(p) for p in (v if isinstance(v, list) else [v]))
+                for k, v in pids.items()}
+        t_first = time.perf_counter()
+        created, out["wave_s"] = run_waves(d.url, pods, waves, times, "phase 14a")
+        keys = list(created)
+        times.wait(keys, "running", 180, "phase 14a")
+        t_end = time.perf_counter()
+        out["wall_s"] = t_end - t_first
+        # each process's share of a core over the window: the apiserver is
+        # one Python process, so 1.0 is all it can use
+        out["cpu_share"] = {
+            k: (sum(cpu_s(p) for p in (v if isinstance(v, list) else [v])) - cpu0[k])
+            / out["wall_s"] for k, v in pids.items()}
+        metrics1 = request_counts(http_get(d.url + "/metrics").decode())
+        out["requests"] = {k: v - metrics0.get(k, 0) for k, v in metrics1.items()
+                           if v - metrics0.get(k, 0)}
+        with times.mu:
+            bind = [times.bound[k] - created[k] for k in keys]
+            start = [times.running[k] - created[k] for k in keys]
+            out["running_pps"] = n_pods / (max(times.running[k] for k in keys) - t_first)
+            out["rejected"] = dict(times.rejected)
+        out["waves_pps"] = n_pods / sum(out["wave_s"])
+        out["c2b_ms"], out["startup_ms"] = quantiles_ms(bind), quantiles_ms(start)
+    finally:
+        t_stop = time.perf_counter()
+        stop.set()
+        reports = {}
+        deadline = time.monotonic() + 120
+        while len(reports) < len(procs) and time.monotonic() < deadline:
+            if not any(proc.is_alive() for proc in procs) and results.empty():
+                break
+            try:
+                tag, first, value = results.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if tag == "done":
+                reports[first] = value
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+        if times is not None:
+            times.stop()
+    out["stop_s"] = time.perf_counter() - t_stop
+    if len(reports) != k_procs or any(proc.exitcode != 0 for proc in procs):
+        raise AssertionError(f"phase 14a: {len(reports)} of {k_procs} fleet reports, exit "
+                             f"codes {[proc.exitcode for proc in procs]}")
+    for first in sorted(reports):
+        r = reports[first]
+        ticks = sorted(r["ticks"])
+        out["fleet"][first] = {
+            "kubelets": min(share, n_nodes - first), "register_s": register_s[first],
+            "ticks": len(ticks), "tick_mean_s": sum(ticks) / len(ticks),
+            "tick_p50_s": ticks[len(ticks) // 2], "tick_max_s": ticks[-1],
+            "totals": r["totals"]}
+    t = time.perf_counter()
+    items = rs.list("Pod")[0]
+    out["not_running"] = [p["metadata"]["name"] for p in items
+                          if (p.get("status") or {}).get("phase") != "Running"]
+    out["over"] = overcommitted_nodes(items, rs.list("Node")[0])
+    out["ips_within"], out["ips_across"] = ip_check(items)
+    out["stats"] = d.stop_scheduler()
+    out["check_s"] = time.perf_counter() - t
+    return out
+
+
+def kubelet_entry(d: "Daemons", oracle_pool) -> dict:
+    """Phase 14b: ``python -m kubernetes_tpu_torch kubelet --count 1000``
+    as one process under the card's scheduler."""
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.workload import make_pods, oracle_replay_state
+
+    n_nodes, n_pods, waves, seed = 1000, 2000, 4, 7
+    fleet = d._spawn("kubelet", ["kubernetes_tpu_torch", "kubelet", "--apiserver", d.url,
+                                 "--count", str(n_nodes), "--name", "hollow"])
+    rs = RemoteStore(d.url, timeout=120.0)
+    times = None
+    try:
+        t = time.perf_counter()
+        wait_until(lambda: len(rs.list("Node")[0]) == n_nodes, fleet, "the fleet", 180)
+        out = {"register_s": time.perf_counter() - t}
+        nodes = rs.list("Node")[0]
+        pods = [p.to_dict() for p in make_pods(n_pods, random.Random(seed), "plain")]
+        # the sequential oracle over the cluster as read back, beside the run
+        oracle = oracle_pool.submit(oracle_replay_state, {"Node": nodes}, pods, 0)
+        d.start_scheduler()
+        _, rev = rs.list("Pod")
+        times = PodTimes(rs, rev)
+        t = time.perf_counter()
+        created, out["wave_s"] = run_waves(d.url, pods, waves, times, "phase 14b")
+        times.wait(list(created), "running", 120, "phase 14b")
+        out["wall_s"] = time.perf_counter() - t
+        with times.mu:
+            out["startup_ms"] = quantiles_ms([times.running[k] - created[k] for k in created])
+            out["rejected"] = dict(times.rejected)
+        items = rs.list("Pod")[0]
+        out["got"] = {f"default/{p['metadata']['name']}": p["spec"].get("nodeName")
+                      for p in items}
+        out["stats"] = d.stop_scheduler()
+    finally:
+        if times is not None:
+            times.stop()
+        fleet.send_signal(signal.SIGTERM)
+        try:
+            out_rc = fleet.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fleet.kill()
+            fleet.wait(timeout=30)
+            raise
+    out["fleet_rc"] = out_rc
+    out["oracle"] = oracle.result()
+    return out
+
+
+def kubelet_phase(pps_6a: float, oracle_pool) -> tuple[int, int]:
+    """Phase 14: a kubemark density run under the card's scheduler (14a)
+    and the kubelet's own entry point (14b), whose sequential oracle runs
+    in a process of ``oracle_pool``'s.  Returns the daemons' fused and
+    refresh launches."""
+    # half the host's cores: the apiserver, the scheduler daemon and this
+    # script take the rest
+    k_procs = max(2, (os.cpu_count() or 4) // 2)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        d = Daemons(workdir, "14a", admitted=True)
+        try:
+            a = density(d, k_procs)
+        except BaseException:
+            print(f"phase 14a scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+        t1 = time.perf_counter()
+        d = Daemons(workdir, "14b", admitted=True)
+        try:
+            b = kubelet_entry(d, oracle_pool)
+        except BaseException:
+            print(f"phase 14b scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
+            raise
+        finally:
+            d.close()
+    t2 = time.perf_counter()
+    st, ev = a["stats"], a["stats"]["informer_events"]
+    fleet = "; ".join(
+        f"[{first}] {f['kubelets']} kubelets, registered in {f['register_s']:.3f} s, "
+        f"{f['ticks']} ticks mean {f['tick_mean_s']:.3f} p50 {f['tick_p50_s']:.3f} max "
+        f"{f['tick_max_s']:.3f} s, {json.dumps(f['totals'])}"
+        for first, f in sorted(a["fleet"].items()))
+    req = a["requests"]
+    hb_s = a["wall_s"]
+    print(f"phase 14a kubemark density, {a['shape']} (seed 7) on the apiserver at its "
+          f"defaults, the scheduler daemon started once the {a['tainted']} taints were "
+          f"PATCHed ({a['taint_s']:.3f} s; the daemon serving {a['scheduler_start_s']:.3f} s "
+          f"later): {k_procs} fleet processes (half of {os.cpu_count()} cores) registered "
+          f"every node in {a['register_s']:.3f} s; waves "
+          f"bound at {a['waves_pps']:.1f} pods/s (6a {pps_6a:.1f} in this call), "
+          f"create_to_bind_p50_ms {a['c2b_ms'][0]:.1f} create_to_bind_p99_ms "
+          f"{a['c2b_ms'][1]:.1f}; pod startup (create -> Running on this watch) "
+          f"p50_ms {a['startup_ms'][0]:.1f} p99_ms {a['startup_ms'][1]:.1f} against the "
+          f"{STARTUP_SLO_S:.0f} s SLO ({'within' if a['startup_ms'][1] <= STARTUP_SLO_S * 1e3 else 'OVER'}); "
+          f"{a['running_pps']:.1f} Running pods/s over {a['wall_s']:.3f} s from the first "
+          f"create to the last Running; fleet ticks (1 s apart, heartbeat 10 s, start latency "
+          f"0.5 s): {fleet}; apiserver requests in that window "
+          f"{json.dumps(req, sort_keys=True)}: heartbeats "
+          f"{req.get('get nodes', 0) / hb_s:.1f} GET/s and "
+          f"{req.get('update nodes', 0) / hb_s:.1f} PUT/s on nodes, pod status updates "
+          f"{req.get('update pods', 0) / hb_s:.1f}/s; the scheduler daemon applied "
+          f"{ev.get('Node', 0)} node and {ev.get('Pod', 0)} pod events, batch_s "
+          f"{st['batch_s']:.3f} tensorize_s {st['tensorize_s']:.3f} dispatch_s "
+          f"{st['dispatch_s']:.3f}, node cache {json.dumps(st['node_cache'])}; launches "
+          f"fused_scan {st['launches']} frontier_refresh {st['refresh_launches']}, kernel_ms "
+          f"{st['kernel_ms']:.3f}, device idle share over the {a['wall_s']:.3f} s "
+          f"{1.0 - st['kernel_ms'] / 1e3 / a['wall_s']:.4f}; CPU over that window in cores "
+          f"(the fleet's {k_procs} processes together) "
+          f"{json.dumps({k: round(v, 3) for k, v in a['cpu_share'].items()})}; the fleet stopped in "
+          f"{a['stop_s']:.3f} s, the read-back checks took {a['check_s']:.3f} s; kubelet "
+          f"admission rejections "
+          f"{len(a['rejected'])}, pods not Running {len(a['not_running'])}, nodes over "
+          f"capacity {len(a['over'])}, pod IPs duplicated within a node {a['ips_within']}, "
+          f"addresses on more than one node (hash fallback, no IPAM yet) {a['ips_across']}",
+          flush=True)
+    bst = b["stats"]
+    mismatches = sum(1 for k, n in b["got"].items() if b["oracle"]["assignments"].get(k) != n)
+    print(f"phase 14b python -m kubernetes_tpu_torch kubelet --count 1000 as one process, "
+          f"registered in {b['register_s']:.3f} s; 2000 plain pods in 4 waves bound and Running "
+          f"in {b['wall_s']:.3f} s (waves {', '.join(f'{x:.3f}' for x in b['wave_s'])} s), "
+          f"startup p50_ms {b['startup_ms'][0]:.1f} p99_ms {b['startup_ms'][1]:.1f}; vs the "
+          f"sequential oracle over the cluster as read back: mismatches {mismatches} of "
+          f"{len(b['got'])}, rr {bst['round_robin']} vs {b['oracle']['round_robin']}; "
+          f"rejections {len(b['rejected'])}; launches fused_scan {bst['launches']} "
+          f"frontier_refresh {bst['refresh_launches']}; the fleet exited {b['fleet_rc']} on "
+          f"SIGTERM", flush=True)
+    print(f"phase 14 took {t2 - t0:.1f} s: 14a {t1 - t0:.1f}, 14b {t2 - t1:.1f}", flush=True)
+    if (a["rejected"] or a["not_running"] or a["over"] or a["ips_within"]
+            or st["launches"] <= 0 or st["refresh_launches"] <= 0):
+        raise AssertionError(f"phase 14a: rejections {list(a['rejected'].items())[:3]}, not "
+                             f"Running {a['not_running'][:3]}, over capacity {a['over'][:3]}, "
+                             f"IPs duplicated within a node {a['ips_within']}, launches "
+                             f"{st['launches']} + {st['refresh_launches']}")
+    if (mismatches or set(b["oracle"]["assignments"]) != set(b["got"])
+            or b["oracle"]["round_robin"] != bst["round_robin"] or b["rejected"]
+            or b["fleet_rc"] != 0):
+        raise AssertionError(f"phase 14b: {mismatches} bindings differ from the oracle, rr "
+                             f"{bst['round_robin']} vs {b['oracle']['round_robin']}, "
+                             f"rejections {len(b['rejected'])}, fleet exit {b['fleet_rc']}")
+    return st["launches"] + bst["launches"], st["refresh_launches"] + bst["refresh_launches"]
 
 
 def main() -> int:
@@ -2911,7 +3370,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
-    from concurrent.futures import ThreadPoolExecutor
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     from kubernetes_tpu_torch import native
     from kubernetes_tpu_torch.ops import _build, frontier_refresh, fused_scan
@@ -3002,11 +3462,8 @@ def main() -> int:
     loop_cell(*segment(m, pods, pctx, "cuda", frontier=True)[1:], card)
     node_cache_cell(main_static)
 
-    (churn_launches, churn_refresh), lazy_pps = churn_phase()
-    (eager_launches, _), eager_pps = churn_phase(lazy_ingest=False)
-    print(f"phase 5c ingest A/B in this call, 5000x20000 mixed churn: lazy, framed "
-          f"{lazy_pps:.1f} pods/s (5a) against eager {eager_pps:.1f} pods/s (5c), "
-          f"ratio {lazy_pps / eager_pps:.3f}", flush=True)
+    churn_launches, churn_refresh = churn_phase()
+    eager_launches, eager_refresh = churn_parity(lazy_ingest=False)
     daemon_launches, pps_6a, idle_6a, daemon_refresh = daemon_phase()
     preemption_launches, _ = preemption_phase()
     policy_launches = policy_phase()
@@ -3017,22 +3474,28 @@ def main() -> int:
     pool_launches, pool_refresh, pool_errs, pool_refresh_errs, refresh_pool = pool_phase()
     admitted_launches, admitted_refresh = admitted_phase(pps_6a)
     auth_launches, auth_refresh = auth_phase(pps_6a)
-    drain_launches, drain_refresh = drain_phase(pps_6a)
+    # the sequential oracles of 13a and 14b run in processes of their own;
+    # 13a's runs on beside phase 14
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as oracle_pool:
+        drain_launches, drain_refresh, (kubelet_launches, kubelet_refresh) = drain_phase(
+            pps_6a, oracle_pool, lambda: kubelet_phase(pps_6a, oracle_pool))
 
     entry = {
         "name": "fused_scan", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/fused_scan.cu",
         "replaces": REPLACES,
-        "launches": (launches + churn_launches + daemon_launches + preemption_launches
-                     + policy_launches + traced_launches + fault_launches + overload_launches
-                     + pool_launches + admitted_launches + auth_launches + drain_launches),
+        "launches": (launches + churn_launches + eager_launches + daemon_launches
+                     + preemption_launches + policy_launches + traced_launches
+                     + fault_launches + overload_launches + pool_launches
+                     + admitted_launches + auth_launches + drain_launches
+                     + kubelet_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
-                             "daemon": daemon_launches, "churn_eager": eager_launches,
+                             "churn_eager": eager_launches, "daemon": daemon_launches,
                              "preemption": preemption_launches, "policy": policy_launches,
                              "traced_daemon": traced_launches, "faults": fault_launches,
                              "overload": overload_launches, "pool": pool_launches,
                              "apiserver_defaults": admitted_launches, "auth": auth_launches,
-                             "drain": drain_launches},
+                             "drain": drain_launches, "kubelet": kubelet_launches},
         # the repaired shapes' segments (phase 3): many zones, a wide port row
         "cells": shape_cells,
         "max_abs_err": max(errs + pool_errs),
@@ -3046,12 +3509,14 @@ def main() -> int:
         "name": "frontier_refresh", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/frontier_refresh.cu",
         "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
-        "launches": (refresh_launches + churn_refresh + daemon_refresh + pool_refresh
-                     + admitted_refresh + auth_refresh + drain_refresh),
+        "launches": (refresh_launches + churn_refresh + eager_refresh + daemon_refresh
+                     + pool_refresh + admitted_refresh + auth_refresh + drain_refresh
+                     + kubelet_refresh),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
-                             "daemon": daemon_refresh, "pool": pool_refresh,
+                             "churn_eager": eager_refresh, "daemon": daemon_refresh,
+                             "pool": pool_refresh,
                              "apiserver_defaults": admitted_refresh, "auth": auth_refresh,
-                             "drain": drain_refresh},
+                             "drain": drain_refresh, "kubelet": kubelet_refresh},
         # the main segment's width; the other widths and the launch floor in cells
         "cells": refresh_cells,
         "max_abs_err": max([c["max_abs_err"] for c in refresh_cells.values()]

@@ -3,6 +3,7 @@
 
     python -m kubernetes_tpu_torch apiserver --port 6443 [--data-dir DIR]
     python -m kubernetes_tpu_torch scheduler --apiserver http://127.0.0.1:6443
+    python -m kubernetes_tpu_torch kubelet --apiserver http://127.0.0.1:6443 --count 100
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ COMPONENTS = {
     "kube-apiserver": "kubernetes_tpu_torch.apiserver.__main__",
     "scheduler": "kubernetes_tpu_torch.scheduler.__main__",
     "kube-scheduler": "kubernetes_tpu_torch.scheduler.__main__",
+    "kubelet": "kubernetes_tpu_torch.kubelet.__main__",
 }
 
 

@@ -144,6 +144,8 @@ HANDSHAKE_TIMEOUT_S = 10.0
 # how long a refused handshake's connection waits for the client to close
 # before the server closes it
 REFUSED_LINGER_S = 2.0
+# the listening socket's accept queue (the kernel caps it at somaxconn)
+LISTEN_BACKLOG = 4096
 
 # the aggregation proxy's client: never an environment proxy, since a
 # backend is reached directly at the address its APIService names
@@ -235,8 +237,54 @@ def _linger(sock) -> None:
         pass  # the client is gone: nothing left to wait for
 
 
-class _TLSServer(ThreadingHTTPServer):
-    """``ThreadingHTTPServer`` over TLS.  ``accept`` only wraps the socket;
+class _HTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with the listen backlog of a Go listener
+    (``net.Listen`` takes the kernel's ``somaxconn``), not socketserver's
+    5: once the accept queue is full the kernel drops a client's SYN,
+    which the client resends only after a second.  It knows which kept-
+    alive connections wait for their next request, so that ``stop``
+    closes them: a stopped server answers nothing more, while a request
+    in flight and a watch stream run to their end, and their connection
+    closes after."""
+
+    request_queue_size = LISTEN_BACKLOG
+
+    def __init__(self, address, handler):
+        self._conn_mu = threading.Lock()
+        self._idle: set = set()
+        self._stopping = False
+        super().__init__(address, handler)
+
+    def await_request(self, conn) -> bool:
+        """``conn`` waits for its next request; False once the server
+        stops (the connection then closes)."""
+        with self._conn_mu:
+            if self._stopping:
+                return False
+            self._idle.add(conn)
+            return True
+
+    def begin_request(self, conn) -> None:
+        with self._conn_mu:
+            self._idle.discard(conn)
+
+    def close_idle(self) -> None:
+        """Stop keeping connections alive and close those that wait for a
+        request now: their handler threads read the end and return."""
+        with self._conn_mu:
+            self._stopping = True
+            idle, self._idle = self._idle, set()
+        for conn in idle:
+            try:
+                # the raw socket's shutdown: an SSLSocket's own would drop
+                # its TLS state under a thread still using it
+                socket.socket.shutdown(conn, socket.SHUT_RDWR)
+            except OSError:
+                pass  # the client closed it first
+
+
+class _TLSServer(_HTTPServer):
+    """``_HTTPServer`` over TLS.  ``accept`` only wraps the socket;
     the handshake runs in the connection's own thread with a time limit,
     so a client that connects and sends nothing (or trickles its hello)
     holds its own thread, never the accept loop."""
@@ -300,7 +348,7 @@ class APIServer:
         if tls is not None:
             self.httpd = _TLSServer((host, port), _make_handler(self), tls.context())
         else:
-            self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+            self.httpd = _HTTPServer((host, port), _make_handler(self))
         self.port = self.httpd.server_port
         self._thread: Optional[threading.Thread] = None
 
@@ -315,9 +363,12 @@ class APIServer:
         self._thread.start()
 
     def stop(self) -> None:
-        """Stop accepting, then close the listening socket.  Open watch
-        streams end at their own timeout (their threads are daemons)."""
+        """Stop accepting, close the kept-alive connections that wait for a
+        request, then close the listening socket.  A request in flight
+        is answered; open watch streams end at their own timeout (their
+        threads are daemons)."""
         self.httpd.shutdown()
+        self.httpd.close_idle()
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
@@ -339,6 +390,28 @@ def _make_handler(server: APIServer):
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # a kept-alive connection writes an answer's headers and body as two
+        # segments: under Nagle the body would wait for the client's
+        # delayed ACK of the headers
+        disable_nagle_algorithm = True
+
+        def send_response(self, code, message=None):
+            super().send_response(code, message)
+            if not self.close_connection:
+                # ``_route`` reads every body whole, so a client may send
+                # its next request on this connection: say so
+                self.send_header("Connection", "keep-alive")
+
+        def handle_one_request(self):
+            # idle until the request line arrives (``_route`` marks it
+            # busy); a stopped server closes the connection instead
+            if not self.server.await_request(self.connection):
+                self.close_connection = True
+                return
+            try:
+                super().handle_one_request()
+            finally:
+                self.server.begin_request(self.connection)
 
         def log_message(self, *args):
             pass
@@ -435,22 +508,22 @@ def _make_handler(server: APIServer):
             self.wfile.flush()
 
         # -- the filter chain ----------------------------------------------
-        def _request_info(self, method: str) -> tuple[str, str, str, str]:
-            """(verb, resource, namespace, name): the request-info filter
-            (reference ``endpoints/filters/requestinfo``), over this
-            server's routes; worked out once a request, before dispatch (the
-            store may fill in the body it was given)."""
+        def _request_info(self, method: str) -> tuple[str, str, str, str, str]:
+            """(verb, resource, namespace, name, subresource): the
+            request-info filter (reference ``endpoints/filters/requestinfo``),
+            over this server's routes; worked out once a request, before
+            dispatch (the store may fill in the body it was given)."""
             if self._info is None:
                 self._info = self._parse_request_info(method)
             return self._info
 
-        def _parse_request_info(self, method: str) -> tuple[str, str, str, str]:
+        def _parse_request_info(self, method: str) -> tuple[str, str, str, str, str]:
             url = urlparse(self.path)
             q = parse_qs(url.query)
             parts = [p for p in url.path.split("/") if p]
             verb = {"POST": "create", "PUT": "update", "DELETE": "delete",
                     "PATCH": "patch"}.get(method, "get")
-            resource, ns, name = "", "", ""
+            resource, ns, name, sub = "", "", "", ""
             if len(parts) >= 2 and parts[0] == "apis":
                 # an aggregated group: "<group>/<resource>", so an RBAC
                 # rule can scope access a group at a time
@@ -458,17 +531,19 @@ def _make_handler(server: APIServer):
                 if len(rest) >= 3 and rest[0] == "namespaces":
                     ns, resource = rest[1], f"{group}/{rest[2]}"
                     name = rest[3] if len(rest) >= 4 else ""
+                    sub = rest[4] if len(rest) >= 5 else ""
                 else:
                     resource = f"{group}/{rest[0]}" if rest else group
                     name = rest[1] if len(rest) >= 2 else ""
+                    sub = rest[2] if len(rest) >= 3 else ""
                 if method == "GET":
                     if q.get("watch", ["false"])[0] == "true":
                         verb = "watch"
                     elif not name:
                         verb = "list"
-                return verb, resource, ns, name
+                return verb, resource, ns, name, sub
             if len(parts) < 3 or parts[:2] != ["api", "v1"]:
-                return verb, resource, ns, name  # a non-resource path
+                return verb, resource, ns, name, sub  # a non-resource path
             rest = parts[2:]
             if len(rest) == 1:
                 resource = rest[0]
@@ -493,6 +568,7 @@ def _make_handler(server: APIServer):
                         verb = "watch" if q.get("watch", ["false"])[0] == "true" else "list"
                 else:
                     name = rest[3]
+                    sub = rest[4] if len(rest) >= 5 else ""
                     if len(rest) == 5 and rest[4] == "binding":
                         verb = "bind"
                     elif len(rest) == 5 and rest[4] in ("exec", "attach", "cp"):
@@ -505,10 +581,10 @@ def _make_handler(server: APIServer):
                 # reaching a node's kubelet is its own subresource: reading
                 # the Node object must not imply it
                 resource, name = "nodes/proxy", rest[1]
-            return verb, resource, ns, name
+            return verb, resource, ns, name, sub
 
         def _audit(self, stage: str, code: int = 0) -> None:
-            verb, resource, ns, name = self._request_info(self.command)
+            verb, resource, ns, name, _ = self._request_info(self.command)
             server.auditor.record(stage, self._audit_user or (
                 self._user.name if self._user is not None else ""),
                 verb, resource, ns, name, code=code)
@@ -554,7 +630,7 @@ def _make_handler(server: APIServer):
             if path not in _OPEN_PATHS and server.authorizer is not None:
                 # no authenticator: authorize as anonymous (fail closed,
                 # never skip an authorizer that was given)
-                verb, resource, ns, name = self._request_info(method)
+                verb, resource, ns, name, _ = self._request_info(method)
                 decision, reason = server.authorizer.authorize(AuthzAttributes(
                     user=self._user if self._user is not None else ANONYMOUS, verb=verb,
                     resource=resource, namespace=ns, name=name, path=path))
@@ -566,6 +642,7 @@ def _make_handler(server: APIServer):
             return True
 
         def _route(self, method: str) -> None:
+            self.server.begin_request(self.connection)
             start = time.perf_counter()
             metrics.request_count.inc()
             length = int(self.headers.get("Content-Length") or 0)
@@ -579,7 +656,7 @@ def _make_handler(server: APIServer):
             store.user = ""
             self._user: Optional[UserInfo] = None
             self._audit_user: Optional[str] = None
-            self._info: Optional[tuple[str, str, str, str]] = None
+            self._info: Optional[tuple[str, str, str, str, str]] = None
             self._last_code = 0
             # max in flight, before the auth filters: a request over the cap
             # is answered 429 at once (queueing under overload only turns
@@ -595,6 +672,7 @@ def _make_handler(server: APIServer):
                 if not acquired:
                     return self._error(429, "TooManyRequests", "server overloaded (max in flight)")
             try:
+                self._count_request(method)
                 if self._auth_filters(method):
                     self._dispatch(method)
             except AdmissionDenied as e:
@@ -621,6 +699,10 @@ def _make_handler(server: APIServer):
                 metrics.request_latency.observe((time.perf_counter() - start) * 1e6)
                 if server.auditor is not None:
                     self._audit("ResponseComplete", self._last_code)
+
+        def _count_request(self, method: str) -> None:
+            verb, resource, _, _, sub = self._request_info(method)
+            metrics.requests.inc(verb, f"{resource}/{sub}" if sub else resource)
 
         def do_GET(self):
             self._route("GET")

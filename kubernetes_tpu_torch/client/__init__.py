@@ -2,7 +2,7 @@
 HTTP store client and the leader lock."""
 
 from .clientset import BindConflictError, Clientset, PodClient, TypedClient
-from .informer import Handler, InformerFactory, SharedInformer
+from .informer import Handler, InformerFactory, PodNodeIndex, SharedInformer
 from .leaderelection import LeaderElector
 from .record import EventBroadcaster, EventCorrelator, EventRecorder
 from .remote import RemoteStore

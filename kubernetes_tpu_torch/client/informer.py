@@ -84,11 +84,12 @@ class SharedInformer:
         # cumulative, deltaed per wave by the churn harness: decode_s
         # (wrap or typed decode) and apply_s (decode + cache + handlers);
         # frames applied, the events they carried, frames lost whole
-        # (-> gap), and objects compacted (promote-and-drop-raw)
+        # (-> gap), objects compacted (promote-and-drop-raw), and the
+        # events applied one at a time (outside frames)
         self.stats = {"relists": 0, "handler_errors": 0, "relist_failures": 0,
                       "decode_errors": 0, "decode_s": 0.0, "dropped_events": 0,
                       "apply_s": 0.0, "frames": 0, "frame_events": 0,
-                      "batch_errors": 0, "compactions": 0}
+                      "batch_errors": 0, "compactions": 0, "events": 0}
         # serializes relist(): two callers must not build two watches
         self._relist_mu = threading.Lock()
         # set when a delta was lost (undecodable payload) or a relist
@@ -349,6 +350,7 @@ class SharedInformer:
         dt = time.perf_counter() - t_decode
         with self._mu:
             self.stats["decode_s"] += dt
+            self.stats["events"] += 1
             old = self._cache.get(ev.key)
             if ev.type == DELETED:
                 self._cache.pop(ev.key, None)
@@ -530,3 +532,52 @@ class InformerFactory:
     def stop_all(self) -> None:
         for inf in self.informers():
             inf.stop()
+
+
+class PodNodeIndex:
+    """By-node pod index over a shared informer (the kubelet's
+    ``spec.nodeName=<node>`` field selector, kept on the client side so a
+    fleet of kubelets shares one Pod watch).
+
+    Mutated on the informer's delivery thread and read by the kubelets
+    (``pods_on``); both sides hold ``_mu``.  The pods are the informer's
+    shared cache objects: readers must not mutate them."""
+
+    def __init__(self, informer: SharedInformer):
+        self._mu = threading.Lock()
+        self._by_node: dict[str, dict] = {}
+        informer.add_handler(
+            Handler(on_add=self._upsert, on_update=lambda old, new: self._move(old, new),
+                    on_delete=self._drop)
+        )
+
+    def _upsert(self, pod) -> None:
+        if pod.spec.node_name:
+            with self._mu:
+                self._by_node.setdefault(pod.spec.node_name, {})[pod.meta.key] = pod
+
+    def _move(self, old, new) -> None:
+        # pop and insert under one lock hold: released between them, a
+        # concurrent pods_on() could find the pod on no node at all
+        with self._mu:
+            if old is not None and old.spec.node_name and old.spec.node_name != new.spec.node_name:
+                self._by_node.get(old.spec.node_name, {}).pop(old.meta.key, None)
+                self._shed(old.spec.node_name)
+            if new.spec.node_name:
+                self._by_node.setdefault(new.spec.node_name, {})[new.meta.key] = new
+
+    def _drop(self, pod) -> None:
+        if pod.spec.node_name:
+            with self._mu:
+                self._by_node.get(pod.spec.node_name, {}).pop(pod.meta.key, None)
+                self._shed(pod.spec.node_name)
+
+    def _shed(self, node_name: str) -> None:
+        # caller holds _mu: drop a node's dict with its last pod, or node
+        # churn keeps an empty dict for every node name ever seen
+        if not self._by_node.get(node_name):
+            self._by_node.pop(node_name, None)
+
+    def pods_on(self, node_name: str) -> list:
+        with self._mu:
+            return list(self._by_node.get(node_name, {}).values())

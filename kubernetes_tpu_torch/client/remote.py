@@ -39,6 +39,14 @@ client-certificate), for requests and watch streams alike.  A refused
 certificate (the server's chain does not verify, or the server refused
 ours) is fatal at once: no retry can make it verify.
 
+A request goes out on its thread's connection, kept alive from one
+request to the next (``client-go``'s pooled transport) when the server's
+answer says ``Connection: keep-alive``, as the port's apiserver does; any
+other server gets a connection a request, as before.  An idle connection
+the server has closed is dropped before a request would be sent on it, so
+a write never lands on a dead connection it could not safely be retried
+from.  Watch streams hold connections of their own.
+
 ``binary=True`` negotiates the binary wire form (``api/wire.py``,
 ``application/vnd.ktpu.binary``): request bodies go in it, and the
 ``Accept`` header asks for it back; an answer is decoded by its
@@ -53,14 +61,15 @@ import http.client
 import ipaddress
 import json
 import logging
+import os
 import queue as queue_mod
 import random
+import select
 import socket
 import ssl
 import threading
 import time
 import urllib.error
-import urllib.request
 from typing import Callable, Optional
 from urllib.parse import quote, urlsplit
 
@@ -154,6 +163,20 @@ def tls_refused(e: BaseException) -> bool:
     reason = e.reason if isinstance(e, urllib.error.URLError) else e
     return isinstance(reason, ssl.SSLError) and not isinstance(
         reason, (ssl.SSLEOFError, ssl.SSLZeroReturnError, ssl.SSLSyscallError))
+
+
+def _dropped(sock) -> bool:
+    """Has the server closed this idle connection?  An idle socket that
+    polls readable holds an end of stream (or bytes no request asked
+    for): either way it must not carry the next request."""
+    if sock is None:
+        return False  # closed on our side: http.client opens a new one
+    try:
+        poller = select.poll()
+        poller.register(sock, select.POLLIN)
+        return bool(poller.poll(0))
+    except (OSError, ValueError):
+        return True
 
 
 class _Stream:
@@ -369,6 +392,7 @@ class RemoteStore:
         if parts.scheme not in ("http", "https") or not parts.hostname:
             raise ValueError(f"RemoteStore speaks http:// or https://: {base_url!r}")
         self.base_url = base_url.rstrip("/")
+        self._prefix = parts.path.rstrip("/")
         self._host = parts.hostname
         self._port = parts.port or (443 if parts.scheme == "https" else 80)
         self._ssl_ctx: Optional[ssl.SSLContext] = None
@@ -394,19 +418,48 @@ class RemoteStore:
         self._retry_rng = random.Random(retry_seed)
         self._sleep = sleep
         self.metrics = ClientMetrics()
+        # each thread's kept-alive connection, and the process that opened
+        # it (a forked child must not write on its parent's socket)
+        self._local = threading.local()
 
     # -- http --------------------------------------------------------------
     def _headers(self) -> dict:
         return {"Authorization": f"Bearer {self.token}"} if self.token else {}
 
+    def _new_connection(self) -> http.client.HTTPConnection:
+        if self._ssl_ctx is not None:
+            return http.client.HTTPSConnection(self._host, self._port, timeout=self.timeout,
+                                               context=self._ssl_ctx)
+        return http.client.HTTPConnection(self._host, self._port, timeout=self.timeout)
+
+    def _connection(self) -> http.client.HTTPConnection:
+        """This thread's kept-alive connection, new when there is none, when
+        the server closed it while it was idle, or when it was opened by
+        another process."""
+        local = self._local
+        conn = getattr(local, "conn", None)
+        if conn is not None and (local.pid != os.getpid() or _dropped(conn.sock)):
+            if local.pid == os.getpid():
+                conn.close()
+            conn = None
+        if conn is None:
+            conn = local.conn = self._new_connection()
+            local.pid = os.getpid()
+        return conn
+
+    def _drop_connection(self) -> None:
+        """Close this thread's connection after a failure: its state
+        (a half-sent request, an unread answer) cannot carry another."""
+        conn = getattr(self._local, "conn", None)
+        if conn is not None:
+            if self._local.pid == os.getpid():
+                conn.close()
+            self._local.conn = None
+
     def _open_stream(self, path: str) -> _Stream:
         """GET ``path`` on a connection of its own and return the open
         response; a status other than 200 raises ``WatchStatusError``."""
-        if self._ssl_ctx is not None:
-            conn = http.client.HTTPSConnection(self._host, self._port, timeout=self.timeout,
-                                               context=self._ssl_ctx)
-        else:
-            conn = http.client.HTTPConnection(self._host, self._port, timeout=self.timeout)
+        conn = self._new_connection()
         try:
             conn.request("GET", path, headers=self._headers())
             resp = conn.getresponse()
@@ -506,13 +559,34 @@ class RemoteStore:
         headers.update(self._headers())
 
         def send():
-            req = urllib.request.Request(f"{self.base_url}{path}", data=data, method=method,
-                                         headers=headers)
-            return urllib.request.urlopen(req, timeout=self.timeout, context=self._ssl_ctx)
+            conn = self._connection()
+            try:
+                conn.request(method, self._prefix + path, body=data, headers=headers)
+                resp = conn.getresponse()
+            except BaseException:
+                self._drop_connection()
+                raise
+            if (resp.getheader("Connection") or "").lower() != "keep-alive":
+                # only a server that says so reads every request body whole
+                # (the reference package's reads one body a connection):
+                # the answer takes the socket along and closes it once read
+                self._local.conn = None
+                sock, conn.sock = conn.sock, None
+                if sock is not None:
+                    sock.close()
+            if not 200 <= resp.status < 300:
+                # urllib's form of an error answer, its body still unread
+                raise urllib.error.HTTPError(f"{self.base_url}{path}", resp.status,
+                                             resp.reason, resp.headers, resp)
+            return resp
 
         try:
             with self._request_with_retries(send, method, path) as resp:
-                out = self._decode(resp.read(), resp.headers)
+                try:
+                    out = self._decode(resp.read(), resp.headers)
+                except (http.client.HTTPException, OSError):
+                    self._drop_connection()
+                    raise
         except urllib.error.HTTPError as e:
             raw = e.read()
             try:

@@ -231,10 +231,14 @@ def run_with_leader_election(
     return True
 
 
-def wait_forever(stop: threading.Event) -> None:
-    """Block until ``stop`` is set (by a signal)."""
-    while not stop.wait(1.0):
-        pass
+def wait_forever(stop: threading.Event, tick: Optional[Callable[[], None]] = None,
+                 interval: float = 1.0) -> None:
+    """Block until ``stop`` is set (by a signal), calling ``tick`` (when
+    given) once every ``interval`` seconds: a kubelet's sync loop."""
+    while not stop.is_set():
+        if tick is not None:
+            tick()
+        stop.wait(interval)
 
 
 def telemetry_sink(spec: str):

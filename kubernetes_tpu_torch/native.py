@@ -1,12 +1,15 @@
 """ctypes bridge to the host helpers in C and C++ under ``csrc/``.
 
-Two helpers, both host code (they never touch the card):
+Three helpers, all host code (they never touch the card):
 
 - ``labelmatch.cpp``: the interned selector/labelmap matcher behind
   ``MatchEngine``, which the tensorizer uses to count existing pods per
   spread selector and per affinity term;
 - ``fastcopy.c``: a deep copy of JSON-shaped data through the CPython API,
-  which the store uses on every read, write and watch emit.
+  which the store uses on every read, write and watch emit;
+- ``pause.c``: the per-pod sandbox process a kubelet starts with real
+  sandboxes (``kubelet/runtime.py`` ``ProcessSandboxManager``), an
+  executable rather than a library.
 
 Each is built with the host C/C++ compiler at first use into ``_build/``
 beside this file (gitignored), under a name that carries a hash of the
@@ -41,14 +44,15 @@ _OP_BY_NAME = {"In": OP_IN, "NotIn": OP_NOT_IN, "Exists": OP_EXISTS,
                "DoesNotExist": OP_DOES_NOT_EXIST, "Gt": OP_GT, "Lt": OP_LT}
 
 
-def _compile(name: str, cmd: list[str], src: str) -> Optional[str]:
-    """Compile ``src`` with ``cmd`` into ``_build/lib<name>-<hash>.so``
-    unless it is there; returns the path, or None where the build fails.
-    The rename is atomic, so concurrent processes never load a half-written
-    library."""
+def _compile(name: str, cmd: list[str], src: str, filename: str = "lib{name}-{key}.so"
+             ) -> Optional[str]:
+    """Compile ``src`` with ``cmd`` into ``_build/lib<name>-<hash>.so`` (or
+    ``filename``) unless it is there; returns the path, or None where the
+    build fails.  The rename is atomic, so concurrent processes never load
+    a half-written library."""
     with open(src, "rb") as f:
         key = hashlib.sha256(" ".join(cmd).encode() + b"\0" + f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"lib{name}-{key}.so")
+    so = os.path.join(BUILD_DIR, filename.format(name=name, key=key))
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -237,6 +241,28 @@ def get_fastcopy():
         _fc_fn = fn
         _fc_failed = fn is None
         return _fc_fn
+
+
+# -- pause -------------------------------------------------------------------
+
+_pause_failed = False
+
+
+def pause_binary() -> Optional[str]:
+    """Path to the pause executable (``csrc/pause.c``), built on first use
+    into ``_build/ktpu-pause-<hash>``; None where no C toolchain builds it
+    (sandboxes then stay process-less).  A failure is remembered, so a
+    fleet of kubelets does not start the compiler once a kubelet."""
+    global _pause_failed
+    if _pause_failed:
+        return None
+    src = os.path.join(CSRC, "pause.c")
+    # -static fails where no static libc is installed
+    out = (_compile("pause", ["gcc", "-O2", "-static"], src, "ktpu-{name}-{key}")
+           or _compile("pause", ["gcc", "-O2"], src, "ktpu-{name}-{key}"))
+    if out is None:
+        _pause_failed = True
+    return out
 
 
 def helpers() -> dict:

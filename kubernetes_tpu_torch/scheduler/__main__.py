@@ -257,6 +257,10 @@ def main(argv=None) -> int:
                  "ingest_bytes": int(cs.store.metrics.ingest_bytes.value),
                  "ingest_frames": sum(i.stats["frames"] for i in infs),
                  "ingest_frame_events": sum(i.stats["frame_events"] for i in infs),
+                 # the watch events each informer applied (framed or not),
+                 # by kind: the node fleet's heartbeats are Node updates
+                 "informer_events": {i.kind: i.stats["events"] + i.stats["frame_events"]
+                                     for i in infs},
                  "ingest_promotions": lazy.STATS["promotions"] + lazy.STATS["sections"],
                  "confirm_fallbacks": int(m.confirm_fallbacks.value),
                  "preemption_attempts": int(m.preemption_attempts.value),

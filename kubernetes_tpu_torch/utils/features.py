@@ -45,8 +45,9 @@ KNOWN_FEATURES: dict[str, tuple[bool, str]] = {
     # gate nothing, as in the JAX package (no module there reads them)
     "DynamicKindRegistration": (True, BETA),
     "ExperimentalCriticalPodAnnotation": (False, ALPHA),
-    # gates nothing until the kubelet is ported (the JAX hollow kubelet
-    # reads it)
+    # the kubelet's live config: on, each kubelet reads the ConfigMap
+    # kube-system/kubelet-config-<node> at heartbeat cadence and applies
+    # its tunables (kubelet/hollow.py _maybe_apply_dynamic_config)
     "DynamicKubeletConfig": (False, ALPHA),
 }
 

@@ -151,6 +151,34 @@ class Gauge:
         )
 
 
+class LabeledCounter:
+    """A counter a label set: ``inc(*values)`` bumps the series of those
+    label values (``name{verb="get",resource="nodes"} N`` in the
+    exposition).  ``values()`` is a snapshot, keyed by the value tuples."""
+
+    def __init__(self, name: str, help: str = "", labels: tuple = ()):
+        self.name = name
+        self.help = help
+        self.labels = tuple(labels)
+        self._values: dict[tuple, float] = {}
+        self._mu = threading.Lock()
+
+    def inc(self, *values, amount: float = 1.0) -> None:
+        with self._mu:
+            self._values[values] = self._values.get(values, 0.0) + amount
+
+    def values(self) -> dict:
+        with self._mu:
+            return dict(self._values)
+
+    def expose(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        for values, v in sorted(self.values().items()):
+            labels = ",".join(f'{k}="{x}"' for k, x in zip(self.labels, values))
+            lines.append(f"{self.name}{{{labels}}} {v}")
+        return "\n".join(lines)
+
+
 class Registry:
     def __init__(self):
         self._metrics: dict[str, object] = {}
@@ -288,7 +316,8 @@ DEFAULT_STORE_METRICS = StoreMetrics()
 
 
 class APIServerMetrics:
-    """The apiserver's request count and latency (microseconds), the error
+    """The apiserver's request count (in all, and by verb and resource) and
+    latency (microseconds), the error
     responses that could not be written because the client hung up, the
     creates the overload gate throttled, the telemetry records taken and
     the APIService availability writes that failed."""
@@ -297,6 +326,12 @@ class APIServerMetrics:
         r = registry or Registry()
         self.registry = r
         self.request_count = r.register(Counter("apiserver_request_count", "total requests"))
+        # the reference's apiserver_request_count labels, verb and resource
+        # (a subresource as resource/sub): what a node fleet's heartbeats
+        # (get and update nodes) and pod status writes (update pods) cost
+        self.requests = r.register(LabeledCounter(
+            "apiserver_requests_total", "requests by verb and resource",
+            labels=("verb", "resource")))
         self.request_latency = r.register(
             Histogram("apiserver_request_latencies_microseconds"))
         self.error_write_failures = r.register(Counter(

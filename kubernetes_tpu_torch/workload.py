@@ -456,6 +456,65 @@ def run_wire_churn(url: str, n_nodes: int = 5_000, total_pods: int = 20_000,
     }
 
 
+def hollow_fleet(cs, nodes: list, **kubelet_kw):
+    """A ``HollowFleet`` over ``cs`` whose kubelet *i* runs ``nodes[i]``:
+    its name, cpu, memory, pod slots and labels (``make_nodes``'s cluster
+    as kubelets register it).  Taints are not carried: registration sets
+    none, as the JAX kubelet's does."""
+    from .kubelet import HollowFleet, HollowKubelet
+
+    fleet = HollowFleet(cs, 0)
+    fleet.kubelets = [
+        HollowKubelet(cs, n.meta.name, pod_index=fleet.index,
+                      cpu=str(n.status.capacity["cpu"]),
+                      memory=str(n.status.capacity["memory"]),
+                      pods=n.status.capacity["pods"].value(),
+                      labels=dict(n.meta.labels), **kubelet_kw)
+        for n in nodes]
+    return fleet
+
+
+def run_hollow_fleet(url: str, n_nodes: int, workload: str, seed: int, first: int, count: int,
+                     stop, results) -> None:
+    """A fleet process: the kubelets of nodes ``first .. first+count-1`` of
+    the seeded cluster (``make_nodes``), over the wire to ``url``, at the
+    kubelet's defaults.  It registers them, puts ``("ready", first,
+    seconds)`` on ``results``, then ticks the fleet and waits a second, as
+    ``python -m kubernetes_tpu_torch.kubelet`` does, until ``stop`` is set; then it
+    puts its report: each tick's seconds and the ticks' summed counters
+    (``rejected`` included).  A tick is ``tick_all``'s: one informer pump,
+    then every kubelet's ``tick()``; it stops between two kubelets once
+    ``stop`` is set, so a long tick does not hold the process.  A tick
+    that raises ends the process with a nonzero exit code, after the
+    report.  Start it with a ``spawn`` context."""
+    import time
+
+    from .daemon import remote_clientset
+
+    nodes = make_nodes(n_nodes, random.Random(seed), workload)[first:first + count]
+    cs = remote_clientset(url, timeout=120.0)
+    fleet = hollow_fleet(cs, nodes)
+    t = time.perf_counter()
+    fleet.register_all()
+    results.put(("ready", first, time.perf_counter() - t))
+    ticks: list[float] = []
+    totals: dict = {}
+    try:
+        while not stop.is_set():
+            t = time.perf_counter()
+            fleet.informer.pump()
+            for k in fleet.kubelets:
+                if stop.is_set():
+                    break
+                for key, v in k.tick().items():
+                    totals[key] = totals.get(key, 0) + v
+            ticks.append(time.perf_counter() - t)
+            stop.wait(1.0)
+    finally:
+        fleet.informer.stop()
+        results.put(("done", first, {"ticks": ticks, "totals": totals}))
+
+
 def overcommitted_nodes(pods: list, nodes: list) -> list:
     """Names of the nodes whose bound pods (wire dicts) request more cpu,
     memory or pod slots than the node's allocatable."""

@@ -946,3 +946,42 @@ def test_openapi_document_served(pairing):
 
     assert len(got["definitions"]) == len(KINDS) == 34
     assert len(got["paths"]) == 2 * len(KINDS)
+
+
+@pytest.mark.timeout(60)
+def test_requests_by_verb_and_resource():
+    """The port's ``apiserver_requests_total`` (the JAX package counts
+    requests only in all): one series per verb and resource, a subresource
+    as ``resource/sub``, never one per object name."""
+    srv = importlib.import_module("kubernetes_tpu_torch.apiserver")
+    backing = importlib.import_module("kubernetes_tpu_torch.store").Store()
+    server = srv.APIServer(backing)
+    server.start()
+    routes = [("GET", "/api/v1/pods"),  # core collection
+              ("GET", "/api/v1/namespaces/-/nodes/n1"),  # cluster-scoped object
+              ("GET", "/api/v1/namespaces/ns/pods/web"),  # namespaced object
+              ("PUT", "/api/v1/namespaces/ns/pods/web/status"),  # its subresource
+              ("GET", "/apis/apps/v1/namespaces/ns/deployments/web"),  # grouped object
+              ("GET", "/apis/apps/v1/namespaces/ns/deployments/web/scale"),
+              ("GET", "/apis/apiregistration.k8s.io/v1/apiservices/v1.x/status"),
+              ("GET", "/apis/apps/v1/namespaces/ns/deployments/db")]
+    try:
+        for method, path in routes:
+            req = urllib.request.Request(server.url + path, method=method,
+                                         data=b"{}" if method == "PUT" else None,
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    r.read()
+            except urllib.error.HTTPError as e:  # counted before dispatch
+                e.read()
+        got = server.metrics.requests.values()
+        with urllib.request.urlopen(server.url + "/metrics", timeout=10) as r:
+            text = r.read().decode()
+    finally:
+        server.stop()
+    assert got == {("list", "pods"): 1, ("get", "nodes"): 1, ("get", "pods"): 1,
+                   ("update", "pods/status"): 1, ("get", "apps/deployments"): 2,
+                   ("get", "apps/deployments/scale"): 1,
+                   ("get", "apiregistration.k8s.io/apiservices/status"): 1}
+    assert 'apiserver_requests_total{verb="get",resource="apps/deployments"} 2.0' in text

@@ -340,8 +340,11 @@ def _codes_full_stack(m):
                                                                      "root-token", "bad")])
     finally:
         server.stop()
-    records = [(e.stage, e.user, e.verb, e.resource, e.namespace, e.name, e.code)
-               for e in auditor.memory.events]
+    # sorted: a request's ResponseComplete is recorded after its response
+    # is written, so the next request (a new connection, on a thread of its
+    # own) may record its RequestReceived first
+    records = sorted((e.stage, e.user, e.verb, e.resource, e.namespace, e.name, e.code)
+                     for e in auditor.memory.events)
     return out, records
 
 
@@ -739,8 +742,10 @@ def _max_in_flight(m):
         server._inflight.release()
         server._inflight.release()
         out.append(_code(f"{server.url}/api/v1/pods"))
-        # every answered request gave its slot back
-        out.append([server._inflight.acquire(blocking=False) for _ in range(3)])
+        # every answered request gave its slot back (a handler releases its
+        # slot after it has written the response, so wait for the two)
+        out.append([server._inflight.acquire(timeout=10) for _ in range(2)]
+                   + [server._inflight.acquire(blocking=False)])
     finally:
         server.stop()
     return out

@@ -1140,8 +1140,13 @@ def test_apiserver_entry_imports_no_torch():
 def test_hyperkube_multiplexer():
     from kubernetes_tpu_torch.__main__ import COMPONENTS, main
 
-    assert set(COMPONENTS) == {"apiserver", "kube-apiserver", "scheduler", "kube-scheduler"}
-    assert main(["--help"]) == 0 and main([]) == 2 and main(["kubelet"]) == 2
+    assert set(COMPONENTS) == {"apiserver", "kube-apiserver", "scheduler", "kube-scheduler",
+                               "kubelet"}
+    assert main(["--help"]) == 0 and main([]) == 2 and main(["kubectl"]) == 2
+    # the kubelet without --apiserver or --kubeconfig is a usage error there
+    with pytest.raises(SystemExit) as exc:
+        main(["kubelet"])
+    assert exc.value.code == 2
     # an auth flag it cannot honour is refused before anything serves
     with pytest.raises(SystemExit) as exc:
         main(["apiserver", "--port", "0", "--client-ca-file", "ca.crt"])

@@ -109,7 +109,15 @@ def test_import_leaves_jax_and_reference_unloaded():
             "kubernetes_tpu_torch.auth", "kubernetes_tpu_torch.auth.authn",
             "kubernetes_tpu_torch.auth.authz", "kubernetes_tpu_torch.auth.audit",
             "kubernetes_tpu_torch.api.rbac", "kubernetes_tpu_torch.pki",
-            "kubernetes_tpu_torch.testing.pki", "kubernetes_tpu_torch.testing.pki.mint"} <= set(mods)
+            "kubernetes_tpu_torch.testing.pki", "kubernetes_tpu_torch.testing.pki.mint",
+            # the kubelet and the hollow fleet
+            "kubernetes_tpu_torch.kubelet", "kubernetes_tpu_torch.kubelet.__main__",
+            "kubernetes_tpu_torch.kubelet.hollow", "kubernetes_tpu_torch.kubelet.cm",
+            "kubernetes_tpu_torch.kubelet.cri", "kubernetes_tpu_torch.kubelet.containers",
+            "kubernetes_tpu_torch.kubelet.network", "kubernetes_tpu_torch.kubelet.pleg",
+            "kubernetes_tpu_torch.kubelet.runtime", "kubernetes_tpu_torch.kubelet.server",
+            "kubernetes_tpu_torch.kubelet.volumehost",
+            "kubernetes_tpu_torch.kubelet.volumemanager"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -144,4 +152,6 @@ def test_the_port_builds_only_from_its_own_sources():
     before = sorted(os.listdir(root_csrc))
     assert native.get_lib() is not None and native.get_fastcopy() is not None
     assert _inside_port(native._lib._name)
+    assert "pause.c" in os.listdir(native.CSRC)
+    assert _inside_port(native.pause_binary())
     assert sorted(os.listdir(root_csrc)) == before

@@ -1,0 +1,165 @@
+"""The port's kubelet entry point over the wire, on the CPU:
+``python -m kubernetes_tpu_torch kubelet --count 20`` against the port's
+apiserver process, served by the port's scheduler daemon on ``--device
+cpu``.  1000 pods are created in one batch; every pod must reach
+``Running``, and the bindings and the round-robin counter must equal the
+port's sequential oracle over the cluster as read back (exact).  The
+fleet process exits 0 on SIGTERM.  The refusals: ``--proxy`` (the hollow
+proxy is not ported) and a kubelet with neither ``--apiserver`` nor
+``--kubeconfig`` leave with exit 2, as the JAX entry point does for the
+latter."""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import signal
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+
+import pytest
+
+from tests.torch_kubelet_pkg import both
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env() -> dict:
+    return {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+
+
+def _wait(ready, procs, what: str, deadline_s: float) -> None:
+    deadline = time.time() + deadline_s
+    while True:
+        for name, proc in procs:
+            assert proc.poll() is None, f"{name} exited with {proc.returncode} ({what})"
+        try:
+            if ready():
+                return
+        except OSError:
+            pass
+        assert time.time() < deadline, f"{what}: not after {deadline_s} s"
+        time.sleep(0.2)
+
+
+def _terminate(proc: subprocess.Popen) -> int:
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+        raise
+
+
+@pytest.mark.timeout(300)
+def test_a_kubelet_fleet_runs_what_the_scheduler_daemon_binds(tmp_path):
+    from kubernetes_tpu_torch import workload
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+
+    n_nodes, n_pods = 20, 1000
+    ap, hp = _free_port(), _free_port()
+    url = f"http://127.0.0.1:{ap}"
+    procs = []
+
+    def spawn(name, *args):
+        proc = subprocess.Popen([sys.executable, "-m", *args], env=_env(), cwd=tmp_path,
+                                stdout=open(tmp_path / f"{name}.out", "w"),
+                                stderr=open(tmp_path / f"{name}.err", "w"))
+        procs.append((name, proc))
+        return proc
+
+    try:
+        spawn("apiserver", "kubernetes_tpu_torch.apiserver", "--port", str(ap))
+        _wait(lambda: b"ok" in urllib.request.urlopen(url + "/healthz", timeout=2).read(),
+              procs, "apiserver /healthz", 60)
+        fleet = spawn("kubelet", "kubernetes_tpu_torch", "kubelet", "--apiserver", url,
+                      "--count", str(n_nodes), "--name", "hollow", "--cpu", "32",
+                      "--memory", "128Gi")
+        rs = RemoteStore(url, timeout=60.0)
+        _wait(lambda: len(rs.list("Node")[0]) == n_nodes, procs, "nodes registered", 120)
+        nodes = rs.list("Node")[0]
+        assert sorted(n["metadata"]["name"] for n in nodes) == [
+            f"hollow-{i:05d}" for i in range(n_nodes)]
+        # the scheduler starts once the cluster exists (kept divergence k)
+        spawn("scheduler", "kubernetes_tpu_torch.scheduler", "--apiserver", url,
+              "--leader-elect", "--device", "cpu", "--healthz-port", str(hp))
+        _wait(lambda: b"scheduler_e2e" in urllib.request.urlopen(
+            f"http://127.0.0.1:{hp}/metrics", timeout=2).read(), procs, "scheduler serving", 120)
+        pods = [p.to_dict() for p in workload.make_pods(n_pods, random.Random(5), "plain")]
+        assert all(d is not None for d in rs.create_many("Pod", pods))
+
+        def all_running():
+            items = rs.list("Pod")[0]
+            return (len(items) == n_pods
+                    and all(i.get("status", {}).get("phase") == "Running" for i in items))
+
+        _wait(all_running, procs, "every pod Running", 180)
+        items = rs.list("Pod")[0]
+        got = {f"default/{i['metadata']['name']}": i["spec"]["nodeName"] for i in items}
+        ips = {(i["spec"]["nodeName"], i["status"]["podIP"]) for i in items}
+        assert len(ips) == n_pods  # unique within each node
+        assert all(i["status"]["hostIP"] == i["spec"]["nodeName"] for i in items)
+        assert not [i for i in items if i["status"].get("reason", "").startswith("OutOf")]
+        assert workload.overcommitted_nodes(items, rs.list("Node")[0]) == []
+        sched = dict(procs)["scheduler"]
+        assert _terminate(sched) == 0
+        stats = [json.loads(line)["scheduler_stats"] for line in
+                 (tmp_path / "scheduler.out").read_text().splitlines()
+                 if line.startswith('{"scheduler_stats"')][0]
+        # each pod: its create, its binding and its Running update
+        assert stats["informer_events"]["Pod"] >= 3 * n_pods
+        assert _terminate(fleet) == 0
+        counts = {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1]) for line in
+                  urllib.request.urlopen(url + "/metrics", timeout=10).read().decode()
+                  .splitlines() if line.startswith("apiserver_requests_total{")}
+        # the kubelets' status writes (a PUT of the pod) and registrations
+        assert counts['apiserver_requests_total{verb="update",resource="pods"}'] >= n_pods
+        assert counts['apiserver_requests_total{verb="create",resource="nodes"}'] == n_nodes
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    o = workload.oracle_replay_state({"Node": nodes}, pods, 0)
+    assert o["assignments"] == got
+    assert o["round_robin"] == stats["round_robin"]
+
+
+@pytest.mark.timeout(60)
+def test_kubelet_proxy_flag_is_refused():
+    r = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch", "kubelet", "--apiserver",
+                        "http://127.0.0.1:1", "--proxy"], env=_env(), cwd=ROOT,
+                       capture_output=True, text=True, timeout=50)
+    assert r.returncode == 2
+    assert "kubernetes_tpu_torch.proxy" in r.stderr
+
+
+@pytest.mark.timeout(120)
+def test_kubelet_entry_imports_no_torch():
+    """The kubelet runs no kernel: its entry point loads no torch."""
+    code = ("import sys, kubernetes_tpu_torch.kubelet.__main__\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_kubelet_without_an_apiserver_exits_2():
+    def scenario(P):
+        with pytest.raises(SystemExit) as e:
+            P.kubelet_main.main(["--name", "n1"])
+        return e.value.code
+
+    assert both(scenario) == 2
