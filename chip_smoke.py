@@ -67,12 +67,12 @@ Phases, one line each:
    the scheduler starts, its bindings and round-robin counter read back
    and held against the port's sequential oracle;
 7. preemption: (a) ``workload.run_preemption`` at full width, 5000 nodes
-   filled by 20 000 priority-0 pods, then 2500 priority-100 preemptors
+   filled by 20 000 priority-0 pods, then 1250 priority-100 preemptors
    (fill batch, failing batch, the cohort pass, follow-up batch; each
    batch a kernel launch): evictions per second, the cohort split (state
    build, ranking, evictions), victims == preemptors == bound after, the
    failing and follow-up batches' kernel segments against the plain scan;
-   (b) 1000 nodes, 4000 fillers and 75 preemptors, a seeded tenth of
+   (b) 1000 nodes, 4000 fillers and 40 preemptors, a seeded tenth of
    them with a host port or a required affinity: every cohort decision
    held against the exhaustive ``find_preemption_target``, the later
    batches' kernel segments against the plain scan; (c) the two daemons
@@ -101,7 +101,7 @@ Phases, one line each:
    frontier's prefilter: the wave raises and its pods are requeued, as
    for the kernel), each with a flight-recorder dump naming the point and
    its wave, the bindings against the per-wave oracle replay; (c) ``workload.run_overload`` at 5000 nodes
-   (surge at 3x the calibrated drain for at most 10 s, recovery, tail):
+   (surge at 3x the calibrated drain for at most 5 s, recovery, tail):
    each tier's goodput and e2e p50/p99, the rung timeline, transitions,
    score-plane sheds and 429s; every segment scanned with the interpod
    score plane shed is held against the plain scan afterwards, the
@@ -130,13 +130,13 @@ Phases, one line each:
    the tainted nodes, the daemon's bindings and rr equal the sequential
    oracle over the objects as read back, and the in-process batch path
    over them has kernel == scan_ref on every segment; (b) 5000 nodes x
-   10 000 ``mixed`` pods in 5 of 6a's 2000-pod waves through a
+   6000 ``mixed`` pods in 5 waves of 1200 through a
    ``--data-dir`` apiserver, SIGKILLed while wave 3 is
    being bound and restarted on the same port and directory under the
    same scheduler daemon: every bind of the LIST before the kill reads
    back, every pod ends bound, no node over capacity, the daemon's watch
    reconnects on /metrics, the recovery line printed, waves 1-2's pods/s
-   beside 6a's; (c) what ``--fsync`` costs: a 2000-pod wave at 5000 nodes
+   beside 6a's; (c) what ``--fsync`` costs: a 1000-pod wave at 5000 nodes
    under no flag, ``--data-dir`` and ``--data-dir --fsync``, one of
    each, create and bind seconds and create->bind p99 per arm;
 12. auth, PKI, TLS and kubeconfig: (a) the control plane as ``cluster
@@ -193,10 +193,11 @@ Phases, one line each:
    ``HollowFleet``) register themselves from spawned processes, one for
    every two cores (``workload.run_hollow_fleet``), kubelet *i* with node
    *i*'s cpu, memory, pods and labels of the seeded ``mixed`` cluster
-   (seed 7), heartbeating every 10 s and starting a pod 0.5 s after it
+   (seed 7), heartbeating every 10 s (a tick's overdue ones between
+   kubelets) and starting a pod 0.5 s after it
    admits it; the tenth that the cluster taints gets its taint by PATCH,
    as ``kubectl taint`` does; then the scheduler daemon (``--device
-   cuda``); 20 000 ``mixed`` pods in 10 ``:batch`` POSTs, each once the
+   cuda``); 5000 ``mixed`` pods in 5 ``:batch`` POSTs, each once the
    last is bound, watched from before the first: the waves' pods/s and
    create->bind p50/p99, pod startup latency p50/p99 (create to the
    Running update on the watch) against the density test's 5 s SLO,
@@ -209,10 +210,37 @@ Phases, one line each:
    no node over capacity, no pod IP twice on a node (the count of
    addresses on more than one node printed: with no IPAM controller the
    kubelets' hash-fallback bases could meet); (b) ``python -m kubernetes_tpu_torch
-   kubelet --count 1000`` as one process, 2000 ``plain`` pods in 4 waves
+   kubelet --count 1000`` as one process, 1000 ``plain`` pods in 4 waves
    through the card's scheduler, every pod Running, the bindings and rr
    equal to the sequential oracle over the cluster as read back (in a
-   spawned process), the fleet's exit 0 on SIGTERM.
+   spawned process), the fleet's exit 0 on SIGTERM;
+15. the controller manager at 5000 nodes under the card's scheduler: the
+   apiserver at its defaults, 14a's seeded cluster registered by 4 fleet
+   processes (1250 nodes each, a quarter of every zone) while ``python -m
+   kubernetes_tpu_torch controller-manager --leader-elect`` at its
+   defaults (every controller, 2 workers, a 5 s node monitor period) and
+   the scheduler daemon start; (a) 10 Deployments of 300 replicas, each
+   template one of the ``mixed`` generator's request shapes (seed 7),
+   maxSurge and maxUnavailable 75, each with a Service: the time until
+   every Deployment is ready, the ReplicaSet controller's creates per
+   second, create->bind and create->Running p50/p99 on a watch; (b) a new
+   image on every Deployment: the time until each has 300 updated and
+   ready replicas and its old ReplicaSet is at 0, every pod owned by the
+   newest ReplicaSet; (c) one fleet process SIGKILLed: the time until the
+   node lifecycle controller has marked exactly its 1250 nodes
+   ``Unknown`` (no other node is ever not Ready), then app-0 scaled to 600:
+   none of the new pods on a lost node, no pod deleted; (d) ``kubelet
+   --name real --count 1 --serve-logs --real-containers`` and a
+   1-replica Deployment selecting its node: the pod's ``log``, ``exec``
+   (``echo ok``), ``cp`` (PUT then GET, the same bytes), ``attach`` and
+   the node proxy's ``stats/summary`` through the apiserver answer 200, an
+   unknown container, ``tailLines=abc`` and an unscheduled pod 400.
+   Every pod bound and Running, 0 kubelet rejections, no node over
+   capacity, no IP twice on a node, each Service's Endpoints exactly its
+   ready pods' IPs, 1024 distinct podCIDRs inside 10.8.0.0/14, the fused
+   scan launched; printed with the controller manager's CPU share, each
+   controller's syncs and queue depth, the zone states and the
+   apiserver's requests by verb and resource.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -1284,10 +1312,10 @@ def preemption_line(tag: str, r: dict) -> None:
 
 def preemption_phase() -> tuple[int, dict]:
     """Phase 7: preemption.  (a) ``workload.run_preemption`` at full width
-    on the card: 5000 nodes, 20 000 fillers, 2500 preemptors, the
+    on the card: 5000 nodes, 20 000 fillers, 1250 preemptors, the
     preemptor and follow-up batches' kernel segments held against the
     plain scan; (b) 1000
-    nodes, 4000 fillers and 75 preemptors, a seeded tenth of them with a
+    nodes, 4000 fillers and 40 preemptors, a seeded tenth of them with a
     host port or a required affinity (branch and bound): every cohort
     decision held against the exhaustive ``find_preemption_target`` on the
     state it was made on, and the preemptor and follow-up batches' kernel
@@ -1322,7 +1350,7 @@ def preemption_phase() -> tuple[int, dict]:
     fused_scan.launches = 0
     PreemptionState.rank_arrays = timed_rank_arrays
     try:
-        r = run_preemption(5000, 20000, 2500, device="cuda", seed=0, backend_cls=checked)
+        r = run_preemption(5000, 20000, 1250, device="cuda", seed=0, backend_cls=checked)
     finally:
         PreemptionState.rank_arrays = rank_arrays
     launches_a = fused_scan.launches - len(seen)  # each check launched once more
@@ -1366,9 +1394,10 @@ def preemption_phase() -> tuple[int, dict]:
     fused_scan.launches = 0
     preemption.find_preemption_target_fast = held
     try:
-        # 75 preemptors: the exhaustive oracle is the phase's wall (0.15-0.25
-        # s a decision), and the script must end within its time limit
-        r = run_preemption(1000, 4000, 75, device="cuda", seed=7, odd_share=0.1,
+        # 40 preemptors (8 by branch and bound): the exhaustive oracle is
+        # the phase's wall (0.15-0.25 s a decision), and the script must
+        # end within its time limit
+        r = run_preemption(1000, 4000, 40, device="cuda", seed=7, odd_share=0.1,
                            backend_cls=checking_backend(seen, skip=1))
     finally:
         preemption.find_preemption_target_fast = fast
@@ -1735,7 +1764,7 @@ def overload_phase() -> tuple[int, dict]:
 
     t0 = time.perf_counter()
     fused_scan.launches = 0
-    r = run_overload(n_nodes=5000, surge_mult=3.0, max_surge_s=10.0, device="cuda",
+    r = run_overload(n_nodes=5000, surge_mult=3.0, max_surge_s=5.0, device="cuda",
                      backend_cls=ShedRecorder)
     launches = fused_scan.launches
     t1 = time.perf_counter()
@@ -1752,7 +1781,7 @@ def overload_phase() -> tuple[int, dict]:
     ad = r["admission"]
     print(f"phase 9c overload {r['nodes']} nodes: drain {r['drain_pods_per_s']:.1f} pods/s, "
           f"arrivals paced at {r['arrival_pods_per_s']:.1f} pods/s for {r['surge_pods']} pods, "
-          f"{sum(x['arrivals'] for x in r['tiers'].values())} created in the 10 s window, the "
+          f"{sum(x['arrivals'] for x in r['tiers'].values())} created in the 5 s window, the "
           f"creators done after {r['surge_s']:.3f} s (pending threshold "
           f"{r['pending_threshold']:.1f}); {tiers} "
           f"rung timeline {[(round(t, 3), g) for t, g in r['rung_timeline']]}, max rung "
@@ -2160,9 +2189,9 @@ def admitted_parity(workdir: str, n_nodes: int = 1000, n_pods: int = 2000) -> tu
     return st["launches"], st["refresh_launches"]
 
 
-def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int = 10000,
+def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int = 6000,
                    waves: int = 5) -> tuple[int, int]:
-    """Phase 11b: 5 of 6a's 2000-pod waves through a durable apiserver at
+    """Phase 11b: 5 waves of 1200 pods through a durable apiserver at
     its defaults; once wave 3's creates are acknowledged, while the daemon
     drains and binds them, the client LISTs the pods and the apiserver is
     SIGKILLed and restarted on the same port and directory.  The scheduler daemon is not restarted.  Returns its
@@ -2230,9 +2259,9 @@ def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int
     return st["launches"], st["refresh_launches"]
 
 
-def fsync_cost(workdir: str, n_nodes: int = 5000, per_wave: int = 2000,
+def fsync_cost(workdir: str, n_nodes: int = 5000, per_wave: int = 1000,
                reps: int = 1) -> tuple[int, int]:
-    """Phase 11c: at 5000 nodes, one 2000-pod wave under each of: no flag,
+    """Phase 11c: at 5000 nodes, one 1000-pod wave under each of: no flag,
     ``--data-dir``, ``--data-dir --fsync`` (each arm its own apiserver at
     its defaults and scheduler daemon, all started first), ``reps`` waves
     an arm interleaved (arm by arm within a round).  Returns the daemons'
@@ -2993,14 +3022,17 @@ def request_counts(text: str) -> dict:
 
 class PodTimes:
     """A watch on Pods from ``rev`` on a thread of its own: when each pod was
-    bound and reached Running as this client saw it, and the pods the
+    first seen (its create, for pods a controller makes), bound (and to
+    which node) and reached Running as this client saw it, and the pods the
     kubelets rejected (Failed, reason OutOf<resource>)."""
 
     def __init__(self, rs, rev: int):
         self.mu = threading.Lock()
+        self.added: dict = {}
         self.bound: dict = {}
         self.running: dict = {}
         self.rejected: dict = {}
+        self.nodes: dict = {}  # the node each pod was bound to
         self.watch = rs.watch("Pod", from_revision=rev)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True, name="pod-times")
@@ -3014,8 +3046,10 @@ class PodTimes:
             now = time.perf_counter()
             spec, status = ev.object.get("spec") or {}, ev.object.get("status") or {}
             with self.mu:
+                self.added.setdefault(ev.key, now)
                 if spec.get("nodeName") and ev.key not in self.bound:
                     self.bound[ev.key] = now
+                    self.nodes[ev.key] = spec["nodeName"]
                 if status.get("phase") == "Running" and ev.key not in self.running:
                     self.running[ev.key] = now
                 if (status.get("phase") == "Failed"
@@ -3100,7 +3134,8 @@ def density(d: "Daemons", k_procs: int) -> dict:
         run_hollow_fleet,
     )
 
-    n_nodes, n_pods, waves, seed = 5000, 20000, 10, 7
+    # a wave of 1000 pods outlasts one 512-pod chunk, so the refresh runs
+    n_nodes, n_pods, waves, seed = 5000, 5000, 5, 7
     rng = random.Random(seed)
     nodes = make_nodes(n_nodes, rng, "mixed")
     services = [s.to_dict() for s in make_services()]
@@ -3228,7 +3263,7 @@ def kubelet_entry(d: "Daemons", oracle_pool) -> dict:
     from kubernetes_tpu_torch.client.remote import RemoteStore
     from kubernetes_tpu_torch.workload import make_pods, oracle_replay_state
 
-    n_nodes, n_pods, waves, seed = 1000, 2000, 4, 7
+    n_nodes, n_pods, waves, seed = 1000, 1000, 4, 7
     fleet = d._spawn("kubelet", ["kubernetes_tpu_torch", "kubelet", "--apiserver", d.url,
                                  "--count", str(n_nodes), "--name", "hollow"])
     rs = RemoteStore(d.url, timeout=120.0)
@@ -3340,7 +3375,7 @@ def kubelet_phase(pps_6a: float, oracle_pool) -> tuple[int, int]:
     bst = b["stats"]
     mismatches = sum(1 for k, n in b["got"].items() if b["oracle"]["assignments"].get(k) != n)
     print(f"phase 14b python -m kubernetes_tpu_torch kubelet --count 1000 as one process, "
-          f"registered in {b['register_s']:.3f} s; 2000 plain pods in 4 waves bound and Running "
+          f"registered in {b['register_s']:.3f} s; {len(b['got'])} plain pods in 4 waves bound and Running "
           f"in {b['wall_s']:.3f} s (waves {', '.join(f'{x:.3f}' for x in b['wave_s'])} s), "
           f"startup p50_ms {b['startup_ms'][0]:.1f} p99_ms {b['startup_ms'][1]:.1f}; vs the "
           f"sequential oracle over the cluster as read back: mismatches {mismatches} of "
@@ -3364,6 +3399,576 @@ def kubelet_phase(pps_6a: float, oracle_pool) -> tuple[int, int]:
     return st["launches"] + bst["launches"], st["refresh_launches"] + bst["refresh_launches"]
 
 
+class NodeWatch:
+    """A watch on Nodes from ``rev`` on a thread of its own: the first time
+    this client saw each node's Ready condition at anything but True."""
+
+    def __init__(self, rs, rev: int):
+        self.mu = threading.Lock()
+        self.not_ready: dict = {}
+        self.watch = rs.watch("Node", from_revision=rev)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="node-watch")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            ev = self.watch.get(timeout=0.5)
+            if ev is None or ev.object is None:
+                continue
+            conds = (ev.object.get("status") or {}).get("conditions") or []
+            ready = next((c for c in conds if c.get("type") == "Ready"), None)
+            if ready is not None and ready.get("status") != "True":
+                with self.mu:
+                    self.not_ready.setdefault(ev.object["metadata"]["name"], time.perf_counter())
+
+    def snapshot(self) -> dict:
+        with self.mu:
+            return dict(self.not_ready)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.watch.stop()
+
+
+def app_templates(n_apps: int, seed: int = 7) -> list:
+    """``n_apps`` distinct request shapes of the ``mixed`` generator at
+    ``seed``, in the order it makes them: the pod kinds (affinity, anti-
+    affinity, a disk volume of each kind, a node selector, a toleration)
+    and the four plain shapes.  Each is a pod template whose labels gain
+    ``deployment: app-<i>``."""
+    from kubernetes_tpu_torch.api.types import PodSpec, PodTemplateSpec
+    from kubernetes_tpu_torch.workload import make_pods
+
+    seen, out = set(), []
+    for pod in make_pods(400, random.Random(seed), "mixed"):
+        vol = pod.spec.volumes[0].disk_kind if pod.spec.volumes else ""
+        key = (pod.meta.name.split("-")[0], pod.meta.labels.get("app"), vol)
+        if key in seen:
+            continue
+        seen.add(key)
+        labels = dict(pod.meta.labels, deployment=f"app-{len(out)}")
+        out.append(PodTemplateSpec(labels=labels, spec=PodSpec.from_dict(pod.spec.to_dict())))
+        if len(out) == n_apps:
+            return out
+    raise AssertionError(f"the mixed generator has fewer than {n_apps} request shapes")
+
+
+def wait_for(what: str, ready, deadline_s: float, every: float = 0.25):
+    """Poll ``ready()`` until it returns a true value, which is returned."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        got = ready()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what}: not done after {deadline_s} s")
+        time.sleep(every)
+
+
+def proxy_call(url: str, method: str = "GET", body: bytes = None, ctype: str = None) -> tuple:
+    """One request through the apiserver's kubelet proxies: (code, body,
+    seconds)."""
+    req = urllib.request.Request(url, data=body, method=method)
+    if ctype:
+        req.add_header("Content-Type", ctype)
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            code, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, data = e.code, e.read()
+    return code, data, time.perf_counter() - t
+
+
+def probe_proxies(d: "Daemons", cs) -> dict:
+    """Phase 15d: a 1-replica Deployment on the real kubelet's node, then
+    every kubelet proxy through the apiserver."""
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.selectors import LabelSelector
+    from kubernetes_tpu_torch.api.types import Container, Deployment, Pod, PodSpec, PodTemplateSpec
+
+    kubelet = d._spawn("kubelet-real", ["kubernetes_tpu_torch", "kubelet", "--apiserver", d.url,
+                                        "--name", "real", "--count", "1", "--serve-logs",
+                                        "--real-containers"])
+    out = {}
+    try:
+        t = time.perf_counter()
+        wait_until(lambda: "real" in {n.meta.name for n in cs.nodes.list()[0]}, kubelet,
+                   "the real kubelet", 60)
+        out["register_s"] = time.perf_counter() - t
+        labels = {"deployment": "probe"}
+        cs.deployments.create(Deployment(
+            meta=ObjectMeta(name="probe", namespace="default"), replicas=1,
+            selector=LabelSelector.from_match_labels(labels),
+            template=PodTemplateSpec(labels=labels, spec=PodSpec(
+                node_selector={"kubernetes.io/hostname": "real"},
+                containers=[Container(name="c", image="busybox", command=[
+                    "/bin/sh", "-c", "echo probe-started; exec sleep 3600"])]))))
+        # a pod no node fits: the subresources answer 400 until it is bound
+        cs.pods.create(Pod(meta=ObjectMeta(name="unschedulable", namespace="default"),
+                           spec=PodSpec(node_selector={"kubernetes.io/hostname": "nowhere"},
+                                        containers=[Container(name="c")])))
+
+        def running():
+            pods = [p for p in cs.pods.list("default")[0]
+                    if p.meta.labels.get("deployment") == "probe"]
+            return pods if pods and pods[0].status.phase == "Running" else None
+
+        t = time.perf_counter()
+        pod = wait_for("phase 15d probe pod", running, 60)[0]
+        out["start_s"] = time.perf_counter() - t
+        out["node"] = pod.spec.node_name
+        base = f"{d.url}/api/v1/namespaces/default/pods"
+        p = f"{base}/{pod.meta.name}"
+        # Running is reported with the sandbox; the container's process
+        # has run once its first line is in the log
+        t = time.perf_counter()
+        wait_for("phase 15d probe log", lambda: b"probe-started" in proxy_call(f"{p}/log")[1], 30)
+        out["log_s"] = time.perf_counter() - t
+        blob = bytes(range(256)) * 64
+        calls = {
+            "log": proxy_call(f"{p}/log"),
+            "exec": proxy_call(f"{p}/exec", "POST", json.dumps({"command": ["echo", "ok"]}).encode(),
+                               "application/json"),
+            "cp_put": proxy_call(f"{p}/cp?path=/tmp/blob", "PUT", blob,
+                                 "application/octet-stream"),
+            "cp_get": proxy_call(f"{p}/cp?path=/tmp/blob"),
+            "attach": proxy_call(f"{p}/attach"),
+            "node_stats": proxy_call(f"{d.url}/api/v1/nodes/real/proxy/stats/summary"),
+            "bad_container": proxy_call(f"{p}/log?container=nope"),
+            "bad_tail": proxy_call(f"{p}/log?tailLines=abc"),
+            "unscheduled": proxy_call(f"{base}/unschedulable/log"),
+        }
+        out["codes"] = {k: v[0] for k, v in calls.items()}
+        out["seconds"] = {k: v[2] for k, v in calls.items()}
+        out["log_ok"] = b"probe-started" in calls["log"][1]
+        exec_body = json.loads(calls["exec"][1]) if calls["exec"][0] == 200 else {}
+        out["exec_ok"] = exec_body.get("stdout", "").strip() == "ok" and exec_body.get("exitCode") == 0
+        out["cp_ok"] = calls["cp_get"][1] == blob
+        stats = json.loads(calls["node_stats"][1]) if calls["node_stats"][0] == 200 else {}
+        out["stats_ok"] = (stats.get("node") or {}).get("nodeName") == "real"
+        cs.pods.delete("unschedulable", "default")
+        cs.deployments.delete("probe", "default")
+    finally:
+        kubelet.send_signal(signal.SIGTERM)
+        try:
+            out["kubelet_rc"] = kubelet.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            kubelet.kill()
+            kubelet.wait(timeout=30)
+            raise
+    return out
+
+
+def start_controller_manager(d: "Daemons") -> subprocess.Popen:
+    """``python -m kubernetes_tpu_torch controller-manager --apiserver URL
+    --leader-elect`` at its defaults (every controller, 2 workers each, a
+    5 s node monitor period); returns once it leads and runs."""
+    cm = d._spawn("controller-manager", ["kubernetes_tpu_torch", "controller-manager",
+                                         "--apiserver", d.url, "--leader-elect"])
+    err = os.path.join(d.workdir, f"{d.tag}-controller-manager.err")
+    wait_until(lambda: "controller manager running" in open(err).read(), cm,
+               "the controller manager", 120)
+    return cm
+
+
+def stop_controller_manager(d: "Daemons", cm: subprocess.Popen) -> dict:
+    cm.send_signal(signal.SIGTERM)
+    rc = cm.wait(timeout=120)
+    if rc != 0:
+        raise RuntimeError(f"the controller manager exited {rc} on SIGTERM")
+    out = open(os.path.join(d.workdir, f"{d.tag}-controller-manager.out")).read()
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"controller_manager_stats"')]
+    if len(lines) != 1:
+        raise AssertionError(f"expected one stats line from the controller manager, got "
+                             f"{len(lines)}")
+    return json.loads(lines[0])["controller_manager_stats"]
+
+
+def endpoints_mismatch(rs, apps: list) -> list:
+    """The Services whose Endpoints do not hold exactly the IPs of their
+    ready pods (Running, Ready condition True) as stored."""
+    pods = rs.list("Pod", "default")[0]
+    eps = {e["metadata"]["name"]: e for e in rs.list("Endpoints", "default")[0]}
+    bad = []
+    for app in apps:
+        want = set()
+        for p in pods:
+            st = p.get("status") or {}
+            if (p["metadata"].get("labels") or {}).get("deployment") != app or not st.get("podIP"):
+                continue
+            ready = next((c for c in st.get("conditions") or [] if c.get("type") == "Ready"), None)
+            if st.get("phase") == "Running" and (ready is None or ready.get("status") == "True"):
+                want.add(st["podIP"])
+        got = {a["ip"] for s in (eps.get(app, {}).get("subsets") or [])
+               for a in s.get("addresses") or []}
+        if got != want:
+            bad.append(app)
+    return bad
+
+
+def rollout(d: "Daemons", k_procs: int, n_nodes: int = 5000, n_apps: int = 10,
+            replicas: int = 300, step: int = 75, lose: int = 1, sched_args: tuple = ()) -> dict:
+    """Phase 15a-15d on ``d``'s apiserver at its defaults: ``k_procs`` fleet
+    processes register ``n_nodes`` of 14a's seeded cluster, the controller
+    manager and the card's scheduler start, ``n_apps`` Deployments of
+    ``replicas`` roll out, roll to a new image, ``lose`` fleet processes
+    are SIGKILLed and ``app-0`` doubles; then the proxies."""
+    import ipaddress
+    import multiprocessing
+
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.selectors import LabelSelector
+    from kubernetes_tpu_torch.api.types import Deployment, Service, ServicePort
+    from kubernetes_tpu_torch.client.clientset import Clientset
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.controllers.deployment import template_hash
+    from kubernetes_tpu_torch.workload import make_nodes, overcommitted_nodes, run_hollow_fleet
+
+    seed = 7
+    nodes = make_nodes(n_nodes, random.Random(seed), "mixed")
+    apps = [f"app-{i}" for i in range(n_apps)]
+    templates = app_templates(n_apps, seed)
+    mp = multiprocessing.get_context("spawn")
+    # an Event a process: setting one that a SIGKILLed process waited on
+    # would wait for that process to wake
+    stops, results = [mp.Event() for _ in range(k_procs)], mp.Queue()
+    share = -(-n_nodes // k_procs)
+    procs = [mp.Process(target=run_hollow_fleet, name=f"fleet-{i}",
+                        args=(d.url, n_nodes, "mixed", seed, i * share,
+                              min(share, n_nodes - i * share), stops[i], results))
+             for i in range(k_procs)]
+    lost_procs = procs[k_procs - lose:]
+    lost = {n.meta.name for i, n in enumerate(nodes) if i >= (k_procs - lose) * share}
+    out = {"shape": f"{n_nodes} hollow nodes, {n_apps} Deployments x {replicas}",
+           "fleet": {}, "k_procs": k_procs, "replicas": replicas,
+           "cidrs_want": min(1024, n_nodes + 1)}
+    rs = RemoteStore(d.url, timeout=120.0)
+    cs = Clientset(RemoteStore(d.url, timeout=120.0))
+    cm = times = nodes_seen = None
+    t0 = time.perf_counter()
+    try:
+        # every node's Ready condition is watched from before the first one
+        # registers; the controller manager and the scheduler start while
+        # the fleet registers (no check here is of binding order)
+        _, node_rev = rs.list("Node")
+        nodes_seen = NodeWatch(rs, node_rev)
+        metrics0 = request_counts(http_get(d.url + "/metrics").decode())
+        for proc in procs:
+            proc.start()
+        t = time.perf_counter()
+        cm = start_controller_manager(d)
+        out["cm_start_s"] = time.perf_counter() - t
+        d.start_scheduler(*sched_args)
+        registered = 0
+        while registered < k_procs:
+            try:
+                tag, first, value = results.get(timeout=1.0)
+            except queue.Empty:
+                if any(not proc.is_alive() for proc in procs):
+                    raise RuntimeError("phase 15: a fleet process died while registering")
+                if time.perf_counter() - t0 > 300:
+                    raise TimeoutError("phase 15: the fleet did not register in 300 s")
+                continue
+            registered += 1
+        out["register_s"] = time.perf_counter() - t0
+        for n in nodes:  # kubectl taint, as in 14a
+            if n.spec.taints:
+                rs.patch("Node", "", n.meta.name,
+                         {"spec": {"taints": [x.to_dict() for x in n.spec.taints]}})
+        _, rev = rs.list("Pod")
+        times = PodTimes(rs, rev)
+        pids = {"apiserver": d.apiserver.pid, "scheduler": d.scheduler.pid,
+                "controller_manager": cm.pid, "fleet": [proc.pid for proc in procs]}
+        cpu0 = {k: sum(cpu_s(p) for p in (v if isinstance(v, list) else [v]))
+                for k, v in pids.items()}
+        t_phase = time.perf_counter()
+
+        # -- 15a: the rollout ------------------------------------------------
+        for app, tpl in zip(apps, templates):
+            cs.services.create(Service(meta=ObjectMeta(name=app, namespace="default"),
+                                       selector={"deployment": app},
+                                       ports=[ServicePort(port=80, target_port=8080)]))
+        t_a = time.perf_counter()
+        for app, tpl in zip(apps, templates):
+            cs.deployments.create(Deployment(
+                meta=ObjectMeta(name=app, namespace="default"), replicas=replicas,
+                selector=LabelSelector.from_match_labels({"deployment": app}), template=tpl,
+                max_surge=step, max_unavailable=step))
+
+        def all_ready(want: int, updated: bool = False):
+            deps = [dp for dp in cs.deployments.list("default")[0] if dp.meta.name in apps]
+            return len(deps) == n_apps and all(
+                dp.status_ready_replicas == want and (not updated or dp.status_updated_replicas
+                                                      == want) for dp in deps)
+
+        wait_for("phase 15a rollout", lambda: all_ready(replicas), 300)
+        out["a_s"] = time.perf_counter() - t_a
+        with times.mu:
+            keys_a = list(times.added)
+        times.wait(keys_a, "running", 60, "phase 15a")
+        with times.mu:
+            created = sorted(times.added.values())
+            out["a_creates_per_s"] = len(created) / max(created[-1] - created[0], 1e-9)
+            out["a_c2b_ms"] = quantiles_ms([times.bound[k] - times.added[k] for k in keys_a])
+            out["a_c2r_ms"] = quantiles_ms([times.running[k] - times.added[k] for k in keys_a])
+        if len(keys_a) != n_apps * replicas:
+            raise AssertionError(f"phase 15a: {len(keys_a)} pods made for "
+                                 f"{n_apps * replicas} replicas")
+
+        # -- 15b: a rolling update -------------------------------------------
+        t_b = time.perf_counter()
+        new_rs = {}
+        for app in apps:
+            def _image(dp):
+                dp.template.spec.containers[0].image = "registry.example/app:v2"
+                return dp
+
+            got = cs.deployments.guaranteed_update(app, _image, "default")
+            new_rs[app] = f"{app}-{template_hash(got.template)}"
+
+        def rolled():
+            if not all_ready(replicas, updated=True):
+                return False
+            sets = cs.replicasets.list("default")[0]
+            return all(r.replicas == 0 and r.status_replicas == 0 for r in sets
+                       if r.meta.name not in new_rs.values())
+
+        wait_for("phase 15b rolling update", rolled, 400)
+        out["b_s"] = time.perf_counter() - t_b
+        pods = rs.list("Pod", "default")[0]
+        out["b_not_newest"] = [p["metadata"]["name"] for p in pods
+                               if (p["metadata"].get("labels") or {}).get("deployment") in new_rs
+                               and next((r["name"] for r in p["metadata"].get("ownerReferences")
+                                         or [] if r.get("controller")), None)
+                               != new_rs[p["metadata"]["labels"]["deployment"]]]
+        with times.mu:
+            keys_b = [k for k in times.added if k not in set(keys_a)]
+        times.wait(keys_b, "running", 60, "phase 15b")
+        with times.mu:
+            out["b_c2r_ms"] = quantiles_ms([times.running[k] - times.added[k] for k in keys_b])
+        out["b_pods"] = len(keys_b)
+
+        # -- 15c: a lost node pool -------------------------------------------
+        deletes0 = request_counts(http_get(d.url + "/metrics").decode()).get("delete pods", 0)
+        t_c = time.perf_counter()
+        for proc in lost_procs:
+            proc.kill()  # SIGKILL: the kubelets stop heartbeating at once
+            proc.join(timeout=30)
+        unknown = wait_for("phase 15c nodes Unknown",
+                           lambda: lost <= set(nodes_seen.snapshot()) and nodes_seen.snapshot(),
+                           180, every=0.5)
+        out["c_unknown_s"] = max(unknown[n] for n in lost) - t_c
+        out["c_unknown_first_s"] = min(unknown[n] for n in lost) - t_c
+        with times.mu:
+            before = set(times.added)
+
+        def _scale(dp):
+            dp.replicas = 2 * replicas
+            return dp
+
+        t_scale = time.perf_counter()
+        cs.deployments.guaranteed_update(apps[0], _scale, "default")
+
+        def scaled():
+            with times.mu:
+                new = [k for k in times.added if k not in before]
+                done = len(new) >= replicas and all(k in times.running for k in new)
+            dp = cs.deployments.get(apps[0], "default")
+            return new if done and dp.status_ready_replicas == 2 * replicas else None
+
+        new_c = wait_for("phase 15c scale-up", scaled, 180)
+        out["c_scale_s"] = time.perf_counter() - t_scale
+        with times.mu:
+            out["c_on_lost"] = [k for k in new_c if times.nodes.get(k) in lost]
+            out["c_c2r_ms"] = quantiles_ms([times.running[k] - times.added[k] for k in new_c])
+        out["c_pods"] = len(new_c)
+        out["c_deletes"] = (request_counts(http_get(d.url + "/metrics").decode())
+                            .get("delete pods", 0) - deletes0)
+        out["c_s"] = time.perf_counter() - t_c
+
+        # endpoints converge on the pods as stored
+        t = time.perf_counter()
+        try:
+            wait_for("phase 15 endpoints", lambda: not endpoints_mismatch(rs, apps), 60, every=1.0)
+        except TimeoutError:
+            pass  # reported and checked below
+        out["endpoints_bad"] = endpoints_mismatch(rs, apps)
+        out["endpoints_s"] = time.perf_counter() - t
+
+        # -- 15d: the proxies ------------------------------------------------
+        t_d = time.perf_counter()
+        out["d"] = probe_proxies(d, cs)
+        out["d_s"] = time.perf_counter() - t_d
+        t_end = time.perf_counter()
+        out["wall_s"] = t_end - t_phase
+        out["cpu_share"] = {
+            k: (sum(cpu_s(p) for p in (v if isinstance(v, list) else [v])
+                    if p not in {lp.pid for lp in lost_procs}) - cpu0[k]) / out["wall_s"]
+            for k, v in pids.items() if k != "fleet"}
+        metrics1 = request_counts(http_get(d.url + "/metrics").decode())
+        out["requests"] = {k: v - metrics0.get(k, 0) for k, v in metrics1.items()
+                           if v - metrics0.get(k, 0)}
+        out["not_ready_nodes"] = set(nodes_seen.snapshot())
+        with times.mu:
+            out["rejected"] = dict(times.rejected)
+        out["cm"] = stop_controller_manager(d, cm)
+        cm = None
+        out["stats"] = d.stop_scheduler()
+    finally:
+        live = [proc for proc in procs if proc not in lost_procs]
+        for proc, ev in zip(procs, stops):
+            if proc in live:
+                ev.set()
+        reports = {}
+        deadline = time.monotonic() + 120
+        while len(reports) < len(live) and time.monotonic() < deadline:
+            if not any(proc.is_alive() for proc in live) and results.empty():
+                break
+            try:
+                tag, first, value = results.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if tag == "done":
+                reports[first] = value
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+        if cm is not None and cm.poll() is None:
+            cm.kill()
+            cm.wait(timeout=30)
+        for w in (times, nodes_seen):
+            if w is not None:
+                w.stop()
+    if len(reports) != len(live) or any(proc.exitcode != 0 for proc in live):
+        raise AssertionError(f"phase 15: {len(reports)} of {len(live)} live fleet reports, exit "
+                             f"codes {[proc.exitcode for proc in live]}")
+    for first in sorted(reports):
+        ticks = sorted(reports[first]["ticks"])
+        out["fleet"][first] = {"ticks": len(ticks), "tick_mean_s": sum(ticks) / len(ticks),
+                               "tick_max_s": ticks[-1]}
+    items = rs.list("Pod")[0]
+    node_items = rs.list("Node")[0]
+    out["not_running"] = [p["metadata"]["name"] for p in items
+                          if (p.get("status") or {}).get("phase") != "Running"]
+    out["unbound"] = [p["metadata"]["name"] for p in items if not p["spec"].get("nodeName")]
+    out["over"] = overcommitted_nodes(items, node_items)
+    out["ips_within"], _ = ip_check(items)
+    cidrs = [(n.get("spec") or {}).get("podCIDR") for n in node_items]
+    cidrs = [c for c in cidrs if c]
+    net = ipaddress.ip_network("10.8.0.0/14")
+    out["cidrs"] = len(cidrs)
+    out["cidrs_ok"] = (len(set(cidrs)) == len(cidrs)
+                       and all(ipaddress.ip_network(c).subnet_of(net) for c in cidrs))
+    out["lost"] = lost
+    return out
+
+
+def controller_phase(pps_6a: float) -> tuple[int, int]:
+    """Phase 15: the controller manager at 5000 nodes under the card's
+    scheduler.  Returns the scheduler daemon's fused and refresh launches."""
+    k_procs = 4  # 1250 nodes each: one is a quarter of every zone
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        d = Daemons(workdir, "15", admitted=True)
+        try:
+            r = rollout(d, k_procs)
+        except BaseException:
+            for name in ("scheduler", "controller-manager"):
+                path = os.path.join(workdir, f"15-{name}.err")
+                if os.path.exists(path):
+                    print(f"phase 15 {name} stderr tail:\n{open(path).read()[-4000:]}",
+                          file=sys.stderr)
+            raise
+        finally:
+            d.close()
+    report_controllers(r, pps_6a, time.perf_counter() - t0)
+    return r["stats"]["launches"], r["stats"]["refresh_launches"]
+
+
+def report_controllers(r: dict, pps_6a: float, phase_s: float) -> None:
+    """Print phase 15's lines and hold its exact checks."""
+    st, cm, dd = r["stats"], r["cm"], r["d"]
+    req = r["requests"]
+    ctl = "; ".join(f"{k} {v['syncs']} syncs {v['sync_s']:.3f} s queue {v['queue']}"
+                    + (f" errors {v['errors']}" if v["errors"] else "")
+                    for k, v in sorted(cm["controllers"].items()) if v["syncs"] or v["queue"])
+    ticks = "; ".join(f"{k} {v['ticks']} x mean {v['s'] / max(v['ticks'], 1):.4f} max "
+                      f"{v['max_s']:.4f} s" for k, v in sorted(cm["ticks"].items()))
+    fleet = "; ".join(f"[{first}] {f['ticks']} ticks mean {f['tick_mean_s']:.3f} max "
+                      f"{f['tick_max_s']:.3f} s" for first, f in sorted(r["fleet"].items()))
+    print(f"phase 15a controller-driven rollout, {r['shape']} (the mixed generator's request "
+          f"shapes, seed 7; maxSurge/maxUnavailable 75), the apiserver at its defaults, "
+          f"{r['k_procs']} fleet processes registered in {r['register_s']:.3f} s while the "
+          f"controller manager (leading {r['cm_start_s']:.3f} s after its start) and the "
+          f"scheduler started: every "
+          f"Deployment ready in {r['a_s']:.3f} s; the ReplicaSet controller created "
+          f"{r['a_creates_per_s']:.1f} pods/s; create_to_bind p50_ms {r['a_c2b_ms'][0]:.1f} "
+          f"p99_ms {r['a_c2b_ms'][1]:.1f}, create_to_running p50_ms {r['a_c2r_ms'][0]:.1f} "
+          f"p99_ms {r['a_c2r_ms'][1]:.1f} (6a {pps_6a:.1f} pods/s in this call)", flush=True)
+    print(f"phase 15b rolling update to a new image: {r['b_pods']} new pods, every Deployment "
+          f"updated == ready == {r['replicas']} and its old ReplicaSet at 0 in {r['b_s']:.3f} s, "
+          f"create_to_running p50_ms {r['b_c2r_ms'][0]:.1f} p99_ms {r['b_c2r_ms'][1]:.1f}; "
+          f"pods not owned by their Deployment's newest ReplicaSet {len(r['b_not_newest'])}",
+          flush=True)
+    print(f"phase 15c lost node pool: a fleet process SIGKILLed ({len(r['lost'])} nodes); the "
+          f"node lifecycle controller set Ready=Unknown on the first {r['c_unknown_first_s']:.3f} "
+          f"s and on all of them {r['c_unknown_s']:.3f} s after the kill (grace 40 s, monitor "
+          f"period 5 s); nodes ever not Ready {len(r['not_ready_nodes'])}, of them outside the "
+          f"lost pool {len(r['not_ready_nodes'] - r['lost'])}; zone states "
+          f"{json.dumps(cm.get('zone_states', {}), sort_keys=True)}; app-0 {r['replicas']} -> {2 * r['replicas']}: "
+          f"{r['c_pods']} new pods Running in {r['c_scale_s']:.3f} s (create_to_running p50_ms "
+          f"{r['c_c2r_ms'][0]:.1f} p99_ms {r['c_c2r_ms'][1]:.1f}), on lost nodes "
+          f"{len(r['c_on_lost'])}; pod deletes in 15c {r['c_deletes']}", flush=True)
+    print(f"phase 15d the kubelet proxies on the real kubelet (registered in "
+          f"{dd['register_s']:.3f} s, the probe pod Running {dd['start_s']:.3f} s after its "
+          f"Deployment, on {dd['node']}): codes {json.dumps(dd['codes'], sort_keys=True)}, "
+          f"seconds {json.dumps({k: round(v, 4) for k, v in dd['seconds'].items()}, sort_keys=True)}; "
+          f"log {dd['log_ok']}, exec echo ok {dd['exec_ok']}, cp round trip {dd['cp_ok']}, "
+          f"stats summary {dd['stats_ok']}; the kubelet exited {dd['kubelet_rc']} on SIGTERM",
+          flush=True)
+    print(f"phase 15 the controller manager: CPU over the phase in cores "
+          f"{json.dumps({k: round(v, 3) for k, v in r['cpu_share'].items()})} (phase "
+          f"{r['wall_s']:.3f} s); controllers {ctl}; ticks {ticks}; node-ipam podCIDRs "
+          f"{r['cidrs']} (distinct and inside 10.8.0.0/14: {r['cidrs_ok']}); Endpoints equal to "
+          f"their ready pods after {r['endpoints_s']:.3f} s, differing {r['endpoints_bad']}; "
+          f"fleet ticks {fleet}; apiserver requests {json.dumps(req, sort_keys=True)}; the "
+          f"scheduler daemon: launches fused_scan {st['launches']} frontier_refresh "
+          f"{st['refresh_launches']}, kernel_ms {st['kernel_ms']:.3f}; rejections "
+          f"{len(r['rejected'])}, unbound {len(r['unbound'])}, not Running "
+          f"{len(r['not_running'])}, over capacity {len(r['over'])}, IPs duplicated within a "
+          f"node {r['ips_within']}", flush=True)
+    print(f"phase 15 took {phase_s:.1f} s: 15a {r['a_s']:.1f}, 15b {r['b_s']:.1f}, 15c "
+          f"{r['c_s']:.1f}, 15d {r['d_s']:.1f}", flush=True)
+    codes = dd["codes"]
+    want_codes = {"log": 200, "exec": 200, "cp_put": 200, "cp_get": 200, "attach": 200,
+                  "node_stats": 200, "bad_container": 400, "bad_tail": 400, "unscheduled": 400}
+    failures = {
+        "rejections": len(r["rejected"]), "unbound": r["unbound"][:3],
+        "not Running": r["not_running"][:3], "over capacity": r["over"][:3],
+        "IPs duplicated within a node": r["ips_within"],
+        "pods not of the newest ReplicaSet": r["b_not_newest"][:3],
+        "Endpoints differing": r["endpoints_bad"],
+        "new pods on lost nodes": r["c_on_lost"][:3],
+        "nodes not Ready outside the lost pool": sorted(r["not_ready_nodes"] - r["lost"])[:3],
+        "lost nodes never Unknown": sorted(r["lost"] - r["not_ready_nodes"])[:3],
+        "pod deletes in 15c": r["c_deletes"],
+        "podCIDRs": None if r["cidrs"] == r["cidrs_want"] and r["cidrs_ok"] else r["cidrs"],
+        "fused launches": None if st["launches"] > 0 else st["launches"],
+        "proxy codes": None if codes == want_codes else codes,
+        "proxy bodies": None if dd["log_ok"] and dd["exec_ok"] and dd["cp_ok"]
+        and dd["stats_ok"] else (dd["log_ok"], dd["exec_ok"], dd["cp_ok"], dd["stats_ok"]),
+        "real kubelet exit": dd["kubelet_rc"] or None,
+    }
+    failed = {k: v for k, v in failures.items() if v}
+    if failed:
+        raise AssertionError(f"phase 15: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -3379,6 +3984,13 @@ def main() -> int:
     from kubernetes_tpu_torch.scheduler.generic_scheduler import GenericScheduler
 
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:  # the seconds since the last lap, by phase
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     card = card_line()
     print(f"phase 1 card: {card}", flush=True)
 
@@ -3422,6 +4034,7 @@ def main() -> int:
     print(f"phase 3 oracle 1000x300: BatchBackend == GenericScheduler, rr "
           f"{oracle._round_robin}, kernel_pods {backend.stats['kernel_pods']}", flush=True)
 
+    lap("1-3")
     # -- phase 4: the main path at full width ------------------------------
     m, pods, pctx = cluster(5000, 20000, "mixed", seed=0)
     main_static, s_main, st_main = segment(m, pods, pctx, "cuda")
@@ -3461,24 +4074,36 @@ def main() -> int:
     refresh_main = refresh_cell("4 main segment", s_main, st_main)
     loop_cell(*segment(m, pods, pctx, "cuda", frontier=True)[1:], card)
     node_cache_cell(main_static)
+    lap("4")
 
     churn_launches, churn_refresh = churn_phase()
     eager_launches, eager_refresh = churn_parity(lazy_ingest=False)
+    lap("5")
     daemon_launches, pps_6a, idle_6a, daemon_refresh = daemon_phase()
+    lap("6")
     preemption_launches, _ = preemption_phase()
+    lap("7")
     policy_launches = policy_phase()
     policy_daemon_phase()
+    lap("8")
     traced_launches = traced_daemon_phase(pps_6a, idle_6a)
     fault_launches = faults_phase()
     overload_launches, _ = overload_phase()
+    lap("9")
     pool_launches, pool_refresh, pool_errs, pool_refresh_errs, refresh_pool = pool_phase()
+    lap("10")
     admitted_launches, admitted_refresh = admitted_phase(pps_6a)
+    lap("11")
     auth_launches, auth_refresh = auth_phase(pps_6a)
+    lap("12")
     # the sequential oracles of 13a and 14b run in processes of their own;
     # 13a's runs on beside phase 14
     with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as oracle_pool:
         drain_launches, drain_refresh, (kubelet_launches, kubelet_refresh) = drain_phase(
             pps_6a, oracle_pool, lambda: kubelet_phase(pps_6a, oracle_pool))
+    lap("13-14")
+    controller_launches, controller_refresh = controller_phase(pps_6a)
+    lap("15")
 
     entry = {
         "name": "fused_scan", "route": "cuda",
@@ -3488,14 +4113,15 @@ def main() -> int:
                      + preemption_launches + policy_launches + traced_launches
                      + fault_launches + overload_launches + pool_launches
                      + admitted_launches + auth_launches + drain_launches
-                     + kubelet_launches),
+                     + kubelet_launches + controller_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "churn_eager": eager_launches, "daemon": daemon_launches,
                              "preemption": preemption_launches, "policy": policy_launches,
                              "traced_daemon": traced_launches, "faults": fault_launches,
                              "overload": overload_launches, "pool": pool_launches,
                              "apiserver_defaults": admitted_launches, "auth": auth_launches,
-                             "drain": drain_launches, "kubelet": kubelet_launches},
+                             "drain": drain_launches, "kubelet": kubelet_launches,
+                             "controllers": controller_launches},
         # the repaired shapes' segments (phase 3): many zones, a wide port row
         "cells": shape_cells,
         "max_abs_err": max(errs + pool_errs),
@@ -3511,12 +4137,13 @@ def main() -> int:
         "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
         "launches": (refresh_launches + churn_refresh + eager_refresh + daemon_refresh
                      + pool_refresh + admitted_refresh + auth_refresh + drain_refresh
-                     + kubelet_refresh),
+                     + kubelet_refresh + controller_refresh),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
                              "churn_eager": eager_refresh, "daemon": daemon_refresh,
                              "pool": pool_refresh,
                              "apiserver_defaults": admitted_refresh, "auth": auth_refresh,
-                             "drain": drain_refresh, "kubelet": kubelet_refresh},
+                             "drain": drain_refresh, "kubelet": kubelet_refresh,
+                             "controllers": controller_refresh},
         # the main segment's width; the other widths and the launch floor in cells
         "cells": refresh_cells,
         "max_abs_err": max([c["max_abs_err"] for c in refresh_cells.values()]
@@ -3527,6 +4154,7 @@ def main() -> int:
         "bound_ms": refresh_main["bound_ms"], "bound_by": refresh_main["bound_by"],
         "library_ms": None,
     }
+    print(f"phase seconds {json.dumps(laps)}", flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [entry, refresh_entry]}))
     print(card)

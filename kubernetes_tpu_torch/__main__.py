@@ -4,6 +4,7 @@
     python -m kubernetes_tpu_torch apiserver --port 6443 [--data-dir DIR]
     python -m kubernetes_tpu_torch scheduler --apiserver http://127.0.0.1:6443
     python -m kubernetes_tpu_torch kubelet --apiserver http://127.0.0.1:6443 --count 100
+    python -m kubernetes_tpu_torch controller-manager --apiserver http://127.0.0.1:6443
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ COMPONENTS = {
     "scheduler": "kubernetes_tpu_torch.scheduler.__main__",
     "kube-scheduler": "kubernetes_tpu_torch.scheduler.__main__",
     "kubelet": "kubernetes_tpu_torch.kubelet.__main__",
+    "controller-manager": "kubernetes_tpu_torch.controllers.__main__",
+    "kube-controller-manager": "kubernetes_tpu_torch.controllers.__main__",
 }
 
 

@@ -73,8 +73,16 @@ bodies) -> Optional[retry_after_s]``) and the ``apiserver.admit`` fault
 point may answer 429 with a ``Retry-After`` header, which ``RemoteStore``
 honours.  Over an ``AdmittedStore`` (``admission/framework.py``) the
 writes then pass the admission chain, and a plugin's denial answers 403
-Forbidden.  The node and pod proxies (kubelet logs, exec, attach, cp)
-are not part of this server yet.
+Forbidden.
+
+The kubelet proxies: ``/api/v1/nodes/{name}/proxy/<path>`` reaches the
+node's kubelet read API (through the node's tunnel when ``tunneler``
+holds one, else at ``status.kubeletURL``), and the pod subresources
+``log``, ``exec``, ``attach`` and ``cp`` reach the kubelet of the pod's
+node after a CONNECT admission (``DenyEscalatingExec``).  Like the
+aggregation proxy they dial the kubelet directly, never through an
+environment proxy (``_PROXY_OPENER``), and a ``cp`` PUT forwards the body
+the handler read up front.
 """
 
 from __future__ import annotations
@@ -107,6 +115,7 @@ from ..auth import (
     UserInfo,
     X509CertificateAuthenticator,
 )
+from ..auth.authn import kubelet_exec_token
 from ..api import wire
 from ..api.patch import CONTENT_TYPES, apply_patch
 from ..api.scheme import convert_from_internal, convert_to_internal
@@ -147,8 +156,9 @@ REFUSED_LINGER_S = 2.0
 # the listening socket's accept queue (the kernel caps it at somaxconn)
 LISTEN_BACKLOG = 4096
 
-# the aggregation proxy's client: never an environment proxy, since a
-# backend is reached directly at the address its APIService names
+# the client of the aggregation and kubelet proxies: never an environment
+# proxy, since a backend or a kubelet is reached directly at the address
+# its APIService or Node names
 _PROXY_OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
 # the most watch lines written in one chunk: a burst (a wave's 2000 ADDED
@@ -321,9 +331,13 @@ class APIServer:
 
     def __init__(self, store: Store, host: str = "127.0.0.1", port: int = 0,
                  tokens: Optional[dict] = None, authenticator=None, authorizer=None,
-                 auditor=None, tls: Optional[TLSConfig] = None, max_in_flight: int = 0):
+                 auditor=None, tls: Optional[TLSConfig] = None, max_in_flight: int = 0,
+                 tunneler=None):
         self.store = store
         self.tls = tls
+        # the master-to-node channel (tunneler.Tunneler): the node proxy
+        # rides a node's tunnel when it has one
+        self.tunneler = tunneler
         # the max-in-flight filter (server/filters/maxinflight.go): a
         # semaphore, never a queue; 0 = unlimited (the reference's default
         # is 400)
@@ -778,6 +792,11 @@ def _make_handler(server: APIServer):
                 return self._error(404, "NotFound", f"no route for {path}")
             parts = parts[2:]
 
+            # node proxy: /api/v1/nodes/{name}/proxy/<kubelet path>, the
+            # path the HPA's metrics client scrapes kubelet stats through
+            if len(parts) >= 4 and parts[0] == "nodes" and parts[2] == "proxy" and method == "GET":
+                return self._proxy_node(parts[1], "/".join(parts[3:]), url.query)
+
             # collection: /api/v1/{resource}
             if len(parts) == 1:
                 kind = kind_for_plural(parts[0])
@@ -830,6 +849,15 @@ def _make_handler(server: APIServer):
                     except EvictionDisallowed as e:
                         return self._error(429, "TooManyRequests", str(e))
                     return self._send(201, {"status": "evicted"})
+                if kind == "Pod":
+                    if parts[4] == "log" and method == "GET":
+                        return self._proxy_pod_log(ns, name, q)
+                    if parts[4] == "exec" and method == "POST":
+                        return self._proxy_pod_exec(ns, name, q)
+                    if parts[4] == "attach" and method == "GET":
+                        return self._proxy_pod_simple(ns, name, q, "attach", "attach stream")
+                    if parts[4] == "cp":
+                        return self._proxy_pod_cp(ns, name, q, method)
                 return self._error(404, "NotFound", f"unknown subresource {parts[4]}")
             if method == "GET":
                 return self._send(200, store.get(kind, ns, name))
@@ -945,6 +973,175 @@ def _make_handler(server: APIServer):
             except Exception as e:  # noqa: BLE001 - advisory status; counted
                 logger.debug("APIService %s availability update failed: %s", name, e)
                 metrics.apiservice_status_failures.inc()
+
+        # -- the kubelet proxies --------------------------------------------
+        def _resolve_pod_kubelet(self, ns: str, name: str, q):
+            """Pod -> node -> kubelet endpoint and a container of the pod,
+            after the CONNECT admission (``DenyEscalatingExec`` runs here).
+            Returns (kubelet_url, container, node_name), or None once the
+            error is written."""
+            try:
+                pod = store.get("Pod", ns, name)
+            except NotFoundError:
+                self._error(404, "NotFound", f"pod {ns}/{name}")
+                return None
+            chain = getattr(store, "chain", None)
+            if chain is not None:
+                from ..admission.framework import Attributes
+
+                try:
+                    chain.run(Attributes(operation="CONNECT", kind="Pod", namespace=ns,
+                                         name=name, old_obj=pod,
+                                         user=getattr(store, "user", "")))
+                except AdmissionDenied as e:
+                    self._error(403, "Forbidden", str(e))
+                    return None
+            node_name = (pod.get("spec") or {}).get("nodeName", "")
+            if not node_name:
+                self._error(400, "BadRequest", "pod is not scheduled yet")
+                return None
+            try:
+                node = store.get("Node", "", node_name)
+            except NotFoundError:
+                self._error(502, "BadGateway", f"node {node_name} not found")
+                return None
+            kubelet_url = (node.get("status") or {}).get("kubeletURL", "")
+            if not kubelet_url:
+                self._error(502, "BadGateway", f"node {node_name} exposes no kubelet endpoint")
+                return None
+            known = [c.get("name", "") for c in (pod.get("spec") or {}).get("containers") or []]
+            container = q.get("container", [None])[0] or (known[0] if known else "")
+            if container not in known:
+                # also keeps a crafted name from reaching another kubelet path
+                self._error(400, "BadRequest", f"container {container!r} not in pod {ns}/{name}")
+                return None
+            return kubelet_url, container, node_name
+
+        def _relay(self, req, timeout: float, what: str, ctype: str) -> None:
+            """Send ``req`` to a kubelet and answer with what it returned:
+            its own error status passes through, an unreachable kubelet is
+            502."""
+            try:
+                with _PROXY_OPENER.open(req, timeout=timeout) as resp:
+                    data = resp.read()
+            except urllib.error.HTTPError as e:
+                return self._error(e.code, "KubeletError", e.read().decode()[:200])
+            except (urllib.error.URLError, OSError, http.client.HTTPException) as e:
+                return self._error(502, "BadGateway", f"kubelet {what} failed: {e}")
+            self._send_bytes(200, data, ctype)
+
+        def _proxy_pod_log(self, ns: str, name: str, q) -> None:
+            """pods/log: the kubelet's /containerLogs (the reference's
+            LogREST)."""
+            resolved = self._resolve_pod_kubelet(ns, name, q)
+            if resolved is None:
+                return
+            kubelet_url, container, _ = resolved
+            target = f"{kubelet_url}/containerLogs/{ns}/{name}/{container}"
+            if "tailLines" in q:
+                tail = q["tailLines"][0]
+                if not tail.isdigit():
+                    return self._error(400, "BadRequest", "tailLines must be an integer")
+                target += f"?tailLines={tail}"
+            try:
+                with _PROXY_OPENER.open(target, timeout=10) as resp:
+                    data = resp.read()
+            except (urllib.error.URLError, OSError, http.client.HTTPException) as e:
+                return self._error(502, "BadGateway", f"kubelet log fetch failed: {e}")
+            self._send_bytes(200, data, "text/plain")
+
+        def _proxy_pod_simple(self, ns: str, name: str, q, endpoint: str, what: str) -> None:
+            """A GET pod subresource passed to the kubelet as it is (attach,
+            the reference's AttachREST)."""
+            resolved = self._resolve_pod_kubelet(ns, name, q)
+            if resolved is None:
+                return
+            kubelet_url, container, _ = resolved
+            self._relay(f"{kubelet_url}/{endpoint}/{ns}/{name}/{container}", 10, what,
+                        "text/plain")
+
+        def _proxy_pod_cp(self, ns: str, name: str, q, method: str) -> None:
+            """pods/cp: a file read (GET) or write (PUT) in the container,
+            through the kubelet's file API under the exec credential (the
+            reference streams tar over exec: the same capability)."""
+            from urllib.parse import quote
+
+            resolved = self._resolve_pod_kubelet(ns, name, q)
+            if resolved is None:
+                return
+            kubelet_url, container, node_name = resolved
+            path = q.get("path", [""])[0]
+            if not path:
+                return self._error(400, "BadRequest", "path required")
+            target = f"{kubelet_url}/cp/{ns}/{name}/{container}?path={quote(path)}"
+            # both directions carry the exec credential: reading a file is
+            # an exec-class capability on the kubelet too
+            auth = {"Authorization": f"Bearer {kubelet_exec_token(node_name)}"}
+            if method == "GET":
+                req = urllib.request.Request(target, headers=auth)
+            elif method == "PUT":
+                # the body was read whole before routing: reading rfile again
+                # would wait on a kept-alive connection's next request
+                req = urllib.request.Request(target, data=self._raw, method="PUT", headers=auth)
+            else:
+                return self._error(405, "MethodNotAllowed", method)
+            self._relay(req, 30, "cp", "application/octet-stream")
+
+        def _proxy_pod_exec(self, ns: str, name: str, q) -> None:
+            """pods/exec: the command to the kubelet's exec endpoint under
+            the cluster-key exec token (the SPDY exec path's capability, as
+            JSON)."""
+            resolved = self._resolve_pod_kubelet(ns, name, q)
+            if resolved is None:
+                return
+            kubelet_url, container, node_name = resolved
+            command = self._body().get("command")
+            if not isinstance(command, list) or not command:
+                return self._error(400, "BadRequest", "command (list) required")
+            req = urllib.request.Request(
+                f"{kubelet_url}/exec/{ns}/{name}/{container}",
+                data=json.dumps({"command": command}).encode(),
+                headers={"Content-Type": "application/json",
+                         "Authorization": f"Bearer {kubelet_exec_token(node_name)}"},
+                method="POST")
+            self._relay(req, 30, "exec", "application/json")
+
+        def _proxy_node(self, name: str, subpath: str, query: str = "") -> None:
+            """A GET to the node's kubelet read API, path and query as
+            given: over the node's tunnel when the tunneler holds one (a
+            node need not be routable, pkg/master/tunneler), else at its
+            ``status.kubeletURL``."""
+            try:
+                node = store.get("Node", "", name)
+            except NotFoundError:
+                return self._error(404, "NotFound", f'node "{name}" not found')
+            if query:
+                subpath = f"{subpath}?{query}"
+            tun = server.tunneler
+            if tun is not None and tun.has(name):
+                if not tun.healthy(name):
+                    return self._error(502, "BadGateway", f'tunnel to node "{name}" is down')
+                try:
+                    status, data, ctype = tun.request(name, "GET", f"/{subpath}")
+                except (OSError, http.client.HTTPException) as e:
+                    # a kubelet dying mid-answer is a gateway failure
+                    return self._error(502, "BadGateway", f"tunnel request failed: {e}")
+                if status != 200:
+                    return self._error(status, "KubeletError",
+                                       data.decode(errors="replace")[:200])
+                return self._send_bytes(200, data, ctype)
+            kubelet_url = (node.get("status") or {}).get("kubeletURL") or ""
+            if not kubelet_url:
+                return self._error(502, "BadGateway", f'node "{name}" has no kubelet endpoint')
+            try:
+                with _PROXY_OPENER.open(f"{kubelet_url}/{subpath}", timeout=10) as resp:
+                    data = resp.read()
+                    ctype = resp.headers.get("Content-Type", "application/json")
+            except urllib.error.HTTPError as e:
+                return self._error(e.code, "KubeletError", e.read().decode()[:200])
+            except (urllib.error.URLError, OSError, http.client.HTTPException) as e:
+                return self._error(502, "BadGateway", f"kubelet proxy failed: {e}")
+            self._send_bytes(200, data, ctype)
 
         def _proxy_aggregated(self, method: str, group: str, url) -> None:
             """``/apis/<group>/...`` to the backend its APIService names

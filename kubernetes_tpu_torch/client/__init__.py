@@ -2,7 +2,8 @@
 HTTP store client and the leader lock."""
 
 from .clientset import BindConflictError, Clientset, PodClient, TypedClient
-from .informer import Handler, InformerFactory, PodNodeIndex, SharedInformer
+from .informer import (CacheMutationError, Handler, InformerFactory, PodNodeIndex,
+                       PodOwnerIndex, SharedInformer)
 from .leaderelection import LeaderElector
 from .record import EventBroadcaster, EventCorrelator, EventRecorder
 from .remote import RemoteStore

@@ -11,7 +11,11 @@ Two drive modes:
 - ``start_manual()`` + ``pump()`` — the caller drains pending events on
   its own thread (deterministic tests and single-threaded loops).
 
-Objects handed to handlers are shared and must not be mutated.
+Objects handed to handlers are shared and must not be mutated.  With
+``mutation_detector=True`` the informer snapshots each object's wire form
+and raises ``CacheMutationError`` when a cached object no longer matches
+it (the reference's ``KUBE_CACHE_MUTATION_DETECTOR``,
+``tools/cache/mutation_detector.go``).
 
 Ingest: while ``api.lazy.ENABLED`` holds, the informer LISTs through the
 store's column batch (``list_columns``) or lazy views (``list_lazy``) and
@@ -69,7 +73,8 @@ class Handler:
 
 
 class SharedInformer:
-    def __init__(self, client: TypedClient):
+    def __init__(self, client: TypedClient, mutation_detector: bool = False,
+                 compact_on_resync: bool = False):
         self._client = client
         self.kind = client.kind
         self._handlers: list[Handler] = []
@@ -80,6 +85,13 @@ class SharedInformer:
         self._thread: Optional[threading.Thread] = None
         self._stopped = threading.Event()
         self.last_revision = 0
+        # the detector's snapshots: key -> the object's to_dict() as cached
+        # (read through the typed fields, so a lazy view's snapshot is what
+        # its typed twin gives)
+        self._mutation_detector = mutation_detector
+        self._snapshots: dict[str, dict] = {}
+        # every successful relist ends with a promote-and-drop-raw sweep
+        self.compact_on_resync = compact_on_resync
         self.metrics = DEFAULT_CLIENT_METRICS
         # cumulative, deltaed per wave by the churn harness: decode_s
         # (wrap or typed decode) and apply_s (decode + cache + handlers);
@@ -162,6 +174,7 @@ class SharedInformer:
         cache, rev, watch = self._list_and_watch()
         with self._mu:
             self._cache = cache
+            self._snapshot_all()
             self.last_revision = rev
             self._watch = watch
             handlers = list(self._handlers)
@@ -198,6 +211,8 @@ class SharedInformer:
                 continue
             try:
                 self._apply(ev)
+            except CacheMutationError:
+                raise  # the detector's whole point is to fail loudly
             except Exception:
                 if self._stopped.is_set():
                     return
@@ -239,6 +254,8 @@ class SharedInformer:
         with (tr.span("informer.relist", cat="ingest", kind=self.kind)
               if tr is not None else tracing.NULL_SPAN):
             self._relist_inner()
+        if self.compact_on_resync:
+            self.compact_cache()
 
     def _relist_inner(self) -> None:
         with self._relist_mu:
@@ -247,6 +264,7 @@ class SharedInformer:
                 old_watch = self._watch
                 old_cache = self._cache
                 self._cache = new_cache
+                self._snapshot_all()
                 self.last_revision = max(self.last_revision, rev)
                 self._watch = new_watch
                 handlers = list(self._handlers)
@@ -270,6 +288,28 @@ class SharedInformer:
             if key not in new_cache:
                 for h in handlers:
                     self._deliver(h.on_delete, old)
+
+    # the reference's resyncPeriod is this same relist, on a timer
+    resync = relist
+
+    def _snapshot_all(self) -> None:
+        # caller holds _mu
+        if self._mutation_detector:
+            self._snapshots = {k: o.to_dict() for k, o in self._cache.items()}
+
+    def _check_snapshot(self, key: str, old, new) -> None:
+        """Caller holds _mu.  Before a delta replaces ``old``, hold it to
+        the snapshot taken when it entered the cache; then snapshot
+        ``new`` (None: the key leaves the cache)."""
+        if not self._mutation_detector:
+            return
+        snap = self._snapshots.get(key)
+        if old is not None and snap is not None and old.to_dict() != snap:
+            raise CacheMutationError(f"{self.kind} {key} was mutated in the informer cache")
+        if new is None:
+            self._snapshots.pop(key, None)
+        else:
+            self._snapshots[key] = new.to_dict()
 
     def _try_relist(self) -> bool:
         """Relist, absorbing a failure into ``_gap_pending`` so the next
@@ -352,6 +392,7 @@ class SharedInformer:
             self.stats["decode_s"] += dt
             self.stats["events"] += 1
             old = self._cache.get(ev.key)
+            self._check_snapshot(ev.key, old, None if ev.type == DELETED else obj)
             if ev.type == DELETED:
                 self._cache.pop(ev.key, None)
             else:
@@ -440,6 +481,7 @@ class SharedInformer:
                 if rev <= self.last_revision:
                     continue  # a concurrent relist superseded this event
                 old = self._cache.get(key)
+                self._check_snapshot(key, old, None if etype == DELETED else obj)
                 if etype == DELETED:
                     self._cache.pop(key, None)
                 else:
@@ -488,11 +530,18 @@ class SharedInformer:
         return n
 
 
+class CacheMutationError(RuntimeError):
+    pass
+
+
 class InformerFactory:
     """SharedInformerFactory: one informer per kind per factory."""
 
-    def __init__(self, clientset):
+    def __init__(self, clientset, mutation_detector: bool = False,
+                 compact_on_resync: bool = False):
         self._clientset = clientset
+        self._mutation_detector = mutation_detector
+        self._compact_on_resync = compact_on_resync
         self._informers: dict[str, SharedInformer] = {}
         self._mk_mu = threading.Lock()
 
@@ -502,7 +551,9 @@ class InformerFactory:
             with self._mk_mu:
                 inf = self._informers.get(kind)
                 if inf is None:
-                    inf = SharedInformer(self._clientset.client_for(kind))
+                    inf = SharedInformer(self._clientset.client_for(kind),
+                                         mutation_detector=self._mutation_detector,
+                                         compact_on_resync=self._compact_on_resync)
                     self._informers[kind] = inf
         return inf
 
@@ -527,6 +578,8 @@ class InformerFactory:
                 inf.relist()
 
     def pump_all(self) -> int:
+        # a handler may register a new informer mid-pump (the GC wiring a
+        # just-established CRD kind): it gets its events next round
         return sum(inf.pump() for inf in self.informers())
 
     def stop_all(self) -> None:
@@ -581,3 +634,60 @@ class PodNodeIndex:
     def pods_on(self, node_name: str) -> list:
         with self._mu:
             return list(self._by_node.get(node_name, {}).values())
+
+
+class PodOwnerIndex:
+    """Pods by controller-owner UID, and orphans by namespace: a
+    ReplicaSet's reconcile reads its own pods, not the cluster's
+    (client-go keeps the same index in its Indexer).
+
+    Written on the informer's delivery thread, read by controller workers;
+    both sides hold ``_mu``."""
+
+    def __init__(self, informer: SharedInformer):
+        self._mu = threading.Lock()
+        self._by_owner: dict[str, dict] = {}
+        self._orphans: dict[str, dict] = {}  # namespace -> key -> pod
+        informer.add_handler(Handler(on_add=self._upsert, on_update=self._move,
+                                     on_delete=self._drop))
+
+    def _slot(self, pod) -> dict:
+        # caller holds _mu
+        ref = pod.meta.controller_ref()
+        if ref is not None:
+            return self._by_owner.setdefault(ref.uid, {})
+        return self._orphans.setdefault(pod.meta.namespace, {})
+
+    def _upsert(self, pod) -> None:
+        with self._mu:
+            self._slot(pod)[pod.meta.key] = pod
+
+    def _move(self, old, new) -> None:
+        with self._mu:
+            if old is not None:
+                self._slot(old).pop(old.meta.key, None)
+                self._shed(old)
+            self._slot(new)[new.meta.key] = new
+
+    def _drop(self, pod) -> None:
+        with self._mu:
+            self._slot(pod).pop(pod.meta.key, None)
+            self._shed(pod)
+
+    def _shed(self, pod) -> None:
+        # caller holds _mu: drop an emptied slot, or every owner UID and
+        # namespace the cluster has ever had keeps an empty dict
+        ref = pod.meta.controller_ref()
+        if ref is not None:
+            if not self._by_owner.get(ref.uid):
+                self._by_owner.pop(ref.uid, None)
+        elif not self._orphans.get(pod.meta.namespace):
+            self._orphans.pop(pod.meta.namespace, None)
+
+    def owned_by(self, uid: str) -> list:
+        with self._mu:
+            return list(self._by_owner.get(uid, {}).values())
+
+    def orphans_in(self, namespace: str) -> list:
+        with self._mu:
+            return list(self._orphans.get(namespace, {}).values())

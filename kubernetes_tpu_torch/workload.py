@@ -482,11 +482,11 @@ def run_hollow_fleet(url: str, n_nodes: int, workload: str, seed: int, first: in
     seconds)`` on ``results``, then ticks the fleet and waits a second, as
     ``python -m kubernetes_tpu_torch.kubelet`` does, until ``stop`` is set; then it
     puts its report: each tick's seconds and the ticks' summed counters
-    (``rejected`` included).  A tick is ``tick_all``'s: one informer pump,
-    then every kubelet's ``tick()``; it stops between two kubelets once
-    ``stop`` is set, so a long tick does not hold the process.  A tick
-    that raises ends the process with a nonzero exit code, after the
-    report.  Start it with a ``spawn`` context."""
+    (``rejected`` included).  A tick is ``HollowFleet.tick_all``'s, which
+    stops between two kubelets once ``stop`` is set, so a long tick does
+    not hold the process.  A tick that raises ends the process with a
+    nonzero exit code, after the report.  Start it with a ``spawn``
+    context."""
     import time
 
     from .daemon import remote_clientset
@@ -502,12 +502,7 @@ def run_hollow_fleet(url: str, n_nodes: int, workload: str, seed: int, first: in
     try:
         while not stop.is_set():
             t = time.perf_counter()
-            fleet.informer.pump()
-            for k in fleet.kubelets:
-                if stop.is_set():
-                    break
-                for key, v in k.tick().items():
-                    totals[key] = totals.get(key, 0) + v
+            fleet.tick_all(stop.is_set, totals)
             ticks.append(time.perf_counter() - t)
             stop.wait(1.0)
     finally:

@@ -1141,7 +1141,7 @@ def test_hyperkube_multiplexer():
     from kubernetes_tpu_torch.__main__ import COMPONENTS, main
 
     assert set(COMPONENTS) == {"apiserver", "kube-apiserver", "scheduler", "kube-scheduler",
-                               "kubelet"}
+                               "kubelet", "controller-manager", "kube-controller-manager"}
     assert main(["--help"]) == 0 and main([]) == 2 and main(["kubectl"]) == 2
     # the kubelet without --apiserver or --kubeconfig is a usage error there
     with pytest.raises(SystemExit) as exc:

@@ -218,3 +218,118 @@ def test_dynamic_kubelet_config_applies_a_configmap_alike():
         return seen
 
     both(scenario)
+
+
+def test_heartbeat_is_one_write_until_another_writer_changes_the_node():
+    """The port's kubelet heartbeats with one CAS write on the Node its
+    last heartbeat wrote; after another writer changed the node (a
+    conflict) it reads the node once and writes it, as the JAX kubelet
+    does on every heartbeat.  The node ends as the JAX kubelet leaves it."""
+    from tests.torch_kubelet_pkg import FakeClock, both, pkg
+
+    def scenario(P):
+        store = P.Store()
+        cs = P.Clientset(store)
+        clock = FakeClock()
+        k = P.HollowKubelet(cs, "n1", clock=clock)
+        k.register()
+        reads = []
+        get = store.get
+
+        def counted(*a, **kw):
+            reads.append(a[:1])
+            return get(*a, **kw)
+
+        store.get = counted
+        for _ in range(3):
+            clock.advance(10.0)
+            k.tick()
+        steady = len(reads)
+
+        def _label(n):
+            n.meta.labels["other"] = "writer"
+            return n
+
+        cs.nodes.guaranteed_update("n1", _label, "")
+        reads.clear()
+        clock.advance(10.0)
+        k.tick()
+        after_conflict = len(reads)
+        node = cs.nodes.get("n1")
+        ready = node.status.condition("Ready")
+        return (steady, after_conflict), (node.meta.labels.get("other"), ready.status,
+                                          ready.heartbeat_time)
+
+    assert both(lambda P: scenario(P)[1]) == ("writer", "True", 40.0)
+    # three heartbeats read the node three times in the JAX kubelet, once
+    # (the first: nothing written yet) in the port's; after the conflict
+    # both read it once
+    assert scenario(pkg("jax"))[0] == (3, 1)
+    assert scenario(pkg("port"))[0] == (1, 1)
+
+
+def test_heartbeat_overdue_heartbeats_only_the_late_kubelets():
+    """``HollowFleet.heartbeat_overdue()`` heartbeats the kubelets whose
+    last heartbeat is twice their interval old, and only them."""
+    from tests.torch_kubelet_pkg import FakeClock, pkg
+
+    P = pkg("port")
+    cs = P.Clientset(P.Store())
+    clock = FakeClock()
+    fleet = P.HollowFleet(cs, 4, clock=clock)
+    fleet.register_all()
+    clock.advance(12.0)
+    fleet.kubelets[0].tick()  # heartbeats at 12 s; the rest last beat at 0 s
+    clock.advance(10.0)
+    assert fleet.heartbeat_overdue() == 3
+    assert fleet.heartbeat_overdue() == 0
+    beats = {n.meta.name: n.status.condition("Ready").heartbeat_time for n in cs.nodes.list()[0]}
+    assert beats == {"hollow-00000": 12.0, "hollow-00001": 22.0, "hollow-00002": 22.0,
+                     "hollow-00003": 22.0}
+
+
+def test_tick_all_heartbeats_overdue_kubelets_between_kubelets_and_stops():
+    """A tick of 120 kubelets that takes 1 s a kubelet: after every 50
+    kubelets, those whose heartbeat is 20 s old (twice the 10 s interval)
+    heartbeat before their turn, so none waits the whole 120 s tick.  A
+    ``stop`` that turns true ends the tick between two kubelets."""
+    from tests.torch_kubelet_pkg import FakeClock, pkg
+
+    P = pkg("port")
+    cs = P.Clientset(P.Store())
+    clock = FakeClock()
+    fleet = P.HollowFleet(cs, 120, clock=clock)
+    fleet.register_all()
+    for k in fleet.kubelets:
+        k.tick()  # every kubelet heartbeats at 0 s
+    beats: dict = {}
+    for k in fleet.kubelets:
+        def slow_tick(k=k, tick=k.tick):
+            clock.advance(1.0)
+            return tick()
+
+        def heartbeat(force=False, k=k, hb=k._heartbeat):
+            before = k._last_heartbeat
+            hb(force)
+            if k._last_heartbeat != before:
+                beats.setdefault(k.node_name, []).append(clock())
+
+        k.tick, k._heartbeat = slow_tick, heartbeat
+    counters: dict = {}
+    total = fleet.tick_all(counters=counters)
+    assert total == {"started": 0, "observed": 0, "restarts": 0, "evicted": 0}
+    assert set(total) <= set(counters)
+    # kubelet i ticks at i + 1 s and heartbeats there once 10 s have gone
+    # by; the passes run at 50 s and 100 s, for those last seen 20 s before
+    assert beats["hollow-00000"] == [50.0, 100.0]
+    assert beats["hollow-00009"] == [10.0, 50.0, 100.0]
+    assert beats["hollow-00030"] == [31.0, 100.0]
+    assert beats["hollow-00080"] == [50.0, 81.0]
+    assert beats["hollow-00119"] == [50.0, 100.0, 120.0]
+    # no heartbeat is older than 20 s plus 50 kubelets' ticks
+    assert max(b - a for bs in beats.values() for a, b in zip([0.0] + bs, bs)) <= 70.0
+    seen = []
+    for k in fleet.kubelets:
+        k.tick = lambda k=k: seen.append(k.node_name) or {}
+    fleet.tick_all(stop=lambda: len(seen) >= 3)
+    assert seen == ["hollow-00000", "hollow-00001", "hollow-00002"]

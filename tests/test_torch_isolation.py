@@ -80,6 +80,14 @@ def _module_names():
         yield mod[: -len(".__init__")] if mod.endswith(".__init__") else mod
 
 
+# the JAX package's controllers/, every module ported
+_CONTROLLER_MODULES = (
+    "__main__", "base", "certificates", "crdregistrar", "cronjob", "daemonset", "deployment",
+    "disruption", "endpoint", "garbagecollector", "horizontal", "ipam", "job", "manager",
+    "metrics_client", "namespace", "node_lifecycle", "podgc", "replicaset", "resourcequota",
+    "serviceaccounts", "statefulset", "taint", "ttl", "volume")
+
+
 def test_import_leaves_jax_and_reference_unloaded():
     """Every module of the port (store, client, utils, the scheduler, the
     apiserver, the daemon entry points, the fault registry and the testing
@@ -117,7 +125,11 @@ def test_import_leaves_jax_and_reference_unloaded():
             "kubernetes_tpu_torch.kubelet.network", "kubernetes_tpu_torch.kubelet.pleg",
             "kubernetes_tpu_torch.kubelet.runtime", "kubernetes_tpu_torch.kubelet.server",
             "kubernetes_tpu_torch.kubelet.volumehost",
-            "kubernetes_tpu_torch.kubelet.volumemanager"} <= set(mods)
+            "kubernetes_tpu_torch.kubelet.volumemanager",
+            # the kubelet proxies and the controller manager
+            "kubernetes_tpu_torch.apiserver.tunneler", "kubernetes_tpu_torch.utils.cron",
+            *(f"kubernetes_tpu_torch.controllers.{m}" for m in _CONTROLLER_MODULES),
+            "kubernetes_tpu_torch.controllers"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -155,3 +167,15 @@ def test_the_port_builds_only_from_its_own_sources():
     assert "pause.c" in os.listdir(native.CSRC)
     assert _inside_port(native.pause_binary())
     assert sorted(os.listdir(root_csrc)) == before
+
+
+def test_controller_manager_refuses_a_bad_feature_gate():
+    """``controller-manager --feature-gates Bogus=true`` leaves through
+    ``ap.error`` (exit 2) before it dials any apiserver, as the port's
+    scheduler and kubelet entries do."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubernetes_tpu_torch", "controller-manager",
+         "--apiserver", "http://127.0.0.1:1", "--feature-gates", "Bogus=true"],
+        cwd=ROOT, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+    assert "--feature-gates" in proc.stderr and "Bogus" in proc.stderr
