@@ -31,8 +31,11 @@ Phases, one line each:
    turns with the frontier off, on (the default: the device-resident loop
    of 512-pod chunks and refreshes), on, off, each with both kernels'
    launch counts read around it, its wall, kernel_ms and host syncs; all
-   four bind alike; then the kernel against the plain version on that
-   very segment, on a 5000-node x 2000-pod one, on a 10 000-node x
+   four bind as one launch of the kernel on that very segment does; then
+   the kernel against the plain version on two windows of it (its first
+   4096 pods from the initial state, its last 4096 from the state the
+   kernel wrote back after the pods before them), on a 5000-node x
+   2000-pod one, on a 10 000-node x
    1000-pod one and on a 20 000-node x 500-pod one (whose plan leaves
    planes in global memory), the kernel's plan (cluster and block size,
    the planes in shared memory), its times, one 512-pod chunk launch's
@@ -219,16 +222,16 @@ Phases, one line each:
    processes (1250 nodes each, a quarter of every zone) while ``python -m
    kubernetes_tpu_torch controller-manager --leader-elect`` at its
    defaults (every controller, 2 workers, a 5 s node monitor period) and
-   the scheduler daemon start; (a) 10 Deployments of 300 replicas, each
+   the scheduler daemon start; (a) 10 Deployments of 100 replicas, each
    template one of the ``mixed`` generator's request shapes (seed 7),
-   maxSurge and maxUnavailable 75, each with a Service: the time until
+   maxSurge and maxUnavailable 25, each with a Service: the time until
    every Deployment is ready, the ReplicaSet controller's creates per
    second, create->bind and create->Running p50/p99 on a watch; (b) a new
-   image on every Deployment: the time until each has 300 updated and
+   image on every Deployment: the time until each has 100 updated and
    ready replicas and its old ReplicaSet is at 0, every pod owned by the
    newest ReplicaSet; (c) one fleet process SIGKILLed: the time until the
    node lifecycle controller has marked exactly its 1250 nodes
-   ``Unknown`` (no other node is ever not Ready), then app-0 scaled to 600:
+   ``Unknown`` (no other node is ever not Ready), then app-0 scaled to 200:
    none of the new pods on a lost node, no pod deleted; (d) ``kubelet
    --name real --count 1 --serve-logs --real-containers`` and a
    1-replica Deployment selecting its node: the pod's ``log``, ``exec``
@@ -240,7 +243,33 @@ Phases, one line each:
    ready pods' IPs, 1024 distinct podCIDRs inside 10.8.0.0/14, the fused
    scan launched; printed with the controller manager's CPU share, each
    controller's syncs and queue depth, the zone states and the
-   apiserver's requests by verb and resource.
+   apiserver's requests by verb and resource;
+16. a cluster as ``cluster init`` and ``join`` turn it up, under the card's
+   scheduler: (a) ``python -m kubernetes_tpu_torch.cluster init`` at its
+   defaults but the ports (the apiserver, the scheduler with the batch
+   backend on ``cuda``, the controller manager, the kube-dns addon), its
+   seconds to exit 0; ``join`` with a wrong token exits non-zero and
+   starts no kubelet, ``join --name join-0`` and ``join-1`` with the
+   printed token start a kubelet each with its hollow kube-proxy; (b) two
+   fleet processes, ``kubelet --count 500 --proxy --healthz-port N``
+   (kubemark's hollow node: a kubelet and a kube-proxy), their nodes
+   labelled and tainted by PATCH as 14a's seeded cluster's, and ``python -m
+   kubernetes_tpu_torch cloud-controller-manager --leader-elect``; 10
+   Deployments x 100, each one of ``app_templates``' request shapes, a
+   Service each with a named port (app-0's a LoadBalancer, app-9's
+   headless): every pod Running, none rejected, no node over capacity;
+   each Service by name over UDP through the addon (A: its cluster IP, or
+   app-9's ready pod IPs; SRV: the Service, or a target a ready pod); on
+   each fleet's /metrics every proxier's rule set equal to the one worked
+   out from the Services and their ready pods (its digest, rules and
+   endpoints summed, none differing); app-0's ingress IP and the fake
+   cloud's balancer over every Ready node, its routes equal to the nodes'
+   podCIDRs (the cloud controller manager's stats line on SIGTERM);
+   Running pods/s, create->Running p50/p99, DNS lookup ms, the fleets'
+   ticks, CPU shares, the apiserver's requests; (c) ``cluster down``:
+   every process it recorded gone, the apiserver's port closed, the state
+   file removed, and the scheduler's stats line in its log (``device
+   cuda``, fused-scan launches > 0: the ``cluster`` path).
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -252,6 +281,14 @@ No phase refuses a pod: the backend has no refusal left.
 Any mismatch or error exits non-zero.  The last lines are the kernel
 table as JSON, the card line, and ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits 2 and prints no result.
+
+Every process the run starts, and every one those start (the cluster's
+components in their own sessions, a kubelet's containers), inherits
+``CHIP_SMOKE_RUN`` from the environment.  After each phase the script
+stops what still carries it and names it on a ``left running`` line; at
+its end, on SIGTERM or SIGINT, and past ``SELF_LIMIT_S`` (it must end
+within 1200 s) it stops every such process before it exits, the last
+two with a non-zero code.
 """
 
 from __future__ import annotations
@@ -355,6 +392,73 @@ def compare(s, st) -> dict:
             f"fused scan != scan_ref: max index diff {err}, rr {rr_got} vs {rr_want}")
     return {"max_abs_err": err, "bound": int((want >= 0).sum()), "pods": len(want),
             "rr": rr_got, "chosen": want, "plain_ms": start.elapsed_time(end)}
+
+
+# the main segment's pods held against the plain scan: its first and its
+# last MAIN_WINDOW (the plain scan of all 20 000 took 55-68 s a run)
+MAIN_WINDOW = 4096
+
+
+def compare_windows(s, st, whole, rr_whole: int, w: int = MAIN_WINDOW) -> dict:
+    """The kernel against the plain version on two windows of a segment
+    whose whole launch chose ``whole`` and ended at ``rr_whole``: its first
+    ``w`` pods from the initial state (one chunk launch of the frontier
+    loop's, against ``scan_ref.scan_range``; the chunk's and the whole
+    launch's chosen nodes and the counter exact), and its last ``w`` pods
+    from the state a chunk launch of the pods before them wrote back (the
+    whole launch's last ``w`` and ``rr_whole`` against ``scan_ref
+    .scan_range`` from there).  The scan is sequential, so the first
+    window is the whole run's own.  Raises on a difference.  Returns the
+    plain ms and the kernel's device ms over the two windows."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import fused_scan, scan_ref
+
+    pl = fused_scan.plan(s)
+    cut = s.p_real - w
+
+    def chunk(start: int, count: int, advance: int = 0):
+        """Fresh buffers advanced by a chunk launch of the first
+        ``advance`` pods, and the launch of ``count`` pods from ``start``."""
+        bufs = fused_scan.pack(s, st, pl)
+        ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
+        ctl[fused_scan.CTL_RR] = st.round_robin
+        if advance:
+            fused_scan.launch(s, st, bufs, pl, start=0, count=advance, ctl=ctl)
+        return bufs, ctl, lambda: fused_scan.launch(s, st, bufs, pl, start=start, count=count,
+                                                     ctl=ctl)
+
+    def plain(state, start: int, stop: int):
+        torch.cuda.synchronize()
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        want, final = scan_ref.scan_range(s, state, start, stop)
+        end.record()
+        end.synchronize()
+        return want.cpu().numpy(), final.round_robin, begin.elapsed_time(end)
+
+    bufs, ctl, go = chunk(0, w)
+    go()
+    got = bufs["chosen"][:w].cpu().numpy()
+    want, rr_want, head_ms = plain(st, 0, w)
+    err = int(abs(got.astype("int64") - want.astype("int64")).max())
+    if err or int(ctl[fused_scan.CTL_RR]) != rr_want or list(whole[:w]) != list(want):
+        raise AssertionError(f"fused scan != scan_ref on the first {w} pods: max index diff "
+                             f"{err}, rr {int(ctl[fused_scan.CTL_RR])} vs {rr_want}, the whole "
+                             f"launch's first {w} equal: {list(whole[:w]) == list(want)}")
+    bufs, ctl, go = chunk(0, cut)
+    go()
+    state = fused_scan.unpack_state(s, bufs, int(ctl[fused_scan.CTL_RR]))
+    want_tail, rr_tail, tail_ms = plain(state, cut, s.p_real)
+    tail_err = int(abs(whole[cut:].astype("int64") - want_tail.astype("int64")).max())
+    if tail_err or rr_tail != rr_whole:
+        raise AssertionError(f"fused scan != scan_ref on the last {w} pods from the kernel's "
+                             f"state before them: max index diff {tail_err}, rr {rr_whole} vs "
+                             f"{rr_tail}")
+    kernel_ms = (device_ms([chunk(0, w)[2] for _ in range(2)])[0]
+                 + device_ms([chunk(cut, w, advance=cut)[2] for _ in range(2)])[0])
+    return {"max_abs_err": max(err, tail_err), "pods": 2 * w, "plain_ms": head_ms + tail_ms,
+            "kernel_ms": kernel_ms}
 
 
 # the longest the host may take to enqueue one timed window, in device clock
@@ -992,6 +1096,57 @@ def free_port() -> int:
                 continue
             return port
     raise RuntimeError(f"no free loopback port below {lo}")
+
+
+RUN_TAG = "CHIP_SMOKE_RUN"
+# past this the script stops itself, and every process it started, before
+# the 1200 s it has
+SELF_LIMIT_S = 1180.0
+
+
+def own_processes() -> dict:
+    """pid -> command line of every live process but this one whose
+    environment carries this run's tag, the multiprocessing resource
+    tracker aside (it ends once this process has)."""
+    tag = f"{RUN_TAG}={os.environ[RUN_TAG]}".encode()
+    found = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                if tag not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{entry}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X"):
+                    continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, IndexError):
+            continue  # gone meanwhile, or not ours to read
+        if "multiprocessing.resource_tracker" not in cmd:
+            found[int(entry)] = cmd
+    return found
+
+
+def stop_own_processes(grace_s: float = 10.0) -> dict:
+    """SIGTERM what ``own_processes`` finds, SIGKILL what still runs
+    ``grace_s`` later; returns what it found."""
+    found = own_processes()
+    for pid in found:
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    deadline = time.monotonic() + grace_s
+    while found.keys() & own_processes().keys() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    for pid in found.keys() & own_processes().keys():
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return found
 
 
 def http_get(url: str, ctx=None, token: str = None) -> bytes:
@@ -3610,7 +3765,7 @@ def endpoints_mismatch(rs, apps: list) -> list:
 
 
 def rollout(d: "Daemons", k_procs: int, n_nodes: int = 5000, n_apps: int = 10,
-            replicas: int = 300, step: int = 75, lose: int = 1, sched_args: tuple = ()) -> dict:
+            replicas: int = 100, step: int = 25, lose: int = 1, sched_args: tuple = ()) -> dict:
     """Phase 15a-15d on ``d``'s apiserver at its defaults: ``k_procs`` fleet
     processes register ``n_nodes`` of 14a's seeded cluster, the controller
     manager and the card's scheduler start, ``n_apps`` Deployments of
@@ -3643,7 +3798,7 @@ def rollout(d: "Daemons", k_procs: int, n_nodes: int = 5000, n_apps: int = 10,
     lost_procs = procs[k_procs - lose:]
     lost = {n.meta.name for i, n in enumerate(nodes) if i >= (k_procs - lose) * share}
     out = {"shape": f"{n_nodes} hollow nodes, {n_apps} Deployments x {replicas}",
-           "fleet": {}, "k_procs": k_procs, "replicas": replicas,
+           "fleet": {}, "k_procs": k_procs, "replicas": replicas, "step": step,
            "cidrs_want": min(1024, n_nodes + 1)}
     rs = RemoteStore(d.url, timeout=120.0)
     cs = Clientset(RemoteStore(d.url, timeout=120.0))
@@ -3902,7 +4057,7 @@ def report_controllers(r: dict, pps_6a: float, phase_s: float) -> None:
     fleet = "; ".join(f"[{first}] {f['ticks']} ticks mean {f['tick_mean_s']:.3f} max "
                       f"{f['tick_max_s']:.3f} s" for first, f in sorted(r["fleet"].items()))
     print(f"phase 15a controller-driven rollout, {r['shape']} (the mixed generator's request "
-          f"shapes, seed 7; maxSurge/maxUnavailable 75), the apiserver at its defaults, "
+          f"shapes, seed 7; maxSurge/maxUnavailable {r['step']}), the apiserver at its defaults, "
           f"{r['k_procs']} fleet processes registered in {r['register_s']:.3f} s while the "
           f"controller manager (leading {r['cm_start_s']:.3f} s after its start) and the "
           f"scheduler started: every "
@@ -3969,6 +4124,430 @@ def report_controllers(r: dict, pps_6a: float, phase_s: float) -> None:
         raise AssertionError(f"phase 15: {failed}")
 
 
+
+# -- phase 16: a cluster as `cluster init` and `join` turn it up -------------
+
+def free_udp_port() -> int:
+    """A ``free_port()`` whose number is free for UDP too (the DNS addon's)."""
+    for _ in range(100):
+        port = free_port()
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no loopback port free for both TCP and UDP")
+
+
+def metric_lines(url: str, prefix: str) -> dict:
+    """The ``prefix``-named samples of a daemon's /metrics, by name."""
+    return {line.split(" ", 1)[0]: float(line.split(" ", 1)[1])
+            for line in http_get(url + "/metrics").decode().splitlines()
+            if line.startswith(prefix) and " " in line}
+
+
+def ready_pods(pods: list, app: str) -> list:
+    """The pods (wire dicts) of Deployment ``app`` that are Running with a
+    pod IP and not unready: what its Endpoints must hold."""
+    out = []
+    for p in pods:
+        st = p.get("status") or {}
+        if (p["metadata"].get("labels") or {}).get("deployment") != app or not st.get("podIP"):
+            continue
+        ready = next((c for c in st.get("conditions") or [] if c.get("type") == "Ready"), None)
+        if st.get("phase") == "Running" and (ready is None or ready.get("status") == "True"):
+            out.append(p)
+    return out
+
+
+def want_rules(services: list, pods: list) -> list:
+    """The rule rows (``proxy.hollow.rule_rows``'s form) every proxier must
+    hold, worked out from the Services and their ready pods: one rule a
+    port of each Service with a cluster IP, its endpoints the ready pods'
+    IPs at the target port (a REJECT with none), and a NodePort rule for a
+    LoadBalancer's port with endpoints."""
+    rows = []
+    for svc in services:
+        if svc.cluster_ip in ("", "None"):
+            continue
+        ips = [p["status"]["podIP"] for p in ready_pods(pods, svc.meta.name)]
+        for sp in svc.ports:
+            eps = sorted([ip, sp.target_port] for ip in ips)
+            spn = f"{svc.meta.namespace}/{svc.meta.name}:{sp.name}"
+            rows.append(["cluster" if eps else "reject", svc.cluster_ip, sp.port, sp.protocol,
+                         spn, eps])
+            if eps and sp.node_port and svc.type in ("NodePort", "LoadBalancer"):
+                rows.append(["nodeport", "", sp.node_port, sp.protocol, spn, eps])
+    return sorted(rows)
+
+
+def dns_mismatch(addr: tuple, services: list, pods: list, lookup) -> tuple[list, list]:
+    """Each Service by name over UDP through the addon: A is its cluster IP,
+    or a headless Service's ready pod IPs; SRV of its named port is the
+    Service, or one target a ready pod.  Returns the names that differ and
+    each lookup's seconds."""
+    bad, seconds = [], []
+    for svc in services:
+        base = f"{svc.meta.name}.{svc.meta.namespace}.svc.cluster.local"
+        ready = ready_pods(pods, svc.meta.name)
+        headless = svc.cluster_ip in ("", "None")
+        want_a = sorted({p["status"]["podIP"] for p in ready}) if headless else [svc.cluster_ip]
+        checks = [(base, "A", want_a)]
+        for sp in svc.ports:
+            want = (sorted((sp.port, f"{p['metadata']['name']}.{base}") for p in ready)
+                    if headless else [(sp.port, base)])
+            checks.append((f"_{sp.name}._{sp.protocol.lower()}.{base}", "SRV", want))
+        for name, qtype, want in checks:
+            t = time.perf_counter()
+            got = lookup(addr, name, qtype)
+            seconds.append(time.perf_counter() - t)
+            if (sorted(got) if qtype == "SRV" else got) != want:
+                bad.append(f"{qtype} {name}")
+    return bad, seconds
+
+
+def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 100,
+              init_args: tuple = ()) -> dict:
+    """Phase 16 in ``workdir``: 16a ``cluster init`` at its defaults but the
+    ports (``init_args`` adds flags: ``--device cpu`` for a dry run), a join
+    with a wrong token and two with the printed one; 16b two fleet
+    processes of ``per_fleet`` hollow nodes and kube-proxies, the cloud
+    controller manager, 10 Deployments x ``replicas`` with a Service each,
+    and the exact checks; 16c ``cluster down``."""
+    from kubernetes_tpu_torch import cluster as cl
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.selectors import LabelSelector
+    from kubernetes_tpu_torch.api.types import Deployment, Service, ServicePort
+    from kubernetes_tpu_torch.client.clientset import Clientset
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.dns.server import lookup
+    from kubernetes_tpu_torch.proxy.hollow import digest
+    from kubernetes_tpu_torch.workload import make_nodes, overcommitted_nodes
+
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    port, dns_port = free_port(), free_udp_port()
+    url = f"http://127.0.0.1:{port}"
+    state_path = os.path.join(workdir, cl.STATE_FILE)
+    logs = os.path.join(workdir, cl.CLUSTER_DIR, "logs")
+    apps = [f"app-{i}" for i in range(10)]
+    n_nodes = 2 * per_fleet + 2
+
+    def run_cluster(*args: str, timeout: float = 400) -> subprocess.CompletedProcess:
+        return subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.cluster", *args],
+                              cwd=workdir, env=env, capture_output=True, text=True,
+                              timeout=timeout)
+
+    def spawn(name: str, *args: str) -> subprocess.Popen:
+        base = os.path.join(workdir, f"16-{name}")
+        return subprocess.Popen([sys.executable, "-m", "kubernetes_tpu_torch", *args], cwd=workdir,
+                                env=env, stdout=open(base + ".out", "w"),
+                                stderr=open(base + ".err", "w"))
+
+    out = {"steps": {}, "shape": f"{n_nodes} nodes (2 fleets x {per_fleet} with kube-proxies, "
+                                 f"2 joined), 10 Deployments x {replicas}"}
+    steps = out["steps"]
+    procs: dict = {}
+    times = None
+    t_step = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    try:
+        # -- 16a: turn-up ------------------------------------------------------
+        init = run_cluster("init", "--port", str(port), "--dns-port", str(dns_port), *init_args)
+        step("init")
+        out["init_s"] = steps["init"]
+        if init.returncode != 0:
+            raise RuntimeError(f"phase 16a: cluster init exited {init.returncode}: "
+                               f"{init.stderr[-2000:]}")
+        state = json.load(open(state_path))
+        token = state["token"]
+        out["init_line"] = init.stdout.splitlines()[0]
+        bad = run_cluster("join", "--apiserver", url, "--token",
+                          token.split(".")[0] + "." + "0" * 16, "--name", "evil")
+        out["bad_join"] = {"rc": bad.returncode, "says": bad.stderr.strip().splitlines()[-1:],
+                           "kubelet": "kubelet-evil" in json.load(open(state_path))["pids"]
+                           or os.path.exists(os.path.join(logs, "kubelet-evil.log"))}
+        for name in ("join-0", "join-1"):
+            j = run_cluster("join", "--apiserver", url, "--token", token, "--name", name)
+            if j.returncode != 0 or "discovery verified" not in j.stdout:
+                raise RuntimeError(f"phase 16a: join {name} exited {j.returncode}: "
+                                   f"{j.stderr[-2000:]}")
+        step("joins")
+
+        # -- 16b: a cluster of n_nodes under it ----------------------------------
+        rs = RemoteStore(url, timeout=120.0)
+        cs = Clientset(RemoteStore(url, timeout=120.0))
+        health = {}
+        for tag in ("pool-a", "pool-b"):
+            health[tag] = f"http://127.0.0.1:{free_port()}"
+            procs[tag] = spawn(tag, "kubelet", "--apiserver", url, "--count", str(per_fleet),
+                               "--name", tag, "--proxy", "--healthz-port",
+                               health[tag].rsplit(":", 1)[1])
+        health["ccm"] = f"http://127.0.0.1:{free_port()}"
+        procs["ccm"] = spawn("ccm", "cloud-controller-manager", "--apiserver", url,
+                             "--leader-elect", "--healthz-port", health["ccm"].rsplit(":", 1)[1])
+
+        def all_ready_nodes():
+            for name, proc in procs.items():
+                if proc.poll() is not None:
+                    raise RuntimeError(f"phase 16b: {name} exited {proc.returncode}")
+            nodes = rs.list("Node")[0]
+            return len(nodes) == n_nodes and all(
+                any(c.get("type") == "Ready" and c.get("status") == "True"
+                    for c in (n.get("status") or {}).get("conditions") or []) for n in nodes)
+
+        wait_for("phase 16b nodes Ready", all_ready_nodes, 300, every=0.5)
+        step("register")
+        # kubectl label and taint: the fleets' nodes take the zone and disk
+        # labels and the taints of 14a's seeded cluster, node for node
+        seeded = make_nodes(2 * per_fleet, random.Random(7), "mixed")
+        for i, n in enumerate(seeded):
+            name = f"pool-{'ab'[i // per_fleet]}-{i % per_fleet:05d}"
+            labels = {k: v for k, v in n.meta.labels.items() if k != "kubernetes.io/hostname"}
+            rs.patch("Node", "", name, {"metadata": {"labels": labels},
+                                        "spec": {"taints": [x.to_dict() for x in n.spec.taints]}})
+        out["tainted"] = sum(1 for n in seeded if n.spec.taints)
+        step("label")
+        pids = {"apiserver": state["pids"]["apiserver"], "scheduler": state["pids"]["scheduler"],
+                "controller_manager": state["pids"]["controller-manager"],
+                "kube_dns": state["pids"]["kube-dns"], "ccm": procs["ccm"].pid,
+                "pool_a": procs["pool-a"].pid, "pool_b": procs["pool-b"].pid}
+        cpu0 = {k: cpu_s(p) for k, p in pids.items()}
+        metrics0 = request_counts(http_get(url + "/metrics").decode())
+        _, rev = rs.list("Pod")
+        times = PodTimes(rs, rev)
+        t_phase = time.perf_counter()
+        for i, (app, tpl) in enumerate(zip(apps, app_templates(len(apps)))):
+            cs.services.create(Service(
+                meta=ObjectMeta(name=app, namespace="default"), selector={"deployment": app},
+                ports=[ServicePort(name="http", port=80, target_port=8080)],
+                type="LoadBalancer" if i == 0 else "ClusterIP",
+                cluster_ip="None" if i == len(apps) - 1 else ""))
+            cs.deployments.create(Deployment(
+                meta=ObjectMeta(name=app, namespace="default"), replicas=replicas,
+                selector=LabelSelector.from_match_labels({"deployment": app}), template=tpl))
+
+        def rolled_out():
+            deps = [dp for dp in cs.deployments.list("default")[0] if dp.meta.name in apps]
+            return len(deps) == len(apps) and all(dp.status_ready_replicas == replicas
+                                                  for dp in deps)
+
+        wait_for("phase 16b rollout", rolled_out, 300)
+        with times.mu:
+            keys = list(times.added)
+        times.wait(keys, "running", 120, "phase 16b")
+        with times.mu:
+            created = sorted(times.added[k] for k in keys)
+            out["running_pps"] = len(keys) / (max(times.running[k] for k in keys) - created[0])
+            out["c2r_ms"] = quantiles_ms([times.running[k] - times.added[k] for k in keys])
+            out["c2b_ms"] = quantiles_ms([times.bound[k] - times.added[k] for k in keys])
+            out["rejected"] = dict(times.rejected)
+        out["pods"] = len(keys)
+        step("rollout")
+        wait_for("phase 16b Endpoints", lambda: not endpoints_mismatch(rs, apps), 120, every=0.5)
+        step("endpoints")
+
+        services = sorted((s for s in cs.services.list("default")[0] if s.meta.name in apps),
+                          key=lambda s: s.meta.name)
+        pods = rs.list("Pod", "default")[0]
+        dns_addr = ("127.0.0.1", dns_port)
+        wait_for("phase 16b DNS", lambda: not dns_mismatch(dns_addr, services, pods, lookup)[0],
+                 60, every=0.5)
+        step("dns")
+        out["dns_bad"], secs = dns_mismatch(dns_addr, services, pods, lookup)
+        for _ in range(4):
+            secs += dns_mismatch(dns_addr, services, pods, lookup)[1]
+        out["dns_ms"] = quantiles_ms(secs)
+        out["dns_lookups"] = len(secs)
+
+        rows = want_rules(services, pods)
+        want = {"hollow_proxy_proxiers": per_fleet, "hollow_proxy_rule_set_digest": digest(rows),
+                "hollow_proxy_rule_sets_differing": 0,
+                "hollow_proxy_rules": per_fleet * len(rows),
+                "hollow_proxy_rule_endpoints": per_fleet * sum(len(r[5]) for r in rows)}
+        out["rules_want"] = {"rules": len(rows), "endpoints": sum(len(r[5]) for r in rows)}
+
+        def proxies_hold():
+            got = {tag: metric_lines(health[tag], "hollow_") for tag in ("pool-a", "pool-b")}
+            ok = all(all(m.get(k) == v for k, v in want.items()) for m in got.values())
+            return got if ok else None
+
+        try:
+            out["proxy"] = wait_for("phase 16b proxies", proxies_hold, 60, every=0.5)
+        except TimeoutError:
+            out["proxy"] = {tag: metric_lines(health[tag], "hollow_") for tag in ("pool-a", "pool-b")}
+            out["proxy_bad"] = True
+        step("proxy")
+
+        def cloud_holds():
+            nodes = rs.list("Node")[0]
+            cidrs = {n["metadata"]["name"]: n["spec"].get("podCIDR") for n in nodes
+                     if (n.get("spec") or {}).get("podCIDR")}
+            ready = [n for n in nodes if not (n.get("spec") or {}).get("unschedulable") and any(
+                c.get("type") == "Ready" and c.get("status") == "True"
+                for c in (n.get("status") or {}).get("conditions") or [])]
+            m = metric_lines(health["ccm"], "cloud_")
+            lb = cs.services.get(apps[0], "default").status_load_balancer
+            if (len(cidrs) == n_nodes and m.get("cloud_routes") == len(cidrs)
+                    and m.get("cloud_load_balancer_nodes") == len(ready) and lb):
+                return {"cidrs": cidrs, "ready": sorted(n["metadata"]["name"] for n in ready),
+                        "ingress": lb, "metrics": m}
+            return None
+
+        out["cloud_want"] = wait_for("phase 16b cloud", cloud_holds, 120, every=0.5)
+        step("cloud")
+        t_end = time.perf_counter()
+        out["wall_s"] = t_end - t_phase
+        out["cpu_share"] = {k: (cpu_s(p) - cpu0[k]) / out["wall_s"] for k, p in pids.items()}
+        metrics1 = request_counts(http_get(url + "/metrics").decode())
+        out["requests"] = {k: v - metrics0.get(k, 0) for k, v in metrics1.items()
+                           if v - metrics0.get(k, 0)}
+        items = rs.list("Pod")[0]
+        out["not_running"] = [p["metadata"]["name"] for p in items
+                              if (p.get("status") or {}).get("phase") != "Running"]
+        out["over"] = overcommitted_nodes(items, rs.list("Node")[0])
+        out["ticks"] = {tag: metric_lines(health[tag], "hollow_") for tag in ("pool-a", "pool-b")}
+        times.stop()
+        times = None
+
+        # -- 16c: teardown -------------------------------------------------------
+        for name in ("ccm", "pool-a", "pool-b"):
+            procs[name].send_signal(signal.SIGTERM)
+        out["exit"] = {name: procs[name].wait(timeout=120) for name in ("ccm", "pool-a", "pool-b")}
+        lines = [json.loads(ln)["cloud_controller_manager_stats"]
+                 for ln in open(os.path.join(workdir, "16-ccm.out")).read().splitlines()
+                 if ln.startswith('{"cloud_controller_manager_stats"')]
+        if len(lines) != 1:
+            raise AssertionError(f"phase 16c: {len(lines)} stats lines from the cloud controller "
+                                 "manager")
+        out["ccm"] = lines[0]
+        step("stop")
+        down = run_cluster("down")
+        step("down")
+        out["down_rc"] = down.returncode
+        out["left_running"] = [name for name, pid in state["pids"].items() if cl.alive(pid)]
+        state_after = json.load(open(state_path)) if os.path.exists(state_path) else None
+        out["state_removed"] = state_after is None
+        out["join_dirs_left"] = [d for d in state.get("join_dirs", []) if os.path.exists(d)]
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=2):
+                out["port_closed"] = False
+        except OSError:
+            out["port_closed"] = True
+        sched = [json.loads(ln)["scheduler_stats"]
+                 for ln in open(os.path.join(logs, "scheduler.log")).read().splitlines()
+                 if ln.startswith('{"scheduler_stats"')]
+        if len(sched) != 1:
+            raise AssertionError(f"phase 16c: {len(sched)} stats lines in the scheduler's log")
+        out["stats"] = sched[0]
+    finally:
+        if times is not None:
+            times.stop()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        if os.path.exists(state_path):
+            run_cluster("down")
+    return out
+
+
+def lifecycle_phase(pps_6a: float) -> tuple[int, int]:
+    """Phase 16: a cluster as ``cluster init`` and ``join`` turn it up, 1000
+    hollow nodes with kube-proxies, the DNS addon and the cloud controller
+    manager.  Returns the scheduler's fused and refresh launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        try:
+            r = lifecycle(workdir)
+        except BaseException:
+            for path in sorted(os.listdir(os.path.join(workdir, ".kubernetes-tpu-torch", "logs"))
+                               if os.path.isdir(os.path.join(workdir, ".kubernetes-tpu-torch",
+                                                             "logs")) else []):
+                text = open(os.path.join(workdir, ".kubernetes-tpu-torch", "logs", path)).read()
+                print(f"phase 16 {path} tail:\n{text[-3000:]}", file=sys.stderr)
+            for name in ("16-pool-a.err", "16-pool-b.err", "16-ccm.err"):
+                path = os.path.join(workdir, name)
+                if os.path.exists(path):
+                    print(f"phase 16 {name} tail:\n{open(path).read()[-3000:]}", file=sys.stderr)
+            raise
+    report_lifecycle(r, pps_6a, time.perf_counter() - t0)
+    return r["stats"]["launches"], r["stats"]["refresh_launches"]
+
+
+def report_lifecycle(r: dict, pps_6a: float, phase_s: float, device: str = "cuda") -> None:
+    """Print phase 16's lines and hold its exact checks (the scheduler ran
+    on ``device``)."""
+    st, ccm = r["stats"], r["ccm"]
+    cloud, want = ccm["cloud"], r["cloud_want"]
+    (lb,) = cloud["balancers"].values() if len(cloud["balancers"]) == 1 else (None,)
+    proxy = {tag: {k: int(m[f"hollow_proxy_{k}"]) for k in (
+        "proxiers", "syncs_total", "rules", "rule_endpoints", "rule_sets_differing")}
+             for tag, m in r["proxy"].items()}
+    ticks = {tag: {"ticks": int(m["hollow_ticks_total"]),
+                   "mean_s": round(m["hollow_tick_seconds_total"] / max(m["hollow_ticks_total"], 1),
+                                   4),
+                   "proxies_mean_s": round(m["hollow_proxy_tick_seconds_total"]
+                                           / max(m["hollow_ticks_total"], 1), 4),
+                   "max_s": round(m["hollow_tick_seconds_max"], 4)}
+             for tag, m in r["ticks"].items()}
+    print(f"phase 16 seconds by step {json.dumps({k: round(v, 3) for k, v in r['steps'].items()})}",
+          flush=True)
+    print(f"phase 16a cluster init at its defaults (the batch backend on {device}) exited 0 in "
+          f"{r['init_s']:.3f} s ({r['init_line']}); a wrong token's join exited "
+          f"{r['bad_join']['rc']} ({r['bad_join']['says']}), a kubelet started "
+          f"{r['bad_join']['kubelet']}; join-0 and join-1 verified their discovery", flush=True)
+    print(f"phase 16b {r['shape']}: {r['pods']} pods Running at {r['running_pps']:.1f} pods/s, "
+          f"create_to_bind p50_ms {r['c2b_ms'][0]:.1f} p99_ms {r['c2b_ms'][1]:.1f}, "
+          f"create_to_running p50_ms {r['c2r_ms'][0]:.1f} p99_ms {r['c2r_ms'][1]:.1f} (6a "
+          f"{pps_6a:.1f} pods/s in this call)", flush=True)
+    print(f"phase 16b DNS over UDP: {r['dns_lookups']} lookups, p50_ms {r['dns_ms'][0]:.3f} "
+          f"p99_ms {r['dns_ms'][1]:.3f}, names differing {r['dns_bad']}", flush=True)
+    print(f"phase 16b kube-proxies: want {r['rules_want']['rules']} rules holding "
+          f"{r['rules_want']['endpoints']} endpoints a proxier; fleets "
+          f"{json.dumps(proxy, sort_keys=True)}; ticks {json.dumps(ticks, sort_keys=True)}",
+          flush=True)
+    print(f"phase 16b cloud: app-0's ingress {want['ingress']}, its balancer "
+          f"{lb['ingress_ip'] if lb else None} on {len(lb['nodes']) if lb else 0} nodes (Ready "
+          f"{len(want['ready'])}), routes {len(cloud['routes'])} (podCIDRs "
+          f"{len(want['cidrs'])}), cloud calls {cloud['calls']}; controllers "
+          f"{json.dumps({k: v['syncs'] for k, v in ccm['controllers'].items()}, sort_keys=True)}",
+          flush=True)
+    print(f"phase 16 CPU over {r['wall_s']:.3f} s in cores "
+          f"{json.dumps({k: round(v, 3) for k, v in r['cpu_share'].items()}, sort_keys=True)}; "
+          f"apiserver requests {json.dumps(r['requests'], sort_keys=True)}", flush=True)
+    print(f"phase 16c cluster down exited {r['down_rc']}: processes left running "
+          f"{r['left_running']}, apiserver port closed {r['port_closed']}, state file removed "
+          f"{r['state_removed']}; the scheduler's log: device {st['device']}, launches fused_scan "
+          f"{st['launches']} frontier_refresh {st['refresh_launches']}, bound {st['bound']}",
+          flush=True)
+    print(f"phase 16 took {phase_s:.1f} s", flush=True)
+    failures = {
+        "bad join": None if r["bad_join"]["rc"] != 0 and not r["bad_join"]["kubelet"]
+        else r["bad_join"],
+        "rejections": len(r["rejected"]), "not Running": r["not_running"][:3],
+        "over capacity": r["over"][:3], "DNS": r["dns_bad"][:3],
+        "proxies": r.get("proxy_bad"),
+        "balancer": None if lb and lb["nodes"] == want["ready"]
+        and [lb["ingress_ip"]] == want["ingress"] else (lb or {}).get("ingress_ip"),
+        "routes": None if cloud["routes"] == want["cidrs"] else len(cloud["routes"]),
+        "exits": {k: v for k, v in r["exit"].items() if v} or None,
+        "down": r["down_rc"] or None, "left running": r["left_running"],
+        "port open": not r["port_closed"], "state file": not r["state_removed"],
+        "join dirs": r["join_dirs_left"],
+        "device": None if st["device"] == device else st["device"],
+        "fused launches": None if st["launches"] > 0 else st["launches"],
+    }
+    failed = {k: v for k, v in failures.items() if v}
+    if failed:
+        raise AssertionError(f"phase 16: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -3987,6 +4566,9 @@ def main() -> int:
     laps, t_lap = {}, [t_start]
 
     def lap(name: str) -> None:  # the seconds since the last lap, by phase
+        left = stop_own_processes()
+        if left:
+            print(f"phase {name} left running (stopped): {json.dumps(left)}", flush=True)
         now = time.perf_counter()
         laps[name] = round(now - t_lap[0], 1)
         t_lap[0] = now
@@ -4048,15 +4630,21 @@ def main() -> int:
           f"ratio of the means on/off {sum(walls[True]) / sum(walls[False]):.4f}; card {card}",
           flush=True)
 
-    # the main path's segment: its bindings against the plain version
-    r_main = compare(s_main, st_main)
-    names = [main_static.node_names[j] if j >= 0 else None for j in r_main["chosen"]]
+    # the main path's segment: the four BatchBackend runs against one whole
+    # launch, and that launch against the plain version on two windows
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    whole, rr_whole = fused_scan.schedule(s_main, st_main)
+    names = [main_static.node_names[j] if j >= 0 else None for j in whole]
     for r in runs:
-        if names != r["assignments"] or r["rr"] != r_main["rr"]:
-            raise AssertionError(f"BatchBackend (frontier {r['frontier']}) bindings != scan_ref "
-                                 "on the main-path segment")
-    print(f"phase 4 main segment: kernel == scan_ref == BatchBackend with the frontier on and "
-          f"off, rr {r_main['rr']}", flush=True)
+        if names != r["assignments"] or r["rr"] != rr_whole:
+            raise AssertionError(f"BatchBackend (frontier {r['frontier']}) bindings != one "
+                                 "launch of the fused scan on the main-path segment")
+    r_main = compare_windows(s_main, st_main, whole, rr_whole)
+    print(f"phase 4 main segment: one kernel launch == BatchBackend with the frontier on and "
+          f"off (all {s_main.p_real} pods, rr {rr_whole}); kernel == scan_ref on its first "
+          f"{MAIN_WINDOW} pods from the initial state and on its last {MAIN_WINDOW} from the "
+          f"kernel's state before them", flush=True)
     print(plan_line("main segment", s_main, st_main), flush=True)
     other_errs, refresh_wide = other_segments()
     errs = [r_main["max_abs_err"], *other_errs, *shape_errs]
@@ -4066,7 +4654,8 @@ def main() -> int:
     bound_ms, bound_by, detail = bound(s_main, st_main)
     chunk_ms = time_chunk(s_main, st_main)
     print(f"phase 4 times on the main segment ({s_main.n_pad} nodes x {s_main.p_real} pods): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+          f"kernel {ms:.3f} ms; on the two windows of {r_main['pods']} pods kernel "
+          f"{r_main['kernel_ms']:.3f} ms, plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
           f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops); one 512-pod chunk "
           f"launch (write-back on) {chunk_ms:.3f} ms, x {-(-s_main.p_real // 512)} chunks "
           f"{chunk_ms * -(-s_main.p_real // 512):.3f} ms (device times: launches behind a "
@@ -4104,6 +4693,8 @@ def main() -> int:
     lap("13-14")
     controller_launches, controller_refresh = controller_phase(pps_6a)
     lap("15")
+    cluster_launches, cluster_refresh = lifecycle_phase(pps_6a)
+    lap("16")
 
     entry = {
         "name": "fused_scan", "route": "cuda",
@@ -4113,7 +4704,7 @@ def main() -> int:
                      + preemption_launches + policy_launches + traced_launches
                      + fault_launches + overload_launches + pool_launches
                      + admitted_launches + auth_launches + drain_launches
-                     + kubelet_launches + controller_launches),
+                     + kubelet_launches + controller_launches + cluster_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
                              "churn_eager": eager_launches, "daemon": daemon_launches,
                              "preemption": preemption_launches, "policy": policy_launches,
@@ -4121,12 +4712,15 @@ def main() -> int:
                              "overload": overload_launches, "pool": pool_launches,
                              "apiserver_defaults": admitted_launches, "auth": auth_launches,
                              "drain": drain_launches, "kubelet": kubelet_launches,
-                             "controllers": controller_launches},
+                             "controllers": controller_launches, "cluster": cluster_launches},
         # the repaired shapes' segments (phase 3): many zones, a wide port row
         "cells": shape_cells,
         "max_abs_err": max(errs + pool_errs),
         "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real, "chunk_ms": chunk_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        # the plain version on the main segment's two windows (plain_pods),
+        # the kernel's device time there windows_ms
+        "plain_ms": plain_ms, "plain_pods": r_main["pods"], "windows_ms": r_main["kernel_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }
     refresh_cells = {"pool_1024": refresh_pool, "main_5120": refresh_main,
@@ -4137,13 +4731,13 @@ def main() -> int:
         "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
         "launches": (refresh_launches + churn_refresh + eager_refresh + daemon_refresh
                      + pool_refresh + admitted_refresh + auth_refresh + drain_refresh
-                     + kubelet_refresh + controller_refresh),
+                     + kubelet_refresh + controller_refresh + cluster_refresh),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
                              "churn_eager": eager_refresh, "daemon": daemon_refresh,
                              "pool": pool_refresh,
                              "apiserver_defaults": admitted_refresh, "auth": auth_refresh,
                              "drain": drain_refresh, "kubelet": kubelet_refresh,
-                             "controllers": controller_refresh},
+                             "controllers": controller_refresh, "cluster": cluster_refresh},
         # the main segment's width; the other widths and the launch floor in cells
         "cells": refresh_cells,
         "max_abs_err": max([c["max_abs_err"] for c in refresh_cells.values()]
@@ -4164,5 +4758,34 @@ def main() -> int:
     return 0
 
 
+def _stop_on_signal(signum, _frame) -> None:
+    """Stop every process of the run, then end it through the phases'
+    own clean-up with a non-zero code."""
+    stopped = stop_own_processes(grace_s=5.0)
+    print(f"chip_smoke: signal {signum}: stopped {len(stopped)} processes of the run",
+          file=sys.stderr, flush=True)
+    raise SystemExit(128 + signum)
+
+
+def _past_limit() -> None:
+    print(f"chip_smoke: still running after {SELF_LIMIT_S:.0f} s; stopping", file=sys.stderr,
+          flush=True)
+    signal.pthread_kill(threading.main_thread().ident, signal.SIGTERM)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    os.environ[RUN_TAG] = f"{os.getpid()}-{time.time_ns()}"
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _stop_on_signal)
+    limit = threading.Timer(SELF_LIMIT_S, _past_limit)
+    limit.daemon = True
+    limit.start()
+    try:
+        rc = main()
+    finally:
+        limit.cancel()
+        left = stop_own_processes()
+        if left:
+            print(f"chip_smoke: left running at its end (stopped): {json.dumps(left)}",
+                  file=sys.stderr, flush=True)
+    sys.exit(rc)

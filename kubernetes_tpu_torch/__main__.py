@@ -5,6 +5,7 @@
     python -m kubernetes_tpu_torch scheduler --apiserver http://127.0.0.1:6443
     python -m kubernetes_tpu_torch kubelet --apiserver http://127.0.0.1:6443 --count 100
     python -m kubernetes_tpu_torch controller-manager --apiserver http://127.0.0.1:6443
+    python -m kubernetes_tpu_torch cloud-controller-manager --apiserver http://127.0.0.1:6443
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ COMPONENTS = {
     "kubelet": "kubernetes_tpu_torch.kubelet.__main__",
     "controller-manager": "kubernetes_tpu_torch.controllers.__main__",
     "kube-controller-manager": "kubernetes_tpu_torch.controllers.__main__",
+    "cloud-controller-manager": "kubernetes_tpu_torch.cloud.__main__",
 }
 
 

@@ -91,6 +91,12 @@ class AdmissionChain:
         # re-enter the chain.
         self._local = threading.local()
 
+    def handles(self, attrs: Attributes) -> bool:
+        """Whether ``run`` would call any plugin on ``attrs`` (a plugin's
+        ``handles`` reads the operation and the kind)."""
+        return getattr(self._local, "depth", 0) == 0 and any(
+            p.handles(attrs) for p in self.plugins)
+
     def run(self, attrs: Attributes) -> None:
         if getattr(self._local, "depth", 0) > 0:
             return
@@ -151,11 +157,16 @@ class AdmittedStore(Store):
         meta = obj.get("metadata") or {}
         namespace = meta.get("namespace", "default")
         name = meta.get("name", "")
-        try:
-            old = super().get(kind, namespace, name)
-        except KeyError:
-            old = None
-        self.chain.run(self._attrs(UPDATE, kind, obj, old, namespace, name))
+        attrs = self._attrs(UPDATE, kind, obj, None, namespace, name)
+        # the stored object (a deep copy) only for a chain that looks at
+        # this update: the default chain has no plugin for a Node's (every
+        # kubelet heartbeat)
+        if self.chain.handles(attrs):
+            try:
+                attrs.old_obj = super().get(kind, namespace, name)
+            except KeyError:
+                pass
+            self.chain.run(attrs)
         return super().update(kind, obj, expect_rev=expect_rev, _trusted=_trusted)
 
     def delete(self, kind: str, namespace: str, name: str, expect_rev=None) -> dict:

@@ -532,8 +532,7 @@ def _make_handler(server: APIServer):
             return self._info
 
         def _parse_request_info(self, method: str) -> tuple[str, str, str, str, str]:
-            url = urlparse(self.path)
-            q = parse_qs(url.query)
+            url, q = self._url, self._q
             parts = [p for p in url.path.split("/") if p]
             verb = {"POST": "create", "PUT": "update", "DELETE": "delete",
                     "PATCH": "patch"}.get(method, "get")
@@ -640,7 +639,7 @@ def _make_handler(server: APIServer):
                 self._user = user
             if server.auditor is not None:
                 self._audit("RequestReceived")
-            path = urlparse(self.path).path
+            path = self._url.path
             if path not in _OPEN_PATHS and server.authorizer is not None:
                 # no authenticator: authorize as anonymous (fail closed,
                 # never skip an authorizer that was given)
@@ -664,6 +663,8 @@ def _make_handler(server: APIServer):
             # find an unread body where its next request line should be
             self._raw = self.rfile.read(length) if length else b""
             self._parsed = None
+            self._url = urlparse(self.path)
+            self._q = parse_qs(self._url.query)
             # every request starts with no identity, for the admission
             # plugins (thread-local on an AdmittedStore) and the audit: a
             # connection kept alive never carries one request's into the next
@@ -680,8 +681,7 @@ def _make_handler(server: APIServer):
             # requests.  The TLS handshake ran before this, in the same
             # thread, and holds no slot.
             acquired = False
-            if server._inflight is not None and parse_qs(urlparse(self.path).query).get(
-                    "watch", ["false"])[0] != "true":
+            if server._inflight is not None and self._q.get("watch", ["false"])[0] != "true":
                 acquired = server._inflight.acquire(blocking=False)
                 if not acquired:
                     return self._error(429, "TooManyRequests", "server overloaded (max in flight)")
@@ -735,8 +735,7 @@ def _make_handler(server: APIServer):
 
         # -- dispatch ------------------------------------------------------
         def _dispatch(self, method: str) -> None:
-            url = urlparse(self.path)
-            q = parse_qs(url.query)
+            url, q = self._url, self._q
             path = url.path
 
             if path == "/telemetry":

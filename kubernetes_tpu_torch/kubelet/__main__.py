@@ -2,20 +2,24 @@
 hollow kubelet against a remote apiserver.
 
     python -m kubernetes_tpu_torch.kubelet --apiserver http://host:6443 \
-        --name node-001 [--count 50] [--tick 1.0]
+        --name node-001 [--count 50] [--proxy] [--tick 1.0]
 
 ``--count N`` runs a fleet of N nodes named ``{name}-{i:05d}`` in one
 process (kubemark's N-hollow-nodes-per-host packing).  The flags and
-defaults are the JAX entry point's.  ``--proxy`` (a hollow kube-proxy
-beside each node) needs ``proxy/``, which the port does not have yet: it
-leaves through ``ap.error`` (exit 2).  The kubelet runs no kernel and
-takes no ``--device``."""
+defaults are the JAX entry point's.  ``--proxy`` runs a hollow kube-proxy
+beside each node (``proxy.HollowProxyFleet``: one Service and one
+Endpoints informer for the process), synced after the kubelets in each
+tick; with ``--healthz-port`` the fleet's proxy counters are on
+``/metrics`` (``proxy.hollow.FleetMetrics``), and so are the ticks' count,
+seconds (the proxies' share apart) and the longest tick.  The kubelet
+runs no kernel and takes no ``--device``."""
 
 from __future__ import annotations
 
 import argparse
 import logging
 import sys
+import time
 
 from ..daemon import install_signal_stop, remote_clientset, wait_forever
 from .hollow import HollowFleet, HollowKubelet
@@ -61,9 +65,6 @@ def main(argv=None) -> int:
                     help="ship flight dumps + time-series deltas off-box "
                          "(collector URL or JSON-lines file path)")
     args = ap.parse_args(argv)
-    if args.proxy:
-        ap.error("--proxy needs the hollow proxy (kubernetes_tpu_torch.proxy), "
-                 "which is not ported yet (ROADMAP.md, Queue 1 item 12)")
     if args.feature_gates:
         from ..utils.features import DEFAULT_FEATURE_GATES
 
@@ -129,11 +130,23 @@ def main(argv=None) -> int:
             k.register()
             tick = k.tick
 
+    proxies = []
+    if args.proxy:
+        from ..proxy import HollowProxyFleet
+
+        pf = HollowProxyFleet(cs, [k.node_name for k in kubelets])
+        pf.start()
+        proxies.append(pf)
+
     # the shared daemon health surface (the reference kubelet's :10248):
     # hollow nodes observe through their wire client's registry
     from ..daemon import serve_health
 
     registry = cs.store.metrics.registry
+    if proxies:
+        from ..proxy.hollow import FleetMetrics
+
+        registry.register(FleetMetrics(proxies[0]))
     health = serve_health(args.healthz_port, registry)
     if health is not None:
         logging.info("healthz/metrics on :%d", health.local_port)
@@ -145,20 +158,42 @@ def main(argv=None) -> int:
             interval_s=args.timeseries_interval,
             sink_spec=args.telemetry_sink)
 
-    logging.info("hollow node(s) running: %d kubelet(s)", len(kubelets))
+    logging.info("hollow node(s) running: %d kubelet(s), proxy=%s",
+                 len(kubelets), bool(proxies))
+
+    # a tick's seconds, the proxies' share of them, and the longest tick
+    from ..utils.metrics import Counter, Gauge
+
+    ticks = registry.register(Counter("hollow_ticks_total", "fleet ticks"))
+    tick_s = registry.register(Counter("hollow_tick_seconds_total",
+                                       "seconds in fleet ticks, the proxies' syncs included"))
+    proxy_s = registry.register(Counter("hollow_proxy_tick_seconds_total",
+                                        "seconds of the ticks in the proxies' syncs"))
+    tick_max = registry.register(Gauge("hollow_tick_seconds_max", "the longest tick"))
 
     def one_tick() -> None:
         # node loops never die: a transient apiserver error must not take
         # down the whole N-node fleet process
+        t0 = time.perf_counter()
         try:
             tick()
+            t1 = time.perf_counter()
+            for pf in proxies:
+                pf.tick_all()
+            proxy_s.inc(time.perf_counter() - t1)
         except Exception:
             logging.exception("hollow tick failed (will retry)")
+        dt = time.perf_counter() - t0
+        ticks.inc()
+        tick_s.inc(dt)
+        tick_max.set(max(tick_max.value, dt))
 
     stop = install_signal_stop()
     try:
         wait_forever(stop, tick=one_tick, interval=args.tick)
     finally:
+        for pf in proxies:
+            pf.stop()
         if health is not None:
             health.stop()
     return 0

@@ -179,6 +179,25 @@ class LabeledCounter:
         return "\n".join(lines)
 
 
+class ReadingsMetric:
+    """A registry entry (``name`` and ``expose()``) whose samples are read
+    from their source when scraped: ``values()`` returns them by name, a
+    ``_total`` name a counter, any other a gauge, each exposed as
+    ``<prefix>_<name>``.  A tick pays nothing for it."""
+
+    name = "readings"
+
+    def values(self) -> dict:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def expose(self) -> str:
+        lines = []
+        for key, value in self.values().items():
+            kind = "counter" if key.endswith("_total") else "gauge"
+            lines += [f"# TYPE {self.name}_{key} {kind}", f"{self.name}_{key} {float(value)}"]
+        return "\n".join(lines)
+
+
 class Registry:
     def __init__(self):
         self._metrics: dict[str, object] = {}

@@ -1141,12 +1141,15 @@ def test_hyperkube_multiplexer():
     from kubernetes_tpu_torch.__main__ import COMPONENTS, main
 
     assert set(COMPONENTS) == {"apiserver", "kube-apiserver", "scheduler", "kube-scheduler",
-                               "kubelet", "controller-manager", "kube-controller-manager"}
+                               "kubelet", "controller-manager", "kube-controller-manager",
+                               "cloud-controller-manager"}
     assert main(["--help"]) == 0 and main([]) == 2 and main(["kubectl"]) == 2
-    # the kubelet without --apiserver or --kubeconfig is a usage error there
-    with pytest.raises(SystemExit) as exc:
-        main(["kubelet"])
-    assert exc.value.code == 2
+    # the kubelet and the cloud controller manager without --apiserver or
+    # --kubeconfig are usage errors there
+    for component in ("kubelet", "cloud-controller-manager"):
+        with pytest.raises(SystemExit) as exc:
+            main([component])
+        assert exc.value.code == 2
     # an auth flag it cannot honour is refused before anything serves
     with pytest.raises(SystemExit) as exc:
         main(["apiserver", "--port", "0", "--client-ca-file", "ca.crt"])

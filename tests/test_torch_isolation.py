@@ -86,6 +86,11 @@ _CONTROLLER_MODULES = (
     "disruption", "endpoint", "garbagecollector", "horizontal", "ipam", "job", "manager",
     "metrics_client", "namespace", "node_lifecycle", "podgc", "replicaset", "resourcequota",
     "serviceaccounts", "statefulset", "taint", "ttl", "volume")
+# the JAX package's dns/, proxy/ and cloud/, every module ported
+_LIFECYCLE_MODULES = (
+    "dns", "dns.__main__", "dns.records", "dns.server",
+    "proxy", "proxy.proxier", "proxy.healthcheck", "proxy.userspace", "proxy.hollow",
+    "cloud", "cloud.__main__", "cloud.controllers", "cloud.manager", "cloud.provider")
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -129,7 +134,10 @@ def test_import_leaves_jax_and_reference_unloaded():
             # the kubelet proxies and the controller manager
             "kubernetes_tpu_torch.apiserver.tunneler", "kubernetes_tpu_torch.utils.cron",
             *(f"kubernetes_tpu_torch.controllers.{m}" for m in _CONTROLLER_MODULES),
-            "kubernetes_tpu_torch.controllers"} <= set(mods)
+            "kubernetes_tpu_torch.controllers",
+            # cluster lifecycle, the DNS addon, the hollow proxy and the cloud
+            "kubernetes_tpu_torch.cluster",
+            *(f"kubernetes_tpu_torch.{m}" for m in _LIFECYCLE_MODULES)} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

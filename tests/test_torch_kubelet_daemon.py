@@ -4,10 +4,11 @@ apiserver process, served by the port's scheduler daemon on ``--device
 cpu``.  1000 pods are created in one batch; every pod must reach
 ``Running``, and the bindings and the round-robin counter must equal the
 port's sequential oracle over the cluster as read back (exact).  The
-fleet process exits 0 on SIGTERM.  The refusals: ``--proxy`` (the hollow
-proxy is not ported) and a kubelet with neither ``--apiserver`` nor
-``--kubeconfig`` leave with exit 2, as the JAX entry point does for the
-latter."""
+fleet process exits 0 on SIGTERM.  ``kubelet --count 3 --proxy`` runs a
+hollow kube-proxy beside each node: every proxier converges on a
+Service's rule (its ``/metrics``), and the process exits 0 on SIGTERM.  A
+kubelet with neither ``--apiserver`` nor ``--kubeconfig`` leaves with
+exit 2, as the JAX entry point does."""
 
 from __future__ import annotations
 
@@ -137,13 +138,70 @@ def test_a_kubelet_fleet_runs_what_the_scheduler_daemon_binds(tmp_path):
     assert o["round_robin"] == stats["round_robin"]
 
 
-@pytest.mark.timeout(60)
-def test_kubelet_proxy_flag_is_refused():
-    r = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch", "kubelet", "--apiserver",
-                        "http://127.0.0.1:1", "--proxy"], env=_env(), cwd=ROOT,
-                       capture_output=True, text=True, timeout=50)
-    assert r.returncode == 2
-    assert "kubernetes_tpu_torch.proxy" in r.stderr
+def _proxy_metrics(port: int) -> dict:
+    text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10).read().decode()
+    return {line.split(" ", 1)[0][len("hollow_proxy_"):]: float(line.split(" ", 1)[1])
+            for line in text.splitlines() if line.startswith("hollow_proxy_")}
+
+
+@pytest.mark.timeout(120)
+def test_kubelet_proxy_fleet_converges_a_service(tmp_path):
+    """``kubelet --count 3 --proxy``: three proxiers, one rule each for a
+    Service's port with exactly its Endpoints' ready addresses (the
+    not-ready one left out), equal to the rule set computed here; exit 0
+    on SIGTERM."""
+    from kubernetes_tpu_torch.api.cluster import (EndpointAddress, EndpointPort, Endpoints,
+                                                  EndpointSubset)
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import Service, ServicePort
+    from kubernetes_tpu_torch.client.clientset import Clientset
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.proxy.hollow import digest
+
+    ap, hp = _free_port(), _free_port()
+    url = f"http://127.0.0.1:{ap}"
+    procs = []
+
+    def spawn(name, *args):
+        proc = subprocess.Popen([sys.executable, "-m", *args], env=_env(), cwd=tmp_path,
+                                stdout=open(tmp_path / f"{name}.out", "w"),
+                                stderr=open(tmp_path / f"{name}.err", "w"))
+        procs.append((name, proc))
+        return proc
+
+    try:
+        spawn("apiserver", "kubernetes_tpu_torch.apiserver", "--port", str(ap))
+        _wait(lambda: b"ok" in urllib.request.urlopen(url + "/healthz", timeout=2).read(),
+              procs, "apiserver /healthz", 60)
+        fleet = spawn("kubelet", "kubernetes_tpu_torch", "kubelet", "--apiserver", url,
+                      "--count", "3", "--name", "px", "--proxy", "--tick", "0.2",
+                      "--healthz-port", str(hp))
+        _wait(lambda: _proxy_metrics(hp).get("proxiers") == 3, procs, "proxy metrics", 60)
+        cs = Clientset(RemoteStore(url, timeout=30.0))
+        cs.services.create(Service(
+            meta=ObjectMeta(name="web", namespace="default"), selector={"app": "web"},
+            ports=[ServicePort(name="http", port=80, target_port=8080)],
+            cluster_ip="10.0.0.80"))
+        cs.endpoints.create(Endpoints(
+            meta=ObjectMeta(name="web", namespace="default"),
+            subsets=[EndpointSubset(
+                addresses=[EndpointAddress(ip="10.8.0.2", node_name="px-00001"),
+                           EndpointAddress(ip="10.8.1.2", node_name="px-00002")],
+                not_ready_addresses=[EndpointAddress(ip="10.8.2.2")],
+                ports=[EndpointPort(name="http", port=8080)])]))
+        want = digest([["cluster", "10.0.0.80", 80, "TCP", "default/web:http",
+                        [["10.8.0.2", 8080], ["10.8.1.2", 8080]]]])
+        _wait(lambda: _proxy_metrics(hp)["rule_set_digest"] == want, procs,
+              "the proxiers' rules", 60)
+        m = _proxy_metrics(hp)
+        assert (m["rules"], m["rule_endpoints"], m["rule_sets_differing"]) == (3, 6, 0)
+        assert m["syncs_total"] >= 6
+        assert _terminate(fleet) == 0
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
 
 
 @pytest.mark.timeout(120)
