@@ -70,7 +70,7 @@ Phases, one line each:
    the scheduler starts, its bindings and round-robin counter read back
    and held against the port's sequential oracle;
 7. preemption: (a) ``workload.run_preemption`` at full width, 5000 nodes
-   filled by 20 000 priority-0 pods, then 1250 priority-100 preemptors
+   filled by 20 000 priority-0 pods, then 625 priority-100 preemptors
    (fill batch, failing batch, the cohort pass, follow-up batch; each
    batch a kernel launch): evictions per second, the cohort split (state
    build, ranking, evictions), victims == preemptors == bound after, the
@@ -80,7 +80,7 @@ Phases, one line each:
    held against the exhaustive ``find_preemption_target``, the later
    batches' kernel segments against the plain scan; (c) the two daemons
    at their defaults (batch backend, preemption on, leader election) over
-   HTTP at 1000 nodes, 4000 fillers and 500 preemptors: every preemptor
+   HTTP at 1000 nodes, 4000 fillers and 250 preemptors: every preemptor
    bound, the daemon's victims printed;
 8. the upstream ``ClusterAutoscalerProvider`` as a policy file
    (``load_policy_file``) at 1000 x 2000 ``mixed``: the scan's ``most``
@@ -186,11 +186,12 @@ Phases, one line each:
    the uncordon by JSON patch; PATCHes/s, evictions/s, the wave's pods/s
    and create->bind p50/p99, both kernels' launches as the daemon counted
    them (each > 0); (b) on the same server, ``/openapi/v2`` with a path for
-   each of the registry's kinds (the JAX package's 34), an
-   ``apps/v1beta1`` Deployment read back in hub form with its 25% surge
-   resolved, a binary LIST of the 20 000 pods equal to the JSON LIST (both
-   byte counts printed), and ``/apis/<group>`` proxied to a sample backend
-   on loopback that an APIService names (an unregistered group 404);
+   each of the registry's kinds (the JAX package's 35, federation's Cluster
+   among them), an ``apps/v1beta1`` Deployment read back in hub form with
+   its 25% surge resolved, a binary LIST of the 20 000 pods equal to the
+   JSON LIST (both byte counts printed), and ``/apis/<group>`` proxied to a
+   sample backend on loopback that an APIService names (an unregistered
+   group 404);
 14. a kubemark density run under the card's scheduler: (a) the apiserver
    at its defaults; 5000 hollow nodes (``kubernetes_tpu_torch.kubelet``'s
    ``HollowFleet``) register themselves from spawned processes, one for
@@ -200,7 +201,7 @@ Phases, one line each:
    kubelets) and starting a pod 0.5 s after it
    admits it; the tenth that the cluster taints gets its taint by PATCH,
    as ``kubectl taint`` does; then the scheduler daemon (``--device
-   cuda``); 5000 ``mixed`` pods in 5 ``:batch`` POSTs, each once the
+   cuda``); 3000 ``mixed`` pods in 3 ``:batch`` POSTs, each once the
    last is bound, watched from before the first: the waves' pods/s and
    create->bind p50/p99, pod startup latency p50/p99 (create to the
    Running update on the watch) against the density test's 5 s SLO,
@@ -222,16 +223,16 @@ Phases, one line each:
    processes (1250 nodes each, a quarter of every zone) while ``python -m
    kubernetes_tpu_torch controller-manager --leader-elect`` at its
    defaults (every controller, 2 workers, a 5 s node monitor period) and
-   the scheduler daemon start; (a) 10 Deployments of 100 replicas, each
+   the scheduler daemon start; (a) 10 Deployments of 50 replicas, each
    template one of the ``mixed`` generator's request shapes (seed 7),
-   maxSurge and maxUnavailable 25, each with a Service: the time until
+   maxSurge and maxUnavailable 13, each with a Service: the time until
    every Deployment is ready, the ReplicaSet controller's creates per
    second, create->bind and create->Running p50/p99 on a watch; (b) a new
-   image on every Deployment: the time until each has 100 updated and
+   image on every Deployment: the time until each has 50 updated and
    ready replicas and its old ReplicaSet is at 0, every pod owned by the
    newest ReplicaSet; (c) one fleet process SIGKILLed: the time until the
    node lifecycle controller has marked exactly its 1250 nodes
-   ``Unknown`` (no other node is ever not Ready), then app-0 scaled to 200:
+   ``Unknown`` (no other node is ever not Ready), then app-0 scaled to 100:
    none of the new pods on a lost node, no pod deleted; (d) ``kubelet
    --name real --count 1 --serve-logs --real-containers`` and a
    1-replica Deployment selecting its node: the pod's ``log``, ``exec``
@@ -255,7 +256,7 @@ Phases, one line each:
    (kubemark's hollow node: a kubelet and a kube-proxy), their nodes
    labelled and tainted by PATCH as 14a's seeded cluster's, and ``python -m
    kubernetes_tpu_torch cloud-controller-manager --leader-elect``; 10
-   Deployments x 100, each one of ``app_templates``' request shapes, a
+   Deployments x 50, each one of ``app_templates``' request shapes, a
    Service each with a named port (app-0's a LoadBalancer, app-9's
    headless): every pod Running, none rejected, no node over capacity;
    each Service by name over UDP through the addon (A: its cluster IP, or
@@ -266,7 +267,25 @@ Phases, one line each:
    cloud's balancer over every Ready node, its routes equal to the nodes'
    podCIDRs (the cloud controller manager's stats line on SIGTERM);
    Running pods/s, create->Running p50/p99, DNS lookup ms, the fleets'
-   ticks, CPU shares, the apiserver's requests; (c) ``cluster down``:
+   ticks, CPU shares, the apiserver's requests; (d) ``python -m
+   kubernetes_tpu_torch kubectl`` on that cluster in
+   ``tests/test_conformance.py``'s order, a process a command: ``get
+   nodes`` lists every node, ``run web`` (50 replicas, the rolling update
+   patched to a quarter), ``rollout status``, ``get pods -l run=web -o
+   json`` equal to the wire (every pod bound and Running), ``set image``
+   and ``rollout history`` (2 revisions), ``rollout undo`` (back to
+   app:v1), ``scale`` to 10, ``expose`` (the Endpoints exactly the ready
+   pods), ``logs`` and ``exec`` through the apiserver's kubelet proxy,
+   ``top nodes``, ``top pods``, ``cordon`` and ``drain`` of a node holding
+   a web pod (every evicted pod replaced, bound elsewhere, Running), then
+   ``uncordon`` and ``delete``; (e) ``python -m
+   kubernetes_tpu_torch.federation`` with the cluster joined by ``kubefed
+   join``: a federated Deployment of 50 placed on it appears there with
+   the federated spec, its pods Running, the federation's status rolled up
+   to 50 ready, ``kubefed get-clusters`` Ready, its deletion reaching the
+   member, ``unjoin``, and the federation's exit 0 on SIGTERM; the
+   scheduler's fused-scan launches (its ``/metrics``) rise across (d) and
+   across (e); (c) ``cluster down``:
    every process it recorded gone, the apiserver's port closed, the state
    file removed, and the scheduler's stats line in its log (``device
    cuda``, fused-scan launches > 0: the ``cluster`` path).
@@ -293,6 +312,7 @@ two with a non-zero code.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import queue
@@ -304,6 +324,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -1467,7 +1488,7 @@ def preemption_line(tag: str, r: dict) -> None:
 
 def preemption_phase() -> tuple[int, dict]:
     """Phase 7: preemption.  (a) ``workload.run_preemption`` at full width
-    on the card: 5000 nodes, 20 000 fillers, 1250 preemptors, the
+    on the card: 5000 nodes, 20 000 fillers, 625 preemptors, the
     preemptor and follow-up batches' kernel segments held against the
     plain scan; (b) 1000
     nodes, 4000 fillers and 40 preemptors, a seeded tenth of them with a
@@ -1475,7 +1496,7 @@ def preemption_phase() -> tuple[int, dict]:
     decision held against the exhaustive ``find_preemption_target`` on the
     state it was made on, and the preemptor and follow-up batches' kernel
     segments against the plain scan; (c) the daemons at their defaults
-    over HTTP, 1000 nodes, 4000 fillers and 500 preemptors.  Returns the
+    over HTTP, 1000 nodes, 4000 fillers and 250 preemptors.  Returns the
     fused-kernel launches of the three runs and each run's seconds."""
     from kubernetes_tpu_torch.ops import fused_scan
     from kubernetes_tpu_torch.ops.preemption_kernel import PreemptionState
@@ -1505,7 +1526,7 @@ def preemption_phase() -> tuple[int, dict]:
     fused_scan.launches = 0
     PreemptionState.rank_arrays = timed_rank_arrays
     try:
-        r = run_preemption(5000, 20000, 1250, device="cuda", seed=0, backend_cls=checked)
+        r = run_preemption(5000, 20000, 625, device="cuda", seed=0, backend_cls=checked)
     finally:
         PreemptionState.rank_arrays = rank_arrays
     launches_a = fused_scan.launches - len(seen)  # each check launched once more
@@ -1573,7 +1594,7 @@ def preemption_phase() -> tuple[int, dict]:
         d = Daemons(workdir, "7c")
         try:
             d.start_scheduler()
-            w = run_wire_preemption(d.url, 1000, 4000, 500, deadline_s=120.0)
+            w = run_wire_preemption(d.url, 1000, 4000, 250, deadline_s=120.0)
             st = d.stop_scheduler()
         except BaseException:
             print(f"phase 7c scheduler stderr tail:\n{d.stderr_tail()}", file=sys.stderr)
@@ -2767,10 +2788,11 @@ def auth_phase(pps_6a: float) -> tuple[int, int]:
 
 # -- phase 13: a node drain under the card's scheduler -------------------------
 
-# the kinds of the JAX package's registry (its api package, without the
-# federation group's Cluster): the port's registry must hold the same
+# the kinds of the JAX package's registry (its api package, and the
+# federation group's Cluster, which each apiserver registers): the port's
+# registry must hold the same
 JAX_KINDS = frozenset({
-    "APIService", "CertificateSigningRequest", "ClusterRole", "ClusterRoleBinding",
+    "APIService", "CertificateSigningRequest", "Cluster", "ClusterRole", "ClusterRoleBinding",
     "ConfigMap", "CronJob", "CustomResourceDefinition", "DaemonSet", "Deployment", "Endpoints",
     "Event", "HorizontalPodAutoscaler", "Job", "LimitRange", "Namespace", "NetworkPolicy",
     "Node", "PersistentVolume", "PersistentVolumeClaim", "Pod", "PodDisruptionBudget",
@@ -3290,7 +3312,7 @@ def density(d: "Daemons", k_procs: int) -> dict:
     )
 
     # a wave of 1000 pods outlasts one 512-pod chunk, so the refresh runs
-    n_nodes, n_pods, waves, seed = 5000, 5000, 5, 7
+    n_nodes, n_pods, waves, seed = 5000, 3000, 3, 7
     rng = random.Random(seed)
     nodes = make_nodes(n_nodes, rng, "mixed")
     services = [s.to_dict() for s in make_services()]
@@ -4031,7 +4053,7 @@ def controller_phase(pps_6a: float) -> tuple[int, int]:
     with tempfile.TemporaryDirectory() as workdir:
         d = Daemons(workdir, "15", admitted=True)
         try:
-            r = rollout(d, k_procs)
+            r = rollout(d, k_procs, replicas=50, step=13)
         except BaseException:
             for name in ("scheduler", "controller-manager"):
                 path = os.path.join(workdir, f"15-{name}.err")
@@ -4147,13 +4169,13 @@ def metric_lines(url: str, prefix: str) -> dict:
             if line.startswith(prefix) and " " in line}
 
 
-def ready_pods(pods: list, app: str) -> list:
-    """The pods (wire dicts) of Deployment ``app`` that are Running with a
-    pod IP and not unready: what its Endpoints must hold."""
+def ready_pods(pods: list, app: str, key: str = "deployment") -> list:
+    """The pods (wire dicts) labelled ``key=app`` that are Running with a
+    pod IP and not unready: what the Endpoints of ``app`` must hold."""
     out = []
     for p in pods:
         st = p.get("status") or {}
-        if (p["metadata"].get("labels") or {}).get("deployment") != app or not st.get("podIP"):
+        if (p["metadata"].get("labels") or {}).get(key) != app or not st.get("podIP"):
             continue
         ready = next((c for c in st.get("conditions") or [] if c.get("type") == "Ready"), None)
         if st.get("phase") == "Running" and (ready is None or ready.get("status") == "True"):
@@ -4207,14 +4229,303 @@ def dns_mismatch(addr: tuple, services: list, pods: list, lookup) -> tuple[list,
     return bad, seconds
 
 
-def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 100,
+class Cli:
+    """A tool of the hyperkube run as a user runs it: ``python -m
+    kubernetes_tpu_torch <prefix...> <args...>``, one process a command, in
+    this run's environment (``CHIP_SMOKE_RUN`` included).  Keeps each
+    call's wall seconds."""
+
+    def __init__(self, what: str, cwd: str, env: dict, *prefix: str):
+        self.what, self.cwd, self.env, self.prefix = what, cwd, env, prefix
+        self.walls: list = []
+
+    def __call__(self, *args: str) -> str:
+        """The command's output; any exit code but 0 fails the phase."""
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch", *self.prefix, *args],
+                           cwd=self.cwd, env=self.env, capture_output=True, text=True,
+                           timeout=120)
+        self.walls.append(time.perf_counter() - t)
+        if p.returncode != 0:
+            raise AssertionError(f"{self.what}: {self.prefix[0]} {' '.join(args)} exited "
+                                 f"{p.returncode}: {(p.stdout + p.stderr)[-1500:]}")
+        return p.stdout
+
+
+def labelled(rs, key: str, value: str) -> list:
+    """The default namespace's pods (wire dicts) with label ``key=value``."""
+    return [p for p in rs.list("Pod", "default")[0]
+            if (p["metadata"].get("labels") or {}).get(key) == value]
+
+
+def bound_running(pod: dict) -> bool:
+    return bool(pod["spec"].get("nodeName")) and (
+        (pod.get("status") or {}).get("phase") == "Running")
+
+
+def all_running(rs, key: str, value: str, n: int):
+    """The ``n`` pods labelled ``key=value`` once every one is bound and
+    Running, else None."""
+    pods = labelled(rs, key, value)
+    return pods if len(pods) == n and all(map(bound_running, pods)) else None
+
+
+def kubectl_steps(kubectl: Cli, rs, n_nodes: int, launches) -> dict:
+    """Phase 16d: ``tests/test_conformance.py``'s order through ``python -m
+    kubernetes_tpu_torch kubectl`` on phase 16's cluster.  Every command's
+    exit code and the fact named beside it are exact checks; the card's
+    scheduler binds every pod the commands make.  A rollout is awaited
+    in this process, by kubectl's own check over the wire, before ``rollout
+    status`` runs as a command (the port's is one-shot, without ``-w``)."""
+    from kubernetes_tpu_torch.cli.kubectl import Kubectl
+    from kubernetes_tpu_torch.client.clientset import Clientset
+
+    what = "phase 16d"
+    out = {"steps": {}, "launches_before": launches()}
+    t_step = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        out["steps"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def fail(fact: str, got) -> None:
+        raise AssertionError(f"{what}: {fact}: {got}")
+
+    probe = Kubectl(Clientset(rs), out=io.StringIO())
+
+    def rolled_out() -> None:
+        wait_for(f"{what} rollout of web", lambda: probe.rollout_status("web") == 0, 180)
+        kubectl("rollout", "status", "deployment/web")
+
+    rev = rs.list("Pod")[1]
+    times = PodTimes(rs, rev)
+    try:
+        nodes = kubectl("get", "nodes").splitlines()[1:]
+        if len(nodes) != n_nodes:
+            fail(f"get nodes lists {len(nodes)} nodes, not", n_nodes)
+        step("get_nodes")
+        kubectl("run", "web", "--image", "app:v1", "--replicas", "50")
+        # the rolling update's 25 % (apps/v1beta1's default; the run
+        # generator's Deployment moves one pod at a time): 13 surge, 12
+        # unavailable of 50
+        kubectl("patch", "deployment", "web", "-p",
+                json.dumps({"spec": {"maxSurge": 13, "maxUnavailable": 12}}))
+        rolled_out()
+        step("run")
+        listed = json.loads(kubectl("get", "pods", "-l", "run=web", "-o", "json"))["items"]
+        by_kubectl = {p["metadata"]["name"]: p["spec"].get("nodeName") for p in listed}
+        wire = {p["metadata"]["name"]: p["spec"].get("nodeName")
+                for p in labelled(rs, "run", "web")}
+        if len(listed) != 50 or not all(map(bound_running, listed)) or by_kubectl != wire:
+            fail("get pods -l run=web: 50 pods bound and Running, as the wire lists them",
+                 {"listed": len(listed), "running": sum(map(bound_running, listed)),
+                  "equal": by_kubectl == wire})
+        out["web_nodes"] = len(set(by_kubectl.values()))
+        step("get_pods")
+
+        def images() -> set:
+            return {p["spec"]["containers"][0]["image"] for p in labelled(rs, "run", "web")}
+
+        kubectl("set", "image", "deployment/web", "web=app:v2")
+        rolled_out()
+        history = kubectl("rollout", "history", "deployment/web").splitlines()[2:]
+        revisions = [ln.split()[0] for ln in history if ln.strip()]
+        if revisions != ["1", "2"]:
+            fail("rollout history shows revisions", revisions)
+        wait_for(f"{what} pods on app:v2", lambda: images() == {"app:v2"}, 60)
+        step("set_image")
+        kubectl("rollout", "undo", "deployment/web")
+        rolled_out()
+        image = kubectl("get", "deployment", "web", "-o",
+                        "jsonpath={.spec.template.spec.containers[0].image}").strip()
+        if image != "app:v1":
+            fail("after rollout undo the template's image is", image)
+        wait_for(f"{what} pods back on app:v1", lambda: images() == {"app:v1"}, 60)
+        step("undo")
+        kubectl("scale", "deployment", "web", "--replicas", "10")
+        rolled_out()
+        web = wait_for(f"{what} 10 web pods", lambda: all_running(rs, "run", "web", 10), 60)
+        step("scale")
+        kubectl("expose", "deployment", "web", "--port", "80")
+
+        def endpoints_hold():
+            try:
+                eps = rs.get("Endpoints", "default", "web")
+            except KeyError:
+                return None
+            got = {a["ip"] for s in eps.get("subsets") or [] for a in s.get("addresses") or []}
+            want = {p["status"]["podIP"] for p in ready_pods(labelled(rs, "run", "web"), "web",
+                                                             key="run")}
+            return got if got == want and len(got) == 10 else None
+
+        out["endpoints"] = len(wait_for(f"{what} Endpoints of web", endpoints_hold, 60))
+        step("expose")
+        pod = next(p for p in sorted(web, key=lambda p: p["metadata"]["name"])
+                   if p["spec"]["nodeName"].startswith("pool-"))
+        name, node = pod["metadata"]["name"], pod["spec"]["nodeName"]
+        logs = kubectl("logs", name)
+        if "container web started" not in logs:
+            fail(f"logs {name} on {node} holds no start line", logs[-300:])
+        said = kubectl("exec", name, "--", "echo", "hello")
+        if said != "echo hello\n":
+            fail(f"exec {name} on {node} answered", said)
+        step("logs_exec")
+        rows = kubectl("top", "nodes").splitlines()[1:]
+        if len(rows) != n_nodes:
+            fail("top nodes lists", len(rows))
+        step("top_nodes")
+        listed = {ln.split()[0] for ln in kubectl("top", "pods").splitlines()[1:]}
+        if not {p["metadata"]["name"] for p in web} <= listed:
+            fail("top pods lists no row for a web pod", sorted(listed)[:5])
+        step("top_pods")
+        # drain a fleet node that holds a web pod: every pod on it is evicted
+        # and its replacement bound by the card to another node, Running
+        before = {p["metadata"]["name"]: p["spec"].get("nodeName")
+                  for p in rs.list("Pod", "default")[0]}
+        evicted = sorted(n for n, at in before.items() if at == node)
+        kubectl("cordon", node)
+        kubectl("drain", node)
+
+        def replaced():
+            pods = rs.list("Pod", "default")[0]
+            new = [p for p in pods if p["metadata"]["name"] not in before]
+            left = [p["metadata"]["name"] for p in pods if p["spec"].get("nodeName") == node]
+            if (len(new) == len(evicted) and not left and all(map(bound_running, new))
+                    and not any(p["metadata"]["name"] in evicted for p in pods)):
+                return new
+            return None
+
+        new = wait_for(f"{what} the drained node's pods replaced", replaced, 120)
+        out["drain"] = {"node": node, "evicted": len(evicted),
+                        "replacement_nodes": len({p["spec"]["nodeName"] for p in new})}
+        kubectl("uncordon", node)
+        step("drain")
+        kubectl("delete", "deployment", "web")
+        kubectl("delete", "service", "web")
+        wait_for(f"{what} web's pods gone", lambda: not labelled(rs, "run", "web"), 120)
+        step("delete")
+        with times.mu:
+            out["bound"] = len(times.bound)
+    finally:
+        times.stop()
+    out["launches_after"] = launches()
+    return out
+
+
+def federation_steps(kubectl: Cli, kubefed: Cli, fed: subprocess.Popen, fed_url: str,
+                     member_url: str, rs, workdir: str, launches) -> dict:
+    """Phase 16e: ``python -m kubernetes_tpu_torch.federation`` over phase
+    16's cluster as its member, through ``kubefed`` and ``kubectl``: a
+    federated Deployment of 50 replicas placed on the member appears there
+    with the federated spec, its pods bound by the card and Running, its
+    status rolled up, and its deletion reaching the member."""
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.federation.types import Cluster  # the kind, registered
+
+    what = "phase 16e"
+    out = {"steps": {}, "launches_before": launches()}
+    t_step = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        out["steps"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def alive() -> None:
+        if fed.poll() is not None:
+            raise RuntimeError(f"{what}: the federation exited {fed.returncode}")
+
+    def healthy():
+        alive()
+        try:
+            return http_get(fed_url + "/healthz")
+        except OSError:
+            return None
+
+    wait_for(f"{what} the federation's /healthz", healthy, 60)
+    frs = RemoteStore(fed_url, timeout=60.0)
+    step("start")
+    said = kubefed("join", "member", "--cluster-server", member_url)
+    if said != "cluster/member joined\n":
+        raise AssertionError(f"{what}: kubefed join said {said!r}")
+
+    def ready() -> bool:  # the cluster controller's probe, over the wire
+        alive()
+        return Cluster.from_dict(frs.get("Cluster", "", "member")).ready
+
+    def member_row() -> list:
+        rows = [ln.split() for ln in kubefed("get-clusters").splitlines()[1:]]
+        if rows != [["member", member_url, "True"]]:
+            raise AssertionError(f"{what}: kubefed get-clusters lists {rows}")
+        return rows
+
+    wait_for(f"{what} member Ready", ready, 60)
+    out["clusters"] = member_row()
+    step("join")
+    manifest = os.path.join(workdir, "fed-web.json")
+    with open(manifest, "w") as f:
+        json.dump({"kind": "Deployment", "apiVersion": "apps/v1beta1", "metadata": {
+            "name": "fed-web", "namespace": "default",
+            "annotations": {"federation.kubernetes.io/clusters": json.dumps(["member"])}},
+            "spec": {"replicas": 50, "selector": {"matchLabels": {"app": "fed-web"}},
+                     "template": {"metadata": {"labels": {"app": "fed-web"}}, "spec": {
+                         "containers": [{"name": "web", "image": "app:v1"}]}}}}, f)
+    kubectl("create", "-f", manifest)
+    want = frs.get("Deployment", "default", "fed-web")["spec"]
+
+    def in_member():
+        alive()
+        try:
+            return rs.get("Deployment", "default", "fed-web")
+        except KeyError:
+            return None
+
+    got = wait_for(f"{what} fed-web in the member", in_member, 60)
+    if got["spec"] != want:
+        raise AssertionError(f"{what}: the member's fed-web spec {got['spec']} != the "
+                             f"federation's {want}")
+    step("fan_out")
+    pods = wait_for(f"{what} 50 fed-web pods Running",
+                    lambda: all_running(rs, "app", "fed-web", 50), 180)
+    out["nodes"] = len({p["spec"]["nodeName"] for p in pods})
+    step("running")
+
+    def rolled_up():
+        alive()
+        st = frs.get("Deployment", "default", "fed-web").get("status") or {}
+        return st if st.get("readyReplicas") == 50 else None
+
+    out["status"] = wait_for(f"{what} the federation's readyReplicas 50", rolled_up, 60)
+    out["clusters"] = member_row()
+    step("rollup")
+    kubectl("delete", "deployment", "fed-web")
+
+    def gone():
+        alive()
+        return in_member() is None and not labelled(rs, "app", "fed-web")
+
+    wait_for(f"{what} fed-web gone from the member", gone, 120)
+    step("delete")
+    said = kubefed("unjoin", "member")
+    if said != "cluster/member unjoined\n":
+        raise AssertionError(f"{what}: kubefed unjoin said {said!r}")
+    out["launches_after"] = launches()
+    fed.send_signal(signal.SIGTERM)
+    out["exit"] = fed.wait(timeout=60)
+    step("stop")
+    return out
+
+
+def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 50,
               init_args: tuple = ()) -> dict:
     """Phase 16 in ``workdir``: 16a ``cluster init`` at its defaults but the
     ports (``init_args`` adds flags: ``--device cpu`` for a dry run), a join
     with a wrong token and two with the printed one; 16b two fleet
     processes of ``per_fleet`` hollow nodes and kube-proxies, the cloud
     controller manager, 10 Deployments x ``replicas`` with a Service each,
-    and the exact checks; 16c ``cluster down``."""
+    and the exact checks; 16d kubectl and 16e a federation on the cluster
+    (``kubectl_steps``, ``federation_steps``); 16c ``cluster down``."""
     from kubernetes_tpu_torch import cluster as cl
     from kubernetes_tpu_torch.api.meta import ObjectMeta
     from kubernetes_tpu_torch.api.selectors import LabelSelector
@@ -4226,7 +4537,7 @@ def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 100,
     from kubernetes_tpu_torch.workload import make_nodes, overcommitted_nodes
 
     env = {**os.environ, "PYTHONPATH": ROOT}
-    port, dns_port = free_port(), free_udp_port()
+    port, dns_port, sched_port = free_port(), free_udp_port(), free_port()
     url = f"http://127.0.0.1:{port}"
     state_path = os.path.join(workdir, cl.STATE_FILE)
     logs = os.path.join(workdir, cl.CLUSTER_DIR, "logs")
@@ -4258,7 +4569,8 @@ def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 100,
 
     try:
         # -- 16a: turn-up ------------------------------------------------------
-        init = run_cluster("init", "--port", str(port), "--dns-port", str(dns_port), *init_args)
+        init = run_cluster("init", "--port", str(port), "--dns-port", str(dns_port),
+                           "--scheduler-healthz-port", str(sched_port), *init_args)
         step("init")
         out["init_s"] = steps["init"]
         if init.returncode != 0:
@@ -4286,7 +4598,7 @@ def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 100,
         for tag in ("pool-a", "pool-b"):
             health[tag] = f"http://127.0.0.1:{free_port()}"
             procs[tag] = spawn(tag, "kubelet", "--apiserver", url, "--count", str(per_fleet),
-                               "--name", tag, "--proxy", "--healthz-port",
+                               "--name", tag, "--proxy", "--serve-logs", "--healthz-port",
                                health[tag].rsplit(":", 1)[1])
         health["ccm"] = f"http://127.0.0.1:{free_port()}"
         procs["ccm"] = spawn("ccm", "cloud-controller-manager", "--apiserver", url,
@@ -4415,7 +4727,36 @@ def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 100,
         times.stop()
         times = None
 
+        # -- 16d: kubectl on this cluster ------------------------------------------
+        sched_url = f"http://127.0.0.1:{sched_port}"
+
+        def launches() -> dict:  # the cluster's scheduler's, from its /metrics
+            m = metric_lines(sched_url, "scheduler_kernel_launches_total")
+            return {k: int(m[f'scheduler_kernel_launches_total{{kernel="{k}"}}'])
+                    for k in ("fused_scan", "frontier_refresh")}
+
+        kubectl = Cli("phase 16d", workdir, env, "kubectl", "--server", url)
+        out["kubectl"] = kubectl_steps(kubectl, rs, n_nodes, launches)
+        out["kubectl"]["walls"] = kubectl.walls
+        step("kubectl")
+
+        # -- 16e: a federation with this cluster as its member -----------------------
+        fed_url = f"http://127.0.0.1:{free_port()}"
+        procs["federation"] = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.federation", "--port",
+             fed_url.rsplit(":", 1)[1], "--sync-interval", "0.5"], cwd=workdir, env=env,
+            stdout=open(os.path.join(workdir, "16-federation.out"), "w"),
+            stderr=open(os.path.join(workdir, "16-federation.err"), "w"))
+        fed_kubectl = Cli("phase 16e", workdir, env, "kubectl", "--server", fed_url)
+        kubefed = Cli("phase 16e", workdir, env, "kubefed", "--host", fed_url)
+        out["federation"] = federation_steps(fed_kubectl, kubefed, procs["federation"], fed_url,
+                                             url, rs, workdir, launches)
+        out["federation"]["walls"] = fed_kubectl.walls + kubefed.walls
+        step("federation")
+
         # -- 16c: teardown -------------------------------------------------------
+        # the balancer over every Ready node again, the drained one uncordoned
+        out["cloud_want"] = wait_for("phase 16c cloud", cloud_holds, 120, every=0.5)
         for name in ("ccm", "pool-a", "pool-b"):
             procs[name].send_signal(signal.SIGTERM)
         out["exit"] = {name: procs[name].wait(timeout=120) for name in ("ccm", "pool-a", "pool-b")}
@@ -4471,7 +4812,7 @@ def lifecycle_phase(pps_6a: float) -> tuple[int, int]:
                                                              "logs")) else []):
                 text = open(os.path.join(workdir, ".kubernetes-tpu-torch", "logs", path)).read()
                 print(f"phase 16 {path} tail:\n{text[-3000:]}", file=sys.stderr)
-            for name in ("16-pool-a.err", "16-pool-b.err", "16-ccm.err"):
+            for name in ("16-pool-a.err", "16-pool-b.err", "16-ccm.err", "16-federation.err"):
                 path = os.path.join(workdir, name)
                 if os.path.exists(path):
                     print(f"phase 16 {name} tail:\n{open(path).read()[-3000:]}", file=sys.stderr)
@@ -4521,6 +4862,21 @@ def report_lifecycle(r: dict, pps_6a: float, phase_s: float, device: str = "cuda
     print(f"phase 16 CPU over {r['wall_s']:.3f} s in cores "
           f"{json.dumps({k: round(v, 3) for k, v in r['cpu_share'].items()}, sort_keys=True)}; "
           f"apiserver requests {json.dumps(r['requests'], sort_keys=True)}", flush=True)
+    for tag, r_cli, tool in (("16d", r["kubectl"], "python -m kubernetes_tpu_torch kubectl"),
+                             ("16e", r["federation"], "python -m kubernetes_tpu_torch.federation "
+                              "with kubefed and kubectl on it")):
+        walls = quantiles_ms(r_cli["walls"])
+        before, after = r_cli["launches_before"], r_cli["launches_after"]
+        facts = (f"web's 50 pods on {r_cli['web_nodes']} nodes, Endpoints {r_cli['endpoints']}, "
+                 f"pods bound {r_cli['bound']}, drained {r_cli['drain']}" if tag == "16d" else
+                 f"fed-web's 50 pods Running on {r_cli['nodes']} nodes of the member, rolled up "
+                 f"readyReplicas {r_cli['status'].get('readyReplicas')}, get-clusters "
+                 f"{r_cli['clusters']}, the federation exited {r_cli['exit']} on SIGTERM")
+        print(f"phase {tag} {tool} (one process a command): {len(r_cli['walls'])} invocations, "
+              f"wall p50_ms {walls[0]:.1f} p99_ms {walls[1]:.1f}; seconds by step "
+              f"{json.dumps({k: round(v, 3) for k, v in r_cli['steps'].items()})}; {facts}; "
+              f"launches under cluster before {json.dumps(before, sort_keys=True)} after "
+              f"{json.dumps(after, sort_keys=True)}", flush=True)
     print(f"phase 16c cluster down exited {r['down_rc']}: processes left running "
           f"{r['left_running']}, apiserver port closed {r['port_closed']}, state file removed "
           f"{r['state_removed']}; the scheduler's log: device {st['device']}, launches fused_scan "
@@ -4542,6 +4898,13 @@ def report_lifecycle(r: dict, pps_6a: float, phase_s: float, device: str = "cuda
         "join dirs": r["join_dirs_left"],
         "device": None if st["device"] == device else st["device"],
         "fused launches": None if st["launches"] > 0 else st["launches"],
+        # the pods that kubectl and the federation made were bound by the card
+        "16d launches": None if device != "cuda" or r["kubectl"]["launches_after"]["fused_scan"]
+        > r["kubectl"]["launches_before"]["fused_scan"] else r["kubectl"]["launches_after"],
+        "16e launches": None if device != "cuda" or r["federation"]["launches_after"][
+            "fused_scan"] > r["federation"]["launches_before"]["fused_scan"]
+        else r["federation"]["launches_after"],
+        "federation exit": r["federation"]["exit"] or None,
     }
     failed = {k: v for k, v in failures.items() if v}
     if failed:
@@ -4782,10 +5145,20 @@ if __name__ == "__main__":
     limit.start()
     try:
         rc = main()
+    except BaseException as e:  # a failed check, or a signal's SystemExit
+        if not isinstance(e, SystemExit):
+            traceback.print_exc()
+        rc = e.code if isinstance(e, SystemExit) and isinstance(e.code, int) else 1
     finally:
         limit.cancel()
         left = stop_own_processes()
         if left:
             print(f"chip_smoke: left running at its end (stopped): {json.dumps(left)}",
                   file=sys.stderr, flush=True)
+    if rc:
+        # a failed or stopped run ends now: a thread of a phase cut short
+        # would otherwise hold the interpreter's exit past the run's limit
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     sys.exit(rc)

@@ -6,6 +6,8 @@
     python -m kubernetes_tpu_torch kubelet --apiserver http://127.0.0.1:6443 --count 100
     python -m kubernetes_tpu_torch controller-manager --apiserver http://127.0.0.1:6443
     python -m kubernetes_tpu_torch cloud-controller-manager --apiserver http://127.0.0.1:6443
+    python -m kubernetes_tpu_torch kubectl --server http://127.0.0.1:6443 get nodes
+    python -m kubernetes_tpu_torch kubefed --host http://127.0.0.1:18500 get-clusters
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ COMPONENTS = {
     "controller-manager": "kubernetes_tpu_torch.controllers.__main__",
     "kube-controller-manager": "kubernetes_tpu_torch.controllers.__main__",
     "cloud-controller-manager": "kubernetes_tpu_torch.cloud.__main__",
+    "kubectl": "kubernetes_tpu_torch.cli.kubectl",
+    "kubefed": "kubernetes_tpu_torch.federation.kubefed",
 }
 
 

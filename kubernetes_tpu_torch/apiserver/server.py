@@ -135,6 +135,12 @@ from ..utils.health import handle_debug_path
 from ..utils.metrics import APIServerMetrics
 from .openapi import build_openapi
 
+# link the federation API group into the wire surface (the reference's
+# federation-apiserver compiles its types in the same way): importing
+# registers the Cluster kind; federation/__init__ is import-light (lazy
+# controller loading), so this does not pull in the controller tree
+from ..federation import types as _federation_types  # noqa: F401
+
 logger = logging.getLogger("kubernetes_tpu_torch.apiserver")
 
 # SelfSubjectAccessReview (reference authorization.k8s.io group), answered

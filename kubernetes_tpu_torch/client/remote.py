@@ -58,6 +58,7 @@ Every failure path bumps a counter of ``utils.metrics.ClientMetrics``."""
 from __future__ import annotations
 
 import http.client
+import io
 import ipaddress
 import json
 import logging
@@ -77,7 +78,6 @@ from .. import faults
 from ..api import wire
 from ..api.patch import CONTENT_TYPES
 from ..api.types import KIND_PLURALS
-from ..store.columns import COLUMN_BATCH_KINDS
 from ..store.frames import FRAME, WatchFrame
 from ..store.store import (
     WATCH_GAP,
@@ -541,6 +541,79 @@ class RemoteStore:
         raise RetryExhaustedError(f"{method} {path} failed after {self.max_retries + 1} "
                                   f"attempts: {type(last_err).__name__}: {last_err}")
 
+    def _send(self, method: str, path: str, data: Optional[bytes], headers: dict,
+              timeout: Optional[float] = None) -> http.client.HTTPResponse:
+        """One attempt on this thread's connection: the answer, its body
+        unread; a status other than 2xx raises urllib's ``HTTPError``.
+        ``timeout`` replaces the connection's own until ``_set_timeout``
+        puts it back."""
+        conn = self._connection()
+        if timeout is not None:
+            self._set_timeout(timeout)
+        try:
+            try:
+                conn.request(method, self._prefix + path, body=data, headers=headers)
+            except OSError as e:  # a failed connect or send, in urllib's form
+                raise urllib.error.URLError(e) from e
+            resp = conn.getresponse()
+        except BaseException:
+            self._drop_connection()
+            raise
+        if (resp.getheader("Connection") or "").lower() != "keep-alive":
+            # only a server that says so reads every request body whole
+            # (the reference package's reads one body a connection):
+            # the answer takes the socket along and closes it once read
+            self._local.conn = None
+            sock, conn.sock = conn.sock, None
+            if sock is not None:
+                sock.close()
+        if not 200 <= resp.status < 300:
+            # urllib's form of an error answer, its body still unread
+            raise urllib.error.HTTPError(f"{self.base_url}{path}", resp.status,
+                                         resp.reason, resp.headers, resp)
+        return resp
+
+    def raw(self, method: str, path: str, body=None,
+            timeout: Optional[float] = None) -> bytes:
+        """Raw request carrying the store's credential and TLS context:
+        the path for non-resource endpoints (discovery, /version,
+        /healthz, subresource streams).  ``body`` may be a dict (sent as
+        JSON) or bytes (sent as they are, e.g. file payloads through
+        kubectl proxy).  The retry policy is the resource verbs'; an
+        error answer raises urllib's ``HTTPError`` with its body."""
+        if isinstance(body, (bytes, bytearray)):
+            data = bytes(body)
+            headers = {}
+        else:
+            data = json.dumps(body).encode() if body is not None else None
+            headers = {"Content-Type": "application/json"} if data else {}
+        headers.update(self._headers())
+
+        def send():
+            return self._send(method, path, data, headers, timeout)
+
+        try:
+            with self._request_with_retries(send, method, path) as resp:
+                try:
+                    return resp.read()
+                except (http.client.HTTPException, OSError):
+                    self._drop_connection()
+                    raise
+        except urllib.error.HTTPError as e:
+            # read the body here, so the kept-alive connection is free
+            raise urllib.error.HTTPError(e.url, e.code, e.msg, e.headers,
+                                         io.BytesIO(e.read())) from None
+        finally:
+            if timeout is not None:
+                self._set_timeout(self.timeout)
+
+    def _set_timeout(self, timeout: float) -> None:
+        conn = getattr(self._local, "conn", None)
+        if conn is not None:
+            conn.timeout = timeout
+            if conn.sock is not None:
+                conn.sock.settimeout(timeout)
+
     def _call(self, method: str, path: str, body=None,
               content_type: Optional[str] = None) -> dict:
         """One request under the retry policy; the answer decoded by its
@@ -559,26 +632,7 @@ class RemoteStore:
         headers.update(self._headers())
 
         def send():
-            conn = self._connection()
-            try:
-                conn.request(method, self._prefix + path, body=data, headers=headers)
-                resp = conn.getresponse()
-            except BaseException:
-                self._drop_connection()
-                raise
-            if (resp.getheader("Connection") or "").lower() != "keep-alive":
-                # only a server that says so reads every request body whole
-                # (the reference package's reads one body a connection):
-                # the answer takes the socket along and closes it once read
-                self._local.conn = None
-                sock, conn.sock = conn.sock, None
-                if sock is not None:
-                    sock.close()
-            if not 200 <= resp.status < 300:
-                # urllib's form of an error answer, its body still unread
-                raise urllib.error.HTTPError(f"{self.base_url}{path}", resp.status,
-                                             resp.reason, resp.headers, resp)
-            return resp
+            return self._send(method, path, data, headers)
 
         try:
             with self._request_with_retries(send, method, path) as resp:
@@ -656,6 +710,10 @@ class RemoteStore:
         views in one response and the columns are rebuilt here.  None for
         a kind without a columnar form, or a server that answered with
         plain items."""
+        # numpy's import, here only: a client that never asks for columns
+        # (kubectl, a command a process) starts without it
+        from ..store.columns import COLUMN_BATCH_KINDS
+
         batch_cls = COLUMN_BATCH_KINDS.get(kind)
         if batch_cls is None:
             return None

@@ -29,6 +29,9 @@ Where the port differs from the JAX command:
   (``init --cluster-dir``, default ``.kubernetes-tpu-torch``): the scheduler's
   ``{"scheduler_stats": ...}`` line, printed when ``down`` stops it, can be
   read there afterwards.
+- ``init --scheduler-healthz-port N`` serves the scheduler's ``/healthz``
+  and ``/metrics`` (its kernel launch counters among them) on port N;
+  the default, -1, serves none, as the JAX command does.
 - Process state lives in ``.kubernetes-tpu-torch-cluster.json``, so that
   ``down`` of one package never stops the other's processes.  ``down``
   stops the apiserver last and waits until each component has exited."""
@@ -207,6 +210,7 @@ def cmd_init(args) -> dict:
     procs["scheduler"] = _spawn(
         logs, "scheduler", "kubernetes_tpu_torch.scheduler", "--apiserver", url,
         "--backend", args.backend, "--device", args.device, "--leader-elect",
+        "--healthz-port", str(getattr(args, "scheduler_healthz_port", -1)),
     )
     procs["controller-manager"] = _spawn(
         logs, "controller-manager",
@@ -507,6 +511,9 @@ def main(argv=None) -> int:
     p.add_argument("--cluster-dir", default=CLUSTER_DIR,
                    help="where the components' logs/ go, and --self-hosted's "
                    "pki/, kubeconfigs and manifests/")
+    p.add_argument("--scheduler-healthz-port", type=int, default=-1,
+                   help="serve the scheduler's /healthz and /metrics on this port "
+                   "(-1: off; not with --self-hosted)")
     p = sub.add_parser("join")
     p.add_argument("--apiserver", required=True)
     p.add_argument("--token", required=True)
@@ -522,6 +529,8 @@ def main(argv=None) -> int:
                    help="0 disables the kube-dns addon")
     sub.add_parser("down")
     args = ap.parse_args(argv)
+    if args.cmd == "init" and args.self_hosted and args.scheduler_healthz_port >= 0:
+        ap.error("--scheduler-healthz-port does not apply to --self-hosted")
 
     if args.cmd == "init":
         _save(cmd_init(args))

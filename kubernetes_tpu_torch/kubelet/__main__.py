@@ -89,6 +89,12 @@ def main(argv=None) -> int:
         # kubemark names nodes per host; keep the given prefix
         for i, k in enumerate(fleet.kubelets):
             k.node_name = f"{args.name}-{i:05d}"
+            if k.server is not None:
+                # the apiserver's exec proxy presents the token of the
+                # node's name: the renamed node's
+                from ..auth.authn import kubelet_exec_token
+
+                k.server.exec_token = kubelet_exec_token(k.node_name)
         fleet.register_all()
         kubelets = fleet.kubelets
         tick = fleet.tick_all

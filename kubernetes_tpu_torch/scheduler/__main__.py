@@ -20,6 +20,9 @@ extenders (``scheduler/policy.py``).  A policy the fused scan does not
 express runs, as in the JAX daemon, on the host oracle inside the batch
 backend: the daemon logs that once at start-up, and
 ``scheduler_backend_oracle_pods_total`` on ``/metrics`` counts those pods.
+With the batch backend ``/metrics`` also carries
+``scheduler_kernel_launches_total{kernel="fused_scan"|"frontier_refresh"}``,
+the kernels' launch counts read when it is scraped.
 ``--device cuda`` is the default and the process exits non-zero, before
 it takes the lease, where there is no card.
 
@@ -171,7 +174,13 @@ def main(argv=None) -> int:
             reg = holder.get("registry")
             if reg is None:
                 return "# standby\n"
-            return reg.expose() + cs.store.metrics.registry.expose()
+            text = reg.expose() + cs.store.metrics.registry.expose()
+            launches = holder.get("launches")
+            if launches is not None:
+                text += ("# TYPE scheduler_kernel_launches_total counter\n" + "".join(
+                    f'scheduler_kernel_launches_total{{kernel="{k}"}} {n}\n'
+                    for k, n in launches().items()))
+            return text
 
     health = serve_health(args.healthz_port, _LazyRegistry())
     if health is not None:
@@ -199,6 +208,12 @@ def main(argv=None) -> int:
                 # not inside the first wave
                 fused_scan.load()
                 torch.empty(1, device=backend.device)
+        if backend is not None:
+            from ..ops import frontier_refresh, fused_scan
+
+            # the kernels' launch counters, read when /metrics is scraped
+            holder["launches"] = lambda: {"fused_scan": fused_scan.launches,
+                                          "frontier_refresh": frontier_refresh.launches}
         sched = Scheduler(cs, algorithm=algo, backend=backend,
                           scheduler_name=args.scheduler_name)
         telemetry_on = args.timeseries or bool(args.telemetry_sink)

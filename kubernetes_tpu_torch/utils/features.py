@@ -15,6 +15,7 @@ from __future__ import annotations
 import copy
 import json
 import threading
+from contextlib import contextmanager
 from dataclasses import dataclass, field, fields
 
 ALPHA = "ALPHA"
@@ -95,6 +96,19 @@ class FeatureGates:
                 raise ValueError(f"bad feature gate value {part!r}")
             overrides[k.strip()] = v.lower() == "true"
         self.set_from_map(overrides)
+
+    @contextmanager
+    def override(self, feature: str, value: bool):
+        """Set one gate for the ``with`` block, then put it back."""
+        name = canonical(feature)
+        with self._mu:
+            old = self._enabled[name]
+            self._enabled[name] = value
+        try:
+            yield
+        finally:
+            with self._mu:
+                self._enabled[name] = old
 
 
 DEFAULT_FEATURE_GATES = FeatureGates()  # the process-global gate

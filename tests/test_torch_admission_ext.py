@@ -2,13 +2,15 @@
 ``tests/test_admission_ext.py`` (behavioural specs from the reference's
 ``plugin/pkg/admission/*``).
 
-Four JAX cases drive components the port does not have (the CRD
-registrar, the garbage collector, the fake cloud, kubectl exec against a
-hollow kubelet).  Their twins hold the same plugin or routing rule with
-what the port has: a kind registered at run time through the admitted
-store and the wire apiserver, the new kinds' plurals and scope against
-the JAX registry, ``PersistentVolumeLabel`` over a stand-in cloud, and
-``DenyEscalatingExec`` as the default chain runs it on a CONNECT.
+Every JAX test also runs whole through both packages (``test_twin``,
+``tests/torch_twin``): the CRD registrar and the garbage collector,
+``PersistentVolumeLabel`` over ``FakeCloud``, and ``kubectl exec`` into
+a hollow kubelet's pods through the apiserver's CONNECT chain.  Both
+pass its assertions, leave equal stores and answer every ``kubectl``
+call with the same exit code and output.  The port's own cases beside
+them hold the same rules from other sides: a kind registered at run
+time by hand, the new kinds' plurals and scope against the JAX registry,
+and ``DenyEscalatingExec`` driven on the chain itself.
 Tolerance: exact equality."""
 
 import pytest
@@ -36,6 +38,7 @@ from kubernetes_tpu_torch.api.selectors import LabelSelector
 from kubernetes_tpu_torch.client import Clientset
 from kubernetes_tpu_torch.store import Store
 from kubernetes_tpu_torch.testutil import make_pod
+from tests.torch_twin import cases, twin
 
 
 @pytest.fixture()
@@ -234,6 +237,8 @@ def test_pod_preset_conflict_skips_whole_preset(cs):
 def test_duplicate_crd_does_not_unregister_claimants_kind(cs):
     """The kinds the chain reads route by the JAX package's plurals and
     scope, so a client of either package reaches the same paths."""
+    import kubernetes_tpu.federation.types  # noqa: F401  (Cluster, as each apiserver registers it)
+    import kubernetes_tpu_torch.federation.types  # noqa: F401
     from kubernetes_tpu.api.types import CLUSTER_SCOPED_KINDS as JAX_SCOPED
     from kubernetes_tpu.api.types import KIND_PLURALS as JAX_PLURALS
     from kubernetes_tpu_torch.api.types import CLUSTER_SCOPED_KINDS, KIND_PLURALS, kind_for_plural
@@ -331,16 +336,10 @@ def test_owner_references_permission_enforcement():
 def test_persistent_volume_label():
     from kubernetes_tpu_torch.admission.framework import Attributes
     from kubernetes_tpu_torch.admission.plugins_ext import PersistentVolumeLabel
-
-    class _Zones:
-        def get_zone(self, source):
-            return {"disk-1": ("z1", "r1")}[source]
-
-    class FakeCloud:  # the JAX package's FakeCloud with one instance
-        def zones(self):
-            return _Zones()
+    from kubernetes_tpu_torch.cloud import FakeCloud, Instance
 
     cloud = FakeCloud()
+    cloud.add_instance(Instance(name="disk-1", zone="z1", region="r1"))
     plug = PersistentVolumeLabel(cloud=cloud)
     obj = {"kind": "PersistentVolume",
            "metadata": {"name": "pv1"}, "spec": {"diskID": "disk-1"}}
@@ -392,8 +391,8 @@ def test_initializers_protocol():
 
 def test_deny_escalating_exec_enforced_on_the_wire():
     """The default chain runs DenyEscalatingExec on a CONNECT: exec into a
-    privileged or host-PID pod is denied, a plain pod passes (the port's
-    apiserver has no exec route yet, so the chain is driven directly)."""
+    privileged or host-PID pod is denied, a plain pod passes (the chain
+    driven directly; ``kubectl exec`` through the apiserver: ``test_twin``)."""
     from kubernetes_tpu_torch.admission import AdmittedStore, default_chain
     from kubernetes_tpu_torch.admission.framework import Attributes
 
@@ -582,3 +581,9 @@ def test_psp_host_namespaces_survive_typed_round_trip():
         meta=ObjectMeta(name="zz-host"), host_pid=True))
     created = cs.pods.create(pod)
     assert created.meta.annotations["kubernetes.io/psp"] == "zz-host"
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("test", cases("test_admission_ext"))
+def test_twin(test, tmp_path):
+    twin("test_admission_ext", test, tmp_path, echo=["cli.kubectl:main"])

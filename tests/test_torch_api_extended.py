@@ -21,8 +21,10 @@ import pytest
 
 import kubernetes_tpu.api as jax_api
 import kubernetes_tpu.api.types as jax_types
+import kubernetes_tpu.federation.types  # noqa: F401  (registers Cluster, as the apiserver does)
 import kubernetes_tpu_torch.api as port_api
 import kubernetes_tpu_torch.api.types as port_types
+import kubernetes_tpu_torch.federation.types  # noqa: F401
 
 # the kinds this slice registered in the port
 NEW_KINDS = ("APIService", "CertificateSigningRequest", "CustomResourceDefinition", "CronJob",
@@ -242,7 +244,7 @@ def test_clientset_has_all_kind_clients():
         # a client for every registered kind, under its plural
         for kind, plural in api.types.KIND_PLURALS.items():
             assert cs.client_for(kind) is (cs.pods if kind == "Pod" else getattr(cs, plural))
-        reads.append(sorted(k for k in api.types.KINDS if k != "Cluster"))
+        reads.append(sorted(api.types.KINDS))
     assert reads[0] == reads[1]
 
 
@@ -250,12 +252,13 @@ def test_clientset_has_all_kind_clients():
 
 
 def test_registries_and_exports_equal_the_reference():
-    assert set(port_types.KINDS) == set(jax_types.KINDS) - {"Cluster"}
-    assert len(port_types.KINDS) == 34
+    # the 34 kinds of the API and federation's Cluster
+    assert set(port_types.KINDS) == set(jax_types.KINDS)
+    assert len(port_types.KINDS) == 35
     assert set(NEW_KINDS) <= set(port_types.KINDS)
     for kind in port_types.KINDS:
         assert port_types.KIND_PLURALS[kind] == jax_types.KIND_PLURALS[kind]
-    assert port_types.CLUSTER_SCOPED_KINDS == jax_types.CLUSTER_SCOPED_KINDS - {"Cluster"}
+    assert port_types.CLUSTER_SCOPED_KINDS == jax_types.CLUSTER_SCOPED_KINDS
 
     def exports(mod):
         return {n for n in dir(mod)

@@ -3,9 +3,8 @@ apiserver`` + ``client/remote.py``) against the JAX package's, on the CPU.
 
 Twins of ``tests/test_apiserver.py`` (the kubelet field selector waits
 for the kubelet's port) with PATCH, OpenAPI (the schema of every kind and
-the operations of every path, federation's Cluster kind left out: the JAX
-server registers it, the port has no federation group) and a kind
-registered late, plus a 410 on a
+the operations of every path, federation's Cluster kind included: each
+package's apiserver registers it) and a kind registered late, plus a 410 on a
 compacted watch that ends in an informer relist, and TLS both ways
 between the packages: each package's client, with the test PKI's client
 certificate, against each package's TLS apiserver with a client CA (a
@@ -855,12 +854,6 @@ def test_a_silent_tls_client_does_not_hold_the_accept_loop():
 
 # -- late kinds, PATCH and OpenAPI (tests/test_apiserver.py :137, :196, :258) --
 
-# federation's Cluster kind: the JAX apiserver registers it on import (its
-# federation group is not ported), so the OpenAPI comparison leaves it out
-FEDERATION = {"definitions": {"io.k8s.api.core.v1.Cluster"},
-              "paths": {"/api/v1/clusters", "/api/v1/clusters/{name}"}}
-
-
 def late_registered_kind(p: Pair):
     """A kind registered after the server started (in both packages'
     registries: the server routes by it, the client names its path by it)
@@ -918,9 +911,8 @@ def openapi_document(p: Pair):
         # the schemas without their one-line descriptions (each package's
         # own docstrings), and the operations of every path
         defs = {k: {f: v for f, v in d.items() if f != "description"}
-                for k, d in doc["definitions"].items() if k not in FEDERATION["definitions"]}
-        paths = {k: v for k, v in doc["paths"].items() if k not in FEDERATION["paths"]}
-        docs.append({"definitions": defs, "paths": paths, "info": doc["info"]["title"]})
+                for k, d in doc["definitions"].items()}
+        docs.append({"definitions": defs, "paths": doc["paths"], "info": doc["info"]["title"]})
     assert docs[0] == docs[1]
     return docs[0]
 
@@ -944,7 +936,9 @@ def test_openapi_document_served(pairing):
     got = check(openapi_document, pairing)
     from kubernetes_tpu_torch.api.types import KINDS
 
-    assert len(got["definitions"]) == len(KINDS) == 34
+    # the 34 API kinds and federation's Cluster
+    assert "io.k8s.api.core.v1.Cluster" in got["definitions"]
+    assert len(got["definitions"]) == len(KINDS) == 35
     assert len(got["paths"]) == 2 * len(KINDS)
 
 

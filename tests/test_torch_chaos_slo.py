@@ -1,9 +1,10 @@
 """Chaos disruptions and SLO enforcement in the port (``testing/chaos.py``,
-``testing/slo.py``): twin of ``tests/test_chaos_slo.py`` on what the port
-runs.  The port has no kubelets or controllers yet, so the workloads are
-pods created directly and the partition is exercised on a stand-in
-fleet; the protocol, the disruptions and the SLO gate are the JAX
-package's.
+``testing/slo.py``).  Every test of ``tests/test_chaos_slo.py`` runs whole
+through both packages (``test_twin``, ``tests/torch_twin``), hollow
+kubelets and the controller manager included: both pass its assertions
+and leave equal stores.  The port's own cases beside them hold the
+protocol, the disruptions and the SLO gate with pods created directly and
+a stand-in fleet, under the batch backend.
 
 Tolerance: exact (every pod bound exactly once; thresholds as stated).
 """
@@ -30,6 +31,7 @@ from kubernetes_tpu_torch.testing import (
 )
 from kubernetes_tpu_torch.testutil import make_node, make_pod
 from kubernetes_tpu_torch.utils.metrics import Counter, Histogram
+from tests.torch_twin import cases, twin
 
 
 class FakeClock:
@@ -186,3 +188,16 @@ def test_a_raising_tick_never_leaks_an_armed_plan():
     with pytest.raises(RuntimeError):
         cm.run()
     assert cm.recovered and active_plan() is None
+
+
+# the port's ReplicaSet controller creates a slow-start batch on up to 8
+# threads (ROADMAP kept divergence w): the order in which the density
+# run's 200 pods reach the scheduler, and with it the round-robin tie
+# picks, differs by run.  That case's own assertions hold in both packages.
+BY_RUN = {"test_scheduler_slis_meet_slo_in_density_run": ["nodeName"]}
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("test", cases("test_chaos_slo"))
+def test_twin(test, tmp_path):
+    twin("test_chaos_slo", test, tmp_path, extra_volatile=BY_RUN.get(test, ()))

@@ -148,6 +148,13 @@ def test_init_join_down(tmp_path):
             time.sleep(0.3)
         state = json.loads((tmp_path / STATE).read_text())
         assert {"kubelet-join-0", "kubelet-join-1"} <= set(state["pids"])
+        # a kubelet registers its node before its proxies start and it logs
+        # that it runs: wait for the line before down stops it
+        logs = tmp_path / ".kubernetes-tpu-torch" / "logs"
+        while not all("hollow node(s) running" in (logs / f"{name}.log").read_text()
+                      for name in ("kubelet-join-0", "kubelet-join-1")):
+            assert time.time() < deadline, "the joined kubelets did not start"
+            time.sleep(0.3)
     finally:
         down = _cluster(tmp_path, "down")
     assert down.returncode == 0, down.stderr

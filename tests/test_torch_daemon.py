@@ -1142,11 +1142,12 @@ def test_hyperkube_multiplexer():
 
     assert set(COMPONENTS) == {"apiserver", "kube-apiserver", "scheduler", "kube-scheduler",
                                "kubelet", "controller-manager", "kube-controller-manager",
-                               "cloud-controller-manager"}
-    assert main(["--help"]) == 0 and main([]) == 2 and main(["kubectl"]) == 2
+                               "cloud-controller-manager", "kubectl", "kubefed"}
+    assert main(["--help"]) == 0 and main([]) == 2 and main(["kubeadm"]) == 2
     # the kubelet and the cloud controller manager without --apiserver or
     # --kubeconfig are usage errors there
-    for component in ("kubelet", "cloud-controller-manager"):
+    # (kubectl and kubefed without a verb too)
+    for component in ("kubelet", "cloud-controller-manager", "kubectl", "kubefed"):
         with pytest.raises(SystemExit) as exc:
             main([component])
         assert exc.value.code == 2

@@ -91,6 +91,10 @@ _LIFECYCLE_MODULES = (
     "dns", "dns.__main__", "dns.records", "dns.server",
     "proxy", "proxy.proxier", "proxy.healthcheck", "proxy.userspace", "proxy.hollow",
     "cloud", "cloud.__main__", "cloud.controllers", "cloud.manager", "cloud.provider")
+# the JAX package's cli/ and federation/, every module ported
+_CLI_MODULES = (
+    "cli", "cli.kubectl", "federation", "federation.__main__", "federation.controllers",
+    "federation.kubefed", "federation.manager", "federation.types")
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -137,13 +141,48 @@ def test_import_leaves_jax_and_reference_unloaded():
             "kubernetes_tpu_torch.controllers",
             # cluster lifecycle, the DNS addon, the hollow proxy and the cloud
             "kubernetes_tpu_torch.cluster",
-            *(f"kubernetes_tpu_torch.{m}" for m in _LIFECYCLE_MODULES)} <= set(mods)
+            *(f"kubernetes_tpu_torch.{m}" for m in _LIFECYCLE_MODULES),
+            # kubectl and federation
+            *(f"kubernetes_tpu_torch.{m}" for m in _CLI_MODULES)} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'kubernetes_tpu', 'cryptography')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _cli_sources():
+    for sub in ("cli", "federation"):
+        d = os.path.join(PORT_DIR, sub)
+        for f in sorted(os.listdir(d)):
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+
+
+@pytest.mark.parametrize("path", list(_cli_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_cli_modules_import_neither_torch_nor_yaml_at_module_level(path):
+    """kubectl and kubefed start as processes of their own a command:
+    neither loads ``torch``, and PyYAML only where YAML is read or
+    written."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    assert not _top_level_imports(tree) & {"torch", "yaml"}, os.path.relpath(path, ROOT)
+
+
+def test_cli_import_leaves_torch_and_yaml_unloaded():
+    mods = [f"kubernetes_tpu_torch.{m}" for m in _CLI_MODULES] + ["kubernetes_tpu_torch.__main__"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in ('torch', 'yaml') if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -6,7 +6,9 @@ cpu``.  1000 pods are created in one batch; every pod must reach
 port's sequential oracle over the cluster as read back (exact).  The
 fleet process exits 0 on SIGTERM.  ``kubelet --count 3 --proxy`` runs a
 hollow kube-proxy beside each node: every proxier converges on a
-Service's rule (its ``/metrics``), and the process exits 0 on SIGTERM.  A
+Service's rule (its ``/metrics``), and the process exits 0 on SIGTERM.
+``kubelet --count 3 --serve-logs`` answers ``kubectl logs`` and ``exec``
+through the apiserver on its renamed nodes.  A
 kubelet with neither ``--apiserver`` nor ``--kubeconfig`` leaves with
 exit 2, as the JAX entry point does."""
 
@@ -196,6 +198,56 @@ def test_kubelet_proxy_fleet_converges_a_service(tmp_path):
         m = _proxy_metrics(hp)
         assert (m["rules"], m["rule_endpoints"], m["rule_sets_differing"]) == (3, 6, 0)
         assert m["syncs_total"] >= 6
+        assert _terminate(fleet) == 0
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
+
+@pytest.mark.timeout(120)
+def test_a_serving_fleet_answers_kubectl_logs_and_exec(tmp_path):
+    """``kubelet --count 3 --serve-logs``: each renamed node of the fleet
+    serves the kubelet API, so ``kubectl logs`` and ``kubectl exec`` reach
+    a pod on it through the apiserver (exec presents the token of the
+    node's own name); the fleet exits 0 on SIGTERM."""
+    from kubernetes_tpu_torch.client.remote import RemoteStore
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    ap = _free_port()
+    url = f"http://127.0.0.1:{ap}"
+    procs = []
+
+    def spawn(name, *args):
+        proc = subprocess.Popen([sys.executable, "-m", *args], env=_env(), cwd=tmp_path,
+                                stdout=open(tmp_path / f"{name}.out", "w"),
+                                stderr=open(tmp_path / f"{name}.err", "w"))
+        procs.append((name, proc))
+        return proc
+
+    def kubectl(*argv):
+        proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch", "kubectl",
+                               "--server", url, *argv], env=_env(), cwd=tmp_path,
+                              capture_output=True, text=True, timeout=60)
+        return proc.returncode, proc.stdout
+
+    try:
+        spawn("apiserver", "kubernetes_tpu_torch.apiserver", "--port", str(ap))
+        _wait(lambda: b"ok" in urllib.request.urlopen(url + "/healthz", timeout=2).read(),
+              procs, "apiserver /healthz", 60)
+        fleet = spawn("kubelet", "kubernetes_tpu_torch", "kubelet", "--apiserver", url,
+                      "--count", "3", "--name", "sv", "--serve-logs", "--tick", "0.2")
+        rs = RemoteStore(url, timeout=30.0)
+        _wait(lambda: [bool((n.get("status") or {}).get("kubeletURL"))
+                       for n in rs.list("Node")[0]] == [True] * 3,
+              procs, "three serving nodes", 60)
+        rs.create("Pod", make_pod("p", node_name="sv-00001").to_dict())
+        _wait(lambda: (rs.get("Pod", "default", "p").get("status") or {}).get("phase")
+              == "Running", procs, "the pod Running", 60)
+        rc, out = kubectl("logs", "p")
+        assert rc == 0 and "container c0 started" in out, out
+        assert kubectl("exec", "p", "--", "echo", "hi") == (0, "echo hi\n")
         assert _terminate(fleet) == 0
     finally:
         for _, proc in procs:

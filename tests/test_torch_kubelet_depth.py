@@ -7,11 +7,11 @@ on the same fake clock and holds the outcomes equal: pod phases, reasons,
 restart counts, container states, the Ready condition, node conditions,
 eviction order, HTTP status codes and bodies.  Exact.
 
-Halves that need modules the port does not have yet wait (ROADMAP.md):
-the Endpoints half of the readiness test (the endpoint controller, Queue
-1 item 10), the apiserver half of the two log tests (the pod log
-subresource, item 8c), and the exec-through-apiserver and discovery/top
-tests (items 8c and 11)."""
+The halves that go through the apiserver run in
+``tests/test_torch_kubelet_proxies.py``: the Endpoints half of the
+readiness test, the apiserver and ``kubectl logs`` half of the logs
+test, and the ``kubectl exec`` and discovery/``top pods`` tests, each
+whole through both packages."""
 
 from __future__ import annotations
 

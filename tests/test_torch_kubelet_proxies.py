@@ -2,14 +2,16 @@
 the pod subresources ``log``, ``exec``, ``attach`` and ``cp``, the node
 proxy, and the Endpoints half of the readiness test.
 
-Two twins run ``tests/test_kubelet_depth.py`` cases whole through both
-packages (``tests/torch_twin``).  The log half of
-``test_pod_logs_through_kubelet_server_and_apiserver`` runs here over
-plain HTTP (its ``kubectl logs`` part waits for the port's kubectl,
-ROADMAP.md Queue 1 item 11).  The other scenarios run through both
-packages with ``both`` and compare status codes and bodies.  A last test
-is the port's own: a ``cp`` PUT and a GET on one kept-alive connection
-(the JAX server keeps no connection alive)."""
+Five twins run ``tests/test_kubelet_depth.py`` cases whole through both
+packages (``tests/torch_twin``), three of them through ``kubectl``
+(``logs``, ``exec``, discovery and ``top pods``): both pass the test's
+assertions, leave equal stores and answer every ``kubectl`` call with the
+same exit code and output.  The log half of
+``test_pod_logs_through_kubelet_server_and_apiserver`` also runs here over
+plain HTTP.  The other scenarios run through both packages with ``both``
+and compare status codes and bodies.  A last test is the port's own: a
+``cp`` PUT and a GET on one kept-alive connection (the JAX server keeps
+no connection alive)."""
 
 from __future__ import annotations
 
@@ -28,6 +30,14 @@ from tests.torch_twin import twin
 @pytest.mark.timeout(60)
 def test_log_path_traversal_and_stale_buffers_blocked(tmp_path):
     twin("test_kubelet_depth", "test_log_path_traversal_and_stale_buffers_blocked", tmp_path)
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("test", ["test_pod_logs_through_kubelet_server_and_apiserver",
+                                  "test_kubectl_exec_through_apiserver_and_kubelet",
+                                  "test_discovery_and_top_pods"])
+def test_kubectl_twin(test, tmp_path):
+    twin("test_kubelet_depth", test, tmp_path, echo=["cli.kubectl:main"])
 
 
 @pytest.mark.timeout(60)

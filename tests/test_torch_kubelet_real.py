@@ -10,9 +10,11 @@ codes, file contents, whether a pid changed or lived (never the pid
 itself, which the kernel picks).  Every scenario reaps the processes it
 started in a ``finally``.
 
-``test_kubectl_exec_reaches_a_real_process`` has no twin yet: it needs
-the pod exec subresource and kubectl (ROADMAP.md, Queue 1 items 8c and
-11)."""
+``test_kubectl_exec_reaches_a_real_process`` runs whole through both
+packages (``tests/torch_twin``): both pass its assertions and leave equal
+stores, the containers' pids masked.  Its ``kubectl exec`` calls are
+held by the test's own assertions: it retries until the container has
+run, so the number of calls differs by run."""
 
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import pytest
 import yaml
 
 from tests.torch_kubelet_pkg import FakeClock, both
+from tests.torch_twin import twin
 
 
 def real_pod(P, name, command=None, volumes=None, mounts=None, liveness=None):
@@ -751,3 +754,9 @@ def test_real_container_fleet_across_nodes(tmp_path):
         return placement
 
     both(scenario)
+
+
+@pytest.mark.timeout(60)
+def test_kubectl_exec_reaches_a_real_process(tmp_path):
+    twin("test_kubelet_real", "test_kubectl_exec_reaches_a_real_process", tmp_path,
+         extra_volatile=["containerID"])

@@ -6,11 +6,14 @@ variants of them) through both packages' ``convert_to_internal`` /
 ``convert_from_internal``; the outputs must be equal dicts, and equal to
 what the JAX test asserts.  Exact: no tolerance applies.
 
-Where the JAX test drives ``kubectl apply`` and the deployment or cronjob
-controller (neither is ported yet: ROADMAP Queue 1 items 10-11), the twin
-stops at the typed object the controller would read: created through each
-package's clientset (and, for the Deployment, POSTed to each package's
-apiserver), read back, and compared.
+Beside them, every JAX test runs whole through both packages
+(``tests/torch_twin``), ``kubectl apply`` and the deployment and cronjob
+controllers included: both pass its assertions, leave equal stores and
+answer every ``kubectl`` call with the same exit code and output.  The
+two tests that drive kubectl and the controllers keep a half of their
+own beside the twin: the typed object the controller reads, created
+through each package's clientset (and, for the Deployment, POSTed to each
+package's apiserver), read back, and compared.
 
 The port's decoder copies a hub-form document shallowly (the apiserver's
 ``:batch`` create relies on it); a spoke's decoder works on a deep copy,
@@ -29,6 +32,7 @@ import yaml
 
 from kubernetes_tpu.api import scheme as jax_scheme
 from kubernetes_tpu_torch.api import scheme as port_scheme
+from tests.torch_twin import cases, twin
 
 V1BETA1_DEPLOYMENT = """
 apiVersion: apps/v1beta1
@@ -104,7 +108,7 @@ def test_v1beta1_deployment_decodes_with_defaulting():
 def test_reference_era_yaml_applies_unchanged():
     """The era's YAML, decoded, created through each package's clientset and
     POSTed to each package's apiserver, reads back as the same hub
-    Deployment (the kubectl and controller half waits for their port)."""
+    Deployment (``kubectl apply`` and the rollout: ``test_twin``)."""
     from kubernetes_tpu.apiserver import APIServer as JaxAPIServer
     from kubernetes_tpu.client import Clientset as JaxClientset
     from kubernetes_tpu.store import Store as JaxStore
@@ -210,8 +214,8 @@ def test_batch_v2alpha1_cronjob_decodes():
     assert spec["schedule"] == "0 3 * * *"
     assert spec["jobTemplate"]["completions"] == 1
     assert spec["jobTemplate"]["template"]["metadata"]["labels"] == {"job": "backup"}
-    # the typed CronJob the cronjob controller reads (its spawn waits for
-    # the controller's port): equal in both packages
+    # the typed CronJob the cronjob controller reads (its spawn:
+    # ``test_twin``): equal in both packages
     read = []
     for cs, fd in ((JaxClientset(JaxStore()), jax_from_dict), (Clientset(Store()), from_dict)):
         cs.cronjobs.create(fd(internal))
@@ -251,3 +255,9 @@ def test_a_hub_form_document_is_copied_shallowly():
     from kubernetes_tpu_torch.api import types as port_types
 
     assert not hasattr(port_types, "convert_to_internal")
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("test", cases("test_scheme"))
+def test_twin(test, tmp_path):
+    twin("test_scheme", test, tmp_path, echo=["cli.kubectl:main"])

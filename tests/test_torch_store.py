@@ -515,18 +515,19 @@ def test_wire_dict_matches_reference_and_round_trips(kind):
 def test_registry_and_scopes_match_reference():
     jax_types = importlib.import_module("kubernetes_tpu.api.types")
     port_types = importlib.import_module("kubernetes_tpu_torch.api.types")
+    # each package's apiserver registers federation's Cluster kind on import
+    for root in ("kubernetes_tpu", "kubernetes_tpu_torch"):
+        importlib.import_module(f"{root}.federation.types")
     for kind in port_types.KINDS:
         assert port_types.KIND_PLURALS[kind] == jax_types.KIND_PLURALS[kind]
         assert (kind in port_types.CLUSTER_SCOPED_KINDS) == (kind in jax_types.CLUSTER_SCOPED_KINDS)
-    # every kind of the JAX registry: 34 since the slice of the remaining
-    # kinds.  The JAX apiserver module also registers federation's
-    # Cluster kind when it is imported (the federation group is not
-    # ported), so it is left out of the comparison.
-    assert set(port_types.KINDS) == set(jax_types.KINDS) - {"Cluster"}
-    assert len(port_types.KINDS) == 34
+    # every kind of the JAX registry: the 34 API kinds and federation's
+    # Cluster
+    assert set(port_types.KINDS) == set(jax_types.KINDS)
+    assert len(port_types.KINDS) == 35
     assert {k: port_types.KIND_PLURALS[k] for k in port_types.KINDS} == {
         k: jax_types.KIND_PLURALS[k] for k in port_types.KINDS}
-    assert port_types.CLUSTER_SCOPED_KINDS == jax_types.CLUSTER_SCOPED_KINDS - {"Cluster"}
+    assert port_types.CLUSTER_SCOPED_KINDS == jax_types.CLUSTER_SCOPED_KINDS
 
 
 def _store_history(pkg):

@@ -14,7 +14,10 @@ owners, statuses, taints and podCIDRs stay).
 The pod and job name counters of the controllers (``_suffix``) restart at
 1 before each run, so controller-made names compare too.  ``lazy`` sets
 both packages' ``api.lazy.ENABLED`` for the run (lazy informer decode on
-or off)."""
+or off).  ``echo`` names command-line entry points (``"cli.kubectl:main"``)
+whose every call the test makes is recorded, its arguments, exit code and
+output, with the ports of URLs and the names of temporary files masked:
+the two packages' records must be equal too."""
 
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import ast
 import contextlib
 import importlib
 import inspect
+import io
 import itertools
 import re
 import sys
@@ -38,6 +42,11 @@ _PKG_RE = re.compile(r"\bkubernetes_tpu\b")
 _MODULES: dict[tuple[str, str], types.ModuleType] = {}
 # the port of a URL a test server bound (an ephemeral port) differs by run
 _URL_PORT_RE = re.compile(r"(://[\w.\-]+):\d+")
+
+# a temporary file or directory's name (``tempfile``'s "tmp" + 8 characters)
+_TMP_NAME_RE = re.compile(r"\btmp\w{8}\b")
+# a loopback address with the port a test server bound, outside a URL
+_LOOPBACK_PORT_RE = re.compile(r"\b(127\.0\.0\.1|localhost):\d+")
 
 # keys dropped at any depth of a dump: identities and clocks that differ
 # between two runs of one scenario
@@ -159,28 +168,77 @@ def _fixture(mod, fx, stack, tmp_root):
     return value
 
 
+@contextlib.contextmanager
+def _echoing(which: str, mod: types.ModuleType, entries: Iterable[str], calls: list):
+    """Wrap each entry point ``"module:attr"`` (a ``main(argv, clientset,
+    out)``) in the package and in the test module's names, recording
+    ``[entry, argv, exit code, output]`` for every call."""
+    undo = []
+    for entry in entries:
+        path, attr = entry.split(":")
+        owner = importlib.import_module(f"{ROOTS[which]}.{path}")
+        fn = getattr(owner, attr)
+
+        def recorded(argv=None, clientset=None, out=None, _fn=fn, _entry=entry):
+            buf = io.StringIO()
+            rc = _fn(argv, clientset, buf)
+            text = buf.getvalue()
+            (out or sys.stdout).write(text)
+            calls.append([_entry, list(argv or []), rc, text])
+            return rc
+
+        for ns in (owner.__dict__, mod.__dict__):
+            for key, value in list(ns.items()):
+                if value is fn:
+                    ns[key] = recorded
+                    undo.append((ns, key, fn))
+    try:
+        yield
+    finally:
+        for ns, key, fn in reversed(undo):
+            ns[key] = fn
+
+
+def _mask_text(text: str) -> str:
+    text = _LOOPBACK_PORT_RE.sub(r"\1:<port>", scrub(text))
+    return _TMP_NAME_RE.sub("tmp<name>", text)
+
+
+def _mask(calls: list) -> list:
+    return [[entry, [_mask_text(a) for a in argv], rc, _mask_text(text)]
+            for entry, argv, rc, text in calls]
+
+
 def run(name: str, test: str, which: str, tmp_root: Path, lazy: Optional[bool] = None,
-        extra: frozenset = frozenset()) -> list:
+        extra: frozenset = frozenset(), echo: Iterable[str] = (),
+        calls: Optional[list] = None) -> list:
     mod = load(name, which)
     stores: list = []
     _reset_counters(which)
     with _lazy(lazy), contextlib.ExitStack() as stack:
-        with _recording(which, stores):
+        with _recording(which, stores), _echoing(which, mod, echo,
+                                                  calls if calls is not None else []):
             _call(mod, getattr(mod, test), stack, tmp_root)
         dumps = [dump(s, extra) for s in stores]
     return dumps
 
 
 def twin(name: str, test: str, tmp_root: Path, lazy: Optional[bool] = None,
-         extra_volatile: Iterable[str] = ()) -> list:
+         extra_volatile: Iterable[str] = (), echo: Iterable[str] = ()) -> list:
     """Run ``test`` of ``tests/<name>.py`` on the JAX package, then on the
-    port; both must pass and leave equal store dumps.  Returns the port's."""
+    port; both must pass and leave equal store dumps (and equal records
+    of the ``echo`` entry points' calls).  Returns the port's dumps."""
     extra = frozenset(extra_volatile)
-    jax_dumps = run(name, test, "jax", tmp_root, lazy, extra)
-    port_dumps = run(name, test, "port", tmp_root, lazy, extra)
+    calls = {"jax": [], "port": []}
+    jax_dumps = run(name, test, "jax", tmp_root, lazy, extra, echo, calls["jax"])
+    port_dumps = run(name, test, "port", tmp_root, lazy, extra, echo, calls["port"])
     assert len(port_dumps) == len(jax_dumps)
     for i, (p, j) in enumerate(zip(port_dumps, jax_dumps)):
         assert p == j, f"store {i} differs: {_first_difference(p, j)}"
+    port_calls, jax_calls = _mask(calls["port"]), _mask(calls["jax"])
+    assert len(port_calls) == len(jax_calls), (len(port_calls), len(jax_calls))
+    for p, j in zip(port_calls, jax_calls):
+        assert p == j, f"call differs: {_first_difference(p, j)}"
     return port_dumps
 
 
