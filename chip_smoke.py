@@ -7,8 +7,8 @@ Phases, one line each:
 
 1. the card: name and power limit as nvidia-smi reports them;
 2. build the CUDA kernels from ``kubernetes_tpu_torch/ops/csrc`` (the fused
-   scan and the frontier loop's refresh, one ``nvcc`` each, started
-   together), and name which host helpers (``native.py``: the label
+   scan, the frontier loop's refresh and the mesh scan, one ``nvcc`` each,
+   started together), and name which host helpers (``native.py``: the label
    matcher and the store's deep copy) serve, ``native`` or ``python``;
 3. the kernel against its plain PyTorch version (``ops/scan_ref.py``) on
    the card, on 1000-node x 2000-pod ``mixed`` and ``plain`` segments; on
@@ -288,7 +288,25 @@ Phases, one line each:
    across (e); (c) ``cluster down``:
    every process it recorded gone, the apiserver's port closed, the state
    file removed, and the scheduler's stats line in its log (``device
-   cuda``, fused-scan launches > 0: the ``cluster`` path).
+   cuda``, fused-scan launches > 0: the ``cluster`` path);
+17. the node-axis mesh on the card (``parallel/mesh.py``,
+   ``ops/csrc/mesh_scan.cu``; the shards share the one card): (a) phase 4's
+   main segment (5000 x 20 000 ``mixed``, seed 0) through
+   ``schedule_batch_sharded`` in 2 and 4 shards and its 20 000 x 500
+   segment in 4, each equal pod for pod and in rr to the fused scan's
+   launch, with the mesh kernel's device time, µs a pod and bound; (b) the
+   mesh kernel against its plain version (``scan_ref.scan_shards``) at
+   1000 x 1024 ``mixed`` in 4 shards and on an uneven 1003-node x 128-pod
+   segment padded to 1004 columns (no padded column chosen), and ``FrontierRun(mesh=)`` on a tie
+   fixture (40 nodes with staggered pod caps, 300 pods) in 2, 4 and 8
+   shards on the card against the same loop on the CPU, compacting at
+   least once; (c) ``BatchBackend(frontier_mesh=True, mesh_devices=4)``
+   under the scheduler's churn at 5000 nodes, 4 waves of 1000 pods (run
+   right after phase 6, its per-pod oracle replay in a process of its own
+   beside phases 7-16): every segment in mesh mode on 4 shards within
+   compactions + 2 host syncs, the per-shard upload fractions and the
+   three mesh gauges set, every wave's bindings and the counter at each
+   batch's start equal to the oracle's.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -368,16 +386,21 @@ def cluster(n_nodes: int, n_pods: int, workload: str, seed: int, zones: int = 0,
     return m, pods, PriorityContext(m, services=make_services())
 
 
-def segment(m, pods, pctx, device, frontier: bool = False):
+def segment(m, pods, pctx, device, frontier: bool = False, pad_multiple: int = 128,
+            shards: int = 1):
     """One segment tensorized exactly as BatchBackend tensorizes its first
     segment of the same batch, carried to ``device``; ``frontier`` seeds
-    its ``still_ok`` plane (``frontier_seed``) for a frontier loop."""
+    its ``still_ok`` plane (``frontier_seed``) for a frontier loop;
+    ``pad_multiple`` is the tensorizer's node-axis padding, and ``shards``
+    pads the axis on to a multiple of a mesh's shard count
+    (``pad_segment_to_multiple``)."""
     from kubernetes_tpu_torch.models.carry import from_reference
-    from kubernetes_tpu_torch.models.snapshot import HostBatchState, Tensorizer, frontier_seed
+    from kubernetes_tpu_torch.models.snapshot import (HostBatchState, Tensorizer, frontier_seed,
+                                                      pad_segment_to_multiple)
     from kubernetes_tpu_torch.ops.backend import BatchBackend
 
     w = BatchBackend(device=device)._config_supported()
-    tz = Tensorizer()
+    tz = Tensorizer(pad_multiple=pad_multiple)
     host = HostBatchState(m)
     static = tz.build_static(
         pods, m, pctx, least_requested_weight=w["least"],
@@ -389,6 +412,7 @@ def segment(m, pods, pctx, device, frontier: bool = False):
     init = tz.initial_state(static, m, pctx, pods, round_robin=0, host_state=host)
     if frontier:
         frontier_seed(static, init)
+    static, init = pad_segment_to_multiple(static, init, shards)
     s, st = from_reference(vars(static), vars(init), device)
     return static, s, st
 
@@ -978,16 +1002,18 @@ def repaired_shapes() -> tuple[list, dict]:
     return errs, cells
 
 
-def other_segments() -> tuple[list, dict]:
+def other_segments() -> tuple[list, dict, tuple]:
     """Phase 4's other segments, kernel against the plain version; returns
-    their max_abs_err and the refresh's cell at the 20 000-node segment's
-    width.  5000 and 10 000 nodes keep every plane in 16 blocks' shared
-    memory; 20 000 nodes leave spread and the node rows in global memory.
-    Their clusters are freed on return, so the later phases' garbage
-    collections do not walk them."""
+    their max_abs_err, the refresh's cell at the 20 000-node segment's
+    width, and that segment with the kernel's result (ScanStatic,
+    ScanState, chosen, rr: phase 17 holds the mesh against it).  5000 and
+    10 000 nodes keep every plane in 16 blocks' shared memory; 20 000 nodes
+    leave spread and the node rows in global memory.  Their clusters are
+    freed on return, so the later phases' garbage collections do not walk
+    them."""
     from kubernetes_tpu_torch.ops import fused_scan
 
-    errs, cell = [], None
+    errs, cell, wide = [], None, None
     for n_nodes, n_pods, seed in ((5000, 2000, 3), (10000, 1000, 4), (20000, 500, 6)):
         m, pods, pctx = cluster(n_nodes, n_pods, "mixed", seed=seed)
         _, s, st = segment(m, pods, pctx, "cuda")
@@ -1001,7 +1027,8 @@ def other_segments() -> tuple[list, dict]:
                 raise AssertionError("the 20 000-node segment was meant to leave planes "
                                      "in global memory")
             cell = refresh_cell(f"4 mixed {n_nodes}x{n_pods}", s, st)
-    return errs, cell
+            wide = (s, st, r["chosen"], r["rr"])
+    return errs, cell, wide
 
 
 INGEST_KEYS = ("frames", "frame_events", "promotions", "confirm_fallbacks", "decode_s")
@@ -1150,10 +1177,11 @@ def own_processes() -> dict:
     return found
 
 
-def stop_own_processes(grace_s: float = 10.0) -> dict:
-    """SIGTERM what ``own_processes`` finds, SIGKILL what still runs
+def stop_own_processes(grace_s: float = 10.0, keep=()) -> dict:
+    """SIGTERM what ``own_processes`` finds but the pids in ``keep`` (a
+    worker meant to outlive the phase), SIGKILL what still runs
     ``grace_s`` later; returns what it found."""
-    found = own_processes()
+    found = {pid: cmd for pid, cmd in own_processes().items() if pid not in keep}
     for pid in found:
         try:
             os.kill(pid, signal.SIGTERM)
@@ -2089,12 +2117,13 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
 
     class Recorded(backend_mod.FrontierRun):
         """Keeps each loop exit's state on the card for the checks after
-        the counted run."""
+        the counted run (one shard: the refresh's plane and mask are its
+        first)."""
 
         def _sync_loop(self):
             out = super()._sync_loop()
             exits.append((self.static, self._plan, {k: v.clone() for k, v in self._bufs.items()},
-                          self._still.clone(), self._alive.clone(), self._ctl.clone(),
+                          self._still[0].clone(), self._alive[0].clone(), self._ctl.clone(),
                           self._loop_thresh()))
             return out
 
@@ -4911,6 +4940,283 @@ def report_lifecycle(r: dict, pps_6a: float, phase_s: float, device: str = "cuda
         raise AssertionError(f"phase 16: {failed}")
 
 
+# -- phase 17: the node-axis mesh on the card ---------------------------------
+
+MESH_REPLACES = "kubernetes_tpu/ops/batch_kernel.py:905"
+
+
+def mesh_of(n: int):
+    """A mesh of ``n`` shards, all on the card (the port's shards share one
+    device)."""
+    from kubernetes_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, devices=["cuda"] * n)
+
+
+def mesh_ring(s, st, n: int, reps: int) -> tuple:
+    """The mesh kernel's plan for ``s`` in ``n`` shards and ``reps``
+    prepared launches of the whole segment, each on its own packing and
+    control words (the kernel updates the state planes in place)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import fused_scan, mesh_scan
+    from kubernetes_tpu_torch.parallel import place_state, place_static
+
+    statics, states = place_static(s, mesh_of(n)), place_state(st, mesh_of(n))
+    pl = mesh_scan.plan(statics)
+    ring = []
+    for _ in range(reps):
+        bufs = mesh_scan.pack(statics, states, pl)
+        ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
+        ctl[fused_scan.CTL_RR] = st.round_robin
+        ring.append(lambda b=bufs, c=ctl: mesh_scan.launch(b, pl, 0, s.p_real, c))
+    return pl, ring, mesh_scan.query(bufs, pl, ctl)
+
+
+def mesh_bound(s, st, pl) -> tuple[float, str, dict]:
+    """Least time for the sharded scan: row 1's (``bound``: the packed
+    inputs read once, the outputs written once, the pods' integer
+    operations) plus the two exchanges a pod, each block's messages (the
+    statistics, its best and tie count, its tie words) written once and
+    read once."""
+    _, _, detail = bound(s, st)
+    exchange = 2 * pl.grid * (pl.msg_a * 8 + 16 + pl.bw * 4) * s.p_real
+    nbytes = detail["bytes"] + exchange
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = detail["ops"] / ALU_OPS_PER_S * 1e3
+    out = {"bytes": nbytes, "exchange_bytes": exchange, "ops": detail["ops"]}
+    return (t_bytes, "bytes", out) if t_bytes >= t_ops else (t_ops, "operations", out)
+
+
+def sharded_cell(what: str, s, st, want, rr_want: int, n: int, card: str) -> dict:
+    """``schedule_batch_sharded`` of a segment in ``n`` shards on the card,
+    its launches counted around it, held pod for pod and in rr against the
+    fused scan's ``want``; then its device time over two prepared launches
+    (``device_ms``) and its bound.  Raises on a difference."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import mesh_scan
+    from kubernetes_tpu_torch.parallel import schedule_batch_sharded
+
+    torch.cuda.synchronize()
+    mesh_scan.launches = 0
+    got, rr = schedule_batch_sharded(s, st, mesh_of(n))
+    launches = mesh_scan.launches
+    err = int(abs(got.astype("int64") - want.astype("int64")).max())
+    if err or rr != rr_want or launches != 1:
+        raise AssertionError(f"phase 17a {what} in {n} shards != fused_scan.cu: max index diff "
+                             f"{err}, rr {rr} vs {rr_want}, launches {launches}")
+    pl, ring, resident = mesh_ring(s, st, n, 2)
+    ms = device_ms(ring)[0]
+    b_ms, b_by, detail = mesh_bound(s, st, pl)
+    print(f"phase 17a {what} ({s.n_pad} nodes x {s.p_real} pods) in {n} shards on one card "
+          f"through schedule_batch_sharded: == fused_scan.cu pod for pod (all {s.p_real}) and "
+          f"in rr {rr}; plan {pl.shards} shards x {pl.blocks} blocks of {pl.threads} threads, "
+          f"{pl.cols} columns a block ({pl.grid} blocks, {resident} resident at most); device_ms "
+          f"{ms:.3f} = {ms * 1e3 / s.p_real:.2f} us a pod; bound {b_ms:.4f} ms by {b_by} "
+          f"({detail['bytes']} bytes, {detail['exchange_bytes']} of them the exchanges, "
+          f"{detail['ops']} ops); card {card}", flush=True)
+    return {"ms": ms, "us_per_pod": ms * 1e3 / s.p_real, "bound_ms": b_ms, "bound_by": b_by,
+            "nodes": int(s.n_pad), "pods": int(s.p_real), "shards": n, "blocks": pl.blocks,
+            "grid": pl.grid, "launches": launches, "max_abs_err": err}
+
+
+def mesh_plain_cell(what: str, s, st, n: int, check=None) -> dict:
+    """The mesh kernel against its plain version (``scan_ref.scan_shards``)
+    on the card, on the same shards; ``check(chosen)`` adds a condition.
+    Returns the plain ms (CUDA events around it) and the kernel's device
+    ms."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import mesh_scan, scan_ref
+    from kubernetes_tpu_torch.parallel import place_state, place_static
+
+    statics, states = place_static(s, mesh_of(n)), place_state(st, mesh_of(n))
+    got, rr = mesh_scan.schedule(statics, states)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want, finals = scan_ref.scan_shards(statics, states)
+    end.record()
+    end.synchronize()
+    want = want.cpu().numpy()
+    err = int(abs(got.astype("int64") - want.astype("int64")).max()) if len(want) else 0
+    if err or rr != finals[0].round_robin or (check is not None and not check(got)):
+        raise AssertionError(f"phase 17b {what}: mesh_scan.cu != scan_ref.scan_shards in {n} "
+                             f"shards: max index diff {err}, rr {rr} vs {finals[0].round_robin}")
+    ms = device_ms(mesh_ring(s, st, n, 2)[1])[0]
+    plain_ms = start.elapsed_time(end)
+    print(f"phase 17b {what} in {n} shards: mesh_scan.cu == scan_ref.scan_shards (the plain "
+          f"sharded step) on the card, bound {int((want >= 0).sum())}/{len(want)}, rr {rr}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "nodes": int(s.n_pad), "pods": int(s.p_real),
+            "shards": n, "max_abs_err": err}
+
+
+def mesh_tie_loops() -> tuple[int, int]:
+    """17b's tie fixture: 40 identical nodes with staggered pod caps (every
+    score ties, columns die one after another) and 300 pods through
+    ``FrontierRun(mesh=)`` in 2, 4 and 8 shards, on the card (a mesh launch
+    a chunk, a refresh a shard) and on the CPU (the plain sharded step):
+    bindings, rr and every loop stat equal, at least one compaction.
+    Returns the card's mesh and refresh launches."""
+    from kubernetes_tpu_torch.models.carry import from_reference
+    from kubernetes_tpu_torch.models.snapshot import (Tensorizer, frontier_seed,
+                                                      pad_segment_to_multiple)
+    from kubernetes_tpu_torch.ops import frontier_refresh, mesh_scan
+    from kubernetes_tpu_torch.ops.frontier import FrontierRun
+    from kubernetes_tpu_torch.parallel import make_mesh
+    from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
+    from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
+    from kubernetes_tpu_torch.testutil import make_node, make_pod
+
+    m = {}
+    for i in range(40):
+        node = make_node(f"node-{i:03d}", cpu="64", memory="64Gi", pods=2 + i // 2,
+                         labels={"kubernetes.io/hostname": f"node-{i:03d}"})
+        m[node.meta.name] = NodeInfo(node)
+    pods = [make_pod(f"p-{i:03d}", cpu="100m", memory="128Mi", labels={"app": "web"})
+            for i in range(300)]
+    pctx = PriorityContext(m)
+    tz = Tensorizer()
+    static = tz.build_static(pods, m, pctx)
+    init = tz.initial_state(static, m, pctx, pods)
+    frontier_seed(static, init)
+    launches = refreshes = 0
+    for n in (2, 4, 8):
+        ps, pi = pad_segment_to_multiple(static, init, n)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            mesh_scan.launches = frontier_refresh.launches = 0
+            run = FrontierRun(*from_reference(vars(ps), vars(pi), dev), chunk_len=16,
+                              min_width=8, mesh=make_mesh(n, devices=[dev] * n))
+            runs[dev] = run.finalize(), run.stats
+        launches += mesh_scan.launches
+        refreshes += frontier_refresh.launches
+        (c_cpu, rr_cpu), st_cpu = runs["cpu"]
+        (c_gpu, rr_gpu), st_gpu = runs["cuda"]
+        if (c_gpu != c_cpu).any() or rr_gpu != rr_cpu or st_gpu != st_cpu \
+                or st_gpu["compactions"] < 1:
+            raise AssertionError(f"phase 17b the tie fixture in {n} shards: card != plain "
+                                 f"(rr {rr_gpu} vs {rr_cpu}), stats {st_gpu} vs {st_cpu}")
+        print(f"phase 17b tie fixture 40 x 300 (staggered caps, every score tied) in {n} "
+              f"shards, FrontierRun(mesh=) on the card == on the CPU: rr {rr_gpu}, widths "
+              f"{st_gpu['widths']}, compactions {st_gpu['compactions']}, host_syncs "
+              f"{st_gpu['host_syncs']}, shard alive fractions at the loop exits "
+              f"{st_gpu['shard_alive_frac']}", flush=True)
+    return launches, refreshes
+
+
+MESH_CHURN = {"n_nodes": 5000, "total_pods": 4000, "waves": 4, "seed": 0}
+
+
+def mesh_churn(pool) -> dict:
+    """Phase 17c's run: ``BatchBackend(frontier_mesh=True, mesh_devices=4)``
+    under the scheduler's churn at 5000 nodes (5a's generator), 4 waves of
+    1000 pods, every kernel's launch count read around it.  Every
+    segment must run in mesh mode on 4 shards, within compactions + 2 host
+    syncs, with the per-shard upload fractions and the three mesh gauges
+    set.  Its per-wave oracle replay is submitted to ``pool`` (a process
+    of its own, which outlives the phases after); ``mesh_churn_parity``
+    checks it."""
+    from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan, mesh_scan
+    from kubernetes_tpu_torch.workload import oracle_replay_waves, run_churn
+
+    c = MESH_CHURN
+    fused_scan.launches = frontier_refresh.launches = mesh_scan.launches = 0
+    r = run_churn(c["n_nodes"], c["total_pods"], c["waves"], "mixed", seed=c["seed"],
+                  device="cuda", backend_kw=dict(frontier_mesh=True, mesh_devices=4))
+    launches = {"mesh_scan": mesh_scan.launches, "frontier_refresh": frontier_refresh.launches,
+                "fused_scan": fused_scan.launches}
+    st = r["backend"]
+    for w, ph in enumerate(r["phase_timers"]):
+        segs = [{k: seg[k] for k in ("mode", "n_shards", "widths", "compactions",
+                                     "host_syncs")} for seg in ph["frontier"]]
+        print(f"phase 17c wave {w}: bound {ph['bound']} kernel_ms {ph['kernel_ms']:.3f} "
+              f"segments {segs} per-shard {json.dumps(ph['mesh'], sort_keys=True)}", flush=True)
+        bad = [seg for seg in ph["frontier"]
+               if seg["mode"] != "mesh" or seg["n_shards"] != 4
+               or seg["host_syncs"] > seg["compactions"] + 2]
+        if not ph["frontier"] or bad or not (ph["mesh"] or {}).get("shard_upload_fractions"):
+            raise AssertionError(f"phase 17c wave {w}: not every segment ran on the 4-shard "
+                                 f"mesh within its sync budget: {ph['frontier']} {ph['mesh']}")
+    gauges = r["mesh_gauges"]
+    print(f"phase 17c churn {c['n_nodes']}x{c['total_pods']} mixed in {c['waves']} waves on "
+          f"BatchBackend(frontier_mesh=True, mesh_devices=4): bound {r['bound']} unbound "
+          f"{r['unbound']} wall_s {r['wall_s']:.3f} pods_per_s {r['pods_per_sec']:.1f} "
+          f"launches {json.dumps(launches)} kernel_ms {st['kernel_ms']:.3f} host_syncs "
+          f"{st['host_syncs']} compactions {st['frontier_compactions']}; gauges "
+          f"{json.dumps(gauges, sort_keys=True)}; the oracle replay runs on in a process of "
+          f"its own", flush=True)
+    if (launches["mesh_scan"] < c["waves"] or launches["frontier_refresh"] < 4 * c["waves"]
+            or st["oracle_pods"] != 0 or st["kernel_pods"] != r["drained"]
+            or gauges["scheduler_mesh_shards"] != 4
+            or r["bound"] + r["unbound"] != r["pods"]):
+        raise AssertionError(f"phase 17c: launches {launches}, stats {st}, gauges {gauges}")
+    oracle = pool.submit(oracle_replay_waves, r["drain_batches"], r["assignments"],
+                         c["n_nodes"], c["total_pods"], "mixed", c["seed"])
+    return {"launches": launches, "oracle": oracle, "pods": r["pods"],
+            "round_robin": r["round_robin"], "drain_rr": r["drain_rr"]}
+
+
+def mesh_churn_parity(r: dict) -> None:
+    """17c's bindings against the per-pod oracle's replay, wave by wave,
+    and its counter as each drained batch started and at the end."""
+    t = time.perf_counter()
+    o = r["oracle"].result()
+    print(f"phase 17c vs the per-wave oracle replay: {o['mode']}, checked {o['checked']}, "
+          f"mismatches {o['mismatches']}, rr {r['round_robin']} vs {o['round_robin']}, rr at "
+          f"each batch's start equal {o['round_robin_before'] == r['drain_rr']} (waited "
+          f"{time.perf_counter() - t:.1f} s for it)", flush=True)
+    if (o["mode"] != "exact per-wave replay" or o["checked"] != r["pods"] or o["mismatches"]
+            or o["round_robin"] != r["round_robin"]
+            or o["round_robin_before"] != r["drain_rr"]):
+        raise AssertionError(f"phase 17c: the mesh churn != the per-wave oracle replay: {o}")
+
+
+def mesh_phase(main: tuple, wide: tuple, churn: dict, card: str) -> dict:
+    """Phase 17: (a) the main segment (phase 4's, with the fused scan's
+    result) through ``schedule_batch_sharded`` in 2 and 4 shards and the
+    20 000 x 500 segment in 4, each equal to the fused scan; (b) the mesh
+    kernel against its plain version at 1000 x 1024 in 4 shards, on an
+    uneven width padded, and on the tie fixture's loops in 2, 4 and 8
+    shards; (c) the check of 17c's run against its oracle.  Returns the
+    kernel table's entry for ``mesh_scan`` and the refresh's launches."""
+    s_main, st_main, whole, rr_whole = main
+    cells = {f"main_{n}": sharded_cell("main segment", s_main, st_main, whole, rr_whole, n, card)
+             for n in (2, 4)}
+    s_w, st_w, chosen_w, rr_w = wide
+    cells["wide_4"] = sharded_cell("mixed 20000x500", s_w, st_w, chosen_w, rr_w, 4, card)
+    m, pods, pctx = cluster(1000, 1024, "mixed", seed=1)
+    _, s, st = segment(m, pods, pctx, "cuda")
+    cells["mixed_1000x1024_4"] = plain = mesh_plain_cell("mixed 1000x1024", s, st, 4)
+    # the plain sharded step costs ~14 ms a pod on the card: 128 pods
+    m, pods, pctx = cluster(1003, 128, "mixed", seed=2)
+    _, s, st = segment(m, pods, pctx, "cuda", pad_multiple=1, shards=4)
+    if s.n_pad != 1004:
+        raise AssertionError(f"phase 17b: the uneven segment padded to {s.n_pad}, not 1004")
+    cells["uneven_1003x128_4"] = mesh_plain_cell(
+        "uneven 1003x128 (padded to 1004)", s, st, 4, check=lambda c: not (c >= 1003).any())
+    tie_launches, tie_refresh = mesh_tie_loops()
+    mesh_churn_parity(churn)
+    sharded = sum(c["launches"] for c in cells.values() if "launches" in c)
+    main4 = cells["main_4"]
+    return {
+        "name": "mesh_scan", "route": "cuda",
+        "source": "kubernetes_tpu_torch/ops/csrc/mesh_scan.cu", "replaces": MESH_REPLACES,
+        "launches": sharded + churn["launches"]["mesh_scan"],
+        "launches_by_path": {"sharded": sharded, "churn_mesh": churn["launches"]["mesh_scan"]},
+        "cells": cells, "tie_loop_launches": tie_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cells.values()),
+        "ms": main4["ms"], "us_per_pod": main4["us_per_pod"],
+        # the plain sharded step's time at 17b's 1000 x 1024 in 4 shards, the
+        # kernel's there beside it
+        "plain_ms": plain["plain_ms"], "plain_pods": plain["pods"], "plain_kernel_ms": plain["ms"],
+        "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
+        "library_ms": None,
+    }, churn["launches"]["frontier_refresh"], tie_refresh
+
+
 def main() -> int:
     import torch
 
@@ -4921,15 +5227,16 @@ def main() -> int:
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     from kubernetes_tpu_torch import native
-    from kubernetes_tpu_torch.ops import _build, frontier_refresh, fused_scan
+    from kubernetes_tpu_torch.ops import _build, frontier_refresh, fused_scan, mesh_scan
     from kubernetes_tpu_torch.ops.backend import BatchBackend
     from kubernetes_tpu_torch.scheduler.generic_scheduler import GenericScheduler
 
     t_start = time.perf_counter()
     laps, t_lap = {}, [t_start]
+    spared: set = set()  # 17c's oracle worker, which outlives the phases after it
 
     def lap(name: str) -> None:  # the seconds since the last lap, by phase
-        left = stop_own_processes()
+        left = stop_own_processes(keep=spared)
         if left:
             print(f"phase {name} left running (stopped): {json.dumps(left)}", flush=True)
         now = time.perf_counter()
@@ -4946,12 +5253,14 @@ def main() -> int:
         _build.build(name, verbose=True)  # prints ptxas registers and spills
         built[name] = time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:  # one nvcc a source, started together
-        list(pool.map(build, ("fused_scan", "frontier_refresh")))
+    kernels = ("fused_scan", "frontier_refresh", "mesh_scan")
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc a source, started together
+        list(pool.map(build, kernels))
     fused_scan.load()
     frontier_refresh.load()
-    print(f"phase 2 build: fused_scan {built['fused_scan']:.1f}s, frontier_refresh "
-          f"{built['frontier_refresh']:.1f}s, both {time.perf_counter() - t0:.1f}s", flush=True)
+    mesh_scan.load()
+    print(f"phase 2 build: " + ", ".join(f"{k} {built[k]:.1f}s" for k in kernels)
+          + f", all {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     helpers = native.helpers()
     print(f"phase 2 host helpers: matcher {helpers['matcher']}, fastcopy {helpers['fastcopy']} "
@@ -5009,7 +5318,7 @@ def main() -> int:
           f"{MAIN_WINDOW} pods from the initial state and on its last {MAIN_WINDOW} from the "
           f"kernel's state before them", flush=True)
     print(plan_line("main segment", s_main, st_main), flush=True)
-    other_errs, refresh_wide = other_segments()
+    other_errs, refresh_wide, wide = other_segments()
     errs = [r_main["max_abs_err"], *other_errs, *shape_errs]
 
     ms = time_kernel(s_main, st_main)
@@ -5033,6 +5342,12 @@ def main() -> int:
     lap("5")
     daemon_launches, pps_6a, idle_6a, daemon_refresh = daemon_phase()
     lap("6")
+    # 17c's run on the card now; its per-pod oracle replay (minutes of one
+    # core at 5000 nodes) runs on beside phases 7-16 and is checked in 17
+    mesh_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    spared.add(mesh_pool.submit(os.getpid).result())
+    churn_mesh = mesh_churn(mesh_pool)
+    lap("17c")
     preemption_launches, _ = preemption_phase()
     lap("7")
     policy_launches = policy_phase()
@@ -5058,6 +5373,11 @@ def main() -> int:
     lap("15")
     cluster_launches, cluster_refresh = lifecycle_phase(pps_6a)
     lap("16")
+    mesh_entry, mesh_refresh, tie_refresh = mesh_phase(
+        (s_main, st_main, whole, rr_whole), wide, churn_mesh, card)
+    mesh_pool.shutdown()
+    spared.clear()
+    lap("17")
 
     entry = {
         "name": "fused_scan", "route": "cuda",
@@ -5094,13 +5414,17 @@ def main() -> int:
         "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
         "launches": (refresh_launches + churn_refresh + eager_refresh + daemon_refresh
                      + pool_refresh + admitted_refresh + auth_refresh + drain_refresh
-                     + kubelet_refresh + controller_refresh + cluster_refresh),
+                     + kubelet_refresh + controller_refresh + cluster_refresh + mesh_refresh),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
                              "churn_eager": eager_refresh, "daemon": daemon_refresh,
                              "pool": pool_refresh,
                              "apiserver_defaults": admitted_refresh, "auth": auth_refresh,
                              "drain": drain_refresh, "kubelet": kubelet_refresh,
-                             "controllers": controller_refresh, "cluster": cluster_refresh},
+                             "controllers": controller_refresh, "cluster": cluster_refresh,
+                             # a refresh a shard a chunk under 17c's 4-shard mesh
+                             "churn_mesh": mesh_refresh},
+        # the per-shard refreshes of 17b's tie loops (held against the CPU)
+        "tie_loop_launches": tie_refresh,
         # the main segment's width; the other widths and the launch floor in cells
         "cells": refresh_cells,
         "max_abs_err": max([c["max_abs_err"] for c in refresh_cells.values()]
@@ -5113,7 +5437,7 @@ def main() -> int:
     }
     print(f"phase seconds {json.dumps(laps)}", flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [entry, refresh_entry]}))
+    print(json.dumps({"kernels": [entry, refresh_entry, mesh_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

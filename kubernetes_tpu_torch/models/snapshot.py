@@ -931,6 +931,23 @@ def compact_segment(static: BatchStatic, init: InitialState,
     return cstatic, cinit
 
 
+def pad_segment_to_multiple(static: BatchStatic, init: InitialState,
+                            multiple: int
+                            ) -> tuple[BatchStatic, InitialState]:
+    """Pad the node axis up to the next multiple of ``multiple`` (the
+    sharded loop needs every shard to own an equal slice).  Identity when
+    it already divides.  Padding rides ``compact_segment`` with the full
+    identity column set, so the padded columns are born dead:
+    ``node_exists`` and ``still_ok`` are False there, and no reduce of the
+    scan can see them as feasible."""
+    n = int(static.n_pad)
+    m = max(int(multiple), 1)
+    if n % m == 0:
+        return static, init
+    width = -(-n // m) * m
+    return compact_segment(static, init, np.arange(n), width)
+
+
 class Tensorizer:
     def __init__(
         self,

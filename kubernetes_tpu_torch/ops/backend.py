@@ -30,7 +30,11 @@ cut it).  Every route takes the four node-axis statics from a
 ``DeviceNodeCache`` kept across segments and waves (a prefiltered axis
 bypasses it).  A frontier failure, real or injected at ``backend.compact``
 (phases ``seed``, ``gather``, ``loop``), raises like a kernel failure:
-nothing retries the segment at full width.
+nothing retries the segment at full width.  With ``frontier_mesh=True`` the
+loop runs with the node axis split into shards (``parallel/mesh.py``, the
+mesh kernel ``ops/csrc/mesh_scan.cu`` on a card); its segment's entry in
+``last_frontier`` has ``mode`` ``"mesh"``, ``n_shards`` and the per-shard
+alive fractions.
 
 With tracing on, each kernel segment records a ``tensorize`` and a
 ``dispatch`` span from the same clock reads as the stats timers; the
@@ -60,9 +64,11 @@ from ..models.snapshot import (
     compact_segment,
     count_affinity_terms,
     frontier_seed,
+    pad_segment_to_multiple,
     pod_disk_vols,
     pod_signature_key,
 )
+from ..parallel.mesh import make_mesh, mesh_dispatch_span
 from ..scheduler.generic_scheduler import FitError, GenericScheduler
 from ..scheduler.nodeinfo import NodeInfo
 from ..scheduler.predicates import DEFAULT_PREDICATES
@@ -148,6 +154,17 @@ class BatchBackend:
         frontier_min_width: int = 128,
         frontier_device_loop: bool = True,
         frontier_engage_frac: float = 1.0,
+        # the node-axis mesh (parallel/mesh.py): True runs the frontier loop
+        # with the node axis split into shards (the mesh kernel on a card,
+        # the plain sharded step on the CPU); "auto", the JAX default, stays
+        # off until shards on several cards exist (the port's shards share
+        # the backend's device); False is off.  The shard count is the
+        # largest power of two <= mesh_devices (None: the device count of
+        # the backend's kind).  Fewer than 2 shards raise here, and a mesh
+        # launch that fails raises out of the segment: nothing degrades to
+        # the single-device loop.
+        frontier_mesh="auto",
+        mesh_devices: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self.algorithm = algorithm or GenericScheduler()
@@ -166,6 +183,10 @@ class BatchBackend:
         self.frontier_engage_frac = frontier_engage_frac
         # node-axis statics on the device, reused across segments and waves
         self.device_node_cache = DeviceNodeCache(self.device)
+        self.frontier_mesh = frontier_mesh
+        self.mesh_devices = mesh_devices
+        self._mesh = self._frontier_mesh() if self._mesh_enabled() else None
+        self.device_node_cache.set_mesh(self._mesh)
         # compactions into the scheduler's metrics when wired
         self.frontier_counter = None
         # this batch's frontier trajectory, one entry a frontier segment
@@ -294,6 +315,25 @@ class BatchBackend:
             return None
         return self._kernel_weights()
 
+    # -- the node-axis mesh ---------------------------------------------------
+    def _mesh_enabled(self) -> bool:
+        # "auto" engages the JAX package's mesh on a multi-device TPU; the
+        # port's shards would share one card, so it stays off
+        return self.frontier_mesh != "auto" and bool(self.frontier_mesh)
+
+    def _frontier_mesh(self):
+        """The node-axis mesh: the largest power-of-two shard count <=
+        mesh_devices, every shard on the backend's device.  Raises with
+        fewer than 2."""
+        n = (torch.cuda.device_count() if self.device.type == "cuda" else 1) \
+            if self.mesh_devices is None else int(self.mesh_devices)
+        p = 1
+        while p * 2 <= n:
+            p *= 2
+        if p < 2:
+            raise ValueError(f"the sharded loop needs >= 2 shards, mesh_devices gives {n}")
+        return make_mesh(p, devices=[self.device] * p)
+
     # -- the frontier's seams ----------------------------------------------
     def _on_frontier_compact(self, width: int, width_new: int, n_alive: int) -> None:
         # fault seam before the gather: an injected failure raises out of
@@ -364,15 +404,24 @@ class BatchBackend:
         if not chunked:
             # one launch over the whole segment: the frontier plane stays home
             cinit = dataclasses.replace(cinit, still_ok=None)
+        mesh = self._mesh if chunked else None
+        if mesh is not None:
+            # every shard owns an equal slice: pad with dead columns (the
+            # real columns keep their indices)
+            cstatic, cinit = pad_segment_to_multiple(cstatic, cinit, mesh.size)
+            entry["prefilter"][1] = int(cstatic.n_pad)
+            span_attrs["frontier"] = "mesh"
         scan_static, scan_state = from_reference(
             vars(cstatic), vars(cinit), self.device,
             node_arrays=self.device_node_cache.node_arrays(cstatic))
         if chunked:
-            run = FrontierRun(scan_static, scan_state, chunk_len=self.frontier_chunk,
-                              compact_frac=self.frontier_compact_frac,
-                              min_width=self.frontier_min_width,
-                              on_compact=self._on_frontier_compact,
-                              on_loop=self._on_frontier_loop)
+            with (mesh_dispatch_span(mesh, cstatic.n_pad) if mesh is not None
+                  else tracing.NULL_SPAN):
+                run = FrontierRun(scan_static, scan_state, chunk_len=self.frontier_chunk,
+                                  compact_frac=self.frontier_compact_frac,
+                                  min_width=self.frontier_min_width,
+                                  on_compact=self._on_frontier_compact,
+                                  on_loop=self._on_frontier_loop, mesh=mesh)
             busy = run.device_busy
             self.stats["frontier_segments"] += 1
 
@@ -381,7 +430,11 @@ class BatchBackend:
                 self.stats["host_syncs"] += run.stats["host_syncs"]
                 entry.update(widths=run.stats["widths"], alive_frac=run.stats["alive_frac"],
                              chunks=run.stats["chunks"], compactions=run.stats["compactions"],
-                             mode="loop", host_syncs=run.stats["host_syncs"])
+                             mode="loop" if mesh is None else "mesh",
+                             host_syncs=run.stats["host_syncs"])
+                if mesh is not None:
+                    entry.update(n_shards=run.stats["n_shards"],
+                                 shard_alive_frac=run.stats["shard_alive_frac"])
                 self.last_frontier.append(entry)
                 if impl == "cuda":
                     span_attrs.update(launches=run.launches,

@@ -71,7 +71,12 @@
 // - The count takes one atomic a tile: a word holds the tiles done in its
 //   low TILE_BITS bits and the alive count above them, so the last tile
 //   reads the total from its own atomic and publishes CTL_ALIVE and
-//   CTL_STOP. Where signatures split into several groups, each block ORs
+//   CTL_STOP. Under the node-axis mesh (parallel/mesh.py) each shard's
+//   slice is refreshed by a launch of its own, in stream order, and all add
+//   into the one word: the last tile of the last launch (tiles_total) sees
+//   the whole width's count. The earlier launches have finished before it
+//   starts, so every block of every shard read the stop flag the previous
+//   chunk's refresh left. Where signatures split into several groups, each block ORs
 //   its columns' bits into a scratch word per 32 columns and the last
 //   block of a tile (a ticket per tile) reads and clears them first. The
 //   scratch is zero between launches: no second launch, no memset.
@@ -115,8 +120,10 @@ struct RefreshParams {
     int32_t* ctl;               // the loop's control words
     int32_t* scratch;           // zero between launches: alive bits of each 32 columns, then a ticket a tile
     int32_t ns, g, r, t, pv, tw, use_terms, use_ports, thresh;
-    // the plan (frontier_refresh.py plan): tiles of `cols` columns x groups of `gs` signatures
-    int32_t cols, gs, tiles, groups, threads, kcap, smem_bytes;
+    // the plan (frontier_refresh.py plan): tiles of `cols` columns x groups of `gs` signatures;
+    // tiles_total: the tiles of every launch that adds into the count word (a
+    // mesh's shards refresh their slices in one launch each, tiles x shards)
+    int32_t cols, gs, tiles, tiles_total, groups, threads, kcap, smem_bytes;
     // byte offsets in dynamic shared memory: column state rows, table rows,
     // named rows (kcap), the slot of each row id, the block's alive columns
     int32_t off_state, off_table, off_rows, off_slot, off_col;
@@ -348,11 +355,12 @@ __global__ void __launch_bounds__(MAX_THREADS) frontier_refresh_kernel(const Ref
     if (tid == 0) {
         unsigned n = 0;
         for (int w = 0; w < nw; ++w) n += __popc(s_words[w]);
-        // one atomic: this tile done, its count added; the last tile publishes
-        // the total and resets the word for the next refresh
+        // one atomic: this tile done, its count added; the last tile (of every
+        // launch that shares the word) publishes the total and resets the
+        // word for the next refresh
         const unsigned old = atomicAdd(reinterpret_cast<unsigned*>(&p.ctl[CTL_ACC]),
                                        (n << TILE_BITS) | 1u);
-        if ((old & ((1u << TILE_BITS) - 1)) == static_cast<unsigned>(p.tiles - 1)) {
+        if ((old & ((1u << TILE_BITS) - 1)) == static_cast<unsigned>(p.tiles_total - 1)) {
             const int n_alive = static_cast<int>((old >> TILE_BITS) + n);
             p.ctl[CTL_ALIVE] = n_alive;
             p.ctl[CTL_STOP] = n_alive <= p.thresh ? 1 : 0;
@@ -392,7 +400,8 @@ extern "C" int frontier_refresh_launch(const RefreshParams* p, void* stream) {
     if (p->cols < 16 || p->cols > MAX_COLS || p->cols % 16 != 0
         || (p->groups > 1 && p->cols % 32 != 0) || p->gs < 1
         || p->threads != p->gs * p->cols / CPT || p->threads % 32 != 0 || p->threads > MAX_THREADS
-        || p->tiles != (p->ns + p->cols - 1) / p->cols || p->tiles >= (1 << TILE_BITS)
+        || p->tiles != (p->ns + p->cols - 1) / p->cols || p->tiles_total < p->tiles
+        || p->tiles_total >= (1 << TILE_BITS)
         || p->groups != (p->g + p->gs - 1) / p->gs || p->groups > 65535 || p->scratch == nullptr)
         return -2;
     if (!layout_fits(*p)) return -3;

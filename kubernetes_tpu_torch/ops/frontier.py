@@ -24,6 +24,16 @@ run plus one, O(compactions + 1) whatever the chunk count.  On the CPU the
 same loop runs the plain versions (``scan_ref.scan_range`` and
 ``scan_ref.refresh``) with the same exits, so its ``stats`` equal the JAX
 package's.
+
+``FrontierRun(..., mesh=)`` is the JAX package's sharded loop (its
+``mesh=`` mode, ``parallel/mesh.py``): the segment is placed as the mesh's
+shards, each chunk is one launch of the mesh kernel (``mesh_scan``; the
+plain sharded step ``scan_ref.scan_shards`` on the CPU) and one refresh a
+shard, whose counts add up over the whole width.  A compaction gathers
+over the global column map and places the compacted segment again, so
+widths stay powers of two of at least the shard count.  ``stats`` gains
+``n_shards`` and ``shard_alive_frac`` (each shard's alive share of its
+slice, a list a loop exit).
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ import torch
 
 from ..models.carry import ScanState, ScanStatic
 from ..utils import tracing
-from . import frontier_refresh, fused_scan, scan_ref
+from . import frontier_refresh, fused_scan, mesh_scan, scan_ref
 from .fused_scan import CTL_ALIVE, CTL_CURSOR, CTL_RR, CTL_STOP, CTL_WORDS
 
 # ScanStatic / ScanState fields carrying a node axis, with the axis position
@@ -95,7 +105,7 @@ class FrontierRun:
 
     def __init__(self, static: ScanStatic, state: ScanState, chunk_len: int = 512,
                  compact_frac: float = 0.5, min_width: int = 128, on_compact=None,
-                 on_loop=None):
+                 on_loop=None, mesh=None):
         if state.still_ok is None:
             raise ValueError("a frontier run needs state.still_ok (seed the InitialState "
                              "with models.snapshot.frontier_seed)")
@@ -106,7 +116,7 @@ class FrontierRun:
         self.min_width = min_width
         self.on_compact = on_compact
         self.on_loop = on_loop
-        self._cuda = static.device.type == "cuda"
+        self.mesh = mesh
         self._p_real = static.p_real
         bucket = _POD_BUCKET
         while bucket < self._p_real:
@@ -116,8 +126,25 @@ class FrontierRun:
         self._width = int(static.n_pad)
         # current column -> column of the static this run was given
         self._map = np.arange(self._width, dtype=np.int64)
+        self.stats = {"chunks": 0, "compactions": 0, "alive_frac": [],
+                      "widths": [self._width], "host_syncs": 0, "loop_runs": 0}
+        device = static.device
+        if mesh is not None:
+            s = mesh.size
+            if s < 2 or s & (s - 1):
+                raise ValueError("mesh mode requires a power-of-two shard count >= 2")
+            if self._width % s:
+                raise ValueError(f"segment width {self._width} not divisible by {s} shards "
+                                 "(pad via snapshot.pad_segment_to_multiple)")
+            # compaction widths stay shard-divisible: every power of two at
+            # least the power-of-two shard count divides by it
+            self.min_width = max(self.min_width, s)
+            device = mesh.devices[0]
+            self.stats["n_shards"] = s
+            self.stats["shard_alive_frac"] = []
+        self._cuda = device.type == "cuda"
         self._chosen = torch.full((max(self._p_real, 1),), -1, dtype=torch.int32,
-                                  device=static.device)
+                                  device=device)
         self._c = 0  # chunks completed (host mirror, updated at syncs)
         self._regions: list = []  # (first pod of a loop run, its map)
         self._pending = None
@@ -125,25 +152,48 @@ class FrontierRun:
         # kernel launches on a card: fused-scan chunks and refreshes, those
         # behind a raised stop flag (no-ops) included
         self.launches = self.refresh_launches = 0
-        self.stats = {"chunks": 0, "compactions": 0, "alive_frac": [],
-                      "widths": [self._width], "host_syncs": 0, "loop_runs": 0}
         if self._cuda:
-            self._ctl = torch.zeros(CTL_WORDS, dtype=torch.int32, device=static.device)
+            self._ctl = torch.zeros(CTL_WORDS, dtype=torch.int32, device=device)
             self._ctl[CTL_RR] = state.round_robin
             self._pack()
+        else:
+            self._place()
         self._dispatch_loop()
 
-    # -- the card's buffers ----------------------------------------------
+    # -- the shards and the card's buffers ----------------------------------
+    def _place(self) -> None:
+        """The segment as its shards at the current width: one, or the
+        mesh's (``parallel.mesh.place_static`` / ``place_state``)."""
+        if self.mesh is None:
+            self._statics, self._states = [self.static], [self.state]
+            return
+        from ..parallel import mesh as pmesh
+
+        self._statics = pmesh.place_static(self.static, self.mesh)
+        self._states = pmesh.place_state(self.state, self.mesh)
+
     def _pack(self) -> None:
-        """The fused scan's layout at the current width, the segment's
-        chosen buffer in it, and the refresh's plane and mask."""
-        self._plan = fused_scan.plan(self.static)
-        self._bufs = fused_scan.pack(self.static, self.state, self._plan)
+        """The kernel's layout at the current width (the fused scan's, or
+        the mesh kernel's per shard), the segment's chosen buffer in it,
+        and each shard's refresh plane and mask."""
+        self._place()
+        if self.mesh is None:
+            self._plan = fused_scan.plan(self.static)
+            self._bufs = fused_scan.pack(self.static, self.state, self._plan)
+            shard_bufs = [self._bufs]
+        else:
+            self._plan = mesh_scan.plan(self._statics)
+            self._bufs = mesh_scan.pack(self._statics, self._states, self._plan)
+            shard_bufs = self._bufs["shards"]
         self._bufs["chosen"] = self._chosen
-        g, ns = self.state.still_ok.shape[0], self._plan.ns
-        self._still = torch.zeros((g, ns), dtype=torch.bool, device=self.static.device)
-        self._still[:, :self._width] = self.state.still_ok
-        self._alive = torch.zeros(ns, dtype=torch.bool, device=self.static.device)
+        self._shard_bufs = shard_bufs
+        g, ns, n = self.state.still_ok.shape[0], self._plan.ns, self._statics[0].n_pad
+        self._still, self._alive = [], []
+        for st in self._states:
+            still = torch.zeros((g, ns), dtype=torch.bool, device=st.pod_count.device)
+            still[:, :n] = st.still_ok
+            self._still.append(still)
+            self._alive.append(torch.zeros(ns, dtype=torch.bool, device=st.pod_count.device))
 
     # -- one loop run ------------------------------------------------------
     def _loop_thresh(self) -> int:
@@ -173,36 +223,56 @@ class FrontierRun:
     def _enqueue(self, thresh: int) -> tuple:
         """Every remaining chunk and its refresh, in stream order, with no
         host sync; returns the run's CUDA events."""
-        fused_scan.load()  # a first call builds: keep that out of the events
+        # a first call builds: keep that out of the events
+        (fused_scan if self.mesh is None else mesh_scan).load()
         frontier_refresh.load()
+        # under a mesh the refreshes of every shard add into one count word:
+        # the last tile of them all publishes the alive count and the stop flag
+        shared = {} if self.mesh is None else {"tiles_total": len(self._statics) * (
+            frontier_refresh.plan(self._statics[0], self._plan).tiles)}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for c in range(self._c, self._n_chunks):
             first = c * self._chunk
-            fused_scan.launch(self.static, self.state, self._bufs, self._plan, start=first,
-                              count=min(self._chunk, self._p_real - first), ctl=self._ctl)
-            frontier_refresh.launch(self.static, self._bufs, self._plan, self._still,
-                                    self._alive, self._ctl, thresh)
+            count = min(self._chunk, self._p_real - first)
+            if self.mesh is None:
+                fused_scan.launch(self.static, self.state, self._bufs, self._plan, start=first,
+                                  count=count, ctl=self._ctl)
+            else:
+                mesh_scan.launch(self._bufs, self._plan, start=first, count=count, ctl=self._ctl)
+            for s, bufs, still, alive in zip(self._statics, self._shard_bufs, self._still,
+                                             self._alive):
+                frontier_refresh.launch(s, bufs, self._plan, still, alive, self._ctl, thresh,
+                                        **shared)
+                self.refresh_launches += 1
             self.launches += 1
-            self.refresh_launches += 1
         end.record()
         return start, end
 
     def _run_plain(self, thresh: int) -> tuple:
         """The loop run on the plain versions: chunks until the end or
         until a refresh wants a compaction."""
-        st, c, want = self.state, self._c, False
-        alive, n_alive = scan_ref.alive_of(st.still_ok, self.static.node_exists)
+        states, c, want = self._states, self._c, False
+        alive = [scan_ref.alive_of(st.still_ok, s.node_exists)[0]
+                 for s, st in zip(self._statics, states)]
+        n_alive = sum(int(a.sum()) for a in alive)
         while c < self._n_chunks and not want:
             first = c * self._chunk
             last = min(first + self._chunk, self._p_real)
-            chosen, st = scan_ref.scan_range(self.static, st, first, last)
+            chosen, states = scan_ref.scan_shards(self._statics, states, first, last)
             self._chosen[first:last] = chosen
-            st, alive, n_alive, want = scan_ref.refresh(self.static, st, thresh)
+            states, alive, n_alive, want = scan_ref.refresh_shards(self._statics, states, thresh)
             c += 1
-        self.state = st
+        self._states = states
+        self.state = states[0] if self.mesh is None else self._unplace(states)
         return c, want, alive, n_alive
+
+    @staticmethod
+    def _unplace(states: list) -> ScanState:
+        from ..parallel import mesh as pmesh
+
+        return pmesh.unplace_state(states)
 
     @property
     def device_busy(self):
@@ -223,7 +293,8 @@ class FrontierRun:
             c_exit, want = int(ctl[CTL_CURSOR]), bool(ctl[CTL_STOP])
             n_alive = int(ctl[CTL_ALIVE])
             self._rr = int(ctl[CTL_RR])
-            alive = self._alive[:self._width]
+            n = self._statics[0].n_pad
+            alive = [a[:n] for a in self._alive]
         else:
             c_exit, want, alive, n_alive = self._pending
         self._pending = None
@@ -232,17 +303,30 @@ class FrontierRun:
         self._c = c_exit
         frac = round(n_alive / max(self._width, 1), 4)
         self.stats["alive_frac"].append(frac)
+        attrs = dict(frac=frac, width=self._width, chunk=self._c)
+        if self.mesh is not None:
+            # the per-shard split: each shard's alive share of its slice
+            # (a copy of masks the device has finished, no further stall)
+            n_loc = self._width // self.mesh.size
+            counts = torch.stack([a.sum() for a in alive]).cpu().tolist()
+            attrs["shards"] = [round(int(k) / max(n_loc, 1), 4) for k in counts]
+            self.stats["shard_alive_frac"].append(attrs["shards"])
         tr = tracing.current()
         if tr is not None:
             # one instant a loop exit (not a chunk): the pruning trajectory
-            # at every host re-entry
-            tr.instant("frontier.alive", frac=frac, width=self._width, chunk=self._c)
-        return want, alive, n_alive
+            # at every host re-entry, the per-shard split as an attribute
+            tr.instant("frontier.alive", **attrs)
+        return want, torch.cat(alive), n_alive
 
     def _compact(self, alive: torch.Tensor, width_new: int) -> None:
+        """Gather the kept columns over the whole axis (the global column
+        map), then split the compacted segment into its shards again."""
         js = torch.nonzero(alive).flatten()
         if self._cuda:
-            self.state = fused_scan.unpack_state(self.static, self._bufs, self._rr, self._still)
+            states = [fused_scan.unpack_state(s, bufs, self._rr, still) for s, bufs, still
+                      in zip(self._statics, self._shard_bufs, self._still)]
+            self.state = states[0] if self.mesh is None else self._unplace(states)
+        js = js.to(self.static.device)
         self.static, self.state = gather_node_axis(self.static, self.state, js, width_new)
         self._map = self._map[js.cpu().numpy()]
         self._width = width_new
@@ -251,6 +335,8 @@ class FrontierRun:
         if self._cuda:
             self._ctl[CTL_STOP] = 0
             self._pack()
+        else:
+            self._place()
 
     def finalize(self) -> tuple[np.ndarray, int]:
         while True:

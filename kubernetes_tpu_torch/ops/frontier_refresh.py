@@ -60,7 +60,7 @@ BUDGET = SMEM_LIMIT - STATIC_RESERVE
 _PTR_FIELDS = ("req", "cnt", "ports", "dm", "downer", "alloc", "alloc_pods", "exists",
                "static_ok", "table", "still_ok", "alive", "ctl", "scratch")
 _INT_FIELDS = ("ns", "g", "r", "t", "pv", "tw", "use_terms", "use_ports", "thresh",
-               "cols", "gs", "tiles", "groups", "threads", "kcap", "smem_bytes")
+               "cols", "gs", "tiles", "tiles_total", "groups", "threads", "kcap", "smem_bytes")
 REGIONS = ("state", "table", "rows", "slot", "col")
 
 
@@ -233,8 +233,11 @@ def scratch(bufs: dict, rp: RefreshPlan, device: torch.device) -> torch.Tensor:
 
 
 def params(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Tensor,
-           ctl: torch.Tensor, thresh: int) -> RefreshParams:
-    """The kernel's argument block over the fused scan's packed ``bufs``."""
+           ctl: torch.Tensor, thresh: int, tiles_total: int | None = None) -> RefreshParams:
+    """The kernel's argument block over the fused scan's packed ``bufs``;
+    ``tiles_total`` (default: this launch's tiles) counts the tiles of
+    every launch that adds into the control words' count (a mesh refreshes
+    each shard's slice in a launch of its own)."""
     d = _dims(static)
     if still_ok.shape != (d["g"], pl.ns) or still_ok.dtype != torch.bool:
         raise ValueError(f"still_ok must be bool [{d['g']}, {pl.ns}], got "
@@ -249,15 +252,19 @@ def params(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Te
         still_ok.data_ptr(), alive.data_ptr(), ctl.data_ptr(),
         scratch(bufs, rp, still_ok.device).data_ptr(),
         pl.ns, d["g"], d["r"], d["t"], d["pv"], rp.tw, int(static.use_terms),
-        int(static.use_ports), int(thresh), rp.cols, rp.gs, rp.tiles, rp.groups, rp.threads,
+        int(static.use_ports), int(thresh), rp.cols, rp.gs, rp.tiles,
+        rp.tiles if tiles_total is None else int(tiles_total), rp.groups, rp.threads,
         rp.kcap, rp.smem_bytes, *(rp.offsets[k] for k in REGIONS))
 
 
 def launch(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Tensor,
-           ctl: torch.Tensor, thresh: int) -> None:
+           ctl: torch.Tensor, thresh: int, tiles_total: int | None = None) -> None:
     """Launch the refresh on the current stream over the fused scan's
-    packed ``bufs`` (plan ``pl``): ``still_ok`` [G, ns] bool in place,
-    ``alive`` [ns] bool out, the count and stop flag into ``ctl``."""
+    packed ``bufs`` (plan ``pl``; a mesh shard's packed planes and the
+    mesh plan under the mesh): ``still_ok`` [G, ns] bool in place,
+    ``alive`` [ns] bool out, the count and stop flag into ``ctl`` once the
+    ``tiles_total`` tiles of this and the launches before it that share
+    the count are done."""
     global launches
     for t in (bufs["req"], still_ok, alive, ctl):
         if t.device.type != "cuda" or not t.is_contiguous():
@@ -265,7 +272,7 @@ def launch(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Te
                                "scan_ref.refresh is the plain version for the CPU")
     stream = torch.cuda.current_stream(still_ok.device).cuda_stream
     err = load().frontier_refresh_launch(
-        ctypes.byref(params(static, bufs, pl, still_ok, alive, ctl, thresh)),
+        ctypes.byref(params(static, bufs, pl, still_ok, alive, ctl, thresh, tiles_total)),
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"frontier refresh launch failed (error {err})")

@@ -313,17 +313,12 @@ def signature_rows(static: ScanStatic, width: int) -> torch.Tensor:
     return _cols(sig, width)
 
 
-def pack(static: ScanStatic, state: ScanState, plan_: Plan | None = None) -> dict:
-    """Kernel-layout tensors for one segment, on the segment's device.  The
-    state planes are fresh copies: the kernel updates them in place."""
-    pl = plan_ or plan(static)
-    ns = pl.ns
+def pack_planes(static: ScanStatic, state: ScanState, ns: int) -> dict:
+    """The segment's node-axis planes in the kernel layout, each [rows, ns]
+    int32 (``volf`` uint8) zero past the segment's width, on its device.
+    The state planes are fresh copies: the kernels update them in place.
+    The mesh kernel packs each shard's planes with this too."""
     vol_flags = state.vol_any.to(torch.uint8) | (state.vol_ns.to(torch.uint8) << 1)
-    pod_vol = (static.pod_vol_ids * 64 + static.pod_vol_kind * 8
-               + static.pod_vol_ro_ok.to(torch.int32) * 4
-               + static.pod_vol_count_only.to(torch.int32) * 2
-               + static.pod_vol_valid.to(torch.int32))
-    dev = static.device
     return {
         "alloc": _cols(_i32(static.node_alloc.t()), ns),
         "alloc_pods": _cols(_i32(static.node_alloc_pods), ns),
@@ -336,11 +331,6 @@ def pack(static: ScanStatic, state: ScanState, plan_: Plan | None = None) -> dic
         "interpod_raw": _cols(_i32(static.interpod_raw), ns),
         "node_domain": _cols(_i32(static.node_domain), ns),
         "dom_valid": _cols(_i32(static.dom_valid), ns),
-        "sig": signature_rows(static, pl.sw),
-        "spread_inc_t": _cols(_i32(static.spread_inc.t()), pl.g4),
-        "vol_limits": _i32(static.vol_limits),
-        "gids": _i32(static.group_of_pod),
-        "pod_vol": _cols(_i32(pod_vol), pl.w4),
         "req": _cols(_i32(state.requested.t()), ns),
         "nz": _cols(_i32(state.nonzero_requested.t()), ns),
         "cnt": _cols(_i32(state.pod_count), ns),
@@ -348,9 +338,38 @@ def pack(static: ScanStatic, state: ScanState, plan_: Plan | None = None) -> dic
         "spread": _cols(_i32(state.spread_counts), ns),
         "dm": _cols(_i32(state.dm), ns),
         "downer": _cols(_i32(state.downer), ns),
-        "total": _i32(state.total_match).clone(),
         "volf": _cols(vol_flags.contiguous(), ns),
         "nk": _cols(_i32(state.nk), ns),
+    }
+
+
+def pack_tables(static: ScanStatic, state: ScanState, sw: int, g4: int, w4: int) -> dict:
+    """The per-signature and per-pod tables in the kernel layout (a signature
+    row of ``sw`` ints, spread increments of ``g4``, volume slots of
+    ``w4``), and a fresh copy of ``total_match``."""
+    pod_vol = (static.pod_vol_ids * 64 + static.pod_vol_kind * 8
+               + static.pod_vol_ro_ok.to(torch.int32) * 4
+               + static.pod_vol_count_only.to(torch.int32) * 2
+               + static.pod_vol_valid.to(torch.int32))
+    return {
+        "sig": signature_rows(static, sw),
+        "spread_inc_t": _cols(_i32(static.spread_inc.t()), g4),
+        "vol_limits": _i32(static.vol_limits),
+        "gids": _i32(static.group_of_pod),
+        "pod_vol": _cols(_i32(pod_vol), w4),
+        "total": _i32(state.total_match).clone(),
+    }
+
+
+def pack(static: ScanStatic, state: ScanState, plan_: Plan | None = None) -> dict:
+    """Kernel-layout tensors for one segment, on the segment's device.  The
+    state planes are fresh copies: the kernel updates them in place."""
+    pl = plan_ or plan(static)
+    ns = pl.ns
+    dev = static.device
+    return {
+        **pack_planes(static, state, ns),
+        **pack_tables(static, state, pl.sw, pl.g4, pl.w4),
         # scratch: the kernel fills it (resource scores per signature and node)
         "res": torch.empty((static.static_ok.shape[0], ns), dtype=torch.int16, device=dev),
         "chosen": torch.full((max(static.p_real, 1),), -1, dtype=torch.int32, device=dev),

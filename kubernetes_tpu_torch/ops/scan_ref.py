@@ -10,7 +10,12 @@ as a chunk of the frontier loop does (``ops/frontier.py``); with
 signature, as ``make_step(use_frontier=True)`` does.  ``monotone_plane``
 and ``refresh`` are the plain versions of the loop's chunk-end refresh
 (``ops/csrc/frontier_refresh.cu``; the JAX package's
-``monotone_plane_device``).  On ``device="cpu"`` these are the scan of the
+``monotone_plane_device``).  ``scan_shards`` and ``refresh_shards`` are
+the plain sharded step and refresh of the node-axis mesh
+(``parallel/mesh.py``): the same step over each shard's columns, folded
+across the shards at exactly the JAX package's ``_ax_*`` seams;
+``scan_range`` is its one-shard case, and ``ops/csrc/mesh_scan.cu`` the
+kernel held against it.  On ``device="cpu"`` these are the scan of the
 main path; on a card only the tests and ``chip_smoke.py`` call them, to
 hold the kernels against them.
 
@@ -66,14 +71,63 @@ def _balanced_score(cpu_req, cpu_cap, mem_req, mem_cap):
     return torch.where(bad, 0, score)
 
 
-def _normalized_max(raw, feasible, reverse: bool):
+def _normalized(raw, max_c, reverse: bool):
     """10*raw//max over feasible (0 when max == 0); the reversed variant
-    scores 10*(max-raw)//max and 10 when max == 0."""
-    max_c = torch.where(feasible, raw, 0).max()
+    scores 10*(max-raw)//max and 10 when max == 0.  ``max_c`` is the
+    feasible maximum, already folded over the shards."""
     safe = max_c.clamp(min=1)
     if reverse:
         return torch.where(max_c > 0, _fdiv(MAX_PRIORITY * (max_c - raw), safe), MAX_PRIORITY)
     return torch.where(max_c > 0, _fdiv(MAX_PRIORITY * raw, safe), 0)
+
+
+# -- the node-axis mesh: the step's cross-shard seams --------------------------
+# The port of the JAX package's ``_ax_*`` collective seams
+# (``kubernetes_tpu/ops/batch_kernel.py``: ``_ax_sum``, ``_ax_max``,
+# ``_ax_min``, ``_ax_any``, ``_ax_first_true`` and the tie prefix's
+# ``all_gather``).  Under a mesh every shard runs the same step over its own
+# columns and these are the only points where shards exchange anything.  A
+# shard's scan is a generator that yields (seam, its local value) and is sent
+# the value folded over every shard; ``_lockstep`` advances all shards' scans
+# to their next seam together.  One shard (the single-device scan) folds to
+# its own value.
+
+_INT32_MAX = 2**31 - 1
+
+
+def _stack(vals: list) -> torch.Tensor:
+    return torch.stack([v.to(vals[0].device) for v in vals])
+
+
+_FOLDS = {
+    "sum": lambda vals: _stack(vals).sum(dim=0),
+    "max": lambda vals: _stack(vals).max(dim=0).values,
+    "min": lambda vals: _stack(vals).min(dim=0).values,
+    "any": lambda vals: _stack(vals).any(dim=0),
+    # every shard's value in shard order (the tie prefix reads those below it)
+    "gather": _stack,
+}
+
+
+def _lockstep(shards: list) -> list:
+    """Run the shards' scans (generators) seam by seam; returns what each
+    returned.  Every fold is over shard order, never arrival order."""
+    sends = [None] * len(shards)
+    while True:
+        msgs, done = [], []
+        for gen, value in zip(shards, sends):
+            try:
+                msgs.append(gen.send(value))
+            except StopIteration as end:
+                done.append(end.value)
+        if done:
+            if len(done) != len(shards):
+                raise RuntimeError("the shards' scans left the lockstep")
+            return done
+        kind = msgs[0][0]
+        vals = [m[1] for m in msgs]
+        folded = vals[0] if len(vals) == 1 and kind != "gather" else _FOLDS[kind](vals)
+        sends = [folded.to(v.device) for v in vals]
 
 
 def scan(static: ScanStatic, state: ScanState) -> tuple[torch.Tensor, int]:
@@ -91,6 +145,30 @@ def scan_range(static: ScanStatic, state: ScanState, start: int = 0, stop: int |
     the final state).  ``state`` is left untouched.  Its ``still_ok``
     plane, when present, is carried; ``still_ok_steps`` ANDs each pod's
     monotone filter components into its signature's row at every step."""
+    chosen, (final,) = scan_shards([static], [state], start, stop, still_ok_steps)
+    return chosen, final
+
+
+def scan_shards(statics: list, states: list, start: int = 0, stop: int | None = None,
+                still_ok_steps: bool = False) -> tuple[torch.Tensor, list]:
+    """The plain sharded step (the JAX package's ``make_step`` with
+    ``axis_name`` under ``shard_map``): ``statics[k]`` / ``states[k]`` are
+    shard k's slices of the node axis (``parallel.mesh.place_static`` /
+    ``place_state``), all of one width, shard k owning the global columns
+    from ``k * width``; the per-pod tables are replicated.  Scans pods
+    ``start`` to ``stop`` and returns (the chosen global column per pod,
+    each shard's final state).  One shard is ``scan_range``."""
+    width = statics[0].n_pad
+    if any(s.n_pad != width for s in statics):
+        raise ValueError("every shard of the node axis must have the same width")
+    outs = _lockstep([_shard_scan(s, st, k, k * width, start, stop, still_ok_steps)
+                      for k, (s, st) in enumerate(zip(statics, states))])
+    return outs[0][0], [final for _, final in outs]
+
+
+def _shard_scan(static: ScanStatic, state: ScanState, rank: int, offset: int, start: int,
+                stop: int | None, still_ok_steps: bool):
+    """One shard's scan: the step over its columns, yielding at each seam."""
     dev = static.device
     n = static.n_pad
     w = static.weights
@@ -110,7 +188,7 @@ def scan_range(static: ScanStatic, state: ScanState, start: int = 0, stop: int |
     node_domain = static.node_domain.to(i64)
     vol_limits = static.vol_limits.to(i64)
     k_range = torch.arange(vol_limits.shape[0], device=dev)
-    col_ids = torch.arange(n, device=dev)
+    col_ids = offset + torch.arange(n, device=dev)  # global column ids
     has_zone = static.node_zone >= 0
     zone_onehot = (
         (torch.arange(static.num_zones, device=dev)[:, None] == static.node_zone[None, :])
@@ -176,7 +254,7 @@ def scan_range(static: ScanStatic, state: ScanState, start: int = 0, stop: int |
             count_new = (k_onehot[:, :, None] & new_v[None, :, :]).sum(dim=1)  # [K, N]
             over = k_onehot.any(dim=1)[:, None] & (nk + count_new > vol_limits[:, None])
             feasible = feasible & ~disk_bad & ~over.any(dim=0)
-        n_feasible = feasible.sum()
+        n_feasible = yield "sum", feasible.sum()
 
         # -- scores (int64 fixed point) ------------------------------------
         cpu_req = nonzero[:, 0] + g_nz[0]
@@ -194,44 +272,59 @@ def scan_range(static: ScanStatic, state: ScanState, start: int = 0, stop: int |
             total = total + w["balanced"] * _balanced_score(cpu_req, cpu_cap, mem_req, mem_cap)
         if w["spread"]:
             cnt = spread[g]
-            max_n = torch.where(feasible, cnt, 0).max()
+            max_n = yield "max", torch.where(feasible, cnt, 0).max()
             node_fp = torch.where(max_n > 0, _fdiv((max_n - cnt) * _FP, max_n.clamp(min=1)), _FP)
             # elementwise sums, not a matmul: CUDA has no integer matmul
-            zsum = ((zone_onehot & (feasible & has_zone)[None, :]) * cnt[None, :]).sum(dim=1)
+            zsum = yield "sum", ((zone_onehot & (feasible & has_zone)[None, :])
+                                 * cnt[None, :]).sum(dim=1)  # [Z], replicated
             max_z = zsum.max()
             zcnt = (zone_onehot.to(i64) * zsum[:, None]).sum(dim=0)  # zsum[zone] per node
             zone_fp = torch.where(max_z > 0, _fdiv((max_z - zcnt) * _FP, max_z.clamp(min=1)), _FP)
-            have_zones = static.g_has_spread[g] & (feasible & has_zone).any()
+            any_zone = yield "any", (feasible & has_zone).any()
+            have_zones = static.g_has_spread[g] & any_zone
             total_fp = torch.where(have_zones & has_zone, _fdiv(node_fp + 2 * zone_fp, 3), node_fp)
             total = total + w["spread"] * _fdiv(total_fp, FIXED_POINT_ONE)
         if w["node_affinity"]:
-            total = total + w["node_affinity"] * _normalized_max(node_aff_raw[g], feasible, False)
+            raw = node_aff_raw[g]
+            max_c = yield "max", torch.where(feasible, raw, 0).max()
+            total = total + w["node_affinity"] * _normalized(raw, max_c, False)
         if w["taint"]:
-            total = total + w["taint"] * _normalized_max(taint_raw[g], feasible, True)
+            raw = taint_raw[g]
+            max_c = yield "max", torch.where(feasible, raw, 0).max()
+            total = total + w["taint"] * _normalized(raw, max_c, True)
         if w["interpod"]:
             raw = interpod_raw[g]
             if static.use_terms:
                 raw = raw + (own_w[g][:, None] * dm).sum(dim=0) \
                     + ((m_g.to(i64) * sym_w)[:, None] * downer).sum(dim=0)
-            max_c = torch.where(feasible, raw, _I64_MIN).max().clamp(min=0)
-            min_c = torch.where(feasible, raw, _I64_MAX).min().clamp(max=0)
+            max_c = (yield "max", torch.where(feasible, raw, _I64_MIN).max()).clamp(min=0)
+            min_c = (yield "min", torch.where(feasible, raw, _I64_MAX).min()).clamp(max=0)
             rng = max_c - min_c
             s = torch.where(rng > 0, _fdiv(MAX_PRIORITY * (raw - min_c), rng.clamp(min=1)), 0)
             total = total + w["interpod"] * s
 
         # -- selectHost ------------------------------------------------------
-        max_score = torch.where(feasible, total, _I64_MIN).max()
+        max_score = yield "max", torch.where(feasible, total, _I64_MIN).max()
         ties = feasible & (total == max_score)
-        idx = rr % ties.sum().clamp(min=1)
-        cum = torch.cumsum(ties.to(i64), dim=0)
-        pick = torch.argmax((ties & (cum == idx + 1)).to(torch.int8))
+        t_local = ties.sum()
+        t_count = yield "sum", t_local
+        idx = rr % t_count.clamp(min=1)
+        # the global running tie count in node order: the local cumsum
+        # shifted by the ties of the shards before this one
+        below = (yield "gather", t_local)[:rank].sum()
+        cum = torch.cumsum(ties.to(i64), dim=0) + below
+        hit = ties & (cum == idx + 1)
+        # the first hit in global column order: a shard with none offers
+        # INT32_MAX, and n_feasible == 0 is guarded below
+        cand = torch.where(hit.any(), offset + torch.argmax(hit.to(torch.int8)), _INT32_MAX)
+        pick = yield "min", cand
         chosen = torch.where(n_feasible == 0, -1, pick)
         rr = rr + (n_feasible >= 2).to(i64)
         chosen_out[k] = chosen
 
-        # -- commit ------------------------------------------------------------
+        # -- commit: only the owning shard's columns change --------------------
         landed = chosen >= 0
-        onehot = col_ids == chosen  # all False when chosen == -1
+        onehot = col_ids == chosen  # all False when chosen == -1 or on another shard
         oh = onehot.to(i64)
         requested += oh[:, None] * g_req[None, :]
         nonzero += oh[:, None] * g_nz[None, :]
@@ -240,8 +333,8 @@ def scan_range(static: ScanStatic, state: ScanState, start: int = 0, stop: int |
             ports_used |= onehot[:, None] & static.g_ports[g][None, :]
         spread += spread_inc[:, g][:, None] * oh[None, :]
         if static.use_terms:
-            d_at = (node_domain * oh[None, :]).sum(dim=1)  # [T]
-            valid_at = (static.dom_valid & onehot[None, :]).any(dim=1)
+            d_at = yield "sum", (node_domain * oh[None, :]).sum(dim=1)  # [T]
+            valid_at = yield "any", (static.dom_valid & onehot[None, :]).any(dim=1)
             same_dom = (node_domain == d_at[:, None]) & static.dom_valid & valid_at[:, None]
             m_i = (m_g & landed).to(i64)
             own_i = (static.own_all[g] & landed).to(i64)
@@ -254,7 +347,8 @@ def scan_range(static: ScanStatic, state: ScanState, start: int = 0, stop: int |
             vol_upd = (vvalid & ~vco & landed)[:, None] & onehot[None, :]
             vol_any[vids] = vol_any[vids] | vol_upd
             vol_ns[vids] = vol_ns[vids] | (vol_upd & ~vro[:, None])
-            newv_chosen = vvalid & (new_v & onehot[None, :]).any(dim=1) & landed
+            newv_at = yield "any", (new_v & onehot[None, :]).any(dim=1)  # [W]
+            newv_chosen = vvalid & newv_at & landed
             nk += (k_onehot & newv_chosen[None, :]).sum(dim=1)[:, None] * oh[None, :]
     i32 = torch.int32
     final = ScanState(
@@ -312,3 +406,14 @@ def refresh(static: ScanStatic, state: ScanState, thresh: int
     still_ok = state.still_ok & monotone_plane(static, state)
     alive, n_alive = alive_of(still_ok, static.node_exists)
     return dataclasses.replace(state, still_ok=still_ok), alive, n_alive, n_alive <= thresh
+
+
+def refresh_shards(statics: list, states: list, thresh: int
+                   ) -> tuple[list, list, int, bool]:
+    """``refresh`` run per shard (the refresh of the JAX package's sharded
+    loop): each shard tightens its own slice, and the alive count that
+    decides the compaction flag is summed over the shards.  Returns (the
+    shards' states, their alive masks, n_alive, stop)."""
+    outs = [refresh(s, st, -1) for s, st in zip(statics, states)]
+    n_alive = sum(n for _, _, n, _ in outs)
+    return [o[0] for o in outs], [o[1] for o in outs], n_alive, n_alive <= thresh

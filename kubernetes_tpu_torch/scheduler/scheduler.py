@@ -265,6 +265,44 @@ class Scheduler:
         return n
 
     # -- snapshot ----------------------------------------------------------
+    def _observe_mesh_wave(self, lf, pre_shard, ncache, wave_span) -> None:
+        """Per-shard attribution of the sharded wave loop: the worst
+        shard's upload fraction and the alive-fraction skew onto their
+        gauges (``utils.slo.mesh_slos`` windows them); the per-shard lists
+        ride the wave span as one ``mesh`` attribute and
+        ``last_batch_phases["mesh"]``."""
+        mesh_segs = [s for s in (lf or []) if s.get("mode") == "mesh"]
+        if not mesh_segs:
+            return
+        n_shards = max(int(s.get("n_shards", 0)) for s in mesh_segs)
+        self.metrics.mesh_shards.set(n_shards)
+        attrs: dict = {"n_shards": n_shards}
+        skews = [max(fr) - min(fr) for s in mesh_segs
+                 for fr in (s.get("shard_alive_frac") or []) if fr]
+        if skews:
+            skew = round(max(skews), 4)
+            self.metrics.mesh_shard_alive_skew.set(skew)
+            attrs["shard_alive_skew"] = skew
+        if pre_shard is not None and ncache is not None:
+            dirty = ncache.stats.get("shard_dirty_cols", ())
+            cols = ncache.stats.get("shard_cols_total", ())
+            # a mesh bound after the pre-wave read: its counters started at 0
+            pre_d = pre_shard[0] or (0,) * len(dirty)
+            pre_c = pre_shard[1] or (0,) * len(cols)
+            fracs = []
+            if len(dirty) == len(pre_d) and len(cols) == len(pre_c):
+                for d0, d1, c0, c1 in zip(pre_d, dirty, pre_c, cols):
+                    if c1 - c0 > 0:
+                        fracs.append((d1 - d0) / (c1 - c0))
+            if fracs:
+                worst = round(max(fracs), 4)
+                self.metrics.mesh_worst_shard_upload_fraction.set(worst)
+                attrs["shard_upload_fractions"] = [round(f, 4) for f in fracs]
+                attrs["worst_shard_upload_fraction"] = worst
+        self.last_batch_phases["mesh"] = attrs
+        if wave_span is not None:
+            wave_span.set(mesh=attrs)
+
     def snapshot(self) -> dict[str, NodeInfo]:
         """Generation-checked copy-on-write refresh (cache.go:79)."""
         self.cache.snapshot_into(self._snapshot)
@@ -841,6 +879,11 @@ class Scheduler:
         ncache = getattr(self.backend, "device_node_cache", None)
         pre_cols = ((ncache.stats["dirty_cols"], ncache.stats["cols_total"])
                     if ncache is not None else None)
+        # the mesh's per-shard upload counters, so the wave's delta
+        # attributes dirty columns to the shard that received them
+        pre_shard = ((tuple(ncache.stats.get("shard_dirty_cols", ())),
+                      tuple(ncache.stats.get("shard_cols_total", ())))
+                     if ncache is not None else None)
         self._last_prep_s = 0.0
         # one span tree a wave: everything this thread does for the batch
         # nests under the root, entered right before the try so that no
@@ -900,6 +943,7 @@ class Scheduler:
                 for seg in lf:
                     if seg.get("alive_frac"):
                         self.metrics.frontier_alive_fraction.observe(min(seg["alive_frac"]))
+            self._observe_mesh_wave(lf, pre_shard, ncache, wave_span)
             self.metrics.pipeline_device_wait.observe(
                 self.last_batch_phases["device_wait_s"] * 1e6)
             # the ingest of the wave: informer decode and application

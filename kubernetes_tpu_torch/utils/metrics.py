@@ -514,6 +514,22 @@ class SchedulerMetrics:
             "lowest alive-union fraction observed per frontier segment "
             "(1.0 = no column ever died; small = heavy pruning)",
             buckets=[i / 20 for i in range(21)]))
+        # the node-axis mesh: per-shard attribution, the worst shard as a
+        # signal of its own (an aggregate upload fraction hides one cold
+        # shard behind the warm ones); gauges, which the SLO layer windows
+        self.mesh_shards = r.register(Gauge(
+            "scheduler_mesh_shards",
+            "shard count of the node-axis mesh the last sharded wave "
+            "loop ran on (0 = single-device path)"))
+        self.mesh_worst_shard_upload_fraction = r.register(Gauge(
+            "scheduler_mesh_worst_shard_upload_fraction",
+            "highest per-shard dirty-column upload fraction of the last "
+            "wave (1 = some shard re-uploaded its whole node slice)"))
+        self.mesh_shard_alive_skew = r.register(Gauge(
+            "scheduler_mesh_shard_alive_skew",
+            "max spread between per-shard alive fractions at the last "
+            "sharded loop exit (large = the frontier died unevenly and "
+            "some shards carry dead columns)"))
         self.host_syncs = r.register(Counter(
             "scheduler_host_syncs_total",
             "blocking device→host round-trips performed by batch "

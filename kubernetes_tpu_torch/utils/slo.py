@@ -163,6 +163,24 @@ def serving_slos(worst_lag_revisions: float = 500.0) -> list[SLO]:
     ]
 
 
+def mesh_slos() -> list[SLO]:
+    """SLOs over the node-axis mesh's per-shard gauges: one hot shard
+    (skewed upload traffic, or a lopsided alive distribution after a
+    compaction) burns its own budget instead of hiding in the cluster-wide
+    mean.  Gauge SLIs, so both keep producing data (and can recover) while
+    the mesh idles between waves."""
+    return [
+        SLO(name="mesh_shard_upload_skew",
+            sli=GaugeSLI(
+                metric="scheduler_mesh_worst_shard_upload_fraction",
+                threshold=0.5)),
+        SLO(name="mesh_shard_alive_skew",
+            sli=GaugeSLI(
+                metric="scheduler_mesh_shard_alive_skew",
+                threshold=0.25)),
+    ]
+
+
 #: breach-context providers by SLO name (``register_breach_context``):
 #: a provider's dict rides the flight-recorder dump when that SLO
 #: breaches — the serving tier attaches its top-K laggard attribution

@@ -165,7 +165,7 @@ def _churn_cluster(n_nodes: int, total_pods: int, workload: str, seed: int):
 
 def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
               workload: str = "mixed", seed: int = 0, device=None,
-              lazy_ingest: bool = True) -> dict:
+              lazy_ingest: bool = True, backend_kw: dict | None = None) -> dict:
     """Steady-state arrival load through the port's ``Scheduler`` (the
     reference harness's churn preset, ``bench.py`` ``_run_churn_timed``):
     an arrival thread creates one wave of pods in one ``create_many`` txn
@@ -174,7 +174,9 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
     on and the event sink running.
 
     ``device`` is the backend's: None means the card and raises without
-    one; ``"cpu"`` runs the plain scan.  ``lazy_ingest`` (the default)
+    one; ``"cpu"`` runs the plain scan.  ``backend_kw`` goes to the
+    ``BatchBackend`` (``frontier_mesh=True, mesh_devices=4`` runs the
+    frontier loop on a 4-shard node-axis mesh).  ``lazy_ingest`` (the default)
     runs the serving ingest path: lazy decode, watch frames, columnar
     LIST and the frame confirm; False runs the eager path (typed decode of
     every event, per-event delivery) for the run and restores the default
@@ -184,19 +186,21 @@ def run_churn(n_nodes: int = 5_000, total_pods: int = 20_000, waves: int = 10,
     informers' decode and apply seconds, frames, frame events, lazy
     promotions and confirm fallbacks) with the wave's kernel ms, the
     backend's stats, the recorded drain batches, the final binding map and
-    the round-robin counter (the inputs of ``oracle_replay_waves``)."""
+    the round-robin counter (the inputs of ``oracle_replay_waves``), and
+    the counter as each drained batch started (``drain_rr``, held against
+    the replay's ``round_robin_before``)."""
     from .api import lazy
     from .store import frames
 
     saved = lazy.ENABLED, frames.ENABLED
     lazy.ENABLED = frames.ENABLED = lazy_ingest
     try:
-        return _run_churn(n_nodes, total_pods, waves, workload, seed, device)
+        return _run_churn(n_nodes, total_pods, waves, workload, seed, device, backend_kw or {})
     finally:
         lazy.ENABLED, frames.ENABLED = saved
 
 
-def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
+def _run_churn(n_nodes, total_pods, waves, workload, seed, device, backend_kw) -> dict:
     import threading
     import time
 
@@ -207,7 +211,7 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
     algo = GenericScheduler()
     # the scheduler and the backend share one algorithm: the backend writes
     # the round-robin counter after every segment
-    backend = BatchBackend(algorithm=algo, device=device)
+    backend = BatchBackend(algorithm=algo, device=device, **backend_kw)
     cs, all_pods = _churn_cluster(n_nodes, total_pods, workload, seed)
     sched = Scheduler(cs, algorithm=algo, backend=backend, emit_events=True)
     sched.start()
@@ -239,6 +243,7 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
     # the moment wave w left the queue, so creation overlaps scheduling
     drained = [0]
     drain_batches: list[list[str]] = []
+    drain_rr: list[int] = []  # the round-robin counter as each drained batch starts
     wave_drained = [threading.Event() for _ in range(waves)]
     orig_drain = sched.queue.drain
 
@@ -246,6 +251,7 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
         out = orig_drain(max_n)
         if out:
             drain_batches.append([p.meta.key for p in out])
+            drain_rr.append(algo._round_robin)
         drained[0] += len(out)
         for w in range(waves):
             if drained[0] >= (w + 1) * per_wave:
@@ -278,6 +284,11 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
                   for k in ("tensorize_s", "dispatch_s", "device_wait_s",
                             "commit_s", "prep_s", "kernel_ms")}
             ph["pump_s"] = pump_acc[0] - pump_before
+            # the wave's frontier segments and, under a mesh, its per-shard
+            # attribution
+            ph["frontier"] = sched.last_batch_phases.get("frontier", [])
+            ph["mesh"] = sched.last_batch_phases.get("mesh")
+            ph["round_robin"] = algo._round_robin
             ingest_after = ingest_counters()
             ph.update({k: ingest_after[k] - ingest_before[k] for k in ingest_after})
             ph["bound"] = b
@@ -312,8 +323,11 @@ def _run_churn(n_nodes, total_pods, waves, workload, seed, device) -> dict:
         "phase_timers": phase_timers,
         "backend": dict(backend.stats),
         "node_cache": dict(backend.device_node_cache.stats),
+        "mesh_gauges": {g.name: g.value for g in (m.mesh_shards, m.mesh_worst_shard_upload_fraction,
+                                                  m.mesh_shard_alive_skew)},
         "scheduled_events": sum(e.count for e in events if e.reason == "Scheduled"),
         "drain_batches": drain_batches,
+        "drain_rr": drain_rr,
         "assignments": assignments,
         "round_robin": algo._round_robin,
     }
@@ -561,7 +575,9 @@ def oracle_replay_waves(drain_batches: list, final_assignments: dict,
     sched.start()
     checked = mismatches = 0
     sample = []
+    rr_before = []
     for batch in drain_batches:
+        rr_before.append(sched.algorithm._round_robin)
         for key in batch:
             cs.pods.create(pods_by_key[key])
         sched.pump()
@@ -579,7 +595,8 @@ def oracle_replay_waves(drain_batches: list, final_assignments: dict,
                     sample.append((key, got.get(key), final_assignments.get(key)))
     return {"mode": "exact per-wave replay", "checked": checked,
             "mismatches": mismatches, "sample": sample,
-            "round_robin": sched.algorithm._round_robin}
+            "round_robin": sched.algorithm._round_robin,
+            "round_robin_before": rr_before}
 
 
 def oracle_replay_state(objects: dict, arrivals: list, round_robin: int,
