@@ -296,8 +296,11 @@ Phases, one line each:
    segment in 4, each equal pod for pod and in rr to the fused scan's
    launch, with the mesh kernel's device time, µs a pod and bound; (b) the
    mesh kernel against its plain version (``scan_ref.scan_shards``) at
-   1000 x 1024 ``mixed`` in 4 shards and on an uneven 1003-node x 128-pod
-   segment padded to 1004 columns (no padded column chosen), and ``FrontierRun(mesh=)`` on a tie
+   1000 x 1024 ``mixed`` in 4 shards, on an uneven 1003-node x 128-pod
+   segment padded to 1004 columns (no padded column chosen), on the
+   20 000 x 500 segment's first 16 pods in 2 shards (planes the planner
+   leaves partly in global memory) and on 5120 x 4 in 5000 zones in 4
+   shards (the zone totals in global memory), and ``FrontierRun(mesh=)`` on a tie
    fixture (40 nodes with staggered pod caps, 300 pods) in 2, 4 and 8
    shards on the card against the same loop on the CPU, compacting at
    least once; (c) ``BatchBackend(frontier_mesh=True, mesh_devices=4)``
@@ -4970,17 +4973,19 @@ def mesh_ring(s, st, n: int, reps: int) -> tuple:
         ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
         ctl[fused_scan.CTL_RR] = st.round_robin
         ring.append(lambda b=bufs, c=ctl: mesh_scan.launch(b, pl, 0, s.p_real, c))
-    return pl, ring, mesh_scan.query(bufs, pl, ctl)
+    return pl, ring, mesh_scan.clusters(pl)
 
 
 def mesh_bound(s, st, pl) -> tuple[float, str, dict]:
-    """Least time for the sharded scan: row 1's (``bound``: the packed
-    inputs read once, the outputs written once, the pods' integer
-    operations) plus the two exchanges a pod, each block's messages (the
-    statistics, its best and tie count, its tie words) written once and
-    read once."""
+    """Least time for the sharded scan, whatever implements it: row 1's
+    (``bound``: the packed inputs read once, the outputs written once, the
+    pods' integer operations) plus what any sharded design must exchange a
+    pod, each shard's statistics (7 int64 and an int64 a zone), best
+    (int64), tie count (int32) and tie words (a bit a column of the shard),
+    written once and read once by each of the other shards."""
     _, _, detail = bound(s, st)
-    exchange = 2 * pl.grid * (pl.msg_a * 8 + 16 + pl.bw * 4) * s.p_real
+    msg = 8 * (7 + int(s.num_zones)) + 8 + 4 + 4 * -(-pl.n_local // 32)
+    exchange = pl.shards * pl.shards * msg * s.p_real
     nbytes = detail["bytes"] + exchange
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = detail["ops"] / ALU_OPS_PER_S * 1e3
@@ -5011,21 +5016,34 @@ def sharded_cell(what: str, s, st, want, rr_want: int, n: int, card: str) -> dic
     b_ms, b_by, detail = mesh_bound(s, st, pl)
     print(f"phase 17a {what} ({s.n_pad} nodes x {s.p_real} pods) in {n} shards on one card "
           f"through schedule_batch_sharded: == fused_scan.cu pod for pod (all {s.p_real}) and "
-          f"in rr {rr}; plan {pl.shards} shards x {pl.blocks} blocks of {pl.threads} threads, "
-          f"{pl.cols} columns a block ({pl.grid} blocks, {resident} resident at most); device_ms "
+          f"in rr {rr}; plan {pl.shards} clusters x {pl.cs} blocks (cs) of {pl.threads} threads, "
+          f"{pl.cols} columns a block, {pl.cpt} a thread (cpt), planes in shared memory "
+          f"{list(pl.shared)}, in global memory {list(pl.global_)}, zones_at {pl.zones_at} "
+          f"({resident} clusters of it resident at most); device_ms "
           f"{ms:.3f} = {ms * 1e3 / s.p_real:.2f} us a pod; bound {b_ms:.4f} ms by {b_by} "
           f"({detail['bytes']} bytes, {detail['exchange_bytes']} of them the exchanges, "
           f"{detail['ops']} ops); card {card}", flush=True)
     return {"ms": ms, "us_per_pod": ms * 1e3 / s.p_real, "bound_ms": b_ms, "bound_by": b_by,
-            "nodes": int(s.n_pad), "pods": int(s.p_real), "shards": n, "blocks": pl.blocks,
-            "grid": pl.grid, "launches": launches, "max_abs_err": err}
+            "nodes": int(s.n_pad), "pods": int(s.p_real), "shards": n, "cs": pl.cs,
+            "cpt": pl.cpt, "grid": pl.grid, "zones_at": pl.zones_at, "launches": launches,
+            "max_abs_err": err}
 
 
-def mesh_plain_cell(what: str, s, st, n: int, check=None) -> dict:
+def first_pods(s, k: int):
+    """Segment ``s`` cut to its first ``k`` pods (its per-pod tables; a
+    prefix of the sequential scan is a segment of its own)."""
+    import dataclasses
+
+    return dataclasses.replace(s, **{f: getattr(s, f)[:k].contiguous() for f in (
+        "group_of_pod", "pod_vol_ids", "pod_vol_valid", "pod_vol_ro_ok", "pod_vol_kind",
+        "pod_vol_count_only")})
+
+
+def mesh_plain_cell(what: str, s, st, n: int, check=None, layout=None) -> dict:
     """The mesh kernel against its plain version (``scan_ref.scan_shards``)
-    on the card, on the same shards; ``check(chosen)`` adds a condition.
-    Returns the plain ms (CUDA events around it) and the kernel's device
-    ms."""
+    on the card, on the same shards; ``check(chosen)`` adds a condition,
+    ``layout(plan)`` one on the plan's placement.  Returns the plain ms
+    (CUDA events around it) and the kernel's device ms."""
     import torch
 
     from kubernetes_tpu_torch.ops import mesh_scan, scan_ref
@@ -5041,14 +5059,18 @@ def mesh_plain_cell(what: str, s, st, n: int, check=None) -> dict:
     end.synchronize()
     want = want.cpu().numpy()
     err = int(abs(got.astype("int64") - want.astype("int64")).max()) if len(want) else 0
-    if err or rr != finals[0].round_robin or (check is not None and not check(got)):
+    pl, ring, _ = mesh_ring(s, st, n, 2)
+    if err or rr != finals[0].round_robin or (check is not None and not check(got)) \
+            or (layout is not None and not layout(pl)):
         raise AssertionError(f"phase 17b {what}: mesh_scan.cu != scan_ref.scan_shards in {n} "
-                             f"shards: max index diff {err}, rr {rr} vs {finals[0].round_robin}")
-    ms = device_ms(mesh_ring(s, st, n, 2)[1])[0]
+                             f"shards: max index diff {err}, rr {rr} vs {finals[0].round_robin}, "
+                             f"plan {pl}")
+    ms = device_ms(ring)[0]
     plain_ms = start.elapsed_time(end)
     print(f"phase 17b {what} in {n} shards: mesh_scan.cu == scan_ref.scan_shards (the plain "
           f"sharded step) on the card, bound {int((want >= 0).sum())}/{len(want)}, rr {rr}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+          f"plan cs {pl.cs}, cpt {pl.cpt}, {len(pl.global_)} planes in global memory, zones_at "
+          f"{pl.zones_at}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "nodes": int(s.n_pad), "pods": int(s.p_real),
             "shards": n, "max_abs_err": err}
 
@@ -5197,6 +5219,18 @@ def mesh_phase(main: tuple, wide: tuple, churn: dict, card: str) -> dict:
         raise AssertionError(f"phase 17b: the uneven segment padded to {s.n_pad}, not 1004")
     cells["uneven_1003x128_4"] = mesh_plain_cell(
         "uneven 1003x128 (padded to 1004)", s, st, 4, check=lambda c: not (c >= 1003).any())
+    # planes the planner leaves partly in global memory: the 20 000 x 500
+    # segment (20 096 columns) in 2 shards, its first 16 pods; and a zone
+    # count past what shared memory holds (the plain step takes ~0.3 s a
+    # pod at 5000 zones: 4 pods)
+    cells["planes_global_20096x16_2"] = mesh_plain_cell(
+        "mixed 20096x16 (20000x500's first 16 pods; planes partly in global memory)",
+        first_pods(s_w, 16), st_w, 2, layout=lambda pl: bool(pl.global_) and bool(pl.shared))
+    m, pods, pctx = cluster(5000, 4, "mixed", seed=4, zones=5000)
+    _, s, st = segment(m, pods, pctx, "cuda", shards=4)
+    cells["zones_5000_5120x4_4"] = mesh_plain_cell(
+        "mixed 5120x4 in 5000 zones (zone totals in global memory)", s, st, 4,
+        layout=lambda pl: pl.zones_at == "global")
     tie_launches, tie_refresh = mesh_tie_loops()
     mesh_churn_parity(churn)
     sharded = sum(c["launches"] for c in cells.values() if "launches" in c)

@@ -9,8 +9,10 @@ an ordered list of shard places, each with its device; ``place_static`` /
 ``place_state`` give each shard its own tensors (its slice of every
 node-axis plane and its copy of the replicated ones).  The plain sharded
 step is ``ops.scan_ref.scan_shards``; on a card the shards' scan is one
-launch of ``ops/csrc/mesh_scan.cu``, whose blocks exchange each pod's
-statistics and best-and-ties messages through device memory.
+launch of ``ops/csrc/mesh_scan.cu``, each shard a thread-block cluster
+that gathers each pod's statistics and best-and-ties messages in its
+shared memory and exchanges one message a shard through a device-memory
+mailbox.
 
 Shard k owns the global columns ``[k * width, (k + 1) * width)`` of a node
 axis of ``S * width`` columns (``models.snapshot.pad_segment_to_multiple``
@@ -240,8 +242,9 @@ def assert_collective_structure(exchanges: list, static: ScanStatic) -> dict:
     """Fail if a pod's exchange carries node-axis state.
 
     ``exchanges`` is the per-pod list of (collective, words) the planner
-    lays out: statistics folded as all-reduces, each block's best score,
-    tie count and tie bits gathered by every block.  Forbidden: one that
+    lays out: statistics folded as all-reduces, each shard's best score,
+    tie counts and tie bits gathered by every block, and inside each
+    cluster its blocks' messages to their rank 0.  Forbidden: one that
     carries half a [G, N] or [T, N] plane or more, the sign of a layout
     that re-materializes the split state every pod.  Returns the counts
     by collective."""

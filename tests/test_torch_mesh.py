@@ -40,7 +40,7 @@ from kubernetes_tpu.utils import slo as jslo
 from kubernetes_tpu_torch.models import snapshot as psnap
 from kubernetes_tpu_torch.models.carry import from_reference
 from kubernetes_tpu_torch.ops import _build as kbuild
-from kubernetes_tpu_torch.ops import mesh_scan, scan_ref
+from kubernetes_tpu_torch.ops import fused_scan, mesh_scan, scan_ref
 from kubernetes_tpu_torch.ops.backend import BatchBackend
 from kubernetes_tpu_torch.ops.frontier import FrontierRun
 from kubernetes_tpu_torch.parallel import mesh as pmesh
@@ -139,12 +139,15 @@ def test_sharded_scan_collective_structure():
     want, rr_want = schedule_batch_arrays(static, init)
     np.testing.assert_array_equal(chosen, want)
     assert rr == rr_want and verified == counts
-    # the plan is the kernel's: its words follow the planner's layout
+    # the plan is the kernel's: its words follow the planner's layout, one
+    # message a shard between clusters and a block's to its rank 0 inside
     pl = mesh_scan.plan(pmesh.place_static(s, cpu_mesh(8)))
-    assert pl.grid == 8 and pl.msg_a == mesh_scan.NSTAT + s.num_zones
+    assert pl.shards == 8 and pl.zones_at == "registers"
+    assert pl.msg_a == -(-(10 + 2 * s.num_zones) // 4) * 4 and pl.box_a == 4 + pl.msg_a
     assert {e["name"]: e["words"] for e in plan} == {
-        "statistics": 2 * pl.grid * pl.msg_a, "best_and_ties": 4 * pl.grid,
-        "tie_words": pl.grid * pl.bw}
+        "statistics": pl.shards * pl.box_a, "best_and_ties": pl.shards * pl.box_b,
+        "cluster_statistics": pl.grid * pl.msg_a, "cluster_best_and_ties": pl.grid * pl.msg_b}
+    assert {e["scope"] for e in plan} == {"shards", "cluster"}
 
 
 def test_collective_structure_gate_rejects_state_allgather():
@@ -484,8 +487,9 @@ def test_node_cache_attributes_columns_to_their_shard():
 
 
 def test_mesh_params_mirror_matches_the_cuda_struct():
-    """``MeshParams`` field for field against ``csrc/mesh_scan.cu``, and the
-    pointer table's planes in the kernel's enum order."""
+    """``MeshParams`` field for field against ``csrc/mesh_scan.cu``, the
+    pointer table's planes in the kernel's enum order, and the placement
+    slots in the fused scan's plane order (the planner places both)."""
     with open(os.path.join(kbuild.CSRC, "mesh_scan.cu")) as f:
         text = f.read()
     assert _ctypes_fields(mesh_scan.MeshParams) == _parse_struct(text, "MeshParams")
@@ -495,19 +499,101 @@ def test_mesh_params_mirror_matches_the_cuda_struct():
     alias = {"aff": "aff_raw", "taint": "taint_raw", "score": "score_raw",
              "interpod": "interpod_raw"}
     assert [alias.get(x, x) for x in names] == list(mesh_scan.SHARD_PLANES)
+    enum = re.search(r"enum\s+Plane\s*\{(.*?)\}", text, re.S).group(1)
+    names = [x.split("=")[0].strip() for x in enum.replace("\n", " ").split(",") if x.strip()]
+    assert [x[2:].lower() for x in names if x != "NPLANES"] == [
+        {"pod_rows": "pod", "spread_inc": "inc"}.get(p, p) for p in fused_scan.PLANES]
+    # the mailbox slots' heads and the register zones are the kernel's
+    for name in ("HEAD_A", "HEAD_B", "REG_ZONES"):
+        got = int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+        assert got == getattr(mesh_scan, name), name
+
+
+H100 = mesh_scan.h100_clusters  # the card's figures, fed to the planner here
+
+
+def _plan(n_local, shards, zones=3, pv=8, t=4):
+    return mesh_scan.plan_for(n_local, shards, r=4, g=32, t=t, pv=pv, v=6, w=2, k=2,
+                              zones=zones, use_terms=True, use_vols=True, use_ports=True,
+                              clusters=H100)
+
+
+def _assert_covers(pl, n_local, shards):
+    """Each shard's columns owned once (block r: [r * cols, (r + 1) * cols)),
+    within what the card holds and a block's shared memory."""
+    assert pl.shards == shards and pl.n_local == n_local
+    assert pl.cols % 16 == 0 and pl.ns == pl.cs * pl.cols >= n_local
+    assert pl.threads % 32 == 0 and pl.threads <= mesh_scan.MAX_THREADS
+    assert pl.cols <= pl.threads * pl.cpt and pl.cpt in (1, 2, 4, 8, 16)
+    owners = np.arange(pl.ns) // pl.cols
+    assert np.bincount(owners, minlength=pl.cs).tolist() == [pl.cols] * pl.cs
+    assert pl.cs in mesh_scan.CLUSTER_SIZES and H100(pl.cs, pl.threads, pl.cpt, pl.smem_bytes) >= shards
+    assert pl.grid <= 132
+    assert pl.smem_bytes <= fused_scan.SMEM_LIMIT - fused_scan.STATIC_RESERVE
+    assert pl.fixed_bytes % 16 == 0
+    placed = [(pl.offsets[p], pl.plane_bytes[p]) for p in pl.shared]
+    assert all(off % 16 == 0 and off >= pl.fixed_bytes for off, _ in placed)
+    assert pl.box_b >= mesh_scan.HEAD_B + pl.cs + pl.cs * pl.ents and pl.box_b % 4 == 0
+    assert pl.msg_b >= 3 + pl.ents
 
 
 @pytest.mark.parametrize("n_local,shards", [(1, 8), (5, 4), (1280, 4), (2560, 2), (5024, 4)])
 def test_mesh_plan_covers_each_shard(n_local, shards):
-    """The planner's blocks cover a shard's columns in whole tie words, its
-    packed width is the refresh's (a multiple of 16), and the grid it asks
-    for fits the card's 132 SMs at one block each."""
-    pl = mesh_scan.plan_for(n_local, shards, r=4, g=32, t=4, pv=8, w=1, zones=3)
-    assert pl.blocks * pl.cols >= n_local > (pl.blocks - 1) * pl.cols
-    assert pl.cols % 32 == 0 and pl.bw == pl.cols // 32 and pl.threads % 32 == 0
-    assert pl.ns % 16 == 0 and pl.ns >= max(n_local, 16)
-    assert pl.grid <= 132
-    assert pl.msg_a == mesh_scan.NSTAT + 3
+    """A shard is a cluster of ``cs`` blocks whose columns cover it, no block
+    without a real column at these widths, the largest cluster the H100
+    holds ``shards`` of, and its packed width is the refresh's (a multiple
+    of 16)."""
+    pl = _plan(n_local, shards)
+    _assert_covers(pl, n_local, shards)
+    assert pl.cs * pl.cols >= n_local > (pl.cs - 1) * pl.cols
+    assert pl.msg_a == 16 and pl.zones_at == "registers" and pl.zone_off == -1
+    bigger = [c for c in mesh_scan.CLUSTER_SIZES if c > pl.cs and c <= -(-n_local // 32)]
+    assert all(H100(c, 0, 0, 0) < shards for c in bigger)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8, 16])
+def test_mesh_planner_refuses_no_shape(shards):
+    """Every shape plans: widths from 1 to 20 224 / shards and the uneven
+    1003, zones up to 20 000 (registers, shared totals, global totals),
+    600 host ports, ``MAX_TERMS`` terms; each plan fits a block's shared
+    memory and covers every column once."""
+    widths = sorted({1, 5, 16, 17, 33, 251, 520, 1003, 1280, 5056, 20224 // shards})
+    for n_local in widths:
+        for zones in (0, 3, 8, 9, 300, 4096, 4097, 20000):
+            for pv, t in ((8, 4), (600, fused_scan.MAX_TERMS)):
+                pl = _plan(n_local, shards, zones=zones, pv=pv, t=t)
+                _assert_covers(pl, n_local, shards)
+                assert pl.zones_at == mesh_scan.zones_at(zones)
+                if pl.zones_at == "shared":
+                    assert pl.zone_off >= 0 and pl.zone_off + 8 * zones <= pl.fixed_bytes
+                else:
+                    assert pl.zone_off == -1
+                assert pl.msg_a == (12 if zones > mesh_scan.REG_ZONES
+                                    else -(-(10 + 2 * zones) // 4) * 4)
+                assert pl.sws <= pl.sw and (pv < 256 or pl.sws < pl.sw)
+    with pytest.raises(ValueError, match="1 to 16 shards"):
+        _plan(64, 17)
+
+
+def test_mesh_exchanges_pass_the_collective_gate():
+    """The new plan's per-pod exchanges (a shard's message between clusters,
+    a block's to its rank 0 inside) pass ``assert_collective_structure`` at
+    the main segment's shape in 2 and 4 shards, and the gate still rejects
+    a state all-gather beside them."""
+    static, init = _build(21, 32, 96)
+    s, _ = carried(static, init)
+    for shards, n_local in ((2, 2560), (4, 1280)):
+        wide = dataclasses.replace(s, n_pad=shards * n_local)
+        pl = mesh_scan.plan_for(n_local, shards, r=4, g=32, t=4, pv=8, v=6, w=2, k=2, zones=3,
+                                use_terms=True, use_vols=True, use_ports=True, clusters=H100)
+        ex = mesh_scan.exchanges(pl)
+        counts = pmesh.assert_collective_structure(ex, wide)
+        assert counts["all-reduce"] == 2 and counts["all-gather"] == 2
+        g, t = s.static_ok.shape[0], s.term_matches_sig.shape[0]
+        bad = ex + [{"name": "plane", "collective": "all-gather",
+                     "words": max(g, t, 2) * wide.n_pad}]
+        with pytest.raises(AssertionError, match="all-gathers node-axis state"):
+            pmesh.assert_collective_structure(bad, wide)
 
 
 def test_mesh_kernel_raises_off_the_card():

@@ -1,6 +1,7 @@
 """The mesh kernel (``ops/csrc/mesh_scan.cu``) on the card: a whole
 segment at 2, 4 and 8 shards against the plain sharded step
-(``scan_ref.scan_shards``) and the fused scan, and the sharded frontier
+(``scan_ref.scan_shards``) and the fused scan (also a segment with planes
+left in global memory and one with its zone totals there), and the sharded frontier
 loop (``FrontierRun(mesh=)``: mesh launches a chunk, the refresh a shard)
 against the same loop on the CPU.  Every test here needs a card and skips
 elsewhere with a reason; on the CPU the mesh's plain path is covered by
@@ -34,13 +35,30 @@ def _padded(static, init, n, device):
     return from_reference(vars(ps), vars(pi), device)
 
 
+# (case, its builder's arguments, shard counts): the small cases at 2, 4 and
+# 8 shards; a segment whose planes the planner leaves partly in global
+# memory (20 224 columns in 2 shards), and one whose zone count is past
+# what shared memory holds (the zone totals in a global row a block). Few
+# pods: the plain sharded step costs 11-16 ms a pod on the card.
+KERNEL_CASES = {
+    "mixed": ("mixed", {}, (2, 4, 8)),
+    "terms_only": ("terms_only", {}, (2, 4, 8)),
+    "volumes_only": ("volumes_only", {}, (2, 4, 8)),
+    "ties": ("ties", {}, (2, 4, 8)),
+    "many_zones": ("many_zones", {}, (2, 4, 8)),
+    "planes_partly_global": ("mixed", {"n_nodes": 20224, "n_pods": 12}, (2,)),
+    "zones_past_shared": ("many_zones", {"n_zones": 5000, "n_nodes": 5120, "n_pods": 8}, (2, 4)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed", "terms_only", "volumes_only", "ties", "many_zones"])
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
 def test_mesh_kernel_matches_the_plain_sharded_step(case):
     _card()
-    static, init = cases.tensorize(PORT, case)
+    builder, kw, sizes = KERNEL_CASES[case]
+    static, init = cases.tensorize(PORT, builder, **kw)
     want, rr_want = fused_scan.schedule(*from_reference(vars(static), vars(init), "cuda"))
-    for n in (2, 4, 8):
+    for n in sizes:
         s, st = _padded(static, init, n, "cuda")
         mesh = pmesh.make_mesh(n, devices=["cuda"] * n)
         mesh_scan.launches = 0
@@ -51,6 +69,11 @@ def test_mesh_kernel_matches_the_plain_sharded_step(case):
         np.testing.assert_array_equal(got, plain.cpu().numpy(), err_msg=f"{case} at {n}")
         np.testing.assert_array_equal(got, want, err_msg=f"{case} at {n}")
         assert rr == rr_want == finals[0].round_robin
+        pl = mesh_scan.plan(pmesh.place_static(s, mesh))
+        if case == "planes_partly_global":
+            assert pl.global_ and pl.shared, pl.offsets
+        if case == "zones_past_shared":
+            assert pl.zones_at == "global", pl.zones_at
 
 
 @pytest.mark.cuda
