@@ -8,16 +8,19 @@ Phases, one line each:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build the CUDA kernels from ``kubernetes_tpu_torch/ops/csrc`` (the fused
    scan, the frontier loop's refresh and the mesh scan, one ``nvcc`` each,
-   started together), and name which host helpers (``native.py``: the label
-   matcher and the store's deep copy) serve, ``native`` or ``python``;
+   started together; meanwhile the segments of phases 3, 4, 10 and 17b
+   that the kernels are held against are carried to the card and their
+   plain versions run there, which needs no kernel), and name which host
+   helpers (``native.py``: the label matcher and the store's deep copy)
+   serve, ``native`` or ``python``;
 3. the kernel against its plain PyTorch version (``ops/scan_ref.py``) on
-   the card, on 1000-node x 2000-pod ``mixed`` and ``plain`` segments; on
+   the card, on 1000-node x 500-pod ``mixed`` and ``plain`` segments; on
    the same ``mixed`` cluster with its zone label over 16 zones (the
    kernel's shared-memory zone path, timed beside the 3-zone segment),
    over 300 zones (shared memory at the plan's 4-block cluster) and over
    1000 zones (the global-memory zone path with its second fold), each
-   with its plan line, time and bound; with 600 distinct host ports
-   (``BatchBackend`` cuts the batch under a signature row's port slot;
+   with its plan line, time and bound; on 2000 pods, one in three with
+   its own host port, 600 distinct host ports (``BatchBackend`` cuts the batch under a signature row's port slot;
    every segment is held against the plain scan, and the refresh kernel
    at its widest segment, timed); with one pod of 257
    host ports (a segment of its own whose port flags past the row's
@@ -30,13 +33,16 @@ Phases, one line each:
    .schedule_batch`` of 20 000 ``mixed`` pods on 5000 nodes, four times in
    turns with the frontier off, on (the default: the device-resident loop
    of 512-pod chunks and refreshes), on, off, each with both kernels'
-   launch counts read around it, its wall, kernel_ms and host syncs; all
+   launch counts read around it, its wall, kernel_ms and host syncs (with
+   the frontier on, within the static budget: the ``# device: sync``
+   sites ``kubernetes_tpu_torch.analysis`` sanctions in ``ops/frontier.py``,
+   a loop run's and a run's); all
    four bind as one launch of the kernel on that very segment does; then
    the kernel against the plain version on two windows of it (its first
-   4096 pods from the initial state, its last 4096 from the state the
+   1024 pods from the initial state, its last 1024 from the state the
    kernel wrote back after the pods before them), on a 5000-node x
-   2000-pod one, on a 10 000-node x
-   1000-pod one and on a 20 000-node x 500-pod one (whose plan leaves
+   500-pod one, on a 10 000-node x
+   500-pod one and on a 20 000-node x 500-pod one (whose plan leaves
    planes in global memory), the kernel's plan (cluster and block size,
    the planes in shared memory), its times, one 512-pod chunk launch's
    time, the refresh kernel against its plain version at the main
@@ -83,13 +89,14 @@ Phases, one line each:
    HTTP at 1000 nodes, 4000 fillers and 250 preemptors: every preemptor
    bound, the daemon's victims printed;
 8. the upstream ``ClusterAutoscalerProvider`` as a policy file
-   (``load_policy_file``) at 1000 x 2000 ``mixed``: the scan's ``most``
+   (``load_policy_file``) at 1000 x 500 ``mixed``: the scan's ``most``
    weight plane, kernel == plain scan == the sequential oracle on it;
    (8b) the daemons with a ``ServiceSpreadingPriority`` policy, which the
    scan does not express, on ``--device cuda``: 6b's parity set binds on
    the host oracle, equal to the sequential oracle on the policy, with
    ``scheduler_backend_oracle_pods_total`` > 0 on /metrics;
-9. tracing, faults and overload: (a) 6a's cell again with the daemon's
+9. tracing, faults and overload: (a) 6a's waves of 2000 pods on 5000
+   nodes, three of them, with the daemon's
    ``--trace --timeseries --telemetry-sink``: its pods/s beside 6a's, the
    chrome trace from /debug/traces (one root span a wave, the
    ``tensorize`` spans' seconds equal to the daemon's ``tensorize_s``,
@@ -97,7 +104,7 @@ Phases, one line each:
    launches and ``kernel_ms``), the sink's time series covering every
    wave, and the
    per-wave idle share from the spans; (b) in process on the card, 1000
-   nodes and 2000 ``mixed`` pods in five waves, one fault a wave from a
+   nodes and 1000 ``mixed`` pods in five waves, one fault a wave from a
    seeded ``FaultPlan`` (``backend.pallas.segment``: the wave raises and
    its pods are requeued; ``scheduler.bind``: forget, requeue, rebind;
    ``scheduler.pipeline.prep``: contained; ``backend.compact`` at the
@@ -111,12 +118,13 @@ Phases, one line each:
    ladder must engage and recover, and the tail at rung 0 must equal the
    oracle replay;
 10. a pool that fills: 1024 nodes, half of them taking 4 pods and half 110,
-   and 10 000 identical pods at the default frontier settings (what a
+   and 6000 identical pods at the default frontier settings (what a
    batch job draining into a nearly full node pool sends): a
    ``backend.compact`` fault at the first compaction raises; then the
    frontier route binds the batch, compacting at least once, equal to the
    full-width kernel and to the plain scan, with at most compactions + 2
-   host syncs; the refresh kernel is held against its plain version at
+   host syncs and within the static budget (phase 4's); the refresh
+   kernel is held against its plain version at
    every loop exit and timed at the pool's width; the widths trajectory
    and times are printed, and
    ``gather_node_axis`` is timed alone on the first compaction's inputs
@@ -126,7 +134,7 @@ Phases, one line each:
    the default admission chain on; earlier phases keep the flag): (a) 1000
    nodes, a tenth tainted ``node.alpha.kubernetes.io/unreachable:NoExecute``,
    a namespace, a LimitRange (100m / 128Mi default requests), two
-   PriorityClasses and a pod quota; 2000 pods with no requests POSTed one
+   PriorityClasses and a pod quota; 1000 pods with no requests POSTed one
    at a time (half naming ``high``) and three that must answer 403 (past
    the quota, a missing namespace, a missing class); every stored pod
    carries the admitted requests, tolerations and priority, some bind to
@@ -139,18 +147,18 @@ Phases, one line each:
    same scheduler daemon: every bind of the LIST before the kill reads
    back, every pod ends bound, no node over capacity, the daemon's watch
    reconnects on /metrics, the recovery line printed, waves 1-2's pods/s
-   beside 6a's; (c) what ``--fsync`` costs: a 1000-pod wave at 5000 nodes
+   beside 6a's; (c) what ``--fsync`` costs: a 1000-pod wave at 1000 nodes
    under no flag, ``--data-dir`` and ``--data-dir --fsync``, one of
    each, create and bind seconds and create->bind p99 per arm;
 12. auth, PKI, TLS and kubeconfig: (a) the control plane as ``cluster
-   init`` starts it, at 6a's shape: the apiserver at its defaults with
+   init`` starts it, at 6a's waves: the apiserver at its defaults with
    ``--tls-cert-file``, ``--tls-private-key-file``, ``--client-ca-file``
    and ``--audit-log`` (the committed test PKI,
    ``kubernetes_tpu_torch/testing/pki``: nothing is minted here), the
    scheduler daemon on ``--kubeconfig`` (its client certificate and no
    token) with ``--leader-elect`` at its defaults, and
-   ``workload.run_wire_churn`` through the admin kubeconfig, 20 000
-   ``mixed`` pods in 10 waves on 5000 nodes, every pod bound: pods/s,
+   ``workload.run_wire_churn`` through the admin kubeconfig, 6000
+   ``mixed`` pods in 3 waves on 5000 nodes, every pod bound: pods/s,
    create->bind p50/p99, the ratio to 6a's pods/s in this call, both
    kernels' launches as the daemon counted them (each > 0), the audit
    log's lines and its users (the creates ``kubernetes-admin``'s, the binds
@@ -162,7 +170,7 @@ Phases, one line each:
    ``system:bootstrap:<id>``, an expired one gets 401; four connections
    that send nothing do not keep the server from answering; (c) RBAC
    mode over HTTP (``--token-file``, ``--authorization-mode RBAC``, the
-   grants seeded into ``--data-dir`` by ``Store``): 1000 nodes x 1000
+   grants seeded into ``--data-dir`` by ``Store``): 1000 nodes x 500
    pods in 2 waves, bindings and rr equal to the sequential oracle wave
    by wave, a token with no binding gets 403 on create;
 13. a node drain under the card's scheduler: (a) the apiserver at its
@@ -218,21 +226,22 @@ Phases, one line each:
    through the card's scheduler, every pod Running, the bindings and rr
    equal to the sequential oracle over the cluster as read back (in a
    spawned process), the fleet's exit 0 on SIGTERM;
-15. the controller manager at 5000 nodes under the card's scheduler: the
-   apiserver at its defaults, 14a's seeded cluster registered by 4 fleet
-   processes (1250 nodes each, a quarter of every zone) while ``python -m
+15. the controller manager at 2000 nodes under the card's scheduler: the
+   apiserver at its defaults, a 2000-node cluster seeded as 14a's,
+   registered by 4 fleet processes (500 nodes each, a quarter of every
+   zone) while ``python -m
    kubernetes_tpu_torch controller-manager --leader-elect`` at its
    defaults (every controller, 2 workers, a 5 s node monitor period) and
-   the scheduler daemon start; (a) 10 Deployments of 50 replicas, each
+   the scheduler daemon start; (a) 10 Deployments of 24 replicas, each
    template one of the ``mixed`` generator's request shapes (seed 7),
-   maxSurge and maxUnavailable 13, each with a Service: the time until
+   maxSurge and maxUnavailable 12, each with a Service: the time until
    every Deployment is ready, the ReplicaSet controller's creates per
    second, create->bind and create->Running p50/p99 on a watch; (b) a new
-   image on every Deployment: the time until each has 50 updated and
+   image on every Deployment: the time until each has 24 updated and
    ready replicas and its old ReplicaSet is at 0, every pod owned by the
    newest ReplicaSet; (c) one fleet process SIGKILLed: the time until the
-   node lifecycle controller has marked exactly its 1250 nodes
-   ``Unknown`` (no other node is ever not Ready), then app-0 scaled to 100:
+   node lifecycle controller has marked exactly its 500 nodes
+   ``Unknown`` (no other node is ever not Ready), then app-0 scaled to 48:
    none of the new pods on a lost node, no pod deleted; (d) ``kubelet
    --name real --count 1 --serve-logs --real-containers`` and a
    1-replica Deployment selecting its node: the pod's ``log``, ``exec``
@@ -256,7 +265,7 @@ Phases, one line each:
    (kubemark's hollow node: a kubelet and a kube-proxy), their nodes
    labelled and tainted by PATCH as 14a's seeded cluster's, and ``python -m
    kubernetes_tpu_torch cloud-controller-manager --leader-elect``; 10
-   Deployments x 50, each one of ``app_templates``' request shapes, a
+   Deployments x 25, each one of ``app_templates``' request shapes, a
    Service each with a named port (app-0's a LoadBalancer, app-9's
    headless): every pod Running, none rejected, no node over capacity;
    each Service by name over UDP through the addon (A: its cluster IP, or
@@ -296,7 +305,7 @@ Phases, one line each:
    segment in 4, each equal pod for pod and in rr to the fused scan's
    launch, with the mesh kernel's device time, µs a pod and bound; (b) the
    mesh kernel against its plain version (``scan_ref.scan_shards``) at
-   1000 x 1024 ``mixed`` in 4 shards, on an uneven 1003-node x 128-pod
+   1000 x 256 ``mixed`` in 4 shards, on an uneven 1003-node x 128-pod
    segment padded to 1004 columns (no padded column chosen), on the
    20 000 x 500 segment's first 16 pods in 2 shards (planes the planner
    leaves partly in global memory) and on 5120 x 4 in 5000 zones in 4
@@ -307,7 +316,8 @@ Phases, one line each:
    under the scheduler's churn at 5000 nodes, 4 waves of 1000 pods (run
    right after phase 6, its per-pod oracle replay in a process of its own
    beside phases 7-16): every segment in mesh mode on 4 shards within
-   compactions + 2 host syncs, the per-shard upload fractions and the
+   compactions + 2 host syncs, the churn's host syncs within the static
+   budget of its frontier runs (phase 4's), the per-shard upload fractions and the
    three mesh gauges set, every wave's bindings and the counter at each
    batch's start equal to the oracle's.
 
@@ -333,6 +343,7 @@ two with a non-zero code.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -420,34 +431,50 @@ def segment(m, pods, pctx, device, frontier: bool = False, pad_multiple: int = 1
     return static, s, st
 
 
-def compare(s, st) -> dict:
-    """Kernel and plain version on the same inputs; raises on mismatch."""
+def timed_on_card(fn) -> tuple:
+    """``fn()`` between two CUDA events: its result and the ms between."""
     import torch
 
-    from kubernetes_tpu_torch.ops import fused_scan, scan_ref
-
-    got, rr_got = fused_scan.schedule(s, st)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want, rr_want = scan_ref.scan(s, st)
+    out = fn()
     end.record()
     end.synchronize()
-    want = want.cpu().numpy()
+    return out, start.elapsed_time(end)
+
+
+def plain_scan(s, st) -> tuple:
+    """The plain version on the card: chosen (numpy), rr and its ms."""
+    from kubernetes_tpu_torch.ops import scan_ref
+
+    (want, rr), ms = timed_on_card(lambda: scan_ref.scan(s, st))
+    return want.cpu().numpy(), rr, ms
+
+
+def compare(s, st, plain: tuple = None) -> dict:
+    """Kernel and plain version on the same inputs (``plain``: the plain
+    version's ``plain_scan`` result, made before); raises on mismatch."""
+    from kubernetes_tpu_torch.ops import fused_scan
+
+    got, rr_got = fused_scan.schedule(s, st)
+    want, rr_want, plain_ms = plain if plain is not None else plain_scan(s, st)
     err = int(abs(got.astype("int64") - want.astype("int64")).max()) if len(want) else 0
     if err != 0 or rr_got != rr_want:
         raise AssertionError(
             f"fused scan != scan_ref: max index diff {err}, rr {rr_got} vs {rr_want}")
     return {"max_abs_err": err, "bound": int((want >= 0).sum()), "pods": len(want),
-            "rr": rr_got, "chosen": want, "plain_ms": start.elapsed_time(end)}
+            "rr": rr_got, "chosen": want, "plain_ms": plain_ms}
 
 
 # the main segment's pods held against the plain scan: its first and its
-# last MAIN_WINDOW (the plain scan of all 20 000 took 55-68 s a run)
-MAIN_WINDOW = 4096
+# last MAIN_WINDOW (the plain scan of all 20 000 took 55-68 s a run, two
+# windows of 4096 31.1 s)
+MAIN_WINDOW = 1024
 
 
-def compare_windows(s, st, whole, rr_whole: int, w: int = MAIN_WINDOW) -> dict:
+def compare_windows(s, st, whole, rr_whole: int, w: int = MAIN_WINDOW,
+                    head: tuple = None) -> dict:
     """The kernel against the plain version on two windows of a segment
     whose whole launch chose ``whole`` and ended at ``rr_whole``: its first
     ``w`` pods from the initial state (one chunk launch of the frontier
@@ -456,11 +483,13 @@ def compare_windows(s, st, whole, rr_whole: int, w: int = MAIN_WINDOW) -> dict:
     from the state a chunk launch of the pods before them wrote back (the
     whole launch's last ``w`` and ``rr_whole`` against ``scan_ref
     .scan_range`` from there).  The scan is sequential, so the first
-    window is the whole run's own.  Raises on a difference.  Returns the
-    plain ms and the kernel's device ms over the two windows."""
+    window is the whole run's own.  ``head`` is the plain version's first
+    window, made before (``plain_range``).  Raises on a difference.
+    Returns the plain ms and the kernel's device ms over the two
+    windows."""
     import torch
 
-    from kubernetes_tpu_torch.ops import fused_scan, scan_ref
+    from kubernetes_tpu_torch.ops import fused_scan
 
     pl = fused_scan.plan(s)
     cut = s.p_real - w
@@ -476,19 +505,10 @@ def compare_windows(s, st, whole, rr_whole: int, w: int = MAIN_WINDOW) -> dict:
         return bufs, ctl, lambda: fused_scan.launch(s, st, bufs, pl, start=start, count=count,
                                                      ctl=ctl)
 
-    def plain(state, start: int, stop: int):
-        torch.cuda.synchronize()
-        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        begin.record()
-        want, final = scan_ref.scan_range(s, state, start, stop)
-        end.record()
-        end.synchronize()
-        return want.cpu().numpy(), final.round_robin, begin.elapsed_time(end)
-
     bufs, ctl, go = chunk(0, w)
     go()
     got = bufs["chosen"][:w].cpu().numpy()
-    want, rr_want, head_ms = plain(st, 0, w)
+    want, rr_want, head_ms = head if head is not None else plain_range(s, st, 0, w)
     err = int(abs(got.astype("int64") - want.astype("int64")).max())
     if err or int(ctl[fused_scan.CTL_RR]) != rr_want or list(whole[:w]) != list(want):
         raise AssertionError(f"fused scan != scan_ref on the first {w} pods: max index diff "
@@ -497,7 +517,7 @@ def compare_windows(s, st, whole, rr_whole: int, w: int = MAIN_WINDOW) -> dict:
     bufs, ctl, go = chunk(0, cut)
     go()
     state = fused_scan.unpack_state(s, bufs, int(ctl[fused_scan.CTL_RR]))
-    want_tail, rr_tail, tail_ms = plain(state, cut, s.p_real)
+    want_tail, rr_tail, tail_ms = plain_range(s, state, cut, s.p_real)
     tail_err = int(abs(whole[cut:].astype("int64") - want_tail.astype("int64")).max())
     if tail_err or rr_tail != rr_whole:
         raise AssertionError(f"fused scan != scan_ref on the last {w} pods from the kernel's "
@@ -507,6 +527,15 @@ def compare_windows(s, st, whole, rr_whole: int, w: int = MAIN_WINDOW) -> dict:
                  + device_ms([chunk(cut, w, advance=cut)[2] for _ in range(2)])[0])
     return {"max_abs_err": max(err, tail_err), "pods": 2 * w, "plain_ms": head_ms + tail_ms,
             "kernel_ms": kernel_ms}
+
+
+def plain_range(s, st, start: int, stop: int) -> tuple:
+    """The plain version on a segment's pods ``start:stop`` from state
+    ``st``: chosen (numpy), rr and its ms."""
+    from kubernetes_tpu_torch.ops import scan_ref
+
+    (want, final), ms = timed_on_card(lambda: scan_ref.scan_range(s, st, start, stop))
+    return want.cpu().numpy(), final.round_robin, ms
 
 
 # the longest the host may take to enqueue one timed window, in device clock
@@ -552,6 +581,41 @@ def time_kernel(s, st, reps: int = 3) -> float:
     return device_ms([lambda b=b: fused_scan.launch(s, st, b) for b in ring])[0]
 
 
+@contextlib.contextmanager
+def frontier_runs():
+    """Every ``FrontierRun`` that finishes inside the block: its stats
+    (loop runs, host syncs), for the static sync budget."""
+    from kubernetes_tpu_torch.ops.frontier import FrontierRun
+
+    done: list = []
+    finalize = FrontierRun.finalize
+
+    def recorded(self):
+        out = finalize(self)
+        done.append(dict(self.stats))
+        return out
+
+    FrontierRun.finalize = recorded
+    try:
+        yield done
+    finally:
+        FrontierRun.finalize = finalize
+
+
+def sync_budget(runs: list) -> int:
+    """The static host-sync budget of frontier ``runs``: the ``# device:
+    sync`` sites the analyzer sanctions in ``ops/frontier.py``,
+    ``_sync_loop``'s once a loop run and ``finalize``'s once a run (the
+    bound ``tests/test_torch_analysis.py`` holds on the CPU), where each
+    ``.cpu()`` is a real device sync."""
+    from kubernetes_tpu_torch.analysis.device_contracts import sanctioned_sync_sites
+
+    rel = "kubernetes_tpu_torch/ops/frontier.py"
+    sites = sanctioned_sync_sites(ROOT, paths=[rel])[rel]
+    return sum(sites["FrontierRun._sync_loop"] * r["loop_runs"] + sites["FrontierRun.finalize"]
+               for r in runs)
+
+
 def batch_run(m, pods, pctx, frontier: bool) -> dict:
     """One ``BatchBackend(device="cuda", frontier=...)`` batch with both
     kernels' launch counts set to 0 just before it and read just after."""
@@ -564,17 +628,20 @@ def batch_run(m, pods, pctx, frontier: bool) -> dict:
     torch.cuda.synchronize()
     fused_scan.launches = frontier_refresh.launches = 0
     t0 = time.perf_counter()
-    assignments = backend.schedule_batch(pods, m, pctx)
-    torch.cuda.synchronize()
+    with frontier_runs() as runs:
+        assignments = backend.schedule_batch(pods, m, pctx)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, refresh = fused_scan.launches, frontier_refresh.launches
     st = backend.stats
+    budget = sync_budget(runs)
     n_bound = sum(a is not None for a in assignments)
     lf = backend.last_frontier
     print(f"phase 4 main {len(m)}x{len(pods)} mixed, frontier {'on' if frontier else 'off'}: "
           f"bound {n_bound} unbound {len(pods) - n_bound} segments {st['segments']} kernel_pods "
           f"{st['kernel_pods']} oracle_pods {st['oracle_pods']} launches {launches} "
-          f"refresh_launches {refresh} host_syncs {st['host_syncs']} tensorize_s "
+          f"refresh_launches {refresh} host_syncs {st['host_syncs']} (static budget {budget} "
+          f"over {sum(r['loop_runs'] for r in runs)} loop runs) tensorize_s "
           f"{st['tensorize_s']:.3f} dispatch_s {st['dispatch_s']:.3f} device_wait_s "
           f"{st['device_wait_s']:.3f} kernel_ms {st['kernel_ms']:.3f} wall_s {wall:.3f} "
           f"pods_per_s {len(pods) / wall:.1f} frontier {lf}", flush=True)
@@ -583,7 +650,8 @@ def batch_run(m, pods, pctx, frontier: bool) -> dict:
     if st["segments"] != 1:
         raise AssertionError(f"expected one segment, got {st['segments']}")
     if frontier and (refresh < 1 or not lf or lf[0]["mode"] != "loop"
-                     or st["host_syncs"] > lf[0]["compactions"] + 2):
+                     or st["host_syncs"] > lf[0]["compactions"] + 2
+                     or len(runs) != 1 or st["host_syncs"] > budget):
         raise AssertionError(f"the frontier route did not run its loop: {lf}, {st}")
     if not frontier and (refresh or lf or st["host_syncs"] != 1):
         raise AssertionError(f"the frontier was off but ran: {lf}, {st}")
@@ -933,6 +1001,11 @@ def shape_cell(what: str, pl, r: dict, s, st) -> dict:
             "zones": int(s.num_zones), "zones_at": pl.zones_at, "sw": pl.sw, "sws": pl.sws}
 
 
+# phase 3's pods a segment (the plain scan takes ~3.3 ms a pod at 1000
+# nodes); the 600 distinct host ports, one every third pod, take 2000
+SHAPE_PODS = 500
+
+
 def repaired_shapes() -> tuple[list, dict]:
     """Phase 3's shapes the kernel used to refuse: 16, 300 and 1000 zones,
     600 distinct host ports (and the refresh at that batch's widest port
@@ -942,22 +1015,23 @@ def repaired_shapes() -> tuple[list, dict]:
     from kubernetes_tpu_torch.ops import fused_scan
 
     errs, cells = [], {}
-    m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, zones=16)
+    n = SHAPE_PODS
+    m, pods, pctx = cluster(1000, n, "mixed", seed=1, zones=16)
     got, seen, backend = checked_batch(m, pods, pctx)
     (pl, r, s, st), = seen
     if s.num_zones != 16 or backend.stats["kernel_pods"] != len(pods):
         raise AssertionError(f"16-zone batch: {s.num_zones} zones, {len(seen)} segments")
     zone_ms = time_kernel(s, st)
-    _, s3, st3 = segment(*cluster(1000, 2000, "mixed", seed=1), "cuda")
+    _, s3, st3 = segment(*cluster(1000, n, "mixed", seed=1), "cuda")
     reg_ms = time_kernel(s3, st3)
     errs.append(r["max_abs_err"])
-    print(f"phase 3 mixed 1000x2000 over 16 zones: kernel == scan_ref, bound {r['bound']}/"
+    print(f"phase 3 mixed 1000x{n} over 16 zones: kernel == scan_ref, bound {r['bound']}/"
           f"{r['pods']}, rr {r['rr']}, max_abs_err {r['max_abs_err']}; shared-memory zone path "
           f"(msg_a {pl.msg_a} words, zone arrays at {pl.zone_off}) {zone_ms:.3f} ms against "
           f"{reg_ms:.3f} ms for the same cluster's 3-zone segment (register path)", flush=True)
 
     for zones, where in ((300, "shared"), (1000, "global")):
-        m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, zones=zones)
+        m, pods, pctx = cluster(1000, n, "mixed", seed=1, zones=zones)
         got, seen, backend = checked_batch(m, pods, pctx)
         (pl, r, s, st), = seen
         if (s.num_zones != zones or pl.zones_at != where
@@ -965,7 +1039,7 @@ def repaired_shapes() -> tuple[list, dict]:
             raise AssertionError(f"{zones}-zone batch: {s.num_zones} zones in {pl.zones_at} "
                                  f"memory, kernel_pods {backend.stats['kernel_pods']}")
         errs.append(r["max_abs_err"])
-        cells[f"zones_{zones}"] = shape_cell(f"mixed 1000x2000 over {zones} zones", pl, r, s, st)
+        cells[f"zones_{zones}"] = shape_cell(f"mixed 1000x{n} over {zones} zones", pl, r, s, st)
 
     m, pods, pctx = cluster(1000, 2000, "mixed", seed=1, host_ports=600)
     got, seen, backend = checked_batch(m, pods, pctx)
@@ -984,7 +1058,7 @@ def repaired_shapes() -> tuple[list, dict]:
     cells["refresh_ports_600"] = refresh_cell(
         "3 mixed 1000x2000 with 600 distinct host ports, its widest segment", s, st)
 
-    m, pods, pctx = cluster(1000, 2000, "mixed", seed=1)
+    m, pods, pctx = cluster(1000, n, "mixed", seed=1)
     wide = api.Pod.from_dict(pods[25].to_dict())
     wide.spec.containers[0].ports = [api.ContainerPort(container_port=20000 + k,
                                                        host_port=20000 + k)
@@ -997,12 +1071,16 @@ def repaired_shapes() -> tuple[list, dict]:
             or backend.stats["kernel_pods"] != len(pods) or backend.stats["oracle_pods"] != 0):
         raise AssertionError(f"257-port pod: {len(seen)} segments, {len(wide_segs)} wide, "
                              f"kernel_pods {backend.stats['kernel_pods']}")
-    print(f"phase 3 mixed 1000x2000 with one pod of {fused_scan.MAX_PORTS + 1} host ports: "
+    print(f"phase 3 mixed 1000x{n} with one pod of {fused_scan.MAX_PORTS + 1} host ports: "
           f"{len(seen)} segments (the pod alone in the middle one), every segment kernel == "
           f"scan_ref, bound {sum(g is not None for g in got)}/{len(pods)}, the wide pod on "
           f"{got[25]}; port widths {[x[2].g_ports.shape[1] for x in seen]}", flush=True)
     cells["wide_port_257"] = shape_cell("the 257-port pod's segment", *wide_segs[0])
     return errs, cells
+
+
+# phase 4's other segments: nodes, pods, seed
+OTHER_SEGMENTS = ((5000, 500, 3), (10000, 500, 4), (20000, 500, 6))
 
 
 def other_segments() -> tuple[list, dict, tuple]:
@@ -1011,16 +1089,15 @@ def other_segments() -> tuple[list, dict, tuple]:
     width, and that segment with the kernel's result (ScanStatic,
     ScanState, chosen, rr: phase 17 holds the mesh against it).  5000 and
     10 000 nodes keep every plane in 16 blocks' shared memory; 20 000 nodes
-    leave spread and the node rows in global memory.  Their clusters are
-    freed on return, so the later phases' garbage collections do not walk
-    them."""
+    leave spread and the node rows in global memory.  Their segments and
+    plain results were made while the kernels built (``plain_ahead``),
+    which freed their clusters."""
     from kubernetes_tpu_torch.ops import fused_scan
 
     errs, cell, wide = [], None, None
-    for n_nodes, n_pods, seed in ((5000, 2000, 3), (10000, 1000, 4), (20000, 500, 6)):
-        m, pods, pctx = cluster(n_nodes, n_pods, "mixed", seed=seed)
-        _, s, st = segment(m, pods, pctx, "cuda")
-        r = compare(s, st)
+    for n_nodes, n_pods, seed in OTHER_SEGMENTS:
+        s, st, plain = PRE.pop(("segment", n_nodes))
+        r = compare(s, st, plain)
         errs.append(r["max_abs_err"])
         print(f"phase 4 mixed {n_nodes}x{n_pods}: kernel == scan_ref, bound {r['bound']}/"
               f"{r['pods']}, rr {r['rr']}", flush=True)
@@ -1651,7 +1728,7 @@ def preemption_phase() -> tuple[int, dict]:
 def policy_phase() -> int:
     """Phase 8: the upstream ``ClusterAutoscalerProvider`` as a policy
     document (the default predicates, MostRequested in place of
-    LeastRequested), loaded by ``load_policy_file`` and run at 1000 x 2000
+    LeastRequested), loaded by ``load_policy_file`` and run at 1000 x 500
     ``mixed``: each kernel segment against the plain scan, the bindings and
     rr against the sequential oracle on the same policy, and the segment's
     ``most`` weight plane on.  Returns the fused-kernel launches."""
@@ -1666,7 +1743,7 @@ def policy_phase() -> int:
         with open(path, "w") as f:
             json.dump(doc, f)
         algo, oracle = load_policy_file(path), load_policy_file(path)
-    m, pods, pctx = cluster(1000, 2000, "mixed", seed=1)
+    m, pods, pctx = cluster(1000, 500, "mixed", seed=1)
     before = fused_scan.launches
     got, seen, backend = checked_batch(m, pods, pctx, algorithm=algo)
     launches = fused_scan.launches - before - len(seen)
@@ -1756,12 +1833,12 @@ def policy_daemon_phase() -> None:
 
 
 def traced_daemon_phase(pps_6a: float, idle_6a: float) -> int:
-    """Phase 9a: 6a's cell with the daemon's tracing and continuous
-    telemetry on.  Returns the fused-kernel launches, as the daemon
+    """Phase 9a: three of 6a's waves with the daemon's tracing and
+    continuous telemetry on.  Returns the fused-kernel launches, as the daemon
     counted them."""
     from kubernetes_tpu_torch.workload import run_wire_churn
 
-    n_nodes, n_pods, waves = 5000, 20000, 10
+    n_nodes, n_pods, waves = 5000, 6000, 3
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         sink = os.path.join(workdir, "telemetry.ndjson")
@@ -1831,7 +1908,7 @@ def traced_daemon_phase(pps_6a: float, idle_6a: float) -> int:
 
 
 def faults_phase() -> int:
-    """Phase 9b: faults on the card, in process: 1000 nodes and 2000
+    """Phase 9b: faults on the card, in process: 1000 nodes and 1000
     ``mixed`` pods arriving in five waves, tracing on, one seeded fault a
     wave: ``backend.pallas.segment`` once at the launch (the wave raises,
     its drained pods are requeued and bind in the next drain),
@@ -1849,7 +1926,7 @@ def faults_phase() -> int:
     from kubernetes_tpu_torch.utils import tracing
     from kubernetes_tpu_torch.workload import _churn_cluster, oracle_replay_waves
 
-    n_nodes, n_pods, seed = 1000, 2000, 8
+    n_nodes, n_pods, seed = 1000, 1000, 8
     t0 = time.perf_counter()
     cs, pods = _churn_cluster(n_nodes, n_pods, "mixed", seed)
     algo = GenericScheduler()
@@ -2066,7 +2143,7 @@ def node_cache_cell(static) -> None:
           flush=True)
 
 
-def pool_cluster(n_nodes: int = 1024, n_pods: int = 10000):
+def pool_cluster(n_nodes: int = 1024, n_pods: int = 6000):
     """Phase 10's pool: half the nodes take 4 pods, half 110, four zones,
     and identical batch pods."""
     from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
@@ -2087,7 +2164,7 @@ def pool_cluster(n_nodes: int = 1024, n_pods: int = 10000):
 
 def pool_phase() -> tuple[int, int, list, list, dict]:
     """Phase 10: a pool that fills.  1024 nodes (half take 4 pods, half
-    110; four zones) and 10 000 identical pods at the default frontier
+    110; four zones) and 6000 identical pods at the default frontier
     settings (512-pod chunks, compaction at half the width, width floor
     128): the small half fills within the first few chunks and the loop
     compacts.  A ``backend.compact`` fault at the first compaction
@@ -2108,10 +2185,11 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
     from kubernetes_tpu_torch.ops import frontier_refresh, fused_scan, scan_ref
 
     t0 = time.perf_counter()
-    m, pods, pctx = pool_cluster()
+    m, pods, pctx, static, s, st, plain = PRE.pop("pool")
     n_nodes, n_pods = len(m), len(pods)
-    static, s, st = segment(m, pods, pctx, "cuda")
-    r_full = compare(s, st)  # the full-width kernel against the plain scan
+    # the full-width kernel against the plain scan (made while the kernels
+    # built)
+    r_full = compare(s, st, plain)
     full_ms = time_kernel(s, st)
     pool_cell = refresh_cell(f"10 pool {n_nodes}x{n_pods}", s, st)
     names = [static.node_names[j] if j >= 0 else None for j in r_full["chosen"]]
@@ -2161,8 +2239,9 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
         torch.cuda.synchronize()
         fused_scan.launches = frontier_refresh.launches = 0
         t1 = time.perf_counter()
-        got = backend.schedule_batch(pods, m, pctx)
-        torch.cuda.synchronize()
+        with frontier_runs() as runs:
+            got = backend.schedule_batch(pods, m, pctx)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches, refresh_launches = fused_scan.launches, frontier_refresh.launches
     finally:
@@ -2171,6 +2250,7 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
     gather_cell(gathers)
     st_b = backend.stats
     lf = backend.last_frontier[0]
+    budget = sync_budget(runs)
     fused_errs = [sum(a != b for a, b in zip(got, names))
                   + int(backend.algorithm._round_robin != r_full["rr"]), r_full["max_abs_err"]]
     # the refresh kernel at every loop exit, from an all-True plane
@@ -2200,7 +2280,9 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
           f"route == full-width kernel == scan_ref (mismatches {fused_errs[0]}), rr "
           f"{backend.algorithm._round_robin}; widths {lf['widths']}, alive_frac "
           f"{lf['alive_frac']}, compactions {lf['compactions']}, chunks {lf['chunks']}, "
-          f"host_syncs {lf['host_syncs']}; launches {launches} fused + {refresh_launches} "
+          f"host_syncs {lf['host_syncs']} (static budget {budget} over "
+          f"{sum(r['loop_runs'] for r in runs)} loop runs); launches {launches} fused + "
+          f"{refresh_launches} "
           f"refresh; refresh kernel == scan_ref.refresh at {len(exits)} loop exits (mismatches "
           f"{sum(refresh_errs)}); a gather fault raised the batch first", flush=True)
     print(f"phase 10 times: frontier route wall {wall:.3f} s, its kernel_ms {st_b['kernel_ms']:.3f} "
@@ -2208,7 +2290,8 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
           f"wait {st_b['device_wait_s']:.3f} s); the full-width kernel {full_ms:.3f} ms; plain scan "
           f"{r_full['plain_ms']:.1f} ms ({time.perf_counter() - t0:.1f} s)", flush=True)
     if (any(fused_errs) or any(refresh_errs) or lf["compactions"] < 1 or not exits
-            or lf["host_syncs"] > lf["compactions"] + 2 or launches < 1 or refresh_launches < 1
+            or lf["host_syncs"] > lf["compactions"] + 2 or lf["host_syncs"] > budget
+            or len(runs) != 1 or launches < 1 or refresh_launches < 1
             or st_b["oracle_pods"] != 0):
         raise AssertionError(f"phase 10: {fused_errs}, {refresh_errs}, {lf}, {st_b}")
     return launches, refresh_launches, fused_errs, refresh_errs, pool_cell
@@ -2242,9 +2325,9 @@ def _capture(fn):
     return None
 
 
-def admitted_parity(workdir: str, n_nodes: int = 1000, n_pods: int = 2000) -> tuple[int, int]:
+def admitted_parity(workdir: str, n_nodes: int = 1000, n_pods: int = 1000) -> tuple[int, int]:
     """Phase 11a: 1000 nodes (a tenth tainted unreachable:NoExecute), the
-    objects the chain reads, 2000 pods with no requests POSTed one at a
+    objects the chain reads, 1000 pods with no requests POSTed one at a
     time through the apiserver at its defaults, three POSTs it must
     refuse; then the scheduler daemon binds them, and its bindings and rr
     are held against the sequential oracle and the in-process batch path
@@ -2467,9 +2550,9 @@ def crash_recovery(workdir: str, pps_6a: float, n_nodes: int = 5000, n_pods: int
     return st["launches"], st["refresh_launches"]
 
 
-def fsync_cost(workdir: str, n_nodes: int = 5000, per_wave: int = 1000,
+def fsync_cost(workdir: str, n_nodes: int = 1000, per_wave: int = 1000,
                reps: int = 1) -> tuple[int, int]:
-    """Phase 11c: at 5000 nodes, one 1000-pod wave under each of: no flag,
+    """Phase 11c: at 1000 nodes, one 1000-pod wave under each of: no flag,
     ``--data-dir``, ``--data-dir --fsync`` (each arm its own apiserver at
     its defaults and scheduler daemon, all started first), ``reps`` waves
     an arm interleaved (arm by arm within a round).  Returns the daemons'
@@ -2658,7 +2741,7 @@ def tls_control_plane(workdir: str, pps_6a: float) -> tuple[int, int]:
     from kubernetes_tpu_torch.testing import pki as fixture
     from kubernetes_tpu_torch.workload import run_wire_churn
 
-    n_nodes, n_pods, waves = 5000, 20000, 10
+    n_nodes, n_pods, waves = 5000, 6000, 3
     audit = os.path.join(workdir, "12a-audit.jsonl")
     d = Daemons(workdir, "12a", admitted=True, tls=True,
                 api_extra=("--client-ca-file", fixture.path("ca.crt"), "--audit-log", audit))
@@ -2735,7 +2818,7 @@ def rbac_mode(workdir: str) -> tuple[int, int]:
     from kubernetes_tpu_torch.testing import pki as fixture
     from kubernetes_tpu_torch.workload import oracle_replay_waves, run_wire_churn
 
-    n_nodes, n_pods, waves, seed = 1000, 1000, 2, 7
+    n_nodes, n_pods, waves, seed = 1000, 500, 2, 7
     data = os.path.join(workdir, "12c-data")
     tokens = os.path.join(workdir, "12c-tokens.csv")
     with open(tokens, "w") as f:
@@ -4078,14 +4161,18 @@ def rollout(d: "Daemons", k_procs: int, n_nodes: int = 5000, n_apps: int = 10,
 
 
 def controller_phase(pps_6a: float) -> tuple[int, int]:
-    """Phase 15: the controller manager at 5000 nodes under the card's
+    """Phase 15: the controller manager at 2000 nodes under the card's
     scheduler.  Returns the scheduler daemon's fused and refresh launches."""
-    k_procs = 4  # 1250 nodes each: one is a quarter of every zone
+    # 500 nodes a process: one is a quarter of every zone.  2000 nodes, not
+    # 14a's 5000: at 5000 the hollow kubelets' heartbeats and the controllers'
+    # syncs of them held 8 cores and the phase took 224 s of the run's 1180
+    k_procs, n_nodes = 4, 2000
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         d = Daemons(workdir, "15", admitted=True)
         try:
-            r = rollout(d, k_procs, replicas=50, step=13)
+            # half the replicas a rolling step: two rounds a rollout
+            r = rollout(d, k_procs, n_nodes=n_nodes, replicas=24, step=12)
         except BaseException:
             for name in ("scheduler", "controller-manager"):
                 path = os.path.join(workdir, f"15-{name}.err")
@@ -4549,7 +4636,7 @@ def federation_steps(kubectl: Cli, kubefed: Cli, fed: subprocess.Popen, fed_url:
     return out
 
 
-def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 50,
+def lifecycle(workdir: str, per_fleet: int = 500, replicas: int = 25,
               init_args: tuple = ()) -> dict:
     """Phase 16 in ``workdir``: 16a ``cluster init`` at its defaults but the
     ports (``init_args`` adds flags: ``--device cpu`` for a dry run), a join
@@ -5039,34 +5126,37 @@ def first_pods(s, k: int):
         "pod_vol_count_only")})
 
 
-def mesh_plain_cell(what: str, s, st, n: int, check=None, layout=None) -> dict:
+def plain_shards(s, st, n: int) -> tuple:
+    """The plain sharded step (``scan_ref.scan_shards``) on the card in
+    ``n`` shards: chosen (numpy), rr and its ms."""
+    from kubernetes_tpu_torch.ops import scan_ref
+    from kubernetes_tpu_torch.parallel import place_state, place_static
+
+    statics, states = place_static(s, mesh_of(n)), place_state(st, mesh_of(n))
+    (want, finals), ms = timed_on_card(lambda: scan_ref.scan_shards(statics, states))
+    return want.cpu().numpy(), finals[0].round_robin, ms
+
+
+def mesh_plain_cell(what: str, s, st, n: int, check=None, layout=None,
+                    plain: tuple = None) -> dict:
     """The mesh kernel against its plain version (``scan_ref.scan_shards``)
-    on the card, on the same shards; ``check(chosen)`` adds a condition,
+    on the card, on the same shards (``plain``: its ``plain_shards``
+    result, made before); ``check(chosen)`` adds a condition,
     ``layout(plan)`` one on the plan's placement.  Returns the plain ms
     (CUDA events around it) and the kernel's device ms."""
-    import torch
-
-    from kubernetes_tpu_torch.ops import mesh_scan, scan_ref
+    from kubernetes_tpu_torch.ops import mesh_scan
     from kubernetes_tpu_torch.parallel import place_state, place_static
 
     statics, states = place_static(s, mesh_of(n)), place_state(st, mesh_of(n))
     got, rr = mesh_scan.schedule(statics, states)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    want, finals = scan_ref.scan_shards(statics, states)
-    end.record()
-    end.synchronize()
-    want = want.cpu().numpy()
+    want, rr_want, plain_ms = plain if plain is not None else plain_shards(s, st, n)
     err = int(abs(got.astype("int64") - want.astype("int64")).max()) if len(want) else 0
     pl, ring, _ = mesh_ring(s, st, n, 2)
-    if err or rr != finals[0].round_robin or (check is not None and not check(got)) \
+    if err or rr != rr_want or (check is not None and not check(got)) \
             or (layout is not None and not layout(pl)):
         raise AssertionError(f"phase 17b {what}: mesh_scan.cu != scan_ref.scan_shards in {n} "
-                             f"shards: max index diff {err}, rr {rr} vs {finals[0].round_robin}, "
-                             f"plan {pl}")
+                             f"shards: max index diff {err}, rr {rr} vs {rr_want}, plan {pl}")
     ms = device_ms(ring)[0]
-    plain_ms = start.elapsed_time(end)
     print(f"phase 17b {what} in {n} shards: mesh_scan.cu == scan_ref.scan_shards (the plain "
           f"sharded step) on the card, bound {int((want >= 0).sum())}/{len(want)}, rr {rr}; "
           f"plan cs {pl.cs}, cpt {pl.cpt}, {len(pl.global_)} planes in global memory, zones_at "
@@ -5146,8 +5236,10 @@ def mesh_churn(pool) -> dict:
 
     c = MESH_CHURN
     fused_scan.launches = frontier_refresh.launches = mesh_scan.launches = 0
-    r = run_churn(c["n_nodes"], c["total_pods"], c["waves"], "mixed", seed=c["seed"],
-                  device="cuda", backend_kw=dict(frontier_mesh=True, mesh_devices=4))
+    with frontier_runs() as runs:
+        r = run_churn(c["n_nodes"], c["total_pods"], c["waves"], "mixed", seed=c["seed"],
+                      device="cuda", backend_kw=dict(frontier_mesh=True, mesh_devices=4))
+    budget = sync_budget(runs)
     launches = {"mesh_scan": mesh_scan.launches, "frontier_refresh": frontier_refresh.launches,
                 "fused_scan": fused_scan.launches}
     st = r["backend"]
@@ -5167,13 +5259,16 @@ def mesh_churn(pool) -> dict:
           f"BatchBackend(frontier_mesh=True, mesh_devices=4): bound {r['bound']} unbound "
           f"{r['unbound']} wall_s {r['wall_s']:.3f} pods_per_s {r['pods_per_sec']:.1f} "
           f"launches {json.dumps(launches)} kernel_ms {st['kernel_ms']:.3f} host_syncs "
-          f"{st['host_syncs']} compactions {st['frontier_compactions']}; gauges "
+          f"{st['host_syncs']} (static budget {budget} over {len(runs)} frontier runs, "
+          f"{sum(x['loop_runs'] for x in runs)} loop runs) compactions "
+          f"{st['frontier_compactions']}; gauges "
           f"{json.dumps(gauges, sort_keys=True)}; the oracle replay runs on in a process of "
           f"its own", flush=True)
     if (launches["mesh_scan"] < c["waves"] or launches["frontier_refresh"] < 4 * c["waves"]
             or st["oracle_pods"] != 0 or st["kernel_pods"] != r["drained"]
             or gauges["scheduler_mesh_shards"] != 4
-            or r["bound"] + r["unbound"] != r["pods"]):
+            or r["bound"] + r["unbound"] != r["pods"]
+            or not runs or st["host_syncs"] > budget):
         raise AssertionError(f"phase 17c: launches {launches}, stats {st}, gauges {gauges}")
     oracle = pool.submit(oracle_replay_waves, r["drain_batches"], r["assignments"],
                          c["n_nodes"], c["total_pods"], "mixed", c["seed"])
@@ -5200,7 +5295,7 @@ def mesh_phase(main: tuple, wide: tuple, churn: dict, card: str) -> dict:
     """Phase 17: (a) the main segment (phase 4's, with the fused scan's
     result) through ``schedule_batch_sharded`` in 2 and 4 shards and the
     20 000 x 500 segment in 4, each equal to the fused scan; (b) the mesh
-    kernel against its plain version at 1000 x 1024 in 4 shards, on an
+    kernel against its plain version at 1000 x 256 in 4 shards, on an
     uneven width padded, and on the tie fixture's loops in 2, 4 and 8
     shards; (c) the check of 17c's run against its oracle.  Returns the
     kernel table's entry for ``mesh_scan`` and the refresh's launches."""
@@ -5209,16 +5304,17 @@ def mesh_phase(main: tuple, wide: tuple, churn: dict, card: str) -> dict:
              for n in (2, 4)}
     s_w, st_w, chosen_w, rr_w = wide
     cells["wide_4"] = sharded_cell("mixed 20000x500", s_w, st_w, chosen_w, rr_w, 4, card)
-    m, pods, pctx = cluster(1000, 1024, "mixed", seed=1)
-    _, s, st = segment(m, pods, pctx, "cuda")
-    cells["mixed_1000x1024_4"] = plain = mesh_plain_cell("mixed 1000x1024", s, st, 4)
-    # the plain sharded step costs ~14 ms a pod on the card: 128 pods
-    m, pods, pctx = cluster(1003, 128, "mixed", seed=2)
-    _, s, st = segment(m, pods, pctx, "cuda", pad_multiple=1, shards=4)
+    # the plain sharded step (~14 ms a pod on the card) of these two ran
+    # while the kernels built
+    s, st, ahead = PRE.pop("mesh_1000x256")
+    cells["mixed_1000x256_4"] = plain = mesh_plain_cell("mixed 1000x256", s, st, 4,
+                                                         plain=ahead)
+    s, st, ahead = PRE.pop("mesh_uneven")
     if s.n_pad != 1004:
         raise AssertionError(f"phase 17b: the uneven segment padded to {s.n_pad}, not 1004")
     cells["uneven_1003x128_4"] = mesh_plain_cell(
-        "uneven 1003x128 (padded to 1004)", s, st, 4, check=lambda c: not (c >= 1003).any())
+        "uneven 1003x128 (padded to 1004)", s, st, 4, check=lambda c: not (c >= 1003).any(),
+        plain=ahead)
     # planes the planner leaves partly in global memory: the 20 000 x 500
     # segment (20 096 columns) in 2 shards, its first 16 pods; and a zone
     # count past what shared memory holds (the plain step takes ~0.3 s a
@@ -5243,12 +5339,57 @@ def mesh_phase(main: tuple, wide: tuple, churn: dict, card: str) -> dict:
         "cells": cells, "tie_loop_launches": tie_launches,
         "max_abs_err": max(c["max_abs_err"] for c in cells.values()),
         "ms": main4["ms"], "us_per_pod": main4["us_per_pod"],
-        # the plain sharded step's time at 17b's 1000 x 1024 in 4 shards, the
+        # the plain sharded step's time at 17b's 1000 x 256 in 4 shards, the
         # kernel's there beside it
         "plain_ms": plain["plain_ms"], "plain_pods": plain["pods"], "plain_kernel_ms": plain["ms"],
         "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
         "library_ms": None,
     }, churn["launches"]["frontier_refresh"], tie_refresh
+
+
+# made while the kernels build (``plain_ahead``): segments on the card and
+# their plain versions' results, by key
+PRE: dict = {}
+
+
+def plain_ahead() -> None:
+    """While nvcc builds the kernels, which the plain versions do not
+    need: phase 3's two 1000-node segments, phase 4's main segment (with
+    its cluster) and its three others, phase 10's pool (with its cluster)
+    and 17b's first two mesh segments, carried to the card, and the plain
+    version of each (of the main segment its first window; the mesh
+    segments' in 4 shards), timed there by CUDA events while nvcc runs on
+    other cores."""
+    for workload in ("mixed", "plain"):
+        _, s, st = segment(*cluster(1000, SHAPE_PODS, workload, seed=1), "cuda")
+        PRE[("phase 3", workload)] = (s, st, plain_scan(s, st))
+    m, pods, pctx = cluster(5000, 20000, "mixed", seed=0)
+    static, s, st = segment(m, pods, pctx, "cuda")
+    PRE["main"] = (m, pods, pctx, static, s, st, plain_range(s, st, 0, MAIN_WINDOW))
+    for n_nodes, n_pods, seed in OTHER_SEGMENTS:
+        _, s, st = segment(*cluster(n_nodes, n_pods, "mixed", seed=seed), "cuda")
+        PRE[("segment", n_nodes)] = (s, st, plain_scan(s, st))
+    m, pods, pctx = pool_cluster()
+    static, s, st = segment(m, pods, pctx, "cuda")
+    PRE["pool"] = (m, pods, pctx, static, s, st, plain_scan(s, st))
+    _, s, st = segment(*cluster(1000, 256, "mixed", seed=1), "cuda")
+    PRE["mesh_1000x256"] = (s, st, plain_shards(s, st, 4))
+    _, s, st = segment(*cluster(1003, 128, "mixed", seed=2), "cuda", pad_multiple=1, shards=4)
+    PRE["mesh_uneven"] = (s, st, plain_shards(s, st, 4))
+
+
+def use_bytecode_cache() -> None:
+    """Compile each module once for the whole run: this interpreter and
+    every process it starts write and read bytecode under the checkout's
+    ``_pycache/``.  An environment that forbids bytecode
+    (``PYTHONDONTWRITEBYTECODE``) otherwise has each new process compile
+    torch from source, seconds of every daemon's start, and the run starts
+    some 40 such processes."""
+    cache = os.path.join(ROOT, "_pycache")
+    sys.pycache_prefix = cache
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 
 def main() -> int:
@@ -5257,6 +5398,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    use_bytecode_cache()
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -5276,6 +5418,7 @@ def main() -> int:
         now = time.perf_counter()
         laps[name] = round(now - t_lap[0], 1)
         t_lap[0] = now
+        print(f"phase {name} lap {laps[name]} s, {now - t_start:.1f} s into the run", flush=True)
 
     card = card_line()
     print(f"phase 1 card: {card}", flush=True)
@@ -5289,12 +5432,17 @@ def main() -> int:
 
     kernels = ("fused_scan", "frontier_refresh", "mesh_scan")
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc a source, started together
-        list(pool.map(build, kernels))
+        building = pool.map(build, kernels)
+        plain_ahead()
+        ahead_s = time.perf_counter() - t0
+        list(building)
     fused_scan.load()
     frontier_refresh.load()
     mesh_scan.load()
     print(f"phase 2 build: " + ", ".join(f"{k} {built[k]:.1f}s" for k in kernels)
-          + f", all {time.perf_counter() - t0:.1f}s", flush=True)
+          + f", all {time.perf_counter() - t0:.1f}s; beside it the segments and plain "
+          f"versions of phases 3, 4, 10 and 17b ahead of their kernels {ahead_s:.1f}s",
+          flush=True)
     t0 = time.perf_counter()
     helpers = native.helpers()
     print(f"phase 2 host helpers: matcher {helpers['matcher']}, fastcopy {helpers['fastcopy']} "
@@ -5302,10 +5450,9 @@ def main() -> int:
 
     # -- phase 3: kernel vs plain on the card; oracle vs backend ----------
     for workload in ("mixed", "plain"):
-        m, pods, pctx = cluster(1000, 2000, workload, seed=1)
-        _, s, st = segment(m, pods, pctx, "cuda")
-        r = compare(s, st)
-        print(f"phase 3 {workload} 1000x2000: kernel == scan_ref, bound {r['bound']}/"
+        s, st, plain = PRE.pop(("phase 3", workload))
+        r = compare(s, st, plain)
+        print(f"phase 3 {workload} 1000x{SHAPE_PODS}: kernel == scan_ref, bound {r['bound']}/"
               f"{r['pods']}, rr {r['rr']}, max_abs_err {r['max_abs_err']}", flush=True)
     shape_errs, shape_cells = repaired_shapes()
     refresh_ports = shape_cells.pop("refresh_ports_600")
@@ -5324,8 +5471,7 @@ def main() -> int:
 
     lap("1-3")
     # -- phase 4: the main path at full width ------------------------------
-    m, pods, pctx = cluster(5000, 20000, "mixed", seed=0)
-    main_static, s_main, st_main = segment(m, pods, pctx, "cuda")
+    m, pods, pctx, main_static, s_main, st_main, head = PRE.pop("main")
     runs = []
     for frontier in (False, True, True, False):  # in turns
         runs.append(batch_run(m, pods, pctx, frontier))
@@ -5346,7 +5492,7 @@ def main() -> int:
         if names != r["assignments"] or r["rr"] != rr_whole:
             raise AssertionError(f"BatchBackend (frontier {r['frontier']}) bindings != one "
                                  "launch of the fused scan on the main-path segment")
-    r_main = compare_windows(s_main, st_main, whole, rr_whole)
+    r_main = compare_windows(s_main, st_main, whole, rr_whole, head=head)
     print(f"phase 4 main segment: one kernel launch == BatchBackend with the frontier on and "
           f"off (all {s_main.p_real} pods, rr {rr_whole}); kernel == scan_ref on its first "
           f"{MAIN_WINDOW} pods from the initial state and on its last {MAIN_WINDOW} from the "

@@ -256,10 +256,12 @@ def _node_static_cols(rep, infos, js, is_best_effort, ref, images,
     otherwise — so a cached row recomputed for a dirty column keeps the
     semantics of its interaction CLASS, not of the particular pod that
     first populated it."""
-    # node-static predicate verdicts (CheckNodeSchedulable,
-    # CheckNodeCondition, PodToleratesNodeTaints, the pressure checks and
-    # the host/selector half of GeneralPredicates) folded into the [G, N]
-    # mask the device step ANDs in
+    # kernel: implements CheckNodeSchedulable, CheckNodeCondition,
+    # kernel: implements PodToleratesNodeTaints, CheckNodeMemoryPressure
+    # kernel: implements CheckNodeDiskPressure
+    # (node-static predicate verdicts, and the host/selector half of
+    # GeneralPredicates, folded into the [G, N] mask the device step ANDs
+    # in)
     for j in js:
         info = infos[j]
         node = info.node
@@ -845,6 +847,9 @@ def monotone_plane(static: BatchStatic, requested: np.ndarray,
     rule are non-monotone (a landing pod can turn them ON) and are
     deliberately excluded: the plane must over-approximate every
     FUTURE pod's feasibility, never under."""
+    # kernel: implements GeneralPredicates
+    # (the same resource/pod-count/port masks the step computes,
+    # vectorized over [G, N] at the given state)
     g_request = static.g_request
     fit = np.all(
         (requested[None, :, :] + g_request[:, None, :]

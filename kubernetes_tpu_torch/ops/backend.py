@@ -290,9 +290,15 @@ class BatchBackend:
     def _kernel_weights(self) -> Optional[dict]:
         """Map the oracle's priority config onto scan weights; None if any
         configured priority has no scan implementation."""
+        # kernel: implements LeastRequestedPriority, MostRequestedPriority
+        # kernel: implements BalancedResourceAllocation, SelectorSpreadPriority
+        # kernel: implements NodeAffinityPriority, TaintTolerationPriority
+        # kernel: implements InterPodAffinityPriority, NodePreferAvoidPodsPriority
+        # kernel: implements ImageLocalityPriority
         weights = {k: 0 for k in set(_PRIORITY_WEIGHT_KEY.values())}
         for prio, weight in self.algorithm.priorities:
             if isinstance(prio, EqualPriority):
+                # kernel: implements EqualPriority
                 continue  # constant shift; never changes argmax or ties
             key = _PRIORITY_WEIGHT_KEY.get(type(prio))
             if key is None:

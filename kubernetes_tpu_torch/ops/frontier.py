@@ -78,6 +78,8 @@ def gather_node_axis(static: ScanStatic, state: ScanState, js: torch.Tensor,
     carry onto ``width`` columns.  Columns past ``len(js)`` are padding:
     their ``node_exists`` and ``still_ok`` are False, which makes every
     other plane's values there unreachable."""
+    # kernel: implements GeneralPredicates
+    # (the compaction carries the step's filter verdicts bit for bit)
     dev = static.device
     k = int(js.numel())
     idx = torch.zeros(width, dtype=torch.long, device=dev)
@@ -288,6 +290,7 @@ class FrontierRun:
         flag, the alive count and the counter arrive together."""
         if self._cuda:
             start, end = self._pending
+            # device: sync — the one control read a loop run: it waits for the run to end
             ctl = self._ctl.cpu()  # waits for the loop run
             self.kernel_ms += start.elapsed_time(end)
             c_exit, want = int(ctl[CTL_CURSOR]), bool(ctl[CTL_STOP])
@@ -308,6 +311,7 @@ class FrontierRun:
             # the per-shard split: each shard's alive share of its slice
             # (a copy of masks the device has finished, no further stall)
             n_loc = self._width // self.mesh.size
+            # device: sync — the per-shard alive counts, of masks the control read above waited for
             counts = torch.stack([a.sum() for a in alive]).cpu().tolist()
             attrs["shards"] = [round(int(k) / max(n_loc, 1), 4) for k in counts]
             self.stats["shard_alive_frac"].append(attrs["shards"])
@@ -328,6 +332,7 @@ class FrontierRun:
             self.state = states[0] if self.mesh is None else self._unplace(states)
         js = js.to(self.static.device)
         self.static, self.state = gather_node_axis(self.static, self.state, js, width_new)
+        # device: sync — the kept columns, once a compaction (the alive mask is complete)
         self._map = self._map[js.cpu().numpy()]
         self._width = width_new
         self.stats["compactions"] += 1
@@ -352,9 +357,11 @@ class FrontierRun:
             self._dispatch_loop()
         # the whole segment's result in one read
         if self._cuda:
+            # device: sync — the segment's chosen buffer and counter in one read, once a segment
             out = torch.cat([self._chosen, self._ctl[CTL_RR:CTL_RR + 1]]).cpu().numpy()
             buf, rr = out[:-1], int(out[-1])
         else:
+            # device: sync — the same one read of the result where the loop ran on the CPU
             buf, rr = self._chosen.cpu().numpy(), self.state.round_robin
         self.stats["host_syncs"] += 1
         chosen_full = np.empty(self._p_real, dtype=np.int64)

@@ -467,6 +467,7 @@ def unpack_state(static: ScanStatic, bufs: dict, round_robin: int,
 def finalize(static: ScanStatic, bufs: dict) -> tuple[np.ndarray, int]:
     """Wait for the kernel and bring its result to the host: (chosen node
     index per pod, -1 = unschedulable; final round-robin counter)."""
+    # device: sync — the segment's chosen buffer and final counter: the one result read
     return bufs["chosen"][: static.p_real].cpu().numpy(), int(bufs["rr_out"].cpu()[0])
 
 

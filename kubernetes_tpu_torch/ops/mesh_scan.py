@@ -403,5 +403,6 @@ def schedule(statics: list, states: list) -> tuple[np.ndarray, int]:
     ctl[fused_scan.CTL_RR] = states[0].round_robin
     launch(bufs, pl, 0, statics[0].p_real, ctl)
     out = torch.cat([bufs["chosen"][:statics[0].p_real], ctl[fused_scan.CTL_RR:fused_scan.CTL_RR + 1]])
+    # device: sync — the whole segment's result and counter in one read
     out = out.cpu().numpy()
     return out[:-1], int(out[-1])

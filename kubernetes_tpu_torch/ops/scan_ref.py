@@ -218,6 +218,9 @@ def _shard_scan(static: ScanStatic, state: ScanState, rank: int, offset: int, st
         g_req = g_request[g]
         g_nz = g_nonzero[g]
         # -- feasibility ---------------------------------------------------
+        # kernel: implements GeneralPredicates
+        # (resources, pod count and ports here, as in fused_scan.cu; the
+        # host/selector part and the node conditions ride static_ok)
         fit = ~((g_req > 0) & (requested + g_req > alloc)).any(dim=1)
         pods_ok = pod_count + 1 <= alloc_pods
         feasible = static.static_ok[g] & fit & pods_ok & static.node_exists
@@ -232,6 +235,7 @@ def _shard_scan(static: ScanStatic, state: ScanState, rank: int, offset: int, st
             if still_ok_steps:
                 still_ok[g] &= ports_ok
         if static.use_terms:
+            # kernel: implements MatchInterPodAffinity
             m_g = static.term_matches_sig[:, g]  # [T]
             sym_anti_bad = ((m_g & static.is_raa)[:, None] & (downer > 0)).any(dim=0)
             first_ok = (total_match == 0) & static.self_match
@@ -242,6 +246,7 @@ def _shard_scan(static: ScanStatic, state: ScanState, rank: int, offset: int, st
             if still_ok_steps:
                 still_ok[g] &= ~sym_anti_bad & ~own_raa_bad
         if static.use_vols:
+            # kernel: implements NoDiskConflict, MaxVolumeCount
             vids = static.pod_vol_ids[i].long()
             vvalid = static.pod_vol_valid[i]
             vro = static.pod_vol_ro_ok[i]
@@ -354,6 +359,7 @@ def _shard_scan(static: ScanStatic, state: ScanState, rank: int, offset: int, st
     final = ScanState(
         requested=requested.to(i32), nonzero_requested=nonzero.to(i32),
         pod_count=pod_count.to(i32), ports_used=ports_used, spread_counts=spread.to(i32),
+        # device: sync — the plain sharded scan's counter, read once at the segment's end
         round_robin=int(rr), dm=dm.to(i32), downer=downer.to(i32),
         total_match=total_match.to(i32), vol_any=vol_any, vol_ns=vol_ns, nk=nk.to(i32),
         still_ok=still_ok)
@@ -369,6 +375,9 @@ def monotone_plane(static: ScanStatic, state: ScanState) -> torch.Tensor:
     and of the JAX package's ``monotone_plane_device``; the term products
     there are integer matmuls, here per-term loops (no integer matmul on
     CUDA)."""
+    # kernel: implements GeneralPredicates
+    # (the same resource/pod-count/port masks as the step, over [G, N];
+    # frontier_refresh.cu is its kernel)
     i64 = torch.int64
     g_req = static.g_request.to(i64)  # [G, R]
     fit = torch.ones(static.static_ok.shape, dtype=torch.bool, device=static.device)

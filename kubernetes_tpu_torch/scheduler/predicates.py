@@ -550,6 +550,7 @@ def make_check_node_label_presence(labels: list, presence: bool) -> PredicateFn:
     No scan mask: a policy-file-only predicate, and any config whose
     predicate set differs from DEFAULT_PREDICATES schedules on the oracle
     (``ops/backend._config_supported``)."""
+    # kernel: host-fallback — policy-only; non-default predicate configs run all-oracle (backend._config_supported)
 
     def check_node_label_presence(pod, meta, info: NodeInfo, ctx):
         node_labels = info.node.meta.labels if info.node else {}
@@ -572,6 +573,7 @@ def make_check_service_affinity(labels: list) -> PredicateFn:
     lands first, a cross-pod dynamic the tensorizer does not model, and
     non-default predicate configs schedule on the oracle anyway
     (``ops/backend._config_supported``)."""
+    # kernel: host-fallback — first-pod-pins-values dynamic not tensorized; non-default configs run all-oracle
 
     def _pinned_values(pod, ctx) -> dict:
         """Node-independent: the label values this pod must match —

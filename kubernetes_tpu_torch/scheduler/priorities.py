@@ -451,6 +451,7 @@ class ServiceSpreadingPriority(SelectorSpreadPriority):
     policy that uses it schedules every batch on the oracle, as in the
     JAX package."""
 
+    # kernel: host-fallback — compat-only priority; configs using it take the all-oracle path (no _PRIORITY_WEIGHT_KEY entry)
     name = "ServiceSpreadingPriority"
 
     def _selectors_for_pod(self, pod: api.Pod, ctx: PriorityContext):

@@ -652,21 +652,28 @@ class Store:
         # intermediate transitions, so consumers take the per-object
         # compare; the frame's fence (its last revision) is exact
         frames_by_kind: dict[str, object] = {}
-        try:
-            faults.hit("store.coalesce", n=len(events), folded=p.folded)
-            if frames_mod.ENABLED:
-                for kind, evs in by_kind.items():
-                    if len(evs) > 1:
-                        frames_by_kind[kind] = frames_mod.WatchFrame(
-                            kind, [e.type for e in evs], [e.key for e in evs],
-                            [e.revision for e in evs], [e.object for e in evs],
-                            prev_revisions=None, txn=p.txn)
-        except Exception:  # noqa: BLE001 - degrade, never drop state
-            # this window falls back to per-event delivery of the same
-            # folded events: every consumer converges to the same state,
-            # only the packing is lost
-            frames_by_kind = {}
-            m.coalesce_fallbacks.inc()
+        # the window's own span: the flusher's deadline runs on a thread
+        # with no other span open, and a fault at the seam dumps with the
+        # window's txn as its context
+        tr = tracing.current()
+        with (tr.span("store.coalesce", cat="store", txn=p.txn, events=len(events),
+                      folded=p.folded)
+              if tr is not None else tracing.NULL_SPAN):
+            try:
+                faults.hit("store.coalesce", n=len(events), folded=p.folded)
+                if frames_mod.ENABLED:
+                    for kind, evs in by_kind.items():
+                        if len(evs) > 1:
+                            frames_by_kind[kind] = frames_mod.WatchFrame(
+                                kind, [e.type for e in evs], [e.key for e in evs],
+                                [e.revision for e in evs], [e.object for e in evs],
+                                prev_revisions=None, txn=p.txn)
+            except Exception:  # noqa: BLE001 - degrade, never drop state
+                # this window falls back to per-event delivery of the same
+                # folded events: every consumer converges to the same state,
+                # only the packing is lost
+                frames_by_kind = {}
+                m.coalesce_fallbacks.inc()
         for wkind, q, wants_frames in self._watchers:
             for kind, evs in by_kind.items():
                 if wkind is not None and wkind != kind:

@@ -211,6 +211,44 @@ def test_selector_frames_equal_per_event_selector_stream():
         store.close()
 
 
+def test_flush_fault_dumps_the_windows_own_span():
+    """A ``store.coalesce`` fault fired by the flusher's deadline, on a
+    thread with no other span open, dumps the flight recorder with the
+    window's own ``store.coalesce`` span live: its txn, its events and
+    its folds are the dump's context (a kept divergence: the JAX
+    package's flush opens no span, so its dump there is bare)."""
+    from kubernetes_tpu_torch.faults import FaultPlan
+    from kubernetes_tpu_torch.utils import tracing
+
+    tr = tracing.enable()
+    store = Store(coalesce_window_s=10.0)  # manual flushes only
+    try:
+        store.watch("Pod", frames=True)
+        store.create("Pod", _pod(0))
+        obj = store.get("Pod", "default", "cp-000")
+        obj["status"] = {"phase": "run"}
+        store.update("Pod", obj)
+        store.create("Pod", _pod(1))
+        txn = store._pending.txn
+        plan = FaultPlan(seed=1).on("store.coalesce", mode="error", nth=1)
+        with plan.armed():
+            flusher = threading.Thread(target=store.flush_coalesced)
+            flusher.start()
+            flusher.join(timeout=10)
+        assert plan.fired["store.coalesce"] == 1
+        dumps = [d for d in tr.dumps if d["reason"] == "fault:store.coalesce"]
+        assert len(dumps) == 1
+        live = [s for s in dumps[0]["live"] if s["name"] == "store.coalesce"]
+        assert len(live) == 1, dumps[0]["live"]
+        assert live[0]["t1"] is None
+        assert live[0]["attrs"] == {"txn": txn, "events": 2, "folded": 1}
+        # closed after the flush: the span lands in the background record
+        assert [s["name"] for s in tr.flight_snapshot()["current"]["live"]] == []
+    finally:
+        tracing.disable()
+        store.close()
+
+
 def test_flush_fault_degrades_to_per_event_same_state():
     """An armed ``store.coalesce`` fault fails the framed flush: THAT
     window falls back to per-event delivery of the same folded events —
