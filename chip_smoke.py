@@ -37,10 +37,14 @@ Phases, one line each:
    the frontier on, within the static budget: the ``# device: sync``
    sites ``kubernetes_tpu_torch.analysis`` sanctions in ``ops/frontier.py``,
    a loop run's and a run's); all
-   four bind as one launch of the kernel on that very segment does; then
+   four bind as one launch of the kernel on that very segment does; the
+   segment's resource-axis selection (``r_sel`` [0, 1]: cpu and memory)
+   and the R = 2 the kernel runs it at; then
    the kernel against the plain version on two windows of it (its first
    1024 pods from the initial state, its last 1024 from the state the
-   kernel wrote back after the pods before them), on a 5000-node x
+   kernel wrote back after the pods before them; the first window also
+   against the plain version at full width, R = 4, from the same host
+   arrays), on a 5000-node x
    500-pod one, on a 10 000-node x
    500-pod one and on a 20 000-node x 500-pod one (whose plan leaves
    planes in global memory), the kernel's plan (cluster and block size,
@@ -116,7 +120,9 @@ Phases, one line each:
    score-plane sheds and 429s; every segment scanned with the interpod
    score plane shed is held against the plain scan afterwards, the
    ladder must engage and recover, and the tail at rung 0 must equal the
-   oracle replay;
+   oracle replay; the tensorizer's ``bucket_scale`` at rung 1 (2) and
+   the padded signature axis it gave (a multiple of 64), which no later
+   segment shrinks;
 10. a pool that fills: 1024 nodes, half of them taking 4 pods and half 110,
    and 6000 identical pods at the default frontier settings (what a
    batch job draining into a nearly full node pool sends): a
@@ -126,7 +132,10 @@ Phases, one line each:
    host syncs and within the static budget (phase 4's); the refresh
    kernel is held against its plain version at
    every loop exit and timed at the pool's width; the widths trajectory
-   and times are printed, and
+   and times are printed; the same batch through the chunked host loop
+   (``frontier_device_loop=False``, and a chunk of 384) binds pod for pod
+   as the device loop does, a fused launch and a refresh a chunk, and
+   prints its host syncs (2 x chunks - 1) beside the device loop's; and
    ``gather_node_axis`` is timed alone on the first compaction's inputs
    (phase 4 also times ``DeviceNodeCache``'s upload of the main segment's
    node statics);
@@ -401,13 +410,15 @@ def cluster(n_nodes: int, n_pods: int, workload: str, seed: int, zones: int = 0,
 
 
 def segment(m, pods, pctx, device, frontier: bool = False, pad_multiple: int = 128,
-            shards: int = 1):
+            shards: int = 1, full_width: bool = False):
     """One segment tensorized exactly as BatchBackend tensorizes its first
-    segment of the same batch, carried to ``device``; ``frontier`` seeds
-    its ``still_ok`` plane (``frontier_seed``) for a frontier loop;
-    ``pad_multiple`` is the tensorizer's node-axis padding, and ``shards``
-    pads the axis on to a multiple of a mesh's shard count
-    (``pad_segment_to_multiple``)."""
+    segment of the same batch, carried to ``device`` (its resource axis cut
+    to the tensorizer's ``r_sel``); ``frontier`` seeds its ``still_ok``
+    plane (``frontier_seed``) for a frontier loop; ``pad_multiple`` is the
+    tensorizer's node-axis padding, and ``shards`` pads the axis on to a
+    multiple of a mesh's shard count (``pad_segment_to_multiple``).
+    ``full_width`` adds a fourth item: the same host arrays carried with
+    every resource slot (``r_sel`` cleared)."""
     from kubernetes_tpu_torch.models.carry import from_reference
     from kubernetes_tpu_torch.models.snapshot import (HostBatchState, Tensorizer, frontier_seed,
                                                       pad_segment_to_multiple)
@@ -428,6 +439,9 @@ def segment(m, pods, pctx, device, frontier: bool = False, pad_multiple: int = 1
         frontier_seed(static, init)
     static, init = pad_segment_to_multiple(static, init, shards)
     s, st = from_reference(vars(static), vars(init), device)
+    if full_width:
+        full = dict(vars(static), r_sel=None)
+        return static, s, st, from_reference(full, vars(init), device)
     return static, s, st
 
 
@@ -2032,9 +2046,11 @@ def overload_phase() -> tuple[int, dict]:
     from kubernetes_tpu_torch.workload import run_overload
 
     shed: list = []
+    buckets: list = []  # (the tensorizer's bucket_scale, the padded group axis) a segment
 
     class ShedRecorder(BatchBackend):
         def _dispatch(self, static, init):
+            buckets.append((self.tensorizer.bucket_scale, int(static.static_ok.shape[0])))
             finish, busy = super()._dispatch(static, init)
             if not self.shed_score_planes:
                 return finish, busy
@@ -2052,6 +2068,14 @@ def overload_phase() -> tuple[int, dict]:
                      backend_cls=ShedRecorder)
     launches = fused_scan.launches
     t1 = time.perf_counter()
+    coarse = [g for scale, g in buckets if scale > 1]
+    print(f"phase 9c bucket_scale: {len(coarse)} of {len(buckets)} segments at bucket_scale "
+          f"{max((scale for scale, _ in buckets), default=1)} (rung >= 1), padded group axis "
+          f"{sorted(set(coarse))} there, {sorted(set(g for _, g in buckets))} over the run",
+          flush=True)
+    if not coarse or any(g % 64 for g in coarse) or any(
+            later < first for (_, first), (_, later) in zip(buckets, buckets[1:])):
+        raise AssertionError(f"phase 9c: rung 1 coarsened no shape bucket: {buckets}")
     mismatched = 0
     for (s, st), chosen, rr in shed:
         want, rr_want = scan_ref.scan(s, st)
@@ -2162,7 +2186,7 @@ def pool_cluster(n_nodes: int = 1024, n_pods: int = 6000):
     return m, pods, PriorityContext(m)
 
 
-def pool_phase() -> tuple[int, int, list, list, dict]:
+def pool_phase() -> tuple[int, int, list, list, dict, dict]:
     """Phase 10: a pool that fills.  1024 nodes (half take 4 pods, half
     110; four zones) and 6000 identical pods at the default frontier
     settings (512-pod chunks, compaction at half the width, width floor
@@ -2173,9 +2197,13 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
     at most compactions + 2 host syncs; at every loop exit the refresh
     kernel is held (after the run) against ``scan_ref.refresh`` on the
     exit's state from an all-True plane, and the loop's own plane must lie
-    inside that one.  Returns the run's fused-scan and refresh launches
-    and the mismatches of each kernel, and the refresh's cell at the
-    pool's width."""
+    inside that one.  Then the chunked host loop on the same batch, built
+    with ``frontier_device_loop=False`` and with a chunk of 384 (not a
+    power of two): pod for pod the device loop's bindings and counter, a
+    chunk launch and a refresh a chunk, 2 x chunks - 1 host syncs.
+    Returns the run's fused-scan and refresh launches and the mismatches
+    of each kernel, the refresh's cell at the pool's width, and the host
+    loop runs' launches."""
     import dataclasses
 
     import torch
@@ -2251,6 +2279,30 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
     st_b = backend.stats
     lf = backend.last_frontier[0]
     budget = sync_budget(runs)
+    # the chunked host loop on the same batch, each run's launches counted
+    host_loops = {}
+    for label, kw in (("device_loop_off", dict(frontier_device_loop=False)),
+                      ("chunk_384", dict(frontier_chunk=384))):
+        hb = backend_mod.BatchBackend(device="cuda", **kw)
+        torch.cuda.synchronize()
+        fused_scan.launches = frontier_refresh.launches = 0
+        h_got = hb.schedule_batch(pods, m, pctx)
+        torch.cuda.synchronize()
+        hl = hb.last_frontier[0]
+        host_loops[label] = {
+            "launches": fused_scan.launches, "refresh_launches": frontier_refresh.launches,
+            "mismatches": (sum(a != b for a, b in zip(h_got, got))
+                           + int(hb.algorithm._round_robin != backend.algorithm._round_robin)),
+            "kernel_ms": round(hb.stats["kernel_ms"], 3),
+            **{k: hl[k] for k in ("mode", "chunks", "host_syncs", "compactions", "widths")}}
+    print(f"phase 10 the chunked host loop on the same batch: {json.dumps(host_loops)}; the "
+          f"device loop's host_syncs {lf['host_syncs']} over {lf['chunks']} chunks", flush=True)
+    for label, h in host_loops.items():
+        chunk = 384 if label == "chunk_384" else 512
+        if (h["mismatches"] or h["mode"] != "chunked" or h["chunks"] != -(-n_pods // chunk)
+                or h["host_syncs"] != 2 * h["chunks"] - 1
+                or h["launches"] != h["chunks"] or h["refresh_launches"] != h["chunks"]):
+            raise AssertionError(f"phase 10 host loop {label}: {h}")
     fused_errs = [sum(a != b for a, b in zip(got, names))
                   + int(backend.algorithm._round_robin != r_full["rr"]), r_full["max_abs_err"]]
     # the refresh kernel at every loop exit, from an all-True plane
@@ -2294,7 +2346,7 @@ def pool_phase() -> tuple[int, int, list, list, dict]:
             or len(runs) != 1 or launches < 1 or refresh_launches < 1
             or st_b["oracle_pods"] != 0):
         raise AssertionError(f"phase 10: {fused_errs}, {refresh_errs}, {lf}, {st_b}")
-    return launches, refresh_launches, fused_errs, refresh_errs, pool_cell
+    return launches, refresh_launches, fused_errs, refresh_errs, pool_cell, host_loops
 
 
 UNREACHABLE = "node.alpha.kubernetes.io/unreachable"
@@ -5364,8 +5416,9 @@ def plain_ahead() -> None:
         _, s, st = segment(*cluster(1000, SHAPE_PODS, workload, seed=1), "cuda")
         PRE[("phase 3", workload)] = (s, st, plain_scan(s, st))
     m, pods, pctx = cluster(5000, 20000, "mixed", seed=0)
-    static, s, st = segment(m, pods, pctx, "cuda")
-    PRE["main"] = (m, pods, pctx, static, s, st, plain_range(s, st, 0, MAIN_WINDOW))
+    static, s, st, full = segment(m, pods, pctx, "cuda", full_width=True)
+    PRE["main"] = (m, pods, pctx, static, s, st, plain_range(s, st, 0, MAIN_WINDOW), full,
+                   plain_range(*full, 0, MAIN_WINDOW))
     for n_nodes, n_pods, seed in OTHER_SEGMENTS:
         _, s, st = segment(*cluster(n_nodes, n_pods, "mixed", seed=seed), "cuda")
         PRE[("segment", n_nodes)] = (s, st, plain_scan(s, st))
@@ -5471,7 +5524,13 @@ def main() -> int:
 
     lap("1-3")
     # -- phase 4: the main path at full width ------------------------------
-    m, pods, pctx, main_static, s_main, st_main, head = PRE.pop("main")
+    m, pods, pctx, main_static, s_main, st_main, head, full_main, head_full = PRE.pop("main")
+    r_sel = None if main_static.r_sel is None else [int(r) for r in main_static.r_sel]
+    r_dev = int(s_main.node_alloc.shape[1])
+    print(f"phase 4 main segment r_sel {r_sel}, the kernel launched with R = {r_dev} "
+          f"(host arrays {main_static.node_alloc.shape[1]} wide)", flush=True)
+    if r_sel != [0, 1] or r_dev != 2:
+        raise AssertionError(f"phase 4: r_sel {r_sel}, R {r_dev}; want [0, 1] and 2")
     runs = []
     for frontier in (False, True, True, False):  # in turns
         runs.append(batch_run(m, pods, pctx, frontier))
@@ -5493,20 +5552,35 @@ def main() -> int:
             raise AssertionError(f"BatchBackend (frontier {r['frontier']}) bindings != one "
                                  "launch of the fused scan on the main-path segment")
     r_main = compare_windows(s_main, st_main, whole, rr_whole, head=head)
+    # the sliced kernel's first window against the plain scan at full width
+    # (every resource slot, from the same host arrays)
+    full_diff = int((whole[:MAIN_WINDOW] != head_full[0]).sum())
+    if full_diff or head_full[1] != head[1]:
+        raise AssertionError(f"phase 4: the kernel at R = {r_dev} != scan_ref at full width on "
+                             f"the first {MAIN_WINDOW} pods: {full_diff} differ, rr {head[1]} "
+                             f"vs {head_full[1]}")
     print(f"phase 4 main segment: one kernel launch == BatchBackend with the frontier on and "
           f"off (all {s_main.p_real} pods, rr {rr_whole}); kernel == scan_ref on its first "
           f"{MAIN_WINDOW} pods from the initial state and on its last {MAIN_WINDOW} from the "
-          f"kernel's state before them", flush=True)
+          f"kernel's state before them; its first {MAIN_WINDOW} at R = {r_dev} == scan_ref at "
+          f"full width (R = 4, rr {head_full[1]}, {head_full[2]:.1f} ms)", flush=True)
     print(plan_line("main segment", s_main, st_main), flush=True)
     other_errs, refresh_wide, wide = other_segments()
     errs = [r_main["max_abs_err"], *other_errs, *shape_errs]
 
     ms = time_kernel(s_main, st_main)
+    # the resource-axis cut, in turns on this card: R = 2 (the main path's)
+    # and every slot (R = 4) of the same host arrays
+    by_r = {r_dev: [], 4: []}
+    for r in (r_dev, 4, 4, r_dev):
+        by_r[r].append(time_kernel(*((s_main, st_main) if r == r_dev else full_main)))
+    print(f"phase 4 the main segment's kernel at R = {r_dev} and R = 4 in turns: {by_r[r_dev]} / "
+          f"{by_r[4]} ms, ratio of the means {sum(by_r[r_dev]) / sum(by_r[4]):.4f}", flush=True)
     plain_ms = r_main["plain_ms"]
     bound_ms, bound_by, detail = bound(s_main, st_main)
     chunk_ms = time_chunk(s_main, st_main)
-    print(f"phase 4 times on the main segment ({s_main.n_pad} nodes x {s_main.p_real} pods): "
-          f"kernel {ms:.3f} ms; on the two windows of {r_main['pods']} pods kernel "
+    print(f"phase 4 times on the main segment ({s_main.n_pad} nodes x {s_main.p_real} pods, "
+          f"R = {r_dev}): kernel {ms:.3f} ms; on the two windows of {r_main['pods']} pods kernel "
           f"{r_main['kernel_ms']:.3f} ms, plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
           f"{bound_by} ({detail['bytes']} bytes, {detail['ops']} ops); one 512-pod chunk "
           f"launch (write-back on) {chunk_ms:.3f} ms, x {-(-s_main.p_real // 512)} chunks "
@@ -5537,7 +5611,10 @@ def main() -> int:
     fault_launches = faults_phase()
     overload_launches, _ = overload_phase()
     lap("9")
-    pool_launches, pool_refresh, pool_errs, pool_refresh_errs, refresh_pool = pool_phase()
+    pool_launches, pool_refresh, pool_errs, pool_refresh_errs, refresh_pool, host_loops = (
+        pool_phase())
+    host_loop_launches = sum(h["launches"] for h in host_loops.values())
+    host_loop_refresh = sum(h["refresh_launches"] for h in host_loops.values())
     lap("10")
     admitted_launches, admitted_refresh = admitted_phase(pps_6a)
     lap("11")
@@ -5566,6 +5643,7 @@ def main() -> int:
         "launches": (launches + churn_launches + eager_launches + daemon_launches
                      + preemption_launches + policy_launches + traced_launches
                      + fault_launches + overload_launches + pool_launches
+                     + host_loop_launches
                      + admitted_launches + auth_launches + drain_launches
                      + kubelet_launches + controller_launches + cluster_launches),
         "launches_by_path": {"batch": launches, "churn": churn_launches,
@@ -5573,6 +5651,7 @@ def main() -> int:
                              "preemption": preemption_launches, "policy": policy_launches,
                              "traced_daemon": traced_launches, "faults": fault_launches,
                              "overload": overload_launches, "pool": pool_launches,
+                             "pool_host_loop": host_loop_launches,
                              "apiserver_defaults": admitted_launches, "auth": auth_launches,
                              "drain": drain_launches, "kubelet": kubelet_launches,
                              "controllers": controller_launches, "cluster": cluster_launches},
@@ -5580,6 +5659,8 @@ def main() -> int:
         "cells": shape_cells,
         "max_abs_err": max(errs + pool_errs),
         "ms": ms, "us_per_pod": ms * 1e3 / s_main.p_real, "chunk_ms": chunk_ms,
+        # the main segment's resource axis (r_sel) and its kernel at each R in turns
+        "r": r_dev, "ms_by_r": {str(r): v for r, v in by_r.items()},
         # the plain version on the main segment's two windows (plain_pods),
         # the kernel's device time there windows_ms
         "plain_ms": plain_ms, "plain_pods": r_main["pods"], "windows_ms": r_main["kernel_ms"],
@@ -5593,11 +5674,12 @@ def main() -> int:
         "source": "kubernetes_tpu_torch/ops/csrc/frontier_refresh.cu",
         "replaces": "kubernetes_tpu/ops/batch_kernel.py:782",
         "launches": (refresh_launches + churn_refresh + eager_refresh + daemon_refresh
-                     + pool_refresh + admitted_refresh + auth_refresh + drain_refresh
+                     + pool_refresh + host_loop_refresh + admitted_refresh + auth_refresh
+                     + drain_refresh
                      + kubelet_refresh + controller_refresh + cluster_refresh + mesh_refresh),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
                              "churn_eager": eager_refresh, "daemon": daemon_refresh,
-                             "pool": pool_refresh,
+                             "pool": pool_refresh, "pool_host_loop": host_loop_refresh,
                              "apiserver_defaults": admitted_refresh, "auth": auth_refresh,
                              "drain": drain_refresh, "kubelet": kubelet_refresh,
                              "controllers": controller_refresh, "cluster": cluster_refresh,

@@ -10,6 +10,12 @@ same input.  ``init["still_ok"]`` (the frontier seed, when present) rides
 along as ``ScanState.still_ok``; ``node_arrays`` takes the four node-axis
 statics from a device-resident cache (``ops/node_cache.py``) instead of
 uploading them.
+
+``static["r_sel"]`` (the tensorizer's resource-axis selection, None or
+absent: every slot) slices the resource axis of ``node_alloc``,
+``g_request`` and ``requested`` on the way: the device sees R =
+``len(r_sel)`` while the host arrays stay full width.  Cached
+``node_arrays`` are already sliced (the cache slices at upload).
 """
 
 from __future__ import annotations
@@ -110,6 +116,14 @@ _STATE_INT = ("requested", "nonzero_requested", "pod_count", "spread_counts",
 _STATE_BOOL = ("ports_used", "vol_any", "vol_ns")
 # the node-axis statics a DeviceNodeCache keeps on the card
 NODE_FIELDS = ("node_exists", "node_alloc", "node_alloc_pods", "node_zone")
+# the fields with a resource axis (their last), sliced by r_sel on the way
+R_FIELDS = ("node_alloc", "g_request", "requested")
+
+
+def r_slice(arr, f: str, r_sel):
+    """``arr`` (field ``f``) as the device takes it: its resource axis cut
+    to ``r_sel`` for an ``R_FIELDS`` field, else as it is."""
+    return arr[..., r_sel] if r_sel is not None and f in R_FIELDS else arr
 
 
 def _put(arr, dtype, device) -> torch.Tensor:
@@ -129,7 +143,8 @@ def from_reference(static: dict, init: dict, device,
     if count_only is None:
         count_only = np.zeros_like(static["pod_vol_valid"])
     cached = dict(zip(NODE_FIELDS, node_arrays)) if node_arrays is not None else {}
-    s = {f: cached[f] if f in cached else _put(static[f], torch.int32, device)
+    r_sel = static.get("r_sel")
+    s = {f: cached[f] if f in cached else _put(r_slice(static[f], f, r_sel), torch.int32, device)
          for f in _STATIC_INT}
     s.update({f: cached[f] if f in cached else
               _put(static[f] if f != "pod_vol_count_only" else count_only, torch.bool, device)
@@ -144,7 +159,7 @@ def from_reference(static: dict, init: dict, device,
         v_state=int(static["v_state"]),
         **s,
     )
-    st = {f: _put(init[f], torch.int32, device) for f in _STATE_INT}
+    st = {f: _put(r_slice(init[f], f, r_sel), torch.int32, device) for f in _STATE_INT}
     st.update({f: _put(init[f], torch.bool, device) for f in _STATE_BOOL})
     still_ok = init.get("still_ok")
     if still_ok is not None:

@@ -774,6 +774,14 @@ class BatchStatic:
     # frontier view carries None (see compact_segment).
     node_token: Optional[tuple] = None
     node_dirty: Optional[list] = None
+    # resource-axis selection: the NUM_RESOURCES slots some signature in
+    # the segment requests, always with CPU_MILLI and MEM_MIB at positions
+    # 0 and 1 (the scores read them by position); None = all.  The host
+    # arrays stay full width (oracle, commit, preemption); only the device
+    # copy is sliced (models.carry.from_reference, ops.node_cache).  The
+    # selection is a sticky union across waves, so the device's resource
+    # axis never shrinks mid-run.
+    r_sel: Optional[np.ndarray] = None
 
     # compile-time flag: any host port in the segment (no ports → the
     # kernel skips the [N, Pv] port logic and carry write entirely)
@@ -986,11 +994,20 @@ class Tensorizer:
         # Padding UP is always semantically inert.
         self.sticky_buckets = sticky_buckets
         self._sticky: dict[str, int] = {}
+        # resource slots seen requested so far (a sticky union, so the
+        # device's resource axis never shrinks mid-run); cpu/mem always in
+        self._r_sticky: set[int] = {CPU_MILLI, MEM_MIB}
         # Cross-wave node-static row cache (see NodeStaticRows).
         self._node_rows = NodeStaticRows()
+        # Overload ladder rung 1: a live multiplier on every bucket
+        # multiple (the scheduler sets it each wave).  Coarser buckets mean
+        # fewer distinct shapes while a surge churns the axis sizes;
+        # padding up is inert, and the sticky high-water rule means scaling
+        # back to 1 never shrinks a shape mid-run.
+        self.bucket_scale = 1
 
     def _bucket(self, axis: str, n: int, multiple: int) -> int:
-        return self._sticky_pad(axis, _pad_to(n, multiple))
+        return self._sticky_pad(axis, _pad_to(n, multiple * max(1, int(self.bucket_scale))))
 
     def _sticky_pad(self, axis: str, pad: int) -> int:
         """One high-water discipline for every axis — including the vols
@@ -1111,6 +1128,21 @@ class Tensorizer:
             nz = pod_nonzero_request_vec(rep)
             g_nonzero[g, 0] = nz[CPU_MILLI]
             g_nonzero[g, 1] = nz[MEM_MIB]
+        # resource-axis selection: a slot no signature requests is inert in
+        # the scan (masked out of the fit, zero in the commit), so the
+        # device copy carries only the requested ones; cpu/mem stay at
+        # positions 0 and 1 (sorted, both always in) for the scores'
+        # positional reads.
+        r_used = {CPU_MILLI, MEM_MIB}
+        for r in range(NUM_RESOURCES):
+            if g_request[:, r].any():
+                r_used.add(r)
+        if self.sticky_buckets:
+            self._r_sticky |= r_used
+            r_used = set(self._r_sticky)
+        r_sel = (None if len(r_used) == NUM_RESOURCES
+                 else np.array(sorted(r_used), dtype=np.int64))
+
         # static per-(signature, node) masks & raw scores.  Signatures that
         # differ only in resources/ports/pod-labels interact with every
         # node IDENTICALLY, so the expensive per-node sweep is deduped by
@@ -1558,6 +1590,7 @@ class Tensorizer:
             node_token=node_token,
             node_dirty=node_dirty,
             use_ports=bool(port_vocab),
+            r_sel=r_sel,
             weights={
                 "least": least_requested_weight,
                 "most": most_requested_weight,

@@ -24,7 +24,10 @@ the frontier scan is on by default.  The tensorize-time prefilter
 take, when that halves the axis; a segment longer than one chunk then runs
 the device-resident loop (``ops/frontier.py``: the fused scan a chunk at a
 time, the ``frontier_refresh`` kernel after each, node-axis compaction when
-the alive columns fall under ``frontier_compact_frac`` of the width), and
+the alive columns fall under ``frontier_compact_frac`` of the width), or,
+with ``frontier_device_loop=False`` or a ``frontier_chunk`` that is not a
+power of two, the chunked host loop (the same kernels, a host read of the
+alive count between chunks; ``last_frontier`` mode ``"chunked"``), and
 any other segment one full launch (of the prefiltered axis, if the prefilter
 cut it).  Every route takes the four node-axis statics from a
 ``DeviceNodeCache`` kept across segments and waves (a prefiltered axis
@@ -146,8 +149,10 @@ class BatchBackend:
         # axis to a power of two >= frontier_min_width when the alive
         # columns fall to frontier_compact_frac of the width; the loop
         # engages while the prefilter's alive fraction is at most
-        # frontier_engage_frac.  The chunked host loop
-        # (frontier_device_loop=False) is not ported.
+        # frontier_engage_frac.  The device loop runs when
+        # frontier_device_loop is set and frontier_chunk is a power of two;
+        # otherwise the chunked host loop does (a host read a chunk, the
+        # same kernels), and the mesh is the device loop's only.
         frontier: bool = True,
         frontier_chunk: int = 512,
         frontier_compact_frac: float = 0.5,
@@ -170,17 +175,16 @@ class BatchBackend:
         self.algorithm = algorithm or GenericScheduler()
         self.tensorizer = tensorizer or Tensorizer()
         self.max_segment_pods = max_segment_pods
-        if not frontier_device_loop:
-            raise ValueError("the frontier's chunked host loop is not ported: "
-                             "frontier_device_loop must be True")
-        if frontier_chunk <= 0 or frontier_chunk & (frontier_chunk - 1):
-            raise ValueError("frontier_chunk must be a power of two (the device loop's chunk)")
+        if frontier_chunk <= 0:
+            raise ValueError("frontier_chunk must be positive")
         self.frontier = frontier
         self.frontier_chunk = frontier_chunk
         self.frontier_compact_frac = frontier_compact_frac
         self.frontier_min_width = frontier_min_width
         self.frontier_device_loop = frontier_device_loop
         self.frontier_engage_frac = frontier_engage_frac
+        # the JAX backend's choice: the device loop takes a power-of-two chunk
+        self._device_loop = bool(frontier_device_loop) and not frontier_chunk & (frontier_chunk - 1)
         # node-axis statics on the device, reused across segments and waves
         self.device_node_cache = DeviceNodeCache(self.device)
         self.frontier_mesh = frontier_mesh
@@ -218,7 +222,10 @@ class BatchBackend:
                       "frontier_segments": 0, "frontier_compactions": 0,
                       "frontier_prefilter_cols": 0,
                       # blocking device-to-host reads on the finish path
-                      "host_syncs": 0}
+                      "host_syncs": 0,
+                      # the cross-batch host state: built from a snapshot,
+                      # or reconciled against the next batch's
+                      "host_state_rebuilds": 0, "host_state_reconciles": 0}
 
     # -- greedy segmentation ------------------------------------------------
     def _segments(
@@ -324,8 +331,9 @@ class BatchBackend:
     # -- the node-axis mesh ---------------------------------------------------
     def _mesh_enabled(self) -> bool:
         # "auto" engages the JAX package's mesh on a multi-device TPU; the
-        # port's shards would share one card, so it stays off
-        return self.frontier_mesh != "auto" and bool(self.frontier_mesh)
+        # port's shards would share one card, so it stays off.  The mesh is
+        # the device loop's: the chunked host loop runs unsharded
+        return self.frontier_mesh != "auto" and bool(self.frontier_mesh) and self._device_loop
 
     def _frontier_mesh(self):
         """The node-axis mesh: the largest power-of-two shard count <=
@@ -427,7 +435,8 @@ class BatchBackend:
                                   compact_frac=self.frontier_compact_frac,
                                   min_width=self.frontier_min_width,
                                   on_compact=self._on_frontier_compact,
-                                  on_loop=self._on_frontier_loop, mesh=mesh)
+                                  on_loop=self._on_frontier_loop, mesh=mesh,
+                                  device_loop=self._device_loop)
             busy = run.device_busy
             self.stats["frontier_segments"] += 1
 
@@ -436,7 +445,8 @@ class BatchBackend:
                 self.stats["host_syncs"] += run.stats["host_syncs"]
                 entry.update(widths=run.stats["widths"], alive_frac=run.stats["alive_frac"],
                              chunks=run.stats["chunks"], compactions=run.stats["compactions"],
-                             mode="loop" if mesh is None else "mesh",
+                             mode="mesh" if mesh is not None else "loop"
+                             if self._device_loop else "chunked",
                              host_syncs=run.stats["host_syncs"])
                 if mesh is not None:
                     entry.update(n_shards=run.stats["n_shards"],
@@ -550,8 +560,10 @@ class BatchBackend:
         if weights is not None:
             if self._host_state is None:
                 self._host_state = HostBatchState(work_map)
+                self.stats["host_state_rebuilds"] += 1
             else:
                 self._host_state.reconcile(work_map)
+                self.stats["host_state_reconciles"] += 1
             host_state = self._host_state
         mounted_disks = host_state.mounted_disks if host_state is not None else set()
 

@@ -2,7 +2,7 @@
 state, with the node axis compacted to a power-of-two width whenever enough
 columns have died for every signature.
 
-Port of the JAX package's ``FrontierRun`` in its device-loop mode,
+Port of the JAX package's ``FrontierRun`` in both its modes,
 ``gather_node_axis`` and ``_pow2_width`` (``kubernetes_tpu/ops/
 batch_kernel.py``).  A column is dropped only when ``still_ok`` (the
 monotone over-approximation of every future pod's feasibility, seeded by
@@ -24,6 +24,20 @@ run plus one, O(compactions + 1) whatever the chunk count.  On the CPU the
 same loop runs the plain versions (``scan_ref.scan_range`` and
 ``scan_ref.refresh``) with the same exits, so its ``stats`` equal the JAX
 package's.
+
+``FrontierRun(..., device_loop=False)`` is the JAX package's chunked host
+loop: the host launches one chunk at a time (the fused scan over the
+chunk's pods, then the refresh kernel, whose stop flag it never raises),
+reads the alive count back before each later chunk and decides each
+compaction itself, by the loop's rule.  Its chunk is ``chunk_len`` as
+given, a power of two or not.  The chunk results are read back a chunk at
+a time, as the JAX package reads its per-chunk outputs, so ``host_syncs``
+is 2 x chunks - 1, O(chunks), and ``loop_runs`` stays 0.  It runs the same
+two kernels as the device loop (the plain versions on the CPU), takes no
+mesh, and a launch that fails raises out of it.  The refresh makes its
+compactions those of the device loop at the same chunk; the JAX host loop
+narrows ``still_ok`` only step by step, so it may compact later, which
+moves no binding.
 
 ``FrontierRun(..., mesh=)`` is the JAX package's sharded loop (its
 ``mesh=`` mode, ``parallel/mesh.py``): the segment is placed as the mesh's
@@ -94,25 +108,33 @@ def gather_node_axis(static: ScanStatic, state: ScanState, js: torch.Tensor,
 
 
 class FrontierRun:
-    """One segment's frontier scan (the JAX package's device-loop mode).
+    """One segment's frontier scan: the device loop (``device_loop=True``,
+    the backend's default route) or the chunked host loop.
 
-    ``__init__`` starts the first loop run and returns (on a card the
-    launches are in flight; ``device_busy`` polls them); ``finalize()``
-    drives the rest and returns the chosen index per pod in the axis of
-    the ``static`` it was given (-1 = unschedulable) and the final
-    round-robin counter.  ``on_loop(run, width, start_chunk)`` is called
-    before every loop run and ``on_compact(width, new_width, n_alive)``
-    before every compaction: the backend's fault and trace seams.
-    ``kernel_ms`` sums the loop runs' device time on a card."""
+    ``__init__`` starts the first loop run, or the first chunk, and returns
+    (on a card the launches are in flight; ``device_busy`` polls them);
+    ``finalize()`` drives the rest and returns the chosen index per pod in
+    the axis of the ``static`` it was given (-1 = unschedulable) and the
+    final round-robin counter.  ``on_loop(run, width, start_chunk)`` is
+    called before every loop run (the device loop only) and
+    ``on_compact(width, new_width, n_alive)`` before every compaction: the
+    backend's fault and trace seams.  ``kernel_ms`` sums the launches'
+    device time on a card."""
 
     def __init__(self, static: ScanStatic, state: ScanState, chunk_len: int = 512,
                  compact_frac: float = 0.5, min_width: int = 128, on_compact=None,
-                 on_loop=None, mesh=None):
+                 on_loop=None, mesh=None, device_loop: bool = True):
         if state.still_ok is None:
             raise ValueError("a frontier run needs state.still_ok (seed the InitialState "
                              "with models.snapshot.frontier_seed)")
-        if chunk_len <= 0 or chunk_len & (chunk_len - 1):
+        self.device_loop = bool(device_loop)
+        if chunk_len <= 0:
+            raise ValueError("the frontier needs a positive chunk_len")
+        if self.device_loop and chunk_len & (chunk_len - 1):
             raise ValueError("the frontier loop needs a power-of-two chunk_len")
+        if mesh is not None and not self.device_loop:
+            raise ValueError("the chunked host loop takes no mesh (the sharded loop is "
+                             "the device loop's)")
         self.static, self.state = static, state
         self.compact_frac = compact_frac
         self.min_width = min_width
@@ -120,10 +142,14 @@ class FrontierRun:
         self.on_loop = on_loop
         self.mesh = mesh
         self._p_real = static.p_real
-        bucket = _POD_BUCKET
-        while bucket < self._p_real:
-            bucket *= 2
-        self._chunk = min(chunk_len, bucket)
+        if self.device_loop:
+            bucket = _POD_BUCKET
+            while bucket < self._p_real:
+                bucket *= 2
+            self._chunk = min(chunk_len, bucket)
+        else:
+            # the host loop's chunk is the one given, as in the JAX package
+            self._chunk = chunk_len
         self._n_chunks = -(-self._p_real // self._chunk)
         self._width = int(static.n_pad)
         # current column -> column of the static this run was given
@@ -148,8 +174,9 @@ class FrontierRun:
         self._chosen = torch.full((max(self._p_real, 1),), -1, dtype=torch.int32,
                                   device=device)
         self._c = 0  # chunks completed (host mirror, updated at syncs)
-        self._regions: list = []  # (first pod of a loop run, its map)
+        self._regions: list = []  # (first pod of a loop run or chunk, its map)
         self._pending = None
+        self._events: list = []  # the host loop's (start, end) a chunk, on a card
         self.kernel_ms = 0.0
         # kernel launches on a card: fused-scan chunks and refreshes, those
         # behind a raised stop flag (no-ops) included
@@ -160,7 +187,10 @@ class FrontierRun:
             self._pack()
         else:
             self._place()
-        self._dispatch_loop()
+        if self.device_loop:
+            self._dispatch_loop()
+        else:
+            self._dispatch_chunk()
 
     # -- the shards and the card's buffers ----------------------------------
     def _place(self) -> None:
@@ -236,21 +266,27 @@ class FrontierRun:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for c in range(self._c, self._n_chunks):
-            first = c * self._chunk
-            count = min(self._chunk, self._p_real - first)
-            if self.mesh is None:
-                fused_scan.launch(self.static, self.state, self._bufs, self._plan, start=first,
-                                  count=count, ctl=self._ctl)
-            else:
-                mesh_scan.launch(self._bufs, self._plan, start=first, count=count, ctl=self._ctl)
-            for s, bufs, still, alive in zip(self._statics, self._shard_bufs, self._still,
-                                             self._alive):
-                frontier_refresh.launch(s, bufs, self._plan, still, alive, self._ctl, thresh,
-                                        **shared)
-                self.refresh_launches += 1
-            self.launches += 1
+            self._launch_chunk(c, thresh, shared)
         end.record()
         return start, end
+
+    def _launch_chunk(self, c: int, thresh: int, shared: dict) -> None:
+        """Chunk ``c`` on the card: the scan over its pods, then each
+        shard's refresh (``shared``: the mesh's common count word), in
+        stream order and with no host sync."""
+        first = c * self._chunk
+        count = min(self._chunk, self._p_real - first)
+        if self.mesh is None:
+            fused_scan.launch(self.static, self.state, self._bufs, self._plan, start=first,
+                              count=count, ctl=self._ctl)
+        else:
+            mesh_scan.launch(self._bufs, self._plan, start=first, count=count, ctl=self._ctl)
+        for s, bufs, still, alive in zip(self._statics, self._shard_bufs, self._still,
+                                         self._alive):
+            frontier_refresh.launch(s, bufs, self._plan, still, alive, self._ctl, thresh,
+                                    **shared)
+            self.refresh_launches += 1
+        self.launches += 1
 
     def _run_plain(self, thresh: int) -> tuple:
         """The loop run on the plain versions: chunks until the end or
@@ -278,11 +314,11 @@ class FrontierRun:
 
     @property
     def device_busy(self):
-        """Polls whether the last loop run is still running (None on the
-        CPU, where it has already run)."""
+        """Polls whether the last loop run or chunk is still running (None
+        on the CPU, where it has already run)."""
         if not self._cuda or self._pending is None:
             return None
-        end = self._pending[1]
+        end = self._pending[1] if self.device_loop else self._pending
         return lambda: not end.query()
 
     def _sync_loop(self) -> tuple:
@@ -322,6 +358,16 @@ class FrontierRun:
             tr.instant("frontier.alive", **attrs)
         return want, torch.cat(alive), n_alive
 
+    def _compact_if_due(self, alive: torch.Tensor, n_alive: int) -> None:
+        """The compaction rule of both loops: to the next power of two of at
+        least ``min_width`` when that is narrower and ``n_alive`` is at most
+        ``compact_frac`` of the width."""
+        width_new = _pow2_width(n_alive, self.min_width)
+        if width_new < self._width and n_alive <= self.compact_frac * self._width:
+            if self.on_compact is not None:
+                self.on_compact(self._width, width_new, n_alive)
+            self._compact(alive, width_new)
+
     def _compact(self, alive: torch.Tensor, width_new: int) -> None:
         """Gather the kept columns over the whole axis (the global column
         map), then split the compacted segment into its shards again."""
@@ -343,17 +389,109 @@ class FrontierRun:
         else:
             self._place()
 
+    # -- the chunked host loop -----------------------------------------------
+    def _dispatch_chunk(self) -> None:
+        """Launch the next chunk and its refresh (never raising the stop
+        flag: the host decides each compaction)."""
+        c = self.stats["chunks"]
+        first = c * self._chunk
+        tr = tracing.current()
+        with (tr.span("frontier.chunk", cat="frontier", index=c, width=self._width, start=first)
+              if tr is not None else tracing.NULL_SPAN):
+            if self._cuda:
+                # a first call builds: keep that out of the events
+                fused_scan.load()
+                frontier_refresh.load()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                self._launch_chunk(c, -1, {})
+                end.record()
+                self._events.append((start, end))
+                self._pending = end
+            else:
+                last = min(first + self._chunk, self._p_real)
+                chosen, self.state = scan_ref.scan_range(self.static, self.state, first, last)
+                self._chosen[first:last] = chosen
+                self.state, alive, n_alive, _ = scan_ref.refresh(self.static, self.state, -1)
+                self._states = [self.state]
+                self._pending = (alive, n_alive)
+            self._regions.append((first, self._map))
+            self.stats["chunks"] += 1
+
+    def _maybe_compact(self) -> None:
+        """One blocking read of the alive count between two chunks, then
+        the loop's compaction rule, decided on the host."""
+        if self._cuda:
+            # device: sync — the alive count and counter, once a chunk boundary of the host loop
+            ctl = self._ctl.cpu()
+            n_alive, self._rr = int(ctl[CTL_ALIVE]), int(ctl[CTL_RR])
+            alive = self._alive[0][:self._statics[0].n_pad]
+        else:
+            alive, n_alive = self._pending
+        self.stats["host_syncs"] += 1
+        frac = round(n_alive / max(self._width, 1), 4)
+        self.stats["alive_frac"].append(frac)
+        tr = tracing.current()
+        if tr is not None:
+            tr.instant("frontier.alive", frac=frac, width=self._width, chunk=self.stats["chunks"])
+        self._compact_if_due(alive, n_alive)
+
+    def _finalize_chunks(self) -> tuple[np.ndarray, int]:
+        while self.stats["chunks"] < self._n_chunks:
+            self._maybe_compact()
+            self._dispatch_chunk()
+        parts, rr = [], None
+        for k, (start, _) in enumerate(self._regions):
+            end = min(start + self._chunk, self._p_real)
+            if self._cuda and k == len(self._regions) - 1:
+                # device: sync — the last chunk's result with the final counter, once a segment
+                out = torch.cat([self._chosen[start:end], self._ctl[CTL_RR:CTL_RR + 1]]).cpu()
+                parts.append(out[:-1].numpy())
+                rr = int(out[-1])
+            else:
+                # device: sync — one chunk's result, a read a chunk as the JAX host loop reads them
+                parts.append(self._chosen[start:end].cpu().numpy())
+            self.stats["host_syncs"] += 1
+        if self._cuda:
+            self.kernel_ms += sum(a.elapsed_time(b) for a, b in self._events)
+        else:
+            rr = self.state.round_robin
+        self._pending = None
+        return self._map_back(np.concatenate(parts)), rr
+
+    def _map_back(self, buf: np.ndarray) -> np.ndarray:
+        """The chosen columns ``buf`` of every pod, each region's through
+        the column map its loop run or chunk ran at, in the axis of the
+        ``static`` the run was given."""
+        chosen_full = np.empty(self._p_real, dtype=np.int64)
+        bounds = [start for start, _ in self._regions] + [self._p_real]
+        for (start, map_snap), end in zip(self._regions, bounds[1:]):
+            end = min(end, self._p_real)
+            if end <= start:
+                continue
+            if len(map_snap) == 0:
+                # every column died before this loop run or chunk (a pool
+                # that filled up with pods left): nothing was feasible,
+                # nothing to map.  The JAX package's map-back raises
+                # IndexError here and its backend reruns the segment at
+                # full width.
+                chosen_full[start:end] = -1
+                continue
+            part = buf[start:end].astype(np.int64)
+            safe = np.clip(part, 0, len(map_snap) - 1)
+            chosen_full[start:end] = np.where(part >= 0, map_snap[safe], -1)
+        return chosen_full
+
     def finalize(self) -> tuple[np.ndarray, int]:
+        if not self.device_loop:
+            return self._finalize_chunks()
         while True:
             want, alive, n_alive = self._sync_loop()
             if self._c >= self._n_chunks:
                 break
             if want:
-                width_new = _pow2_width(n_alive, self.min_width)
-                if width_new < self._width and n_alive <= self.compact_frac * self._width:
-                    if self.on_compact is not None:
-                        self.on_compact(self._width, width_new, n_alive)
-                    self._compact(alive, width_new)
+                self._compact_if_due(alive, n_alive)
             self._dispatch_loop()
         # the whole segment's result in one read
         if self._cuda:
@@ -364,20 +502,4 @@ class FrontierRun:
             # device: sync — the same one read of the result where the loop ran on the CPU
             buf, rr = self._chosen.cpu().numpy(), self.state.round_robin
         self.stats["host_syncs"] += 1
-        chosen_full = np.empty(self._p_real, dtype=np.int64)
-        bounds = [start for start, _ in self._regions] + [self._p_real]
-        for (start, map_snap), end in zip(self._regions, bounds[1:]):
-            end = min(end, self._p_real)
-            if end <= start:
-                continue
-            if len(map_snap) == 0:
-                # every column died before this loop run (a pool that filled
-                # up with pods left): nothing was feasible, nothing to map.
-                # The JAX package's map-back raises IndexError here and its
-                # backend reruns the segment at full width.
-                chosen_full[start:end] = -1
-                continue
-            part = buf[start:end].astype(np.int64)
-            safe = np.clip(part, 0, len(map_snap) - 1)
-            chosen_full[start:end] = np.where(part >= 0, map_snap[safe], -1)
-        return chosen_full, rr
+        return self._map_back(buf), rr

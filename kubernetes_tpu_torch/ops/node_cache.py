@@ -12,7 +12,10 @@ written (``index_copy_``), unless more than an eighth of them changed (a
 full upload).  The diff is of the arrays themselves, not the dirty-node
 list, because one node's change can move other columns' values (a zone
 relabel renumbers the zone ids).  A token of None (a compacted frontier
-view) bypasses the cache and counts as a full upload.
+view) bypasses the cache and counts as a full upload.  ``node_alloc`` is
+cached as the device takes it, cut to the segment's ``r_sel``, and the
+selection joins the token, so a wave with another selection never reuses
+an entry of another resource width.
 
 The tensors it returns are shared: callers copy before they write
 (``fused_scan.pack`` pads into fresh tensors, the frontier gathers into
@@ -33,11 +36,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.carry import NODE_FIELDS
+from ..models.carry import NODE_FIELDS, r_slice
 
 
 def _host(static, f: str) -> np.ndarray:
-    arr = getattr(static, f)
+    """The field as the device takes it: ``node_alloc`` cut to the
+    segment's ``r_sel`` here, before the cache, so the cached tensor is
+    the one the scan reads."""
+    arr = r_slice(getattr(static, f), f, static.r_sel)
     return np.ascontiguousarray(arr, dtype=np.bool_ if f == "node_exists" else np.int32)
 
 
@@ -99,6 +105,10 @@ class DeviceNodeCache:
 
     def _token_for(self, static):
         tok = static.node_token
+        if tok is not None and static.r_sel is not None:
+            # a changed resource selection changes the cached node_alloc's
+            # shape: it never aliases an entry of the same epoch and version
+            tok = tuple(tok) + (tuple(int(r) for r in static.r_sel),)
         if tok is not None and self._mesh_key is not None:
             # sharded placements never alias single-device entries
             tok = tuple(tok) + (self._mesh_key,)

@@ -661,11 +661,17 @@ class Scheduler:
         ladder.transition_counter = self.metrics.degradation_transitions
 
     def _apply_overload_knobs(self) -> None:
-        """Push the ladder's rung-2 shed onto the backend before a wave."""
+        """Push the ladder's rung-1 and rung-2 knobs onto the backend before
+        a wave: the tensorizer's bucket coarsening and the score-plane
+        shed.  Idempotent, once a wave."""
         ov = self.overload
-        if ov is not None and self.backend is not None and hasattr(self.backend,
-                                                                   "shed_score_planes"):
+        if ov is None or self.backend is None:
+            return
+        if hasattr(self.backend, "shed_score_planes"):
             self.backend.shed_score_planes = ov.shed_score_planes
+        tz = getattr(self.backend, "tensorizer", None)
+        if tz is not None and hasattr(tz, "bucket_scale"):
+            tz.bucket_scale = ov.bucket_scale
 
     def _top_tier_ready(self) -> bool:
         """A critical-tier pod waits in the queue: under overload the

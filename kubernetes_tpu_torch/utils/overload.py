@@ -11,8 +11,9 @@ rung  what it sheds (each rung includes the ones below it)
 ====  =============================================================
 0     nothing — full fidelity, bit-parity with the CPU oracle
 1     latency for throughput: ``run_batch_loop``'s ``min_batch`` /
-      ``max_wait`` widen by a scale factor (bigger waves).  Top-tier
-      pods still cut the
+      ``max_wait`` widen by a scale factor and the tensorizer's sticky
+      shape buckets coarsen (bigger waves, fewer distinct shapes;
+      padding up is inert).  Top-tier pods still cut the
       accumulation window short — they never wait the widened window.
 2     interpod-affinity SCORE planes: preferred-affinity scoring is
       skipped on the card's kernel path.  Feasibility predicates (including
@@ -155,6 +156,7 @@ class DegradationLadder:
                  classifier: Optional[PriorityTierClassifier] = None,
                  min_batch_scale: int = 4,
                  max_wait_scale: float = 4.0,
+                 bucket_coarsen: int = 2,
                  on_transition: Optional[Callable[[str, int, int], None]] = None):
         self.evaluator = (evaluator if evaluator is not None
                           else BurnRateEvaluator(slos=slos, store=store))
@@ -164,6 +166,7 @@ class DegradationLadder:
         self.classifier = classifier or PriorityTierClassifier()
         self.min_batch_scale = min_batch_scale
         self.max_wait_scale = max_wait_scale
+        self.bucket_coarsen = bucket_coarsen
         self.on_transition = on_transition
         # wired by Scheduler.attach_overload (scheduler_degradation_rung
         # gauge + scheduler_degradation_transitions_total counter)
@@ -284,6 +287,12 @@ class DegradationLadder:
             return (max(1, int(min_batch * self.min_batch_scale)),
                     max_wait * self.max_wait_scale)
         return min_batch, max_wait
+
+    @property
+    def bucket_scale(self) -> int:
+        """Tensorizer sticky-bucket multiplier: rung >= 1 coarsens the shape
+        buckets (fewer distinct shapes under churny surges)."""
+        return self.bucket_coarsen if self.rung >= 1 else 1
 
     @property
     def shed_score_planes(self) -> bool:

@@ -497,7 +497,8 @@ def test_sanctioned_sync_sites_counts():
     sites = pdc.sanctioned_sync_sites(ROOT)
     fr = sites["kubernetes_tpu_torch/ops/frontier.py"]
     assert fr == {"FrontierRun._sync_loop": 2, "FrontierRun._compact": 1,
-                  "FrontierRun.finalize": 2}
+                  "FrontierRun.finalize": 2, "FrontierRun._maybe_compact": 1,
+                  "FrontierRun._finalize_chunks": 2}
     assert sites["kubernetes_tpu_torch/ops/fused_scan.py"] == {"finalize": 1}
     assert pdc.sanctioned_sync_sites(ROOT, paths=[DC_PATH])[DC_PATH] == {"FixtureLoop.sync_ok": 1}
 
@@ -529,6 +530,16 @@ def test_host_sync_budget_matches_static_sanction_count():
     budget = (sites["FrontierRun._sync_loop"] * run.stats["loop_runs"]
               + sites["FrontierRun.finalize"])
     assert run.stats["host_syncs"] <= budget, (run.stats, sites)
+    # the chunked host loop on the same segment: a read between chunks
+    # and a result read a chunk, within the sites of its two functions
+    host = FrontierRun(*from_reference(vars(static), vars(init), "cpu"), chunk_len=16,
+                       min_width=8, device_loop=False)
+    host.finalize()
+    chunks = host.stats["chunks"]
+    budget = (sites["FrontierRun._maybe_compact"] * (chunks - 1)
+              + sites["FrontierRun._finalize_chunks"] * chunks)
+    assert host.stats["compactions"] >= 1
+    assert host.stats["host_syncs"] == 2 * chunks - 1 <= budget, (host.stats, sites)
 
 
 def test_tracecov_scope_mismatch_fails_loud():

@@ -120,10 +120,11 @@ def random_world(pkg, seed, taints=True, n_range=(12, 28), p_range=(60, 140)):
 
 # -- the two packages side by side --------------------------------------------
 
-def backend_parity(build, backend_kwargs=None):
+def backend_parity(build, backend_kwargs=None, entry_keys=ENTRY_KEYS, backend_keys=BACKEND_KEYS):
     """``build(pkg) -> (node_info_map, pods)``: the JAX backend, the port's
-    on the CPU and the oracle on the same cluster.  Returns the port
-    backend."""
+    on the CPU and the oracle on the same cluster; ``entry_keys`` and
+    ``backend_keys`` name the ``last_frontier`` and ``stats`` entries held
+    equal.  Returns the port backend."""
     kw = backend_kwargs or {}
     out = {}
     for pkg in (JAX, PORT):
@@ -142,10 +143,10 @@ def backend_parity(build, backend_kwargs=None):
     (jgot, jrr, jb), (pgot, prr, pb) = out[JAX], out[PORT]
     assert pgot == jgot and prr == jrr
     assert jb.stats["frontier_fallbacks"] == 0
-    for k in BACKEND_KEYS:
+    for k in backend_keys:
         assert pb.stats[k] == jb.stats[k], (k, pb.stats[k], jb.stats[k])
-    assert [{k: e[k] for k in ENTRY_KEYS} for e in pb.last_frontier] == \
-        [{k: e[k] for k in ENTRY_KEYS} for e in jb.last_frontier]
+    assert [{k: e[k] for k in entry_keys} for e in pb.last_frontier] == \
+        [{k: e[k] for k in entry_keys} for e in jb.last_frontier]
     return pb
 
 
@@ -375,6 +376,135 @@ def test_device_loop_backend_parity_and_sync_stats():
     assert pb.stats["host_syncs"] >= seg["host_syncs"]
 
 
+# -- the chunked host loop --------------------------------------------------------
+
+def host_loop_parity(static, init, **kw):
+    """The twin of the JAX ``_loop_vs_chunked``: the port's host loop, its
+    device loop and plain scan, and the JAX host loop, on the very same
+    arrays, agree on every chosen node and the counter.  The host loop pays
+    the JAX host loop's syncs; its refresh after each chunk gives it the
+    device loop's compactions."""
+    jhost = JFrontierRun(static, init, device_loop=False, **kw)
+    j_chosen, j_rr = jhost.finalize()
+    s, st = from_reference(vars(static), vars(init), "cpu")
+    host = FrontierRun(s, st, device_loop=False, **kw)
+    h_chosen, h_rr = host.finalize()
+    loop = FrontierRun(s, st, **kw)
+    l_chosen, l_rr = loop.finalize()
+    plain, plain_rr = scan_ref.scan(s, st)
+    for other in (j_chosen, l_chosen, plain.numpy()):
+        np.testing.assert_array_equal(h_chosen, other)
+    assert h_rr == j_rr == l_rr == plain_rr
+    assert host.stats["chunks"] == jhost.stats["chunks"] == loop.stats["chunks"]
+    # a read of the alive count between chunks, and a result read a chunk
+    assert host.stats["host_syncs"] == jhost.stats["host_syncs"] == 2 * host.stats["chunks"] - 1
+    assert host.stats["loop_runs"] == 0 and len(host.stats["alive_frac"]) == host.stats["chunks"] - 1
+    assert (host.stats["widths"], host.stats["compactions"]) == \
+        (loop.stats["widths"], loop.stats["compactions"])
+    assert host.stats["host_syncs"] > loop.stats["host_syncs"]
+    return host
+
+
+HOST_LOOP_WORLDS = {
+    "forced_tie": (lambda: (tie_cluster(JAX), web_pods(JAX, 110)), {}),
+    "n_feasible_one": (lambda: (tie_cluster(JAX, pinned=True), pinned_pods(JAX)), {}),
+    "randomized_0": (lambda: random_world(JAX, 500, taints=False, n_range=(12, 24),
+                                          p_range=(60, 120)), dict(compact_frac=0.9)),
+    "randomized_1": (lambda: random_world(JAX, 501, taints=False, n_range=(12, 24),
+                                          p_range=(60, 120)), dict(compact_frac=0.9)),
+}
+
+
+@pytest.mark.parametrize("world", sorted(HOST_LOOP_WORLDS))
+def test_host_loop_equivalence(world):
+    build, kw = HOST_LOOP_WORLDS[world]
+    static, init = seeded_segment(*build())
+    run = host_loop_parity(static, init, chunk_len=16, min_width=8, **kw)
+    assert run.stats["compactions"] >= 1
+
+
+def test_host_loop_takes_a_chunk_that_is_not_a_power_of_two():
+    """chunk_len 12: the host loop's chunk is the one given (the device
+    loop refuses it), and every equality but the device loop's holds."""
+    static, init = seeded_segment(tie_cluster(JAX, pinned=True), pinned_pods(JAX))
+    jhost = JFrontierRun(static, init, device_loop=False, chunk_len=12, min_width=8)
+    j_chosen, j_rr = jhost.finalize()
+    s, st = from_reference(vars(static), vars(init), "cpu")
+    with pytest.raises(ValueError, match="power-of-two"):
+        FrontierRun(s, st, chunk_len=12, min_width=8)
+    host = FrontierRun(s, st, device_loop=False, chunk_len=12, min_width=8)
+    h_chosen, h_rr = host.finalize()
+    np.testing.assert_array_equal(h_chosen, j_chosen)
+    np.testing.assert_array_equal(h_chosen, scan_ref.scan(s, st)[0].numpy())
+    assert h_rr == j_rr
+    assert host.stats["chunks"] == jhost.stats["chunks"] == -(-len(static.group_of_pod) // 12)
+    assert host.stats["host_syncs"] == jhost.stats["host_syncs"]
+    assert host.stats["compactions"] >= 1
+
+
+HOST_LOOP_ENTRY_KEYS = ("prefilter", "chunks", "mode", "host_syncs")
+HOST_LOOP_BACKEND_KEYS = ("frontier_segments", "frontier_prefilter_cols", "host_syncs",
+                          "kernel_pods", "oracle_pods")
+
+
+def roomy_tie_world(pkg, n_nodes=48, n_roomy=4, n_pods=1000):
+    """``tie_cluster`` (caps 2, 2, 3, 3, ...) and ``n_roomy`` nodes of 110
+    pods, alike on every score input: columns die one after another under
+    live ties while the roomy nodes keep the pool from emptying."""
+    M, m = cases.mods(pkg), tie_cluster(pkg, n=n_nodes)
+    for i in range(n_roomy):
+        _add(M, m, f"roomy-{i:03d}", cpu="64", memory="64Gi", pods=110,
+             labels={HOST: f"roomy-{i:03d}", ZONE: "zone-0"})
+    return m, web_pods(pkg, n_pods)
+
+
+@pytest.mark.parametrize("kw", [dict(frontier_device_loop=False, frontier_chunk=16),
+                                dict(frontier_chunk=384)], ids=["device_loop_off", "chunk_384"])
+def test_host_loop_backend_binds_like_the_jax_backend(kw):
+    """A backend built with ``frontier_device_loop=False`` or a chunk that
+    is not a power of two takes the host loop in both packages (mode
+    ``chunked``) and binds pod for pod like the JAX backend built the same
+    way, with its host syncs."""
+    if kw["frontier_chunk"] == 16:
+        def build(pkg):
+            return roomy_tie_world(pkg, n_nodes=16, n_roomy=2, n_pods=110)
+    else:
+        build = roomy_tie_world
+    pb = backend_parity(build, dict(frontier_min_width=8, **kw),
+                        entry_keys=HOST_LOOP_ENTRY_KEYS, backend_keys=HOST_LOOP_BACKEND_KEYS)
+    seg = pb.last_frontier[0]
+    assert seg["mode"] == "chunked" and seg["chunks"] >= 2
+    assert seg["host_syncs"] == 2 * seg["chunks"] - 1
+    assert pb.stats["frontier_compactions"] >= 1
+    with pytest.raises(ValueError, match="positive"):
+        BatchBackend(device="cpu", **dict(kw, frontier_chunk=0))
+
+
+def test_host_loop_chunk_failure_raises(monkeypatch):
+    """A chunk that fails raises out of the segment: the port has no
+    fallback, so nothing reruns it on another route (the JAX test
+    ``test_loop_fault_at_dispatch_degrades_to_chunked_host`` has no twin),
+    and the cross-batch host state is dropped."""
+    M = cases.mods(PORT)
+    m, pods = tie_cluster(PORT), web_pods(PORT, 80)
+    backend = BatchBackend(algorithm=M.gs.GenericScheduler(), device="cpu",
+                           frontier_chunk=16, frontier_min_width=8, frontier_device_loop=False)
+    scan_range, calls = scan_ref.scan_range, []
+
+    def failing(*a, **kw):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("chunk launch failed")
+        return scan_range(*a, **kw)
+
+    monkeypatch.setattr(scan_ref, "scan_range", failing)
+    with pytest.raises(RuntimeError, match="chunk launch failed"):
+        backend.schedule_batch(pods, m, M.PriorityContext(m))
+    assert len(calls) == 3
+    assert backend.stats["kernel_pods"] == backend.stats["oracle_pods"] == 0
+    assert backend.stats["segments"] == 0 and backend._host_state is None
+
+
 def test_monotone_plane_matches_the_jax_device_plane_at_seed():
     """The port's tensor plane equals the JAX package's device plane and
     the host builder at the step-0 state."""
@@ -426,7 +556,10 @@ def test_still_ok_refresh_never_resurrects(world):
             cur = st.still_ok[:, :k].numpy()
             full = {f: np.array(getattr(init, f)) for f in
                     ("requested", "pod_count", "ports_used", "dm", "downer")}
-            full["requested"][m] = st.requested[:k].numpy()
+            # the device's requested holds the r_sel slots only; the rest
+            # stay as they were (no pod of the segment requests them)
+            r_cols = np.arange(full["requested"].shape[1]) if static.r_sel is None else static.r_sel
+            full["requested"][np.ix_(m, r_cols)] = st.requested[:k].numpy()
             full["pod_count"][m] = st.pod_count[:k].numpy()
             full["ports_used"][m] = st.ports_used[:k].numpy()
             full["dm"][:, m] = st.dm[:, :k].numpy()
@@ -601,9 +734,10 @@ def test_frontier_off_is_plain_path():
 
 
 def test_axis_tightening_shapes_and_parity():
-    """The slot and port axes tighten in both packages alike; the JAX
-    package's resource-axis selection (``r_sel``) is not ported, and the
-    port's full resource axis gives the same bindings."""
+    """The slot, port and resource axes tighten in both packages alike: no
+    signature requests a GPU or ephemeral storage, so ``r_sel`` keeps cpu
+    and memory, the host arrays stay full width and the device's resource
+    axis is two wide."""
     def build(pkg):
         M = cases.mods(pkg)
         pods = []
@@ -623,7 +757,13 @@ def test_axis_tightening_shapes_and_parity():
         M = cases.mods(pkg)
         m, pods = build(pkg)
         static = M.snapshot.Tensorizer().build_static(pods, m, M.PriorityContext(m))
-        shapes[pkg] = (static.pod_vol_ids.shape, static.use_ports, static.node_alloc.shape)
+        shapes[pkg] = (static.pod_vol_ids.shape, static.use_ports, static.node_alloc.shape,
+                       list(static.r_sel))
         assert static.pod_vol_ids.shape[1] == 1 and static.use_ports is False
+        assert list(static.r_sel) == [0, 1] and static.node_alloc.shape[1] == 4
+        if pkg == PORT:
+            init = M.snapshot.Tensorizer().initial_state(static, m, M.PriorityContext(m), pods)
+            s, st = from_reference(vars(static), vars(init), "cpu")
+            assert s.node_alloc.shape[1] == s.g_request.shape[1] == st.requested.shape[1] == 2
     assert shapes[PORT] == shapes[JAX]
     backend_parity(build)

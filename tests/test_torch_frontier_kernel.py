@@ -238,3 +238,29 @@ def test_frontier_run_on_card_equals_the_cpu_run(chunk, min_width):
     full, full_rr = fused_scan.schedule(*_tie_segment("cuda"))
     np.testing.assert_array_equal(c_gpu, full)
     assert rr_gpu == full_rr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,min_width", [(16, 8), (12, 8), (24, 2)])
+def test_host_loop_on_card_equals_the_cpu_run(chunk, min_width):
+    """The chunked host loop on the card (a chunk launch and a refresh a
+    chunk, the alive count read back between chunks, the compactions
+    decided on the host) gives the CPU run's chosen nodes, counter and
+    trajectory, the full-width kernel's bindings, one fused launch and one
+    refresh a chunk, and 2 x chunks - 1 host syncs; chunks 12 and 24 are
+    not powers of two."""
+    _card()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        run = FrontierRun(*_tie_segment(dev), chunk_len=chunk, min_width=min_width,
+                          device_loop=False)
+        runs[dev] = (run.finalize(), run.stats, run)
+    (c_cpu, rr_cpu), st_cpu, _ = runs["cpu"]
+    (c_gpu, rr_gpu), st_gpu, run = runs["cuda"]
+    np.testing.assert_array_equal(c_gpu, c_cpu)
+    assert rr_gpu == rr_cpu and st_gpu == st_cpu
+    assert st_gpu["host_syncs"] == 2 * st_gpu["chunks"] - 1 and st_gpu["compactions"] >= 1
+    assert run.launches == run.refresh_launches == st_gpu["chunks"] and run.kernel_ms > 0
+    full, full_rr = fused_scan.schedule(*_tie_segment("cuda"))
+    np.testing.assert_array_equal(c_gpu, full)
+    assert rr_gpu == full_rr

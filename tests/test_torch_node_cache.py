@@ -68,18 +68,14 @@ class Side:
         if self.pkg == JAX:
             d = to_device(static, node_cache=self.cache)
             got = {f: getattr(d, f) for f in NODE_FIELDS}
-            # the JAX cache slices node_alloc by r_sel; the port keeps every resource
-            if static.r_sel is not None:
-                host_alloc = static.node_alloc[:, static.r_sel]
-            else:
-                host_alloc = static.node_alloc
         else:
             node_arrays = self.cache.node_arrays(static)
             s, _ = from_reference(vars(static), vars(self.tz.initial_state(
                 static, snap, self.M.PriorityContext(snap), self.pods)), "cpu", node_arrays)
             got = {f: getattr(s, f) for f in NODE_FIELDS}
             assert all(getattr(s, f) is a for f, a in zip(NODE_FIELDS, node_arrays))
-            host_alloc = static.node_alloc
+        # both caches slice node_alloc by the segment's r_sel at upload
+        host_alloc = static.node_alloc if static.r_sel is None else static.node_alloc[:, static.r_sel]
         out = {f: np.asarray(v) for f, v in got.items()}
         np.testing.assert_array_equal(out["node_alloc"], host_alloc)
         for f in ("node_exists", "node_alloc_pods", "node_zone"):

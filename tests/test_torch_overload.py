@@ -431,6 +431,73 @@ def test_rung0_full_fidelity_matches_oracle_exactly():
     assert sched.metrics.score_plane_sheds.value == 0 and not sched.backend.shed_score_planes
 
 
+def test_tensorizer_bucket_scale_coarsens_at_rung_one():
+    """Twin of the JAX test of the same name: rung 1 sets the ladder's
+    ``bucket_scale`` to ``bucket_coarsen``, and the scheduler pushes it onto
+    the backend's tensorizer before a wave; the score planes stay."""
+    for pkg in (PORT, JAX):
+        lad = _ladder(pkg)
+        assert lad.bucket_scale == 1
+        lad.observe(BREACH, now=0.0)
+        assert lad.bucket_scale == lad.bucket_coarsen == 2
+        _, sched, _ = _affinity_world(pkg)
+        assert sched.backend.tensorizer.bucket_scale == 1
+        sched.attach_overload(lad)
+        sched._apply_overload_knobs()
+        assert sched.backend.tensorizer.bucket_scale == lad.bucket_coarsen
+        assert sched.backend.shed_score_planes is False
+
+
+def _padded_axes(static) -> dict:
+    return {"groups": static.static_ok.shape[0], "terms": static.term_matches_sig.shape[0],
+            "vols": static.v_state, "ports": static.g_ports.shape[1],
+            "slots": static.pod_vol_ids.shape[1], "nodes": static.n_pad}
+
+
+def _bucket_waves(pkg):
+    """A wave at rung 1, then, the ladder recovered, a smaller wave at rung
+    0 through the same scheduler: each wave's padded axes, bindings and
+    counter."""
+    cs, sched, algo = _affinity_world(pkg)
+    lad = _ladder(pkg)
+    lad.observe(BREACH, now=0.0)
+    sched.attach_overload(lad)
+    tz = sched.backend.tensorizer
+    build, seen = tz.build_static, []
+
+    def recording(*a, **kw):
+        static = build(*a, **kw)
+        seen.append((tz.bucket_scale, _padded_axes(static)))
+        return static
+
+    tz.build_static = recording
+    out = []
+    for wave, (rung, n) in enumerate(((1, 30), (0, 6))):
+        lad.rung = rung
+        for pod in _affinity_pods(pkg, n):
+            pod.meta.name = f"w{wave}-{pod.meta.name}"
+            cs.pods.create(pod)
+        sched.pump()
+        assert sched.schedule_pending_batch() == (n, 0)
+        out.append((list(seen), _bound(cs), algo._round_robin))
+        seen.clear()
+    return out
+
+
+def test_bucket_scale_pads_as_the_jax_tensorizer_and_never_shrinks():
+    """On the affinity world the rung-1 wave's padded axes equal the JAX
+    package's, each bucket twice its rung-0 multiple (32 signatures to 64,
+    4 terms to 8); back at rung 0 the sticky high-water keeps them, and
+    every wave binds as the JAX backend does."""
+    got, want = _bucket_waves(PORT), _bucket_waves(JAX)
+    assert got == want
+    (rung1, _, _), (rung0, _, _) = got
+    assert [scale for scale, _ in rung1] == [2] and [scale for scale, _ in rung0] == [1]
+    first, later = rung1[0][1], rung0[0][1]
+    assert first["groups"] == 64 and first["terms"] == 8
+    assert all(later[k] >= first[k] for k in first)
+
+
 # -- 5. the batch loop and preemption under the ladder ------------------------
 
 

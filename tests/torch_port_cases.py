@@ -296,6 +296,25 @@ def oracle_batch(pkg: str, pods, node_info_map, pctx, algorithm):
     return out
 
 
+def record_resource_widths(monkeypatch) -> list:
+    """Wrap the port backend's ``from_reference``: every segment it carries
+    to the device appends the set {``len(r_sel)`` (4 for None), the device
+    ``node_alloc``, ``g_request`` and ``requested`` widths}, one value when
+    the carry cut every resource axis to ``r_sel``."""
+    backend = importlib.import_module(f"{PORT}.ops.backend")
+    carry, widths = backend.from_reference, []
+
+    def recording(static, init, device, **kw):
+        s, st = carry(static, init, device, **kw)
+        r_sel = static.get("r_sel")
+        widths.append({4 if r_sel is None else len(r_sel), s.node_alloc.shape[1],
+                       s.g_request.shape[1], st.requested.shape[1]})
+        return s, st
+
+    monkeypatch.setattr(backend, "from_reference", recording)
+    return widths
+
+
 def tensorize(pkg: str, case: str, **kw):
     """(BatchStatic, InitialState) of one case through package ``pkg``'s
     own tensorizer, default weights, with a HostBatchState."""
