@@ -43,8 +43,10 @@ Rules
   sites per function, and a runtime test holds the frontier's
   ``host_syncs`` stat to that count.
 - **DC603** — *the build identity*: the port compiles no program per
-  shape — ``_build.library_path`` hashes only the sources and
-  ``NVCC_FLAGS`` — so one library serves every shape.  No value derived
+  shape — ``_build.library_path`` hashes only the sources, ``NVCC_FLAGS``
+  and a build's ``-D`` defines (the fused scan's super-step count, from
+  the ``PallasSuperSteps`` gate, never from a shape) — so one library
+  serves every shape.  No value derived
   from a tensor's shape (``.shape``, ``.ndim``, ``.size()``,
   ``.numel()``, ``len()``), a planner field (``Plan``/``plan(...)``) or a
   segment-static dimension (``ScanStatic``) may flow into

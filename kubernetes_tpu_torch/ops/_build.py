@@ -2,10 +2,13 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``ops/_build/`` (named by a
-hash of the source and the local headers it includes, so an edited source
-or header rebuilds) and loaded with
-``ctypes``.  Nothing is built at import time: the first call that launches
-a kernel builds it.  A build failure raises; there is no fallback.
+hash of the source, the local headers it includes and the flags, so an
+edited source or header rebuilds) and loaded with ``ctypes``.  A source may
+be built more than once with ``-D`` defines (``defines``: the fused scan's
+super-step count, ``FUSED_SCAN_K``); each such library is a build of its
+own, keyed by its defines.  Nothing is built at import time: the first call
+that launches a kernel builds it.  A build failure raises; there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "--split-compile=0"]
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 _mu = threading.Lock()
 
 
@@ -64,25 +67,31 @@ def sources(name: str, csrc: str = CSRC) -> list[str]:
     return seen
 
 
-def library_path(name: str, csrc: str = CSRC) -> str:
+def flags(defines: tuple = ()) -> list[str]:
+    """``NVCC_FLAGS`` and one ``-D`` a define (``"NAME=VALUE"``)."""
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, csrc: str = CSRC, defines: tuple = ()) -> str:
     """The library's path, named by a hash of the source, every local
-    header it includes and the flags: an edited header rebuilds too."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    header it includes and the flags with their defines: an edited header
+    rebuilds too, and each set of defines is a library of its own."""
+    h = hashlib.sha256(" ".join(flags(defines)).encode())
     for path in sources(name, csrc):
         with open(path, "rb") as f:
             h.update(os.path.relpath(path, csrc).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(name: str, verbose: bool = False) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library path."""
-    so = library_path(name)
+def build(name: str, verbose: bool = False, defines: tuple = ()) -> str:
+    """Compile ``csrc/<name>.cu`` with ``defines`` unless that library is
+    already built; returns the library path."""
+    so = library_path(name, defines=defines)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [nvcc_path(), *flags(defines), "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
@@ -94,10 +103,11 @@ def build(name: str, verbose: bool = False) -> str:
     return so
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` built with ``defines``,
+    built on first use."""
     with _mu:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name))
+            lib = _libs[name, defines] = ctypes.CDLL(build(name, defines=defines))
         return lib

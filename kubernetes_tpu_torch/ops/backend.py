@@ -428,6 +428,11 @@ class BatchBackend:
         scan_static, scan_state = from_reference(
             vars(cstatic), vars(cinit), self.device,
             node_arrays=self.device_node_cache.node_arrays(cstatic))
+        if mesh is None:
+            # the fused scan's pods a loop iteration (PallasSuperSteps): on
+            # the card the library its launches run; the plain scan on the
+            # CPU is the same function at every K
+            self.stats["superstep_k"] = fused_scan.superstep_k()
         if chunked:
             with (mesh_dispatch_span(mesh, cstatic.n_pad) if mesh is not None
                   else tracing.NULL_SPAN):

@@ -109,6 +109,24 @@
 //     device chunk cursor. Each block clears its own row of the global zone
 //     scratch for the launch's first pod, so the scratch needs no host
 //     reset between chunks.
+//  9. Super-steps (the PallasSuperSteps gate; the JAX kernel's k_unroll > 1).
+//     A library built with -DFUSED_SCAN_K=K runs the pod loop as
+//     ceil(p_real / K) iterations of K unrolled sub-steps, sub-step j of
+//     iteration q being the step above for pod i = q * K + j. Every index
+//     of the step (the pod buffer i % NBUF and its mbarrier phase, the
+//     exchanges' pod parity and mbarrier phase, the prefetch of pod
+//     i + NBUF - 1, the PHASE stamps) is computed from i, so each sub-step
+//     does what the K = 1 loop does for that pod, in the same order, and the
+//     ring stays NBUF deep: the host's plan is the same for every K. With K
+//     even the pod parities fold to constants. A sub-step past p_real (the
+//     same in every block) skips its whole body: it sends no message and
+//     waits on no mbarrier. Only the code the compiler schedules within an
+//     iteration differs; the result is the K = 1 loop's, bit for bit.
+//     `#pragma unroll` is a request: nvcc unrolls the sub-steps in the
+//     CPT = 1 instantiations (the main path's), and the larger CPT >= 2
+//     bodies keep a loop of K sub-steps (SASS counts by
+//     scripts/fused_scan_bench.py --sass). On the H100 every K > 1 measured
+//     slower than K = 1 (PERF.md), so the gate stays off by default.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -133,6 +151,13 @@ constexpr int POD_ROWS = 5;     // static_ok, aff_raw, taint_raw, score_raw, int
 constexpr int NBUF = 3;         // pod input buffers: pod i+2 is fetched while pod i runs
 constexpr int MAX_MSG_A = 28;   // words of a register-path statistics message: 10 + 2 a zone, padded to 4
 constexpr unsigned FULL = 0xffffffffu;
+// pods a loop iteration of the pod loop (see 9): a library is built for one
+#ifndef FUSED_SCAN_K
+#define FUSED_SCAN_K 1
+#endif
+constexpr int SUBSTEPS = FUSED_SCAN_K;
+static_assert(SUBSTEPS >= 1 && SUBSTEPS <= 128 && (SUBSTEPS & (SUBSTEPS - 1)) == 0,
+              "FUSED_SCAN_K is a power of two in 1..128");
 constexpr long long MAX_PRIORITY = 10;
 constexpr long long FP_ONE = 1024;
 constexpr long long FP = MAX_PRIORITY * FP_ONE;
@@ -659,536 +684,544 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     // this block's column that took a pod at the last commit, or -1: its
     // resource scores are refreshed during the next pod's exchanges
     int stale = -1;
-    for (int i = 0; i < p.p_real; ++i) {
-        const int b = i % NBUF, par = i & 1;
-        const uint32_t xpar = (i >> 1) & 1;
-        mbar_wait(&s_bar[1 + b], (i / NBUF) & 1);
-        const int gid = s_gid[b];
-        const int32_t* sg = s_sig + b * SWS;
-        const int32_t* terms = sg + R + 4;
-        const int32_t* gports = sg + PORT0;
-        const int32_t* gports_far = p.sig + (size_t)gid * SW + PORT0;  // flags PQ.. of a wide row
-        // zg: this block's row of the pod's zone sums
-        long long* g_zacc = zg ? zbuf + ((size_t)par * CS + rank) * NZ : nullptr;
-        const int32_t* pvol = s_pvol + b * W4;
-        const int tcount = p.use_terms ? sg[R + 3] : 0;
-        const int32_t* row[POD_ROWS];
+    // SUBSTEPS pods a loop iteration (see 9): a sub-step past p_real, which
+    // every thread of the cluster reads alike, skips its whole body
+    const int n_iters = (p.p_real + SUBSTEPS - 1) / SUBSTEPS;
+    for (int io = 0; io < n_iters; ++io) {
 #pragma unroll
-        for (int k = 0; k < POD_ROWS; ++k)
-            row[k] = pod_rows_shared ? s_pod + (b * POD_ROWS + k) * L : g_rows[k] + (size_t)gid * NS + base;
-        const int32_t* spread_row = &spread(gid, 0);
-        PHASE(0);  // prologue: buffer wait, signature
+        for (int k_sub = 0; k_sub < SUBSTEPS; ++k_sub) {
+            const int i = io * SUBSTEPS + k_sub;
+            if (SUBSTEPS > 1 && i >= p.p_real) break;
+            const int b = i % NBUF, par = i & 1;
+            const uint32_t xpar = (i >> 1) & 1;
+            mbar_wait(&s_bar[1 + b], (i / NBUF) & 1);
+            const int gid = s_gid[b];
+            const int32_t* sg = s_sig + b * SWS;
+            const int32_t* terms = sg + R + 4;
+            const int32_t* gports = sg + PORT0;
+            const int32_t* gports_far = p.sig + (size_t)gid * SW + PORT0;  // flags PQ.. of a wide row
+            // zg: this block's row of the pod's zone sums
+            long long* g_zacc = zg ? zbuf + ((size_t)par * CS + rank) * NZ : nullptr;
+            const int32_t* pvol = s_pvol + b * W4;
+            const int tcount = p.use_terms ? sg[R + 3] : 0;
+            const int32_t* row[POD_ROWS];
+#pragma unroll
+            for (int k = 0; k < POD_ROWS; ++k)
+                row[k] = pod_rows_shared ? s_pod + (b * POD_ROWS + k) * L : g_rows[k] + (size_t)gid * NS + base;
+            const int32_t* spread_row = &spread(gid, 0);
+            PHASE(0);  // prologue: buffer wait, signature
 
-        // ---- filter and raw score inputs, each column's reads issued first ----
-        bool feas[CPT];
-        long long ip[CPT];
-        int nf = 0, nzc = 0, smax = 0, amax = 0, tmax = 0;
-        long long zsum[REG_ZONES];
+            // ---- filter and raw score inputs, each column's reads issued first ----
+            bool feas[CPT];
+            long long ip[CPT];
+            int nf = 0, nzc = 0, smax = 0, amax = 0, tmax = 0;
+            long long zsum[REG_ZONES];
 #pragma unroll
-        for (int z = 0; z < REG_ZONES; ++z) zsum[z] = 0;
-        long long ipmax = I64_MIN, ipmin = I64_MAX;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-            const int lc = c * BT + tid;
-            bool f = false;
-            long long ipc = 0;
-            if (lc < L) {
-                const int ex = exists(0, lc), ok = row[0][lc], cn = cnt(0, lc), cap = alloc_pods(0, lc);
-                const int z = zone(0, lc), sc = spread_row[lc], aff = row[1][lc], tr = row[2][lc];
-                if (wt_ip) ipc = row[4][lc];
-                f = ex && ok && cn + 1 <= cap;
-                for (int r = 0; r < R; ++r) {
-                    const int gr = sg[r];
-                    if (gr > 0) f &= (long long)req(r, lc) + gr <= alloc(r, lc);
-                }
-                if (p.use_ports) {
-                    for (int q = 0; q < PQ; ++q)
-                        if (gports[q]) f &= !ports(q, lc);
-                    for (int q = PQ; q < PV; ++q)
-                        if (gports_far[q]) f &= !ports(q, lc);
-                }
-                for (int a = 0; a < tcount; ++a) {
-                    const int32_t* te = terms + a * TERM_FIELDS;
-                    const int t = te[0];
-                    const int dmv = dm(t, lc), dw = downer(t, lc);
-                    if (te[7]) f &= dw <= 0;
-                    if (te[2]) f &= dmv > 0 || (te[8] && s_total[t] == 0);
-                    if (te[3]) f &= dmv <= 0;
-                    if (wt_ip) ipc += (long long)te[5] * dmv + (long long)te[6] * dw;
-                }
-                if (p.use_vols) {
-                    int count_new[MAX_KINDS] = {0, 0, 0, 0};
-                    int has_kind[MAX_KINDS] = {0, 0, 0, 0};
-                    for (int s = 0; s < W; ++s) {
-                        const int packed = pvol[s];
-                        if (!(packed & 1)) continue;
-                        const int vid = packed >> 6, kind = (packed >> 3) & 7, ro = (packed >> 2) & 1;
-                        const int cell = volf(vid, lc);
-                        const int any = cell & 1, ns = (cell >> 1) & 1;
-                        if (ro ? ns : any) f = false;
-#pragma unroll
-                        for (int kk = 0; kk < MAX_KINDS; ++kk)
-                            if (kk == kind && kk < K) {
-                                count_new[kk] += 1 - any;
-                                has_kind[kk] = 1;
-                            }
-                    }
-#pragma unroll
-                    for (int kk = 0; kk < MAX_KINDS; ++kk)
-                        if (kk < K && has_kind[kk] && nk(kk, lc) + count_new[kk] > s_vlim[kk]) f = false;
-                }
-                if (f) {
-                    nf += 1;
-                    if (z >= 0) {
-                        nzc += 1;
-                        if constexpr (BZ) {
-                            if (z < NZ) {
-                                const unsigned long long v = static_cast<unsigned long long>(static_cast<long long>(sc));
-                                if (zg) atomicAdd(reinterpret_cast<unsigned long long*>(&g_zacc[z]), v);
-                                else atomicAdd(reinterpret_cast<unsigned long long*>(&s_zacc[z]), v);
-                            }
-                        } else {
-#pragma unroll
-                            for (int zz = 0; zz < REG_ZONES; ++zz)
-                                if (zz == z) zsum[zz] += sc;
-                        }
-                    }
-                    smax = sc > smax ? sc : smax;
-                    amax = aff > amax ? aff : amax;
-                    tmax = tr > tmax ? tr : tmax;
-                    ipmax = ipc > ipmax ? ipc : ipmax;
-                    ipmin = ipc < ipmin ? ipc : ipmin;
-                }
-            }
-            feas[c] = f;
-            ip[c] = ipc;
-        }
-        PHASE(1);  // filter and raw inputs
-
-        // ---- exchange (a): the block's statistics to every block ----
-        {
-            nf = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(nf)));
-            nzc = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(nzc)));
-            smax = __reduce_max_sync(FULL, smax);
-            amax = __reduce_max_sync(FULL, amax);
-            tmax = __reduce_max_sync(FULL, tmax);
-            if (wt_ip) {
-                ipmax = warp_max64(ipmax);
-                ipmin = warp_min64(ipmin);
-            }
-            if constexpr (!BZ) {
-#pragma unroll
-                for (int zz = 0; zz < REG_ZONES; ++zz)
-                    if (zz < NZ) zsum[zz] = warp_sum64(zsum[zz]);
-            } else {
-                // the warp's zone atomics before its lane 0 counts it done;
-                // in global memory, before any block can read them
-                if (zg) __threadfence();
-                __syncwarp();
-            }
-            if (lane == 0) {
-                uint32_t(*pa)[MAX_WARPS] = s_part[par];
-                pa[0][warp] = nf;
-                pa[1][warp] = nzc;
-                pa[2][warp] = smax;
-                pa[3][warp] = amax;
-                pa[4][warp] = tmax;
-                pa[6][warp] = static_cast<uint32_t>(ipmax);
-                pa[7][warp] = static_cast<uint32_t>(ipmax >> 32);
-                pa[8][warp] = static_cast<uint32_t>(ipmin);
-                pa[9][warp] = static_cast<uint32_t>(ipmin >> 32);
-                if constexpr (!BZ) {
-#pragma unroll
-                    for (int zz = 0; zz < REG_ZONES; ++zz)
-                        if (zz < NZ) {
-                            pa[10 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz]);
-                            pa[11 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz] >> 32);
-                        }
-                }
-            }
-            if (last_warp(&s_done[par], NW)) {
-                // the block's message: folded over its warps' parts (lane w
-                // reads warp w's), then sent to every block
-                const bool has = lane < NW;
-                uint32_t(*pa)[MAX_WARPS] = s_part[par];
-                uint32_t m[MAX_MSG_A];
-#pragma unroll
-                for (int q = 0; q < MAX_MSG_A; ++q) m[q] = 0;
-                m[0] = __reduce_add_sync(FULL, has ? pa[0][lane] : 0u);
-                m[1] = __reduce_add_sync(FULL, has ? pa[1][lane] : 0u);
-#pragma unroll
-                for (int q = 2; q < 5; ++q)
-                    m[q] = static_cast<uint32_t>(__reduce_max_sync(FULL, has ? static_cast<int>(pa[q][lane]) : 0));
-                if (wt_ip) {
-                    const long long hi = warp_max64(has ? join64(pa[7][lane], pa[6][lane]) : I64_MIN);
-                    const long long lo = warp_min64(has ? join64(pa[9][lane], pa[8][lane]) : I64_MAX);
-                    m[6] = static_cast<uint32_t>(hi);
-                    m[7] = static_cast<uint32_t>(hi >> 32);
-                    m[8] = static_cast<uint32_t>(lo);
-                    m[9] = static_cast<uint32_t>(lo >> 32);
-                }
-                if constexpr (!BZ) {
-#pragma unroll
-                    for (int zz = 0; zz < REG_ZONES; ++zz)
-                        if (zz < NZ) {
-                            const long long v = warp_sum64(has ? join64(pa[11 + 2 * zz][lane], pa[10 + 2 * zz][lane]) : 0);
-                            m[10 + 2 * zz] = static_cast<uint32_t>(v);
-                            m[11 + 2 * zz] = static_cast<uint32_t>(v >> 32);
-                        }
-                }
-                if (lane == 0) s_done[par] = 0;  // for pod i+2
-                if constexpr (!BZ) {
-                    if (lane < CS) {
-#pragma unroll
-                        for (int q = 0; q < MAX_MSG_A; q += 4)
-                            if (q < MA)
-                                send4(&s_ina[(par * (MA / 4) + q / 4) * CS + rank], &s_xa[par], lane,
-                                      m[q], m[q + 1], m[q + 2], m[q + 3]);
-                    }
-                } else if (zg) {
-                    // the zone sums went to this block's global row: only the
-                    // statistics' 10 words travel
-                    if (lane < CS) {
-                        uint4* to = &s_ina[par * (MA / 4) * CS + rank];
-                        send4(to, &s_xa[par], lane, m[0], m[1], m[2], m[3]);
-                        send4(to + CS, &s_xa[par], lane, m[4], m[5], m[6], m[7]);
-                        send4(to + 2 * CS, &s_xa[par], lane, m[8], m[9], 0u, 0u);
-                    }
-                } else {
-                    // words 10 + 2z, 11 + 2z: zone z's sum from the accumulator;
-                    // chunk k >= 3 holds zones 2k - 5 and 2k - 4
-                    if (lane < CS) {
-                        uint4* to = &s_ina[par * (MA / 4) * CS + rank];
-                        const long long z0 = s_zacc[0];
-                        send4(to, &s_xa[par], lane, m[0], m[1], m[2], m[3]);
-                        send4(to + CS, &s_xa[par], lane, m[4], m[5], m[6], m[7]);
-                        send4(to + 2 * CS, &s_xa[par], lane, m[8], m[9], static_cast<uint32_t>(z0),
-                              static_cast<uint32_t>(z0 >> 32));
-                        for (int k = 3; k < MA / 4; ++k) {
-                            const int za = 2 * k - 5, zb = 2 * k - 4;
-                            const long long va = za < NZ ? s_zacc[za] : 0, vb = zb < NZ ? s_zacc[zb] : 0;
-                            send4(to + k * CS, &s_xa[par], lane, static_cast<uint32_t>(va),
-                                  static_cast<uint32_t>(va >> 32), static_cast<uint32_t>(vb),
-                                  static_cast<uint32_t>(vb >> 32));
-                        }
-                    }
-                    __syncwarp();
-                    for (int z = lane; z < NZ; z += 32) s_zacc[z] = 0;  // for pod i+1
-                }
-            }
-        }
-        // the stale column's score for this pod's signature, by the thread
-        // that reads it in the totals below (the other signatures' follow
-        // in exchange (b)'s wait)
-        if (stale >= 0 && tid == stale % BT)
-            res(gid, stale) = static_cast<uint16_t>(res_score((long long)nz(0, stale) + s_gnz[2 * gid],
-                                                              (long long)nz(1, stale) + s_gnz[2 * gid + 1],
-                                                              alloc(0, stale), alloc(1, stale)));
-        PHASE(2);  // (a) statistics sent, stale score refreshed
-        mbar_wait_cluster(&s_xa[par], xpar);
-        if (tid == 0) mbar_expect_tx(&s_xa[par], bytes_a);  // for pod i+2
-        PHASE(3);  // (a) wait
-        // every warp folds the blocks' messages itself (lane q: block q's),
-        // so no block-wide barrier follows
-        const bool from = lane < CS;
-        // BZ: words 0-11 here, the zone words are folded in shared memory below
-        constexpr int XA = BZ ? 12 : MAX_MSG_A;
-        uint32_t xa[XA];
-#pragma unroll
-        for (int q = 0; q < XA; q += 4) {
-            uint4 v = make_uint4(0, 0, 0, 0);
-            if (q < MA && from) v = s_ina[(par * (MA / 4) + q / 4) * CS + lane];
-            xa[q] = v.x;
-            xa[q + 1] = v.y;
-            xa[q + 2] = v.z;
-            xa[q + 3] = v.w;
-        }
-        const long long n_feas = __reduce_add_sync(FULL, xa[0]);
-        const bool have_zones = sg[R + 2] && __reduce_add_sync(FULL, xa[1]) > 0;
-        const long long max_n = __reduce_max_sync(FULL, static_cast<int>(xa[2]));
-        const long long aff_max = __reduce_max_sync(FULL, static_cast<int>(xa[3]));
-        const long long taint_max = __reduce_max_sync(FULL, static_cast<int>(xa[4]));
-        long long ip_max = 0, ip_min = 0;
-        if (wt_ip) {
-            ip_max = warp_max64(from ? join64(xa[7], xa[6]) : I64_MIN);
-            ip_min = warp_min64(from ? join64(xa[9], xa[8]) : I64_MAX);
-            ip_max = ip_max > 0 ? ip_max : 0;
-            ip_min = ip_min < 0 ? ip_min : 0;
-        }
-        long long max_z = 0;
-        if constexpr (!BZ) {
-#pragma unroll
-            for (int zz = 0; zz < REG_ZONES; ++zz)
-                if (zz < NZ) {
-                    zsum[zz] = warp_sum64(join64(xa[11 + 2 * zz], xa[10 + 2 * zz]));
-                    max_z = zsum[zz] > max_z ? zsum[zz] : max_z;
-                }
-        } else if (zg) {
-            // the second fold: the cluster's rows from L2 (past L1, which
-            // does not see other blocks' atomics), one zone a thread, into
-            // this block's totals row
-            const long long* rows = zbuf + (size_t)par * CS * NZ;
-            for (int z = tid; z < NZ; z += BT) {
-                long long sum = 0;
-                for (int q = 0; q < CS; ++q) sum += __ldcg(rows + (size_t)q * NZ + z);
-                g_ztot[z] = sum;
-            }
-            __syncthreads();
-            long long mz = 0;
-            for (int z = lane; z < NZ; z += 32) mz = g_ztot[z] > mz ? g_ztot[z] : mz;
-            max_z = warp_max64(mz);
-        } else {
-            // the cluster's zone totals, one zone a thread, then every
-            // warp's maximum over them
-            const uint32_t* ina = reinterpret_cast<const uint32_t*>(s_ina);
-            for (int z = tid; z < NZ; z += BT) {
-                const int w = 10 + 2 * z;  // even: both halves in one chunk
-                long long sum = 0;
-                for (int q = 0; q < CS; ++q) {
-                    const uint32_t* c = ina + ((par * (MA / 4) + (w >> 2)) * CS + q) * 4 + (w & 3);
-                    sum += join64(static_cast<int>(c[1]), c[0]);
-                }
-                s_ztot[z] = sum;
-            }
-            __syncthreads();
-            long long mz = 0;
-            for (int z = lane; z < NZ; z += 32) mz = s_ztot[z] > mz ? s_ztot[z] : mz;
-            max_z = warp_max64(mz);
-        }
-        const long long rng = ip_max - ip_min;
-        PHASE(4);  // (a) fold
-
-        // ---- totals, then each warp's best score and its ties ----
-        long long best = I64_MIN;
-        long long tot[CPT];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) tot[c] = 0;
-        if (n_feas > 0) {
-            const double r_maxn = __drcp_rn(static_cast<double>(max_n > 1 ? max_n : 1));
-            const double r_maxz = __drcp_rn(static_cast<double>(max_z > 1 ? max_z : 1));
-            const double r_aff = __drcp_rn(static_cast<double>(aff_max > 1 ? aff_max : 1));
-            const double r_taint = __drcp_rn(static_cast<double>(taint_max > 1 ? taint_max : 1));
-            const double r_rng = __drcp_rn(static_cast<double>(rng > 1 ? rng : 1));
+            for (int z = 0; z < REG_ZONES; ++z) zsum[z] = 0;
+            long long ipmax = I64_MIN, ipmin = I64_MAX;
 #pragma unroll
             for (int c = 0; c < CPT; ++c) {
                 const int lc = c * BT + tid;
-                if (!feas[c]) continue;
-                const int rs = res(gid, lc);
-                long long total = (long long)row[3][lc] + (long long)p.wt[0] * (rs & 15) +
-                                  (long long)p.wt[1] * ((rs >> 4) & 15) + (long long)p.wt[2] * (rs >> 8);
-                if (p.wt[3]) {
-                    const long long sc = spread_row[lc];
-                    const long long node_fp = max_n > 0 ? fdiv((max_n - sc) * FP, max_n, r_maxn) : FP;
-                    const int z = zone(0, lc);
-                    long long total_fp = node_fp;
-                    if (have_zones && z >= 0) {
-                        long long zcnt = 0;
-                        if constexpr (BZ) {
-                            if (z < NZ) zcnt = zg ? g_ztot[z] : s_ztot[z];
-                        } else {
-#pragma unroll
-                            for (int zz = 0; zz < REG_ZONES; ++zz)
-                                if (zz == z) zcnt = zsum[zz];
-                        }
-                        const long long zone_fp = max_z > 0 ? fdiv((max_z - zcnt) * FP, max_z, r_maxz) : FP;
-                        total_fp = floordiv(node_fp + 2 * zone_fp, 3);
+                bool f = false;
+                long long ipc = 0;
+                if (lc < L) {
+                    const int ex = exists(0, lc), ok = row[0][lc], cn = cnt(0, lc), cap = alloc_pods(0, lc);
+                    const int z = zone(0, lc), sc = spread_row[lc], aff = row[1][lc], tr = row[2][lc];
+                    if (wt_ip) ipc = row[4][lc];
+                    f = ex && ok && cn + 1 <= cap;
+                    for (int r = 0; r < R; ++r) {
+                        const int gr = sg[r];
+                        if (gr > 0) f &= (long long)req(r, lc) + gr <= alloc(r, lc);
                     }
-                    total += p.wt[3] * floordiv(total_fp, FP_ONE);
-                }
-                if (p.wt[4]) {
-                    const long long raw = row[1][lc];
-                    total += p.wt[4] * (aff_max > 0 ? fdiv(MAX_PRIORITY * raw, aff_max, r_aff) : 0);
-                }
-                if (p.wt[5]) {
-                    const long long raw = row[2][lc];
-                    total += p.wt[5] * (taint_max > 0 ? fdiv(MAX_PRIORITY * (taint_max - raw), taint_max, r_taint)
-                                                      : MAX_PRIORITY);
-                }
-                if (wt_ip)
-                    total += p.wt[6] * (rng > 0 ? fdiv(MAX_PRIORITY * (ip[c] - ip_min), rng, r_rng) : 0);
-                tot[c] = total;
-                best = total > best ? total : best;
-            }
-        }
-        PHASE(5);  // totals
-
-        // ---- exchange (b): the block's best score and its ties at it ----
-        {
-            const long long wbest = warp_max64(best);
-            unsigned bl[CPT];
-            int wties = 0;
-#pragma unroll
-            for (int c = 0; c < CPT; ++c) {
-                bl[c] = __ballot_sync(FULL, feas[c] && tot[c] == wbest);
-                wties += __popc(bl[c]);
-            }
-            if (lane == 0) {
-                s_wb[par][warp] = wbest;
-                s_wt[par][warp] = wties;
-#pragma unroll
-                for (int c = 0; c < CPT; ++c) s_bal[par][c * NW + warp] = bl[c];
-            }
-            if (last_warp(&s_done[2 + par], NW)) {
-                // message: the best, the ties at it, then the ballots in
-                // (column round, warp) order, zero for warps below the best
-                const long long wb = lane < NW ? s_wb[par][lane] : I64_MIN;
-                const long long bb = warp_max64(wb);
-                const bool at = lane < NW && bb != I64_MIN && wb == bb;
-                const unsigned atb = __ballot_sync(FULL, at);
-                const unsigned ties = __reduce_add_sync(FULL, at ? static_cast<unsigned>(s_wt[par][lane]) : 0u);
-                if (lane == 0) s_done[2 + par] = 0;  // for pod i+2
-                if (lane < CS) {
-                    int q = 0, w = 0;  // next ballot, and its warp
-                    for (int k = 0; k < MB / 4; ++k) {
-                        uint32_t v[4];
-#pragma unroll
-                        for (int j = 0; j < 4; ++j) {
-                            const int slot = 4 * k + j;
-                            if (slot < 3) {
-                                v[j] = slot == 0 ? static_cast<uint32_t>(bb)
-                                     : slot == 1 ? static_cast<uint32_t>(bb >> 32) : ties;
-                            } else if (q < ENTS) {
-                                v[j] = (atb >> w) & 1 ? s_bal[par][q] : 0u;
-                                ++q;
-                                w = w + 1 == NW ? 0 : w + 1;
-                            } else {
-                                v[j] = 0;
-                            }
-                        }
-                        send4(&s_inb[(par * (MB / 4) + k) * CS + rank], &s_xb[par], lane, v[0], v[1], v[2], v[3]);
+                    if (p.use_ports) {
+                        for (int q = 0; q < PQ; ++q)
+                            if (gports[q]) f &= !ports(q, lc);
+                        for (int q = PQ; q < PV; ++q)
+                            if (gports_far[q]) f &= !ports(q, lc);
                     }
-                }
-            }
-        }
-        // the pod after next into its buffer (it held pod i-1, which every
-        // thread of this block finished)
-        if (issuer && i + NBUF - 1 < p.p_real) {
-            prefetch(i + NBUF - 1, gid_ahead);
-            if (i + NBUF < p.p_real) gid_ahead = p.gids[i + NBUF];
-        }
-        if (stale >= 0) {
-            const long long cn = nz(0, stale), mn = nz(1, stale), cc = alloc(0, stale), mc = alloc(1, stale);
-            for (int h = tid; h < G; h += BT)
-                if (h != gid) res(h, stale) = static_cast<uint16_t>(res_score(cn + s_gnz[2 * h], mn + s_gnz[2 * h + 1], cc, mc));
-            stale = -1;
-        }
-        PHASE(6);  // (b) sent, prefetch issued, stale scores refreshed
-        mbar_wait_cluster(&s_xb[par], xpar);
-        if (tid == 0) mbar_expect_tx(&s_xb[par], bytes_b);  // for pod i+2
-        if (zg) {
-            // every block has folded pod i-1's rows (it sent pod i's (b)
-            // message after): clear this block's row for pod i+1
-            long long* next = zbuf + ((size_t)((i + 1) & 1) * CS + rank) * NZ;
-            for (int z = tid; z < NZ; z += BT) next[z] = 0;
-            __threadfence();
-        }
-        PHASE(7);  // (b) wait
-
-        // every warp picks the same node: the (rr % ties)-th tie in node
-        // order (block, column round, warp, lane); lane q reads block q's
-        int ch = -1;
-        if (n_feas > 0) {
-            const uint4* in = s_inb + par * (MB / 4) * CS;  // [chunk][CS]
-            long long bq = I64_MIN;
-            int tq = 0;
-            if (from) {
-                const uint4 h = in[lane];
-                bq = join64(h.y, h.x);
-                tq = static_cast<int>(h.z);
-            }
-            const long long top = warp_max64(bq);
-            if (bq != top) tq = 0;
-            const int incl = warp_incl_scan(tq);
-            const int all = __shfl_sync(FULL, incl, 31);
-            const int idx = static_cast<int>(rr % static_cast<uint32_t>(all));
-            const unsigned hit = __ballot_sync(FULL, tq > 0 && idx >= incl - tq && idx < incl);
-            const int owner = __ffs(hit) - 1;
-            int k = idx - __shfl_sync(FULL, incl - tq, owner);
-            // rank k among the owner's ballots, 32 at a time (lane j: ballot j)
-            const uint32_t* ob = reinterpret_cast<const uint32_t*>(in);
-            int node = -1;
-            for (int e0 = 0; e0 < ENTS && node < 0; e0 += 32) {
-                const int e = e0 + lane, wd = e + 3;  // word of ballot e
-                const unsigned bal = e < ENTS ? ob[((wd >> 2) * CS + owner) * 4 + (wd & 3)] : 0u;
-                const int n = __popc(bal);
-                const int in_ = warp_incl_scan(n);
-                const unsigned got = __ballot_sync(FULL, k >= in_ - n && k < in_);
-                if (got) {
-                    const int src = __ffs(got) - 1;
-                    int pos = 0;
-                    if (lane == src)
-                        pos = owner * L + (e / NW) * BT + (e % NW) * 32 + nth_set_bit(bal, k - (in_ - n));
-                    node = __shfl_sync(FULL, pos, src);
-                } else {
-                    k -= __shfl_sync(FULL, in_, 31);
-                }
-            }
-            ch = node;
-        }
-        if (n_feas >= 2) ++rr;
-        if (rank == 0 && tid == 0) p.chosen[i] = ch;
-        PHASE(8);  // (b) tie pick
-
-        // ---- commit: each block writes only the columns it owns ----
-        if (ch >= 0) {
-            const int owner = ch / L, lcc = ch - owner * L;
-            if (owner == rank) {
-                if (tid == lcc % BT) {
-                    for (int r = 0; r < R; ++r) req(r, lcc) += sg[r];
-                    nz(0, lcc) += sg[R];
-                    nz(1, lcc) += sg[R + 1];
-                    cnt(0, lcc) += 1;
+                    for (int a = 0; a < tcount; ++a) {
+                        const int32_t* te = terms + a * TERM_FIELDS;
+                        const int t = te[0];
+                        const int dmv = dm(t, lc), dw = downer(t, lc);
+                        if (te[7]) f &= dw <= 0;
+                        if (te[2]) f &= dmv > 0 || (te[8] && s_total[t] == 0);
+                        if (te[3]) f &= dmv <= 0;
+                        if (wt_ip) ipc += (long long)te[5] * dmv + (long long)te[6] * dw;
+                    }
                     if (p.use_vols) {
+                        int count_new[MAX_KINDS] = {0, 0, 0, 0};
+                        int has_kind[MAX_KINDS] = {0, 0, 0, 0};
                         for (int s = 0; s < W; ++s) {
                             const int packed = pvol[s];
                             if (!(packed & 1)) continue;
-                            const int vid = packed >> 6, kind = (packed >> 3) & 7;
-                            const int ro = (packed >> 2) & 1, co = (packed >> 1) & 1;
-                            uint8_t& cell = volf(vid, lcc);
-                            const int was_any = cell & 1;
-                            // count-only slots read the always-empty sentinel
-                            // row and never write occupancy
-                            if (!co) cell = static_cast<uint8_t>(cell | 1 | (ro ? 0 : 2));
-                            if (kind < K && !was_any) nk(kind, lcc) += 1;
-                        }
-                    }
-                }
-                if (p.use_ports)
-                    for (int q = tid; q < PV; q += BT)
-                        if (q < PQ ? gports[q] : gports_far[q]) ports(q, lcc) = 1;
-                const int32_t* inc = inc_shared ? s_inc + b * G4 : p.spread_inc_t + (size_t)gid * G4;
-                for (int h = tid; h < G; h += BT) {
-                    const int v = inc[h];
-                    if (v) spread(h, lcc) += v;
-                }
-                stale = lcc;  // its resource scores, from the new nonzero requests
-            }
-            for (int a = 0; a < tcount; ++a) {
-                const int32_t* te = terms + a * TERM_FIELDS;
-                const int m = te[1], own = te[4];
-                if (!m && !own) continue;
-                const int t = te[0];
-                // the chosen node's domain, from its owner's copy of the rows
-                const int32_t* dv = SH || p.off[P_DOM_VALID] >= 0
-                    ? cluster.map_shared_rank(&dom_valid(t, lcc), owner) : p.dom_valid + (size_t)t * NS + ch;
-                const int32_t* nd = SH || p.off[P_NODE_DOMAIN] >= 0
-                    ? cluster.map_shared_rank(&node_domain(t, lcc), owner) : p.node_domain + (size_t)t * NS + ch;
-                const int valid = *dv, d = *nd;  // one round trip for both
-                if (valid) {
+                            const int vid = packed >> 6, kind = (packed >> 3) & 7, ro = (packed >> 2) & 1;
+                            const int cell = volf(vid, lc);
+                            const int any = cell & 1, ns = (cell >> 1) & 1;
+                            if (ro ? ns : any) f = false;
 #pragma unroll
-                    for (int c = 0; c < CPT; ++c) {
-                        const int lc = c * BT + tid;
-                        if (lc < L && dom_valid(t, lc) && node_domain(t, lc) == d) {
-                            dm(t, lc) += m;
-                            downer(t, lc) += own;
+                            for (int kk = 0; kk < MAX_KINDS; ++kk)
+                                if (kk == kind && kk < K) {
+                                    count_new[kk] += 1 - any;
+                                    has_kind[kk] = 1;
+                                }
+                        }
+#pragma unroll
+                        for (int kk = 0; kk < MAX_KINDS; ++kk)
+                            if (kk < K && has_kind[kk] && nk(kk, lc) + count_new[kk] > s_vlim[kk]) f = false;
+                    }
+                    if (f) {
+                        nf += 1;
+                        if (z >= 0) {
+                            nzc += 1;
+                            if constexpr (BZ) {
+                                if (z < NZ) {
+                                    const unsigned long long v = static_cast<unsigned long long>(static_cast<long long>(sc));
+                                    if (zg) atomicAdd(reinterpret_cast<unsigned long long*>(&g_zacc[z]), v);
+                                    else atomicAdd(reinterpret_cast<unsigned long long*>(&s_zacc[z]), v);
+                                }
+                            } else {
+#pragma unroll
+                                for (int zz = 0; zz < REG_ZONES; ++zz)
+                                    if (zz == z) zsum[zz] += sc;
+                            }
+                        }
+                        smax = sc > smax ? sc : smax;
+                        amax = aff > amax ? aff : amax;
+                        tmax = tr > tmax ? tr : tmax;
+                        ipmax = ipc > ipmax ? ipc : ipmax;
+                        ipmin = ipc < ipmin ? ipc : ipmin;
+                    }
+                }
+                feas[c] = f;
+                ip[c] = ipc;
+            }
+            PHASE(1);  // filter and raw inputs
+
+            // ---- exchange (a): the block's statistics to every block ----
+            {
+                nf = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(nf)));
+                nzc = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(nzc)));
+                smax = __reduce_max_sync(FULL, smax);
+                amax = __reduce_max_sync(FULL, amax);
+                tmax = __reduce_max_sync(FULL, tmax);
+                if (wt_ip) {
+                    ipmax = warp_max64(ipmax);
+                    ipmin = warp_min64(ipmin);
+                }
+                if constexpr (!BZ) {
+#pragma unroll
+                    for (int zz = 0; zz < REG_ZONES; ++zz)
+                        if (zz < NZ) zsum[zz] = warp_sum64(zsum[zz]);
+                } else {
+                    // the warp's zone atomics before its lane 0 counts it done;
+                    // in global memory, before any block can read them
+                    if (zg) __threadfence();
+                    __syncwarp();
+                }
+                if (lane == 0) {
+                    uint32_t(*pa)[MAX_WARPS] = s_part[par];
+                    pa[0][warp] = nf;
+                    pa[1][warp] = nzc;
+                    pa[2][warp] = smax;
+                    pa[3][warp] = amax;
+                    pa[4][warp] = tmax;
+                    pa[6][warp] = static_cast<uint32_t>(ipmax);
+                    pa[7][warp] = static_cast<uint32_t>(ipmax >> 32);
+                    pa[8][warp] = static_cast<uint32_t>(ipmin);
+                    pa[9][warp] = static_cast<uint32_t>(ipmin >> 32);
+                    if constexpr (!BZ) {
+#pragma unroll
+                        for (int zz = 0; zz < REG_ZONES; ++zz)
+                            if (zz < NZ) {
+                                pa[10 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz]);
+                                pa[11 + 2 * zz][warp] = static_cast<uint32_t>(zsum[zz] >> 32);
+                            }
+                    }
+                }
+                if (last_warp(&s_done[par], NW)) {
+                    // the block's message: folded over its warps' parts (lane w
+                    // reads warp w's), then sent to every block
+                    const bool has = lane < NW;
+                    uint32_t(*pa)[MAX_WARPS] = s_part[par];
+                    uint32_t m[MAX_MSG_A];
+#pragma unroll
+                    for (int q = 0; q < MAX_MSG_A; ++q) m[q] = 0;
+                    m[0] = __reduce_add_sync(FULL, has ? pa[0][lane] : 0u);
+                    m[1] = __reduce_add_sync(FULL, has ? pa[1][lane] : 0u);
+#pragma unroll
+                    for (int q = 2; q < 5; ++q)
+                        m[q] = static_cast<uint32_t>(__reduce_max_sync(FULL, has ? static_cast<int>(pa[q][lane]) : 0));
+                    if (wt_ip) {
+                        const long long hi = warp_max64(has ? join64(pa[7][lane], pa[6][lane]) : I64_MIN);
+                        const long long lo = warp_min64(has ? join64(pa[9][lane], pa[8][lane]) : I64_MAX);
+                        m[6] = static_cast<uint32_t>(hi);
+                        m[7] = static_cast<uint32_t>(hi >> 32);
+                        m[8] = static_cast<uint32_t>(lo);
+                        m[9] = static_cast<uint32_t>(lo >> 32);
+                    }
+                    if constexpr (!BZ) {
+#pragma unroll
+                        for (int zz = 0; zz < REG_ZONES; ++zz)
+                            if (zz < NZ) {
+                                const long long v = warp_sum64(has ? join64(pa[11 + 2 * zz][lane], pa[10 + 2 * zz][lane]) : 0);
+                                m[10 + 2 * zz] = static_cast<uint32_t>(v);
+                                m[11 + 2 * zz] = static_cast<uint32_t>(v >> 32);
+                            }
+                    }
+                    if (lane == 0) s_done[par] = 0;  // for pod i+2
+                    if constexpr (!BZ) {
+                        if (lane < CS) {
+#pragma unroll
+                            for (int q = 0; q < MAX_MSG_A; q += 4)
+                                if (q < MA)
+                                    send4(&s_ina[(par * (MA / 4) + q / 4) * CS + rank], &s_xa[par], lane,
+                                          m[q], m[q + 1], m[q + 2], m[q + 3]);
+                        }
+                    } else if (zg) {
+                        // the zone sums went to this block's global row: only the
+                        // statistics' 10 words travel
+                        if (lane < CS) {
+                            uint4* to = &s_ina[par * (MA / 4) * CS + rank];
+                            send4(to, &s_xa[par], lane, m[0], m[1], m[2], m[3]);
+                            send4(to + CS, &s_xa[par], lane, m[4], m[5], m[6], m[7]);
+                            send4(to + 2 * CS, &s_xa[par], lane, m[8], m[9], 0u, 0u);
+                        }
+                    } else {
+                        // words 10 + 2z, 11 + 2z: zone z's sum from the accumulator;
+                        // chunk k >= 3 holds zones 2k - 5 and 2k - 4
+                        if (lane < CS) {
+                            uint4* to = &s_ina[par * (MA / 4) * CS + rank];
+                            const long long z0 = s_zacc[0];
+                            send4(to, &s_xa[par], lane, m[0], m[1], m[2], m[3]);
+                            send4(to + CS, &s_xa[par], lane, m[4], m[5], m[6], m[7]);
+                            send4(to + 2 * CS, &s_xa[par], lane, m[8], m[9], static_cast<uint32_t>(z0),
+                                  static_cast<uint32_t>(z0 >> 32));
+                            for (int k = 3; k < MA / 4; ++k) {
+                                const int za = 2 * k - 5, zb = 2 * k - 4;
+                                const long long va = za < NZ ? s_zacc[za] : 0, vb = zb < NZ ? s_zacc[zb] : 0;
+                                send4(to + k * CS, &s_xa[par], lane, static_cast<uint32_t>(va),
+                                      static_cast<uint32_t>(va >> 32), static_cast<uint32_t>(vb),
+                                      static_cast<uint32_t>(vb >> 32));
+                            }
+                        }
+                        __syncwarp();
+                        for (int z = lane; z < NZ; z += 32) s_zacc[z] = 0;  // for pod i+1
+                    }
+                }
+            }
+            // the stale column's score for this pod's signature, by the thread
+            // that reads it in the totals below (the other signatures' follow
+            // in exchange (b)'s wait)
+            if (stale >= 0 && tid == stale % BT)
+                res(gid, stale) = static_cast<uint16_t>(res_score((long long)nz(0, stale) + s_gnz[2 * gid],
+                                                                  (long long)nz(1, stale) + s_gnz[2 * gid + 1],
+                                                                  alloc(0, stale), alloc(1, stale)));
+            PHASE(2);  // (a) statistics sent, stale score refreshed
+            mbar_wait_cluster(&s_xa[par], xpar);
+            if (tid == 0) mbar_expect_tx(&s_xa[par], bytes_a);  // for pod i+2
+            PHASE(3);  // (a) wait
+            // every warp folds the blocks' messages itself (lane q: block q's),
+            // so no block-wide barrier follows
+            const bool from = lane < CS;
+            // BZ: words 0-11 here, the zone words are folded in shared memory below
+            constexpr int XA = BZ ? 12 : MAX_MSG_A;
+            uint32_t xa[XA];
+#pragma unroll
+            for (int q = 0; q < XA; q += 4) {
+                uint4 v = make_uint4(0, 0, 0, 0);
+                if (q < MA && from) v = s_ina[(par * (MA / 4) + q / 4) * CS + lane];
+                xa[q] = v.x;
+                xa[q + 1] = v.y;
+                xa[q + 2] = v.z;
+                xa[q + 3] = v.w;
+            }
+            const long long n_feas = __reduce_add_sync(FULL, xa[0]);
+            const bool have_zones = sg[R + 2] && __reduce_add_sync(FULL, xa[1]) > 0;
+            const long long max_n = __reduce_max_sync(FULL, static_cast<int>(xa[2]));
+            const long long aff_max = __reduce_max_sync(FULL, static_cast<int>(xa[3]));
+            const long long taint_max = __reduce_max_sync(FULL, static_cast<int>(xa[4]));
+            long long ip_max = 0, ip_min = 0;
+            if (wt_ip) {
+                ip_max = warp_max64(from ? join64(xa[7], xa[6]) : I64_MIN);
+                ip_min = warp_min64(from ? join64(xa[9], xa[8]) : I64_MAX);
+                ip_max = ip_max > 0 ? ip_max : 0;
+                ip_min = ip_min < 0 ? ip_min : 0;
+            }
+            long long max_z = 0;
+            if constexpr (!BZ) {
+#pragma unroll
+                for (int zz = 0; zz < REG_ZONES; ++zz)
+                    if (zz < NZ) {
+                        zsum[zz] = warp_sum64(join64(xa[11 + 2 * zz], xa[10 + 2 * zz]));
+                        max_z = zsum[zz] > max_z ? zsum[zz] : max_z;
+                    }
+            } else if (zg) {
+                // the second fold: the cluster's rows from L2 (past L1, which
+                // does not see other blocks' atomics), one zone a thread, into
+                // this block's totals row
+                const long long* rows = zbuf + (size_t)par * CS * NZ;
+                for (int z = tid; z < NZ; z += BT) {
+                    long long sum = 0;
+                    for (int q = 0; q < CS; ++q) sum += __ldcg(rows + (size_t)q * NZ + z);
+                    g_ztot[z] = sum;
+                }
+                __syncthreads();
+                long long mz = 0;
+                for (int z = lane; z < NZ; z += 32) mz = g_ztot[z] > mz ? g_ztot[z] : mz;
+                max_z = warp_max64(mz);
+            } else {
+                // the cluster's zone totals, one zone a thread, then every
+                // warp's maximum over them
+                const uint32_t* ina = reinterpret_cast<const uint32_t*>(s_ina);
+                for (int z = tid; z < NZ; z += BT) {
+                    const int w = 10 + 2 * z;  // even: both halves in one chunk
+                    long long sum = 0;
+                    for (int q = 0; q < CS; ++q) {
+                        const uint32_t* c = ina + ((par * (MA / 4) + (w >> 2)) * CS + q) * 4 + (w & 3);
+                        sum += join64(static_cast<int>(c[1]), c[0]);
+                    }
+                    s_ztot[z] = sum;
+                }
+                __syncthreads();
+                long long mz = 0;
+                for (int z = lane; z < NZ; z += 32) mz = s_ztot[z] > mz ? s_ztot[z] : mz;
+                max_z = warp_max64(mz);
+            }
+            const long long rng = ip_max - ip_min;
+            PHASE(4);  // (a) fold
+
+            // ---- totals, then each warp's best score and its ties ----
+            long long best = I64_MIN;
+            long long tot[CPT];
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) tot[c] = 0;
+            if (n_feas > 0) {
+                const double r_maxn = __drcp_rn(static_cast<double>(max_n > 1 ? max_n : 1));
+                const double r_maxz = __drcp_rn(static_cast<double>(max_z > 1 ? max_z : 1));
+                const double r_aff = __drcp_rn(static_cast<double>(aff_max > 1 ? aff_max : 1));
+                const double r_taint = __drcp_rn(static_cast<double>(taint_max > 1 ? taint_max : 1));
+                const double r_rng = __drcp_rn(static_cast<double>(rng > 1 ? rng : 1));
+#pragma unroll
+                for (int c = 0; c < CPT; ++c) {
+                    const int lc = c * BT + tid;
+                    if (!feas[c]) continue;
+                    const int rs = res(gid, lc);
+                    long long total = (long long)row[3][lc] + (long long)p.wt[0] * (rs & 15) +
+                                      (long long)p.wt[1] * ((rs >> 4) & 15) + (long long)p.wt[2] * (rs >> 8);
+                    if (p.wt[3]) {
+                        const long long sc = spread_row[lc];
+                        const long long node_fp = max_n > 0 ? fdiv((max_n - sc) * FP, max_n, r_maxn) : FP;
+                        const int z = zone(0, lc);
+                        long long total_fp = node_fp;
+                        if (have_zones && z >= 0) {
+                            long long zcnt = 0;
+                            if constexpr (BZ) {
+                                if (z < NZ) zcnt = zg ? g_ztot[z] : s_ztot[z];
+                            } else {
+#pragma unroll
+                                for (int zz = 0; zz < REG_ZONES; ++zz)
+                                    if (zz == z) zcnt = zsum[zz];
+                            }
+                            const long long zone_fp = max_z > 0 ? fdiv((max_z - zcnt) * FP, max_z, r_maxz) : FP;
+                            total_fp = floordiv(node_fp + 2 * zone_fp, 3);
+                        }
+                        total += p.wt[3] * floordiv(total_fp, FP_ONE);
+                    }
+                    if (p.wt[4]) {
+                        const long long raw = row[1][lc];
+                        total += p.wt[4] * (aff_max > 0 ? fdiv(MAX_PRIORITY * raw, aff_max, r_aff) : 0);
+                    }
+                    if (p.wt[5]) {
+                        const long long raw = row[2][lc];
+                        total += p.wt[5] * (taint_max > 0 ? fdiv(MAX_PRIORITY * (taint_max - raw), taint_max, r_taint)
+                                                          : MAX_PRIORITY);
+                    }
+                    if (wt_ip)
+                        total += p.wt[6] * (rng > 0 ? fdiv(MAX_PRIORITY * (ip[c] - ip_min), rng, r_rng) : 0);
+                    tot[c] = total;
+                    best = total > best ? total : best;
+                }
+            }
+            PHASE(5);  // totals
+
+            // ---- exchange (b): the block's best score and its ties at it ----
+            {
+                const long long wbest = warp_max64(best);
+                unsigned bl[CPT];
+                int wties = 0;
+#pragma unroll
+                for (int c = 0; c < CPT; ++c) {
+                    bl[c] = __ballot_sync(FULL, feas[c] && tot[c] == wbest);
+                    wties += __popc(bl[c]);
+                }
+                if (lane == 0) {
+                    s_wb[par][warp] = wbest;
+                    s_wt[par][warp] = wties;
+#pragma unroll
+                    for (int c = 0; c < CPT; ++c) s_bal[par][c * NW + warp] = bl[c];
+                }
+                if (last_warp(&s_done[2 + par], NW)) {
+                    // message: the best, the ties at it, then the ballots in
+                    // (column round, warp) order, zero for warps below the best
+                    const long long wb = lane < NW ? s_wb[par][lane] : I64_MIN;
+                    const long long bb = warp_max64(wb);
+                    const bool at = lane < NW && bb != I64_MIN && wb == bb;
+                    const unsigned atb = __ballot_sync(FULL, at);
+                    const unsigned ties = __reduce_add_sync(FULL, at ? static_cast<unsigned>(s_wt[par][lane]) : 0u);
+                    if (lane == 0) s_done[2 + par] = 0;  // for pod i+2
+                    if (lane < CS) {
+                        int q = 0, w = 0;  // next ballot, and its warp
+                        for (int k = 0; k < MB / 4; ++k) {
+                            uint32_t v[4];
+#pragma unroll
+                            for (int j = 0; j < 4; ++j) {
+                                const int slot = 4 * k + j;
+                                if (slot < 3) {
+                                    v[j] = slot == 0 ? static_cast<uint32_t>(bb)
+                                         : slot == 1 ? static_cast<uint32_t>(bb >> 32) : ties;
+                                } else if (q < ENTS) {
+                                    v[j] = (atb >> w) & 1 ? s_bal[par][q] : 0u;
+                                    ++q;
+                                    w = w + 1 == NW ? 0 : w + 1;
+                                } else {
+                                    v[j] = 0;
+                                }
+                            }
+                            send4(&s_inb[(par * (MB / 4) + k) * CS + rank], &s_xb[par], lane, v[0], v[1], v[2], v[3]);
                         }
                     }
                 }
-                if (tid == 0) s_total[t] += m;
             }
+            // the pod after next into its buffer (it held pod i-1, which every
+            // thread of this block finished)
+            if (issuer && i + NBUF - 1 < p.p_real) {
+                prefetch(i + NBUF - 1, gid_ahead);
+                if (i + NBUF < p.p_real) gid_ahead = p.gids[i + NBUF];
+            }
+            if (stale >= 0) {
+                const long long cn = nz(0, stale), mn = nz(1, stale), cc = alloc(0, stale), mc = alloc(1, stale);
+                for (int h = tid; h < G; h += BT)
+                    if (h != gid) res(h, stale) = static_cast<uint16_t>(res_score(cn + s_gnz[2 * h], mn + s_gnz[2 * h + 1], cc, mc));
+                stale = -1;
+            }
+            PHASE(6);  // (b) sent, prefetch issued, stale scores refreshed
+            mbar_wait_cluster(&s_xb[par], xpar);
+            if (tid == 0) mbar_expect_tx(&s_xb[par], bytes_b);  // for pod i+2
+            if (zg) {
+                // every block has folded pod i-1's rows (it sent pod i's (b)
+                // message after): clear this block's row for pod i+1
+                long long* next = zbuf + ((size_t)((i + 1) & 1) * CS + rank) * NZ;
+                for (int z = tid; z < NZ; z += BT) next[z] = 0;
+                __threadfence();
+            }
+            PHASE(7);  // (b) wait
+
+            // every warp picks the same node: the (rr % ties)-th tie in node
+            // order (block, column round, warp, lane); lane q reads block q's
+            int ch = -1;
+            if (n_feas > 0) {
+                const uint4* in = s_inb + par * (MB / 4) * CS;  // [chunk][CS]
+                long long bq = I64_MIN;
+                int tq = 0;
+                if (from) {
+                    const uint4 h = in[lane];
+                    bq = join64(h.y, h.x);
+                    tq = static_cast<int>(h.z);
+                }
+                const long long top = warp_max64(bq);
+                if (bq != top) tq = 0;
+                const int incl = warp_incl_scan(tq);
+                const int all = __shfl_sync(FULL, incl, 31);
+                const int idx = static_cast<int>(rr % static_cast<uint32_t>(all));
+                const unsigned hit = __ballot_sync(FULL, tq > 0 && idx >= incl - tq && idx < incl);
+                const int owner = __ffs(hit) - 1;
+                int k = idx - __shfl_sync(FULL, incl - tq, owner);
+                // rank k among the owner's ballots, 32 at a time (lane j: ballot j)
+                const uint32_t* ob = reinterpret_cast<const uint32_t*>(in);
+                int node = -1;
+                for (int e0 = 0; e0 < ENTS && node < 0; e0 += 32) {
+                    const int e = e0 + lane, wd = e + 3;  // word of ballot e
+                    const unsigned bal = e < ENTS ? ob[((wd >> 2) * CS + owner) * 4 + (wd & 3)] : 0u;
+                    const int n = __popc(bal);
+                    const int in_ = warp_incl_scan(n);
+                    const unsigned got = __ballot_sync(FULL, k >= in_ - n && k < in_);
+                    if (got) {
+                        const int src = __ffs(got) - 1;
+                        int pos = 0;
+                        if (lane == src)
+                            pos = owner * L + (e / NW) * BT + (e % NW) * 32 + nth_set_bit(bal, k - (in_ - n));
+                        node = __shfl_sync(FULL, pos, src);
+                    } else {
+                        k -= __shfl_sync(FULL, in_, 31);
+                    }
+                }
+                ch = node;
+            }
+            if (n_feas >= 2) ++rr;
+            if (rank == 0 && tid == 0) p.chosen[i] = ch;
+            PHASE(8);  // (b) tie pick
+
+            // ---- commit: each block writes only the columns it owns ----
+            if (ch >= 0) {
+                const int owner = ch / L, lcc = ch - owner * L;
+                if (owner == rank) {
+                    if (tid == lcc % BT) {
+                        for (int r = 0; r < R; ++r) req(r, lcc) += sg[r];
+                        nz(0, lcc) += sg[R];
+                        nz(1, lcc) += sg[R + 1];
+                        cnt(0, lcc) += 1;
+                        if (p.use_vols) {
+                            for (int s = 0; s < W; ++s) {
+                                const int packed = pvol[s];
+                                if (!(packed & 1)) continue;
+                                const int vid = packed >> 6, kind = (packed >> 3) & 7;
+                                const int ro = (packed >> 2) & 1, co = (packed >> 1) & 1;
+                                uint8_t& cell = volf(vid, lcc);
+                                const int was_any = cell & 1;
+                                // count-only slots read the always-empty sentinel
+                                // row and never write occupancy
+                                if (!co) cell = static_cast<uint8_t>(cell | 1 | (ro ? 0 : 2));
+                                if (kind < K && !was_any) nk(kind, lcc) += 1;
+                            }
+                        }
+                    }
+                    if (p.use_ports)
+                        for (int q = tid; q < PV; q += BT)
+                            if (q < PQ ? gports[q] : gports_far[q]) ports(q, lcc) = 1;
+                    const int32_t* inc = inc_shared ? s_inc + b * G4 : p.spread_inc_t + (size_t)gid * G4;
+                    for (int h = tid; h < G; h += BT) {
+                        const int v = inc[h];
+                        if (v) spread(h, lcc) += v;
+                    }
+                    stale = lcc;  // its resource scores, from the new nonzero requests
+                }
+                for (int a = 0; a < tcount; ++a) {
+                    const int32_t* te = terms + a * TERM_FIELDS;
+                    const int m = te[1], own = te[4];
+                    if (!m && !own) continue;
+                    const int t = te[0];
+                    // the chosen node's domain, from its owner's copy of the rows
+                    const int32_t* dv = SH || p.off[P_DOM_VALID] >= 0
+                        ? cluster.map_shared_rank(&dom_valid(t, lcc), owner) : p.dom_valid + (size_t)t * NS + ch;
+                    const int32_t* nd = SH || p.off[P_NODE_DOMAIN] >= 0
+                        ? cluster.map_shared_rank(&node_domain(t, lcc), owner) : p.node_domain + (size_t)t * NS + ch;
+                    const int valid = *dv, d = *nd;  // one round trip for both
+                    if (valid) {
+#pragma unroll
+                        for (int c = 0; c < CPT; ++c) {
+                            const int lc = c * BT + tid;
+                            if (lc < L && dom_valid(t, lc) && node_domain(t, lc) == d) {
+                                dm(t, lc) += m;
+                                downer(t, lc) += own;
+                            }
+                        }
+                    }
+                    if (tid == 0) s_total[t] += m;
+                }
+            }
+            __syncthreads();
+            PHASE(9);  // commit
         }
-        __syncthreads();
-        PHASE(9);  // commit
     }
 #ifdef FUSED_SCAN_PHASES
     if (clocked)
@@ -1222,8 +1255,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) fused_scan_kernel(const ScanPa
     cluster_wait();
 }
 
+// attrs (a query's): the kernel's static shared memory, and its registers and
+// local memory (spills) a thread, from cudaFuncGetAttributes
 template <int CPT, bool SH, bool BZ>
-int launch(const ScanParams& params, cudaStream_t stream, int* max_clusters, int* static_smem) {
+int launch(const ScanParams& params, cudaStream_t stream, int* max_clusters, int* attrs) {
     auto kernel = fused_scan_kernel<CPT, SH, BZ>;
     cudaFuncAttributes fa = {};
     cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
@@ -1231,7 +1266,11 @@ int launch(const ScanParams& params, cudaStream_t stream, int* max_clusters, int
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (static_smem) *static_smem = static_cast<int>(fa.sharedSizeBytes);
+    if (attrs) {
+        attrs[0] = static_cast<int>(fa.sharedSizeBytes);
+        attrs[1] = fa.numRegs;
+        attrs[2] = static_cast<int>(fa.localSizeBytes);
+    }
     // the planner reserved too little for the static arrays
     if (static_cast<int>(fa.sharedSizeBytes) + params.smem_bytes > optin) return -3;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -1261,7 +1300,7 @@ int launch(const ScanParams& params, cudaStream_t stream, int* max_clusters, int
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-int dispatch(const ScanParams* p, cudaStream_t s, int* max_clusters, int* static_smem) {
+int dispatch(const ScanParams* p, cudaStream_t s, int* max_clusters, int* attrs) {
     const int nw = p->threads / 32;
     const bool bz = p->num_zones > REG_ZONES;
     const bool zg = p->zbuf != nullptr;
@@ -1278,25 +1317,25 @@ int dispatch(const ScanParams* p, cudaStream_t s, int* max_clusters, int* static
         return -1;
     if (bz) {  // more zones than registers hold: the zone statistics in shared or global memory
         switch (p->cpt) {
-            case 1: return launch<1, false, true>(*p, s, max_clusters, static_smem);
-            case 2: return launch<2, false, true>(*p, s, max_clusters, static_smem);
-            case 4: return launch<4, false, true>(*p, s, max_clusters, static_smem);
-            case 8: return launch<8, false, true>(*p, s, max_clusters, static_smem);
-            case 16: return launch<16, false, true>(*p, s, max_clusters, static_smem);
+            case 1: return launch<1, false, true>(*p, s, max_clusters, attrs);
+            case 2: return launch<2, false, true>(*p, s, max_clusters, attrs);
+            case 4: return launch<4, false, true>(*p, s, max_clusters, attrs);
+            case 8: return launch<8, false, true>(*p, s, max_clusters, attrs);
+            case 16: return launch<16, false, true>(*p, s, max_clusters, attrs);
             default: return -2;
         }
     }
     bool all_shared = true;
     for (int k = 0; k < NPLANES; ++k) all_shared = all_shared && p->off[k] >= 0;
     // segments whose planes all fit in shared memory are small: 1 or 2 columns a thread
-    if (all_shared && p->cpt == 1) return launch<1, true, false>(*p, s, max_clusters, static_smem);
-    if (all_shared && p->cpt == 2) return launch<2, true, false>(*p, s, max_clusters, static_smem);
+    if (all_shared && p->cpt == 1) return launch<1, true, false>(*p, s, max_clusters, attrs);
+    if (all_shared && p->cpt == 2) return launch<2, true, false>(*p, s, max_clusters, attrs);
     switch (p->cpt) {
-        case 1: return launch<1, false, false>(*p, s, max_clusters, static_smem);
-        case 2: return launch<2, false, false>(*p, s, max_clusters, static_smem);
-        case 4: return launch<4, false, false>(*p, s, max_clusters, static_smem);
-        case 8: return launch<8, false, false>(*p, s, max_clusters, static_smem);
-        case 16: return launch<16, false, false>(*p, s, max_clusters, static_smem);
+        case 1: return launch<1, false, false>(*p, s, max_clusters, attrs);
+        case 2: return launch<2, false, false>(*p, s, max_clusters, attrs);
+        case 4: return launch<4, false, false>(*p, s, max_clusters, attrs);
+        case 8: return launch<8, false, false>(*p, s, max_clusters, attrs);
+        case 16: return launch<16, false, false>(*p, s, max_clusters, attrs);
         default: return -2;
     }
 }
@@ -1314,7 +1353,11 @@ extern "C" int fused_scan_launch(const ScanParams* params, void* stream) {
 }
 
 // The plan as the card sees it, without a launch: how many clusters of
-// this size fit at once, and the kernel's static shared memory.
-extern "C" int fused_scan_query(const ScanParams* params, int* max_clusters, int* static_smem) {
-    return dispatch(params, nullptr, max_clusters, static_smem);
+// this size fit at once, and the attributes of the kernel it would launch
+// (attrs[3]: static shared memory, registers and local memory a thread).
+extern "C" int fused_scan_query(const ScanParams* params, int* max_clusters, int* attrs) {
+    return dispatch(params, nullptr, max_clusters, attrs);
 }
+
+// The pods a loop iteration this library was built for (see 9).
+extern "C" int fused_scan_k() { return SUBSTEPS; }

@@ -40,11 +40,18 @@ and ``chosen`` at the chunk, reads and writes the round-robin counter in
 the control words ``ctl`` on the card, honours their stop flag, advances
 their cursor, and writes the state planes back; ``unpack_state`` reads the
 written-back state as a ``ScanState``.
+
+With the ``PallasSuperSteps`` gate on, ``superstep_k`` (the JAX package's
+``_superstep_k``) picks K pods a loop iteration of the kernel's pod loop,
+and every launch runs the library built for that K (``-DFUSED_SCAN_K=K``,
+built at its first use beside the K = 1 library).  The bindings are the
+K = 1 kernel's, bit for bit; ``launches_k`` counts each K's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.carry import WEIGHT_KEYS, ScanState, ScanStatic
+from ..utils.features import DEFAULT_FEATURE_GATES
 from . import _build
 
 MAX_THREADS = 512
@@ -107,8 +115,10 @@ PLANES = ("pod_rows", "spread_inc", "req", "nz", "cnt", "ports", "dm", "downer",
           "volf", "nk", "spread", "res", "alloc", "alloc_pods", "exists", "zone",
           "node_domain", "dom_valid")
 
-# kernel launches since the count was last reset
+# kernel launches since the count was last reset, of every K's library;
+# launches_k splits them by K (superstep_k)
 launches = 0
+launches_k: dict[int, int] = {}
 
 # the frontier loop's control words: one int32 tensor on the card that the
 # chunk launches and the refresh kernel (frontier_refresh.cu) share; CTL_ACC
@@ -245,15 +255,46 @@ def plan(static: ScanStatic, cpt: int | None = None, cs: int | None = None) -> P
                     cpt=cpt, cs=cs)
 
 
-def load():
-    """The kernel's library, built from ``csrc/fused_scan.cu`` on the first
-    call in a process."""
-    lib = _build.load("fused_scan")
+def superstep_k() -> int:
+    """Pods a loop iteration of the kernel's pod loop: 1 unless the
+    ``PallasSuperSteps`` gate is on, then ``KTPU_SUPERSTEP_K`` (default 8)
+    clamped to 1..128 and rounded down to a power of two (the JAX
+    package's ``_superstep_k``)."""
+    if not DEFAULT_FEATURE_GATES.enabled("PallasSuperSteps"):
+        return 1
+    k = max(1, min(128, int(os.environ.get("KTPU_SUPERSTEP_K", "8"))))
+    while k & (k - 1):
+        k -= 1
+    return k
+
+
+def defines(k: int) -> tuple:
+    """The build's defines for ``k`` pods a loop iteration (none for 1)."""
+    return () if k == 1 else (f"FUSED_SCAN_K={k}",)
+
+
+def build(k: int = 1, verbose: bool = False) -> str:
+    """Compile the library for ``k`` pods a loop iteration unless it is
+    built; returns its path."""
+    return _build.build("fused_scan", verbose=verbose, defines=defines(k))
+
+
+def load(k: int | None = None):
+    """The kernel's library for ``k`` pods a loop iteration (default
+    ``superstep_k()``), built from ``csrc/fused_scan.cu`` on the first
+    call in a process.  Raises unless the library reports that ``k``."""
+    k = superstep_k() if k is None else k
+    lib = _build.load("fused_scan", defines(k))
     lib.fused_scan_launch.argtypes = [ctypes.POINTER(ScanParams), ctypes.c_void_p]
     lib.fused_scan_launch.restype = ctypes.c_int
     lib.fused_scan_query.argtypes = [ctypes.POINTER(ScanParams), ctypes.POINTER(ctypes.c_int),
-                                     ctypes.POINTER(ctypes.c_int)]
+                                     ctypes.POINTER(ctypes.c_int * 3)]
     lib.fused_scan_query.restype = ctypes.c_int
+    lib.fused_scan_k.argtypes = []
+    lib.fused_scan_k.restype = ctypes.c_int
+    if lib.fused_scan_k() != k:
+        raise RuntimeError(f"the fused scan library was built for K = {lib.fused_scan_k()}, "
+                           f"not the K = {k} asked for")
     return lib
 
 
@@ -418,33 +459,40 @@ def params(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan, start: in
     )
 
 
-def query(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan) -> dict:
-    """What the card says of plan ``pl`` without launching: how many
-    clusters of its size fit at once, and the kernel's static shared
-    memory.  Raises where the plan cannot run."""
+def query(static: ScanStatic, state: ScanState, bufs: dict, pl: Plan,
+          k: int | None = None) -> dict:
+    """What the card says of plan ``pl`` without launching, for the library
+    of ``k`` pods a loop iteration (default ``superstep_k()``): how many
+    clusters of its size fit at once, and the attributes of the kernel it
+    would launch (static shared memory, registers and local memory, i.e.
+    spills, a thread).  Raises where the plan cannot run."""
     _require_cuda(static, state)
-    clusters, static_smem = ctypes.c_int(0), ctypes.c_int(0)
-    err = load().fused_scan_query(ctypes.byref(params(static, state, bufs, pl)),
-                                  ctypes.byref(clusters), ctypes.byref(static_smem))
+    clusters, attrs = ctypes.c_int(0), (ctypes.c_int * 3)()
+    err = load(k).fused_scan_query(ctypes.byref(params(static, state, bufs, pl)),
+                                   ctypes.byref(clusters), ctypes.byref(attrs))
     if err != 0:
         raise RuntimeError(f"fused scan plan refused (error {err})")
-    return {"max_active_clusters": clusters.value, "static_smem": static_smem.value}
+    return {"max_active_clusters": clusters.value, "static_smem": attrs[0],
+            "regs": attrs[1], "local_bytes": attrs[2]}
 
 
 def launch(static: ScanStatic, state: ScanState, bufs: dict, plan_: Plan | None = None,
            start: int = 0, count: int | None = None, ctl: torch.Tensor | None = None) -> None:
     """Launch the kernel on the current stream over packed ``bufs`` (packed
     under the same plan): the whole segment, or with ``ctl`` one chunk of
-    the frontier loop (see ``params``)."""
+    the frontier loop (see ``params``).  The library is the one built for
+    ``superstep_k()`` pods a loop iteration."""
     global launches
     _require_cuda(static, state)
     pl = plan_ or plan(static)
+    k = superstep_k()
     stream = torch.cuda.current_stream(static.device).cuda_stream
-    err = load().fused_scan_launch(
+    err = load(k).fused_scan_launch(
         ctypes.byref(params(static, state, bufs, pl, start, count, ctl)), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"fused scan launch failed (error {err})")
+        raise RuntimeError(f"fused scan launch failed (error {err}, K = {k})")
     launches += 1
+    launches_k[k] = launches_k.get(k, 0) + 1
 
 
 def unpack_state(static: ScanStatic, bufs: dict, round_robin: int,

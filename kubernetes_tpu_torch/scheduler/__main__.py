@@ -22,7 +22,10 @@ backend: the daemon logs that once at start-up, and
 ``scheduler_backend_oracle_pods_total`` on ``/metrics`` counts those pods.
 With the batch backend ``/metrics`` also carries
 ``scheduler_kernel_launches_total{kernel="fused_scan"|"frontier_refresh"}``,
-the kernels' launch counts read when it is scraped.
+the kernels' launch counts read when it is scraped.  With
+``PallasSuperSteps=true`` the fused scan runs the library built for
+``KTPU_SUPERSTEP_K`` pods a loop iteration (default 8), built at start-up,
+and its launches are also counted under ``kernel="fused_scan_k<K>"``.
 ``--device cuda`` is the default and the process exits non-zero, before
 it takes the lease, where there is no card.
 
@@ -212,8 +215,9 @@ def main(argv=None) -> int:
             from ..ops import frontier_refresh, fused_scan
 
             # the kernels' launch counters, read when /metrics is scraped
-            holder["launches"] = lambda: {"fused_scan": fused_scan.launches,
-                                          "frontier_refresh": frontier_refresh.launches}
+            holder["launches"] = lambda: {
+                "fused_scan": fused_scan.launches, "frontier_refresh": frontier_refresh.launches,
+                **{f"fused_scan_k{k}": n for k, n in fused_scan.launches_k.items() if k > 1}}
         sched = Scheduler(cs, algorithm=algo, backend=backend,
                           scheduler_name=args.scheduler_name)
         telemetry_on = args.timeseries or bool(args.telemetry_sink)

@@ -40,8 +40,10 @@ KNOWN_FEATURES: dict[str, tuple[bool, str]] = {
     # has no such rung (no kernel -> plain-version ladder): off is refused
     # on the card by the scheduler daemon and changes nothing on the CPU
     "PallasKernels": (True, BETA),
-    # K steps unrolled a kernel loop iteration in the JAX package (the
-    # same bindings); the variant is not ported, so it gates nothing
+    # the fused scan's super-step loop: on, every launch runs the build of
+    # ops/csrc/fused_scan.cu for KTPU_SUPERSTEP_K (default 8) pods a loop
+    # iteration (fused_scan.superstep_k, as the JAX package's _superstep_k);
+    # the same bindings, off by default as in the JAX package
     "PallasSuperSteps": (False, ALPHA),
     # gate nothing, as in the JAX package (no module there reads them)
     "DynamicKindRegistration": (True, BETA),

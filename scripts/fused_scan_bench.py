@@ -3,7 +3,7 @@
 segment (5000 nodes x 20 000 ``mixed`` pods, seed 0).
 
     python3 scripts/fused_scan_bench.py [--old-root DIR] [--designs "1,16 2,16"]
-                                        [--phases] [--out PATH]
+                                        [--k "2 4 8"] [--sass] [--phases] [--out PATH]
 
 - ``--designs``: plans of the current kernel, as "cpt,cs" pairs, each timed
   by CUDA events and its chosen nodes and round-robin counter held against
@@ -13,10 +13,16 @@ segment (5000 nodes x 20 000 ``mixed`` pods, seed 0).
   4ba1c4f kubernetes_tpu_torch | tar -x -C DIR`` then rename).  Its kernel
   and the current one are timed in turns (old, new, new, old) in this
   process, and their outputs must agree exactly;
+- ``--k``: the super-step builds (``PallasSuperSteps``: K pods a loop
+  iteration, ``-DFUSED_SCAN_K=K``), each built, timed in turns with K = 1
+  (1, K, K, 1, 1, K) and held against it exactly, with the registers and
+  local memory (spills) a thread of the plan's instantiation at each K;
+- ``--sass``: the SASS instructions (16 bytes each, ``cuobjdump -sass``)
+  of each kernel instantiation in the K = 1 library and each ``--k`` one;
 - ``--phases``: the per-phase clock64 split (thread 0 of cluster rank 0,
   summed over pods) of the current kernel built with -DFUSED_SCAN_PHASES
-  and, with ``--old-root``, of the old kernel with the same stamps inserted
-  at its phase boundaries.
+  (and of each ``--k`` build with it too) and, with ``--old-root``, of the
+  old kernel with the same stamps inserted at its phase boundaries.
 
 Prints one JSON object a measurement and the card line; ``--out PATH``
 also writes them all to PATH.
@@ -28,9 +34,12 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -89,6 +98,24 @@ def nvcc_lib(src_path: str, out_dir: str, tag: str, extra: list[str]) -> ctypes.
     return ctypes.CDLL(so)
 
 
+def sass_sizes(so: str) -> dict:
+    """SASS instructions of each fused-scan instantiation in library
+    ``so`` ("cpt<CPT> sh<SH> bz<BZ>"), counted in cuobjdump's listing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    sizes, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            m = re.search(r"fused_scan_kernelILi(\d+)ELb([01])ELb([01])E", line)
+            name = f"cpt{m[1]} sh{m[2]} bz{m[3]}" if m else None
+            if name:
+                sizes[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            sizes[name] += 1
+    return sizes
+
+
 def events_ms(fn) -> float:
     import torch
 
@@ -105,6 +132,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-root")
     ap.add_argument("--designs", default="")
+    ap.add_argument("--k", default="")
+    ap.add_argument("--sass", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -211,13 +240,58 @@ def main() -> int:
               "new_us_per_pod": sum(new_ms) / 2 * 1e3 / pods_n,
               "speedup": sum(old_ms) / sum(new_ms), "outputs_equal": True})
 
+    ks = [int(k) for k in args.k.split()]
+    # every build this run needs, one nvcc each, started together
+    work = os.path.join(ROOT, "kubernetes_tpu_torch", "ops", "_build", "phases")
+    src = os.path.join(_build.CSRC, "fused_scan.cu")
+
+    def timed(fn, *a):
+        t = time.time()
+        out = fn(*a)
+        return out, time.time() - t
+
+    t0 = time.time()
+    with ThreadPoolExecutor(max(1, 2 * len(ks) + 1)) as pool:
+        k_builds = {k: pool.submit(timed, fused_scan.build, k) for k in ks}
+        phase_libs = {}
+        if args.phases:
+            phase_libs = {kk: pool.submit(nvcc_lib, src, work, f"k{kk}_phases", [
+                "-DFUSED_SCAN_PHASES", *([f"-DFUSED_SCAN_K={kk}"] if kk > 1 else [])])
+                for kk in [1, *ks]}
+        k_builds = {k: f.result()[1] for k, f in k_builds.items()}
+        phase_libs = {kk: f.result() for kk, f in phase_libs.items()}
+    if ks or phase_libs:
+        emit({"what": "builds", "s": time.time() - t0, "k_build_s": k_builds})
+    for k in ks:
+        build_s = k_builds[k]
+        attrs = {kk: fused_scan.query(s, st, fused_scan.pack(s, st, base), base, k=kk)
+                 for kk in (1, k)}
+        turns = {1: [], k: []}
+        for kk in (1, k, k, 1, 1, k):
+            with chip_smoke.superstep(kk):
+                run_new(base)  # warm-up
+                ms, got, rr = run_new(base)
+            if not (np.array_equal(got, ref_got) and rr == ref_rr):
+                raise AssertionError(f"K = {kk} disagrees with the default plan")
+            turns[kk].append(ms)
+        emit({"what": "superstep in turns", "k": k, "build_s": build_s, "ms": turns[k],
+              "k1_ms": turns[1], "ratio": sum(turns[k]) / sum(turns[1]),
+              "us_per_pod": sum(turns[k]) / len(turns[k]) * 1e3 / pods_n,
+              "regs": attrs[k]["regs"], "local_bytes": attrs[k]["local_bytes"],
+              "k1_regs": attrs[1]["regs"], "k1_local_bytes": attrs[1]["local_bytes"],
+              "outputs_equal": True})
+
+    if args.sass:
+        for k in [1, *ks]:
+            so = _build.library_path("fused_scan", defines=fused_scan.defines(k))
+            emit({"what": "sass instructions", "k": k, "by_instantiation": sass_sizes(so)})
+
     if args.phases:
-        work = os.path.join(ROOT, "kubernetes_tpu_torch", "ops", "_build", "phases")
         t0 = time.time()
-        lib = nvcc_lib(os.path.join(_build.CSRC, "fused_scan.cu"), work, "new_phases",
-                       ["-DFUSED_SCAN_PHASES"])
-        lib.fused_scan_read_phases.argtypes = [ctypes.c_void_p]
-        kinds = [("new", lib, NEW_PHASES, lambda lb: run_new(base, lb))]
+        for lb in phase_libs.values():
+            lb.fused_scan_read_phases.argtypes = [ctypes.c_void_p]
+        kinds = [("new" if kk == 1 else f"K={kk}", lb, NEW_PHASES, lambda lb: run_new(base, lb))
+                 for kk, lb in phase_libs.items()]
         if old is not None:
             old_src = os.path.join(os.path.dirname(old.__file__), "csrc", "fused_scan.cu")
             stamped = os.path.join(work, "old_phases.cu")
