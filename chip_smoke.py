@@ -337,7 +337,17 @@ Phases, one line each:
    compactions + 2 host syncs, the churn's host syncs within the static
    budget of its frontier runs (phase 4's), the per-shard upload fractions and the
    three mesh gauges set, every wave's bindings and the counter at each
-   batch's start equal to the oracle's.
+   batch's start equal to the oracle's; (d) the mesh in several launches
+   (mailboxes across launches at system scope, each launch on a stream of
+   its own), here as launches on the one card: the main segment in 4
+   shards as 2 launches of 2, bit-identical to the single launch of 4 and
+   to the fused scan, both timed in turns (3 pairs) with their ratio and
+   each launch's registers and spills; the tie fixture in 2 and 4 launches
+   of one shard against ``scan_ref.scan_shards``; ``FrontierRun(mesh=)`` in
+   2 launches on phase 10's 6000-pod pool, equal to the single launch's
+   loop in bindings, counter, widths and compactions, within the static
+   sync budget.  With two cards or more (a) and the loop run again with a
+   launch a card, peer access on; with one, a line says so.
 
 Every comparison is exact (chosen node index per pod and the final
 round-robin counter; ``max_abs_err`` is the largest index difference).
@@ -5213,22 +5223,24 @@ def mesh_of(n: int):
     return make_mesh(n, devices=["cuda"] * n)
 
 
-def mesh_ring(s, st, n: int, reps: int) -> tuple:
-    """The mesh kernel's plan for ``s`` in ``n`` shards and ``reps``
-    prepared launches of the whole segment, each on its own packing and
-    control words (the kernel updates the state planes in place)."""
+def mesh_ring(s, st, n: int, reps: int, mesh=None) -> tuple:
+    """The mesh kernel's plan for ``s`` in ``n`` shards (on ``mesh``, default
+    ``mesh_of(n)``: one launch on the card) and ``reps`` prepared launches
+    of the whole segment, each on its own packing and control words (the
+    kernel updates the state planes in place)."""
     import torch
 
     from kubernetes_tpu_torch.ops import fused_scan, mesh_scan
     from kubernetes_tpu_torch.parallel import place_state, place_static
 
-    statics, states = place_static(s, mesh_of(n)), place_state(st, mesh_of(n))
-    pl = mesh_scan.plan(statics)
+    mesh = mesh or mesh_of(n)
+    statics, states = place_static(s, mesh), place_state(st, mesh)
+    pl = mesh_scan.plan(statics, mesh.groups)
     ring = []
     for _ in range(reps):
-        bufs = mesh_scan.pack(statics, states, pl)
-        ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=s.device)
+        ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=statics[0].device)
         ctl[fused_scan.CTL_RR] = st.round_robin
+        bufs = mesh_scan.pack(statics, states, pl, mesh.groups, ctl)
         ring.append(lambda b=bufs, c=ctl: mesh_scan.launch(b, pl, 0, s.p_real, c))
     return pl, ring, mesh_scan.clusters(pl)
 
@@ -5335,19 +5347,11 @@ def mesh_plain_cell(what: str, s, st, n: int, check=None, layout=None,
             "shards": n, "max_abs_err": err}
 
 
-def mesh_tie_loops() -> tuple[int, int]:
+def tie_fixture() -> tuple:
     """17b's tie fixture: 40 identical nodes with staggered pod caps (every
-    score ties, columns die one after another) and 300 pods through
-    ``FrontierRun(mesh=)`` in 2, 4 and 8 shards, on the card (a mesh launch
-    a chunk, a refresh a shard) and on the CPU (the plain sharded step):
-    bindings, rr and every loop stat equal, at least one compaction.
-    Returns the card's mesh and refresh launches."""
-    from kubernetes_tpu_torch.models.carry import from_reference
-    from kubernetes_tpu_torch.models.snapshot import (Tensorizer, frontier_seed,
-                                                      pad_segment_to_multiple)
-    from kubernetes_tpu_torch.ops import frontier_refresh, mesh_scan
-    from kubernetes_tpu_torch.ops.frontier import FrontierRun
-    from kubernetes_tpu_torch.parallel import make_mesh
+    score ties, columns die one after another) and 300 pods, tensorized
+    and seeded for the frontier loop (host arrays)."""
+    from kubernetes_tpu_torch.models.snapshot import Tensorizer, frontier_seed
     from kubernetes_tpu_torch.scheduler.nodeinfo import NodeInfo
     from kubernetes_tpu_torch.scheduler.priorities import PriorityContext
     from kubernetes_tpu_torch.testutil import make_node, make_pod
@@ -5364,6 +5368,22 @@ def mesh_tie_loops() -> tuple[int, int]:
     static = tz.build_static(pods, m, pctx)
     init = tz.initial_state(static, m, pctx, pods)
     frontier_seed(static, init)
+    return static, init
+
+
+def mesh_tie_loops() -> tuple[int, int]:
+    """17b's tie fixture through ``FrontierRun(mesh=)`` in 2, 4 and 8
+    shards, on the card (a mesh launch a chunk, a refresh a shard) and on
+    the CPU (the plain sharded step): bindings, rr and every loop stat
+    equal, at least one compaction.  Returns the card's mesh and refresh
+    launches."""
+    from kubernetes_tpu_torch.models.carry import from_reference
+    from kubernetes_tpu_torch.models.snapshot import pad_segment_to_multiple
+    from kubernetes_tpu_torch.ops import frontier_refresh, mesh_scan
+    from kubernetes_tpu_torch.ops.frontier import FrontierRun
+    from kubernetes_tpu_torch.parallel import make_mesh
+
+    static, init = tie_fixture()
     launches = refreshes = 0
     for n in (2, 4, 8):
         ps, pi = pad_segment_to_multiple(static, init, n)
@@ -5515,6 +5535,164 @@ def mesh_phase(main: tuple, wide: tuple, churn: dict, card: str) -> dict:
         "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
         "library_ms": None,
     }, churn["launches"]["frontier_refresh"], tie_refresh
+
+
+def grouped_segment(what: str, s, st, want, rr_want: int, mesh, card: str) -> dict:
+    """17d (a): ``s`` through ``schedule_batch_sharded`` on ``mesh`` (shards
+    in several launches), its launches counted around it, equal pod for
+    pod and in rr to ``want`` (the fused scan's) and to the single launch
+    of as many shards; then both timed in turns, three pairs of
+    ``device_ms`` over two prepared launches each, with each launch's
+    registers and spills."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import mesh_scan
+    from kubernetes_tpu_torch.parallel import schedule_batch_sharded
+
+    n = mesh.size
+    torch.cuda.synchronize()
+    mesh_scan.launches = mesh_scan.launches_grouped = 0
+    got, rr = schedule_batch_sharded(s, st, mesh)
+    launches, grouped = mesh_scan.launches, mesh_scan.launches_grouped
+    single, rr_single = schedule_batch_sharded(s, st, mesh_of(n))
+    err = int(max(abs(got.astype("int64") - want.astype("int64")).max(),
+                  abs(got.astype("int64") - single.astype("int64")).max()))
+    if err or rr != rr_want or rr_single != rr_want or launches != len(mesh.groups) \
+            or grouped != launches:
+        raise AssertionError(f"phase 17d {what} in {mesh.groups}: != the single launch or "
+                             f"fused_scan.cu: max index diff {err}, rr {rr} / {rr_single} vs "
+                             f"{rr_want}, launches {launches} (grouped {grouped})")
+    rings = {"single": mesh_ring(s, st, n, 2), "grouped": mesh_ring(s, st, n, 2, mesh)}
+    ms = {"single": [], "grouped": []}
+    for k in ("single", "grouped", "grouped", "single", "single", "grouped"):  # in turns
+        ms[k].append(device_ms(rings[k][1])[0])
+    pl = rings["grouped"][0]
+    attrs = mesh_scan.attrs(pl)
+    ratio = sum(ms["grouped"]) / sum(ms["single"])
+    print(f"phase 17d {what} ({s.n_pad} nodes x {s.p_real} pods) in {n} shards as launches "
+          f"{[list(g) for g in mesh.groups]} on {[str(d) for d in mesh.devices]}: == the single "
+          f"launch of {n} and == fused_scan.cu pod for pod (all {s.p_real}) and in rr {rr}; "
+          f"{launches} launches, each {pl.shards // len(mesh.groups)} clusters x {pl.cs} "
+          f"blocks of {pl.threads} threads (cpt {pl.cpt}), registers {attrs['regs']} a thread, "
+          f"local memory (spills) {attrs['local_bytes']} bytes, static shared "
+          f"{attrs['static_smem']} bytes (each launch runs this one kernel); in turns device_ms "
+          f"grouped {ms['grouped']} single {ms['single']}: ratio of the means grouped/single "
+          f"{ratio:.4f}, {sum(ms['grouped']) / 3 * 1e3 / s.p_real:.3f} vs "
+          f"{sum(ms['single']) / 3 * 1e3 / s.p_real:.3f} us a pod; card {card}", flush=True)
+    return {"ms": sum(ms["grouped"]) / 3, "ms_turns": ms["grouped"],
+            "single_ms_turns": ms["single"], "ratio": ratio, "launches": launches,
+            "groups": [list(g) for g in mesh.groups], "max_abs_err": err, **attrs}
+
+
+def grouped_ties(card: str) -> int:
+    """17d (b): the tie fixture in 2 and 4 launches of one shard each (on
+    the card), the whole segment against ``scan_ref.scan_shards`` on the
+    same shards.  Returns the launches."""
+    from kubernetes_tpu_torch.models.carry import from_reference
+    from kubernetes_tpu_torch.models.snapshot import pad_segment_to_multiple
+    from kubernetes_tpu_torch.ops import mesh_scan, scan_ref
+    from kubernetes_tpu_torch.parallel import make_mesh, place_state, place_static
+
+    static, init = tie_fixture()
+    launches = 0
+    for n in (2, 4):
+        ps, pi = pad_segment_to_multiple(static, init, n)
+        s, st = from_reference(vars(ps), vars(pi), "cuda")
+        mesh = make_mesh(n, devices=["cuda"] * n, launches=n)
+        statics, states = place_static(s, mesh), place_state(st, mesh)
+        mesh_scan.launches = 0
+        got, rr = mesh_scan.schedule(statics, states, mesh.groups)
+        launches += mesh_scan.launches
+        want, finals = scan_ref.scan_shards(statics, states)
+        want = want.cpu().numpy()
+        if (got != want).any() or rr != finals[0].round_robin or mesh_scan.launches != n:
+            raise AssertionError(f"phase 17d the tie fixture in {n} launches: mesh_scan.cu != "
+                                 f"scan_ref.scan_shards (rr {rr} vs {finals[0].round_robin})")
+        print(f"phase 17d tie fixture 40 x 300 in {n} launches of one shard on the card: "
+              f"mesh_scan.cu == scan_ref.scan_shards, bound {int((got >= 0).sum())}/{len(got)}, "
+              f"rr {rr}, {mesh_scan.launches} launches", flush=True)
+    return launches
+
+
+def grouped_pool_loop(pool: tuple, mesh, card: str) -> dict:
+    """17d (c): ``FrontierRun(mesh=)`` on phase 10's pool (1024 nodes, 6000
+    pods, default frontier settings) on ``mesh`` (shards in several
+    launches) and on the single launch of as many shards: bindings,
+    counter, widths and compactions equal, at least one compaction, each
+    run within the static host-sync budget.  The grouped run's launches
+    are counted around it."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import frontier_refresh, mesh_scan
+    from kubernetes_tpu_torch.ops.frontier import FrontierRun
+
+    s, st = pool
+    out = {}
+    for name, m in (("single", mesh_of(mesh.size)), ("grouped", mesh)):
+        torch.cuda.synchronize()
+        mesh_scan.launches = mesh_scan.launches_grouped = frontier_refresh.launches = 0
+        with frontier_runs() as runs:
+            run = FrontierRun(s, st, mesh=m)
+            chosen, rr = run.finalize()
+        out[name] = {"chosen": chosen, "rr": rr, "stats": dict(run.stats),
+                     "budget": sync_budget(runs), "kernel_ms": run.kernel_ms,
+                     "launches": mesh_scan.launches, "grouped": mesh_scan.launches_grouped,
+                     "refreshes": frontier_refresh.launches}
+    a, b = out["single"], out["grouped"]
+    keys = ("widths", "compactions", "chunks", "host_syncs", "loop_runs")
+    if ((a["chosen"] != b["chosen"]).any() or a["rr"] != b["rr"]
+            or any(a["stats"][k] != b["stats"][k] for k in keys)
+            or b["stats"]["compactions"] < 1 or b["stats"]["host_syncs"] > b["budget"]
+            or b["grouped"] != b["launches"] or b["launches"] != len(mesh.groups) * a["launches"]):
+        raise AssertionError(f"phase 17d the pool loop on {mesh.groups}: != the single "
+                             f"launch's loop: {({k: b['stats'][k] for k in keys})} vs "
+                             f"{({k: a['stats'][k] for k in keys})}, rr {b['rr']} vs {a['rr']}, "
+                             f"launches {b['launches']}/{a['launches']}, budget {b['budget']}")
+    print(f"phase 17d FrontierRun(mesh=) on phase 10's pool ({s.n_pad} nodes x {s.p_real} "
+          f"pods) in {mesh.size} shards as launches {[list(g) for g in mesh.groups]} on "
+          f"{[str(d) for d in mesh.devices]}: == the single launch's loop, bound "
+          f"{int((b['chosen'] >= 0).sum())}/{s.p_real}, rr {b['rr']}, widths "
+          f"{b['stats']['widths']}, compactions {b['stats']['compactions']}, host_syncs "
+          f"{b['stats']['host_syncs']} (static budget {b['budget']}); kernel_ms grouped "
+          f"{b['kernel_ms']:.3f} single {a['kernel_ms']:.3f}; launches mesh {b['launches']} "
+          f"(grouped {b['grouped']}) refresh {b['refreshes']}; card {card}", flush=True)
+    return {"launches": b["launches"], "refreshes": b["refreshes"], "kernel_ms": b["kernel_ms"],
+            "single_kernel_ms": a["kernel_ms"]}
+
+
+def grouped_phase(main: tuple, card: str) -> dict:
+    """Phase 17d: the mesh in several launches.  (a) phase 4's main segment
+    in 4 shards as 2 launches of 2 on the card, (b) the tie fixture in 2
+    and 4 launches, (c) the pool loop in 2 launches; (d) with two cards or
+    more, (a) and (c) again with a launch a card.  Returns the cells and
+    the launches by path."""
+    import torch
+
+    from kubernetes_tpu_torch.parallel import make_mesh
+
+    s_main, st_main, whole, rr_whole = main
+    m, pods, pctx = pool_cluster()
+    pool = segment(m, pods, pctx, "cuda", frontier=True, shards=4)[1:3]
+    two = make_mesh(4, devices=["cuda"] * 4, launches=2)
+    cells = {"main_4_in_2": grouped_segment("main segment", s_main, st_main, whole, rr_whole,
+                                            two, card)}
+    ties = grouped_ties(card)
+    loops = {"pool_4_in_2": grouped_pool_loop(pool, two, card)}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        spread = make_mesh(4)
+        cells["main_4_cards"] = grouped_segment("main segment", s_main, st_main, whole,
+                                                rr_whole, spread, card)
+        loops["pool_4_cards"] = grouped_pool_loop(pool, spread, card)
+    else:
+        print(f"phase 17d: this run had one card ({torch.cuda.get_device_name(0)}), so the "
+              "several-card placement ran as two launches on one card (streams of their own, "
+              "mailboxes across launches at system scope); peer access between cards and "
+              "NVLink's latency were not exercised", flush=True)
+    return {"cells": cells, "loops": loops, "tie_launches": ties,
+            "launches": (sum(c["launches"] for c in cells.values())
+                         + sum(c["launches"] for c in loops.values()) + ties),
+            "refreshes": sum(c["refreshes"] for c in loops.values())}
 
 
 # made while the kernels build (``plain_ahead``): segments on the card and
@@ -5759,6 +5937,19 @@ def main() -> int:
     mesh_pool.shutdown()
     spared.clear()
     lap("17")
+    grouped = grouped_phase((s_main, st_main, whole, rr_whole), card)
+    mesh_entry["launches"] += grouped["launches"]
+    mesh_entry["launches_by_path"].update(
+        grouped_one_card=sum(c["launches"] for k, c in grouped["cells"].items() if "cards" not in k)
+        + grouped["loops"]["pool_4_in_2"]["launches"] + grouped["tie_launches"],
+        grouped_cards=sum(c["launches"] for k, c in grouped["cells"].items() if "cards" in k)
+        + grouped["loops"].get("pool_4_cards", {}).get("launches", 0))
+    mesh_entry.update(grouped_cells=grouped["cells"], grouped_loops=grouped["loops"],
+                      grouped_ratio=grouped["cells"]["main_4_in_2"]["ratio"],
+                      grouped_ms=grouped["cells"]["main_4_in_2"]["ms"])
+    mesh_entry["max_abs_err"] = max(mesh_entry["max_abs_err"],
+                                    *(c["max_abs_err"] for c in grouped["cells"].values()))
+    lap("17d")
 
     entry = {
         "name": "fused_scan", "route": "cuda",
@@ -5800,7 +5991,8 @@ def main() -> int:
         "launches": (refresh_launches + churn_refresh + eager_refresh + daemon_refresh
                      + pool_refresh + host_loop_refresh + admitted_refresh + auth_refresh
                      + drain_refresh
-                     + kubelet_refresh + controller_refresh + cluster_refresh + mesh_refresh),
+                     + kubelet_refresh + controller_refresh + cluster_refresh + mesh_refresh
+                     + grouped["refreshes"]),
         "launches_by_path": {"batch": refresh_launches, "churn": churn_refresh,
                              "churn_eager": eager_refresh, "daemon": daemon_refresh,
                              "pool": pool_refresh, "pool_host_loop": host_loop_refresh,
@@ -5808,7 +6000,9 @@ def main() -> int:
                              "drain": drain_refresh, "kubelet": kubelet_refresh,
                              "controllers": controller_refresh, "cluster": cluster_refresh,
                              # a refresh a shard a chunk under 17c's 4-shard mesh
-                             "churn_mesh": mesh_refresh},
+                             "churn_mesh": mesh_refresh,
+                             # 17d's pool loops, each launch's shards refreshed on its stream
+                             "mesh_grouped": grouped["refreshes"]},
         # the per-shard refreshes of 17b's tie loops (held against the CPU)
         "tie_loop_launches": tie_refresh,
         # the main segment's width; the other widths and the launch floor in cells

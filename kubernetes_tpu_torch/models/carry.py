@@ -136,13 +136,16 @@ def from_reference(static: dict, init: dict, device,
     """Place one tensorized segment on ``device``.  ``static`` and ``init``
     hold the tensorizer's field names; ``static["terms"]`` may be the term
     list or its length (only its truth matters here).  ``node_arrays``,
-    when given, are the ``NODE_FIELDS`` tensors already on ``device``."""
+    when given, are the ``NODE_FIELDS`` tensors already on ``device``, or
+    a tuple of one a card (``ops.node_cache`` under a mesh over several
+    cards), joined on ``device`` in shard order."""
     device = torch.device(device)
     weights = {k: int(static["weights"].get(k, 0)) for k in WEIGHT_KEYS}
     count_only = static.get("pod_vol_count_only")
     if count_only is None:
         count_only = np.zeros_like(static["pod_vol_valid"])
-    cached = dict(zip(NODE_FIELDS, node_arrays)) if node_arrays is not None else {}
+    cached = {f: torch.cat([p.to(device) for p in a]) if isinstance(a, tuple) else a
+              for f, a in zip(NODE_FIELDS, node_arrays or ())}
     r_sel = static.get("r_sel")
     s = {f: cached[f] if f in cached else _put(r_slice(static[f], f, r_sel), torch.int32, device)
          for f in _STATIC_INT}

@@ -161,11 +161,11 @@ class BatchBackend:
         frontier_engage_frac: float = 1.0,
         # the node-axis mesh (parallel/mesh.py): True runs the frontier loop
         # with the node axis split into shards (the mesh kernel on a card,
-        # the plain sharded step on the CPU); "auto", the JAX default, stays
-        # off until shards on several cards exist (the port's shards share
-        # the backend's device); False is off.  The shard count is the
-        # largest power of two <= mesh_devices (None: the device count of
-        # the backend's kind).  Fewer than 2 shards raise here, and a mesh
+        # a launch a card, the plain sharded step on the CPU); "auto", the
+        # JAX default, stays off (divergence ak); False is off.  The shard
+        # count is the largest power of two <= mesh_devices (None: the
+        # device count of the backend's kind), spread over the visible
+        # cards (_frontier_mesh).  Fewer than 2 shards raise here, and a mesh
         # launch that fails raises out of the segment: nothing degrades to
         # the single-device loop.
         frontier_mesh="auto",
@@ -330,23 +330,31 @@ class BatchBackend:
 
     # -- the node-axis mesh ---------------------------------------------------
     def _mesh_enabled(self) -> bool:
-        # "auto" engages the JAX package's mesh on a multi-device TPU; the
-        # port's shards would share one card, so it stays off.  The mesh is
-        # the device loop's: the chunked host loop runs unsharded
+        # "auto" engages the JAX package's mesh on a multi-device TPU; on an
+        # H100 the mesh on one card is slower than the fused scan and cards
+        # add rounds over NVLink, so it stays off (divergence ak).  The mesh
+        # is the device loop's: the chunked host loop runs unsharded
         return self.frontier_mesh != "auto" and bool(self.frontier_mesh) and self._device_loop
 
     def _frontier_mesh(self):
-        """The node-axis mesh: the largest power-of-two shard count <=
-        mesh_devices, every shard on the backend's device.  Raises with
-        fewer than 2."""
-        n = (torch.cuda.device_count() if self.device.type == "cuda" else 1) \
-            if self.mesh_devices is None else int(self.mesh_devices)
+        """The node-axis mesh: the largest power-of-two shard count p <=
+        mesh_devices, spread over C cards, C the largest power of two <=
+        min(p, the visible cards) (shard k on card k * C // p, one launch a
+        card; the backend's device alone where C is 1, and on the CPU).
+        Raises with fewer than 2 shards."""
+        cards = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        n = cards if self.mesh_devices is None else int(self.mesh_devices)
         p = 1
         while p * 2 <= n:
             p *= 2
         if p < 2:
             raise ValueError(f"the sharded loop needs >= 2 shards, mesh_devices gives {n}")
-        return make_mesh(p, devices=[self.device] * p)
+        c = 1
+        while c * 2 <= min(p, cards):
+            c *= 2
+        if c == 1:
+            return make_mesh(p, devices=[self.device] * p)
+        return make_mesh(p, devices=[torch.device("cuda", k * c // p) for k in range(p)])
 
     # -- the frontier's seams ----------------------------------------------
     def _on_frontier_compact(self, width: int, width_new: int, n_alive: int) -> None:

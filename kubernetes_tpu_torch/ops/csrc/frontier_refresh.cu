@@ -76,7 +76,12 @@
 //   into the one word: the last tile of the last launch (tiles_total) sees
 //   the whole width's count. The earlier launches have finished before it
 //   starts, so every block of every shard read the stop flag the previous
-//   chunk's refresh left. Where signatures split into several groups, each block ORs
+//   chunk's refresh left. A mesh in several launches (one a card, or two on
+//   one card: ops/mesh_scan.py) refreshes each launch's shards on that
+//   launch's stream, all of them adding into launch 0's word at system
+//   scope; the last tile writes the alive count and the stop flag into
+//   every launch's control words, and the next chunk's launches wait on
+//   every refresh through events. Where signatures split into several groups, each block ORs
 //   its columns' bits into a scratch word per 32 columns and the last
 //   block of a tile (a ticket per tile) reads and clears them first. The
 //   scratch is zero between launches: no second launch, no memset.
@@ -119,11 +124,15 @@ struct RefreshParams {
     uint8_t* alive;             // [ns]
     int32_t* ctl;               // the loop's control words
     int32_t* scratch;           // zero between launches: alive bits of each 32 columns, then a ticket a tile
+    // a mesh in several launches (nctl > 0): every launch's control words,
+    // launch 0's first, which holds the count word; else null
+    const int64_t* ctls;
     int32_t ns, g, r, t, pv, tw, use_terms, use_ports, thresh;
     // the plan (frontier_refresh.py plan): tiles of `cols` columns x groups of `gs` signatures;
     // tiles_total: the tiles of every launch that adds into the count word (a
     // mesh's shards refresh their slices in one launch each, tiles x shards)
     int32_t cols, gs, tiles, tiles_total, groups, threads, kcap, smem_bytes;
+    int32_t nctl;  // entries of ctls, 0 = one launch: the count and the flag in ctl
     // byte offsets in dynamic shared memory: column state rows, table rows,
     // named rows (kcap), the slot of each row id, the block's alive columns
     int32_t off_state, off_table, off_rows, off_slot, off_col;
@@ -358,13 +367,31 @@ __global__ void __launch_bounds__(MAX_THREADS) frontier_refresh_kernel(const Ref
         // one atomic: this tile done, its count added; the last tile (of every
         // launch that shares the word) publishes the total and resets the
         // word for the next refresh
-        const unsigned old = atomicAdd(reinterpret_cast<unsigned*>(&p.ctl[CTL_ACC]),
-                                       (n << TILE_BITS) | 1u);
+        // Under a mesh in several launches (maybe on several cards) the word
+        // is launch 0's, added to at system scope (a peer atomic from
+        // another card), and the last tile publishes into every launch's
+        // control words; each launch reads the stop flag from its own.
+        int32_t* const acc = p.nctl > 0 ? reinterpret_cast<int32_t*>(p.ctls[0]) : p.ctl;
+        const unsigned add = (n << TILE_BITS) | 1u;
+        const unsigned old = p.nctl > 0
+            ? atomicAdd_system(reinterpret_cast<unsigned*>(&acc[CTL_ACC]), add)
+            : atomicAdd(reinterpret_cast<unsigned*>(&acc[CTL_ACC]), add);
         if ((old & ((1u << TILE_BITS) - 1)) == static_cast<unsigned>(p.tiles_total - 1)) {
             const int n_alive = static_cast<int>((old >> TILE_BITS) + n);
-            p.ctl[CTL_ALIVE] = n_alive;
-            p.ctl[CTL_STOP] = n_alive <= p.thresh ? 1 : 0;
-            p.ctl[CTL_ACC] = 0;
+            const int stop_new = n_alive <= p.thresh ? 1 : 0;
+            if (p.nctl > 0) {
+                for (int c = 0; c < p.nctl; ++c) {
+                    int32_t* w = reinterpret_cast<int32_t*>(p.ctls[c]);
+                    w[CTL_ALIVE] = n_alive;
+                    w[CTL_STOP] = stop_new;
+                }
+                acc[CTL_ACC] = 0;
+                __threadfence_system();
+            } else {
+                p.ctl[CTL_ALIVE] = n_alive;
+                p.ctl[CTL_STOP] = stop_new;
+                p.ctl[CTL_ACC] = 0;
+            }
         }
     }
 }
@@ -402,7 +429,8 @@ extern "C" int frontier_refresh_launch(const RefreshParams* p, void* stream) {
         || p->threads != p->gs * p->cols / CPT || p->threads % 32 != 0 || p->threads > MAX_THREADS
         || p->tiles != (p->ns + p->cols - 1) / p->cols || p->tiles_total < p->tiles
         || p->tiles_total >= (1 << TILE_BITS)
-        || p->groups != (p->g + p->gs - 1) / p->gs || p->groups > 65535 || p->scratch == nullptr)
+        || p->groups != (p->g + p->gs - 1) / p->gs || p->groups > 65535 || p->scratch == nullptr
+        || p->nctl < 0 || (p->nctl > 0) != (p->ctls != nullptr))
         return -2;
     if (!layout_fits(*p)) return -3;
     if (p->smem_bytes > 48 * 1024) {

@@ -113,6 +113,32 @@
 //     the fused scan's control words: the counter in and out (ctl[CTL_RR]),
 //     the stop flag (every block returns before touching anything once a
 //     refresh has raised it), the chunk cursor.
+//  7. Shards in several launches (a mesh over several cards, one launch a
+//     card; on one card, two launches on two streams where the mesh says
+//     so: parallel/mesh.py Mesh.groups). No launch spans two cards, so a
+//     launch takes the shards [shard_lo, shard_lo + shards_here) and the
+//     launches exchange through mailboxes across them. Each launch has its
+//     own copy of the tables, chosen, the control words, the epoch and an
+//     inbox of every shard's slot (mailbox slots keep the global shard id);
+//     rank 0 of a shard pushes its (a) and (b) messages into every launch's
+//     inbox (its own card's locally, the others' by peer pointer: a remote
+//     store is posted, a remote poll would cost a round trip a try) and
+//     publishes each stamp with st.release.sys after a warp barrier; readers
+//     poll only their own inbox, with ld.acquire.sys. The cross-launch
+//     rounds use the system scope on one card too, so that the one-card run
+//     executes what several cards do. Past the register zones the shard's
+//     row of zone sums travels with its (a) message, into every other
+//     launch's scratch. The owner shard's domain rows are read through its
+//     pointer, a peer read from another card. Every launch reads and
+//     advances its own epoch, counter and cursor, equal on every launch
+//     because each is a function of folded values. The double-buffering
+//     argument of point 4 holds as it is: a shard writes pod i+2's slots
+//     only after reading every shard's pod i+1 message, which each shard
+//     sent after its blocks had read pod i's slots in their own inbox. The
+//     launches must all run at once: the host enqueues each on a stream of
+//     its own, and a launch whose partners never run ends at the waits'
+//     trap. This path is a build of its own (the FAR instantiations), so
+//     the one-launch build (the default on one card) keeps point 4's code.
 //
 // What bounds it: latency, as the fused scan. A pod's chain is the fused
 // scan's block chain with each exchange's cluster stage followed by one
@@ -198,11 +224,19 @@ struct MeshParams {
     int32_t* rr;                  // the counter, in and out
     const int32_t* stop;
     int32_t* cursor;
+    // a mesh in several launches: every launch's mbox_a, mbox_b and zbuf
+    // ([groups][3], this launch's among them), on this launch's card
+    const int64_t* peers;
     int32_t shards_n, n_local, ns, cols, cs, threads, cpt;
     int32_t g, g4, t, pv, v, r, w, w4, k, sw, sws;  // sws: ints of a signature row in shared memory
     int32_t p_real, num_zones, use_terms, use_vols, use_ports, smem_bytes;
     int32_t gnz_off, inbox_a_off, inbox_b_off, msg_a, msg_b, box_a, box_b;  // the planner's layout
     int32_t zone_off;  // the zone totals in shared memory (num_zones int64), or -1
+    // this launch's shards [shard_lo, shard_lo + shards_here) of the mesh's
+    // shards_n, the launches (groups) and this one's index, and the clusters
+    // that must be resident at once on this launch's card (every launch's
+    // that shares it)
+    int32_t shard_lo, shards_here, groups, group, resident;
     int32_t wt[7];     // least, most, balanced, spread, node_affinity, taint, interpod
     int32_t off[18];   // NPLANES placement offsets
 };
@@ -420,6 +454,30 @@ __device__ __forceinline__ void stamp_wait(const uint32_t* slot, unsigned long l
     }
 }
 
+// The same across launches, which may be on other cards: the payload is
+// pushed into every launch's inbox (peer stores for another card's), and
+// each stamp is published and polled at system scope, on one card too
+// (.gpu would pass there and be wrong between two cards). The release is
+// cumulative: the warp barrier before it orders every lane's payload
+// stores ahead of it, so no separate fence is needed.
+__device__ __forceinline__ void stamp_release_sys(uint32_t* slot, unsigned long long v) {
+    asm volatile("st.release.sys.global.u64 [%0], %1;\n" :: "l"(slot), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ void stamp_wait_sys(const uint32_t* slot, unsigned long long want) {
+    const long long start = clock64();
+    for (;; wait_guard(start)) {
+        unsigned long long v;
+        asm volatile("ld.acquire.sys.global.u64 %0, [%1];\n" : "=l"(v) : "l"(slot) : "memory");
+        if (v == want) return;
+    }
+}
+
+// launch g's inboxes and zone scratch (MeshParams::peers)
+__device__ __forceinline__ uint32_t* peer_box(const MeshParams& p, int g, int which) {
+    return reinterpret_cast<uint32_t*>(p.peers[3 * g + which]);
+}
+
 // rows of each placed plane at this segment's shapes (0 = the kernel never
 // reads it), and the shard plane that holds it in global memory
 __device__ __forceinline__ int plane_rows(const MeshParams& p, int k) {
@@ -484,11 +542,13 @@ __device__ unsigned long long g_phases[NPHASES];
 #define PHASE(k) do { } while (0)
 #endif
 
-template <int CPT>
+// FAR: the shards in several launches (design point 7), a build of its own
+// so that the one-launch build keeps point 4's code as it was
+template <int CPT, bool FAR>
 __global__ void __launch_bounds__(MAX_THREADS, 1) mesh_scan_kernel(const MeshParams p) {
     cg::cluster_group cluster = cg::this_cluster();
 #ifdef MESH_SCAN_PHASES
-    const bool clocked = blockIdx.x == 0 && threadIdx.x == 0;
+    const bool clocked = blockIdx.x == 0 && threadIdx.x == 0 && p.group == 0;
     long long phase_acc[NPHASES] = {};
     long long phase_t = clock64();
 #endif
@@ -514,7 +574,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mesh_scan_kernel(const MeshPar
     const int BT = blockDim.x, NW = BT >> 5;
     const int CS = p.cs, L = p.cols, NS = p.ns, S = p.shards_n, NL = p.n_local;
     const int rank = static_cast<int>(cluster.block_rank());
-    const int shard = static_cast<int>(blockIdx.x) / CS;
+    const int shard = p.shard_lo + static_cast<int>(blockIdx.x) / CS;  // global
+    constexpr bool far = FAR;  // the shards in several launches: mailboxes across them
     const int base = rank * L;
     const int R = p.r, T = p.t, G = p.g, PV = p.pv, W = p.w, K = p.k;
     const int SW = p.sw, SWS = p.sws, G4 = p.g4, W4 = p.w4, MA = p.msg_a, MB = p.msg_b;
@@ -893,13 +954,32 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mesh_scan_kernel(const MeshPar
                         m[11 + 2 * zz] = static_cast<uint32_t>(v >> 32);
                     }
                 // the payload by chunks (lane j: chunk j), then the stamp
-                uint32_t* slot = p.mbox_a + ((size_t)par * S + shard) * BA;
+                auto send_a = [&](uint32_t* slot) {
 #pragma unroll
-                for (int q = 0; q < MAX_MSG_A; q += 4)
-                    if (q < MA && lane == q / 4)
-                        __stcg(reinterpret_cast<uint4*>(slot + HEAD_A + q), make_uint4(m[q], m[q + 1], m[q + 2], m[q + 3]));
-                __syncwarp();
-                if (lane == 0) stamp_release(slot, seq);
+                    for (int q = 0; q < MAX_MSG_A; q += 4)
+                        if (q < MA && lane == q / 4)
+                            __stcg(reinterpret_cast<uint4*>(slot + HEAD_A + q), make_uint4(m[q], m[q + 1], m[q + 2], m[q + 3]));
+                };
+                const size_t at = ((size_t)par * S + shard) * BA;
+                if (!far) {
+                    send_a(p.mbox_a + at);
+                    __syncwarp();
+                    if (lane == 0) stamp_release(p.mbox_a + at, seq);
+                } else {
+                    // into every launch's inbox; past the register zones the
+                    // shard's row of zone sums too (complete: its blocks
+                    // fenced their atomics before their cluster messages)
+                    const long long* zmine = zrows ? zbuf + ((size_t)par * S + shard) * NZ : nullptr;
+                    for (int g = 0; g < p.groups; ++g) {
+                        send_a(peer_box(p, g, 0) + at);
+                        if (zrows && g != p.group) {
+                            long long* zto = reinterpret_cast<long long*>(peer_box(p, g, 2)) + ((size_t)par * S + shard) * NZ;
+                            for (int z = lane; z < NZ; z += 32) __stcg(zto + z, __ldcg(zmine + z));
+                        }
+                    }
+                    __syncwarp();
+                    if (lane < p.groups) stamp_release_sys(peer_box(p, lane, 0) + at, seq);
+                }
             }
             // every shard's message (lane q: shard q's), folded over the mesh
             const bool from = lane < S;
@@ -908,7 +988,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mesh_scan_kernel(const MeshPar
             for (int q = 0; q < MAX_MSG_A; ++q) xa[q] = 0;
             if (from) {
                 const uint32_t* slot = p.mbox_a + ((size_t)par * S + lane) * BA;
-                stamp_wait(slot, seq);
+                if (far) stamp_wait_sys(slot, seq);
+                else stamp_wait(slot, seq);
 #pragma unroll
                 for (int q = 0; q < MAX_MSG_A; q += 4)
                     if (q < MA) {
@@ -1107,25 +1188,37 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mesh_scan_kernel(const MeshPar
                 const long long sbest = warp_max64(bq);
                 if (bq != sbest) tq = 0;
                 const unsigned sties = __reduce_add_sync(FULL, static_cast<unsigned>(tq));
-                uint32_t* slot = p.mbox_b + ((size_t)par * S + shard) * BB;
                 const uint32_t* ib = reinterpret_cast<const uint32_t*>(in);
-                if (lane == 0) __stcg(reinterpret_cast<uint4*>(slot + 4), make_uint4(sties, 0u, 0u, 0u));
-                if (lane == 1)
-                    __stcg(reinterpret_cast<unsigned long long*>(slot + 2), static_cast<unsigned long long>(sbest));
-                if (lane < CS) __stcg(slot + HEAD_B + lane, static_cast<uint32_t>(tq));
-                for (int e = lane; e < CS * ENTS; e += 32) {
-                    const int q = e / ENTS, wd = 3 + e - q * ENTS;  // block q's word wd
-                    __stcg(slot + HEAD_B + CS + e, ib[((wd >> 2) * CS + q) * 4 + (wd & 3)]);
+                auto send_b = [&](uint32_t* slot) {
+                    if (lane == 0) __stcg(reinterpret_cast<uint4*>(slot + 4), make_uint4(sties, 0u, 0u, 0u));
+                    if (lane == 1)
+                        __stcg(reinterpret_cast<unsigned long long*>(slot + 2), static_cast<unsigned long long>(sbest));
+                    if (lane < CS) __stcg(slot + HEAD_B + lane, static_cast<uint32_t>(tq));
+                    for (int e = lane; e < CS * ENTS; e += 32) {
+                        const int q = e / ENTS, wd = 3 + e - q * ENTS;  // block q's word wd
+                        __stcg(slot + HEAD_B + CS + e, ib[((wd >> 2) * CS + q) * 4 + (wd & 3)]);
+                    }
+                };
+                const size_t at = ((size_t)par * S + shard) * BB;
+                if (!far) {
+                    send_b(p.mbox_b + at);
+                    __syncwarp();
+                    if (lane == 0) stamp_release(p.mbox_b + at, seq);
+                } else {
+                    for (int g = 0; g < p.groups; ++g) send_b(peer_box(p, g, 1) + at);
+                    __syncwarp();
+                    if (lane < p.groups) stamp_release_sys(peer_box(p, lane, 1) + at, seq);
                 }
-                __syncwarp();
-                if (lane == 0) stamp_release(slot, seq);
             }
             // every shard's best and ties (lane q: shard q's) and, in the
             // same round trip, each block's tie count in every shard (lane
             // b: block b's; the warp barrier orders these loads after the
             // stamps' acquires); the (rr % ties)-th tie names the shard,
             // its blocks' counts the block, that block's ballots the column
-            if (lane < S) stamp_wait(p.mbox_b + ((size_t)par * S + lane) * BB, seq);
+            if (lane < S) {
+                if (far) stamp_wait_sys(p.mbox_b + ((size_t)par * S + lane) * BB, seq);
+                else stamp_wait(p.mbox_b + ((size_t)par * S + lane) * BB, seq);
+            }
             __syncwarp();
             long long bq = I64_MIN;
             int tq = 0;
@@ -1299,7 +1392,11 @@ int check(const MeshParams& p) {
         p.msg_a != msg_a || p.msg_b % 4 || p.msg_b < 3 + p.cpt * nw || p.box_a != HEAD_A + p.msg_a ||
         p.box_b % 4 || p.box_b < HEAD_B + p.cs + p.cs * p.cpt * nw || (zrows && p.zbuf == nullptr) ||
         (p.zone_off >= 0 && (!zrows || p.zone_off % 16 || p.zone_off + 8 * p.num_zones > p.smem_bytes)) ||
-        p.stop == nullptr || p.rr == nullptr || p.cursor == nullptr || p.epoch == nullptr)
+        p.stop == nullptr || p.rr == nullptr || p.cursor == nullptr || p.epoch == nullptr ||
+        p.groups < 1 || p.groups > p.shards_n || p.group < 0 || p.group >= p.groups ||
+        p.shard_lo < 0 || p.shards_here < 1 || p.shard_lo + p.shards_here > p.shards_n ||
+        p.resident < p.shards_here || p.resident > p.shards_n ||
+        (p.groups == 1 && p.shards_here != p.shards_n) || (p.groups > 1 && p.peers == nullptr))
         return -1;
     return 0;
 }
@@ -1307,9 +1404,9 @@ int check(const MeshParams& p) {
 // The kernel of `cpt` columns a thread, set for `smem` bytes of dynamic
 // shared memory and clusters of any size up to 16; -3 when the static and
 // dynamic shared memory together exceed what a block may have.
-template <int CPT>
+template <int CPT, bool FAR>
 int configure(int smem, const void** kernel) {
-    auto k = mesh_scan_kernel<CPT>;
+    auto k = mesh_scan_kernel<CPT, FAR>;
     cudaFuncAttributes fa = {};
     cudaError_t err = cudaFuncGetAttributes(&fa, k);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1323,15 +1420,21 @@ int configure(int smem, const void** kernel) {
     return static_cast<int>(err);
 }
 
-int configure_cpt(int cpt, int smem, const void** kernel) {
+template <bool FAR>
+int configure_far(int cpt, int smem, const void** kernel) {
     switch (cpt) {
-        case 1: return configure<1>(smem, kernel);
-        case 2: return configure<2>(smem, kernel);
-        case 4: return configure<4>(smem, kernel);
-        case 8: return configure<8>(smem, kernel);
-        case 16: return configure<16>(smem, kernel);
+        case 1: return configure<1, FAR>(smem, kernel);
+        case 2: return configure<2, FAR>(smem, kernel);
+        case 4: return configure<4, FAR>(smem, kernel);
+        case 8: return configure<8, FAR>(smem, kernel);
+        case 16: return configure<16, FAR>(smem, kernel);
         default: return -2;
     }
+}
+
+// the build for `cpt` columns a thread, in several launches or in one
+int configure_cpt(int cpt, bool far, int smem, const void** kernel) {
+    return far ? configure_far<true>(cpt, smem, kernel) : configure_far<false>(cpt, smem, kernel);
 }
 
 // How many clusters of `cs` blocks of this shape the card holds at once.
@@ -1367,13 +1470,13 @@ extern "C" int mesh_scan_launch(const MeshParams* params, void* stream) {
     const MeshParams& p = *params;
     if (check(p) != 0) return -1;
     const void* kernel = nullptr;
-    int err = configure_cpt(p.cpt, p.smem_bytes, &kernel);
+    int err = configure_cpt(p.cpt, p.groups > 1, p.smem_bytes, &kernel);
     int clusters = 0;
     if (err == 0) err = max_clusters(kernel, p.cs, p.threads, p.smem_bytes, &clusters);
     if (err != 0) return err;
-    if (clusters < p.shards_n) return -4;
+    if (clusters < p.resident) return -4;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(p.shards_n * p.cs, 1, 1);
+    cfg.gridDim = dim3(p.shards_here * p.cs, 1, 1);
     cfg.blockDim = dim3(p.threads, 1, 1);
     cfg.dynamicSmemBytes = p.smem_bytes;
     cfg.stream = static_cast<cudaStream_t>(stream);
@@ -1398,7 +1501,63 @@ extern "C" int mesh_scan_launch(const MeshParams* params, void* stream) {
 extern "C" int mesh_scan_clusters(int cs, int threads, int cpt, int smem_bytes, int* out) {
     if (cs < 1 || cs > MAX_CLUSTER || threads < 32 || threads > MAX_THREADS || threads % 32) return -1;
     const void* kernel = nullptr;
-    const int err = configure_cpt(cpt, smem_bytes, &kernel);
+    const int err = configure_cpt(cpt, false, smem_bytes, &kernel);
     if (err != 0) return err;
     return max_clusters(kernel, cs, threads, smem_bytes, out);
+}
+
+// The kernel a plan of `cpt` columns a thread launches, in several launches
+// (`far`: every one of them launches this one) or in one: its static shared
+// memory, registers a thread and local memory (spills) a thread, as the
+// card reports them.
+extern "C" int mesh_scan_attrs(int cpt, int far, int smem_bytes, int* attrs) {
+    const void* kernel = nullptr;
+    int err = configure_cpt(cpt, far != 0, smem_bytes, &kernel);
+    if (err != 0) return err;
+    cudaFuncAttributes fa = {};
+    err = static_cast<int>(cudaFuncGetAttributes(&fa, kernel));
+    attrs[0] = static_cast<int>(fa.sharedSizeBytes);
+    attrs[1] = fa.numRegs;
+    attrs[2] = static_cast<int>(fa.localSizeBytes);
+    return err;
+}
+
+// Peer access from card `dev` to card `peer`, for a mesh whose launches are
+// on both (the pushes into the other card's inboxes, the owner shard's
+// domain rows, the refresh's count word): 0 once enabled (or already),
+// -5 where the pair has no peer access (the host raises: nothing stages the
+// messages through the host instead), else the CUDA error.
+extern "C" int mesh_scan_enable_peer(int dev, int peer) {
+    int can = 0;
+    cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!can) return -5;
+    int prev = 0;
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(dev);
+    if (err == cudaSuccess) {
+        err = cudaDeviceEnablePeerAccess(peer, 0);
+        if (err == cudaErrorPeerAccessAlreadyEnabled) {
+            cudaGetLastError();
+            err = cudaSuccess;
+        }
+        cudaSetDevice(prev);
+    }
+    return static_cast<int>(err);
+}
+
+// A stream of its own on card `dev` for a launch of a grouped mesh, never
+// one that PyTorch hands out (two launches of one mesh on one stream would
+// wait on each other forever): 0 and the stream in *out, else the error.
+extern "C" int mesh_scan_stream(int dev, void** out) {
+    int prev = 0;
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(dev);
+    if (err == cudaSuccess) {
+        cudaStream_t s = nullptr;
+        err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+        *out = s;
+        cudaSetDevice(prev);
+    }
+    return static_cast<int>(err);
 }

@@ -41,17 +41,21 @@ moves no binding.
 
 ``FrontierRun(..., mesh=)`` is the JAX package's sharded loop (its
 ``mesh=`` mode, ``parallel/mesh.py``): the segment is placed as the mesh's
-shards, each chunk is one launch of the mesh kernel (``mesh_scan``; the
-plain sharded step ``scan_ref.scan_shards`` on the CPU) and one refresh a
-shard, whose counts add up over the whole width.  A compaction gathers
-over the global column map and places the compacted segment again, so
-widths stay powers of two of at least the shard count.  ``stats`` gains
-``n_shards`` and ``shard_alive_frac`` (each shard's alive share of its
-slice, a list a loop exit).
+shards, each chunk is a launch of the mesh kernel a group of the mesh
+(``mesh_scan``; the plain sharded step ``scan_ref.scan_shards`` on the
+CPU) and then, on that launch's stream and card, one refresh a shard of
+it, whose counts all add up in one word over the whole width (launch 0's,
+the others adding across cards); the next chunk's launches wait on every
+refresh through events, with no host sync.  A compaction gathers over
+the global column map on shard 0's card and places the compacted segment
+again, so widths stay powers of two of at least the shard count.
+``stats`` gains ``n_shards`` and ``shard_alive_frac`` (each shard's alive
+share of its slice, a list a loop exit).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -214,8 +218,10 @@ class FrontierRun:
             self._bufs = fused_scan.pack(self.static, self.state, self._plan)
             shard_bufs = [self._bufs]
         else:
-            self._plan = mesh_scan.plan(self._statics)
-            self._bufs = mesh_scan.pack(self._statics, self._states, self._plan)
+            groups = self.mesh.groups
+            self._plan = mesh_scan.plan(self._statics, groups)
+            self._bufs = mesh_scan.pack(self._statics, self._states, self._plan, groups,
+                                        self._ctl)
             shard_bufs = self._bufs["shards"]
         self._bufs["chosen"] = self._chosen
         self._shard_bufs = shard_bufs
@@ -259,7 +265,8 @@ class FrontierRun:
         (fused_scan if self.mesh is None else mesh_scan).load()
         frontier_refresh.load()
         # under a mesh the refreshes of every shard add into one count word:
-        # the last tile of them all publishes the alive count and the stop flag
+        # the last tile of them all publishes the alive count and the stop
+        # flag (into every launch's control words where there are several)
         shared = {} if self.mesh is None else {"tiles_total": len(self._statics) * (
             frontier_refresh.plan(self._statics[0], self._plan).tiles)}
         start = torch.cuda.Event(enable_timing=True)
@@ -279,14 +286,26 @@ class FrontierRun:
         if self.mesh is None:
             fused_scan.launch(self.static, self.state, self._bufs, self._plan, start=first,
                               count=count, ctl=self._ctl)
+            self._refresh(0, thresh, shared)
         else:
-            mesh_scan.launch(self._bufs, self._plan, start=first, count=count, ctl=self._ctl)
-        for s, bufs, still, alive in zip(self._statics, self._shard_bufs, self._still,
-                                         self._alive):
-            frontier_refresh.launch(s, bufs, self._plan, still, alive, self._ctl, thresh,
-                                    **shared)
-            self.refresh_launches += 1
+            mesh_scan.launch(self._bufs, self._plan, start=first, count=count, ctl=self._ctl,
+                             after=lambda gi: self._refresh(gi, thresh, shared))
         self.launches += 1
+
+    def _refresh(self, gi: int, thresh: int, shared: dict) -> None:
+        """The refreshes of launch ``gi``'s shards (every shard without a
+        mesh), on the current stream: that launch's."""
+        if self.mesh is None:
+            shards, ctl, kw = [0], self._ctl, shared
+        else:
+            gb = self._bufs["groups"][gi]
+            shards = range(gb["lo"], gb["lo"] + gb["n"])
+            ctl = self._ctl if gi == 0 else gb["ctl"]
+            kw = {**shared, "ctls": gb.get("ctl_ptrs")}
+        for k in shards:
+            frontier_refresh.launch(self._statics[k], self._shard_bufs[k], self._plan,
+                                    self._still[k], self._alive[k], ctl, thresh, **kw)
+            self.refresh_launches += 1
 
     def _run_plain(self, thresh: int) -> tuple:
         """The loop run on the plain versions: chunks until the end or
@@ -326,14 +345,16 @@ class FrontierRun:
         flag, the alive count and the counter arrive together."""
         if self._cuda:
             start, end = self._pending
-            # device: sync — the one control read a loop run: it waits for the run to end
-            ctl = self._ctl.cpu()  # waits for the loop run
+            with self._failures():
+                # device: sync — the one control read a loop run: it waits for the run to end
+                ctl = self._ctl.cpu()  # waits for the loop run
             self.kernel_ms += start.elapsed_time(end)
             c_exit, want = int(ctl[CTL_CURSOR]), bool(ctl[CTL_STOP])
             n_alive = int(ctl[CTL_ALIVE])
             self._rr = int(ctl[CTL_RR])
             n = self._statics[0].n_pad
-            alive = [a[:n] for a in self._alive]
+            # each shard's mask, on shard 0's card (copies of finished masks)
+            alive = [a[:n].to(self._ctl.device) for a in self._alive]
         else:
             c_exit, want, alive, n_alive = self._pending
         self._pending = None
@@ -357,6 +378,13 @@ class FrontierRun:
             # at every host re-entry, the per-shard split as an attribute
             tr.instant("frontier.alive", **attrs)
         return want, torch.cat(alive), n_alive
+
+    def _failures(self):
+        """A grouped mesh's launches that failed on the card raise naming
+        the mesh (``mesh_scan.failures``) at the host read that meets it."""
+        if self.mesh is None or not self._cuda:
+            return contextlib.nullcontext()
+        return mesh_scan.failures(self._bufs, self._plan)
 
     def _compact_if_due(self, alive: torch.Tensor, n_alive: int) -> None:
         """The compaction rule of both loops: to the next power of two of at
@@ -495,8 +523,9 @@ class FrontierRun:
             self._dispatch_loop()
         # the whole segment's result in one read
         if self._cuda:
-            # device: sync — the segment's chosen buffer and counter in one read, once a segment
-            out = torch.cat([self._chosen, self._ctl[CTL_RR:CTL_RR + 1]]).cpu().numpy()
+            with self._failures():
+                # device: sync — the segment's chosen buffer and counter in one read, once a segment
+                out = torch.cat([self._chosen, self._ctl[CTL_RR:CTL_RR + 1]]).cpu().numpy()
             buf, rr = out[:-1], int(out[-1])
         else:
             # device: sync — the same one read of the result where the loop ran on the CPU

@@ -58,9 +58,10 @@ STATIC_RESERVE = 1024  # the kernel's static shared memory (alive words, two fla
 BUDGET = SMEM_LIMIT - STATIC_RESERVE
 
 _PTR_FIELDS = ("req", "cnt", "ports", "dm", "downer", "alloc", "alloc_pods", "exists",
-               "static_ok", "table", "still_ok", "alive", "ctl", "scratch")
+               "static_ok", "table", "still_ok", "alive", "ctl", "scratch", "ctls")
 _INT_FIELDS = ("ns", "g", "r", "t", "pv", "tw", "use_terms", "use_ports", "thresh",
-               "cols", "gs", "tiles", "tiles_total", "groups", "threads", "kcap", "smem_bytes")
+               "cols", "gs", "tiles", "tiles_total", "groups", "threads", "kcap", "smem_bytes",
+               "nctl")
 REGIONS = ("state", "table", "rows", "slot", "col")
 
 
@@ -233,11 +234,15 @@ def scratch(bufs: dict, rp: RefreshPlan, device: torch.device) -> torch.Tensor:
 
 
 def params(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Tensor,
-           ctl: torch.Tensor, thresh: int, tiles_total: int | None = None) -> RefreshParams:
+           ctl: torch.Tensor, thresh: int, tiles_total: int | None = None,
+           ctls: torch.Tensor | None = None) -> RefreshParams:
     """The kernel's argument block over the fused scan's packed ``bufs``;
     ``tiles_total`` (default: this launch's tiles) counts the tiles of
     every launch that adds into the control words' count (a mesh refreshes
-    each shard's slice in a launch of its own)."""
+    each shard's slice in a launch of its own); ``ctls`` (a mesh in
+    several launches: int64 pointers to every launch's control words,
+    launch 0's first, on this launch's card) moves the count word to
+    launch 0's and publishes into each."""
     d = _dims(static)
     if still_ok.shape != (d["g"], pl.ns) or still_ok.dtype != torch.bool:
         raise ValueError(f"still_ok must be bool [{d['g']}, {pl.ns}], got "
@@ -246,25 +251,31 @@ def params(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Te
         raise ValueError("alive must be [ns] and ctl int32 [CTL_WORDS]")
     rp = plan_for(pl.ns, d["g"], d["r"], d["t"], d["pv"], bool(static.use_terms),
                   bool(static.use_ports))
+    if ctls is not None and (ctls.dtype != torch.int64 or ctls.device != ctl.device):
+        raise ValueError("ctls must be int64 pointers on the launch's card")
     table, static_ok = tables(static, bufs, rp)
     return RefreshParams(
         *(bufs[f].data_ptr() for f in _PTR_FIELDS[:8]), static_ok.data_ptr(), table.data_ptr(),
         still_ok.data_ptr(), alive.data_ptr(), ctl.data_ptr(),
         scratch(bufs, rp, still_ok.device).data_ptr(),
+        None if ctls is None else ctls.data_ptr(),
         pl.ns, d["g"], d["r"], d["t"], d["pv"], rp.tw, int(static.use_terms),
         int(static.use_ports), int(thresh), rp.cols, rp.gs, rp.tiles,
         rp.tiles if tiles_total is None else int(tiles_total), rp.groups, rp.threads,
-        rp.kcap, rp.smem_bytes, *(rp.offsets[k] for k in REGIONS))
+        rp.kcap, rp.smem_bytes, 0 if ctls is None else int(ctls.numel()),
+        *(rp.offsets[k] for k in REGIONS))
 
 
 def launch(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Tensor,
-           ctl: torch.Tensor, thresh: int, tiles_total: int | None = None) -> None:
+           ctl: torch.Tensor, thresh: int, tiles_total: int | None = None,
+           ctls: torch.Tensor | None = None) -> None:
     """Launch the refresh on the current stream over the fused scan's
     packed ``bufs`` (plan ``pl``; a mesh shard's packed planes and the
     mesh plan under the mesh): ``still_ok`` [G, ns] bool in place,
     ``alive`` [ns] bool out, the count and stop flag into ``ctl`` once the
     ``tiles_total`` tiles of this and the launches before it that share
-    the count are done."""
+    the count are done (``ctls``: into every launch's of a mesh in several
+    launches, see ``params``)."""
     global launches
     for t in (bufs["req"], still_ok, alive, ctl):
         if t.device.type != "cuda" or not t.is_contiguous():
@@ -272,7 +283,7 @@ def launch(static, bufs: dict, pl: Plan, still_ok: torch.Tensor, alive: torch.Te
                                "scan_ref.refresh is the plain version for the CPU")
     stream = torch.cuda.current_stream(still_ok.device).cuda_stream
     err = load().frontier_refresh_launch(
-        ctypes.byref(params(static, bufs, pl, still_ok, alive, ctl, thresh, tiles_total)),
+        ctypes.byref(params(static, bufs, pl, still_ok, alive, ctl, thresh, tiles_total, ctls)),
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"frontier refresh launch failed (error {err})")

@@ -35,16 +35,36 @@ scratch.  ``launch`` runs the pods ``[start, start + count)`` with the
 frontier loop's control words (``fused_scan.CTL_*``) and writes the state
 planes back; ``schedule`` packs, launches and waits.
 
-Every entry point that touches the card raises unless the shards' tensors
-are on one CUDA device (shards on several cards are not written); a launch
-the card refuses (clusters it cannot hold at once, a cooperative cluster
-launch the runtime does not take) raises too.  There is no fallback.
-``launches`` counts the kernel's launches.
+A mesh whose shards are in several launches (``groups``, from
+``parallel.mesh.Mesh.groups``: a launch a card, or two on one card where
+the mesh says so) packs one copy a launch, on that launch's card: its
+shards' pointer table (every shard's planes, by global shard id), the
+replicated tables, the chosen buffer, the control words (a copy of the
+caller's, which is launch 0's), the epoch word, an inbox of every shard's
+slot and the zone scratch, and a table of every launch's inboxes
+(``peers``).  ``launch`` enqueues every launch at once, each on a stream
+of its own (``mesh_scan_stream``: never one that PyTorch hands out, so no
+two share one), behind an event of the caller's stream, and the caller's
+stream waits on each; ``plan`` holds each card to the clusters of every
+launch on it.  Launches on two cards need peer access between them
+(``enable_peers``), and a pair without it raises: nothing stages the
+messages through the host.
+
+Every entry point that touches the card raises unless each shard's tensors
+are on a CUDA device (a shard on the CPU, or a mesh of CPU and CUDA
+shards, raises); a launch the card refuses (clusters it cannot hold at
+once, a cooperative cluster launch the runtime does not take) raises too,
+and so does a grouped launch that never met its partners (its waits trap,
+and ``failures`` turns the error that follows into one that names the
+mesh).  There is no fallback.  ``launches`` counts the kernel's launches,
+a launch a group; ``launches_grouped`` those of grouped meshes alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import contextlib
+from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Callable, Optional
@@ -76,16 +96,18 @@ SHARD_PLANES = ("alloc", "alloc_pods", "exists", "zone", "static_ok", "aff_raw",
                 "score_raw", "interpod_raw", "node_domain", "dom_valid", "req", "nz", "cnt",
                 "ports", "spread", "dm", "downer", "volf", "nk", "res")
 
-# kernel launches since the count was last reset
+# kernel launches since the count was last reset (a launch a group); those
+# of meshes in several launches again on their own
 launches = 0
+launches_grouped = 0
 
 _PTR_FIELDS = ("shards", "sig", "spread_inc_t", "vol_limits", "gids", "pod_vol", "total",
-               "chosen", "mbox_a", "mbox_b", "epoch", "zbuf", "rr", "stop", "cursor")
+               "chosen", "mbox_a", "mbox_b", "epoch", "zbuf", "rr", "stop", "cursor", "peers")
 _INT_FIELDS = ("shards_n", "n_local", "ns", "cols", "cs", "threads", "cpt",
                "g", "g4", "t", "pv", "v", "r", "w", "w4", "k", "sw", "sws",
                "p_real", "num_zones", "use_terms", "use_vols", "use_ports", "smem_bytes",
                "gnz_off", "inbox_a_off", "inbox_b_off", "msg_a", "msg_b", "box_a", "box_b",
-               "zone_off")
+               "zone_off", "shard_lo", "shards_here", "groups", "group", "resident")
 
 
 class MeshParams(ctypes.Structure):
@@ -130,6 +152,7 @@ class MeshPlan:
     smem_bytes: int   # dynamic shared memory a block
     offsets: dict     # plane -> byte offset in shared memory, None = global memory
     plane_bytes: dict
+    launches: int = 1  # launches the shards are grouped into (mailboxes across them)
 
     @property
     def grid(self) -> int:
@@ -170,7 +193,8 @@ def zbuf_words(zones: int, shards: int, cs: int) -> int:
 
 
 def _layout(n_local: int, shards: int, cs: int, r: int, g: int, t: int, pv: int, v: int, w: int,
-            k: int, zones: int, use_terms: bool, use_vols: bool, use_ports: bool) -> MeshPlan:
+            k: int, zones: int, use_terms: bool, use_vols: bool, use_ports: bool,
+            launches: int = 1) -> MeshPlan:
     """The plan with clusters of ``cs`` blocks: block size and placement."""
     cols = _round_up(max(1, -(-n_local // cs)), 16)
     cpt = next(c for c in (1, 2, 4, 8, fused_scan.MAX_CPT) if -(-cols // c) <= MAX_THREADS)
@@ -210,7 +234,8 @@ def _layout(n_local: int, shards: int, cs: int, r: int, g: int, t: int, pv: int,
                     box_b=_round_up(HEAD_B + cs + cs * cpt * warps, 4),
                     gnz_off=gnz_off, inbox_a_off=inbox_a_off, inbox_b_off=inbox_b_off,
                     zone_off=zone_off if where == "shared" else -1, zones_at=where,
-                    fixed_bytes=fixed, smem_bytes=off, offsets=offsets, plane_bytes=plane_bytes)
+                    fixed_bytes=fixed, smem_bytes=off, offsets=offsets, plane_bytes=plane_bytes,
+                    launches=launches)
 
 
 def h100_clusters(cs: int, threads: int, cpt: int, smem_bytes: int) -> int:
@@ -221,12 +246,18 @@ def h100_clusters(cs: int, threads: int, cpt: int, smem_bytes: int) -> int:
 
 def plan_for(n_local: int, shards: int, r: int, g: int, t: int, pv: int, v: int, w: int, k: int,
              zones: int, use_terms: bool, use_vols: bool, use_ports: bool,
-             clusters: Optional[Callable[[int, int, int, int], int]] = None) -> MeshPlan:
+             clusters: Optional[Callable[[int, int, int, int], int]] = None,
+             resident: Optional[int] = None, launches: int = 1) -> MeshPlan:
     """The plan at these shapes (``n_local`` columns a shard): the largest
-    cluster that the card holds ``shards`` of at once, by ``clusters(cs,
-    threads, cpt, smem_bytes)`` (default ``h100_clusters``)."""
+    cluster of which a card holds ``resident`` at once (the most shards one
+    card holds, over every launch on it; default all ``shards``), by
+    ``clusters(cs, threads, cpt, smem_bytes)`` (default ``h100_clusters``).
+    ``launches``: the groups the shards are launched in."""
     if not 1 <= shards <= MAX_SHARDS:
         raise ValueError(f"the mesh kernel takes 1 to {MAX_SHARDS} shards, got {shards}")
+    if not 1 <= launches <= shards:
+        raise ValueError(f"{shards} shards cannot be {launches} launches")
+    resident = shards if resident is None else resident
     fits = clusters or h100_clusters
     runs = max(1, -(-n_local // MIN_COLS))
     pl = None
@@ -234,22 +265,33 @@ def plan_for(n_local: int, shards: int, r: int, g: int, t: int, pv: int, v: int,
         if cs > runs and cs > 1:
             continue
         pl = _layout(n_local, shards, cs, r, g, t, pv, v, w, k, zones, use_terms, use_vols,
-                     use_ports)
-        if fits(cs, pl.threads, pl.cpt, pl.smem_bytes) >= shards:
+                     use_ports, launches)
+        if fits(cs, pl.threads, pl.cpt, pl.smem_bytes) >= resident:
             return pl
     return pl  # clusters of one block: a card that cannot hold them refuses the launch
 
 
-def plan(statics: list) -> MeshPlan:
-    """The plan for a segment split into ``statics`` (one a shard); on a
-    card, sized by what the card says it holds."""
+def _groups(groups, shards: int) -> tuple:
+    return (tuple(range(shards)),) if groups is None else tuple(tuple(g) for g in groups)
+
+
+def plan(statics: list, groups=None, devices=None, clusters=None) -> MeshPlan:
+    """The plan for a segment split into ``statics`` (one a shard) and
+    launched in ``groups`` (default one launch), each card holding the
+    clusters of every shard on it at once (``devices``: each shard's,
+    default its tensors'); on a card, sized by what the card says it holds
+    (``clusters=`` overrides)."""
     s = statics[0]
     fused_scan.check_shape(s)
     d = fused_scan._dims(s)
+    devices = [x.device for x in statics] if devices is None else [torch.device(x) for x in devices]
+    if clusters is None and devices[0].type == "cuda":
+        clusters = card_clusters
     return plan_for(s.n_pad, len(statics), d["r"], d["g"], d["t"], d["pv"], d["v"], d["w"],
                     d["k"], d["zones"], use_terms=bool(s.use_terms), use_vols=bool(s.use_vols),
-                    use_ports=bool(s.use_ports),
-                    clusters=card_clusters if s.device.type == "cuda" else None)
+                    use_ports=bool(s.use_ports), clusters=clusters,
+                    resident=max(Counter(str(x) for x in devices).values()),
+                    launches=len(_groups(groups, len(statics))))
 
 
 def exchanges(pl: MeshPlan) -> list:
@@ -259,8 +301,12 @@ def exchanges(pl: MeshPlan) -> list:
     minned (the JAX seams' psum / pmax / pmin; past the register zones
     with its row of zone sums), and its (b) message, gathered by every
     block (the tie prefix's all_gather and ``_ax_first_true``); inside each
-    cluster every block's two messages to its rank 0."""
+    cluster every block's two messages to its rank 0.  Shards in several
+    launches push both messages (and past the register zones their row of
+    zone sums) into every other launch's inbox too: the ``launches``
+    scope, the words that cross launches a pod."""
     zone_words = 0 if pl.zones_at == "registers" else 2 * pl.num_zones
+    far = pl.launches - 1
     return [
         {"name": "statistics", "collective": "all-reduce", "scope": "shards",
          "words": pl.shards * (pl.box_a + zone_words)},
@@ -270,7 +316,12 @@ def exchanges(pl: MeshPlan) -> list:
          "words": pl.grid * pl.msg_a},
         {"name": "cluster_best_and_ties", "collective": "all-gather", "scope": "cluster",
          "words": pl.grid * pl.msg_b},
-    ]
+    ] + ([
+        {"name": "launch_statistics", "collective": "all-reduce", "scope": "launches",
+         "words": pl.shards * far * (pl.box_a + zone_words)},
+        {"name": "launch_best_and_ties", "collective": "all-gather", "scope": "launches",
+         "words": pl.shards * far * pl.box_b},
+    ] if far else [])
 
 
 def load():
@@ -281,6 +332,12 @@ def load():
     lib.mesh_scan_launch.restype = ctypes.c_int
     lib.mesh_scan_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.mesh_scan_clusters.restype = ctypes.c_int
+    lib.mesh_scan_attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mesh_scan_attrs.restype = ctypes.c_int
+    lib.mesh_scan_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mesh_scan_enable_peer.restype = ctypes.c_int
+    lib.mesh_scan_stream.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+    lib.mesh_scan_stream.restype = ctypes.c_int
     return lib
 
 
@@ -295,53 +352,146 @@ def card_clusters(cs: int, threads: int, cpt: int, smem_bytes: int) -> int:
     return out.value
 
 
+def attrs(pl: MeshPlan) -> dict:
+    """What the card says of the kernel plan ``pl`` launches (each launch of
+    a grouped mesh launches the same one, the build for several launches):
+    static shared memory, registers and local memory (spills) a thread."""
+    out = (ctypes.c_int * 3)()
+    err = load().mesh_scan_attrs(pl.cpt, int(pl.launches > 1), pl.smem_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"mesh scan: the card refused the attribute query (error {err})")
+    return {"static_smem": out[0], "regs": out[1], "local_bytes": out[2]}
+
+
 def clusters(pl: MeshPlan) -> int:
     """How many clusters of the plan's shape the card holds at once."""
     return card_clusters(pl.cs, pl.threads, pl.cpt, pl.smem_bytes)
 
 
-def _device(statics: list, states: list) -> torch.device:
-    devs = {s.device for s in statics} | {st.pod_count.device for st in states}
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise RuntimeError("the mesh kernel runs on CUDA tensors of one device only (shards on "
-                           "several cards are not written); scan_ref.scan_shards is the plain "
-                           "version for the CPU")
-    return next(iter(devs))
+def _device(statics: list, states: list) -> list:
+    """Each shard's device: a CUDA device, the same for its statics and its
+    state (shards on several cards are fine; a shard on the CPU, and so a
+    mesh of CPU and CUDA shards, raises)."""
+    devs = [s.device for s in statics]
+    if any(d.type != "cuda" for d in devs) or any(
+            st.pod_count.device != d for st, d in zip(states, devs)):
+        raise RuntimeError("the mesh kernel runs on CUDA tensors only, each shard's statics and "
+                           f"state on its card (got {[str(d) for d in devs]}); "
+                           "scan_ref.scan_shards is the plain version for the CPU")
+    return devs
 
 
-def pack(statics: list, states: list, pl: MeshPlan) -> dict:
-    """Kernel-layout tensors for the shards, on their device: each shard's
-    planes (``bufs["shards"][k]``, the fused scan's layout at width
-    ``pl.ns``, with its resource-score scratch ``res``), the replicated
-    tables, the mailboxes, the zone scratch and the pointer table.  The
+# card pairs with peer access enabled, and each card's streams for the
+# launches of a grouped mesh after its first (by card and launch index)
+_peers: set = set()
+_streams: dict = {}
+
+
+def enable_peers(devices) -> None:
+    """Peer access between every two of ``devices`` (once a pair, in the
+    library); a pair without it raises."""
+    idx = sorted({torch.device(d).index for d in devices})
+    for a in idx:
+        for b in idx:
+            if a == b or (a, b) in _peers:
+                continue
+            err = load().mesh_scan_enable_peer(a, b)
+            if err == -5:
+                raise RuntimeError(f"mesh scan: card {a} has no peer access to card {b}: the "
+                                   "launches of a mesh on both cannot exchange (nothing stages "
+                                   "their messages through the host)")
+            if err != 0:
+                raise RuntimeError(f"mesh scan: peer access from card {a} to {b} failed "
+                                   f"(error {err})")
+            _peers.add((a, b))
+
+
+def _stream(device: torch.device, gi: int) -> torch.cuda.ExternalStream:
+    """Launch ``gi``'s stream on ``device`` (gi >= 1), made by the library
+    once and kept: never the caller's, nor another launch's."""
+    key = (device.index, gi)
+    if key not in _streams:
+        out = ctypes.c_void_p(0)
+        err = load().mesh_scan_stream(device.index, ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"mesh scan: no stream on {device} (error {err})")
+        _streams[key] = torch.cuda.ExternalStream(out.value, device=device)
+    return _streams[key]
+
+
+def pack(statics: list, states: list, pl: MeshPlan, groups=None,
+         ctl: Optional[torch.Tensor] = None) -> dict:
+    """Kernel-layout tensors for the shards, each on its card: each
+    shard's planes (``bufs["shards"][k]``, the fused scan's layout at width
+    ``pl.ns``, with its resource-score scratch ``res``) and, a launch of
+    ``groups`` (default one), on that launch's card: the replicated
+    tables, the chosen buffer, the mailboxes, the epoch word, the zone
+    scratch, the pointer table of every shard's planes, every launch's
+    inboxes (``peers``) and, after the first, a copy of the caller's
+    control words ``ctl`` (needed with several launches, and the ones
+    ``launch`` then takes; ``ctl_ptrs`` points at every launch's).  The returned
+    dict is launch 0's, with every launch's in ``bufs["groups"]``.  The
     state planes are fresh copies: each launch writes them back."""
-    dev = _device(statics, states)
+    devs = _device(statics, states)
+    groups = _groups(groups, len(statics))
+    if [k for grp in groups for k in grp] != list(range(len(statics))) or any(
+            len({devs[k] for k in grp}) != 1 for grp in groups):
+        raise ValueError(f"launches {groups} must cover the shards in order, each on one card")
+    if len(groups) != pl.launches:
+        raise ValueError(f"the plan is for {pl.launches} launches, not {len(groups)}")
+    if len(groups) > 1:
+        if ctl is None or ctl.device != devs[0]:
+            raise ValueError("a mesh in several launches packs with launch 0's control words")
+        enable_peers(devs)
     g = statics[0].static_ok.shape[0]
     shards = [fused_scan.pack_planes(s, st, pl.ns) for s, st in zip(statics, states)]
-    tables = fused_scan.pack_tables(statics[0], states[0], pl.sw, pl.g4, pl.w4)
-    for sh in shards:  # unpack_state and the refresh read a shard's dict alone
-        sh["total"] = tables["total"]
+    for sh, dev in zip(shards, devs):
         sh["res"] = torch.empty((g, pl.ns), dtype=torch.int16, device=dev)
-    ptrs = torch.tensor([[sh[f].data_ptr() for f in SHARD_PLANES] for sh in shards],
-                        dtype=torch.int64, device=dev)
+    table = [[sh[f].data_ptr() for f in SHARD_PLANES] for sh in shards]
+    per_card = Counter(devs)
     p = max(statics[0].p_real, 1)
-    return {
-        "shards": shards, "ptrs": ptrs, **tables,
-        "chosen": torch.full((p,), -1, dtype=torch.int32, device=dev),
-        # each shard's slot by pod parity, and the epoch in the stamps' high half
-        "mbox_a": torch.zeros(2 * pl.shards * pl.box_a, dtype=torch.int32, device=dev),
-        "mbox_b": torch.zeros(2 * pl.shards * pl.box_b, dtype=torch.int32, device=dev),
-        "epoch": torch.zeros(1, dtype=torch.int32, device=dev),
-        "zbuf": torch.zeros(zbuf_words(pl.num_zones, pl.shards, pl.cs), dtype=torch.int64,
-                            device=dev),
-        "statics": statics,
-    }
+    out = []
+    for gi, grp in enumerate(groups):
+        dev = devs[grp[0]]
+        tables = fused_scan.pack_tables(statics[grp[0]], states[grp[0]], pl.sw, pl.g4, pl.w4)
+        for k in grp:  # unpack_state and the refresh read a shard's dict alone
+            shards[k]["total"] = tables["total"]
+        out.append({
+            **tables, "statics": statics, "device": dev, "lo": grp[0], "n": len(grp),
+            "resident": per_card[dev],
+            "ptrs": torch.tensor(table, dtype=torch.int64, device=dev),
+            "chosen": torch.full((p,), -1, dtype=torch.int32, device=dev),
+            # each shard's slot by pod parity, and the epoch in the stamps' high half
+            "mbox_a": torch.zeros(2 * pl.shards * pl.box_a, dtype=torch.int32, device=dev),
+            "mbox_b": torch.zeros(2 * pl.shards * pl.box_b, dtype=torch.int32, device=dev),
+            "epoch": torch.zeros(1, dtype=torch.int32, device=dev),
+            "zbuf": torch.zeros(zbuf_words(pl.num_zones, pl.shards, pl.cs), dtype=torch.int64,
+                                device=dev),
+            "ctl": None if gi == 0 else ctl.to(dev, copy=True),
+            "stream": None if gi == 0 else _stream(dev, gi),
+        })
+    if len(groups) > 1:
+        boxes = [[gb["mbox_a"].data_ptr(), gb["mbox_b"].data_ptr(),
+                  gb["zbuf"].data_ptr() if gb["zbuf"].numel() else 0] for gb in out]
+        words = [ctl.data_ptr()] + [gb["ctl"].data_ptr() for gb in out[1:]]
+        for gb in out:
+            gb["peers"] = torch.tensor(boxes, dtype=torch.int64, device=gb["device"])
+            # every launch's control words, for the refresh's shared count
+            gb["ctl_ptrs"] = torch.tensor(words, dtype=torch.int64, device=gb["device"])
+    bufs = out[0]
+    bufs.update(shards=shards, groups=out)
+    if len(groups) > 1:
+        bufs["ctl0"] = ctl.data_ptr()
+    return bufs
 
 
-def params(bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor) -> MeshParams:
-    """The kernel's argument block: the pods ``[start, start + count)``,
-    the counter, stop flag and cursor in the control words ``ctl``."""
-    s = bufs["statics"][0]
+def params(bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor,
+           gi: int = 0) -> MeshParams:
+    """The kernel's argument block for launch ``gi`` of the packed ``bufs``:
+    the pods ``[start, start + count)``, the counter, stop flag and cursor
+    in that launch's control words ``ctl``."""
+    gb = bufs["groups"][gi]
+    s = gb["statics"][0]
     d = fused_scan._dims(s)
     if ctl.shape != (fused_scan.CTL_WORDS,) or ctl.dtype != torch.int32:
         raise ValueError("ctl must be int32 [CTL_WORDS]")
@@ -350,16 +500,17 @@ def params(bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor) 
     word = ctl.element_size()
     base = ctl.data_ptr()
     return MeshParams(
-        shards=bufs["ptrs"].data_ptr(), sig=bufs["sig"].data_ptr(),
-        spread_inc_t=bufs["spread_inc_t"].data_ptr(), vol_limits=bufs["vol_limits"].data_ptr(),
-        gids=bufs["gids"].data_ptr() + start * 4,
-        pod_vol=bufs["pod_vol"].data_ptr() + start * pl.w4 * 4,
-        total=bufs["total"].data_ptr(), chosen=bufs["chosen"].data_ptr() + start * 4,
-        mbox_a=bufs["mbox_a"].data_ptr(), mbox_b=bufs["mbox_b"].data_ptr(),
-        epoch=bufs["epoch"].data_ptr(),
-        zbuf=bufs["zbuf"].data_ptr() if bufs["zbuf"].numel() else None,
+        shards=gb["ptrs"].data_ptr(), sig=gb["sig"].data_ptr(),
+        spread_inc_t=gb["spread_inc_t"].data_ptr(), vol_limits=gb["vol_limits"].data_ptr(),
+        gids=gb["gids"].data_ptr() + start * 4,
+        pod_vol=gb["pod_vol"].data_ptr() + start * pl.w4 * 4,
+        total=gb["total"].data_ptr(), chosen=gb["chosen"].data_ptr() + start * 4,
+        mbox_a=gb["mbox_a"].data_ptr(), mbox_b=gb["mbox_b"].data_ptr(),
+        epoch=gb["epoch"].data_ptr(),
+        zbuf=gb["zbuf"].data_ptr() if gb["zbuf"].numel() else None,
         rr=base + fused_scan.CTL_RR * word, stop=base + fused_scan.CTL_STOP * word,
         cursor=base + fused_scan.CTL_CURSOR * word,
+        peers=gb["peers"].data_ptr() if "peers" in gb else None,
         shards_n=pl.shards, n_local=pl.n_local, ns=pl.ns, cols=pl.cols, cs=pl.cs,
         threads=pl.threads, cpt=pl.cpt, g=d["g"], g4=pl.g4, t=d["t"], pv=d["pv"], v=d["v"],
         r=d["r"], w=d["w"], w4=pl.w4, k=d["k"], sw=pl.sw, sws=pl.sws, p_real=count,
@@ -367,6 +518,8 @@ def params(bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor) 
         use_ports=int(s.use_ports), smem_bytes=pl.smem_bytes, gnz_off=pl.gnz_off,
         inbox_a_off=pl.inbox_a_off, inbox_b_off=pl.inbox_b_off, msg_a=pl.msg_a, msg_b=pl.msg_b,
         box_a=pl.box_a, box_b=pl.box_b, zone_off=pl.zone_off,
+        shard_lo=gb["lo"], shards_here=gb["n"], groups=len(bufs["groups"]), group=gi,
+        resident=gb["resident"],
         wt=(ctypes.c_int32 * len(WEIGHT_KEYS))(*(s.weights[k] for k in WEIGHT_KEYS)),
         off=(ctypes.c_int32 * len(fused_scan.PLANES))(
             *(-1 if pl.offsets[p] is None else pl.offsets[p] for p in fused_scan.PLANES)),
@@ -374,35 +527,105 @@ def params(bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor) 
 
 
 def _check(bufs: dict, ctl: torch.Tensor) -> None:
+    """The control words are launch 0's, on its card (each later launch's
+    copy is on its own)."""
     if ctl.device.type != "cuda" or bufs["chosen"].device != ctl.device:
-        raise RuntimeError("the mesh kernel runs on CUDA tensors of one device only")
+        raise RuntimeError("the mesh kernel runs on CUDA tensors only, launch 0's control "
+                           "words on launch 0's card")
+    if bufs.get("ctl0", ctl.data_ptr()) != ctl.data_ptr():
+        raise ValueError("a mesh in several launches runs with the control words it was "
+                         "packed with")
 
 
-def launch(bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor) -> None:
-    """Launch the kernel on the current stream over packed ``bufs``: the
-    pods ``[start, start + count)``, from and to the control words."""
-    global launches
-    _check(bufs, ctl)
-    stream = torch.cuda.current_stream(ctl.device).cuda_stream
-    err = load().mesh_scan_launch(ctypes.byref(params(bufs, pl, start, count, ctl)),
-                                  ctypes.c_void_p(stream))
+def _launch_one(lib, bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor,
+                gi: int, stream) -> None:
+    err = lib.mesh_scan_launch(ctypes.byref(params(bufs, pl, start, count, ctl, gi)),
+                               ctypes.c_void_p(stream.cuda_stream))
     if err == -4:
-        raise RuntimeError(f"mesh scan: {pl.shards} clusters of {pl.cs} blocks of {pl.threads} "
-                           "threads cannot be resident on the card at once")
+        raise RuntimeError(f"mesh scan: {bufs['groups'][gi]['resident']} clusters of {pl.cs} "
+                           f"blocks of {pl.threads} threads cannot be resident on the card at "
+                           "once")
     if err != 0:
-        raise RuntimeError(f"mesh scan launch failed (error {err})")
-    launches += 1
+        raise RuntimeError(f"mesh scan launch failed (error {err}){_named(bufs, pl)}")
 
 
-def schedule(statics: list, states: list) -> tuple[np.ndarray, int]:
-    """Pack, launch over the whole segment and wait: (chosen global column
-    per pod, -1 = unschedulable; the final round-robin counter)."""
-    pl = plan(statics)
-    bufs = pack(statics, states, pl)
-    ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=bufs["chosen"].device)
+def _named(bufs: dict, pl: MeshPlan) -> str:
+    groups = bufs["groups"]
+    if len(groups) == 1:
+        return ""
+    return (f" in the mesh of {pl.shards} shards in {len(groups)} launches on "
+            f"{[str(gb['device']) for gb in groups]}")
+
+
+def launch(bufs: dict, pl: MeshPlan, start: int, count: int, ctl: torch.Tensor,
+           after: Optional[Callable[[int], None]] = None, lib=None) -> None:
+    """Launch the kernel over packed ``bufs``: the pods ``[start, start +
+    count)``, from and to the control words (``ctl``: launch 0's), on the
+    current stream.  A mesh in several launches enqueues each launch on a
+    stream of its own (launch 0 on the current stream), every one behind
+    an event of the current stream, before any of them can be waited on;
+    ``after(gi)`` then enqueues what follows launch ``gi`` on its stream
+    (the frontier loop's refreshes of its shards), and the current stream
+    waits on every stream.  ``lib``: another build of the kernel's
+    library (``scripts/mesh_scan_phases.py``'s phase clock)."""
+    global launches, launches_grouped
+    _check(bufs, ctl)
+    lib = lib or load()
+    groups = bufs["groups"]
+    caller = torch.cuda.current_stream(ctl.device)
+    if len(groups) == 1:
+        _launch_one(lib, bufs, pl, start, count, ctl, 0, caller)
+        launches += 1
+        if after is not None:
+            after(0)
+        return
+    streams = [caller] + [gb["stream"] for gb in groups[1:]]
+    words = [ctl] + [gb["ctl"] for gb in groups[1:]]
+    fork = torch.cuda.Event()
+    fork.record(caller)
+    for gi, (gb, st) in enumerate(zip(groups, streams)):
+        with torch.cuda.device(gb["device"]):
+            if gi:
+                st.wait_event(fork)
+            _launch_one(lib, bufs, pl, start, count, words[gi], gi, st)
+    launches += len(groups)
+    launches_grouped += len(groups)
+    for gi, (gb, st) in enumerate(zip(groups, streams)):
+        with torch.cuda.device(gb["device"]), torch.cuda.stream(st):
+            if after is not None:
+                after(gi)
+            if gi:
+                done = torch.cuda.Event()
+                done.record(st)
+                caller.wait_event(done)
+
+
+@contextlib.contextmanager
+def failures(bufs: dict, pl: MeshPlan):
+    """Around a host read of a grouped mesh's results: a launch whose
+    partners never ran ends at its waits' trap, and the CUDA error that
+    the read then meets is raised again naming the mesh."""
+    try:
+        yield
+    except RuntimeError as e:
+        named = _named(bufs, pl)
+        if not named or "CUDA" not in str(e):
+            raise
+        raise RuntimeError(f"mesh scan: a launch{named} failed on the card (a launch whose "
+                           f"partners never ran ends at its waits' trap): {e}") from e
+
+
+def schedule(statics: list, states: list, groups=None) -> tuple[np.ndarray, int]:
+    """Pack, launch over the whole segment in ``groups`` (default one
+    launch) and wait: (chosen global column per pod, -1 = unschedulable;
+    the final round-robin counter)."""
+    pl = plan(statics, groups)
+    ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device=_device(statics, states)[0])
     ctl[fused_scan.CTL_RR] = states[0].round_robin
+    bufs = pack(statics, states, pl, groups, ctl)
     launch(bufs, pl, 0, statics[0].p_real, ctl)
     out = torch.cat([bufs["chosen"][:statics[0].p_real], ctl[fused_scan.CTL_RR:fused_scan.CTL_RR + 1]])
-    # device: sync — the whole segment's result and counter in one read
-    out = out.cpu().numpy()
+    with failures(bufs, pl):
+        # device: sync — the whole segment's result and counter in one read
+        out = out.cpu().numpy()
     return out[:-1], int(out[-1])

@@ -25,10 +25,14 @@ Under the node-axis mesh (``set_mesh``) an upload sends each shard's slice
 to its shard's device (``_shard_put``), the mesh joins the cache token, and
 the dirty and total columns are attributed to the shard that owns them
 (``stats["shard_dirty_cols"]`` / ``["shard_cols_total"]``, a list a shard):
-the scheduler's per-shard upload fractions.  The port's shards share one
-device (the several-card placement is not written), so a shard's slice
-lands in one tensor in shard order, the layout ``parallel.mesh
-.place_static`` cuts again.
+the scheduler's per-shard upload fractions, wherever the shards are.  The
+shards of one card land in one tensor in shard order, the layout
+``parallel.mesh.place_static`` cuts again; with shards on several cards
+each field is a tuple of one such tensor a card, in shard order, so the
+host-to-device bytes of each slice go to its own card (a diff writes each
+changed column into its card's tensor), and ``models.carry
+.from_reference`` joins them on the segment's device for the whole-axis
+statics the frontier's compaction gathers over.
 """
 
 from __future__ import annotations
@@ -90,15 +94,38 @@ class DeviceNodeCache:
         for k in range(ns):
             self.stats["shard_cols_total"][k] += n // ns
 
-    def _shard_put(self, host: np.ndarray) -> torch.Tensor:
+    def _shard_put(self, host: np.ndarray):
         """Host to device, each shard's slice of the node axis to its
-        shard's device; a width the shard count does not divide is a plain
-        transfer.  Shards on several devices raise (not written)."""
+        shard's device: one tensor a card for the shards there (a tuple of
+        them where there are several cards); a width the shard count does
+        not divide is a plain transfer."""
         if self._mesh is None or len(host) % self._mesh.size:
             return torch.from_numpy(host).to(self.device)
-        parts = np.split(host, self._mesh.size)
-        return torch.cat([torch.from_numpy(np.ascontiguousarray(part)).to(dev)
-                          for part, dev in zip(parts, self._mesh.devices)])
+        from ..parallel.mesh import runs_by_device
+
+        n_loc = len(host) // self._mesh.size
+        devs = self._mesh.devices
+        parts = tuple(torch.from_numpy(np.ascontiguousarray(
+            host[run[0] * n_loc:(run[-1] + 1) * n_loc])).to(devs[run[0]])
+            for run in runs_by_device(devs))
+        return parts[0] if len(parts) == 1 else parts
+
+    @staticmethod
+    def _put_cols(arr, js: np.ndarray, new_h: np.ndarray):
+        """``arr`` (a tensor, or a tuple of one a card) with the columns
+        ``js`` of ``new_h`` written, in fresh tensors: callers may still
+        hold the old ones."""
+        parts = arr if isinstance(arr, tuple) else (arr,)
+        out, lo = [], 0
+        for part in parts:
+            hi = lo + part.shape[0]
+            sel = js[(js >= lo) & (js < hi)]
+            if len(sel):
+                idx = torch.from_numpy(sel - lo).to(part.device)
+                part = part.index_copy(0, idx, torch.from_numpy(new_h[sel]).to(part.device))
+            out.append(part)
+            lo = hi
+        return tuple(out) if isinstance(arr, tuple) else out[0]
 
     def _upload(self, host: tuple) -> tuple:
         return tuple(self._shard_put(h) for h in host)
@@ -122,7 +149,8 @@ class DeviceNodeCache:
         return np.nonzero(diff)[0]
 
     def node_arrays(self, static) -> tuple:
-        """The ``NODE_FIELDS`` tensors of ``static`` on the cache's device."""
+        """The ``NODE_FIELDS`` tensors of ``static`` on the cache's device
+        (under a mesh on several cards, a tuple of one a card each)."""
         tok = self._token_for(static)
         n = len(static.node_exists)
         self.stats["cols_total"] += n
@@ -150,9 +178,7 @@ class DeviceNodeCache:
                 if len(js) == 0:
                     arrays.append(arr)
                 elif len(js) <= max(1, n // 8):
-                    # a fresh tensor: callers may still hold the old one
-                    idx = torch.from_numpy(js).to(self.device)
-                    arrays.append(arr.index_copy(0, idx, torch.from_numpy(new_h[js]).to(self.device)))
+                    arrays.append(self._put_cols(arr, js, new_h))
                 else:
                     arrays.append(self._shard_put(new_h))
             arrays = tuple(arrays)

@@ -19,10 +19,17 @@ axis of ``S * width`` columns (``models.snapshot.pad_segment_to_multiple``
 pads a segment to a multiple of ``S``), so a chosen column comes back as a
 global index and ties rotate in global column order, as on one device.
 
-Placement: ``make_mesh(n, devices=[d] * n)`` puts all ``n`` shards on one
-device, which is what the JAX package's tests do with virtual CPU
-devices; a mesh of several cards is not written yet (the kernel raises
-unless every shard is on one card).
+Placement: shard k lives on ``mesh.devices[k]``, and the mesh groups its
+shards into launches (``Mesh.groups``): on a card the shards of a group are
+one launch of the mesh kernel, and the groups exchange their messages
+through mailboxes across launches.  By default a group is a card's shards,
+which are contiguous: ``make_mesh(n)`` spreads ``n`` shards over every
+visible card (shard k on card ``k * C // n``), one launch a card;
+``make_mesh(n, devices=[d] * n)`` puts all ``n`` shards on one device in
+one launch, which is what the JAX package's tests do with virtual CPU
+devices.  One card runs the several-launch form only where the grouping
+is stated (``make_mesh(n, devices=["cuda"] * n, launches=2)``: two
+launches on two streams); nothing picks it on its own.
 """
 
 from __future__ import annotations
@@ -43,11 +50,39 @@ from ..utils import tracing
 NODE_AXIS = "nodes"
 
 
+def runs_by_device(devices) -> tuple:
+    """The shards of each run of one device, in order (the default
+    grouping: a launch a run)."""
+    groups: list = []
+    for k, d in enumerate(devices):
+        if groups and devices[groups[-1][0]] == d:
+            groups[-1].append(k)
+        else:
+            groups.append([k])
+    return tuple(tuple(g) for g in groups)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh over the node axis: shard k lives on ``devices[k]``."""
+    """A 1-D mesh over the node axis: shard k lives on ``devices[k]``;
+    ``groups`` lists the shards of each launch (contiguous, each on one
+    device; default: a launch a run of shards on one device)."""
 
     devices: tuple
+    groups: Optional[tuple] = None
+
+    def __post_init__(self):
+        groups = runs_by_device(self.devices) if self.groups is None else tuple(
+            tuple(int(k) for k in g) for g in self.groups)
+        flat = [k for g in groups for k in g]
+        if flat != list(range(len(self.devices))) or any(
+                len({self.devices[k] for k in g}) != 1 for g in groups):
+            raise ValueError(f"a launch holds contiguous shards of one device, in order: "
+                             f"{groups} over {self.devices}")
+        seen = [self.devices[g[0]] for g in groups]
+        if any(d in seen[:i] and seen[i - 1] != d for i, d in enumerate(seen)):
+            raise ValueError(f"a device's shards are contiguous: {self.devices}")
+        object.__setattr__(self, "groups", groups)
 
     @property
     def size(self) -> int:
@@ -59,20 +94,35 @@ class Mesh:
 
     @property
     def key(self) -> tuple:
-        """What identifies the mesh (the node cache's token part)."""
-        return (tuple(self.shape.items()), tuple(str(d) for d in self.devices))
+        """What identifies the mesh (the node cache's token part): its
+        shape, its devices and its launches."""
+        return (tuple(self.shape.items()), tuple(str(d) for d in self.devices), self.groups)
 
 
-def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
-    """1-D mesh over the node axis: the first ``n_devices`` of ``devices``
-    (default: every CUDA device).  ``devices=[d] * n`` places n shards on
-    one device."""
+def make_mesh(n_devices: Optional[int] = None, devices=None,
+              launches: Optional[int] = None) -> Mesh:
+    """1-D mesh over the node axis.  With ``devices``: its first
+    ``n_devices`` (``devices=[d] * n`` places n shards on one device).
+    Without: ``n_devices`` shards (default one a card) spread over every
+    visible card, shard k on card ``k * C // n``.  ``launches`` splits the
+    shards into that many equal launches of contiguous shards (default: a
+    launch a device); a launch never spans two devices."""
     if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        cards = torch.cuda.device_count()
+        n = cards if n_devices is None else int(n_devices)
+        c = max(1, min(n, cards))
+        devices = [torch.device("cuda", k * c // n) for k in range(n)]
     devices = [torch.device(d) for d in devices]
     if n_devices is not None:
         devices = devices[:n_devices]
-    return Mesh(tuple(devices))
+    groups = None
+    if launches is not None:
+        n = len(devices)
+        if launches < 1 or n % launches:
+            raise ValueError(f"{n} shards do not split into {launches} equal launches")
+        per = n // launches
+        groups = tuple(tuple(range(g * per, (g + 1) * per)) for g in range(launches))
+    return Mesh(tuple(devices), groups)
 
 
 # -- partition rules -------------------------------------------------------------
@@ -180,7 +230,8 @@ def _join(parts: list, axis: Optional[int]) -> torch.Tensor:
 
 def unplace_state(shards: list) -> ScanState:
     """The inverse of ``place_state``: the whole node axis, on shard 0's
-    device (the frontier loop's compaction gathers over it)."""
+    device, whatever cards the shards are on (the frontier loop's
+    compaction gathers over it there and places again)."""
     specs = state_specs()
     return dataclasses.replace(
         shards[0], **{f: None if getattr(shards[0], f) is None
@@ -206,15 +257,15 @@ def _on_card(mesh: Mesh) -> bool:
 def schedule_batch_sharded(static: ScanStatic, state: ScanState, mesh: Mesh
                            ) -> tuple[np.ndarray, int]:
     """The whole segment scanned with its node axis split over ``mesh``:
-    one launch of the mesh kernel on a card, the plain sharded step
-    elsewhere.  Returns (chosen global column per pod, -1 = unschedulable;
+    one launch of the mesh kernel a group of ``mesh.groups`` on a card,
+    the plain sharded step elsewhere.  Returns (chosen global column per pod, -1 = unschedulable;
     the final round-robin counter).  The width must divide by the shard
     count."""
     statics, states = place_static(static, mesh), place_state(state, mesh)
     if _on_card(mesh):
         from ..ops import mesh_scan
 
-        return mesh_scan.schedule(statics, states)
+        return mesh_scan.schedule(statics, states, mesh.groups)
     chosen, finals = scan_ref.scan_shards(statics, states)
     return chosen.cpu().numpy(), finals[0].round_robin
 
@@ -226,7 +277,7 @@ def sharded_hlo(static: ScanStatic, mesh: Mesh) -> list:
     from ..ops import mesh_scan
 
     statics = place_static(static, mesh)
-    return mesh_scan.exchanges(mesh_scan.plan(statics))
+    return mesh_scan.exchanges(mesh_scan.plan(statics, groups=mesh.groups))
 
 
 def schedule_batch_sharded_verified(static: ScanStatic, state: ScanState, mesh: Mesh

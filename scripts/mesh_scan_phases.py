@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """The mesh kernel's per-phase clock64 split on one CUDA card, at
 chip_smoke's main segment (5000 nodes x 20 000 ``mixed`` pods, seed 0) in
-2 and 4 shards.
+2 and 4 shards, in one launch and in several (the grouped form: mailboxes
+across launches at system scope, here launches of one card on streams of
+their own).
 
-    python3 scripts/mesh_scan_phases.py [--shards 2,4] [--out PATH]
+    python3 scripts/mesh_scan_phases.py [--shards 2,4] [--launches 1,2] [--out PATH]
 
 Builds ``ops/csrc/mesh_scan.cu`` a second time with -DMESH_SCAN_PHASES
 (thread 0 of block 0, rank 0 of shard 0, sums clock64() deltas per phase
@@ -11,8 +13,11 @@ over the pods), runs the segment through it and through the normal build
 in turns (normal, phases, phases, normal: the stamps' own cost is the
 difference), holds both pod for pod and in rr against the fused scan, and
 prints one JSON object a measurement (ms, µs a pod, and the split in µs a
-pod and in shares) and the card line; ``--out PATH`` also writes them to
-PATH.
+pod and in shares; the clock is launch 0's, so in the grouped form the
+two mailbox phases hold the rounds across launches), the kernel's
+registers and spills a thread for each plan (every launch of a grouped
+mesh runs the same kernel), and the card line; ``--out PATH`` also writes
+them to PATH.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ PHASES = ["prologue", "filter", "a_send", "a_cluster_wait", "a_mailbox", "totals
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shards", default="2,4")
+    ap.add_argument("--launches", default="1",
+                    help="launches the shards are grouped into, each count that divides them")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -73,33 +80,28 @@ def main() -> int:
     want, rr_want = fused_scan.schedule(s, st)
     pods_n = int(s.p_real)
 
-    for n in (int(x) for x in args.shards.split(",")):
-        mesh = make_mesh(n, devices=["cuda"] * n)
+    cells = [(n, k) for n in (int(x) for x in args.shards.split(","))
+             for k in (int(x) for x in args.launches.split(",")) if k <= n and n % k == 0]
+    for n, k in cells:
+        mesh = make_mesh(n, devices=["cuda"] * n, launches=k)
         statics, states = place_static(s, mesh), place_state(st, mesh)
-        pl = mesh_scan.plan(statics)
+        pl = mesh_scan.plan(statics, mesh.groups)
 
         def run(phased: bool) -> float:
-            bufs = mesh_scan.pack(statics, states, pl)
             ctl = torch.zeros(fused_scan.CTL_WORDS, dtype=torch.int32, device="cuda")
             ctl[fused_scan.CTL_RR] = st.round_robin
+            bufs = mesh_scan.pack(statics, states, pl, mesh.groups, ctl)
             torch.cuda.synchronize()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            if phased:
-                stream = torch.cuda.current_stream().cuda_stream
-                err = plib.mesh_scan_launch(
-                    ctypes.byref(mesh_scan.params(bufs, pl, 0, pods_n, ctl)), ctypes.c_void_p(stream))
-                if err != 0:
-                    raise RuntimeError(f"phase-clock launch failed (error {err})")
-            else:
-                mesh_scan.launch(bufs, pl, 0, pods_n, ctl)
+            mesh_scan.launch(bufs, pl, 0, pods_n, ctl, lib=plib if phased else None)
             b.record()
             b.synchronize()
             got = bufs["chosen"][:pods_n].cpu().numpy()
             rr = int(ctl[fused_scan.CTL_RR].item())
             if not (np.array_equal(got, want) and rr == rr_want):
-                raise AssertionError(f"{n} shards ({'phases' if phased else 'normal'} build) "
-                                     f"!= fused_scan.cu")
+                raise AssertionError(f"{n} shards in {k} launches ({'phases' if phased else 'normal'} "
+                                     f"build) != fused_scan.cu")
             return a.elapsed_time(b)
 
         run(False)  # warm-up
@@ -110,8 +112,8 @@ def main() -> int:
         cyc = list(out)
         tot = sum(cyc)
         ms = turns[2][1]  # the last phases run, whose clock is read
-        emit({"what": "phases", "shards": n, "cs": pl.cs, "cpt": pl.cpt, "threads": pl.threads,
-              "cols": pl.cols, "turns": turns,
+        emit({"what": "phases", "shards": n, "launches": k, "cs": pl.cs, "cpt": pl.cpt,
+              "threads": pl.threads, "cols": pl.cols, "turns": turns, **mesh_scan.attrs(pl),
               "normal_us_per_pod": min(t for k, t in turns if k == "normal") * 1e3 / pods_n,
               "phases_us_per_pod": ms * 1e3 / pods_n, "cycles_per_pod": tot / pods_n,
               "split_us_per_pod": {k: ms * 1e3 * c / tot / pods_n for k, c in zip(PHASES, cyc)},

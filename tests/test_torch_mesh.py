@@ -491,6 +491,10 @@ def test_mesh_params_mirror_matches_the_cuda_struct():
     with open(os.path.join(kbuild.CSRC, "mesh_scan.cu")) as f:
         text = f.read()
     assert _ctypes_fields(mesh_scan.MeshParams) == _parse_struct(text, "MeshParams")
+    # the fields of a mesh in several launches: every launch's inboxes, this
+    # launch's shard range, the launch count and index, the resident clusters
+    names = [f for f, _, _ in _parse_struct(text, "MeshParams")]
+    assert {"peers", "shard_lo", "shards_here", "groups", "group", "resident"} <= set(names)
     enum = re.search(r"enum\s+ShardPlane\s*\{(.*?)\}", text, re.S).group(1)
     names = [x.split("=")[0].strip() for x in enum.replace("\n", " ").split(",") if x.strip()]
     names = [x[2:].lower() for x in names if x != "NSHARD_PLANES"]
